@@ -1,0 +1,148 @@
+"""GQA causal attention with the QuaRot rotation hooks (twin of
+``repro.models.attention``, self-attention only).
+
+The paper's deployment (section 4.2): FP8 attention where Q and K are
+Hadamard-rotated per head before quantization -- the rotation cancels in
+QK^T (H H^T = I) while crushing per-head outliers; V's rotation is fused
+offline into (W_v, W_o). With rotation and KV quantization on, each of the
+Q and K sites is one K2 launch on the card (``RotationSpec``).
+
+Layouts follow the reference at the public functions: activations
+(B, S, d), heads (B, S, H, hd), KV caches (B, T, KH, hd).
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+
+from repro_torch.core.api import RotationSpec
+from repro_torch.kernels.registry import cast_to, f32_reciprocal
+from repro_torch.models.common import (apply_rope_angles, dense_init, dtype_of,
+                                      rope_freqs)
+
+
+def init_attention(gen: torch.Generator, cfg, device) -> dict:
+    d, H, KH, hd = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    dt = dtype_of(cfg)
+    return {
+        "wq": dense_init(gen, d, H * hd, dt, device=device),
+        "wk": dense_init(gen, d, KH * hd, dt, device=device),
+        "wv": dense_init(gen, d, KH * hd, dt, device=device),
+        "wo": dense_init(gen, H * hd, d, dt, scale=1.0 / math.sqrt(H * hd),
+                         device=device),
+    }
+
+
+def _positions_angles(cfg, positions: torch.Tensor) -> torch.Tensor:
+    """positions: (B, S) int -> (B, S, half) f32 RoPE angles."""
+    freqs = rope_freqs(cfg.head_dim, cfg.rope_theta, device=positions.device)
+    return positions[..., None].to(torch.float32) * freqs
+
+
+def _project_qkv(cfg, p, x):
+    B, S, _ = x.shape
+    H, KH, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    q = (x @ p["wq"]).reshape(B, S, H, hd)
+    k = (x @ p["wk"]).reshape(B, S, KH, hd)
+    v = (x @ p["wv"]).reshape(B, S, KH, hd)
+    return q, k, v
+
+
+def _qk_spec(cfg, hd: int) -> RotationSpec:
+    """The per-head Q/K site: rotate when the config rotates, fake-quantize
+    when the KV cache quantizes."""
+    return RotationSpec.for_config(hd, cfg.quant)
+
+
+def _v_spec(cfg, hd: int) -> RotationSpec:
+    """The V site: quantize only (its rotation is fused offline)."""
+    return RotationSpec.for_config(hd, cfg.quant, rotate=False)
+
+
+def _rotate_quant_qk(cfg, q, k):
+    spec = _qk_spec(cfg, q.shape[-1])
+    return spec(q), spec(k)
+
+
+def _sdpa(cfg, q, k, v, mask):
+    """q: (B,S,H,hd), k/v: (B,T,KH,hd), mask: broadcastable (B,1,S,T)
+    bool. Written out as the reference does: f32 scores (exact products of
+    the 16-bit operands, f32 sums), mask, f32 softmax, then the weights in
+    the value dtype."""
+    B, S, H, hd = q.shape
+    KH = k.shape[2]
+    G = H // KH
+    qg = q.reshape(B, S, KH, G, hd)
+    scores = torch.einsum("bskgd,btkd->bkgst", qg.to(torch.float32),
+                          k.to(torch.float32))
+    # the reference divides by sqrt(hd); XLA compiles that to a product
+    # with the f32 reciprocal
+    scores = scores * f32_reciprocal(math.sqrt(hd))
+    neg = torch.finfo(torch.float32).min
+    scores = torch.where(mask[:, :, None] if mask.ndim == 4 else mask,
+                         scores, torch.full_like(scores, neg))
+    w = torch.softmax(scores, dim=-1)
+    ctx = torch.einsum("bkgst,btkd->bskgd", w.to(v.dtype), v)
+    return ctx.reshape(B, S, H * hd)
+
+
+def _causal_mask(S: int, T: int, device) -> torch.Tensor:
+    """Batch-independent (1, 1, S, T) causal mask."""
+    q = torch.arange(S, dtype=torch.int32, device=device)[:, None]
+    k = torch.arange(T, dtype=torch.int32, device=device)[None, :]
+    return (k <= q)[None, None]
+
+
+def apply_attention(cfg, p, x: torch.Tensor, positions: torch.Tensor, *,
+                    return_kv: bool = False):
+    """Full-sequence causal attention (prefill). With ``return_kv`` also
+    returns the (B, S, KH, hd) K/V rows in the KV-cache dtype."""
+    B, S, _ = x.shape
+    q, k, v = _project_qkv(cfg, p, x)
+    ang = _positions_angles(cfg, positions)
+    q = apply_rope_angles(q, ang)
+    k = apply_rope_angles(k, ang)
+    q, k = _rotate_quant_qk(cfg, q, k)
+    v = _v_spec(cfg, v.shape[-1])(v)
+    ctx = _sdpa(cfg, q, k, v, _causal_mask(S, S, x.device))
+    y = ctx @ p["wo"]
+    if return_kv:
+        kvdt = cfg.quant.kv_cache_dtype(x.dtype)
+        return y, (cast_to(k, kvdt), cast_to(v, kvdt))
+    return y
+
+
+def decode_attention(cfg, p, x: torch.Tensor, cache_k: torch.Tensor,
+                     cache_v: torch.Tensor, cache_pos: torch.Tensor,
+                     positions: torch.Tensor):
+    """Single-token decode. x: (B, 1, d); cache_k/v: (B, T, KH, hd) in the
+    KV dtype; cache_pos: () int shared by the batch, or (B,) per-slot
+    positions (continuous batching: each slot writes and attends at its
+    own depth). The caches are updated IN PLACE (row ``pos`` of each slot)
+    and returned, where the reference returns updated copies."""
+    B, S, _ = x.shape
+    if S != 1:
+        raise ValueError(f"decode_attention takes one token, got S={S}")
+    q, k, v = _project_qkv(cfg, p, x)
+    ang = _positions_angles(cfg, positions)
+    q = apply_rope_angles(q, ang)
+    k = apply_rope_angles(k, ang)
+    q, k = _rotate_quant_qk(cfg, q, k)
+    v = _v_spec(cfg, v.shape[-1])(v)
+    per_slot = cache_pos.ndim == 1
+    if per_slot:
+        rows = torch.arange(B, device=x.device)
+        cache_k[rows, cache_pos] = cast_to(k[:, 0], cache_k.dtype)
+        cache_v[rows, cache_pos] = cast_to(v[:, 0], cache_v.dtype)
+    else:
+        cache_k[:, cache_pos] = cast_to(k[:, 0], cache_k.dtype)
+        cache_v[:, cache_pos] = cast_to(v[:, 0], cache_v.dtype)
+    T = cache_k.shape[1]
+    kpos = torch.arange(T, dtype=torch.int32, device=x.device)
+    if per_slot:
+        mask = (kpos[None] <= cache_pos[:, None])[:, None, None]  # (B, 1, 1, T)
+    else:
+        mask = (kpos <= cache_pos)[None, None, None]              # (1, 1, 1, T)
+    ctx = _sdpa(cfg, q, cache_k.to(q.dtype), cache_v.to(q.dtype), mask)
+    return ctx @ p["wo"], cache_k, cache_v

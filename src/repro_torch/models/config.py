@@ -1,0 +1,77 @@
+"""Model configuration (twin of ``repro.models.config``, trimmed to what
+the port runs: dense causal-attention decoders).
+
+A model is a list of ``groups``; each group is ``(pattern, repeats)`` with
+``pattern`` a tuple of layer kinds. The port runs the 'attn' kind (GQA
+attention + dense SwiGLU MLP, RMSNorm, untied embeddings: llama3-8b); its
+layers are a plain list, one entry per layer, where the reference scans
+stacked parameters. The reference's other options (sliding windows, GELU,
+LayerNorm, tied embeddings, MoE, state-space and encoder layers) come with
+the configs that need them.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional, Tuple
+
+from repro_torch.core.quant import QuantConfig
+
+LayerKind = str
+Group = Tuple[Tuple[LayerKind, ...], int]
+
+
+@dataclasses.dataclass(frozen=True)
+class ModelConfig:
+    name: str
+    family: str                      # dense (the port's only family so far)
+    d_model: int
+    num_heads: int
+    num_kv_heads: int
+    d_ff: int
+    vocab_size: int
+    groups: Tuple[Group, ...]
+    head_dim: Optional[int] = None   # None -> d_model // num_heads
+    rope_theta: float = 10000.0
+    vocab_pad_multiple: int = 256
+    weight_quant: str = "none"       # none | int8 (weight-only storage, serving)
+    quant: QuantConfig = dataclasses.field(default_factory=QuantConfig)
+    dtype: str = "bfloat16"
+
+    def __post_init__(self):
+        if self.head_dim is None:
+            object.__setattr__(self, "head_dim", self.d_model // max(self.num_heads, 1))
+
+    @property
+    def num_layers(self) -> int:
+        return sum(len(p) * r for p, r in self.groups)
+
+    @property
+    def layer_kinds(self) -> Tuple[LayerKind, ...]:
+        """Every layer's kind, in order (groups unrolled)."""
+        return tuple(k for p, r in self.groups for _ in range(r) for k in p)
+
+    @property
+    def padded_vocab(self) -> int:
+        m = self.vocab_pad_multiple
+        return ((self.vocab_size + m - 1) // m) * m
+
+    def with_quant(self, quant: QuantConfig) -> "ModelConfig":
+        return dataclasses.replace(self, quant=quant)
+
+    def scaled_down(self, **overrides) -> "ModelConfig":
+        """Reduced config for CPU tests: shrink the capacity knobs, keep
+        the GQA ratio, the non-power-of-2-ness of d_ff and the quant
+        settings (the reference's rule, restricted to these fields)."""
+        ratio = max(1, self.num_heads // max(self.num_kv_heads, 1))
+        heads = max(2, ratio)
+        small = dict(
+            d_model=32 * heads,
+            num_heads=heads,
+            num_kv_heads=max(1, heads // ratio),
+            d_ff=128 if self.d_ff & (self.d_ff - 1) == 0 else 96,
+            vocab_size=512,
+            groups=tuple((p, min(r, 2)) for p, r in self.groups),
+            head_dim=None,
+        )
+        small.update(overrides)
+        return dataclasses.replace(self, **small)
