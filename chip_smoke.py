@@ -18,7 +18,10 @@ Runs from the repository root and needs the repository's ``src/``. It
      prefill through the kernels against one through the plain versions,
      then serves 8 requests on 4 slots through ``ServeEngine`` with the
      kernels' launch counters zeroed just before and read just after,
-     and checks 32 K1 and 64 K2 launches per model pass;
+     and checks 32 K1 and 64 K2 launches per model pass. The prefill
+     limit is calibrated in the same run: witnesses (correct paths that
+     differ as a kernel may) must pass it and controls (known faults)
+     must fail it;
   5. prints the kernels' JSON line, then the result line
      ``{"ok": true, "device": {...}}`` last.
 
@@ -218,6 +221,160 @@ def kernel_phase(gen: torch.Generator):
     return entries
 
 
+# The model-phase limits on the relative RMS difference of the prefill
+# logits (all 64 positions) between the kernels and the plain versions, at
+# depth 1 (the first layer alone, then the head) and at full depth. Each
+# sits near the geometric mean of the largest reading of the kernels and
+# the witness (a correct path one rounding away from the plain one) and
+# the smallest reading of the controls (paths with a known fault) on an
+# H100 (PERF.md); the run re-measures all of them and re-asserts the order.
+PREFILL_LIMITS = {1: 3e-3, 32: 0.045}
+
+
+def _calibration_backends():
+    """Registers (once) the faulty backends that calibrate the prefill
+    limit; the model reaches them through ``REPRO_HADAMARD_BACKEND``.
+
+      k2_no_quant    the Q/K sites rotate but skip the fp8 fake-quant (K2
+                     without its epilogue)
+      k1_exact_scale every rotation runs its passes unscaled and applies
+                     the exact f32 1/sqrt(n) at the end, instead of folding
+                     the compute-dtype-rounded scale into pass 0
+    """
+    import functools
+
+    from repro_torch.core.hadamard import (_apply_passes, base_matrices_np,
+                                           torch_dtype)
+    from repro_torch.kernels import registry
+    from repro_torch.kernels.hadacore import transform_plain
+
+    if "k2_no_quant" in registry.available_backends():
+        return
+
+    class Calibration(registry.Backend):
+        priority = -1
+
+        def auto_on(self, device_type):
+            return False
+
+        def supports(self, p):
+            return True
+
+    @registry.register_backend
+    class K2NoQuant(Calibration):
+        name = "k2_no_quant"
+
+        def transform(self, x, plan, in_place=False):
+            return transform_plain(x, plan)
+
+        def fused_dequant(self, x, plan):
+            return transform_plain(x, plan)
+
+    @functools.lru_cache(maxsize=None)
+    def unscaled_mats(p, device):
+        return [torch.from_numpy(m).to(device) for m in base_matrices_np(p, None)]
+
+    @registry.register_backend
+    class K1ExactScale(Calibration):
+        name = "k1_exact_scale"
+
+        def transform(self, x, plan, in_place=False):
+            cd = torch_dtype(plan.compute_dtype)
+            y = _apply_passes(x.to(cd).reshape(-1, plan.p), plan.p,
+                              unscaled_mats(plan.p, x.device))
+            return (y.float() * (1.0 / math.sqrt(plan.p))).to(x.dtype).reshape(
+                x.shape)
+
+
+class _one_flip:
+    """A context in which the first MLP output (layer 0) has its largest
+    value moved by 1 ulp: the smallest change a rounding can make to the
+    residual stream that every later layer reads. (A flip inside a rotation
+    is mostly absorbed by the fp8 step of the site after it.)"""
+
+    def __enter__(self):
+        from repro_torch.models import mlp
+
+        self.mlp, self.apply = mlp, mlp.apply_mlp
+        armed = [True]
+
+        def apply_mlp(cfg, p, x):
+            y = self.apply(cfg, p, x).contiguous()
+            if armed[0]:
+                flat = y.view(-1)
+                flat.view(torch.int16)[int(flat.float().abs().argmax())] ^= 1
+                armed[0] = False
+            return y
+
+        mlp.apply_mlp = apply_mlp
+
+    def __exit__(self, *exc):
+        self.mlp.apply_mlp = self.apply
+
+
+def hold_prefill_against_plain(cfg, params, quant, seed: int) -> None:
+    """One 64-token prompt through the kernels, the plain versions, the
+    witness (``_one_flip``) and the controls, at depth 1 and at full depth.
+    The kernels' difference from the plain versions must stay within the
+    limit, the witness's too, and every control's beyond it. Prints every
+    reading before it checks any."""
+    import contextlib
+    import dataclasses
+
+    from repro_torch.kernels.registry import BACKEND_ENV_VAR
+    from repro_torch.models.lm import lm_forward
+
+    _calibration_backends()
+    rng = np.random.default_rng(seed)
+    prompt = torch.from_numpy(rng.integers(0, cfg.vocab_size, (1, 64))).cuda()
+    named = {b: cfg.with_quant(dataclasses.replace(quant, backend=b))
+             for b in ("cuda", "torch", "auto")}
+
+    def logits(route, depth):
+        p = dict(params, layers=params["layers"][:depth])
+        if route in ("cuda", "torch", "one_flip"):
+            c = named["torch" if route == "one_flip" else route]
+        else:
+            c = named["auto"]
+            os.environ[BACKEND_ENV_VAR] = route
+        flip = _one_flip() if route == "one_flip" else contextlib.nullcontext()
+        try:
+            with torch.inference_mode(), flip:
+                out = lm_forward(c, p, {"tokens": prompt})[0]
+        finally:
+            os.environ.pop(BACKEND_ENV_VAR, None)
+        out = out[..., :cfg.vocab_size].float()
+        if not torch.isfinite(out).all():
+            fail(f"non-finite prefill logits ({route}, depth {depth})")
+        return out
+
+    witnesses = ("one_flip",)
+    controls = ("k2_no_quant", "k1_exact_scale")
+    rel = {}
+    for depth in (1, cfg.num_layers):
+        plain = logits("torch", depth)
+        for route in ("cuda",) + witnesses + controls:
+            got = logits(route, depth)
+            rel[depth, route] = float((got - plain).norm() / plain.norm())
+            top1 = float((got.argmax(-1) == plain.argmax(-1)).float().mean())
+            print(f"prefill depth {depth:2d}, {route:14s} vs plain: relative "
+                  f"RMS {rel[depth, route]:.6f}, max |dlogit| "
+                  f"{float((got - plain).abs().max()):.5f} of "
+                  f"{float(plain.abs().max()):.3f}, top-1 {top1 * 100:.1f}%")
+    for depth in (1, cfg.num_layers):
+        limit = PREFILL_LIMITS[depth]
+        print(f"prefill depth {depth:2d}: limit {limit:g}")
+        for route in ("cuda",) + witnesses:
+            if not rel[depth, route] <= limit:
+                fail(f"prefill depth {depth}: {route} at {rel[depth, route]} "
+                     f"> {limit}")
+        for route in controls:
+            if not rel[depth, route] > limit:
+                fail(f"prefill depth {depth}: control {route} at "
+                     f"{rel[depth, route]} passes the limit {limit}")
+
+
+
 def model_phase(args):
     """Full-width llama3-8b: kernels-vs-plain prefill, then the serving
     run with the launch counters. Returns (summary, launches)."""
@@ -227,7 +384,7 @@ def model_phase(args):
     from repro_torch.core.quant import QuantConfig
     from repro_torch.kernels.fused_quant import fused_dequant_cuda
     from repro_torch.kernels.hadacore import hadacore_cuda
-    from repro_torch.models.lm import init_lm, lm_forward
+    from repro_torch.models.lm import init_lm
     from repro_torch.serving import ServeEngine, synthetic_stream
 
     quant = QuantConfig(mode="fp8_e4m3", rotate="hadamard", backend="cuda",
@@ -246,30 +403,7 @@ def model_phase(args):
           f"{wbytes / 1e9:.2f} GB of weights, peak "
           f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
 
-    # the same prompt through the kernels and through the plain versions:
-    # the two differ by bf16 rounding flips inside the kernels' f32 sums
-    # (held to 1 ulp in the kernel phase), which 32 layers of a model with
-    # random weights amplify; the bound is on the relative RMS of the
-    # logits over every position
-    rng = np.random.default_rng(args.seed)
-    prompt = torch.from_numpy(rng.integers(0, cfg.vocab_size, (1, 64))).cuda()
-    cfg_plain = cfg.with_quant(dataclasses.replace(quant, backend="torch"))
-    with torch.inference_mode():
-        lk = lm_forward(cfg, params, {"tokens": prompt})[0]
-        lp = lm_forward(cfg_plain, params, {"tokens": prompt})[0]
-    lk = lk[..., :cfg.vocab_size].float()
-    lp = lp[..., :cfg.vocab_size].float()
-    if not (torch.isfinite(lk).all() and torch.isfinite(lp).all()):
-        fail("non-finite prefill logits")
-    rel = float((lk - lp).norm() / lp.norm())
-    diff = float((lk - lp).abs().max())
-    top1 = float((lk.argmax(-1) == lp.argmax(-1)).float().mean())
-    print(f"prefill (64 tokens) through the kernels vs the plain versions: "
-          f"relative RMS difference {rel:.5f} (tolerance 0.1), max |dlogit| "
-          f"{diff:.5f} of max |logit| {float(lp.abs().max()):.3f}, top-1 "
-          f"agreement {top1 * 100:.1f}% of positions")
-    if not rel <= 0.1:
-        fail(f"prefill logits differ: relative RMS {rel}")
+    hold_prefill_against_plain(cfg, params, quant, args.seed)
 
     engine = ServeEngine(cfg, params, num_slots=SLOTS, max_len=MAX_LEN,
                          prefill_len=PREFILL_LEN, device="cuda")

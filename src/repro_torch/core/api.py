@@ -373,27 +373,11 @@ class QuantDotSpec:
                         compute_dtype=self.compute_dtype,
                         device_type=device_type)
 
-    def _coerce_weight(self, w):
-        """QTensor passes through; a legacy ``(wq, sw)`` tuple becomes a
-        QTensor in the spec's mode (storage dtype checked); raw tensors
-        return unchanged."""
-        from repro_torch.core.wquant import QTensor
-
-        if isinstance(w, QTensor) or not isinstance(w, tuple):
-            return w
-        wq, sw = w
-        if self.quantizing and wq.dtype != QSPECS[self.mode][1]:
-            raise ValueError(
-                f"pre-quantized weight dtype {wq.dtype} does not match the "
-                f"spec's {self.mode!r} storage dtype {QSPECS[self.mode][1]}; "
-                "quantize with wquant.quantize_weight(w, mode)")
-        return QTensor(q=wq, scale=sw, mode=self.mode)
-
     def bind(self, w):
-        """Bind the site to a weight; returns ``fn(x) -> (..., d)``."""
+        """Bind the site to a weight (a QTensor or a raw tensor); returns
+        ``fn(x) -> (..., d)``."""
         from repro_torch.core.wquant import QTensor
 
-        w = self._coerce_weight(w)
         if isinstance(w, QTensor):
             return functools.partial(self._apply_qtensor, w)
         return functools.partial(self._apply_raw, w)

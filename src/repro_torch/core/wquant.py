@@ -13,6 +13,8 @@ from typing import Any, Tuple
 
 import torch
 
+from repro_torch.kernels.registry import QSPECS, _quantize_rows, cast_to
+
 __all__ = ["QTensor", "quantize_weight", "quantize_lm_weights", "dequant_tree",
            "is_qleaf", "QUANTIZE_WEIGHT_CALLS"]
 
@@ -28,11 +30,16 @@ QUANTIZE_WEIGHT_CALLS: int = 0
 class QTensor:
     """A quantized weight: ``q`` (..., n, d) storage-dtype values (int8 /
     fp8) and ``scale`` (..., 1, d) f32 absmax scales over the contraction
-    axis; ``mode`` is 'int8' | 'fp8_e4m3' | 'fp8_e5m2'."""
+    axis; ``mode`` is 'int8' | 'fp8_e4m3' | 'fp8_e5m2', and ``q`` must be
+    stored in that mode's dtype."""
 
     __slots__ = ("q", "scale", "mode")
 
     def __init__(self, q: torch.Tensor, scale: torch.Tensor, mode: str = "int8"):
+        if q.dtype != QSPECS[mode][1]:
+            raise ValueError(
+                f"QTensor values are {q.dtype}, not the {mode!r} storage "
+                f"dtype {QSPECS[mode][1]}")
         self.q, self.scale, self.mode = q, scale, mode
 
     def dequant(self, dtype=torch.float32) -> torch.Tensor:
@@ -51,8 +58,6 @@ def quantize_weight(w: torch.Tensor, mode: str) -> QTensor:
     """Offline weight quantization: ``q`` in the mode's storage dtype and
     f32 per-OUT-channel scales (absmax over ``axis=-2``), through the same
     ``_quantize_rows`` math as the activation epilogues. w: (..., n, d)."""
-    from repro_torch.kernels.registry import QSPECS, _quantize_rows, cast_to
-
     global QUANTIZE_WEIGHT_CALLS
     QUANTIZE_WEIGHT_CALLS += 1
     q, s = _quantize_rows(w.to(torch.float32), mode, axis=-2)

@@ -5,18 +5,20 @@ A backend is a transform implementation registered with
 ``@register_backend``; ``select_backend`` resolves one per plan:
 
   cuda  -- the hand-written Hopper kernels (``repro_torch/csrc``): K1
-           ``hadacore`` and K2 ``fused_dequant``. Auto-selected for CUDA
-           tensors up to ``MAX_KERNEL_SIZE`` points. Its wrappers run the
+           ``hadacore`` and K2 ``fused_dequant``, up to ``MAX_KERNEL_SIZE``
+           points. Auto-selected for CUDA tensors. Its wrappers run the
            plain PyTorch versions on CPU tensors and launch the kernels on
            CUDA tensors.
   torch -- the plain PyTorch versions (the twin of the reference's ``xla``
-           backend): used when asked for by name, for CPU tensors, and above
-           the kernel size cap.
+           backend): auto-selected for CPU tensors only; a CUDA tensor runs
+           it only when it is asked for by name.
   ref   -- the paper's Listing-1 scalar FWHT oracle (never auto-picked).
 
-An explicit request wins when the backend supports the size; otherwise the
-``REPRO_HADAMARD_BACKEND`` environment variable; otherwise the highest-
-priority backend that is auto-selectable on the tensor's device type.
+An explicit request wins; otherwise the ``REPRO_HADAMARD_BACKEND``
+environment variable; otherwise the highest-priority backend that is
+auto-selectable on the tensor's device type. Nothing falls back: a named
+backend that cannot take the size, or a CUDA transform larger than the
+kernels take with no backend named, raises.
 """
 from __future__ import annotations
 
@@ -168,19 +170,24 @@ def select_backend(p: int, requested: Optional[str] = None,
                    device_type: str = "cuda") -> str:
     """Resolve the backend for a p-point transform on ``device_type``
     ('cuda' or 'cpu'): explicit request > ``REPRO_HADAMARD_BACKEND`` >
-    auto. A request that cannot run the size falls through to auto (the
-    reference's kernel -> plain fallback above the kernel cap)."""
+    auto. Raises when the resolved choice cannot run the size."""
     if requested in (None, "auto"):
         requested = os.environ.get(BACKEND_ENV_VAR) or None
     if requested is not None:
         be = get_backend(requested)
-        if be.supports(p):
-            return be.name
+        if not be.supports(p):
+            raise ValueError(
+                f"Hadamard backend {requested!r} does not take a {p}-point "
+                f"transform (its kernels stop at {MAX_KERNEL_SIZE})")
+        return be.name
     for name in available_backends():
         be = _REGISTRY[name]
         if be.auto_on(device_type) and be.supports(p):
             return name
-    raise ValueError(f"no registered backend supports a {p}-point transform")
+    raise ValueError(
+        f"no backend is auto-selected for a {p}-point transform on "
+        f"{device_type!r} tensors (the kernels stop at {MAX_KERNEL_SIZE}); "
+        "name backend='torch' to run the plain version")
 
 
 class Backend:
@@ -229,6 +236,9 @@ class CudaBackend(Backend):
 class TorchBackend(Backend):
     name = "torch"
     priority = 10
+
+    def auto_on(self, device_type: str) -> bool:
+        return device_type == "cpu"
 
     def supports(self, p: int) -> bool:
         return True

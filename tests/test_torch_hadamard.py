@@ -207,8 +207,13 @@ def test_registry_selection_by_device_and_size(monkeypatch):
     monkeypatch.delenv(registry.BACKEND_ENV_VAR, raising=False)
     assert registry.select_backend(128, None, "cuda") == "cuda"
     assert registry.select_backend(128, None, "cpu") == "torch"
-    assert registry.select_backend(65536, None, "cuda") == "torch"
-    assert registry.select_backend(65536, "cuda", "cuda") == "torch"
+    assert registry.select_backend(65536, None, "cpu") == "torch"
+    assert registry.select_backend(65536, "torch", "cuda") == "torch"
+    # nothing falls back to the plain version on the card
+    with pytest.raises(ValueError, match="name backend='torch'"):
+        registry.select_backend(65536, None, "cuda")
+    with pytest.raises(ValueError, match="does not take a 65536-point"):
+        registry.select_backend(65536, "cuda", "cuda")
     assert registry.select_backend(128, "ref", "cuda") == "ref"
     assert registry.select_backend(128, "cuda", "cpu") == "cuda"
     monkeypatch.setenv(registry.BACKEND_ENV_VAR, "ref")

@@ -5,18 +5,25 @@ carried across by ``repro_torch.bridge``, against the un-meshed reference
 jitted) on the CPU. The port runs its ``cuda`` backend, whose wrappers take
 CPU tensors to the kernels' plain versions.
 
+The reference is compiled as written (``xla_allow_excess_precision`` off):
+by default XLA may drop the bf16 rounding between fused elementwise ops (it
+keeps the residual sum that feeds the second norm in f32), which the port,
+rounding every op, does not copy. Compiled so, the two agree bitwise layer
+by layer; what remains are single bf16 flips where a matmul sums in another
+order, which the fp8 steps of the Q/K sites amplify.
+
 Tolerances: the layer-0 K cache agrees bitwise (projection, RoPE, the K2
-site and the fp8 cast); logits within 8% of the largest |logit|, because
-bf16 matmul sums run in another order in torch than in XLA and single-ulp
-differences grow through the layers; over 8 greedy decode steps
-(teacher-forced with the reference's tokens) the port's argmax is a
-greedy choice of the reference within 0.25 logits, and equal to it where
-the reference's top-2 margin is wider. The port against itself: teacher-forced decode within 2% of the
+site and the fp8 cast); free-running greedy decode gives the reference's
+tokens at every one of 8 steps; logits at every step lie within
+``LOGIT_TOL`` of the largest |logit| elementwise and within ``REL_TOL``
+relative RMS. Over prompt seeds 0-11 (``python tests/test_torch_model.py``
+prints them) the widest gaps read were 3.3% and 0.026 (seeds 7 and 5,
+tested below beside seed 0, which agrees bitwise).
+The port against itself: teacher-forced decode within 2% of the
 full forward's largest |logit| unquantized and 10% with the fp8 KV cache
 (the decode attends to the fp8-cast cache where the forward attends to the
 bf16 fake-quantized K/V; a wrong cache row or mask is off by O(1)),
-per-slot positions
-bitwise equal to a shared scalar position.
+per-slot positions bitwise equal to a shared scalar position.
 """
 import dataclasses
 
@@ -49,6 +56,8 @@ from repro_torch.models.lm import (init_lm, lm_decode_step, lm_forward,
 
 OVER = dict(d_model=512, num_heads=4, num_kv_heads=1, d_ff=384)
 B, S, GEN, T = 2, 16, 8, 32
+LOGIT_TOL, REL_TOL = 0.05, 0.04
+AS_WRITTEN = {"xla_allow_excess_precision": False}
 
 
 def _np_tree(t):
@@ -74,14 +83,22 @@ def _configs(quant=True):
     return jcfg, tcfg
 
 
-@pytest.fixture(scope="module")
-def model():
+def _prompt(cfg, seed):
+    return np.random.default_rng(seed).integers(
+        0, cfg.vocab_size, (B, S)).astype(np.int32)
+
+
+def _build_model():
     jcfg, tcfg = _configs()
     jp = jax.jit(lambda k: jquantize_lm_weights(jinit_lm(k, jcfg), jcfg))(
         jax.random.PRNGKey(0))
     params = params_from_reference(_np_tree(jp), device="cpu")
-    toks = np.random.default_rng(0).integers(0, tcfg.vocab_size, (B, S))
-    return jcfg, tcfg, jp, params, toks.astype(np.int32)
+    return jcfg, tcfg, jp, params, _prompt(tcfg, 0)
+
+
+@pytest.fixture(scope="module")
+def model():
+    return _build_model()
 
 
 def _logits_close(got, want, vocab, frac):
@@ -117,14 +134,19 @@ def test_bridge_carries_bits_and_layout(model):
 
 
 # --------------------------------------------------- model against ref
-def test_prefill_and_greedy_decode_match_reference(model):
-    jcfg, tcfg, jp, params, toks = model
+def _greedy_run(model, toks):
+    """Prefill, then 8 free-running greedy decode steps in each package
+    (the layer-0 K cache checked bitwise). Returns, for each of the 9
+    logits steps, (largest gap / largest |logit|, relative RMS gap, same
+    greedy token)."""
+    jcfg, tcfg, jp, params, _ = model
     V = tcfg.vocab_size
-    jpre = jax.jit(lambda p, b: jlm_prefill(jcfg, p, b))
-    jdec = jax.jit(lambda p, c, t, pos: jlm_decode_step(jcfg, p, c, t, pos))
+    jpre = jax.jit(lambda p, b: jlm_prefill(jcfg, p, b),
+                   compiler_options=AS_WRITTEN)
+    jdec = jax.jit(lambda p, c, t, pos: jlm_decode_step(jcfg, p, c, t, pos),
+                   compiler_options=AS_WRITTEN)
     jl, jc = jpre(jp, {"tokens": jnp.asarray(toks)})
     jc = jpad_kv_caches(jcfg, jc, T)
-    before = (hadacore_cuda.launches, fused_dequant_cuda.launches)
     tl, tc = lm_prefill(tcfg, params, {"tokens": torch.from_numpy(toks).long()})
     assert tl.shape == (B, 1, tcfg.padded_vocab)
     # the first layer's K cache: projection, RoPE, K2 site, fp8 cast
@@ -132,31 +154,39 @@ def test_prefill_and_greedy_decode_match_reference(model):
         tc[0]["k"].float().numpy(),
         np.asarray(jc[0]["p0"]["k"][0, :, :S].astype(jnp.float32)))
     tc = pad_kv_caches(tcfg, tc, T)
-    _logits_close(tl, jl, V, 0.08)
-    # greedy decode, the port teacher-forced with the reference's tokens so
-    # a near-tie cannot split the two streams (bf16 logits at this size tie
-    # within 0.03): the port's argmax must be a greedy choice of the
-    # reference within 0.25 logits at every step, and equal to the
-    # reference's wherever its top-2 margin is larger than that
-    agree = 0
+    steps = []
     for i in range(GEN + 1):
-        ref = np.asarray(jl[:, -1, :V], np.float32)
-        mine = torch.argmax(tl[:, -1, :V], -1).numpy()
-        top2 = np.sort(ref, -1)[:, -2:]
-        assert (ref[np.arange(B), mine] >= top2[:, 1] - 0.25).all(), i
-        wide = top2[:, 1] - top2[:, 0] > 0.25
-        assert (mine[wide] == ref.argmax(-1)[wide]).all(), i
-        agree += int((mine == ref.argmax(-1)).sum())
-        if i == GEN:
-            break
+        g = tl[:, -1, :V].float().numpy()
+        w = np.asarray(jl[:, -1, :V], np.float32)
+        assert np.isfinite(g).all()
         jt = jnp.argmax(jl[:, -1, :V], -1).astype(jnp.int32)[:, None]
-        jl, jc = jdec(jp, jc, jt, jnp.asarray(S + i, jnp.int32))
-        tl, tc = lm_decode_step(tcfg, params, tc, torch.tensor(
-            np.asarray(jt), dtype=torch.long), torch.tensor(S + i))
-        _logits_close(tl, jl, V, 0.08)
-    assert agree >= 0.8 * B * (GEN + 1)
+        tt = torch.argmax(tl[:, -1, :V], -1)[:, None]
+        steps.append((np.abs(g - w).max() / np.abs(w).max(),
+                      np.linalg.norm(g - w) / np.linalg.norm(w),
+                      bool((tt.numpy() == np.asarray(jt)).all())))
+        if i < GEN:
+            jl, jc = jdec(jp, jc, jt, jnp.asarray(S + i, jnp.int32))
+            tl, tc = lm_decode_step(tcfg, params, tc, tt, torch.tensor(S + i))
+    return steps
+
+
+def _greedy_against_reference(model, toks):
+    for i, (gap, rel, same) in enumerate(_greedy_run(model, toks)):
+        assert gap <= LOGIT_TOL and rel <= REL_TOL and same, (i, gap, rel, same)
+
+
+def test_prefill_and_greedy_decode_match_reference(model):
+    before = (hadacore_cuda.launches, fused_dequant_cuda.launches)
+    _greedy_against_reference(model, model[4])
     # CPU tensors never launch a kernel
     assert (hadacore_cuda.launches, fused_dequant_cuda.launches) == before
+
+
+@pytest.mark.parametrize("seed", [5, 7])
+def test_greedy_decode_matches_reference_at_widest_gaps(model, seed):
+    """The prompt seeds whose logits differed most from the reference's
+    over seeds 0-11: the tokens still agree at every step."""
+    _greedy_against_reference(model, _prompt(model[1], seed))
 
 
 def test_padded_vocab_is_masked(model):
@@ -278,3 +308,14 @@ def test_common_blocks_match_reference():
     want = np.asarray(jcommon.apply_rope_angles(jnp.asarray(q, jnp.bfloat16),
                                                 jnp.asarray(ang)).astype(jnp.float32))
     assert np.abs(got - want).max() <= 2 * 2.0 ** -7 * np.abs(want).max()
+
+
+if __name__ == "__main__":
+    # The readings behind LOGIT_TOL and REL_TOL, over prompt seeds 0-11:
+    #   PYTHONPATH=src JAX_PLATFORMS=cpu python tests/test_torch_model.py
+    m = _build_model()
+    for seed in range(12):
+        steps = _greedy_run(m, _prompt(m[1], seed))
+        print(f"seed {seed:2d}: largest gap {max(x[0] for x in steps):.4f} of "
+              f"max |logit|, relative RMS {max(x[1] for x in steps):.4f}, "
+              f"same greedy token at every step: {all(x[2] for x in steps)}")

@@ -287,8 +287,6 @@ def test_quant_dot_spec_bind_matches_reference(n, mode):
     else:   # f32 sums of exact fp8 products in another order, then bf16
         tol = 2.0 ** -7 * np.abs(wn).max(-1, keepdims=True)
         assert (np.abs(g - wn) <= tol).all()
-    # legacy (wq, sw) tuple form == QTensor form
-    assert torch.equal(tspec.bind((tt.q, tt.scale))(xt), got)
     # raw weight: quantized on the fly, same contraction
     wb = w.astype(ml_dtypes.bfloat16)
     want_raw = _np(jax.jit(lambda a: jspec.bind(jnp.asarray(wb),
@@ -299,9 +297,11 @@ def test_quant_dot_spec_bind_matches_reference(n, mode):
 
 
 def test_quant_dot_spec_rejects_wrong_storage_dtype():
-    spec = QuantDotSpec(n=32, mode="fp8_e4m3")
+    """A pre-quantized weight whose values are not stored in its mode's
+    dtype never reaches a site."""
     with pytest.raises(ValueError, match="storage dtype"):
-        spec.bind((torch.zeros(32, 8, dtype=torch.int8), torch.ones(1, 8)))
+        wquant.QTensor(torch.zeros(32, 8, dtype=torch.int8), torch.ones(1, 8),
+                       "fp8_e4m3")
     with pytest.raises(ValueError, match="unknown quantization mode"):
         QuantDotSpec(n=32, mode="int4")
 

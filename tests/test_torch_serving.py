@@ -3,9 +3,10 @@ scheduler and the CLI, on the CPU.
 
   * The port's engine against the un-meshed reference loop (jitted
     ``lm_prefill`` + ``lm_decode_step``, backend pallas in interpret mode,
-    one request at a time) on the reference's own bridged parameters:
-    every engine token is a greedy choice of the reference within the
-    logit tolerance.
+    compiled as written -- see ``test_torch_model`` -- one request at a
+    time) on the reference's own bridged parameters: the engine's tokens
+    are the port's own greedy tokens, and the reference agrees with them
+    within the model test's logit tolerances.
   * The engine against the port's one-shot path (batch prefill + shared
     scalar position): staggered arrivals with slot reuse give bitwise the
     same tokens per request.
@@ -43,6 +44,7 @@ from repro_torch.serving.engine import _validate_config
 
 OVER = dict(d_model=512, num_heads=4, num_kv_heads=1, d_ff=384)
 P = 16
+LOGIT_TOL, REL_TOL = 0.05, 0.04   # as test_torch_model, from its readings
 
 
 def _np_tree(t):
@@ -99,41 +101,52 @@ def _one_shot(cfg, params, prompts, gen, max_len):
 # ------------------------------------------------------------- parity
 def test_engine_matches_reference_loop(setup):
     """Requests of different lengths, right-padded into the prefill bucket
-    and decoded on shared slots, against the reference run one request at
-    a time with no padding, teacher-forced with the engine's tokens. At
-    every step the engine's token must be a greedy choice of the
-    reference up to the logit tolerance (its reference logit within 0.25
-    of the reference's largest, about twice the largest logit difference
-    the model test sees at this size): bf16 logits tie often enough at
-    this size that two correct greedy streams may split at a near-tie, so
-    exact argmax agreement is required only where the reference's top-2
-    margin exceeds that tolerance."""
+    and decoded on shared slots. Each request's tokens are bitwise the
+    port's greedy tokens for it run alone and unpadded. The reference, run
+    the same way and fed the same tokens, gives logits within LOGIT_TOL of
+    the largest |logit| and REL_TOL relative RMS of the port's at every
+    step, and the same greedy token wherever its top-2 margin exceeds twice
+    that step's largest logit gap (no smaller gap can reorder the top two;
+    a bf16 flip in a matmul sum, amplified by the fp8 sites, can split the
+    two streams at a narrower near-tie). Here 13 of the 18 steps are wide
+    enough to decide; at least half must be."""
     jcfg, cfg, jp, params = setup
-    gen, lens, tol = 6, (16, 11, 7), 0.25
+    gen, lens = 6, (16, 11, 7)
     reqs = [Request(rid=rid, tokens=_prompts(cfg, 1, L, seed=10 + rid)[0],
                     max_new_tokens=gen, arrival_time=float(rid))
             for rid, L in enumerate(lens)]
     comps = _engine(cfg, params, num_slots=2, max_len=32).run(reqs)
     assert sorted(c.rid for c in comps) == [0, 1, 2]
-    jpre = jax.jit(lambda p, b: jlm_prefill(jcfg, p, b))
-    jdec = jax.jit(lambda p, c, t, pos: jlm_decode_step(jcfg, p, c, t, pos))
-    V, agree, steps = cfg.vocab_size, 0, 0
+    as_written = {"xla_allow_excess_precision": False}
+    jpre = jax.jit(lambda p, b: jlm_prefill(jcfg, p, b),
+                   compiler_options=as_written)
+    jdec = jax.jit(lambda p, c, t, pos: jlm_decode_step(jcfg, p, c, t, pos),
+                   compiler_options=as_written)
+    V, decided = cfg.vocab_size, 0
     for c in comps:
         assert c.finish_reason == "length" and len(c.tokens) == gen
         req = reqs[c.rid]
-        logits, caches = jpre(jp, {"tokens": jnp.asarray(req.tokens[None])})
-        caches = jpad_kv_caches(jcfg, caches, 32)
+        prompt = req.tokens[None]
+        jl, jc = jpre(jp, {"tokens": jnp.asarray(prompt)})
+        jc = jpad_kv_caches(jcfg, jc, 32)
+        tl, tc = lm_prefill(cfg, params, {"tokens": torch.from_numpy(prompt).long()})
+        tc = pad_kv_caches(cfg, tc, 32)
         for i, tok in enumerate(c.tokens):
-            ref = np.asarray(logits[0, -1, :V], np.float32)
+            mine = tl[0, -1, :V].float().numpy()
+            ref = np.asarray(jl[0, -1, :V], np.float32)
+            assert tok == int(mine.argmax()), (c.rid, i)
+            gap = np.abs(mine - ref)
+            assert gap.max() <= LOGIT_TOL * np.abs(ref).max(), (c.rid, i)
+            assert np.linalg.norm(mine - ref) <= REL_TOL * np.linalg.norm(ref)
             top2 = np.sort(ref)[-2:]
-            assert ref[tok] >= top2[1] - tol, (c.rid, i)
-            if top2[1] - top2[0] > tol:
+            if top2[1] - top2[0] > 2 * gap.max():
                 assert tok == int(ref.argmax()), (c.rid, i)
-            agree += tok == int(ref.argmax())
-            steps += 1
-            logits, caches = jdec(jp, caches, jnp.asarray([[tok]], jnp.int32),
-                                  jnp.asarray(req.prompt_len + i, jnp.int32))
-    assert agree >= 0.8 * steps, (agree, steps)
+                decided += 1
+            jl, jc = jdec(jp, jc, jnp.asarray([[tok]], jnp.int32),
+                          jnp.asarray(req.prompt_len + i, jnp.int32))
+            tl, tc = lm_decode_step(cfg, params, tc, torch.tensor([[tok]]),
+                                    torch.tensor(req.prompt_len + i))
+    assert decided >= len(lens) * gen // 2, decided
 
 
 def test_staggered_parity_bitwise(setup):
