@@ -7,22 +7,31 @@ Runs from the repository root and needs the repository's ``src/``. It
   1. prints the card's name and power limit (nvidia-smi);
   2. builds the port's CUDA kernels from ``src/repro_torch/csrc`` (one nvcc
      per source, in parallel) and prints the build seconds;
-  3. kernel phase: holds every kernel of the serving path against its plain
-     PyTorch version on the card (K1 ``hadacore`` at n in {128, 2048,
-     32768} x {bf16, fp16, f32} and grouped 14336; K2 ``fused_dequant`` at
-     n in {128, 2048} x {int8, fp8_e4m3, fp8_e5m2}, bf16) and times each at
-     the shapes the serving path gives it (CUDA events) beside its bound,
-     its plain version and, for K1, one ``torch.matmul`` against H_n;
-  4. model phase: builds full-width llama3-8b (fp8_e4m3 + Hadamard + fp8
-     KV cache, int8 weight storage) on the card from ``--seed``, holds a
-     prefill through the kernels against one through the plain versions,
-     then serves 8 requests on 4 slots through ``ServeEngine`` with the
-     kernels' launch counters zeroed just before and read just after,
-     and checks 32 K1 and 64 K2 launches per model pass. The prefill
-     limit is calibrated in the same run: witnesses (correct paths that
-     differ as a kernel may) must pass it and controls (known faults)
-     must fail it;
-  5. prints the kernels' JSON line, then the result line
+  3. kernel phase: holds every kernel against its plain PyTorch version on
+     the card -- K1 ``hadacore`` at n in {128, 2048, 32768} x {bf16, fp16,
+     f32} and grouped 14336; K2 ``fused_dequant`` at n in {128, 2048} x
+     {int8, fp8_e4m3, fp8_e5m2}, bf16; K3 ``fused`` at n in {128, 2048,
+     8192} x the 3 modes (q and s bitwise); K4 ``quant_dot`` at phi4-mini's
+     down projection (4 and 64 x 8192 -> 3072) and a ragged 5 x 8192 ->
+     3000 in the 3 modes (int8 bitwise, fp8 within 2^-7 of the row max) --
+     and times each at the shapes its path gives it (CUDA events) beside
+     its bound, its plain version and one PyTorch library call where there
+     is one;
+  4. entry-point phase: ``hadamard(x, epilogue=QuantEpilogue(mode))`` and
+     ``quant_dot`` on CUDA tensors launch K3 and K4 once per call, K1 never;
+  5. model phases, each at full width from ``--seed`` with int8 weight
+     storage: llama3-8b (fp8_e4m3 + Hadamard + fp8 KV cache) and
+     phi4-mini-3.8b (int8 W8A8 + Hadamard + int8 fake-quantized KV, tied
+     embeddings, 32 layers). Each reports which layer-0 stage first differs
+     between the kernels and the plain versions, holds a prefill through
+     the kernels against one through the plain versions (a limit calibrated
+     in the same run: witnesses, correct paths that differ as a kernel may,
+     must pass it and controls, known faults, must fail it), then serves 8
+     requests on 4 slots through ``ServeEngine`` with the launch counters
+     zeroed just before and read just after, and checks the launches per
+     model pass (llama3: 32 K1 + 64 K2; phi4-mini: 32 K4 + 64 K2, no K1,
+     no K3) and a profile of the decode step;
+  6. prints the kernels' JSON line, then the result line
      ``{"ok": true, "device": {...}}`` last.
 
 Any failed check raises: the script then exits non-zero and prints no
@@ -44,6 +53,9 @@ import torch
 SLOTS, PREFILL_LEN, MAX_LEN = 4, 64, 256   # the serving run's engine
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM HBM3
 F32_CUDA_CORE_OPS_PER_S = 67e12    # H100 SXM, f32 outside the tensor cores
+INT8_OPS_PER_S = 1979e12           # H100 SXM, dense int8 tensor cores
+MODES = ("int8", "fp8_e4m3", "fp8_e5m2")
+PHI4_DOWN = (8192, 3072)           # phi4-mini's down projection, n -> d
 IO_BYTES = {torch.float32: 4, torch.bfloat16: 2, torch.float16: 2}
 EPS = {torch.float32: 2.0 ** -23, torch.bfloat16: 2.0 ** -7,
        torch.float16: 2.0 ** -10}
@@ -221,32 +233,263 @@ def kernel_phase(gen: torch.Generator):
     return entries
 
 
+def _bits(t: torch.Tensor) -> torch.Tensor:
+    return t.contiguous().view(torch.uint8) if t.element_size() == 1 else t
+
+
+def _same_rows(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Per row (last axis), are a and b bitwise equal?"""
+    return (_bits(a) == _bits(b)).reshape(a.shape[0], -1).all(-1)
+
+
+def _rel_rows(got: torch.Tensor, want: torch.Tensor) -> torch.Tensor:
+    """Per row, the largest |got - want| over the row's largest |want|."""
+    rowmax = want.float().abs().amax(-1).clamp_min(1e-30)
+    return (got.float() - want.float()).abs().amax(-1) / rowmax
+
+
+def _k34_input(gen, rows: int, n: int, kind: str) -> torch.Tensor:
+    """bf16 rows. 'exact': integers in [-8, 8], on which every sum of the
+    rotation is exact in f32 (n <= 8192) whatever its order, so the kernel's
+    butterflies and the plain version's cuBLAS products give the same bits.
+    'gaussian': N(0, 9), where the two orders can round a sum to the other
+    side of a bf16 midpoint."""
+    if kind == "exact":
+        return torch.randint(-8, 9, (rows, n), generator=gen, device="cuda").to(
+            torch.bfloat16)
+    return (torch.randn(rows, n, generator=gen, device="cuda") * 3).to(torch.bfloat16)
+
+
+def hold_k3_k4(gen) -> None:
+    """K3 and K4 against their plain versions on both kinds of input.
+
+    A kernel rotates with K1's arithmetic (butterflies); the plain version
+    with cuBLAS products. Where the two rotations agree bitwise, K3 must
+    give the plain q and s bitwise and K4 (int8) the plain output bitwise;
+    on 'exact' inputs they must agree everywhere. On every input the kernel
+    must equal the plain epilogue applied to K1's own rotation bitwise (K3,
+    K4 int8), so any difference left is the rotation's, which K1's
+    tolerance holds. fp8 K4 sums exact products in another order: within
+    2^-7 of the row's largest |value| of the plain GEMM on K1's rotation
+    (every row), and of the plain version (rows whose rotations agree)."""
+    from repro_torch.core.api import QuantEpilogue, plan_for
+    from repro_torch.core.wquant import quantize_weight
+    from repro_torch.kernels.fused_quant import fused, fused_plain
+    from repro_torch.kernels.hadacore import transform, transform_plain
+    from repro_torch.kernels.quant_dot import (epilogue_dot, quant_dot,
+                                               quant_dot_plain)
+    from repro_torch.kernels.registry import QSPECS, _quantize_rows, cast_to
+
+    print("-- kernel phase: K3 fused (q, scales) against its plain version")
+    for n in (128, 2048, 8192):
+        for mode in MODES:
+            for kind in ("exact", "gaussian"):
+                x = _k34_input(gen, 64, n, kind)
+                plan = plan_for(n, dtype=torch.bfloat16, backend="cuda",
+                                device_type="cuda", epilogue=QuantEpilogue(mode))
+                q, sc = fused(x, plan)
+                torch.cuda.synchronize()
+                qp, sp = fused_plain(x, plan)
+                y1 = transform(x, plan_for(n, dtype=torch.bfloat16, backend="cuda",
+                                           device_type="cuda"))
+                agree = _same_rows(y1, transform_plain(x, plan))
+                q1, s1 = _quantize_rows(y1.float(), mode)
+                q1 = cast_to(q1, QSPECS[mode][1])
+                same = _same_rows(q, qp) & _same_rows(sc, sp)
+                own = bool(_same_rows(q, q1).all() and _same_rows(sc, s1).all())
+                err = float((q.float() - qp.float()).abs().max())
+                print(f"K3 n={n:5d} {mode:9s} {kind:8s}: rows with the plain "
+                      f"rotation {int(agree.sum())}/64, bitwise to plain "
+                      f"{int(same.sum())}/64, to K1's rotation + plain epilogue "
+                      f"{own}, max |dq| {err:g}")
+                if not own or not bool(same[agree].all()):
+                    fail(f"K3 n={n} {mode} {kind}: q or s differ from the plain "
+                         "version beyond the rotation's flips")
+                if kind == "exact" and not bool(same.all()):
+                    fail(f"K3 n={n} {mode}: exact input not bitwise")
+
+    print("-- kernel phase: K4 quant_dot against its plain version "
+          "(phi4-mini down projection and a ragged case)")
+    n = PHI4_DOWN[0]
+    cpu = torch.Generator().manual_seed(1)
+    for m, d in ((SLOTS, PHI4_DOWN[1]), (PREFILL_LEN, PHI4_DOWN[1]), (5, 3000)):
+        w = (torch.randn(n, d, generator=cpu) / math.sqrt(n)).to("cuda", torch.bfloat16)
+        for mode in MODES:
+            qt = quantize_weight(w, mode)
+            plan = plan_for(n, dtype=torch.bfloat16, backend="cuda",
+                            device_type="cuda", epilogue=QuantEpilogue(mode))
+            for kind in ("exact", "gaussian"):
+                x = _k34_input(gen, m, n, kind)
+                got = quant_dot(x, qt.q, qt.scale, plan)
+                torch.cuda.synchronize()
+                want = quant_dot_plain(x, qt.q, qt.scale, plan)
+                y1 = transform(x, plan_for(n, dtype=torch.bfloat16, backend="cuda",
+                                           device_type="cuda"))
+                agree = _same_rows(y1, transform_plain(x, plan))
+                q1, s1 = _quantize_rows(y1.float(), mode)
+                from_k1 = epilogue_dot(q1, s1, qt.q, qt.scale, mode, torch.bfloat16)
+                rel_k1 = _rel_rows(got, from_k1)
+                rel = _rel_rows(got, want)
+                rel_agree = float(rel[agree].max()) if bool(agree.any()) else 0.0
+                same = _same_rows(got, want)
+                own = bool(_same_rows(got, from_k1).all())
+                print(f"K4 {m:2d} x {n} -> {d} {mode:9s} {kind:8s}: rows with the "
+                      f"plain rotation {int(agree.sum())}/{m}, bitwise to plain "
+                      f"{int(same.sum())}/{m}, to K1's rotation + plain GEMM "
+                      f"{own}; max |d| / row max: {float(rel_k1.max()):.3e} against "
+                      f"K1's rotation + plain GEMM, {rel_agree:.3e} "
+                      f"against plain where the rotations agree, "
+                      f"{float(rel.max()):.3e} in all rows")
+                if mode != "int8" and not (float(rel_k1.max()) <= 2.0 ** -7
+                                           and rel_agree <= 2.0 ** -7):
+                    fail(f"K4 {m}x{n}->{d} {mode} {kind}: beyond 2^-7 of the row max")
+                if mode == "int8":
+                    if not own or not bool(same[agree].all()):
+                        fail(f"K4 {m}x{n}->{d} int8 {kind}: not bitwise beyond "
+                             "the rotation's flips")
+                    if kind == "exact" and not bool(same.all()):
+                        fail(f"K4 {m}x{n}->{d} int8: exact input not bitwise")
+
+
+def time_k3_k4(gen) -> dict:
+    """K3 and K4 at phi4-mini's shapes, CUDA events, beside their bounds,
+    their plain versions and (K4) ``torch._int_mm`` on the already-quantized
+    operand: the contraction alone, since no single PyTorch call computes
+    rotate + quantize + GEMM. K3 has no library counterpart. The JSON
+    entries take the decode shape, with the largest |kernel - plain| there
+    (K3: in q's grid units)."""
+    from repro_torch.core.api import QuantEpilogue, plan_for
+    from repro_torch.core.wquant import quantize_weight
+    from repro_torch.kernels.fused_quant import fused, fused_plain
+    from repro_torch.kernels.quant_dot import launch_shape, quant_dot, quant_dot_plain
+    from repro_torch.kernels.registry import _quantize_rows
+
+    n, d = PHI4_DOWN
+    print("-- kernel phase: K3 and K4 times at phi4-mini's down projection "
+          f"(bf16 activations, int8; decode = {SLOTS} rows, prefill = "
+          f"{PREFILL_LEN})")
+    entries = {}
+    w = (torch.randn(n, d, generator=gen, device="cuda") / math.sqrt(n)).to(torch.bfloat16)
+    qt = quantize_weight(w, "int8")
+    plan = plan_for(n, dtype=torch.bfloat16, backend="cuda", device_type="cuda",
+                    epilogue=QuantEpilogue("int8"))
+    for m in (SLOTS, PREFILL_LEN):
+        x = (torch.randn(m, n, generator=gen, device="cuda") * 3).to(torch.bfloat16)
+        # K4
+        run = lambda: quant_dot(x, qt.q, qt.scale, plan)             # noqa: E731
+        plain = lambda: quant_dot_plain(x, qt.q, qt.scale, plan)     # noqa: E731
+        q, _ = _quantize_rows(x.float(), "int8")
+        a = torch.zeros(max(32, m), n, dtype=torch.int8, device="cuda")
+        a[:m] = q.to(torch.int8)
+        library = lambda: torch._int_mm(a, qt.q)                     # noqa: E731
+        err = float((run().float() - plain().float()).abs().max())
+        ms, plain_ms, lib_ms = (cuda_time_ms(run), cuda_time_ms(plain, iters=50),
+                                cuda_time_ms(library))
+        nbytes = m * n * 2 + n * d + d * 4 + m * d * 2
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        t_ops = (2 * m * n * d / INT8_OPS_PER_S
+                 + m * n * (math.log2(n) + 6) / F32_CUDA_CORE_OPS_PER_S) * 1e3
+        bound = max(t_bytes, t_ops)
+        by = "bytes" if t_bytes >= t_ops else "operations"
+        bm, smem, blocks = launch_shape(m, n, d, "int8")
+        print(f"K4 {m:2d} x {n} -> {d}: max abs err {err:g}, kernel {ms:.5f} ms, plain {plain_ms:.5f} ms, "
+              f"torch._int_mm (contraction only) {lib_ms:.5f} ms, bound {bound:.6f} ms "
+              f"({by}); launch: {blocks} blocks of {bm} rows, {smem} B shared")
+        if "K4" not in entries:   # the decode shape: the path's most frequent
+            entries["K4"] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                             "bound_ms": bound, "bound_by": by, "library_ms": lib_ms}
+        # K3 on the same rows
+        run = lambda: fused(x, plan)                                 # noqa: E731
+        plain = lambda: fused_plain(x, plan)                         # noqa: E731
+        (q, sc), (qp, sp) = run(), plain()
+        err = max(float((q.float() - qp.float()).abs().max()),
+                  float((sc - sp).abs().max()))
+        ms, plain_ms = cuda_time_ms(run), cuda_time_ms(plain, iters=50)
+        nbytes = m * n * 2 + m * n + m * 4
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        t_ops = m * n * (math.log2(n) + 6) / F32_CUDA_CORE_OPS_PER_S * 1e3
+        bound = max(t_bytes, t_ops)
+        by = "bytes" if t_bytes >= t_ops else "operations"
+        print(f"K3 {m:2d} x {n}: max abs err {err:g}, kernel {ms:.5f} ms, plain {plain_ms:.5f} ms, "
+              f"library none, bound {bound:.6f} ms ({by})")
+        if "K3" not in entries:
+            entries["K3"] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                             "bound_ms": bound, "bound_by": by, "library_ms": None}
+    # device throughput at a size where launch overhead does not dominate
+    x = (torch.randn(1024, n, generator=gen, device="cuda") * 3).to(torch.bfloat16)
+    ms = cuda_time_ms(lambda: quant_dot(x, qt.q, qt.scale, plan), iters=20)
+    print(f"K4 1024 x {n} -> {d} int8 (not a path shape): {ms:.4f} ms, "
+          f"{2 * 1024 * n * d / ms / 1e9:.1f} TOP/s")
+    return entries
+
+
+def entry_point_phase(gen) -> dict:
+    """The library's own entry points on CUDA tensors: each
+    ``hadamard(x, epilogue=QuantEpilogue(mode))`` is one K3 launch and each
+    ``quant_dot`` one K4 launch; neither launches K1. Returns the launch
+    counts of the phase (counters zeroed just before)."""
+    from repro_torch.core.api import QuantEpilogue, hadamard, quant_dot
+    from repro_torch.core.wquant import quantize_weight
+    from repro_torch.kernels.fused_quant import fused_cuda
+    from repro_torch.kernels.hadacore import hadacore_cuda
+    from repro_torch.kernels.quant_dot import quant_dot_cuda
+
+    n, d = PHI4_DOWN
+    x = (torch.randn(PREFILL_LEN, n, generator=gen, device="cuda") * 3).to(torch.bfloat16)
+    weights = {mode: quantize_weight(
+        torch.randn(n, d, generator=gen, device="cuda").to(torch.bfloat16), mode)
+        for mode in MODES}
+    hadacore_cuda.launches = fused_cuda.launches = quant_dot_cuda.launches = 0
+    for mode in MODES:
+        q, sc = hadamard(x, epilogue=QuantEpilogue(mode))
+        out = quant_dot(x, weights[mode], mode=mode)
+    torch.cuda.synchronize()
+    got = {"K1": hadacore_cuda.launches, "K3": fused_cuda.launches,
+           "K4": quant_dot_cuda.launches}
+    print(f"-- entry points: 3 x hadamard(x, epilogue=QuantEpilogue(mode)) and 3 x "
+          f"quant_dot on {tuple(x.shape)} bf16: launches {got}")
+    if got != {"K1": 0, "K3": 3, "K4": 3}:
+        fail(f"entry points launched {got}, expected K3 3, K4 3, K1 0")
+    if not (torch.isfinite(sc).all() and torch.isfinite(out.float()).all()
+            and q.shape == x.shape and out.shape == (PREFILL_LEN, d)):
+        fail("entry points gave non-finite or misshapen results")
+    return got
+
+
 # The model-phase limits on the relative RMS difference of the prefill
 # logits (all 64 positions) between the kernels and the plain versions, at
-# depth 1 (the first layer alone, then the head) and at full depth. Each
-# sits near the geometric mean of the largest reading of the kernels and
-# the witness (a correct path one rounding away from the plain one) and
-# the smallest reading of the controls (paths with a known fault) on an
-# H100 (PERF.md); the run re-measures all of them and re-asserts the order.
-PREFILL_LIMITS = {1: 3e-3, 32: 0.045}
+# depth 1 (the first layer alone, then the head) and at full depth, per
+# model. Each sits near the geometric mean of the largest reading of the
+# kernels and the witness (a correct path one rounding away from the plain
+# one) and the smallest reading of the controls (paths with a known fault)
+# on an H100 (PERF.md); the run re-measures all of them and re-asserts the
+# order.
+PREFILL_LIMITS = {
+    "llama3-8b": {1: 3e-3, 32: 0.045},
+    "phi4-mini-3.8b": {1: 3e-3, 32: 0.0275},
+}
 
 
 def _calibration_backends():
     """Registers (once) the faulty backends that calibrate the prefill
     limit; the model reaches them through ``REPRO_HADAMARD_BACKEND``.
 
-      k2_no_quant    the Q/K sites rotate but skip the fp8 fake-quant (K2
+      k2_no_quant    the Q/K sites rotate but skip the fake-quant (K2
                      without its epilogue)
       k1_exact_scale every rotation runs its passes unscaled and applies
                      the exact f32 1/sqrt(n) at the end, instead of folding
                      the compute-dtype-rounded scale into pass 0
+      k4_no_rotate   the fused down projection quantizes and contracts the
+                     unrotated row (K4 without its rotation)
     """
     import functools
 
     from repro_torch.core.hadamard import (_apply_passes, base_matrices_np,
                                            torch_dtype)
     from repro_torch.kernels import registry
+    from repro_torch.kernels.fused_quant import fused_dequant_plain
     from repro_torch.kernels.hadacore import transform_plain
+    from repro_torch.kernels.quant_dot import epilogue_dot
 
     if "k2_no_quant" in registry.available_backends():
         return
@@ -285,12 +528,27 @@ def _calibration_backends():
             return (y.float() * (1.0 / math.sqrt(plan.p))).to(x.dtype).reshape(
                 x.shape)
 
+    @registry.register_backend
+    class K4NoRotate(Calibration):
+        name = "k4_no_rotate"
+
+        def transform(self, x, plan, in_place=False):
+            return transform_plain(x, plan)
+
+        def fused_dequant(self, x, plan):
+            return fused_dequant_plain(x, plan)
+
+        def quant_dot(self, x, wq, sw, plan, schedule=None):
+            mode = plan.epilogue.mode
+            q, s = registry._quantize_rows(x.float(), mode)
+            return epilogue_dot(q, s, wq, sw.reshape(1, -1), mode, x.dtype)
+
 
 class _one_flip:
     """A context in which the first MLP output (layer 0) has its largest
     value moved by 1 ulp: the smallest change a rounding can make to the
     residual stream that every later layer reads. (A flip inside a rotation
-    is mostly absorbed by the fp8 step of the site after it.)"""
+    is mostly absorbed by the quantization step of the site after it.)"""
 
     def __enter__(self):
         from repro_torch.models import mlp
@@ -312,14 +570,82 @@ class _one_flip:
         self.mlp.apply_mlp = self.apply
 
 
-def hold_prefill_against_plain(cfg, params, quant, seed: int) -> None:
+def _with_backend(cfg, quant, backend: str):
+    import dataclasses
+
+    return cfg.with_quant(dataclasses.replace(quant, backend=backend))
+
+
+def trace_layer0(cfg, params, quant, prompt) -> None:
+    """Which layer-0 stage first differs between the kernels and the plain
+    versions, and by how many elements: the prompt runs through layer 0
+    once with the kernels and once with the plain versions, recording each
+    rotation site (Q, K, V) and the down projection in call order. For every
+    site it prints how many output elements differ between the two runs and
+    how many the site itself makes differ (the plain version of the site on
+    the kernel run's own input); the first site whose own count is not 0 is
+    where the difference is born."""
+    import dataclasses
+
+    from repro_torch.core import api
+    from repro_torch.models.lm import lm_forward
+
+    records = {}
+    rot_call, qd_apply = api.RotationSpec.__call__, api.QuantDotSpec._apply_qtensor
+
+    def rot(spec, x):
+        y = rot_call(spec, x)
+        name = ("Q", "K")[sum(1 for k in records[run] if k[0] in "QK") % 2] \
+            if spec.rotate else "V"
+        records[run].append((name, spec, None, x, y))
+        return y
+
+    def down(spec, w, x):
+        y = qd_apply(spec, w, x)
+        records[run].append(("down-proj", spec, w, x, y))
+        return y
+
+    p0 = dict(params, layers=params["layers"][:1])
+    api.RotationSpec.__call__, api.QuantDotSpec._apply_qtensor = rot, down
+    try:
+        for run in ("cuda", "torch"):
+            records[run] = []
+            with torch.inference_mode():
+                lm_forward(_with_backend(cfg, quant, run), p0, {"tokens": prompt})
+    finally:
+        api.RotationSpec.__call__, api.QuantDotSpec._apply_qtensor = rot_call, qd_apply
+    first = None
+    for (name, spec, w, x, y), (_, _, _, _, yp) in zip(records["cuda"], records["torch"]):
+        plain = dataclasses.replace(spec, backend="torch")
+        with torch.inference_mode():
+            own = rot_call(plain, x) if w is None else qd_apply(plain, w, x)
+        diff = int((_bits(y) != _bits(yp)).sum())
+        born = int((_bits(y) != _bits(own)).sum())
+        if first is None and born:
+            first = name
+        inside = ""
+        if w is not None:   # the down projection's rotation, kernel vs plain
+            with torch.inference_mode():
+                yk, yq = (api.hadamard(x, dataclasses.replace(spec, backend=b)
+                                       ._transform_plan(x.dtype, "cuda"))
+                          for b in ("cuda", "torch"))
+            flips = _bits(yk) != _bits(yq)
+            inside = (f"; its rotation: {int(flips.sum())} of {yk.numel()} bf16 "
+                      f"values differ, in {int(flips.reshape(-1, yk.shape[-1]).any(-1).sum())}"
+                      f" of {yk.numel() // yk.shape[-1]} rows")
+        print(f"   layer 0 {name:9s} {tuple(y.shape)}: {diff} of {y.numel()} "
+              f"elements differ from the plain run, {born} made by the site"
+              + inside)
+    print(f"   first stage where the kernels differ: {first or 'none'}")
+
+
+def hold_prefill_against_plain(cfg, params, quant, seed: int, controls) -> None:
     """One 64-token prompt through the kernels, the plain versions, the
     witness (``_one_flip``) and the controls, at depth 1 and at full depth.
     The kernels' difference from the plain versions must stay within the
     limit, the witness's too, and every control's beyond it. Prints every
     reading before it checks any."""
     import contextlib
-    import dataclasses
 
     from repro_torch.kernels.registry import BACKEND_ENV_VAR
     from repro_torch.models.lm import lm_forward
@@ -327,8 +653,8 @@ def hold_prefill_against_plain(cfg, params, quant, seed: int) -> None:
     _calibration_backends()
     rng = np.random.default_rng(seed)
     prompt = torch.from_numpy(rng.integers(0, cfg.vocab_size, (1, 64))).cuda()
-    named = {b: cfg.with_quant(dataclasses.replace(quant, backend=b))
-             for b in ("cuda", "torch", "auto")}
+    trace_layer0(cfg, params, quant, prompt)
+    named = {b: _with_backend(cfg, quant, b) for b in ("cuda", "torch", "auto")}
 
     def logits(route, depth):
         p = dict(params, layers=params["layers"][:depth])
@@ -349,7 +675,7 @@ def hold_prefill_against_plain(cfg, params, quant, seed: int) -> None:
         return out
 
     witnesses = ("one_flip",)
-    controls = ("k2_no_quant", "k1_exact_scale")
+    limits = PREFILL_LIMITS[cfg.name]
     rel = {}
     for depth in (1, cfg.num_layers):
         plain = logits("torch", depth)
@@ -362,7 +688,7 @@ def hold_prefill_against_plain(cfg, params, quant, seed: int) -> None:
                   f"{float((got - plain).abs().max()):.5f} of "
                   f"{float(plain.abs().max()):.3f}, top-1 {top1 * 100:.1f}%")
     for depth in (1, cfg.num_layers):
-        limit = PREFILL_LIMITS[depth]
+        limit = limits[depth]
         print(f"prefill depth {depth:2d}: limit {limit:g}")
         for route in ("cuda",) + witnesses:
             if not rel[depth, route] <= limit:
@@ -374,28 +700,49 @@ def hold_prefill_against_plain(cfg, params, quant, seed: int) -> None:
                      f"{rel[depth, route]} passes the limit {limit}")
 
 
+def _counters():
+    from repro_torch.kernels.fused_quant import fused_cuda, fused_dequant_cuda
+    from repro_torch.kernels.hadacore import hadacore_cuda
+    from repro_torch.kernels.quant_dot import quant_dot_cuda
 
-def model_phase(args):
-    """Full-width llama3-8b: kernels-vs-plain prefill, then the serving
-    run with the launch counters. Returns (summary, launches)."""
+    return {"K1": hadacore_cuda, "K2": fused_dequant_cuda, "K3": fused_cuda,
+            "K4": quant_dot_cuda}
+
+
+# The models served, each with its quantization, the launches one model
+# pass must make, and the controls of its prefill check.
+MODELS = {
+    "llama3-8b": dict(mode="fp8_e4m3", per_pass={"K1": 32, "K2": 64, "K3": 0, "K4": 0},
+                      controls=("k2_no_quant", "k1_exact_scale")),
+    "phi4-mini-3.8b": dict(mode="int8", per_pass={"K1": 0, "K2": 64, "K3": 0, "K4": 32},
+                           controls=("k4_no_rotate", "k2_no_quant")),
+}
+
+
+def model_phase(args, arch: str):
+    """One model at full width and depth: the layer-0 stage trace and the
+    calibrated prefill check, then the serving run with the launch counters
+    zeroed just before and read just after, then a decode profile. Returns
+    (summary, launches)."""
     import dataclasses
 
     from repro_torch.configs import get_config
     from repro_torch.core.quant import QuantConfig
-    from repro_torch.kernels.fused_quant import fused_dequant_cuda
-    from repro_torch.kernels.hadacore import hadacore_cuda
     from repro_torch.models.lm import init_lm
     from repro_torch.serving import ServeEngine, synthetic_stream
 
-    quant = QuantConfig(mode="fp8_e4m3", rotate="hadamard", backend="cuda",
+    spec = MODELS[arch]
+    quant = QuantConfig(mode=spec["mode"], rotate="hadamard", backend="cuda",
                         kv_quant=True)
-    cfg = dataclasses.replace(get_config("llama3-8b").with_quant(quant),
+    cfg = dataclasses.replace(get_config(arch).with_quant(quant),
                               weight_quant="int8")
     print(f"-- model phase: {cfg.name} d_model={cfg.d_model} heads="
           f"{cfg.num_heads}/{cfg.num_kv_heads} head_dim={cfg.head_dim} d_ff="
-          f"{cfg.d_ff} vocab={cfg.vocab_size} layers={cfg.num_layers}, "
-          "fp8_e4m3 + hadamard + fp8 KV, int8 weights")
+          f"{cfg.d_ff} vocab={cfg.vocab_size} layers={cfg.num_layers} tied="
+          f"{cfg.tie_embeddings}, {spec['mode']} + hadamard + {spec['mode']} KV "
+          "quantization, int8 weights")
     t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
     params = init_lm(cfg, seed=args.seed, device="cuda")
     torch.cuda.synchronize()
     wbytes = sum(t.numel() * t.element_size() for t in _leaves(params))
@@ -403,7 +750,7 @@ def model_phase(args):
           f"{wbytes / 1e9:.2f} GB of weights, peak "
           f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
 
-    hold_prefill_against_plain(cfg, params, quant, args.seed)
+    hold_prefill_against_plain(cfg, params, quant, args.seed, spec["controls"])
 
     engine = ServeEngine(cfg, params, num_slots=SLOTS, max_len=MAX_LEN,
                          prefill_len=PREFILL_LEN, device="cuda")
@@ -411,13 +758,14 @@ def model_phase(args):
                               prompt_len=(16, PREFILL_LEN),
                               max_new_tokens=(16, 32), rate=1.0,
                               seed=args.seed)
-    hadacore_cuda.launches = 0
-    fused_dequant_cuda.launches = 0
+    counters = _counters()
+    for fn in counters.values():
+        fn.launches = 0
     t0 = time.perf_counter()
     comps = engine.run(stream)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {"K1": hadacore_cuda.launches, "K2": fused_dequant_cuda.launches}
+    launches = {k: fn.launches for k, fn in counters.items()}
     s = engine.summary()
     passes = s["prefill_calls"] + s["decode_calls"]
     print(f"served {s['requests']} requests / {s['generated_tokens']} tokens in "
@@ -425,14 +773,13 @@ def model_phase(args):
           f"{s['tokens_per_s']:.1f} tok/s, p50 {s['p50_token_ms']:.2f} ms / "
           f"p99 {s['p99_token_ms']:.2f} ms per token, occupancy "
           f"{s['occupancy'] * 100:.0f}%, warm-up {s['warmup_s']:.2f} s")
-    print(f"launches: K1 {launches['K1']}, K2 {launches['K2']} over {passes} "
-          f"model passes ({s['prefill_calls']} prefills + {s['decode_calls']} "
-          f"decode steps, warm-up included) = {launches['K1'] / passes:g} and "
-          f"{launches['K2'] / passes:g} per pass")
-    if launches["K1"] != cfg.num_layers * passes:
-        fail(f"K1 launches {launches['K1']} != {cfg.num_layers} x {passes}")
-    if launches["K2"] != 2 * cfg.num_layers * passes:
-        fail(f"K2 launches {launches['K2']} != {2 * cfg.num_layers} x {passes}")
+    print(f"launches: {launches} over {passes} model passes ({s['prefill_calls']} "
+          f"prefills + {s['decode_calls']} decode steps, warm-up included) = "
+          + ", ".join(f"{k} {v / passes:g}" for k, v in launches.items())
+          + " per pass")
+    for k, per in spec["per_pass"].items():
+        if launches[k] != per * passes:
+            fail(f"{arch}: {k} launches {launches[k]} != {per} x {passes}")
     if len(comps) != 8 or any(c.status != "ok" for c in comps):
         fail(f"not every request completed: {comps}")
     for c in comps:
@@ -475,7 +822,8 @@ def profile_decode(engine, steps: int = 3) -> None:
     print(f"-- profile: {steps} decode steps, {wall_us / steps / 1e3:.2f} ms "
           f"wall per step (profiler on), kernels busy {busy / steps / 1e3:.2f} "
           f"ms per step ({100 * busy / wall_us:.1f}% of the window)")
-    ours = ("hadacore_kernel", "fused_dequant_kernel")
+    ours = ("hadacore_kernel", "fused_dequant_kernel", "fused_kernel",
+            "quant_dot_kernel")
     for i, (dev, count, key) in enumerate(rows):
         if i < 8 or any(k in key for k in ours):
             print(f"   {dev / steps / 1e3:8.3f} ms/step  {count // steps:5d} "
@@ -527,7 +875,16 @@ def main() -> int:
 
     gen = torch.Generator(device="cuda").manual_seed(args.seed)
     timed = kernel_phase(gen)
-    _, launches = model_phase(args)
+    hold_k3_k4(gen)
+    timed.update(time_k3_k4(gen))
+    entry = entry_point_phase(gen)
+    launches = {}
+    for arch in MODELS:
+        _, got = model_phase(args, arch)
+        for k, v in got.items():
+            launches[k] = launches.get(k, 0) + v
+        torch.cuda.empty_cache()
+    launches["K3"] = entry["K3"]    # K3's path is the entry point
 
     meta = {
         "K1": {"name": "hadacore", "source": "src/repro_torch/csrc/hadacore.cu",
@@ -535,10 +892,14 @@ def main() -> int:
         "K2": {"name": "fused_dequant",
                "source": "src/repro_torch/csrc/fused_quant.cu",
                "replaces": "src/repro/kernels/registry.py:283"},
+        "K3": {"name": "fused", "source": "src/repro_torch/csrc/fused_quant.cu",
+               "replaces": "src/repro/kernels/registry.py:268"},
+        "K4": {"name": "quant_dot", "source": "src/repro_torch/csrc/quant_dot.cu",
+               "replaces": "src/repro/kernels/quant_dot.py:339"},
     }
     kernels = [{"name": meta[k]["name"], "route": "cuda",
                 "source": meta[k]["source"], "replaces": meta[k]["replaces"],
-                "launches": launches[k], **timed[k]} for k in ("K1", "K2")]
+                "launches": launches[k], **timed[k]} for k in meta]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

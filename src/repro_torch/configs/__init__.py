@@ -1,7 +1,9 @@
 """Architecture registry of the port: one module per architecture, each
 exporting ``CONFIG`` (the published configuration); select with
 ``--arch <id>``. The port carries llama3-8b, the paper's own end-to-end
-model; the other families of the reference come with later slices."""
+model, and phi4-mini-3.8b, whose power-of-2 d_ff runs the fused quantized
+down projection; the other families of the reference come with later
+slices."""
 from __future__ import annotations
 
 import importlib
@@ -9,9 +11,9 @@ from typing import List
 
 from repro_torch.models.config import ModelConfig
 
-ARCH_IDS: List[str] = ["llama3_8b"]
+ARCH_IDS: List[str] = ["llama3_8b", "phi4_mini_3_8b"]
 
-_ALIASES = {"llama3-8b": "llama3_8b"}
+_ALIASES = {"llama3-8b": "llama3_8b", "phi4-mini-3.8b": "phi4_mini_3_8b"}
 
 
 def get_config(name: str) -> ModelConfig:

@@ -16,12 +16,16 @@ Non-power-of-2 sizes run the grouped transform I_g (x) H_p on the largest
 power-of-2 divisor p; epilogue scales then span the full token row and are
 computed outside the kernel, as in the reference.
 
+``quant_dot(x, w)`` is the quantized GEMM consumer: rotate, per-token
+quantize and contract with an int8 / fp8 weight, as one K4 launch on the
+card when the plan fuses (``_qd_fusable``: a power-of-2 size, per-token
+scales, a backend hosting ``quant_dot``, and the kernel's shared-memory
+rule), else the unfused path (rotation, quantize, ``epilogue_dot``).
+
 Declarative sites: :class:`RotationSpec` (attention Q/K/V) and
 :class:`QuantDotSpec` (the down-projection consumer, bound to a weight).
-The consumer runs the reference's unfused path -- K1 rotation, per-token
-quantize, ``epilogue_dot`` -- for every size: the fused rotate -> quantize
--> GEMM kernel is a later slice. Gradients (the reference's custom_vjps)
-come with the training slice.
+Forward only: gradients (the reference's custom_vjps) come with the
+training slice, mesh axes with the multi-device slice.
 """
 from __future__ import annotations
 
@@ -47,6 +51,7 @@ __all__ = [
     "RotationSpec",
     "plan_for",
     "hadamard",
+    "quant_dot",
     "plan_cache_info",
 ]
 
@@ -180,14 +185,18 @@ def _apply_epilogue_torch(y, epi: QuantEpilogue, out_dtype):
 
 
 def _fusable(plan: HadamardPlan) -> bool:
+    """Can the epilogue run inside the backend's kernel (K3 for (q, scales),
+    K2 for a dequant epilogue)? Grouped sizes and per-tensor scales need the
+    full row or tensor, so they run transform + plain epilogue."""
     be = get_backend(plan.backend)
+    kernel = be.fused_dequant if plan.epilogue.dequant else be.fused
     return (not plan.grouped and plan.p > 1 and plan.epilogue.per_token
-            and be.fused_dequant is not None and be.supports(plan.p))
+            and kernel is not None and be.supports(plan.p))
 
 
 def _dispatch_fused(x, plan: HadamardPlan):
-    """``(q, scales)``: no backend hosts the fused (q, scales) kernel yet
-    (K3 is a later slice), so this is transform + plain epilogue."""
+    if _fusable(plan):
+        return get_backend(plan.backend).fused(x, plan)
     y = _dispatch_transform(x, _strip(plan))
     return _apply_epilogue_torch(y, plan.epilogue, x.dtype)
 
@@ -248,18 +257,107 @@ def hadamard(
 
 
 # ------------------------------------------------------- quantized GEMM
-def _dispatch_quant_dot(x, wq, sw, plan: HadamardPlan):
+def _qd_fusable(plan: HadamardPlan) -> bool:
+    """Can rotate + quantize + GEMM run as the backend's single kernel? As
+    ``_fusable``, plus the backend must host ``quant_dot`` and the size must
+    meet K4's shared-memory rule (``kernels.quant_dot.kernel_fits``: one
+    row's operand and work area within the 227 KB per-block limit; it stands
+    where the reference tests its TPU VMEM budget)."""
+    from repro_torch.kernels.quant_dot import kernel_fits
+
+    be = get_backend(plan.backend)
+    return (not plan.grouped and plan.p > 1 and plan.epilogue.per_token
+            and be.quant_dot is not None and be.supports(plan.p)
+            and kernel_fits(plan.p, plan.epilogue.mode))
+
+
+def _dispatch_quant_dot(x, wq, sw, plan: HadamardPlan, schedule=None):
     """rotate(x) -> per-token quantize -> contract against the offline-
     quantized weight with ``scale_x * scale_w`` in the epilogue: the
-    reference's unfused path (its fused K4 kernel runs only for pow2 sizes
-    and is a later slice; the two agree bitwise for int8)."""
-    from repro_torch.kernels.quant_dot import epilogue_dot
+    backend's single kernel (K4 on the card) when the plan fuses, else the
+    unfused path (grouped transforms, per-tensor scales). Decided from the
+    plan, as the reference decides it; the two agree bitwise for int8."""
+    from repro_torch.kernels.quant_dot import _resolve_schedule, epilogue_dot
 
+    if _qd_fusable(plan):
+        return get_backend(plan.backend).quant_dot(x, wq, sw, plan, schedule)
+    _resolve_schedule(schedule)
     y = _dispatch_transform(x, _strip(plan))
     epi = plan.epilogue
     q, s = registry._quantize_rows(
         y.to(torch.float32), epi.mode, axis=-1 if epi.per_token else None)
     return epilogue_dot(q, s, wq, sw, epi.mode, x.dtype)
+
+
+def quant_dot(
+    x: torch.Tensor,
+    w,
+    plan: Optional[HadamardPlan] = None,
+    *,
+    mode: str = _UNSET,
+    scale: Union[str, float, None] = _UNSET,
+    backend: Optional[str] = _UNSET,
+    compute_dtype: Any = _UNSET,
+    schedule: Optional[str] = None,
+) -> torch.Tensor:
+    """``quantize(hadamard(x)) @ quantize(w)`` as one consumer path (forward
+    only): the row is rotated, per-token quantized and contracted with the
+    int8 / fp8 weight, ``scale_x * scale_w`` applied in the epilogue -- one
+    K4 launch on the card when the plan fuses.
+
+    ``w`` is a pre-quantized :class:`~repro_torch.core.wquant.QTensor` (the
+    serving form, in the plan's mode) or a raw (n, d) weight, quantized per
+    out-channel on the fly. ``plan=None`` builds the plan from the keywords
+    and ``x`` (``mode`` defaults to 'int8'); an explicit plan must carry a
+    non-dequant :class:`QuantEpilogue`, and configuration keywords beside it
+    raise. ``schedule`` picks the kernel's grid schedule: None (then
+    ``REPRO_QUANT_DOT_SCHEDULE``) or 'rotate_once'; 'revisit' and
+    'streamed' are not ported and raise NotImplementedError."""
+    from repro_torch.core.wquant import QTensor, quantize_weight
+
+    n = x.shape[-1]
+    if plan is None:
+        plan = plan_for(
+            n, dtype=x.dtype,
+            scale="ortho" if scale is _UNSET else scale,
+            backend=None if backend is _UNSET else backend,
+            epilogue=QuantEpilogue("int8" if mode is _UNSET else mode),
+            compute_dtype=None if compute_dtype is _UNSET else compute_dtype,
+            device_type=x.device.type)
+    else:
+        passed = [name for name, v in (("mode", mode), ("scale", scale),
+                                       ("backend", backend),
+                                       ("compute_dtype", compute_dtype))
+                  if v is not _UNSET]
+        if passed:
+            raise ValueError(
+                f"quant_dot() got both an explicit plan and {passed}; plan "
+                "configuration is fixed at plan_for() time")
+        if plan.n != n:
+            raise ValueError(
+                f"plan was built for n={plan.n} but x has last axis {n}")
+        if torch_dtype(plan.dtype) != x.dtype:
+            raise ValueError(
+                f"plan was built for dtype {plan.dtype} but x is "
+                f"{dtype_name(x.dtype)}")
+    if plan.epilogue is None or plan.epilogue.dequant:
+        raise ValueError(
+            "quant_dot requires a plan with a non-dequant QuantEpilogue (got "
+            f"{plan.epilogue!r}); use plan_for(n, epilogue=QuantEpilogue(mode))")
+    epi_mode = plan.epilogue.mode
+    if isinstance(w, QTensor):
+        if w.q.shape[0] != n:
+            raise ValueError(f"quantized weight has contraction dim "
+                             f"{w.q.shape[0]}, expected {n}")
+        if w.mode != epi_mode:
+            raise ValueError(
+                f"pre-quantized weight is stored as {w.mode!r}, not the plan's "
+                f"{epi_mode!r}; quantize with wquant.quantize_weight(w, mode)")
+        return _dispatch_quant_dot(x, w.q, w.scale, plan, schedule)
+    if w.shape[0] != n:
+        raise ValueError(f"weight has contraction dim {w.shape[0]}, expected {n}")
+    qt = quantize_weight(w, epi_mode)
+    return _dispatch_quant_dot(x, qt.q, qt.scale, plan, schedule)
 
 
 def _cfg_backend_name(backend: str) -> Optional[str]:

@@ -1,6 +1,7 @@
-// Shared device code of the HadaCore transform kernels (K1 hadacore.cu,
-// K2 fused_quant.cu): dtype conversions and the plan's passes on a block
-// of rows held in shared memory.
+// Shared device code of the HadaCore transform kernels (K1 hadacore.cu;
+// through quant.cuh, K2 and K3 in fused_quant.cu and K4 in quant_dot.cu):
+// dtype conversions and the plan's passes on a block of rows held in
+// shared memory.
 //
 // The passes follow the reference plan (repro/core/hadamard.py
 // _apply_passes): n = 128^k * r, pass 0 is the minor factor (H_n for

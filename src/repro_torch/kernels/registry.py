@@ -5,13 +5,14 @@ A backend is a transform implementation registered with
 ``@register_backend``; ``select_backend`` resolves one per plan:
 
   cuda  -- the hand-written Hopper kernels (``repro_torch/csrc``): K1
-           ``hadacore`` and K2 ``fused_dequant``, up to ``MAX_KERNEL_SIZE``
-           points. Auto-selected for CUDA tensors. Its wrappers run the
-           plain PyTorch versions on CPU tensors and launch the kernels on
-           CUDA tensors.
+           ``hadacore`` (transform), K2 ``fused_dequant``, K3 ``fused`` and
+           K4 ``quant_dot``, up to ``MAX_KERNEL_SIZE`` points. Auto-selected
+           for CUDA tensors. Its wrappers run the plain PyTorch versions on
+           CPU tensors and launch the kernels on CUDA tensors.
   torch -- the plain PyTorch versions (the twin of the reference's ``xla``
-           backend): auto-selected for CPU tensors only; a CUDA tensor runs
-           it only when it is asked for by name.
+           backend): the transform, and ``quant_dot`` as the unfused math;
+           auto-selected for CPU tensors only; a CUDA tensor runs it only
+           when it is asked for by name.
   ref   -- the paper's Listing-1 scalar FWHT oracle (never auto-picked).
 
 An explicit request wins; otherwise the ``REPRO_HADAMARD_BACKEND``
@@ -191,9 +192,11 @@ def select_backend(p: int, requested: Optional[str] = None,
 
 
 class Backend:
-    """A named transform implementation with an optional fused
-    rotate + fake-quant path (``fused_dequant``; None = the dispatcher
-    falls back to transform + the plain epilogue)."""
+    """A named transform implementation with optional single-kernel paths
+    (None = the dispatcher runs transform + the plain epilogue, or the
+    unfused quantized GEMM): ``fused`` (rotate + quantize to
+    ``(q, scales)``), ``fused_dequant`` (rotate + fake quant) and
+    ``quant_dot`` (rotate + quantize + GEMM)."""
 
     name: str = "?"
     priority: int = 0
@@ -207,7 +210,9 @@ class Backend:
     def transform(self, x, plan, in_place: bool = False):
         raise NotImplementedError
 
+    fused = None
     fused_dequant = None
+    quant_dot = None
 
 
 @register_backend
@@ -226,10 +231,20 @@ class CudaBackend(Backend):
 
         return transform(x, plan, in_place)
 
+    def fused(self, x, plan):
+        from repro_torch.kernels.fused_quant import fused
+
+        return fused(x, plan)
+
     def fused_dequant(self, x, plan):
         from repro_torch.kernels.fused_quant import fused_dequant
 
         return fused_dequant(x, plan)
+
+    def quant_dot(self, x, wq, sw, plan, schedule=None):
+        from repro_torch.kernels.quant_dot import quant_dot
+
+        return quant_dot(x, wq, sw, plan, schedule)
 
 
 @register_backend
@@ -248,6 +263,14 @@ class TorchBackend(Backend):
 
         y = transform_plain(x, plan)
         return x.copy_(y) if in_place else y
+
+    def quant_dot(self, x, wq, sw, plan, schedule=None):
+        # the unfused math, as the reference's xla backend hosts it
+        from repro_torch.kernels.quant_dot import (_resolve_schedule,
+                                                   quant_dot_plain)
+
+        _resolve_schedule(schedule)
+        return quant_dot_plain(x, wq, sw, plan)
 
 
 @register_backend

@@ -3,10 +3,10 @@ the port runs: dense causal-attention decoders).
 
 A model is a list of ``groups``; each group is ``(pattern, repeats)`` with
 ``pattern`` a tuple of layer kinds. The port runs the 'attn' kind (GQA
-attention + dense SwiGLU MLP, RMSNorm, untied embeddings: llama3-8b); its
-layers are a plain list, one entry per layer, where the reference scans
-stacked parameters. The reference's other options (sliding windows, GELU,
-LayerNorm, tied embeddings, MoE, state-space and encoder layers) come with
+attention + dense SwiGLU MLP, RMSNorm: llama3-8b, and phi4-mini with tied
+embeddings); its layers are a plain list, one entry per layer, where the
+reference scans stacked parameters. The reference's other options (sliding
+windows, GELU, LayerNorm, MoE, state-space and encoder layers) come with
 the configs that need them.
 """
 from __future__ import annotations
@@ -34,6 +34,7 @@ class ModelConfig:
     rope_theta: float = 10000.0
     vocab_pad_multiple: int = 256
     weight_quant: str = "none"       # none | int8 (weight-only storage, serving)
+    tie_embeddings: bool = False     # logits contract with emb^T; no unemb
     quant: QuantConfig = dataclasses.field(default_factory=QuantConfig)
     dtype: str = "bfloat16"
 
@@ -60,8 +61,8 @@ class ModelConfig:
 
     def scaled_down(self, **overrides) -> "ModelConfig":
         """Reduced config for CPU tests: shrink the capacity knobs, keep
-        the GQA ratio, the non-power-of-2-ness of d_ff and the quant
-        settings (the reference's rule, restricted to these fields)."""
+        the GQA ratio, the power-of-2-ness of d_ff, tied embeddings and the
+        quant settings (the reference's rule, restricted to these fields)."""
         ratio = max(1, self.num_heads // max(self.num_kv_heads, 1))
         heads = max(2, ratio)
         small = dict(

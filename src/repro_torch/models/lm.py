@@ -8,6 +8,9 @@ list of per-layer dicts and loops over them. Parameters:
      "layers": [{"norm1", "attn": {wq, wk, wv, wo}, "norm2",
                  "mlp": {w_gate, w_up, w_down}}, ...]}
 
+with no "unemb" when ``cfg.tie_embeddings`` (the logits contract with
+``emb`` transposed),
+
 any matrix possibly a pre-quantized :class:`~repro_torch.core.wquant.QTensor`.
 KV caches are a list with one ``{"k", "v"}`` dict per layer, each
 (B, T, KH, hd) in the KV dtype -- the reference's per-layer layout.
@@ -71,8 +74,9 @@ def init_lm(cfg: ModelConfig, *, seed: int = 0, device="cuda") -> Dict[str, Any]
                                           dt, scale=0.02), ("emb",)),
         "final_norm": init_norm(cfg, cfg.d_model, dev),
     }
-    params["unemb"] = _quantized(
-        cfg, dense_init(gen, cfg.d_model, cfg.padded_vocab, dt), ("unemb",))
+    if not cfg.tie_embeddings:
+        params["unemb"] = _quantized(
+            cfg, dense_init(gen, cfg.d_model, cfg.padded_vocab, dt), ("unemb",))
     params["layers"] = [_quantized(cfg, _init_block(gen, cfg, dev), ("layers",))
                         for _ in range(cfg.num_layers)]
     return params
@@ -115,7 +119,10 @@ def _embed(cfg: ModelConfig, params, tokens: torch.Tensor) -> torch.Tensor:
 
 def _logits(cfg: ModelConfig, params, x: torch.Tensor) -> torch.Tensor:
     x = apply_norm(cfg, params["final_norm"], x)
-    logits = x @ dequant_tree(params["unemb"], x.dtype)
+    if cfg.tie_embeddings:
+        logits = x @ dequant_tree(params["emb"], x.dtype).T
+    else:
+        logits = x @ dequant_tree(params["unemb"], x.dtype)
     if cfg.padded_vocab != cfg.vocab_size:
         logits[..., cfg.vocab_size:] = float("-inf")
     return logits

@@ -1,12 +1,15 @@
-"""PyTorch port, quantize stage: the plain version of the K2 fused
-rotate -> fake-quant kernel, the shared epilogue math, the fp8 casts,
-weight quantization and the quantized-GEMM host math, held against the
-JAX reference on the CPU.
+"""PyTorch port, quantize stage: the plain versions of the K2 fused
+rotate -> fake-quant and K3 fused rotate -> (q, scales) kernels, the shared
+epilogue math, the fp8 casts, weight quantization and the quantized-GEMM
+host math, held against the JAX reference on the CPU.
 
 Tolerances:
 
   * K2's plain version against ``_pallas_fused_dequant`` in interpret
     mode, all three modes: bitwise at n <= 2048.
+  * K3's plain version against ``_pallas_fused`` in interpret mode, all
+    three modes, bf16 and f32: q (as stored bytes) and s bitwise at
+    n <= 2048; the oracle ``ref_fused`` bitwise against the reference's.
   * ``quantize``, ``_quantize_rows`` / ``_dequantize``, ``quantize_weight``
     and ``quantize_lm_weights`` against the COMPILED reference (jax.jit):
     bitwise. XLA compiles the reference's ``absmax / qmax`` into a product
@@ -49,8 +52,10 @@ from repro_torch.core.api import (QuantDotSpec, QuantEpilogue, RotationSpec,
                                   hadamard, plan_for)
 from repro_torch.core.quant import QuantConfig, kv_quantize, quantize
 from repro_torch.kernels import registry
-from repro_torch.kernels.fused_quant import (fused_dequant, fused_dequant_cuda,
-                                             fused_dequant_plain)
+from repro_torch.kernels import fused_quant as fq
+from repro_torch.kernels.fused_quant import (fused, fused_cuda, fused_dequant,
+                                             fused_dequant_cuda,
+                                             fused_dequant_plain, fused_plain)
 from repro_torch.kernels.quant_dot import epilogue_dot
 
 MODES = ["int8", "fp8_e4m3", "fp8_e5m2"]
@@ -70,6 +75,13 @@ def _np(x) -> np.ndarray:
 
 def _same(a, b):
     np.testing.assert_array_equal(_np(a), _np(b))
+
+
+def _same_bytes(t: torch.Tensor, j) -> None:
+    """A port tensor and a reference array hold the same bytes (int8 / fp8
+    storage, so NaN encodings compare too)."""
+    np.testing.assert_array_equal(t.contiguous().view(torch.uint8).numpy(),
+                                  np.asarray(j).view(np.uint8))
 
 
 # ------------------------------------------------------------ K2 parity
@@ -92,6 +104,94 @@ def test_plain_k2_matches_pallas_kernel_interpret(n, mode, dt):
     before = fused_dequant_cuda.launches
     _same(hadamard(xt, plan), want)
     assert fused_dequant_cuda.launches == before
+
+
+# ------------------------------------------------------------ K3 parity
+@pytest.mark.parametrize("dt", ["bfloat16", "float32"])
+@pytest.mark.parametrize("mode", MODES)
+@pytest.mark.parametrize("n", [32, 128, 2048])
+def test_plain_k3_matches_pallas_kernel_interpret(n, mode, dt):
+    x = _inputs((16, n), seed=n + 1)
+    xj = jnp.asarray(x).astype(dt)
+    jplan = jplan_for(n, dtype=xj.dtype, backend="pallas",
+                      epilogue=JQuantEpilogue(mode))
+    jq, js = jreg._pallas_fused(xj, jplan, True)
+    xt = torch.from_numpy(x).to(TDT[dt])
+    plan = plan_for(n, dtype=xt.dtype, backend="cuda", device_type="cpu",
+                    epilogue=QuantEpilogue(mode))
+    q, s = fused_plain(xt, plan)
+    assert q.dtype == registry.QSPECS[mode][1] and s.shape == (16, 1)
+    _same_bytes(q, jq)
+    _same(s, js)
+    # the entry point takes a CPU tensor to the same plain version
+    before = fused_cuda.launches
+    q2, s2 = hadamard(xt, plan)
+    _same_bytes(q2, jq)
+    _same(s2, js)
+    assert fused_cuda.launches == before
+
+
+def test_fused_dispatch_runs_k3_only_when_the_plan_fuses(monkeypatch):
+    """A per-token power-of-2 plan goes to the backend's ``fused`` (K3 on
+    the card); grouped sizes and per-tensor scales run transform + the plain
+    epilogue over the full row, as in the reference."""
+    calls = []
+    real = registry.CudaBackend.fused
+
+    def spy(self, x, plan):
+        calls.append(plan.n)
+        return real(self, x, plan)
+
+    monkeypatch.setattr(registry.CudaBackend, "fused", spy)
+    for n, per_token, fused_ in ((128, True, True), (96, True, False),
+                                 (128, False, False)):
+        x = _inputs((4, n), seed=22)
+        epi = QuantEpilogue("int8", per_token=per_token)
+        jepi = JQuantEpilogue("int8", per_token=per_token)
+        calls.clear()
+        q, s = hadamard(torch.from_numpy(x).to(torch.bfloat16), epilogue=epi,
+                        backend="cuda")
+        jq, js = jax.jit(lambda a: jhadamard(a, epilogue=jepi, backend="pallas",
+                                             interpret=True))(
+            jnp.asarray(x, jnp.bfloat16))
+        assert calls == ([n] if fused_ else [])
+        _same_bytes(q, jq)
+        _same(s, js)
+
+
+@pytest.mark.parametrize("mode", MODES)
+def test_ref_fused_and_deprecated_shim_match_reference(mode):
+    from repro.kernels import fused_quant as jfq
+
+    x = _inputs((6, 64), seed=23)
+    jq, js = jax.jit(lambda a: jfq.ref_fused(a, mode=mode))(jnp.asarray(x))
+    q, s = fq.ref_fused(torch.from_numpy(x), mode=mode)
+    _same_bytes(q, jq)
+    _same(s, js)
+    xt = torch.from_numpy(x).to(torch.bfloat16)
+    with pytest.warns(DeprecationWarning):
+        registry.WARN_ONCE_SEEN.discard(fq.WARN_KEY)
+        q, s = fq.fused_hadamard_quantize(xt, mode=mode)
+    want = fused(xt, plan_for(64, dtype=torch.bfloat16, backend="cuda",
+                              device_type="cpu", epilogue=QuantEpilogue(mode)))
+    _same_bytes(q, np.asarray(want[0].view(torch.uint8)))
+    assert torch.equal(s, want[1])
+    with pytest.raises(ValueError, match="power of 2"):
+        fq.fused_hadamard_quantize(xt[:, :48])
+
+
+def test_k3_kernel_wrapper_takes_cuda_tensors_only():
+    x = torch.zeros(4, 128, dtype=torch.bfloat16)
+    plan = plan_for(128, dtype=torch.bfloat16, backend="cuda", device_type="cpu",
+                    epilogue=QuantEpilogue("int8"))
+    before = fused_cuda.launches
+    with pytest.raises(ValueError, match="CUDA"):
+        fused_cuda(x, torch.zeros(4, 128, dtype=torch.int8),
+                   torch.zeros(4, 1), plan)
+    with pytest.raises(ValueError, match="per-token"):
+        fused_cuda(x, x, x, plan_for(128, dtype=torch.bfloat16, device_type="cpu",
+                                     epilogue=QuantEpilogue("int8", dequant=True)))
+    assert fused_cuda.launches == before
 
 
 @pytest.mark.parametrize("mode", MODES)

@@ -1,0 +1,250 @@
+"""PyTorch port, fused quantized GEMM (K4): the plain version of the rotate
+-> per-token quantize -> int8 / fp8 GEMM kernel, the public ``quant_dot``
+and its dispatch rule, held against the JAX reference on the CPU.
+
+The reference's fused kernel (``pallas_quant_dot``) runs here in interpret
+mode once ``pltpu.TPUCompilerParams`` names jax's ``pltpu.CompilerParams``
+(renamed in jax 0.9); the tests set that alias inside themselves only
+(``monkeypatch``), so no other test sees it.
+
+Tolerances: int8 bitwise (exact int32 accumulation, then ``acc * s * sw``
+in the reference's order); fp8 within 2^-7 of the row's largest |output|
+(both sum exact products in f32, in another order, then round to bf16).
+"""
+import jax
+import jax.numpy as jnp
+import ml_dtypes
+import numpy as np
+import pytest
+import torch
+
+from repro.core.api import plan_for as jplan_for
+from repro.core.api import QuantEpilogue as JQuantEpilogue
+from repro.core.api import quant_dot as jquant_dot
+from repro.core.wquant import quantize_weight as jquantize_weight
+from repro.kernels import quant_dot as jqd
+
+from repro_torch.bridge import to_torch
+from repro_torch.core import api, wquant
+from repro_torch.core.api import QuantDotSpec, QuantEpilogue, plan_for, quant_dot
+from repro_torch.kernels import quant_dot as qd
+from repro_torch.kernels import registry
+
+MODES = ["int8", "fp8_e4m3", "fp8_e5m2"]
+TDT = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+@pytest.fixture
+def pallas_alias(monkeypatch):
+    """The reference's quant_dot launchers as jax 0.9 can run them."""
+    from jax.experimental.pallas import tpu as pltpu
+
+    monkeypatch.setattr(pltpu, "TPUCompilerParams", pltpu.CompilerParams,
+                        raising=False)
+
+
+def _case(m, n, d, mode, seed, dt="bfloat16"):
+    """Seeded activations (as numpy f32), the reference's quantized weight
+    and the same weight as a port QTensor."""
+    rng = np.random.default_rng(seed)
+    x = (rng.standard_normal((m, n)) * 3).astype(np.float32)
+    w = (rng.standard_normal((n, d)) / np.sqrt(n)).astype(ml_dtypes.bfloat16)
+    jt = jax.jit(lambda a: jquantize_weight(a, mode))(jnp.asarray(w))
+    tt = wquant.QTensor(to_torch(np.asarray(jt.q), "cpu"),
+                        to_torch(np.asarray(jt.scale), "cpu"), mode)
+    return x, w, jt, tt
+
+
+def _close(got: torch.Tensor, want, mode: str) -> None:
+    g = got.to(torch.float32).numpy()
+    w = np.asarray(jnp.asarray(want).astype(jnp.float32))
+    assert g.shape == w.shape
+    if mode == "int8":
+        np.testing.assert_array_equal(g, w)
+    else:
+        tol = 2.0 ** -7 * np.abs(w).max(-1, keepdims=True)
+        assert (np.abs(g - w) <= tol).all(), np.abs(g - w).max()
+
+
+# ------------------------------------------------------------ K4 parity
+@pytest.mark.parametrize("dt", ["bfloat16", "float32"])
+@pytest.mark.parametrize("mode", MODES)
+@pytest.mark.parametrize("shape", [(8, 256, 384), (5, 128, 40)])
+def test_plain_k4_matches_pallas_kernel_interpret(pallas_alias, shape, mode, dt):
+    """The rotate-once kernel of the reference on 8 x 256 -> 384 and a
+    ragged 5 x 128 -> 40 (rows and columns off its tiles)."""
+    m, n, d = shape
+    x, _, jt, tt = _case(m, n, d, mode, seed=m * n + d)
+    xj = jnp.asarray(x).astype(dt)
+    jplan = jplan_for(n, dtype=xj.dtype, backend="pallas",
+                      epilogue=JQuantEpilogue(mode))
+    want = jqd.pallas_quant_dot(xj, jt.q, jt.scale, jplan, True)
+    xt = torch.from_numpy(x).to(TDT[dt])
+    plan = plan_for(n, dtype=xt.dtype, backend="cuda", device_type="cpu",
+                    epilogue=QuantEpilogue(mode))
+    got = qd.quant_dot_plain(xt, tt.q, tt.scale, plan)
+    assert got.dtype == xt.dtype and got.shape == (m, d)
+    _close(got, want, mode)
+    # the public entry point takes a CPU tensor to the same plain version
+    before = qd.quant_dot_cuda.launches
+    _close(quant_dot(xt, tt, plan), want, mode)
+    assert qd.quant_dot_cuda.launches == before
+
+
+@pytest.mark.parametrize("mode", MODES)
+def test_public_quant_dot_matches_reference(mode):
+    """``quant_dot`` with a pre-quantized QTensor and with a raw weight
+    (quantized on the fly), leading axes kept, against the reference's
+    public ``quant_dot`` on its unfused ``xla`` backend."""
+    x, w, jt, tt = _case(6, 256, 72, mode, seed=31)
+    x3 = x.reshape(2, 3, 256)
+    xj = jnp.asarray(x3, jnp.bfloat16)
+    xt = torch.from_numpy(x3).to(torch.bfloat16)
+    want = jax.jit(lambda a: jquant_dot(a, jt, mode=mode, backend="xla",
+                                        interpret=True))(xj)
+    got = quant_dot(xt, tt, mode=mode)
+    assert got.shape == (2, 3, 72)
+    _close(got.reshape(6, 72), want.reshape(6, 72), mode)
+    _close(quant_dot(xt, tt, mode=mode, backend="cuda").reshape(6, 72),
+           want.reshape(6, 72), mode)
+    want_raw = jax.jit(lambda a: jquant_dot(a, jnp.asarray(w), mode=mode,
+                                            backend="xla", interpret=True))(xj)
+    calls = wquant.QUANTIZE_WEIGHT_CALLS
+    got_raw = quant_dot(xt, to_torch(np.asarray(w), "cpu"), mode=mode)
+    assert wquant.QUANTIZE_WEIGHT_CALLS == calls + 1
+    _close(got_raw.reshape(6, 72), want_raw.reshape(6, 72), mode)
+
+
+# ------------------------------------------------------- dispatch rule
+def _spy(monkeypatch, cls=registry.CudaBackend):
+    calls = []
+    real = cls.quant_dot
+
+    def spy(self, x, wq, sw, plan, schedule=None):
+        calls.append(plan.n)
+        return real(self, x, wq, sw, plan, schedule)
+
+    monkeypatch.setattr(cls, "quant_dot", spy)
+    return calls
+
+
+@pytest.mark.parametrize("n, per_token, fused", [
+    (128, True, True),      # power of 2, per token: the backend's kernel
+    (96, True, False),      # grouped 3 x 32: unfused, scales over the row
+    (128, False, False),    # per-tensor scale: unfused
+])
+def test_quant_dot_dispatch_rule(monkeypatch, n, per_token, fused):
+    calls = _spy(monkeypatch)
+    x, _, jt, tt = _case(4, n, 24, "int8", seed=n)
+    xt = torch.from_numpy(x).to(torch.bfloat16)
+    epi = QuantEpilogue("int8", per_token=per_token)
+    plan = plan_for(n, dtype=torch.bfloat16, backend="cuda", device_type="cpu",
+                    epilogue=epi)
+    assert api._qd_fusable(plan) == fused
+    got = quant_dot(xt, tt, plan)
+    assert calls == ([n] if fused else [])
+    jplan = jplan_for(n, dtype=jnp.bfloat16, backend="xla",
+                      epilogue=JQuantEpilogue("int8", per_token=per_token))
+    want = jax.jit(lambda a: jquant_dot(a, jt, jplan, interpret=True))(
+        jnp.asarray(x, jnp.bfloat16))
+    _close(got, want, "int8")
+
+
+def test_quant_dot_spec_site_takes_the_fused_path(monkeypatch):
+    """The serving down-projection site (a QuantDotSpec bound to a
+    pre-quantized weight) reaches the backend's quant_dot at a power-of-2
+    size and the unfused path at a grouped one."""
+    calls = _spy(monkeypatch)
+    for n, want in ((256, [256]), (96, [])):
+        x, _, _, tt = _case(3, n, 16, "int8", seed=7)
+        calls.clear()
+        out = QuantDotSpec(n=n, mode="int8", backend="cuda").bind(tt)(
+            torch.from_numpy(x).to(torch.bfloat16))
+        assert out.shape == (3, 16) and calls == want
+
+
+def test_kernel_size_rule():
+    """The port's fusability rule comes from K4's shared-memory layout: one
+    row of operand + work area fits the 227 KB block limit for every power
+    of 2 up to the 32768 cap, int8 and fp8; the torch backend hosts the
+    unfused math as quant_dot (the reference's xla backend does too)."""
+    for n in (2, 128, 8192, 32768):
+        for mode in MODES:
+            assert qd.kernel_fits(n, mode)
+    assert qd._smem_bytes(32768, 1, "fp8_e4m3") == 196616
+    assert qd._smem_bytes(8192, 16, "int8") <= qd._SMEM_LIMIT
+    assert qd._smem_bytes(8192, 8, "fp8_e4m3") <= qd._SMEM_LIMIT
+    assert qd._smem_bytes(8192, 16, "fp8_e4m3") > qd._SMEM_LIMIT
+    assert not qd.kernel_fits(1 << 17, "int8")
+    torch_plan = plan_for(256, dtype=torch.bfloat16, backend="torch",
+                          device_type="cpu", epilogue=QuantEpilogue("int8"))
+    assert api._qd_fusable(torch_plan)
+    assert registry.get_backend("ref").quant_dot is None
+
+
+# ------------------------------------------------------------ schedules
+def test_schedules_resolve_or_raise(monkeypatch):
+    x, _, _, tt = _case(2, 64, 8, "int8", seed=3)
+    xt = torch.from_numpy(x)
+    ref = quant_dot(xt, tt)
+    assert torch.equal(quant_dot(xt, tt, schedule="rotate_once"), ref)
+    monkeypatch.setenv(qd.SCHEDULE_ENV_VAR, "rotate_once")
+    assert torch.equal(quant_dot(xt, tt), ref)
+    for name in ("revisit", "streamed"):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            quant_dot(xt, tt, schedule=name)
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            quant_dot(xt, tt, schedule=name, backend="cuda")
+        monkeypatch.setenv(qd.SCHEDULE_ENV_VAR, name)
+        with pytest.raises(NotImplementedError, match=name):
+            quant_dot(xt, tt)
+        monkeypatch.setenv(qd.SCHEDULE_ENV_VAR, "rotate_once")
+    with pytest.raises(ValueError, match="unknown quant_dot schedule"):
+        quant_dot(xt, tt, schedule="rotate_twice")
+    # the grouped (unfused) path validates the schedule too
+    xg = torch.from_numpy(_case(2, 96, 8, "int8", seed=4)[0])
+    with pytest.raises(NotImplementedError):
+        quant_dot(xg, _case(2, 96, 8, "int8", seed=4)[3], schedule="streamed")
+
+
+# --------------------------------------------------------------- errors
+def test_quant_dot_rejects_bad_calls():
+    x, _, _, tt = _case(2, 64, 8, "int8", seed=5)
+    xt = torch.from_numpy(x)
+    plan = plan_for(64, dtype=torch.float32, device_type="cpu",
+                    epilogue=QuantEpilogue("int8"))
+    with pytest.raises(ValueError, match="explicit plan"):
+        quant_dot(xt, tt, plan, mode="int8")
+    with pytest.raises(ValueError, match="non-dequant"):
+        quant_dot(xt, tt, plan_for(64, dtype=torch.float32, device_type="cpu",
+                                   epilogue=QuantEpilogue("int8", dequant=True)))
+    with pytest.raises(ValueError, match="non-dequant"):
+        quant_dot(xt, tt, plan_for(64, dtype=torch.float32, device_type="cpu"))
+    with pytest.raises(ValueError, match="stored as 'int8'"):
+        quant_dot(xt, tt, mode="fp8_e4m3")
+    with pytest.raises(ValueError, match="contraction dim"):
+        quant_dot(xt[:, :32], wquant.quantize_weight(torch.ones(64, 8), "int8"))
+    with pytest.raises(ValueError, match="contraction dim"):
+        quant_dot(xt, torch.ones(32, 8))
+    with pytest.raises(ValueError, match="n=64"):
+        quant_dot(xt[:, :32], tt, plan)
+    with pytest.raises(ValueError, match="dtype"):
+        quant_dot(xt.to(torch.bfloat16), tt, plan)
+
+
+def test_k4_kernel_wrapper_takes_cuda_tensors_only():
+    x, _, _, tt = _case(2, 64, 8, "int8", seed=6)
+    xt = torch.from_numpy(x).to(torch.bfloat16)
+    plan = plan_for(64, dtype=torch.bfloat16, backend="cuda", device_type="cpu",
+                    epilogue=QuantEpilogue("int8"))
+    before = qd.quant_dot_cuda.launches
+    with pytest.raises(ValueError, match="CUDA"):
+        qd.quant_dot_cuda(xt, tt.q, tt.scale.reshape(-1),
+                          torch.empty(2, 8, dtype=torch.bfloat16), plan)
+    with pytest.raises(ValueError, match="per-token"):
+        qd.quant_dot_cuda(xt, tt.q, tt.scale.reshape(-1), xt, plan_for(
+            64, dtype=torch.bfloat16, device_type="cpu",
+            epilogue=QuantEpilogue("int8", per_token=False)))
+    with pytest.raises(ValueError, match="CPU or CUDA"):
+        qd.quant_dot(xt.to("meta"), tt.q, tt.scale, plan)
+    assert qd.quant_dot_cuda.launches == before
