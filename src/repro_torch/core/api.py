@@ -17,13 +17,18 @@ power-of-2 divisor p; epilogue scales then span the full token row and are
 computed outside the kernel, as in the reference.
 
 ``quant_dot(x, w)`` is the quantized GEMM consumer: rotate, per-token
-quantize and contract with an int8 / fp8 weight, as one K4 launch on the
-card when the plan fuses (``_qd_fusable``: a power-of-2 size, per-token
-scales, a backend hosting ``quant_dot``, and the kernel's shared-memory
-rule), else the unfused path (rotation, quantize, ``epilogue_dot``).
+quantize and contract with an int8 / fp8 weight, as one K4 (or, streamed,
+K5) launch on the card when the plan fuses (``_qd_fusable``: a power-of-2
+size, per-token scales, a backend hosting ``quant_dot``, and the kernel's
+shared-memory rule), else the unfused path (rotation, quantize,
+``epilogue_dot``). ``quant_dot_experts(x, w)`` is its MoE form,
+``(..., E, c, n) x (E, n, d)`` with per-(expert, out-channel) scales: one
+K6 (or K6s) launch over every expert when the plan fuses
+(``_qd_experts_fusable``), else the einsum form.
 
 Declarative sites: :class:`RotationSpec` (attention Q/K/V) and
-:class:`QuantDotSpec` (the down-projection consumer, bound to a weight).
+:class:`QuantDotSpec` (the down-projection consumer, bound to a weight
+with ``bind``, or to a stacked expert weight with ``bind_experts``).
 Forward only: gradients (the reference's custom_vjps) come with the
 training slice, mesh axes with the multi-device slice.
 """
@@ -52,6 +57,7 @@ __all__ = [
     "plan_for",
     "hadamard",
     "quant_dot",
+    "quant_dot_experts",
     "plan_cache_info",
 ]
 
@@ -257,31 +263,32 @@ def hadamard(
 
 
 # ------------------------------------------------------- quantized GEMM
-def _qd_fusable(plan: HadamardPlan) -> bool:
+def _qd_fusable(plan: HadamardPlan, schedule: str = "rotate_once") -> bool:
     """Can rotate + quantize + GEMM run as the backend's single kernel? As
     ``_fusable``, plus the backend must host ``quant_dot`` and the size must
-    meet K4's shared-memory rule (``kernels.quant_dot.kernel_fits``: one
-    row's operand and work area within the 227 KB per-block limit; it stands
+    meet the shared-memory rule of the schedule's kernel
+    (``kernels.quant_dot.kernel_fits``: one row's operand, work area and,
+    streamed, weight ring within the 227 KB per-block limit; it stands
     where the reference tests its TPU VMEM budget)."""
     from repro_torch.kernels.quant_dot import kernel_fits
 
     be = get_backend(plan.backend)
     return (not plan.grouped and plan.p > 1 and plan.epilogue.per_token
             and be.quant_dot is not None and be.supports(plan.p)
-            and kernel_fits(plan.p, plan.epilogue.mode))
+            and kernel_fits(plan.p, plan.epilogue.mode, schedule))
 
 
 def _dispatch_quant_dot(x, wq, sw, plan: HadamardPlan, schedule=None):
     """rotate(x) -> per-token quantize -> contract against the offline-
     quantized weight with ``scale_x * scale_w`` in the epilogue: the
-    backend's single kernel (K4 on the card) when the plan fuses, else the
-    unfused path (grouped transforms, per-tensor scales). Decided from the
-    plan, as the reference decides it; the two agree bitwise for int8."""
+    backend's single kernel (K4, or K5 streamed, on the card) when the plan
+    fuses, else the unfused path (grouped transforms, per-tensor scales).
+    Decided from the plan, as the reference decides it; the two agree
+    bitwise for int8."""
     from repro_torch.kernels.quant_dot import _resolve_schedule, epilogue_dot
 
-    if _qd_fusable(plan):
+    if _qd_fusable(plan, _resolve_schedule(schedule)):
         return get_backend(plan.backend).quant_dot(x, wq, sw, plan, schedule)
-    _resolve_schedule(schedule)
     y = _dispatch_transform(x, _strip(plan))
     epi = plan.epilogue
     q, s = registry._quantize_rows(
@@ -311,8 +318,8 @@ def quant_dot(
     and ``x`` (``mode`` defaults to 'int8'); an explicit plan must carry a
     non-dequant :class:`QuantEpilogue`, and configuration keywords beside it
     raise. ``schedule`` picks the kernel's grid schedule: None (then
-    ``REPRO_QUANT_DOT_SCHEDULE``) or 'rotate_once'; 'revisit' and
-    'streamed' are not ported and raise NotImplementedError."""
+    ``REPRO_QUANT_DOT_SCHEDULE``), 'rotate_once' (K4) or 'streamed' (K5);
+    'revisit' is not ported and raises NotImplementedError."""
     from repro_torch.core.wquant import QTensor, quantize_weight
 
     n = x.shape[-1]
@@ -358,6 +365,68 @@ def quant_dot(
         raise ValueError(f"weight has contraction dim {w.shape[0]}, expected {n}")
     qt = quantize_weight(w, epi_mode)
     return _dispatch_quant_dot(x, qt.q, qt.scale, plan, schedule)
+
+
+# ---------------------------------------------------- expert consumers
+def _qd_experts_fusable(plan: HadamardPlan, schedule: str = "rotate_once") -> bool:
+    """Can the expert site run as the backend's single kernel over every
+    expert (K6 / K6s on the card)? ``_qd_fusable`` plus a backend hosting
+    ``quant_dot_experts``. (The reference also sends meshes to the einsum
+    form; the port has no mesh yet.)"""
+    return (_qd_fusable(plan, schedule)
+            and get_backend(plan.backend).quant_dot_experts is not None)
+
+
+def _experts_einsum_qw(x, wq, sw, plan: HadamardPlan):
+    """The einsum form of the expert consumer: the (q, scales) epilogue on
+    the activation side (all experts share d_ff, so one rotation), then the
+    low-precision contraction per expert against the pre-quantized weights,
+    ``acc * s * sw`` in that order. The scales factor out of each expert's
+    product exactly (s per token row, sw per (expert, out-channel))."""
+    from repro_torch.kernels.quant_dot import experts_epilogue_dot
+
+    q, s = hadamard(x, plan)
+    return experts_epilogue_dot(q.to(torch.float32), s, wq, sw,
+                                plan.epilogue.mode, x.dtype)
+
+
+def _quant_dot_experts_qw(x, wq, sw, plan: HadamardPlan, schedule=None):
+    """Serving form for stacked, pre-quantized expert weights (forward
+    only): the backend's single kernel over every expert when the plan
+    fuses, else the einsum form (grouped sizes, backends without the
+    expert kernel). ``schedule`` picks the kernel's schedule; the einsum
+    form has none, so there it is only validated."""
+    from repro_torch.kernels.quant_dot import _resolve_schedule
+
+    if _qd_experts_fusable(plan, _resolve_schedule(schedule, experts=True)):
+        return get_backend(plan.backend).quant_dot_experts(x, wq, sw, plan, schedule)
+    return _experts_einsum_qw(x, wq, sw, plan)
+
+
+def quant_dot_experts(x: torch.Tensor, w, plan: HadamardPlan,
+                      schedule: Optional[str] = None) -> torch.Tensor:
+    """Per-expert quant_dot, ``einsum('becf,efd->becd')`` semantics: the
+    shared online Hadamard on the dispatched activations x (..., E, c, f)
+    (all experts share d_ff) and real int8 / fp8 expert weights with
+    per-(expert, out-channel) scales. ``w`` is a pre-quantized stacked
+    :class:`~repro_torch.core.wquant.QTensor` (serving) or a raw (E, f, d)
+    weight, quantized per (expert, out-channel) on the fly. Fusable plans
+    run one K6 (streamed: K6s) launch on the card."""
+    from repro_torch.core.wquant import QTensor, quantize_weight
+
+    if plan.epilogue is None or plan.epilogue.dequant:
+        raise ValueError("quant_dot_experts requires a plan with a non-dequant "
+                         f"QuantEpilogue (got {plan.epilogue!r})")
+    if not isinstance(w, QTensor):
+        w = quantize_weight(w, plan.epilogue.mode)
+    if w.mode != plan.epilogue.mode:
+        raise ValueError(f"expert weights are stored as {w.mode!r}, not the "
+                         f"plan's {plan.epilogue.mode!r}")
+    if w.q.ndim != 3 or w.q.shape[1] != plan.n or x.shape[-1] != plan.n \
+            or x.ndim < 3 or x.shape[-3] != w.q.shape[0]:
+        raise ValueError(f"expert form takes x (..., E, c, {plan.n}) and w (E, "
+                         f"{plan.n}, d), got {tuple(x.shape)} and {tuple(w.q.shape)}")
+    return _quant_dot_experts_qw(x, w.q, w.scale, plan, schedule)
 
 
 def _cfg_backend_name(backend: str) -> Optional[str]:
@@ -497,6 +566,40 @@ class QuantDotSpec:
             x.to(torch.float32), self.mode,
             axis=-1 if self.per_token else None)
         return epilogue_dot(q, s, w.q, w.scale, self.mode, x.dtype)
+
+    def bind_experts(self, w):
+        """Bind the MoE expert form (``'becf,efd->becd'`` semantics, stacked
+        expert weights sharing one d_ff Hadamard) to a stacked QTensor or a
+        raw (E, f, d) weight; returns ``fn(x) -> (..., E, c, d)``. Fusable
+        plans run one K6 launch over every expert on the card."""
+        from repro_torch.core.wquant import QTensor
+
+        if isinstance(w, QTensor):
+            return functools.partial(self._apply_experts_qtensor, w)
+        return functools.partial(self._apply_experts_raw, w)
+
+    def _apply_experts_qtensor(self, w, x):
+        if not self.quantizing or w.mode != self.mode:
+            return self._apply_experts_raw(w.dequant(x.dtype), x)
+        if self.rotate:
+            return quant_dot_experts(x, w, self.plan(x.dtype, x.device.type))
+        from repro_torch.core.quant import quantize
+
+        xq = quantize(x, self.mode, axis=-1 if self.per_token else None)
+        return torch.einsum("becf,efd->becd", xq, w.dequant(x.dtype)).to(x.dtype)
+
+    def _apply_experts_raw(self, w, x):
+        if not self.quantizing:
+            if self.rotate:
+                x = hadamard(x, self._transform_plan(x.dtype, x.device.type))
+            return torch.einsum("becf,efd->becd", x, w)
+        if not self.rotate:
+            from repro_torch.core.quant import quantize
+
+            xq = quantize(x, self.mode, axis=-1 if self.per_token else None)
+            return torch.einsum("becf,efd->becd", xq,
+                                quantize(w, self.mode, axis=-2))
+        return quant_dot_experts(x, w, self.plan(x.dtype, x.device.type))
 
     def _apply_raw(self, w, x):
         if not self.quantizing:

@@ -3,9 +3,16 @@ without the ABFT checksums and sharding axes).
 
 Matmul weights are stored quantized (int8 / fp8) with f32 per-output-
 channel scales and dequantized per layer in the forward. The rotation-
-consumer leaves (the down-projection weights the online Hadamard feeds)
-are stored in the serving quant mode and contracted directly by the
-``QuantDotSpec`` site: the serving forward never re-quantizes a weight.
+consumer leaves (the down-projection weights the online Hadamard feeds,
+dense or stacked per expert) are stored in the serving quant mode and
+contracted directly by the ``QuantDotSpec`` site: the serving forward never
+re-quantizes a weight.
+
+Stacked expert weights (E, n, d) carry per-(expert, out-channel) scales
+(E, 1, d). Quantization and dequantization are separable per expert, so
+the port draws, quantizes and dequantizes such stacks a chunk of experts
+at a time (``CHUNK_ELEMS``): an f32 copy of a whole 128-expert stack at
+llama4-maverick's width would be 21.5 GB.
 """
 from __future__ import annotations
 
@@ -16,11 +23,15 @@ import torch
 from repro_torch.kernels.registry import QSPECS, _quantize_rows, cast_to
 
 __all__ = ["QTensor", "quantize_weight", "quantize_lm_weights", "dequant_tree",
-           "is_qleaf", "QUANTIZE_WEIGHT_CALLS"]
+           "is_qleaf", "leaf_mode", "chunk_len", "QUANTIZE_WEIGHT_CALLS"]
 
 _MIN_SIZE = 1 << 16   # don't quantize tiny leaves (norms, biases)
 
 _FLOATS = (torch.bfloat16, torch.float16, torch.float32)
+
+# Elements per chunk of a stacked leaf (2^28: 1 GiB of f32), for the
+# chunked draw, quantization and dequantization of expert stacks.
+CHUNK_ELEMS = 1 << 28
 
 # Number of quantize_weight calls; serving tests reset it and assert it
 # stays 0 while requests are served (pre-quantized weights only).
@@ -43,15 +54,40 @@ class QTensor:
         self.q, self.scale, self.mode = q, scale, mode
 
     def dequant(self, dtype=torch.float32) -> torch.Tensor:
-        return (self.q.to(torch.float32) * self.scale).to(dtype)
+        """``(q.float() * scale).to(dtype)``, computed in f32 and rounded
+        once into a ``dtype`` buffer (one pass, no f32 copy); a stacked
+        leaf goes a chunk of its leading axis at a time. Elementwise, so
+        the values are those of the whole-tensor expression."""
+        out = torch.empty(self.q.shape, dtype=dtype, device=self.q.device)
+        if self.q.ndim < 3:
+            return _mul_into(self.q, self.scale, out)
+        step = chunk_len(self.q[0].numel())
+        for i in range(0, self.q.shape[0], step):
+            _mul_into(self.q[i:i + step], self.scale[i:i + step], out[i:i + step])
+        return out
 
     def __repr__(self):
         return (f"QTensor(q={tuple(self.q.shape)} {self.q.dtype}, "
                 f"mode={self.mode!r})")
 
 
+def _mul_into(q: torch.Tensor, s: torch.Tensor, out: torch.Tensor) -> torch.Tensor:
+    """out = q * s computed in f32, rounded once to out's dtype. torch
+    promotes int8 against f32 inside the kernel; fp8 has no promotion rule,
+    so its values are widened first (exactly)."""
+    if q.dtype != torch.int8:
+        q = q.to(torch.float32)
+    return torch.mul(q, s, out=out)
+
+
 def is_qleaf(x: Any) -> bool:
     return isinstance(x, QTensor)
+
+
+def chunk_len(per_item: int) -> int:
+    """Items of a stacked leaf per chunk, for items of ``per_item``
+    elements."""
+    return max(1, CHUNK_ELEMS // max(per_item, 1))
 
 
 def quantize_weight(w: torch.Tensor, mode: str) -> QTensor:
@@ -72,33 +108,38 @@ def _is_consumer(keys: Tuple[str, ...]) -> bool:
     return keys[-1] == "w_down" or (keys[-1] == "wv" and "cmix" in keys)
 
 
-def _should_quantize(keys: Tuple[str, ...], leaf: torch.Tensor) -> bool:
+def _should_quantize(keys: Tuple[str, ...], shape, dtype) -> bool:
     """Large float matrices outside the norms. The port's layer leaves
     are per layer, so the size floor applies per layer (the reference
     applies it to the stacked (layers, ...) leaf)."""
-    if leaf.ndim < 2 or leaf.numel() < _MIN_SIZE:
-        return False
-    if leaf.dtype not in _FLOATS:
+    numel = 1
+    for n in shape:
+        numel *= n
+    if len(shape) < 2 or numel < _MIN_SIZE or dtype not in _FLOATS:
         return False
     return not any(k in ("norm1", "norm2", "norm_x", "final_norm", "enc_norm")
                    for k in keys)
 
 
-def quantize_leaf(keys: Tuple[str, ...], leaf, cfg=None):
-    """The ``quantize_lm_weights`` decision for one leaf at path ``keys``:
-    a consumer leaf of a rotating + quantizing config is stored in the
-    config's mode (whatever its size), other large matrices in int8, the
-    rest unchanged."""
+def leaf_mode(keys: Tuple[str, ...], shape, dtype, cfg=None):
+    """The storage mode ``quantize_lm_weights`` picks for a leaf of this
+    path, shape and dtype: a consumer leaf of a rotating + quantizing
+    config takes the config's mode (whatever its size), other large
+    matrices int8; None leaves it unquantized."""
     qc = getattr(cfg, "quant", None)
     consuming = qc is not None and qc.rotating and qc.enabled
+    if consuming and _is_consumer(keys) and len(shape) >= 2 and dtype in _FLOATS:
+        return qc.mode
+    return "int8" if _should_quantize(keys, shape, dtype) else None
+
+
+def quantize_leaf(keys: Tuple[str, ...], leaf, cfg=None):
+    """The ``quantize_lm_weights`` decision for one leaf at path ``keys``
+    (``leaf_mode``), applied."""
     if not isinstance(leaf, torch.Tensor):
         return leaf
-    if consuming and _is_consumer(keys) and leaf.ndim >= 2 \
-            and leaf.dtype in _FLOATS:
-        return quantize_weight(leaf, qc.mode)
-    if _should_quantize(keys, leaf):
-        return quantize_weight(leaf, "int8")
-    return leaf
+    mode = leaf_mode(keys, tuple(leaf.shape), leaf.dtype, cfg)
+    return leaf if mode is None else quantize_weight(leaf, mode)
 
 
 def _map_with_keys(fn, tree, keys=()):

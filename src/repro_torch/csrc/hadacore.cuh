@@ -1,5 +1,5 @@
 // Shared device code of the HadaCore transform kernels (K1 hadacore.cu;
-// through quant.cuh, K2 and K3 in fused_quant.cu and K4 in quant_dot.cu):
+// through quant.cuh, K2 and K3 in fused_quant.cu and K4-K6s in quant_dot.cuh):
 // dtype conversions and the plan's passes on a block of rows held in
 // shared memory.
 //

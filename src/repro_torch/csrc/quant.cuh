@@ -1,6 +1,6 @@
 // Shared device code of the rotate -> quantize kernels (K2 and K3 in
-// fused_quant.cu, K4 in quant_dot.cu): K1's passes on a block of rows plus
-// the per-row absmax, and the epilogue math of
+// fused_quant.cu; K4, K5, K6 and K6s in quant_dot.cu): K1's passes on a
+// block of rows plus the per-row absmax, and the epilogue math of
 // repro/kernels/registry.py::_quantize_rows on the compute-dtype-rounded row
 // in f32:
 //   s = max(absmax(y), 1e-8) * f32(1 / qmax)   (what XLA compiles the
@@ -72,23 +72,23 @@ __device__ __forceinline__ uint8_t encode(float q, int mode) {
   return sign | (uint8_t)(((e + 7) << 3) | ((int)ldexpf(a, 3 - e) - 8));
 }
 
-// Load `nrows` contiguous rows of n values into buf (rounded to the compute
-// dtype), run the plan's passes, and leave each row's absmax in amax[] as
-// f32 bits. |y| >= 0, so the bit patterns order like the values, and a NaN
-// (0x7fc00000 after fabsf) beats every finite value, propagating as
-// jnp.max does. For n >= 32 the 32 lanes of a warp read 32 values of one
-// row (blockDim and n are multiples of 32), so they reduce among
-// themselves and one lane updates the row: one shared atomic per warp
-// instead of one per value, which would serialise on the row's address.
-// Ends synchronised.
-template <typename T>
-__device__ __forceinline__ void rotate_rows_absmax(const T* x, float* buf, int* amax,
-                                                   int nrows, int n, int r, int cd,
-                                                   float scale) {
+// Load `nrows` rows of n values into buf (rounded to the compute dtype):
+// row i starts at row(i), a callable returning a const T*. Then run the
+// plan's passes, and leave each row's absmax in amax[] as f32 bits. |y| >= 0,
+// so the bit patterns order like the values, and a NaN (0x7fc00000 after
+// fabsf) beats every finite value, propagating as jnp.max does. For n >= 32
+// the 32 lanes of a warp read 32 values of one row (blockDim and n are
+// multiples of 32), so they reduce among themselves and one lane updates
+// the row: one shared atomic per warp instead of one per value, which would
+// serialise on the row's address. Ends synchronised.
+template <typename T, typename RowPtr>
+__device__ __forceinline__ void rotate_rows_absmax_at(RowPtr row, float* buf, int* amax,
+                                                      int nrows, int n, int r, int cd,
+                                                      float scale) {
   const int total = nrows * n;
   const int lg = __ffs(n) - 1;  // n is a power of 2
   for (int i = threadIdx.x; i < total; i += blockDim.x)
-    buf[i] = hadacore::round_to(hadacore::to_float(x[i]), cd);
+    buf[i] = hadacore::round_to(hadacore::to_float(row(i >> lg)[i & (n - 1)]), cd);
   for (int i = threadIdx.x; i < nrows; i += blockDim.x) amax[i] = 0;
   __syncthreads();
   hadacore::run_passes(buf, total, n, r, cd, scale);
@@ -102,6 +102,15 @@ __device__ __forceinline__ void rotate_rows_absmax(const T* x, float* buf, int* 
       atomicMax(&amax[i >> lg], __float_as_int(fabsf(buf[i])));
   }
   __syncthreads();
+}
+
+// rotate_rows_absmax_at on `nrows` contiguous rows starting at x.
+template <typename T>
+__device__ __forceinline__ void rotate_rows_absmax(const T* x, float* buf, int* amax,
+                                                   int nrows, int n, int r, int cd,
+                                                   float scale) {
+  rotate_rows_absmax_at<T>([=](int i) { return x + (size_t)i * n; }, buf, amax, nrows, n, r,
+                           cd, scale);
 }
 
 }  // namespace quant

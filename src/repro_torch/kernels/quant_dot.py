@@ -1,21 +1,36 @@
-"""K4, the fused rotate -> per-token quantize -> GEMM consumer: the CUDA
-kernel's wrapper, its plain PyTorch version, and the quantized-GEMM host
-math (twin of ``repro.kernels.quant_dot``, rotate-once schedule only).
+"""The fused rotate -> per-token quantize -> GEMM consumers: the CUDA
+kernels' wrappers, their plain PyTorch versions, and the quantized-GEMM
+host math (twin of ``repro.kernels.quant_dot``).
 
-The kernel (``repro_torch/csrc/quant_dot.cu``) replaces the TPU kernel
-``repro/kernels/quant_dot.py::_quant_dot_kernel_rotate_once``. Each block
-rotates and quantizes its rows once into shared memory and contracts them
-with its run of weight-column tiles (int8: exact int32 accumulation; fp8:
-exact products, f32 accumulation), then applies ``acc * s * sw``; the
-rotated activations never reach HBM. At a decode step it is bound by the
-bytes of the weight. It is the MLP down-projection site when d_ff is a
-power of 2 (phi4-mini: 8192 -> 3072).
+Four kernels in two CUDA sources (``repro_torch/csrc/quant_dot.cu``: K4
+and K5; ``quant_dot_experts.cu``: K6 and K6s; their shared body in
+``quant_dot.cuh``), each replacing a TPU kernel of
+``repro/kernels/quant_dot.py``:
 
-``quant_dot`` is what the ``cuda`` backend calls: a CPU tensor goes to
-``quant_dot_plain`` (K1's plain passes, ``_quantize_rows``,
-``epilogue_dot``), a CUDA tensor to the kernel. ``quant_dot_cuda.launches``
-counts the kernel's launches. ``kernel_fits`` is the port's size rule for
-the fused path, from the kernel's shared-memory layout.
+  K4   ``_quant_dot_kernel_rotate_once``           x (..., n) @ wq (n, d)
+  K5   ``_quant_dot_kernel_streamed``              K4, weight tiles streamed
+                                                   through a shared-memory ring
+  K6   ``_quant_dot_experts_kernel``               x (..., E, c, n) @ wq (E, n, d)
+  K6s  ``_quant_dot_experts_kernel_streamed``      K6, streamed as K5
+
+Each block rotates and quantizes its rows once into shared memory and
+contracts them with its run of weight-column tiles (int8: exact int32
+accumulation; fp8: exact products, f32 accumulation in a fixed order),
+then applies ``acc * s * sw``; the rotated activations never reach HBM. At
+a decode step they are bound by the bytes of the weight. K4 is the MLP
+down-projection site when d_ff is a power of 2 (phi4-mini: 8192 -> 3072;
+llama4-maverick's dense and shared-expert MLPs: 8192 -> 5120), K6 the MoE
+expert down projection (maverick: 128 experts of 8192 -> 5120). The
+streamed schedule gives the same bits as rotate-once: the ring changes
+where a weight word waits, not the order of any sum.
+
+``quant_dot`` and ``quant_dot_experts`` are what the ``cuda`` backend
+calls: a CPU tensor goes to the plain version (K1's plain passes,
+``_quantize_rows``, ``epilogue_dot``; per expert for the stacked form), a
+CUDA tensor to the kernel of the resolved schedule. Each kernel's wrapper
+counts its launches (``quant_dot_cuda.launches`` and so on).
+``kernel_fits`` is the port's size rule for the fused path, from the
+kernels' shared-memory layout.
 
 ``epilogue_dot`` is the quantized contraction outside any kernel: the
 unfused path (grouped sizes such as llama3-8b's d_ff = 14336, per-tensor
@@ -28,8 +43,9 @@ scales) and the plain version use it:
 
 then ``acc * s * sw`` in that order.
 
-The reference's other grid schedules (``revisit``, ``streamed``) are later
-slices of the port (ROADMAP section 2, K8 and K5): asking for one raises.
+The reference's ``revisit`` schedule (K8, the A/B baseline of a benchmark)
+is not ported: a dense call asking for it raises, and an expert call runs
+rotate-once, as the reference's expert grid does.
 """
 from __future__ import annotations
 
@@ -42,8 +58,11 @@ import torch.nn.functional as F
 from repro_torch.core.hadamard import torch_dtype
 from repro_torch.kernels.registry import QSPECS, _quantize_rows, cast_to
 
-__all__ = ["epilogue_dot", "quant_dot", "quant_dot_cuda", "quant_dot_plain",
-           "kernel_fits", "SCHEDULE_ENV_VAR", "SCHEDULES"]
+__all__ = ["epilogue_dot", "experts_epilogue_dot", "quant_dot",
+           "quant_dot_cuda", "quant_dot_streamed_cuda", "quant_dot_plain",
+           "quant_dot_experts", "quant_dot_experts_cuda",
+           "quant_dot_experts_streamed_cuda", "quant_dot_experts_plain",
+           "kernel_fits", "launch_shape", "SCHEDULE_ENV_VAR", "SCHEDULES"]
 
 SCHEDULE_ENV_VAR = "REPRO_QUANT_DOT_SCHEDULE"
 SCHEDULES = ("rotate_once", "revisit", "streamed")
@@ -98,41 +117,61 @@ def epilogue_dot(q, s, wq, sw, mode: str, out_dtype) -> torch.Tensor:
     return (acc * s * sw.reshape((1,) * len(lead) + (d,))).to(out_dtype)
 
 
+def experts_epilogue_dot(q, s, wq, sw, mode: str, out_dtype) -> torch.Tensor:
+    """``epilogue_dot`` per expert: q (..., E, c, n) f32 grid values, s
+    (..., E, c, 1), wq (E, n, d) storage dtype, sw (E, 1, d); returns
+    (..., E, c, d). One expert at a time, so no f32 copy of the stack
+    exists (a 128-expert f32 stack at maverick's width is 21.5 GB)."""
+    E, _, d = wq.shape
+    out = torch.empty((*q.shape[:-1], d), dtype=out_dtype, device=q.device)
+    for e in range(E):
+        out[..., e, :, :] = epilogue_dot(q[..., e, :, :], s[..., e, :, :],
+                                         wq[e], sw[e], mode, out_dtype)
+    return out
+
+
 # ------------------------------------------------------------ schedules
-def _resolve_schedule(schedule=None) -> str:
+def _resolve_schedule(schedule=None, experts: bool = False) -> str:
     """The grid schedule: the argument, then ``REPRO_QUANT_DOT_SCHEDULE``,
-    then ``rotate_once``. Only ``rotate_once`` (K4) is ported: ``revisit``
-    and ``streamed`` raise rather than run ``rotate_once`` in their place;
-    an unknown name raises ValueError."""
+    then ``rotate_once``. ``streamed`` runs K5 (dense) or K6s (experts).
+    ``revisit`` (K8) is not ported: an expert call runs ``rotate_once``,
+    as the reference's expert grid has no revisit body; a dense call
+    raises rather than run another schedule in its place. An unknown
+    name raises ValueError."""
     if schedule is None:
         schedule = os.environ.get(SCHEDULE_ENV_VAR) or "rotate_once"
     if schedule not in SCHEDULES:
         raise ValueError(f"unknown quant_dot schedule {schedule!r}; expected one "
                          f"of {SCHEDULES}")
-    if schedule != "rotate_once":
+    if schedule == "revisit":
+        if experts:
+            return "rotate_once"
         raise NotImplementedError(
-            f"quant_dot schedule {schedule!r} is not ported yet (ROADMAP "
-            "section 2: K5 streamed and K8 revisit are queued as K4 "
-            "schedules); only 'rotate_once' runs")
+            "quant_dot schedule 'revisit' is not ported yet (ROADMAP section "
+            "2: K8, the benchmark's A/B baseline, is queued with "
+            "bench_pt_quant_dot.py); 'rotate_once' and 'streamed' run")
     return schedule
 
 
-# --------------------------------------------------------- the K4 kernel
-# Shared-memory layout of csrc/quant_dot.cu, for the size rule: the
-# operand (rows x n, 1 byte for int8, 2 for fp8 as bf16), a work area
-# (the f32 rows rotated at once -- all of them when they fit, else the most,
-# a power of 2, that do -- or the 16 x rows x 32 partial sums), one f32
-# scale per row and one absmax per rotated row. A call needs at least one
-# row to fit the per-block limit.
+# ------------------------------------------------------ the kernels' sizes
+# Shared-memory layout of csrc/quant_dot.cuh, for the size rule: the
+# operand (rows x n, 1 byte for int8, 2 for fp8 as bf16), under the
+# streamed schedule the weight ring (_STAGES stages of _RING_WORDS 32-bit
+# words per thread), a work area (the f32 rows rotated at once -- all of
+# them when they fit, else the most, a power of 2, that do -- or the 16 x
+# rows x 32 partial sums), one f32 scale per row and one absmax per
+# rotated row. A call needs at least one row to fit the per-block limit.
 _SMEM_LIMIT = 232448     # 227 KB on sm_90
 _KW, _BN = 16, 32        # partial sums per output, columns per tile
+_THREADS, _STAGES, _RING_WORDS = 512, 3, 16
 
 
-def _smem_bytes(n: int, rows: int, mode: str) -> int:
+def _smem_bytes(n: int, rows: int, mode: str, schedule: str = "rotate_once") -> int:
     opb = 1 if QSPECS[mode][2] else 2
+    ring = _STAGES * _THREADS * _RING_WORDS * 4 if schedule == "streamed" else 0
 
     def layout(rw):
-        return (rows * max(n, 4) * opb + max(rw * n * 4, _KW * rows * _BN * 4)
+        return (rows * max(n, 4) * opb + ring + max(rw * n * 4, _KW * rows * _BN * 4)
                 + rows * 4 + rw * 4)
 
     rw = rows
@@ -141,51 +180,65 @@ def _smem_bytes(n: int, rows: int, mode: str) -> int:
     return layout(rw)
 
 
-def kernel_fits(n: int, mode: str) -> bool:
-    """Can K4 take an n-point contraction in ``mode``: does one row of
-    its shared-memory layout fit the 227 KB per-block limit? (True for every
-    power of 2 up to the 32768 cap: 192 KB at 32768 for fp8.)"""
-    return _smem_bytes(n, 1, mode) <= _SMEM_LIMIT
+def kernel_fits(n: int, mode: str, schedule: str = "rotate_once") -> bool:
+    """Can the kernel of ``schedule`` take an n-point contraction in
+    ``mode``: does one row of its shared-memory layout fit the 227 KB
+    per-block limit? The streamed schedule charges its 96 KB weight ring.
+    (True for every power of 2 up to 16384 under both schedules, and up to
+    the 32768 cap under rotate-once.)"""
+    return _smem_bytes(n, 1, mode, schedule) <= _SMEM_LIMIT
 
 
 _PTR = ctypes.c_void_p
+_INT = ctypes.c_int
 
 
-def _lib():
+def _lib(experts: bool):
+    """The loaded library of the dense kernels (``csrc/quant_dot.cu``: K4,
+    K5) or of the expert kernels (``csrc/quant_dot_experts.cu``: K6, K6s),
+    built first if needed. The expert entry points take the expert count
+    and the rows per expert and batch row (c) after d."""
     from repro_torch.kernels import build
 
-    lib = build.load("quant_dot")
-    fn = lib.quant_dot_launch
+    stem = "quant_dot_experts" if experts else "quant_dot"
+    lib = build.load(stem)
+    fn = getattr(lib, f"{stem}_launch")
     if fn.argtypes is None:
-        fn.argtypes = [_PTR, _PTR, _PTR, _PTR, ctypes.c_longlong, ctypes.c_int,
-                       ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                       ctypes.c_float, ctypes.c_int, _PTR]
-        fn.restype = ctypes.c_int
-        shape = lib.quant_dot_shape
-        shape.argtypes = [ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                          ctypes.POINTER(ctypes.c_int),
-                          ctypes.POINTER(ctypes.c_longlong),
-                          ctypes.POINTER(ctypes.c_longlong)]
-        shape.restype = ctypes.c_int
+        extra = [_INT, _INT] if experts else []
+        fn.argtypes = ([_PTR] * 4 + [ctypes.c_longlong, _INT, _INT] + extra
+                       + [_INT] * 4 + [ctypes.c_float, _INT, _PTR])
+        fn.restype = _INT
+        shape = getattr(lib, f"{stem}_shape")
+        shape.argtypes = ([ctypes.c_longlong, _INT, _INT] + extra[:1] + [_INT, _INT]
+                          + [ctypes.POINTER(_INT), ctypes.POINTER(ctypes.c_longlong),
+                             ctypes.POINTER(ctypes.c_longlong)])
+        shape.restype = _INT
     return lib
 
 
-def launch_shape(m: int, n: int, d: int, mode: str):
-    """(rows per block, dynamic shared-memory bytes, blocks) of a K4 call,
-    as the kernel's launcher decides them (builds the kernel)."""
+def launch_shape(m: int, n: int, d: int, mode: str, experts: int = 0,
+                 schedule: str = "rotate_once"):
+    """(rows per block, dynamic shared-memory bytes, blocks) of a launch
+    over ``experts`` experts of m rows each (0: the dense K4 / K5), as the
+    kernels' launcher decides them (builds the kernels)."""
     from repro_torch.kernels.fused_quant import MODE_CODES
 
     bm, smem, blocks = ctypes.c_int(), ctypes.c_longlong(), ctypes.c_longlong()
-    _lib().quant_dot_shape(m, n, d, MODE_CODES[mode], ctypes.byref(bm),
-                           ctypes.byref(smem), ctypes.byref(blocks))
+    lead = (m, n, d, experts) if experts else (m, n, d)
+    lib = _lib(bool(experts))
+    shape = lib.quant_dot_experts_shape if experts else lib.quant_dot_shape
+    shape(*lead, int(schedule == "streamed"), MODE_CODES[mode], ctypes.byref(bm),
+          ctypes.byref(smem), ctypes.byref(blocks))
     return bm.value, smem.value, blocks.value
 
 
-def quant_dot_cuda(x2: torch.Tensor, wq: torch.Tensor, sw: torch.Tensor,
-                   out: torch.Tensor, plan) -> torch.Tensor:
-    """Launch K4 on contiguous (m, p) CUDA rows ``x2`` against the
-    contiguous (p, d) storage-dtype weight ``wq`` and its (d,) f32 scales
-    ``sw``, into ``out`` ((m, d), the io dtype), on the current stream."""
+# ------------------------------------------------------------ the launches
+def _launch(x, wq, sw, out, plan, streamed: bool) -> None:
+    """Check the operands of one launch and launch it on the current
+    stream. Dense: x (m, n), wq (n, d), sw (d,), out (m, d). Experts: x
+    (B, E, c, n), wq (E, n, d), sw (E, d), out (B, E, c, d). All
+    contiguous CUDA tensors on one device; x and out in the io dtype, wq in
+    the mode's storage dtype, sw f32."""
     from repro_torch.kernels.fused_quant import MODE_CODES
     from repro_torch.kernels.hadacore import (DTYPE_CODES, check_rows,
                                               scale_in_compute_dtype)
@@ -194,65 +247,155 @@ def quant_dot_cuda(x2: torch.Tensor, wq: torch.Tensor, sw: torch.Tensor,
     if epi is None or epi.dequant or not epi.per_token or plan.grouped:
         raise ValueError("quant_dot kernel takes per-token (q, scales) plans "
                          f"of a power-of-2 size, got {epi!r} n={plan.n}")
-    check_rows(x2, x2, plan)
-    m, n = x2.shape
+    n = x.shape[-1]
+    experts = x.ndim == 4
+    E, cap = (x.shape[1], x.shape[2]) if experts else (1, 1)
+    m = x.numel() // (n * E) if n * E else 0
     d = wq.shape[-1]
+    check_rows(x.view(-1, n), x.view(-1, n), plan)
     if not (wq.is_cuda and sw.is_cuda and out.is_cuda
-            and wq.device == sw.device == out.device == x2.device):
+            and wq.device == sw.device == out.device == x.device):
         raise ValueError("quant_dot kernel operands must be CUDA tensors on one device")
-    if wq.shape != (n, d) or wq.dtype != QSPECS[epi.mode][1] or not wq.is_contiguous():
-        raise ValueError(f"wq must be contiguous ({n}, d) {QSPECS[epi.mode][1]}, got "
+    wshape = (E, n, d) if experts else (n, d)
+    if wq.shape != wshape or wq.dtype != QSPECS[epi.mode][1] or not wq.is_contiguous():
+        raise ValueError(f"wq must be contiguous {wshape} {QSPECS[epi.mode][1]}, got "
                          f"{tuple(wq.shape)} {wq.dtype}")
-    if sw.shape != (d,) or sw.dtype != torch.float32 or not sw.is_contiguous():
-        raise ValueError(f"sw must be contiguous ({d},) float32, got "
+    sshape = (E, d) if experts else (d,)
+    if sw.shape != sshape or sw.dtype != torch.float32 or not sw.is_contiguous():
+        raise ValueError(f"sw must be contiguous {sshape} float32, got "
                          f"{tuple(sw.shape)} {sw.dtype}")
-    if out.shape != (m, d) or out.dtype != x2.dtype or not out.is_contiguous():
-        raise ValueError(f"out must be contiguous ({m}, {d}) {x2.dtype}, got "
+    oshape = (*x.shape[:-1], d)
+    if out.shape != oshape or out.dtype != x.dtype or not out.is_contiguous():
+        raise ValueError(f"out must be contiguous {oshape} {x.dtype}, got "
                          f"{tuple(out.shape)} {out.dtype}")
-    if not kernel_fits(n, epi.mode):
-        raise ValueError(f"quant_dot kernel cannot take n={n} in {epi.mode}")
-    stream = torch.cuda.current_stream(x2.device).cuda_stream
-    rc = _lib().quant_dot_launch(
-        x2.data_ptr(), wq.data_ptr(), sw.data_ptr(), out.data_ptr(), m, n, d,
-        plan.r, DTYPE_CODES[x2.dtype], DTYPE_CODES[torch_dtype(plan.compute_dtype)],
-        scale_in_compute_dtype(plan), MODE_CODES[epi.mode], stream)
+    schedule = "streamed" if streamed else "rotate_once"
+    if not kernel_fits(n, epi.mode, schedule):
+        raise ValueError(f"quant_dot kernel ({schedule}) cannot take n={n} in {epi.mode}")
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    lead = (m, n, d, E, cap) if experts else (m, n, d)
+    lib = _lib(experts)
+    launch = lib.quant_dot_experts_launch if experts else lib.quant_dot_launch
+    rc = launch(x.data_ptr(), wq.data_ptr(), sw.data_ptr(), out.data_ptr(), *lead,
+                int(streamed), plan.r, DTYPE_CODES[x.dtype],
+                DTYPE_CODES[torch_dtype(plan.compute_dtype)], scale_in_compute_dtype(plan),
+                MODE_CODES[epi.mode], stream)
     if rc != 0:
         raise RuntimeError(f"quant_dot kernel launch failed: CUDA error {rc}")
+
+
+def quant_dot_cuda(x2, wq, sw, out, plan) -> torch.Tensor:
+    """Launch K4 (rotate-once) on contiguous (m, n) CUDA rows ``x2``
+    against the (n, d) storage-dtype weight ``wq`` and its (d,) f32 scales
+    ``sw``, into ``out`` ((m, d), the io dtype), on the current stream."""
+    _launch(x2, wq, sw, out, plan, streamed=False)
     quant_dot_cuda.launches += 1
     return out
 
 
-quant_dot_cuda.launches = 0
+def quant_dot_streamed_cuda(x2, wq, sw, out, plan) -> torch.Tensor:
+    """Launch K5: K4 with the weight tiles streamed through the ring."""
+    _launch(x2, wq, sw, out, plan, streamed=True)
+    quant_dot_streamed_cuda.launches += 1
+    return out
+
+
+def quant_dot_experts_cuda(x4, wq, sw, out, plan) -> torch.Tensor:
+    """Launch K6 (rotate-once) on contiguous (B, E, c, n) CUDA rows ``x4``
+    against the (E, n, d) expert weights ``wq`` and their (E, d) f32
+    scales ``sw``, into ``out`` ((B, E, c, d), the io dtype). The kernel
+    reads expert e's B * c rows in place, through their strides."""
+    _launch(x4, wq, sw, out, plan, streamed=False)
+    quant_dot_experts_cuda.launches += 1
+    return out
+
+
+def quant_dot_experts_streamed_cuda(x4, wq, sw, out, plan) -> torch.Tensor:
+    """Launch K6s: K6 with the weight tiles streamed through the ring."""
+    _launch(x4, wq, sw, out, plan, streamed=True)
+    quant_dot_experts_streamed_cuda.launches += 1
+    return out
+
+
+for _fn in (quant_dot_cuda, quant_dot_streamed_cuda, quant_dot_experts_cuda,
+            quant_dot_experts_streamed_cuda):
+    _fn.launches = 0
+
+
+# --------------------------------------------------------- plain versions
+def _rotate_quantize_plain(x: torch.Tensor, plan):
+    """K1's plain passes in the compute dtype, then per-token
+    ``_quantize_rows`` of the f32 copy: (q, s)."""
+    from repro_torch.kernels.hadacore import transform_plain
+
+    y = transform_plain(x.to(torch_dtype(plan.compute_dtype)), plan)
+    return _quantize_rows(y.to(torch.float32), plan.epilogue.mode)
 
 
 def quant_dot_plain(x: torch.Tensor, wq: torch.Tensor, sw: torch.Tensor,
                     plan) -> torch.Tensor:
-    """K4's plain PyTorch version (the reference's ``xla_quant_dot``): K1's
-    plain passes in the compute dtype, per-token ``_quantize_rows`` of the
-    f32 copy, then ``epilogue_dot`` against ``wq`` (n, d) and ``sw``.
-    Returns (..., d) in x's dtype."""
-    from repro_torch.kernels.hadacore import transform_plain
-
-    mode = plan.epilogue.mode
-    y = transform_plain(x.to(torch_dtype(plan.compute_dtype)), plan)
-    q, s = _quantize_rows(y.to(torch.float32), mode)
+    """The plain version of K4 and K5 (the reference's ``xla_quant_dot``):
+    rotate, quantize per token, then ``epilogue_dot`` against ``wq`` (n, d)
+    and ``sw``. Returns (..., d) in x's dtype."""
+    q, s = _rotate_quantize_plain(x, plan)
     d = wq.shape[-1]
-    return epilogue_dot(q, s, wq, sw.reshape(1, d), mode, x.dtype)
+    return epilogue_dot(q, s, wq, sw.reshape(1, d), plan.epilogue.mode, x.dtype)
+
+
+def quant_dot_experts_plain(x: torch.Tensor, wq: torch.Tensor, sw: torch.Tensor,
+                            plan) -> torch.Tensor:
+    """The plain version of K6 and K6s: rotate and quantize every row of
+    x (..., E, c, n) as ``quant_dot_plain`` does, then contract expert e's
+    rows with ``wq[e]`` (n, d) and ``sw[e]``, one expert at a time.
+    Returns (..., E, c, d) in x's dtype."""
+    q, s = _rotate_quantize_plain(x, plan)
+    E, _, d = wq.shape
+    return experts_epilogue_dot(q, s, wq, sw.reshape(E, 1, d), plan.epilogue.mode,
+                                x.dtype)
+
+
+# ------------------------------------------------------------ dispatchers
+def _on_cuda(x: torch.Tensor, name: str) -> bool:
+    if x.device.type == "cpu":
+        return False
+    if x.device.type != "cuda":
+        raise ValueError(f"{name} runs on CPU or CUDA tensors, got {x.device}")
+    return True
 
 
 def quant_dot(x: torch.Tensor, wq: torch.Tensor, sw: torch.Tensor, plan,
               schedule=None) -> torch.Tensor:
     """Rotate x's last axis (== plan.p), quantize per token and contract
-    with ``wq`` (n, d): the plain version for a CPU tensor, the kernel for
-    a CUDA tensor. ``schedule`` must resolve to ``rotate_once``."""
-    _resolve_schedule(schedule)
-    if x.device.type == "cpu":
+    with ``wq`` (n, d): the plain version for a CPU tensor, the kernel of
+    the resolved schedule for a CUDA tensor (K4 rotate-once, K5
+    streamed)."""
+    streamed = _resolve_schedule(schedule) == "streamed"
+    if not _on_cuda(x, "quant_dot"):
         return quant_dot_plain(x, wq, sw, plan)
-    if x.device.type != "cuda":
-        raise ValueError(f"quant_dot runs on CPU or CUDA tensors, got {x.device}")
     d = wq.shape[-1]
     x2 = x.contiguous().view(-1, plan.p)
     out = torch.empty((x2.shape[0], d), dtype=x.dtype, device=x.device)
-    quant_dot_cuda(x2, wq.contiguous(), sw.reshape(d).to(torch.float32).contiguous(),
-                   out, plan)
+    launch = quant_dot_streamed_cuda if streamed else quant_dot_cuda
+    launch(x2, wq.contiguous(), sw.reshape(d).to(torch.float32).contiguous(), out, plan)
+    return out.view(*x.shape[:-1], d)
+
+
+def quant_dot_experts(x: torch.Tensor, wq: torch.Tensor, sw: torch.Tensor, plan,
+                      schedule=None) -> torch.Tensor:
+    """The stacked-expert form, ``(..., E, c, n) x (E, n, d) -> (..., E, c,
+    d)`` with per-(expert, out-channel) scales ``sw`` (E, 1, d): the plain
+    version for a CPU tensor, the kernel of the resolved schedule for a
+    CUDA tensor (K6 rotate-once, K6s streamed; ``revisit`` runs
+    rotate-once)."""
+    streamed = _resolve_schedule(schedule, experts=True) == "streamed"
+    if not _on_cuda(x, "quant_dot_experts"):
+        return quant_dot_experts_plain(x, wq, sw, plan)
+    E, n, d = wq.shape
+    if x.ndim < 3 or x.shape[-3] != E:
+        raise ValueError(f"expert activations must be (..., {E}, c, {n}), got "
+                         f"{tuple(x.shape)}")
+    x4 = x.contiguous().view(-1, E, x.shape[-2], n)
+    out = torch.empty((*x4.shape[:-1], d), dtype=x.dtype, device=x.device)
+    launch = quant_dot_experts_streamed_cuda if streamed else quant_dot_experts_cuda
+    launch(x4, wq.contiguous(), sw.reshape(E, d).to(torch.float32).contiguous(), out,
+           plan)
     return out.view(*x.shape[:-1], d)

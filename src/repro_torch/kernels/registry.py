@@ -5,14 +5,16 @@ A backend is a transform implementation registered with
 ``@register_backend``; ``select_backend`` resolves one per plan:
 
   cuda  -- the hand-written Hopper kernels (``repro_torch/csrc``): K1
-           ``hadacore`` (transform), K2 ``fused_dequant``, K3 ``fused`` and
-           K4 ``quant_dot``, up to ``MAX_KERNEL_SIZE`` points. Auto-selected
-           for CUDA tensors. Its wrappers run the plain PyTorch versions on
-           CPU tensors and launch the kernels on CUDA tensors.
+           ``hadacore`` (transform), K2 ``fused_dequant``, K3 ``fused``, K4 /
+           K5 ``quant_dot`` (rotate-once / streamed) and K6 / K6s
+           ``quant_dot_experts``, up to ``MAX_KERNEL_SIZE`` points.
+           Auto-selected for CUDA tensors. Its wrappers run the plain
+           PyTorch versions on CPU tensors and launch the kernels on CUDA
+           tensors.
   torch -- the plain PyTorch versions (the twin of the reference's ``xla``
-           backend): the transform, and ``quant_dot`` as the unfused math;
-           auto-selected for CPU tensors only; a CUDA tensor runs it only
-           when it is asked for by name.
+           backend): the transform, and ``quant_dot`` / ``quant_dot_experts``
+           as the unfused math; auto-selected for CPU tensors only; a CUDA
+           tensor runs it only when it is asked for by name.
   ref   -- the paper's Listing-1 scalar FWHT oracle (never auto-picked).
 
 An explicit request wins; otherwise the ``REPRO_HADAMARD_BACKEND``
@@ -195,8 +197,9 @@ class Backend:
     """A named transform implementation with optional single-kernel paths
     (None = the dispatcher runs transform + the plain epilogue, or the
     unfused quantized GEMM): ``fused`` (rotate + quantize to
-    ``(q, scales)``), ``fused_dequant`` (rotate + fake quant) and
-    ``quant_dot`` (rotate + quantize + GEMM)."""
+    ``(q, scales)``), ``fused_dequant`` (rotate + fake quant),
+    ``quant_dot`` (rotate + quantize + GEMM) and ``quant_dot_experts``
+    (the same over stacked expert weights)."""
 
     name: str = "?"
     priority: int = 0
@@ -213,6 +216,7 @@ class Backend:
     fused = None
     fused_dequant = None
     quant_dot = None
+    quant_dot_experts = None
 
 
 @register_backend
@@ -246,6 +250,11 @@ class CudaBackend(Backend):
 
         return quant_dot(x, wq, sw, plan, schedule)
 
+    def quant_dot_experts(self, x, wq, sw, plan, schedule=None):
+        from repro_torch.kernels.quant_dot import quant_dot_experts
+
+        return quant_dot_experts(x, wq, sw, plan, schedule)
+
 
 @register_backend
 class TorchBackend(Backend):
@@ -271,6 +280,13 @@ class TorchBackend(Backend):
 
         _resolve_schedule(schedule)
         return quant_dot_plain(x, wq, sw, plan)
+
+    def quant_dot_experts(self, x, wq, sw, plan, schedule=None):
+        from repro_torch.kernels.quant_dot import (_resolve_schedule,
+                                                   quant_dot_experts_plain)
+
+        _resolve_schedule(schedule, experts=True)
+        return quant_dot_experts_plain(x, wq, sw, plan)
 
 
 @register_backend

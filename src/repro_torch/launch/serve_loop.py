@@ -6,9 +6,16 @@ requests mid-decode over pre-quantized weights (twin of
         --scale 1.0 --quant fp8_e4m3 --rotate hadamard
     PYTHONPATH=src python -m repro_torch.launch.serve_loop \
         --arch phi4-mini-3.8b --scale 1.0 --quant int8 --rotate hadamard
+    PYTHONPATH=src python -m repro_torch.launch.serve_loop \
+        --arch llama4-maverick-400b-a17b --scale 0.005 --quant fp8_e4m3 \
+        --rotate hadamard --device cpu
 
 (phi4-mini's power-of-2 d_ff runs the down projection as one fused
-rotate -> quantize -> GEMM launch, K4, per layer.) Serves a seeded Poisson arrival stream (0.5 arrivals per decode step,
+rotate -> quantize -> GEMM launch, K4, per layer; llama4-maverick's MoE
+layers run their 128 experts' down projections as one K6 launch. At full
+scale maverick's 48 layers do not fit one 80 GB card.
+``REPRO_QUANT_DOT_SCHEDULE=streamed`` takes the streamed kernels, K5 and
+K6s.) Serves a seeded Poisson arrival stream (0.5 arrivals per decode step,
 prompts of 8 to --prefill-len tokens, 8 to 32 new tokens each) on the CUDA
 device (``--device cpu`` runs the plain versions on the CPU)
 and prints tokens/s, slot occupancy, p50/p99 per-token latency and the

@@ -1,17 +1,21 @@
-"""Model assembly for dense causal decoders (twin of ``repro.models.lm``).
+"""Model assembly for causal decoders, dense and MoE (twin of
+``repro.models.lm``).
 
 The reference stacks each group's parameters over a leading layer axis and
 runs the group as one ``lax.scan``; the port keeps the layers as a plain
-list of per-layer dicts and loops over them. Parameters:
+list of per-layer dicts, in execution order, and loops over them.
+Parameters:
 
     {"emb": (padded_vocab, d), "final_norm": {...}, "unemb": (d, padded_vocab),
      "layers": [{"norm1", "attn": {wq, wk, wv, wo}, "norm2",
                  "mlp": {w_gate, w_up, w_down}}, ...]}
 
 with no "unemb" when ``cfg.tie_embeddings`` (the logits contract with
-``emb`` transposed),
+``emb`` transposed). A layer of kind 'moe' holds "moe": {router, experts:
+{w_gate, w_up (E, d, f), w_down (E, f, d)}, shared: {...}} in place of
+"mlp"; ``cfg.layer_kinds`` names each layer's kind.
 
-any matrix possibly a pre-quantized :class:`~repro_torch.core.wquant.QTensor`.
+Any matrix may be a pre-quantized :class:`~repro_torch.core.wquant.QTensor`.
 KV caches are a list with one ``{"k", "v"}`` dict per layer, each
 (B, T, KH, hd) in the KV dtype -- the reference's per-layer layout.
 
@@ -34,20 +38,27 @@ from repro_torch.models.common import (apply_norm, dense_init, dtype_of,
 from repro_torch.models.config import ModelConfig
 
 
+KINDS = ("attn", "moe")
+
+
 def _check_kinds(cfg: ModelConfig) -> None:
-    bad = set(cfg.layer_kinds) - {"attn"}
+    bad = set(cfg.layer_kinds) - set(KINDS)
     if bad:
         raise NotImplementedError(
-            f"the port runs dense attention layers only; {cfg.name!r} has "
+            f"the port runs the layer kinds {KINDS}; {cfg.name!r} has "
             f"{sorted(bad)}")
 
 
-def _init_block(gen: torch.Generator, cfg: ModelConfig, device) -> dict:
+def _init_block(gen: torch.Generator, cfg: ModelConfig, kind: str, device) -> dict:
     d = cfg.d_model
-    return {"norm1": init_norm(cfg, d, device),
-            "attn": A.init_attention(gen, cfg, device),
-            "norm2": init_norm(cfg, d, device),
-            "mlp": M.init_mlp(gen, cfg, device)}
+    p = {"norm1": init_norm(cfg, d, device),
+         "attn": A.init_attention(gen, cfg, device),
+         "norm2": init_norm(cfg, d, device)}
+    if kind == "moe":
+        p["moe"] = M.init_moe(gen, cfg, device)
+    else:
+        p["mlp"] = M.init_mlp(gen, cfg, device)
+    return p
 
 
 def _quantized(cfg: ModelConfig, tree, keys=()):
@@ -63,8 +74,9 @@ def _quantized(cfg: ModelConfig, tree, keys=()):
 def init_lm(cfg: ModelConfig, *, seed: int = 0, device="cuda") -> Dict[str, Any]:
     """Random parameters drawn from a ``torch.Generator`` seeded with
     ``seed`` on ``device``. With ``cfg.weight_quant == 'int8'`` each leaf
-    is quantized as soon as it is drawn, layer by layer, so the full
-    16-bit copy of the model never exists at once."""
+    is quantized as soon as it is drawn, layer by layer (expert stacks a
+    chunk of experts at a time), so the full 16-bit copy of the model never
+    exists at once."""
     _check_kinds(cfg)
     dev = resolve_device(device)
     gen = torch.Generator(device=dev).manual_seed(seed)
@@ -77,15 +89,18 @@ def init_lm(cfg: ModelConfig, *, seed: int = 0, device="cuda") -> Dict[str, Any]
     if not cfg.tie_embeddings:
         params["unemb"] = _quantized(
             cfg, dense_init(gen, cfg.d_model, cfg.padded_vocab, dt), ("unemb",))
-    params["layers"] = [_quantized(cfg, _init_block(gen, cfg, dev), ("layers",))
-                        for _ in range(cfg.num_layers)]
+    params["layers"] = [_quantized(cfg, _init_block(gen, cfg, kind, dev), ("layers",))
+                        for kind in cfg.layer_kinds]
     return params
 
 
 def _dequant_layer(cfg: ModelConfig, lp: dict, dtype) -> dict:
     """Dequantize a layer's QTensor leaves, keeping the quant_dot CONSUMER
-    leaves (down projections stored in the config's rotation-quant mode)
-    quantized: the ``QuantDotSpec`` site contracts them directly."""
+    leaves (down projections, dense or per expert, stored in the config's
+    rotation-quant mode) quantized: the ``QuantDotSpec`` site contracts them
+    directly. Expert stacks dequantize a chunk of experts at a time
+    (``QTensor.dequant``): one MoE layer's gate and up in f32 at maverick's
+    width would be 43 GB."""
     qc = cfg.quant
 
     def one(p, keys):
@@ -128,7 +143,15 @@ def _logits(cfg: ModelConfig, params, x: torch.Tensor) -> torch.Tensor:
     return logits
 
 
-def _block_prefill(cfg, p, x, positions, want_cache: bool):
+def _ffn(cfg, kind: str, p, h: torch.Tensor):
+    """The block's feed-forward half: (y, aux); aux is the MoE load-
+    balancing loss (0 for a dense MLP)."""
+    if kind == "moe":
+        return M.apply_moe(cfg, p["moe"], h)
+    return M.apply_mlp(cfg, p["mlp"], h), 0.0
+
+
+def _block_prefill(cfg, kind, p, x, positions, want_cache: bool):
     h = apply_norm(cfg, p["norm1"], x)
     cache = None
     if want_cache:
@@ -138,13 +161,15 @@ def _block_prefill(cfg, p, x, positions, want_cache: bool):
     else:
         y = A.apply_attention(cfg, p["attn"], h, positions)
     x = x + y
-    h = apply_norm(cfg, p["norm2"], x)
-    return x + M.apply_mlp(cfg, p["mlp"], h), cache
+    y, aux = _ffn(cfg, kind, p, apply_norm(cfg, p["norm2"], x))
+    return x + y, aux, cache
 
 
 def lm_forward(cfg: ModelConfig, params, batch, want_cache: bool = False):
     """Full-sequence forward. ``batch["tokens"]``: (B, S) int. Returns
-    (logits (B, S, padded_vocab), aux = 0, caches or None)."""
+    (logits (B, S, padded_vocab), aux (the MoE layers' load-balancing
+    losses summed; 0 for a dense model), caches or None). Each layer's
+    dequantized parameters live only while the layer runs."""
     _check_kinds(cfg)
     tokens = batch["tokens"]
     x = _embed(cfg, params, tokens)
@@ -152,12 +177,13 @@ def lm_forward(cfg: ModelConfig, params, batch, want_cache: bool = False):
     positions = torch.arange(S, dtype=torch.int32,
                              device=x.device)[None].expand(B, S)
     caches: Optional[List[dict]] = [] if want_cache else None
-    for lp in params["layers"]:
-        lp = _layer_params(cfg, lp, x.dtype)
-        x, cache = _block_prefill(cfg, lp, x, positions, want_cache)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    for kind, lp in zip(cfg.layer_kinds, params["layers"]):
+        x, a, cache = _block_prefill(cfg, kind, _layer_params(cfg, lp, x.dtype),
+                                     x, positions, want_cache)
+        aux = aux + a
         if want_cache:
             caches.append(cache)
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     return _logits(cfg, params, x), aux, caches
 
 
@@ -195,12 +221,15 @@ def lm_decode_step(cfg: ModelConfig, params, caches, tokens: torch.Tensor,
         positions = cache_pos[:, None].to(torch.int32)
     else:
         positions = cache_pos.reshape(1, 1).expand(B, 1).to(torch.int32)
-    for lp, c in zip(params["layers"], caches):
-        lp = _layer_params(cfg, lp, x.dtype)
-        h = apply_norm(cfg, lp["norm1"], x)
-        y, c["k"], c["v"] = A.decode_attention(cfg, lp["attn"], h, c["k"],
-                                               c["v"], cache_pos, positions)
-        x = x + y
-        h = apply_norm(cfg, lp["norm2"], x)
-        x = x + M.apply_mlp(cfg, lp["mlp"], h)
+    for kind, lp, c in zip(cfg.layer_kinds, params["layers"], caches):
+        x = _block_decode(cfg, kind, _layer_params(cfg, lp, x.dtype), x, c,
+                          cache_pos, positions)
     return _logits(cfg, params, x), caches
+
+
+def _block_decode(cfg, kind, p, x, c, cache_pos, positions):
+    h = apply_norm(cfg, p["norm1"], x)
+    y, c["k"], c["v"] = A.decode_attention(cfg, p["attn"], h, c["k"], c["v"],
+                                           cache_pos, positions)
+    x = x + y
+    return x + _ffn(cfg, kind, p, apply_norm(cfg, p["norm2"], x))[0]

@@ -40,9 +40,11 @@ from repro_torch.serving.scheduler import Completion, Request, Scheduler
 
 def _validate_config(cfg: ModelConfig) -> None:
     """Continuous batching needs position-addressable per-token caches and
-    causal attention (right-padded prefill is exact only then)."""
+    causal attention (right-padded prefill is exact only then): stacks of
+    'attn' and 'moe' layers. (A MoE layer's capacity counts the padding
+    too, but only after the real tokens, so it never drops one of them.)"""
     kinds = set(cfg.layer_kinds)
-    if kinds != {"attn"}:
+    if not kinds <= {"attn", "moe"}:
         raise ValueError(
             f"serving engine supports causal attention stacks only; config "
             f"{cfg.name!r} has kinds={sorted(kinds)}")

@@ -1,11 +1,17 @@
-"""PyTorch port, fused quantized GEMM (K4): the plain version of the rotate
--> per-token quantize -> int8 / fp8 GEMM kernel, the public ``quant_dot``
-and its dispatch rule, held against the JAX reference on the CPU.
+"""PyTorch port, fused quantized GEMMs (K4, K5, K6, K6s): the plain
+versions of the rotate -> per-token quantize -> int8 / fp8 GEMM kernels,
+dense and over stacked experts, under both ported schedules; the public
+``quant_dot`` / ``quant_dot_experts`` and their dispatch rules, held against
+the JAX reference on the CPU.
 
-The reference's fused kernel (``pallas_quant_dot``) runs here in interpret
-mode once ``pltpu.TPUCompilerParams`` names jax's ``pltpu.CompilerParams``
-(renamed in jax 0.9); the tests set that alias inside themselves only
-(``monkeypatch``), so no other test sees it.
+The reference's fused kernels (``pallas_quant_dot``,
+``pallas_quant_dot_experts``) run here in interpret mode once
+``pltpu.TPUCompilerParams`` names jax's ``pltpu.CompilerParams`` (renamed
+in jax 0.9); the tests set that alias inside themselves only
+(``monkeypatch``), so no other test sees it. Their streamed kernels run
+(rather than fall back to rotate-once) when
+``REPRO_QUANT_DOT_STREAM_INTERPRET`` is set, which the streamed tests also
+do inside themselves only.
 
 Tolerances: int8 bitwise (exact int32 accumulation, then ``acc * s * sw``
 in the reference's order); fp8 within 2^-7 of the row's largest |output|
@@ -21,12 +27,14 @@ import torch
 from repro.core.api import plan_for as jplan_for
 from repro.core.api import QuantEpilogue as JQuantEpilogue
 from repro.core.api import quant_dot as jquant_dot
+from repro.core.api import quant_dot_experts as jquant_dot_experts
 from repro.core.wquant import quantize_weight as jquantize_weight
 from repro.kernels import quant_dot as jqd
 
 from repro_torch.bridge import to_torch
 from repro_torch.core import api, wquant
-from repro_torch.core.api import QuantDotSpec, QuantEpilogue, plan_for, quant_dot
+from repro_torch.core.api import (QuantDotSpec, QuantEpilogue, plan_for, quant_dot,
+                                  quant_dot_experts)
 from repro_torch.kernels import quant_dot as qd
 from repro_torch.kernels import registry
 
@@ -53,6 +61,23 @@ def _case(m, n, d, mode, seed, dt="bfloat16"):
     tt = wquant.QTensor(to_torch(np.asarray(jt.q), "cpu"),
                         to_torch(np.asarray(jt.scale), "cpu"), mode)
     return x, w, jt, tt
+
+
+def _experts_case(shape, mode, seed):
+    """Seeded expert activations (Bt, E, c, n) as numpy f32 with all-zero
+    rows (all of expert 1's rows in batch 0, and the last row), the
+    reference's stacked (E, n, d) weight quantized per (expert,
+    out-channel), and the same weight as a port QTensor."""
+    Bt, E, c, n, d = shape
+    rng = np.random.default_rng(seed)
+    x = (rng.standard_normal((Bt, E, c, n)) * 3).astype(np.float32)
+    x[0, 1] = 0.0
+    x[-1, -1, -1] = 0.0
+    w = (rng.standard_normal((E, n, d)) / np.sqrt(n)).astype(ml_dtypes.bfloat16)
+    jt = jax.jit(lambda a: jquantize_weight(a, mode))(jnp.asarray(w))
+    tt = wquant.QTensor(to_torch(np.asarray(jt.q), "cpu"),
+                        to_torch(np.asarray(jt.scale), "cpu"), mode)
+    return x, jt, tt, w
 
 
 def _close(got: torch.Tensor, want, mode: str) -> None:
@@ -113,6 +138,116 @@ def test_public_quant_dot_matches_reference(mode):
     got_raw = quant_dot(xt, to_torch(np.asarray(w), "cpu"), mode=mode)
     assert wquant.QUANTIZE_WEIGHT_CALLS == calls + 1
     _close(got_raw.reshape(6, 72), want_raw.reshape(6, 72), mode)
+
+
+# ------------------------------------------------------------ K6 parity
+EXPERT_SHAPES = [(2, 3, 2, 128, 40), (1, 4, 1, 256, 96)]   # (Bt, E, c, n, d)
+
+
+@pytest.mark.parametrize("mode", MODES)
+@pytest.mark.parametrize("shape", EXPERT_SHAPES)
+def test_plain_k6_matches_pallas_experts_kernel_interpret(pallas_alias, shape, mode):
+    """The reference's 3-D expert kernel on (Bt, E, c, n) -> d with Bt > 1
+    and c > 1, all-zero rows, and d off the tiles (40 and 96 columns):
+    int8 bitwise, fp8 within 2^-7 of the row max; the all-zero rows give
+    exact zeros in both. The public ``quant_dot_experts`` and the
+    ``bind_experts`` site take a CPU tensor to the same plain version."""
+    Bt, E, c, n, d = shape
+    x, jt, tt, w = _experts_case(shape, mode, seed=n + d)
+    xj = jnp.asarray(x).astype(jnp.bfloat16)
+    jplan = jplan_for(n, dtype=jnp.bfloat16, backend="pallas",
+                      epilogue=JQuantEpilogue(mode))
+    want = jqd.pallas_quant_dot_experts(xj, jt.q, jt.scale, jplan, True)
+    xt = torch.from_numpy(x).to(torch.bfloat16)
+    plan = plan_for(n, dtype=torch.bfloat16, backend="cuda", device_type="cpu",
+                    epilogue=QuantEpilogue(mode))
+    got = qd.quant_dot_experts_plain(xt, tt.q, tt.scale, plan)
+    assert got.dtype == torch.bfloat16 and got.shape == (Bt, E, c, d)
+    _close(got.reshape(-1, d), want.reshape(-1, d), mode)
+    assert not got[0, 1].any() and not got[-1, -1, -1].any()
+    assert not np.asarray(want[0, 1].astype(jnp.float32)).any()
+    before = qd.quant_dot_experts_cuda.launches
+    assert torch.equal(quant_dot_experts(xt, tt, plan), got)
+    spec = QuantDotSpec(n=n, mode=mode, backend="cuda")
+    assert torch.equal(spec.bind_experts(tt)(xt), got)
+    # a raw weight is quantized per (expert, out-channel) on the fly
+    calls = wquant.QUANTIZE_WEIGHT_CALLS
+    assert torch.equal(quant_dot_experts(xt, to_torch(w, "cpu"), plan), got)
+    assert wquant.QUANTIZE_WEIGHT_CALLS == calls + 1
+    assert qd.quant_dot_experts_cuda.launches == before
+
+
+@pytest.mark.parametrize("mode", MODES)
+@pytest.mark.parametrize("form", ["dense", "experts"])
+def test_plain_streamed_matches_reference_streamed_kernels(pallas_alias, monkeypatch,
+                                                           form, mode):
+    """``schedule="streamed"`` (K5 / K6s on the card) against the
+    reference's streamed kernels, run on the interpreter's synchronous DMA
+    simulation: int8 bitwise, fp8 within 2^-7 of the row max. The
+    reference's streamed outputs equal its rotate-once outputs bitwise, the
+    property the port's kernels keep on the card."""
+    monkeypatch.setenv(jqd.STREAM_INTERPRET_ENV, "1")
+    jplan = jplan_for(128, dtype=jnp.bfloat16, backend="pallas",
+                      epilogue=JQuantEpilogue(mode))
+    plan = plan_for(128, dtype=torch.bfloat16, backend="cuda", device_type="cpu",
+                    epilogue=QuantEpilogue(mode))
+    if form == "dense":
+        x, _, jt, tt = _case(9, 128, 300, mode, seed=11)
+        xj = jnp.asarray(x, jnp.bfloat16)
+        want = jqd.pallas_quant_dot(xj, jt.q, jt.scale, jplan, True, schedule="streamed")
+        once = jqd.pallas_quant_dot(xj, jt.q, jt.scale, jplan, True)
+        got = quant_dot(torch.from_numpy(x).to(torch.bfloat16), tt, plan,
+                        schedule="streamed")
+    else:
+        x, jt, tt, _ = _experts_case((2, 3, 2, 128, 300), mode, seed=12)
+        xj = jnp.asarray(x, jnp.bfloat16)
+        want = jqd.pallas_quant_dot_experts(xj, jt.q, jt.scale, jplan, True,
+                                            schedule="streamed")
+        once = jqd.pallas_quant_dot_experts(xj, jt.q, jt.scale, jplan, True)
+        got = quant_dot_experts(torch.from_numpy(x).to(torch.bfloat16), tt, plan,
+                                schedule="streamed")
+    np.testing.assert_array_equal(np.asarray(want.astype(jnp.float32)),
+                                  np.asarray(once.astype(jnp.float32)))
+    _close(got.reshape(-1, 300), want.reshape(-1, 300), mode)
+
+
+def test_experts_revisit_runs_rotate_once(pallas_alias):
+    """The reference's expert grid has no revisit body and runs rotate-once
+    for it; so does the port (the dense revisit, K8, raises instead)."""
+    x, jt, tt, _ = _experts_case((1, 2, 3, 128, 24), "int8", seed=13)
+    xt = torch.from_numpy(x).to(torch.bfloat16)
+    plan = plan_for(128, dtype=torch.bfloat16, backend="cuda", device_type="cpu",
+                    epilogue=QuantEpilogue("int8"))
+    once = quant_dot_experts(xt, tt, plan, schedule="rotate_once")
+    assert torch.equal(quant_dot_experts(xt, tt, plan, schedule="revisit"), once)
+    assert torch.equal(registry.get_backend("torch").quant_dot_experts(
+        xt, tt.q, tt.scale, plan, "revisit"), once)
+    jplan = jplan_for(128, dtype=jnp.bfloat16, backend="pallas",
+                      epilogue=JQuantEpilogue("int8"))
+    want = jqd.pallas_quant_dot_experts(jnp.asarray(x, jnp.bfloat16), jt.q, jt.scale,
+                                        jplan, True, schedule="revisit")
+    _close(once.reshape(-1, 24), want.reshape(-1, 24), "int8")
+    with pytest.raises(NotImplementedError, match="revisit"):
+        quant_dot(xt[0, 0], wquant.QTensor(tt.q[0], tt.scale[0], "int8"), plan,
+                  schedule="revisit")
+
+
+@pytest.mark.parametrize("n", [128, 96])
+def test_experts_einsum_form_matches_reference(n):
+    """The unfused expert form -- the (q, scales) epilogue, then the int8
+    contraction per expert -- at a grouped size (96 = 3 x 32: scales over
+    the full row) and on the reference's xla backend, which hosts no expert
+    kernel, against the reference's einsum form: bitwise."""
+    x, jt, tt, _ = _experts_case((2, 3, 1, n, 16), "int8", seed=n)
+    jplan = jplan_for(n, dtype=jnp.bfloat16, backend="xla",
+                      epilogue=JQuantEpilogue("int8"))
+    want = jax.jit(lambda a: jquant_dot_experts(a, jt, jplan, interpret=True))(
+        jnp.asarray(x, jnp.bfloat16))
+    plan = plan_for(n, dtype=torch.bfloat16, backend="torch", device_type="cpu",
+                    epilogue=QuantEpilogue("int8"))
+    assert api._qd_experts_fusable(plan) == (n == 128)
+    got = quant_dot_experts(torch.from_numpy(x).to(torch.bfloat16), tt, plan)
+    _close(got.reshape(-1, 16), want.reshape(-1, 16), "int8")
 
 
 # ------------------------------------------------------- dispatch rule
@@ -176,6 +311,18 @@ def test_kernel_size_rule():
     assert qd._smem_bytes(8192, 8, "fp8_e4m3") <= qd._SMEM_LIMIT
     assert qd._smem_bytes(8192, 16, "fp8_e4m3") > qd._SMEM_LIMIT
     assert not qd.kernel_fits(1 << 17, "int8")
+    # the streamed schedule charges its 96 KB weight ring: fewer rows per
+    # block at n = 8192 (8 int8, 4 fp8), and no room for n = 32768
+    assert qd._smem_bytes(8192, 8, "int8", "streamed") <= qd._SMEM_LIMIT
+    assert qd._smem_bytes(8192, 16, "int8", "streamed") > qd._SMEM_LIMIT
+    assert qd._smem_bytes(8192, 4, "fp8_e4m3", "streamed") <= qd._SMEM_LIMIT
+    assert qd._smem_bytes(8192, 8, "fp8_e4m3", "streamed") > qd._SMEM_LIMIT
+    assert qd.kernel_fits(16384, "fp8_e4m3", "streamed")
+    assert not qd.kernel_fits(32768, "int8", "streamed")
+    big = plan_for(32768, dtype=torch.bfloat16, backend="cuda", device_type="cpu",
+                   epilogue=QuantEpilogue("int8"))
+    assert api._qd_fusable(big) and not api._qd_fusable(big, "streamed")
+    assert not api._qd_experts_fusable(big, "streamed")
     torch_plan = plan_for(256, dtype=torch.bfloat16, backend="torch",
                           device_type="cpu", epilogue=QuantEpilogue("int8"))
     assert api._qd_fusable(torch_plan)
@@ -184,27 +331,31 @@ def test_kernel_size_rule():
 
 # ------------------------------------------------------------ schedules
 def test_schedules_resolve_or_raise(monkeypatch):
+    """rotate_once and streamed (K4 and K5 on the card) give the plain
+    result on a CPU tensor, named or through REPRO_QUANT_DOT_SCHEDULE;
+    revisit (K8, not ported) raises for the dense form."""
     x, _, _, tt = _case(2, 64, 8, "int8", seed=3)
     xt = torch.from_numpy(x)
     ref = quant_dot(xt, tt)
-    assert torch.equal(quant_dot(xt, tt, schedule="rotate_once"), ref)
-    monkeypatch.setenv(qd.SCHEDULE_ENV_VAR, "rotate_once")
-    assert torch.equal(quant_dot(xt, tt), ref)
-    for name in ("revisit", "streamed"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            quant_dot(xt, tt, schedule=name)
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            quant_dot(xt, tt, schedule=name, backend="cuda")
+    for name in ("rotate_once", "streamed"):
+        assert torch.equal(quant_dot(xt, tt, schedule=name), ref)
+        assert torch.equal(quant_dot(xt, tt, schedule=name, backend="torch"), ref)
         monkeypatch.setenv(qd.SCHEDULE_ENV_VAR, name)
-        with pytest.raises(NotImplementedError, match=name):
-            quant_dot(xt, tt)
-        monkeypatch.setenv(qd.SCHEDULE_ENV_VAR, "rotate_once")
+        assert torch.equal(quant_dot(xt, tt), ref)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        quant_dot(xt, tt, schedule="revisit")
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        quant_dot(xt, tt, schedule="revisit", backend="cuda")
+    monkeypatch.setenv(qd.SCHEDULE_ENV_VAR, "revisit")
+    with pytest.raises(NotImplementedError, match="revisit"):
+        quant_dot(xt, tt)
+    monkeypatch.setenv(qd.SCHEDULE_ENV_VAR, "rotate_once")
     with pytest.raises(ValueError, match="unknown quant_dot schedule"):
         quant_dot(xt, tt, schedule="rotate_twice")
     # the grouped (unfused) path validates the schedule too
     xg = torch.from_numpy(_case(2, 96, 8, "int8", seed=4)[0])
     with pytest.raises(NotImplementedError):
-        quant_dot(xg, _case(2, 96, 8, "int8", seed=4)[3], schedule="streamed")
+        quant_dot(xg, _case(2, 96, 8, "int8", seed=4)[3], schedule="revisit")
 
 
 # --------------------------------------------------------------- errors
@@ -248,3 +399,27 @@ def test_k4_kernel_wrapper_takes_cuda_tensors_only():
     with pytest.raises(ValueError, match="CPU or CUDA"):
         qd.quant_dot(xt.to("meta"), tt.q, tt.scale, plan)
     assert qd.quant_dot_cuda.launches == before
+
+
+def test_k5_k6_wrappers_take_cuda_tensors_only():
+    """The streamed and expert kernels' wrappers raise on CPU tensors and
+    count no launch; the expert dispatcher checks the expert axis."""
+    x, _, tt, _ = _experts_case((1, 2, 1, 64, 8), "int8", seed=8)
+    xt = torch.from_numpy(x).to(torch.bfloat16)
+    plan = plan_for(64, dtype=torch.bfloat16, backend="cuda", device_type="cpu",
+                    epilogue=QuantEpilogue("int8"))
+    counters = [qd.quant_dot_streamed_cuda, qd.quant_dot_experts_cuda,
+                qd.quant_dot_experts_streamed_cuda]
+    before = [f.launches for f in counters]
+    out = torch.empty(1, 2, 1, 8, dtype=torch.bfloat16)
+    for fn in (qd.quant_dot_experts_cuda, qd.quant_dot_experts_streamed_cuda):
+        with pytest.raises(ValueError, match="CUDA"):
+            fn(xt, tt.q, tt.scale.reshape(2, 8), out, plan)
+    with pytest.raises(ValueError, match="CUDA"):
+        qd.quant_dot_streamed_cuda(xt[0, 0], tt.q[0], tt.scale[0].reshape(-1),
+                                   out[0, 0], plan)
+    with pytest.raises(ValueError, match="CPU or CUDA"):
+        qd.quant_dot_experts(xt.to("meta"), tt.q, tt.scale, plan, "streamed")
+    with pytest.raises(ValueError, match="expert"):
+        quant_dot_experts(xt[:, :1], tt, plan)
+    assert [f.launches for f in counters] == before
