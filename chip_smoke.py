@@ -47,7 +47,22 @@ Runs from the repository root and needs the repository's ``src/``. It
      decode steps under ``REPRO_QUANT_DOT_SCHEDULE=streamed``: logits and
      KV caches bitwise equal to rotate-once, with 4 K5 + 2 K6s launches per
      pass in place of K4 and K6;
-  6. prints the kernels' JSON line, then the result line
+  6. ABFT (checksum-verified serving), after each model phase, on its own
+     weights with their checksums attached: a prefill + 4 decode steps
+     with ABFT on bitwise equal to ABFT off (logits and caches; maverick
+     also under the streamed schedule), every verified site's healthy
+     residual printed (llama3's unfused sites exactly 0); the same 8
+     requests served with ABFT on, tokens bitwise those of ABFT off, with
+     per pass llama3 64 K1 + 64 K2, phi4-mini 32 K7a-ro + 64 K2, maverick
+     8 K2 + 4 K7a-ro + 2 K7b (streamed: 4 K7a-s + 2 K7b-s), and health()
+     free of trips, retries and ladder steps; then, on phi4-mini, fault
+     runs (a tile clobber, a KV perturbation, a NaN poke, one and two
+     kernel raises, a single bit flip) with their retirements and
+     counters checked (``fault_runs``). The kernel phase before holds the
+     ABFT twins K7a-ro / K7a-s / K7b / K7b-s against K4 / K5 / K6 / K6s
+     (bitwise) and their plain versions (residual verdicts, healthy and
+     corrupted) and times them beside their twins;
+  7. prints the kernels' JSON line, then the result line
      ``{"ok": true, "device": {...}}`` last.
 
 Any failed check raises: the script then exits non-zero and prints no
@@ -404,12 +419,14 @@ def time_k3_k4(gen) -> dict:
         err = max(float((q.float() - qp.float()).abs().max()),
                   float((sc - sp).abs().max()))
         ms, plain_ms = cuda_time_ms(run), cuda_time_ms(plain, iters=50)
+        dev_ms = _profile_ms(run, "fused_kernel")
         nbytes = m * n * 2 + m * n + m * 4
         t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
         t_ops = m * n * (math.log2(n) + 6) / F32_CUDA_CORE_OPS_PER_S * 1e3
         bound = max(t_bytes, t_ops)
         by = "bytes" if t_bytes >= t_ops else "operations"
-        print(f"K3 {m:2d} x {n}: max abs err {err:g}, kernel {ms:.5f} ms, plain {plain_ms:.5f} ms, "
+        print(f"K3 {m:2d} x {n}: max abs err {err:g}, kernel {ms:.5f} ms (events), "
+              f"{dev_ms:.5f} ms (profile), plain {plain_ms:.5f} ms, "
               f"library none, bound {bound:.6f} ms ({by})")
         if "K3" not in entries:
             entries["K3"] = {"mode": "int8", "max_abs_err": err, "ms": ms,
@@ -558,10 +575,12 @@ def _bound(nbytes: float, int_ops: float, f32_ops: float, low_rate: float):
     return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
 
 
-def _profile_ms(fn, name: str, streamed: bool, calls: int = 5) -> float:
-    """Device time per call of the quant_dot kernel ``name`` of the
-    schedule (the last template argument of its name), from
-    ``torch.profiler`` over ``calls`` calls of ``fn``."""
+def _profile_ms(fn, name: str, streamed: bool = False, abft: bool = False,
+                calls: int = 5) -> float:
+    """Device time per call of the kernel ``name`` from ``torch.profiler``
+    over ``calls`` calls of ``fn``. For the quant_dot kernels (template
+    arguments T, BM, kInt, kStreamed, kAbft) only the instantiations of
+    the schedule and the ABFT flag asked for count."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -573,10 +592,14 @@ def _profile_ms(fn, name: str, streamed: bool, calls: int = 5) -> float:
         torch.cuda.synchronize()
     total = 0.0
     for evt in prof.key_averages():
-        if (evt.device_type == DeviceType.CUDA and f"{name}<" in evt.key
-                and (", true>" in evt.key) == streamed):
-            dev = getattr(evt, "self_device_time_total", None)
-            total += evt.self_cuda_time_total if dev is None else dev
+        if evt.device_type != DeviceType.CUDA or f"{name}<" not in evt.key:
+            continue
+        if name.startswith("quant_dot"):
+            args = evt.key.split(f"{name}<", 1)[1].split(">", 1)[0].split(", ")
+            if (args[3] == "true") != streamed or (args[4] == "true") != abft:
+                continue
+        dev = getattr(evt, "self_device_time_total", None)
+        total += evt.self_cuda_time_total if dev is None else dev
     return total / calls / 1e3
 
 
@@ -679,6 +702,273 @@ def time_k5_k6(gen) -> dict:
         del ex, qt
         torch.cuda.empty_cache()
     entries.pop("K4")      # K4's entry is phi4-mini's (time_k3_k4)
+    return entries
+
+
+# ------------------------------------------------------------------ ABFT
+ABFT_SHAPES = (  # (label, rows per expert, n, d, experts; 0 = dense)
+    ("phi4-mini decode", SLOTS, *PHI4_DOWN, 0),
+    ("maverick dense decode", SLOTS, *MAVERICK_DOWN, 0),
+    ("maverick experts decode", SLOTS, *MAVERICK_DOWN, EXPERTS),
+)
+BAND = 0.01   # verdicts may differ only where |r| is within 1% of the tolerance
+
+
+def _ratio(y, r, n: int, d: int) -> torch.Tensor:
+    """Per row, |r| over the residual's tolerance rtol * sum |y| (+ atol)."""
+    from repro_torch import verify
+
+    rtol, atol = verify.abft_tolerance(n, d)
+    return (r.abs() / (rtol * y.float().abs().sum(-1, keepdim=True) + atol)).reshape(-1)
+
+
+def _geometry(m, n, d, mode, experts, sched, abft) -> str:
+    """Rows per block, column splits, cluster size and shared memory of a
+    launch, as the launcher decides them (cluster: the largest power of 2
+    up to 8 within the rows per block and the splits)."""
+    from repro_torch.kernels.quant_dot import launch_shape
+
+    bm, smem, blocks = launch_shape(m, n, d, mode, experts, sched, abft)
+    splits = blocks // (-(-m // bm) * max(experts, 1))
+    cl = 8
+    while cl > 1 and (cl > bm or cl > splits):
+        cl //= 2
+    return f"BM {bm}, {splits} splits, cluster {cl}, {smem} B shared"
+
+
+def _abft_from_q(q, s, wq, sw, cw, mode, experts: bool):
+    """The plain ABFT math (output and residual) on given (q, s)."""
+    from repro_torch.kernels.quant_dot import _abft_parts
+
+    if not experts:
+        return _abft_parts(q, s, wq, sw, cw, mode, torch.bfloat16)
+    y = torch.empty((*q.shape[:-1], wq.shape[-1]), dtype=torch.bfloat16, device=q.device)
+    r = torch.empty((*q.shape[:-1], 1), dtype=torch.float32, device=q.device)
+    for e in range(wq.shape[0]):
+        y[:, e], r[:, e] = _abft_parts(q[:, e], s[:, e], wq[e], sw[e], cw[e], mode,
+                                       torch.bfloat16)
+    return y, r
+
+
+def _corrupt_weight(qt, kind: str, expert: int):
+    """In place, through a byte view, in expert ``expert`` (dense: the
+    whole weight): one finite bit flip (bit 6) at row k = n / 3 near column
+    d / 2, or a zeroed 128-column slab. Returns (undo, k or None)."""
+    from repro_torch.testing.faults import _finite_after_flip
+
+    raw = qt.q.view(torch.uint8)
+    w = raw[expert] if raw.ndim == 3 else raw
+    n, d = w.shape
+    if kind == "slab":
+        lo = d // 2 - 64
+        old = w[:, lo:lo + 128].clone()
+        w[:, lo:lo + 128] = 0
+        return (lambda: w[:, lo:lo + 128].copy_(old)), None
+    k, col = n // 3, d // 2
+    while not _finite_after_flip(int(w[k, col]), 6, qt.mode):
+        col += 1
+    old = w[k, col].clone()
+    w[k, col] ^= 64
+    return (lambda: w[k, col].copy_(old)), k
+
+
+def hold_abft_kernels(gen) -> float:
+    """K7a-ro, K7a-s, K7b and K7b-s against their twins K4, K5, K6, K6s and
+    their plain versions, at phi4-mini's decode shape (4 x 8192 -> 3072),
+    maverick's dense one (4 x 8192 -> 5120) and its expert one ((4, 128, 1,
+    8192) -> 5120, every third expert's rows zero), in int8 and fp8_e4m3,
+    on exact-sum and Gaussian rows:
+
+      * the output is bitwise the twin's;
+      * the residual's verdict equals the plain ABFT math's on K1's own
+        rotation on every row (outside a band of 1% around the tolerance,
+        where two summation orders may land on either side; the band's
+        rows are counted), and the plain version's on every row whose
+        rotation agrees; healthy, every row passes;
+      * the weight corrupted in place under its stale checksum (one finite
+        bit flip at row k; a zeroed 128-column slab): the same verdict
+        rule; no row whose operand misses the change (op[k] = 0, or an
+        all-zero row) trips; the slab trips some row. The trips and the
+        residual against the tolerance are printed: at these widths a
+        single flipped bit shifts a row's residual by less than its
+        tolerance unless the row's operand at k is large, and a slab's
+        shift, a sum of 128 outputs, falls below it in about 1% of rows.
+
+    Returns the largest healthy |r| / tolerance."""
+    from repro_torch.core.api import QuantEpilogue, plan_for
+    from repro_torch.core.wquant import quantize_weight, weight_checksum
+    from repro_torch.kernels.hadacore import transform_plain
+    from repro_torch.kernels.quant_dot import (_operand_from_q, quant_dot,
+                                               quant_dot_abft_plain, quant_dot_experts,
+                                               quant_dot_experts_abft_plain)
+
+    print("-- kernel phase: ABFT twins K7a-ro / K7a-s / K7b / K7b-s against K4 / K5 / "
+          "K6 / K6s and their plain versions")
+    worst = 0.0
+    cpu = torch.Generator().manual_seed(3)
+    names = {(0, "rotate_once"): ("K7a-ro", "K4"), (0, "streamed"): ("K7a-s", "K5"),
+             (1, "rotate_once"): ("K7b", "K6"), (1, "streamed"): ("K7b-s", "K6s")}
+    for label, m, n, d, E in ABFT_SHAPES:
+        for mode in ("int8", "fp8_e4m3"):
+            plan = plan_for(n, dtype=torch.bfloat16, backend="cuda", device_type="cuda",
+                            epilogue=QuantEpilogue(mode))
+            if E:
+                qt = _expert_weights(gen, n, d, mode)
+                cw = weight_checksum(qt.q, qt.scale)
+            else:
+                w = (torch.randn(n, d, generator=cpu) / math.sqrt(n)).to("cuda", torch.bfloat16)
+                qt = quantize_weight(w, mode, with_check=True)
+                cw = qt.check
+            for sched in ("rotate_once", "streamed"):
+                name, twin = names[(int(E > 0), sched)]
+                print(f"{name} {label} {mode}: {_geometry(m, n, d, mode, E, sched, True)}; "
+                      f"{twin}: {_geometry(m, n, d, mode, E, sched, False)}")
+                for kind in ("exact", "gaussian", "flip", "slab"):
+                    x = _k34_input(gen, m * max(E, 1), n,
+                                   "exact" if kind == "exact" else "gaussian")
+                    if E:
+                        x = x.view(m, E, 1, n)
+                        x[:, ::3] = 0
+                    undo, k = None, None
+                    if kind in ("flip", "slab"):
+                        undo, k = _corrupt_weight(qt, kind, 1 if E else 0)
+                    if E:
+                        base = quant_dot_experts(x, qt.q, qt.scale, plan, sched)
+                        y, r = quant_dot_experts(x, qt.q, qt.scale, plan, sched, check=cw)
+                        yp, rp = quant_dot_experts_abft_plain(x, qt.q, qt.scale, cw, plan)
+                    else:
+                        base = quant_dot(x, qt.q, qt.scale, plan, sched)
+                        y, r = quant_dot(x, qt.q, qt.scale, plan, sched, check=cw)
+                        yp, rp = quant_dot_abft_plain(x, qt.q, qt.scale, cw, plan)
+                    torch.cuda.synchronize()
+                    x2 = x.reshape(-1, n)
+                    y1, (q1, s1) = _k1_epilogue(x2, plan)
+                    agree = _same_rows(y1, transform_plain(x2, plan))
+                    shp = (m, E, 1, n) if E else (m, n)
+                    yk1, rk1 = _abft_from_q(q1.view(shp), s1.view(*shp[:-1], 1), qt.q,
+                                            qt.scale, cw, mode, bool(E))
+                    if undo is not None:
+                        undo()
+                    same = bool(torch.equal(_bits(y), _bits(base)))
+                    ratio, k1_ratio = _ratio(y, r, n, d), _ratio(yk1, rk1, n, d)
+                    ok, ok1 = ratio <= 1.0, k1_ratio <= 1.0
+                    okp = _ratio(yp, rp, n, d) <= 1.0
+                    band = (k1_ratio - 1.0).abs() <= BAND
+                    bad1 = int(((ok != ok1) & ~band).sum())
+                    badp = int(((ok != okp) & agree & ~band).sum())
+                    op = _operand_from_q(q1, mode).to(torch.float32)
+                    if E:   # the corruption is in expert 1: other experts' rows miss it
+                        other = torch.ones(m, E, dtype=torch.bool, device=op.device)
+                        other[:, 1] = False
+                        other = other.reshape(-1)
+                    else:
+                        other = torch.zeros(len(ok), dtype=torch.bool, device=op.device)
+                    missed = other | ((op[:, k] == 0) if k is not None else (op == 0).all(-1))
+                    false_pos = int((~ok & missed).sum())
+                    trips = int((~ok).sum())
+                    print(f"  {kind:8s} {name:6s} bitwise to {twin} {same}; trips {trips}/"
+                          f"{len(ok)} of which touched by the change {int((~missed).sum())} "
+                          f"(plain on K1's rotation {int((~ok1).sum())}, plain "
+                          f"{int((~okp).sum())}); |r| / tolerance max {float(ratio.max()):.3e}"
+                          f", over touched rows min "
+                          f"{float(ratio[~missed].min()) if bool((~missed).any()) else 0:.3e}; "
+                          f"verdicts off K1's {bad1}, off plain where rotations agree {badp}, "
+                          f"rows in the 1% band {int(band.sum())}; untouched rows tripped "
+                          f"{false_pos}")
+                    if not same:
+                        fail(f"{name} {label} {mode} {kind}: output differs from {twin}")
+                    if bad1 or badp or false_pos:
+                        fail(f"{name} {label} {mode} {kind}: verdicts differ or an untouched "
+                             "row tripped")
+                    if kind in ("exact", "gaussian"):
+                        worst = max(worst, float(ratio.max()))
+                        if trips:
+                            fail(f"{name} {label} {mode} {kind}: a healthy row tripped")
+                    elif kind == "slab" and not trips:
+                        fail(f"{name} {label} {mode}: the slab tripped no row")
+            del qt, cw
+            torch.cuda.empty_cache()
+    print(f"largest healthy |r| / tolerance: {worst:.3e}")
+    return worst
+
+
+def time_abft(gen) -> dict:
+    """The ABFT twins beside their twins at the decode shapes of their
+    paths, in turns (twin, twin's ABFT, ABFT, twin) with CUDA events, and
+    the profiler: K7a-ro at phi4-mini (int8) and maverick's dense sites
+    (fp8_e4m3), K7a-s at maverick's dense sites, K7b and K7b-s at
+    maverick's experts (fp8_e4m3). The bound is the twin's bytes plus the
+    checksum read and the residual written; no PyTorch call computes the
+    product with its residual, so there is no library time: the overhead
+    against the twin stands in its place. Returns the JSON entries
+    (K7a-ro: phi4-mini's)."""
+    from repro_torch.core.api import QuantEpilogue, plan_for
+    from repro_torch.core.wquant import quantize_weight, weight_checksum
+    from repro_torch.kernels.quant_dot import (quant_dot, quant_dot_abft_plain,
+                                               quant_dot_experts,
+                                               quant_dot_experts_abft_plain)
+
+    print("-- kernel phase: ABFT twins' times beside their twins (decode shapes)")
+    entries = {}
+    cases = [("K7a-ro", "K4", "int8", *PHI4_DOWN, 0, "rotate_once"),
+             ("K7a-ro", "K4", "fp8_e4m3", *MAVERICK_DOWN, 0, "rotate_once"),
+             ("K7a-s", "K5", "fp8_e4m3", *MAVERICK_DOWN, 0, "streamed"),
+             ("K7b", "K6", "fp8_e4m3", *MAVERICK_DOWN, EXPERTS, "rotate_once"),
+             ("K7b-s", "K6s", "fp8_e4m3", *MAVERICK_DOWN, EXPERTS, "streamed")]
+    weights = {}
+    for name, twin, mode, n, d, E, sched in cases:
+        plan = plan_for(n, dtype=torch.bfloat16, backend="cuda", device_type="cuda",
+                        epilogue=QuantEpilogue(mode))
+        if (mode, n, d, E) not in weights:
+            weights.clear()
+            torch.cuda.empty_cache()
+            if E:
+                qt = _expert_weights(gen, n, d, mode)
+                weights[(mode, n, d, E)] = (qt, weight_checksum(qt.q, qt.scale))
+            else:
+                qt = quantize_weight((torch.randn(n, d, generator=gen, device="cuda")
+                                      / math.sqrt(n)).to(torch.bfloat16), mode,
+                                     with_check=True)
+                weights[(mode, n, d, E)] = (qt, qt.check)
+        qt, cw = weights[(mode, n, d, E)]
+        rows = SLOTS * max(E, 1)
+        x = (torch.randn(rows, n, generator=gen, device="cuda") * 3).to(torch.bfloat16)
+        if E:
+            x = x.view(SLOTS, E, 1, n)
+            run = lambda: quant_dot_experts(x, qt.q, qt.scale, plan, sched, check=cw)  # noqa: E731
+            base = lambda: quant_dot_experts(x, qt.q, qt.scale, plan, sched)  # noqa: E731
+            plain = lambda: quant_dot_experts_abft_plain(x, qt.q, qt.scale, cw, plan)  # noqa: E731
+            key = "quant_dot_experts_kernel"
+        else:
+            run = lambda: quant_dot(x, qt.q, qt.scale, plan, sched, check=cw)  # noqa: E731
+            base = lambda: quant_dot(x, qt.q, qt.scale, plan, sched)  # noqa: E731
+            plain = lambda: quant_dot_abft_plain(x, qt.q, qt.scale, cw, plan)  # noqa: E731
+            key = "quant_dot_kernel"
+        (y, _), (yp, _) = run(), plain()
+        err = float((y.float() - yp.float()).abs().max())
+        streamed = sched == "streamed"
+        iters = 20 if E else 200
+        t_base, t_run = cuda_time_ms(base, iters=iters), cuda_time_ms(run, iters=iters)
+        t_run2, t_base2 = cuda_time_ms(run, iters=iters), cuda_time_ms(base, iters=iters)
+        d_base = _profile_ms(base, key, streamed, False)
+        d_run = _profile_ms(run, key, streamed, True)
+        plain_ms = cuda_time_ms(plain, iters=3 if E else 20, warmup=1)
+        low = INT8_OPS_PER_S if mode == "int8" else FP8_OPS_PER_S
+        wbytes = qt.q.numel() + qt.scale.numel() * 4 + cw.numel() * 4
+        bound, by = _bound(2 * rows * n + wbytes + 2 * rows * d + 4 * rows,
+                           2 * rows * n * d, rows * n * (math.log2(n) + 8), low)
+        ms = (t_run + t_run2) / 2
+        print(f"{name:6s} {mode:8s} {tuple(x.shape)} -> {d}: events {t_base:.5f} / "
+              f"{t_run:.5f} / {t_run2:.5f} / {t_base2:.5f} ms ({twin} / {name} / {name} / "
+              f"{twin}); profile {twin} {d_base:.5f} ms, {name} {d_run:.5f} ms "
+              f"({(d_run / d_base - 1) * 100:+.1f}%); plain {plain_ms:.5f} ms; bound "
+              f"{bound:.6f} ms ({by}); library none; max abs err {err:g}")
+        if name not in entries:
+            entries[name] = {"mode": mode, "max_abs_err": err, "ms": ms,
+                             "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
+                             "library_ms": None}
+    weights.clear()
+    torch.cuda.empty_cache()
     return entries
 
 
@@ -1094,31 +1384,40 @@ def routing_flips(got, plain) -> None:
 def _counters():
     from repro_torch.kernels.fused_quant import fused_cuda, fused_dequant_cuda
     from repro_torch.kernels.hadacore import hadacore_cuda
-    from repro_torch.kernels.quant_dot import (quant_dot_cuda,
-                                               quant_dot_experts_cuda,
-                                               quant_dot_experts_streamed_cuda,
-                                               quant_dot_streamed_cuda)
+    from repro_torch.kernels import quant_dot as qd
 
     return {"K1": hadacore_cuda, "K2": fused_dequant_cuda, "K3": fused_cuda,
-            "K4": quant_dot_cuda, "K5": quant_dot_streamed_cuda,
-            "K6": quant_dot_experts_cuda, "K6s": quant_dot_experts_streamed_cuda}
+            "K4": qd.quant_dot_cuda, "K5": qd.quant_dot_streamed_cuda,
+            "K6": qd.quant_dot_experts_cuda, "K6s": qd.quant_dot_experts_streamed_cuda,
+            "K7a-ro": qd.quant_dot_abft_cuda, "K7a-s": qd.quant_dot_abft_streamed_cuda,
+            "K7b": qd.quant_dot_experts_abft_cuda,
+            "K7b-s": qd.quant_dot_experts_abft_streamed_cuda}
 
 
 # The models served, each with its quantization, the launches one model
-# pass must make (every kernel not named: 0), the controls of its prefill
-# check, and (maverick) the depth it is cut to.
+# pass must make (every kernel not named: 0) with ABFT off and on, the
+# controls of its prefill check, and (maverick) the depth it is cut to.
 MODELS = {
+    # ABFT on: the unfused down projection (d_ff = 14336) rotates twice,
+    # the second time in xla_quant_dot_resid
     "llama3-8b": dict(mode="fp8_e4m3", per_pass={"K1": 32, "K2": 64},
+                      abft_per_pass={"K1": 64, "K2": 64},
                       controls=("k2_no_quant", "k1_exact_scale")),
     "phi4-mini-3.8b": dict(mode="int8", per_pass={"K2": 64, "K4": 32},
+                           abft_per_pass={"K2": 64, "K7a-ro": 32},
                            controls=("k4_no_rotate", "k2_no_quant")),
     # 2 of the 24 (attn, moe) groups: 4 of 48 layers, ~35 GB of int8 / fp8
     # weights; all 48 would take ~390 GB, beyond one 80 GB card
     "llama4-maverick-400b-a17b": dict(
         mode="fp8_e4m3", per_pass={"K2": 8, "K4": 4, "K6": 2},
+        abft_per_pass={"K2": 8, "K7a-ro": 4, "K7b": 2},
+        streamed_abft_per_pass={"K2": 8, "K7a-s": 4, "K7b-s": 2},
         controls=("k6_no_rotate", "k4_no_rotate", "k2_no_quant"),
         groups=((("attn", "moe"), 2),)),
 }
+# health() counters a healthy run must leave at 0
+HEALTH_ZERO = ("rung", "degrades", "watchdog_trips", "step_retries", "nan_guard_trips",
+               "sdc_retired", "abft_kv_trips", "abft_sdc_detections", "abft_params_checks")
 PEAK_LIMIT = 72e9   # bytes: "well under" the card's 80 GB
 
 
@@ -1132,7 +1431,7 @@ def model_phase(args, arch: str):
     from repro_torch.configs import get_config
     from repro_torch.core.quant import QuantConfig
     from repro_torch.models.lm import init_lm
-    from repro_torch.serving import ServeEngine, synthetic_stream
+    from repro_torch.serving import synthetic_stream
 
     spec = MODELS[arch]
     quant = QuantConfig(mode=spec["mode"], rotate="hadamard", backend="cuda",
@@ -1161,20 +1460,11 @@ def model_phase(args, arch: str):
 
     hold_prefill_against_plain(cfg, params, quant, args.seed, spec["controls"])
 
-    engine = ServeEngine(cfg, params, num_slots=SLOTS, max_len=MAX_LEN,
-                         prefill_len=PREFILL_LEN, device="cuda")
     stream = synthetic_stream(8, vocab_size=cfg.vocab_size,
                               prompt_len=(16, PREFILL_LEN),
                               max_new_tokens=(16, 32), rate=1.0,
                               seed=args.seed)
-    counters = _counters()
-    for fn in counters.values():
-        fn.launches = 0
-    t0 = time.perf_counter()
-    comps = engine.run(stream)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    launches = {k: fn.launches for k, fn in counters.items()}
+    engine, comps, launches, wall = _serve(cfg, params, stream)
     s = engine.summary()
     passes = s["prefill_calls"] + s["decode_calls"]
     print(f"served {s['requests']} requests / {s['generated_tokens']} tokens in "
@@ -1186,7 +1476,7 @@ def model_phase(args, arch: str):
           f"prefills + {s['decode_calls']} decode steps, warm-up included) = "
           + ", ".join(f"{k} {v / passes:g}" for k, v in launches.items())
           + " per pass")
-    for k in counters:
+    for k in launches:
         per = spec["per_pass"].get(k, 0)
         if launches[k] != per * passes:
             fail(f"{arch}: {k} launches {launches[k]} != {per} x {passes}")
@@ -1207,6 +1497,8 @@ def model_phase(args, arch: str):
     if cfg.num_experts:
         streamed = streamed_pass(cfg, params, args.seed)
         launches.update({k: streamed[k] for k in ("K5", "K6s")})
+    got = abft_phase(arch, cfg, params, stream, comps, args.seed)
+    launches = {k: launches[k] + got[k] for k in launches}
     return s, launches
 
 
@@ -1218,48 +1510,309 @@ def streamed_pass(cfg, params, seed: int) -> dict:
     KV caches must be bitwise equal, and the streamed run must launch K5
     where rotate-once launches K4 and K6s where it launches K6. Returns the
     streamed run's launches."""
+    once = _prefill_decode(cfg, params, seed)
+    got, launches = _counted(lambda: _streamed(lambda: _prefill_decode(cfg, params, seed)))
+    same = _same_run(got, once)
+    print(f"-- streamed pass: prefill ({SLOTS}, {PREFILL_LEN}) + 4 decode steps under "
+          f"schedule=streamed: logits and KV caches bitwise to rotate-once {same}; "
+          f"launches {launches} over 5 model passes")
+    if not same:
+        fail("the streamed schedule's logits or caches differ from rotate-once")
+    want = {k: 0 for k in launches}
+    want.update({"K2": 8 * 5, "K5": 4 * 5, "K6s": 2 * 5})
+    if launches != want:
+        fail(f"streamed pass launched {launches}, expected {want}")
+    return launches
+
+
+def _counted(fn):
+    """``fn()`` with the launch counters zeroed just before and read just
+    after: (its result, the launches)."""
+    counters = _counters()
+    for c in counters.values():
+        c.launches = 0
+    out = fn()
+    torch.cuda.synchronize()
+    return out, {k: c.launches for k, c in counters.items()}
+
+
+def _streamed(fn):
+    """``fn()`` under ``REPRO_QUANT_DOT_SCHEDULE=streamed``."""
     from repro_torch.kernels.quant_dot import SCHEDULE_ENV_VAR
+
+    os.environ[SCHEDULE_ENV_VAR] = "streamed"
+    try:
+        return fn()
+    finally:
+        os.environ.pop(SCHEDULE_ENV_VAR, None)
+
+
+def _abft_cfg(cfg, schedule=None):
+    """``cfg`` with ABFT switched on (and the kernels' schedule pinned)."""
+    import dataclasses
+
+    return cfg.with_quant(dataclasses.replace(cfg.quant, abft=True, schedule=schedule))
+
+
+class _residual_spy:
+    """Records, while active, every verified site's largest |r| /
+    tolerance (``verify.residual_ok``) and every unfused site's largest
+    |r| (``xla_quant_dot_resid``), as device tensors read once at the end;
+    both functions still run as they are."""
+
+    def __enter__(self):
+        from repro_torch import verify
+        from repro_torch.kernels import quant_dot as qd
+
+        self.ratios, self.xla = [], []
+        self._ok, self._xla = verify.residual_ok, qd.xla_quant_dot_resid
+
+        def ok(y, r, *, n, d):
+            self.ratios.append(_ratio(y, r, n, d).max())
+            return self._ok(y, r, n=n, d=d)
+
+        def xla(*a, **kw):
+            r = self._xla(*a, **kw)
+            self.xla.append(r.abs().max())
+            return r
+
+        verify.residual_ok, qd.xla_quant_dot_resid = ok, xla
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch import verify
+        from repro_torch.kernels import quant_dot as qd
+
+        verify.residual_ok, qd.xla_quant_dot_resid = self._ok, self._xla
+
+    def worst(self):
+        r = float(torch.stack(self.ratios).max()) if self.ratios else None
+        x = float(torch.stack(self.xla).max()) if self.xla else None
+        return r, x
+
+
+def _prefill_decode(cfg, params, seed: int, steps: int = 4):
+    """The prefill of 4 prompts of 64 tokens plus ``steps`` greedy decode
+    steps: (every pass's logits, the KV caches)."""
     from repro_torch.models.lm import lm_decode_step, lm_prefill, pad_kv_caches
 
     rng = np.random.default_rng(seed + 1)
     prompt = torch.from_numpy(rng.integers(0, cfg.vocab_size, (SLOTS, PREFILL_LEN))).cuda()
+    with torch.inference_mode():
+        logits, caches = lm_prefill(cfg, params, {"tokens": prompt})
+        caches = pad_kv_caches(cfg, caches, PREFILL_LEN + steps)
+        outs = [logits]
+        for i in range(steps):
+            tok = outs[-1][:, -1].argmax(-1, keepdim=True)
+            logits, caches = lm_decode_step(cfg, params, caches, tok,
+                                            torch.tensor(PREFILL_LEN + i, device=tok.device))
+            outs.append(logits)
+    torch.cuda.synchronize()
+    return outs, caches
 
-    def run():
-        with torch.inference_mode():
-            logits, caches = lm_prefill(cfg, params, {"tokens": prompt})
-            caches = pad_kv_caches(cfg, caches, PREFILL_LEN + 4)
-            outs = [logits]
-            for i in range(4):
-                tok = outs[-1][:, -1].argmax(-1, keepdim=True)
-                logits, caches = lm_decode_step(
-                    cfg, params, caches, tok,
-                    torch.tensor(PREFILL_LEN + i, device="cuda"))
-                outs.append(logits)
-        torch.cuda.synchronize()
-        return outs, caches
 
-    once = run()
-    counters = _counters()
-    for fn in counters.values():
-        fn.launches = 0
-    os.environ[SCHEDULE_ENV_VAR] = "streamed"
-    try:
-        got = run()
-    finally:
-        os.environ.pop(SCHEDULE_ENV_VAR, None)
-    launches = {k: fn.launches for k, fn in counters.items()}
-    same_logits = all(torch.equal(_bits(a), _bits(b)) for a, b in zip(got[0], once[0]))
-    same_kv = all(torch.equal(_bits(a[k]), _bits(b[k]))
-                  for a, b in zip(got[1], once[1]) for k in ("k", "v"))
-    print(f"-- streamed pass: prefill {tuple(prompt.shape)} + 4 decode steps under "
-          f"schedule=streamed: logits bitwise to rotate-once {same_logits}, KV caches "
-          f"{same_kv}; launches {launches} over 5 model passes")
-    if not (same_logits and same_kv):
-        fail("the streamed schedule's logits or caches differ from rotate-once")
-    want = {"K1": 0, "K2": 8 * 5, "K3": 0, "K4": 0, "K5": 4 * 5, "K6": 0, "K6s": 2 * 5}
-    if launches != want:
-        fail(f"streamed pass launched {launches}, expected {want}")
+def _same_run(a, b) -> bool:
+    """Are two ``_prefill_decode`` results bitwise equal?"""
+    return (all(torch.equal(_bits(x), _bits(y)) for x, y in zip(a[0], b[0]))
+            and all(torch.equal(_bits(x[k]), _bits(y[k]))
+                    for x, y in zip(a[1], b[1]) for k in ("k", "v")))
+
+
+def _serve(cfg, params, stream, **kw):
+    """Serve ``stream`` on a fresh engine with the launch counters zeroed
+    just before and read just after: (engine, completions, launches,
+    wall seconds)."""
+    from repro_torch.serving import ServeEngine
+
+    engine = ServeEngine(cfg, params, num_slots=SLOTS, max_len=MAX_LEN,
+                         prefill_len=PREFILL_LEN, device="cuda", **kw)
+    t0 = time.perf_counter()
+    comps, launches = _counted(lambda: engine.run(stream))
+    return engine, comps, launches, time.perf_counter() - t0
+
+
+def abft_serving(tag, cfg, params, stream, off, per_pass) -> dict:
+    """Serve ``stream`` with ABFT on (``cfg`` has it): every request ok and
+    its tokens bitwise those of the ABFT-off run (``off``: rid -> tokens),
+    the ABFT launches per model pass, and a health() with no trip, no
+    retry, no ladder step. Returns the launches."""
+    engine, comps, launches, wall = _serve(cfg, params, stream)
+    s = engine.summary()
+    h = s["health"]
+    passes = s["prefill_calls"] + s["decode_calls"]
+    same = all(c.tokens == off[c.rid] for c in comps)
+    print(f"-- ABFT serving, {tag}: {s['requests']} requests / {s['generated_tokens']} "
+          f"tokens in {s['decode_steps']} decode steps ({wall:.1f} s wall): "
+          f"{s['tokens_per_s']:.1f} tok/s, p50 {s['p50_token_ms']:.2f} ms / p99 "
+          f"{s['p99_token_ms']:.2f} ms per token; tokens bitwise to ABFT off {same}; "
+          f"launches per pass " + ", ".join(f"{k} {v / passes:g}" for k, v in launches.items()
+                                            if v))
+    print("   health: " + " ".join(f"{k}={v}" for k, v in h.items()))
+    for k, v in launches.items():
+        if v != per_pass.get(k, 0) * passes:
+            fail(f"ABFT {tag}: {k} launches {v} != {per_pass.get(k, 0)} x {passes}")
+    if len(comps) != len(stream) or any(c.status != "ok" for c in comps) or not same:
+        fail(f"ABFT {tag}: not every request ok and bitwise to ABFT off")
+    if h["abft_enabled"] != 1 or any(h[k] for k in HEALTH_ZERO):
+        fail(f"ABFT {tag}: a healthy run reported {h}")
     return launches
+
+
+def abft_phase(arch, cfg, params, stream, comps_off, seed: int) -> dict:
+    """The model's checksum-verified serving (ABFT on), on the model phase's
+    own weights with their checksums attached (``verify.with_checks``, a
+    chunk of experts at a time): a prefill + 4 decode steps bitwise equal
+    to ABFT off (logits and caches) with every site's healthy residual
+    printed (the unfused sites' exactly 0), then the serving run. Returns
+    the launches of the serving run(s)."""
+    from repro_torch import verify
+
+    spec = MODELS[arch]
+    t0 = time.perf_counter()
+    checked = verify.with_checks(params)
+    torch.cuda.synchronize()
+    print(f"-- ABFT phase: {arch}: checksums attached in {time.perf_counter() - t0:.2f} s")
+    on = _abft_cfg(cfg)
+    off_run = _prefill_decode(cfg, params, seed)
+    with _residual_spy() as spy:
+        on_run = _prefill_decode(on, checked, seed)
+    ratio, xla = spy.worst()
+    same = _same_run(on_run, off_run)
+    print(f"prefill + 4 decode steps, ABFT on: logits and caches bitwise to ABFT off "
+          f"{same}; {len(spy.ratios)} verified site calls, largest |r| / tolerance "
+          f"{ratio}; {len(spy.xla)} of them unfused, largest |r| there {xla}")
+    if not same:
+        fail(f"{arch}: ABFT-on logits or caches differ from ABFT off")
+    if (ratio is not None and not ratio <= 1.0) or (xla is not None and xla != 0.0):
+        fail(f"{arch}: a healthy residual tripped or an unfused residual is not 0")
+    launches = {k: 0 for k in _counters()}
+    if "streamed_abft_per_pass" in spec:
+        s_run, launches = _counted(lambda: _streamed(lambda: _prefill_decode(on, checked,
+                                                                              seed)))
+        want = {k: 5 * spec["streamed_abft_per_pass"].get(k, 0) for k in launches}
+        same = _same_run(s_run, off_run)
+        print(f"the same under schedule=streamed, ABFT on: bitwise to ABFT off rotate-once "
+              f"{same}; launches {launches} over 5 model passes")
+        if not same or launches != want:
+            fail(f"{arch}: streamed ABFT run differs or launched {launches}, not {want}")
+    off = {c.rid: c.tokens for c in comps_off}
+    got = abft_serving(f"{arch} rotate-once", on, checked, stream, off,
+                       spec["abft_per_pass"])
+    launches = {k: launches[k] + got[k] for k in launches}
+    if "streamed_abft_per_pass" in spec:
+        got = abft_serving(f"{arch} streamed", _abft_cfg(cfg, "streamed"), checked, stream,
+                           off, spec["streamed_abft_per_pass"])
+        launches = {k: launches[k] + got[k] for k in launches}
+    if arch == "phi4-mini-3.8b":
+        fault_runs(cfg, checked, seed)
+    return launches
+
+
+def fault_runs(cfg, params, seed: int) -> None:
+    """Faults injected into ABFT-on serving of the model (phi4-mini at full
+    width; ``params`` carry their checksums), 6 requests on 4 slots (rids 1 and 2 end after one decode step;
+    at step 3 rids 0, 3, 4, 5 are in flight, rid 0 in slot 0), each run
+    checked for its completions and health() against an ABFT-off run of
+    the same requests:
+
+      * a zeroed 128-column slab of layer 0's down projection at step 3
+        (a mis-delivered weight-stream tile): the four slots in flight
+        retire ``sdc_detected`` (those caught at that step with clean token
+        prefixes; a row's slab shift can fall under its tolerance, about 1
+        row in 100, and is caught a step later: printed), the weight audit
+        runs, rids 1 and 2 finish bitwise clean;
+      * a KV row of slot 0 perturbed at step 3: only rid 0 retires
+        ``sdc_detected``, ``abft_kv_trips`` = 1;
+      * NaN in a KV row of slot 0 at step 3: only rid 0 retires
+        ``nan_guard`` (the audit finds the weights clean);
+      * one injected kernel raise at step 2: retried once, every token
+        bitwise the clean run's;
+      * two raises in a row: one rung down (cuda + rotate-once), loudly,
+        every token bitwise the clean run's;
+      * one flipped bit (bit 6) of layer 0's down projection at step 3
+        (the reference's single-event upset): printed -- how many slots
+        the residual catches -- and the host audit ``params_ok`` must see
+        it; at this width one bit shifts a row's residual by less than its
+        tolerance (the kernel phase prints by how much).
+    Every corruption is undone when its scope exits."""
+    import dataclasses
+    import warnings
+
+    from repro_torch import verify
+    from repro_torch.kernels.registry import WARN_ONCE_SEEN
+    from repro_torch.testing.faults import FaultPlan, arrival_flood, inject
+
+    def reqs():
+        plen = min(32, PREFILL_LEN)
+        longs = arrival_flood(4, prompt_len=plen, max_new_tokens=12, vocab=cfg.vocab_size,
+                              seed=seed + 7)
+        shorts = arrival_flood(2, prompt_len=plen, max_new_tokens=2, vocab=cfg.vocab_size,
+                               seed=seed + 8)
+        out = [longs[0], shorts[0], shorts[1], longs[1], longs[2], longs[3]]
+        return [dataclasses.replace(r, rid=i) for i, r in enumerate(out)]
+
+    _, clean, _, _ = _serve(cfg, params, reqs())
+    ref = {c.rid: c.tokens for c in clean}
+    on = _abft_cfg(cfg)
+    print("-- fault runs (ABFT on), phi4-mini: 6 requests on 4 slots")
+
+    def prefix(c):
+        return c.tokens == ref[c.rid][:len(c.tokens)]
+
+    def run(plan):
+        with warnings.catch_warnings(record=True) as warned, inject(plan):
+            warnings.simplefilter("always")
+            engine, comps, _, _ = _serve(on, params, reqs())
+            audit = verify.params_ok(engine.params)
+        comps = {c.rid: c for c in comps}
+        h = engine.health()
+        print(f"{plan.log}: " + ", ".join(
+            f"rid {r} {c.finish_reason} {len(c.tokens)} tokens"
+            + ("" if c.tokens == ref[r] else " (a clean prefix)" if prefix(c)
+               else " (NOT the clean tokens)")
+            for r, c in sorted(comps.items())))
+        print("   health: " + " ".join(f"{k}={v}" for k, v in h.items())
+              + f"; weights audit in scope {audit}; warnings "
+              + str([str(w.message)[:60] for w in warned]))
+        return comps, h, audit, warned
+
+    comps, h, audit, _ = run(FaultPlan(corrupt_at_step=3, corrupt_kind="tile"))
+    print("   retired at step: " + ", ".join(f"rid {r} {comps[r].retired_step}"
+                                            for r in (0, 3, 4, 5)))
+    if not all(comps[r].finish_reason == "sdc_detected"
+               and (prefix(comps[r]) or comps[r].retired_step > 4) for r in (0, 3, 4, 5)) \
+            or not all(comps[r].status == "ok" and comps[r].tokens == ref[r] for r in (1, 2)) \
+            or h["abft_params_checks"] < 1 or h["sdc_retired"] != 4 or audit:
+        fail("tile clobber: wrong retirements or counters")
+    comps, h, _, _ = run(FaultPlan(corrupt_at_step=3, corrupt_kind="kv", kv_corrupt_slot=0))
+    if not (comps[0].finish_reason == "sdc_detected" and prefix(comps[0])
+            and all(comps[r].status == "ok" and comps[r].tokens == ref[r] for r in range(1, 6))
+            and h["abft_kv_trips"] == 1 and h["rung"] == 0):
+        fail("KV perturbation: wrong retirements or counters")
+    comps, h, _, _ = run(FaultPlan(nan_poke_step=3, nan_poke_slot=0))
+    if not (comps[0].finish_reason == "nan_guard" and prefix(comps[0])
+            and all(comps[r].status == "ok" and comps[r].tokens == ref[r] for r in range(1, 6))
+            and h["nan_guard_trips"] == 1 and h["abft_params_checks"] == 1
+            and h["sdc_retired"] == 0 and h["rung"] == 0):
+        fail("NaN poke: wrong retirements or counters")
+    comps, h, _, _ = run(FaultPlan(kernel_raise_at_step=2, kernel_raise_count=1))
+    if not (all(c.status == "ok" and c.tokens == ref[r] for r, c in comps.items())
+            and h["step_retries"] == 1 and h["rung"] == 0 and h["degrades"] == 0):
+        fail("one kernel raise: not retried bitwise")
+    WARN_ONCE_SEEN.discard(("serving", "degrade_rotate_once"))
+    comps, h, _, warned = run(FaultPlan(kernel_raise_at_step=2, kernel_raise_count=2))
+    if not (all(c.status == "ok" and c.tokens == ref[r] for r, c in comps.items())
+            and h["step_retries"] == 1 and h["rung"] == 1 and h["degrades"] == 1
+            and any("degraded to rung" in str(w.message) for w in warned)):
+        fail("persistent raise: not one rung down, loudly")
+    comps, h, audit, _ = run(FaultPlan(corrupt_at_step=3, corrupt_kind="weight"))
+    caught = [r for r, c in comps.items() if c.finish_reason == "sdc_detected"]
+    print(f"   single bit flip: {len(caught)} of 4 slots in flight caught by the residual")
+    if audit or not all(prefix(comps[r]) for r in caught) \
+            or any(c.finish_reason not in ("length", "sdc_detected") for c in comps.values()):
+        fail("bit flip: the audit missed it, or a slot retired otherwise")
+    if not verify.params_ok(params):
+        fail("the fault runs left the weights corrupted")
 
 
 def profile_decode(engine, steps: int = 3) -> None:
@@ -1349,6 +1902,8 @@ def main() -> int:
     timed.update(time_k3_k4(gen))
     hold_k5_k6(gen)
     timed.update(time_k5_k6(gen))
+    hold_abft_kernels(gen)
+    timed.update(time_abft(gen))
     entry = entry_point_phase(gen)
     launches = {}
     for arch in MODELS:
@@ -1360,6 +1915,8 @@ def main() -> int:
 
     quant_dot_cu = "src/repro_torch/csrc/quant_dot.cu"
     experts_cu = "src/repro_torch/csrc/quant_dot_experts.cu"
+    abft_cu = "src/repro_torch/csrc/quant_dot_abft.cu"
+    experts_abft_cu = "src/repro_torch/csrc/quant_dot_experts_abft.cu"
     meta = {
         "K1": {"name": "hadacore", "source": "src/repro_torch/csrc/hadacore.cu",
                "replaces": "src/repro/kernels/registry.py:224"},
@@ -1376,6 +1933,14 @@ def main() -> int:
                "replaces": "src/repro/kernels/quant_dot.py:787"},
         "K6s": {"name": "quant_dot_experts_streamed", "source": experts_cu,
                 "replaces": "src/repro/kernels/quant_dot.py:807"},
+        "K7a-ro": {"name": "quant_dot_abft", "source": abft_cu,
+                   "replaces": "src/repro/kernels/quant_dot.py:465"},
+        "K7a-s": {"name": "quant_dot_abft_streamed", "source": abft_cu,
+                  "replaces": "src/repro/kernels/quant_dot.py:497"},
+        "K7b": {"name": "quant_dot_experts_abft", "source": experts_abft_cu,
+                "replaces": "src/repro/kernels/quant_dot.py:845"},
+        "K7b-s": {"name": "quant_dot_experts_abft_streamed", "source": experts_abft_cu,
+                  "replaces": "src/repro/kernels/quant_dot.py:872"},
     }
     kernels = [{"name": meta[k]["name"], "route": "cuda",
                 "source": meta[k]["source"], "replaces": meta[k]["replaces"],

@@ -4,7 +4,8 @@ The reference (JAX) keeps a model's parameters as a pytree whose layer
 groups are stacked over a leading ``(layers, ...)`` axis and whose
 quantized leaves are ``QTensor``s. ``params_from_reference`` takes that
 tree as nested dicts and lists of numpy arrays -- a quantized leaf given as
-``{"q", "scale", "mode"}`` -- and returns the port's parameters on a
+``{"q", "scale", "mode"}``, plus ``"check"`` when the reference leaf carries
+its ABFT column checksum -- and returns the port's parameters on a
 device: the same leaves, the stacked groups split into the port's per-layer
 list, quantized leaves as :class:`~repro_torch.core.wquant.QTensor`.
 
@@ -52,8 +53,10 @@ def _is_qdict(x) -> bool:
 
 def _convert(tree, device):
     if _is_qdict(tree):
+        check = tree.get("check")
         return QTensor(q=to_torch(tree["q"], device),
-                       scale=to_torch(tree["scale"], device), mode=tree["mode"])
+                       scale=to_torch(tree["scale"], device), mode=tree["mode"],
+                       check=None if check is None else to_torch(check, device))
     if isinstance(tree, dict):
         return {k: _convert(v, device) for k, v in tree.items()}
     return to_torch(tree, device)
@@ -62,7 +65,7 @@ def _convert(tree, device):
 def _slice(tree, i: int):
     """Layer ``i`` of a stacked subtree (numpy level, before conversion)."""
     if _is_qdict(tree):
-        return {"q": tree["q"][i], "scale": tree["scale"][i], "mode": tree["mode"]}
+        return {k: (v if k == "mode" or v is None else v[i]) for k, v in tree.items()}
     if isinstance(tree, dict):
         return {k: _slice(v, i) for k, v in tree.items()}
     return tree[i]

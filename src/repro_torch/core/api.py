@@ -31,6 +31,15 @@ Declarative sites: :class:`RotationSpec` (attention Q/K/V) and
 with ``bind``, or to a stacked expert weight with ``bind_experts``).
 Forward only: gradients (the reference's custom_vjps) come with the
 training slice, mesh axes with the multi-device slice.
+
+ABFT (``REPRO_ABFT=1`` or ``QuantConfig.abft``): a consumer site whose
+weight carries its column checksum runs the verified twin
+(``_abft_quant_dot_impl``, ``_abft_quant_dot_experts_impl``: K7a-ro /
+K7a-s / K7b / K7b-s on the card) and NaN-poisons every row whose residual
+exceeds the tolerance, by an exact select: a healthy run is bitwise the
+unverified one, and a tripped row reaches the serving step's logits
+guard. A pure-rotation ``RotationSpec`` site is held to
+``hadamard_check``.
 """
 from __future__ import annotations
 
@@ -285,15 +294,61 @@ def _dispatch_quant_dot(x, wq, sw, plan: HadamardPlan, schedule=None):
     fuses, else the unfused path (grouped transforms, per-tensor scales).
     Decided from the plan, as the reference decides it; the two agree
     bitwise for int8."""
-    from repro_torch.kernels.quant_dot import _resolve_schedule, epilogue_dot
+    from repro_torch.kernels.quant_dot import _resolve_schedule
 
     if _qd_fusable(plan, _resolve_schedule(schedule)):
         return get_backend(plan.backend).quant_dot(x, wq, sw, plan, schedule)
+    return _unfused_quant_dot(x, wq, sw, plan)
+
+
+def _unfused_quant_dot(x, wq, sw, plan: HadamardPlan):
+    """The rotation, the epilogue outside any kernel and ``epilogue_dot``."""
+    from repro_torch.kernels.quant_dot import epilogue_dot
+
     y = _dispatch_transform(x, _strip(plan))
     epi = plan.epilogue
     q, s = registry._quantize_rows(
         y.to(torch.float32), epi.mode, axis=-1 if epi.per_token else None)
     return epilogue_dot(q, s, wq, sw, epi.mode, x.dtype)
+
+
+def _poison(y: torch.Tensor, ok: torch.Tensor) -> torch.Tensor:
+    """y where ok, NaN elsewhere: an exact select."""
+    return torch.where(ok, y, torch.full((), float("nan"), dtype=y.dtype,
+                                         device=y.device))
+
+
+def _abft_quant_dot_impl(x, wq, sw, cw, plan: HadamardPlan, schedule=None):
+    """Checksum-verified quant_dot (forward only): a fusable plan runs the
+    backend's verified kernel (K7a-ro, or K7a-s streamed, on the card; the
+    plain ABFT version on the ``torch`` backend), which returns the output
+    with its per-row residual; any other plan runs the unfused path and
+    ``xla_quant_dot_resid``. Rows whose residual exceeds the tolerance
+    become NaN."""
+    from repro_torch import verify
+    from repro_torch.kernels.quant_dot import _resolve_schedule, xla_quant_dot_resid
+
+    registry.TRACE_COUNTS[("abft", "quant_dot_site")] += 1
+    if _qd_fusable(plan, _resolve_schedule(schedule)):
+        y, resid = get_backend(plan.backend).quant_dot(x, wq, sw, plan, schedule,
+                                                       check=cw)
+    else:
+        y = _unfused_quant_dot(x, wq, sw, plan)
+        resid = xla_quant_dot_resid(x, wq, sw, cw, plan)
+    return _poison(y, verify.residual_ok(y, resid, n=wq.shape[0], d=wq.shape[-1]))
+
+
+def _abft_quant_dot_experts_impl(x, wq, sw, cw, plan: HadamardPlan, schedule=None):
+    """Checksum-verified expert consumer: the backend's verified expert
+    kernel (K7b, or K7b-s streamed, on the card) returns a residual per
+    (expert, row); failing rows become NaN. Callers check
+    ``_qd_experts_fusable`` first: the einsum form has no residual."""
+    from repro_torch import verify
+
+    registry.TRACE_COUNTS[("abft", "quant_dot_experts_site")] += 1
+    y, resid = get_backend(plan.backend).quant_dot_experts(x, wq, sw, plan, schedule,
+                                                           check=cw)
+    return _poison(y, verify.residual_ok(y, resid, n=wq.shape[1], d=wq.shape[-1]))
 
 
 def quant_dot(
@@ -440,7 +495,9 @@ class RotationSpec:
     """An activation-only rotation site (the attention Q/K/V hook): rotate
     (unless ``rotate=False``, the V site whose rotation is fused offline)
     and, when ``mode`` is not 'none', fake-quantize -- as one K2 launch on
-    the card when the plan fuses."""
+    the card when the plan fuses. Under ABFT (``abft`` or ``REPRO_ABFT``)
+    a pure-rotation site (mode 'none') is held to ``hadamard_check`` and
+    NaN-poisoned when it fails."""
 
     n: int
     mode: str = "none"
@@ -450,6 +507,7 @@ class RotationSpec:
     scale: Union[str, float, None] = "ortho"
     backend: Optional[str] = None
     compute_dtype: Optional[str] = None
+    abft: bool = False
 
     def __post_init__(self):
         if self.mode != "none" and self.mode not in QSPECS:
@@ -468,7 +526,8 @@ class RotationSpec:
             (quantize and cfg.enabled)
         return cls(n=n, mode=cfg.mode if q else "none",
                    rotate=cfg.rotating if rotate is None else rotate,
-                   per_token=per_token, backend=_cfg_backend_name(cfg.backend))
+                   per_token=per_token, backend=_cfg_backend_name(cfg.backend),
+                   abft=bool(getattr(cfg, "abft", False)))
 
     def plan(self, dtype, device_type: str = "cuda") -> HadamardPlan:
         epi = None
@@ -486,12 +545,24 @@ class RotationSpec:
                 f"RotationSpec was built for n={self.n} but x has last "
                 f"axis {x.shape[-1]}")
         if self.rotate:
-            return hadamard(x, self.plan(x.dtype, x.device.type))
+            y = hadamard(x, self.plan(x.dtype, x.device.type))
+            if self.mode == "none" and self._abft_verifying():
+                from repro_torch.core.hadamard import hadamard_check
+
+                registry.TRACE_COUNTS[("abft", "rotation_site")] += 1
+                y = _poison(y, hadamard_check(x, y, scale=self.scale,
+                                              compute_dtype=self.compute_dtype))
+            return y
         if self.mode != "none":
             from repro_torch.core.quant import quantize
 
             return quantize(x, self.mode, axis=-1 if self.per_token else None)
         return x
+
+    def _abft_verifying(self) -> bool:
+        from repro_torch.verify.abft import abft_enabled
+
+        return self.abft or abft_enabled()
 
 
 @dataclasses.dataclass(frozen=True)
@@ -500,7 +571,10 @@ class QuantDotSpec:
     contraction axis and low-precision operands, bound to a weight with
     ``spec.bind(w)``: a raw weight is quantized per out-channel on the fly;
     a pre-quantized :class:`~repro_torch.core.wquant.QTensor` (serving) is
-    contracted directly, with zero per-forward weight quantization."""
+    contracted directly, with zero per-forward weight quantization.
+    ``schedule`` pins the fused kernels' schedule (None: the env, then
+    rotate-once); ``abft`` verifies the site when its weight carries a
+    checksum (as does ``REPRO_ABFT``)."""
 
     n: int
     mode: str = "int8"
@@ -509,18 +583,37 @@ class QuantDotSpec:
     scale: Union[str, float, None] = "ortho"
     backend: Optional[str] = None
     compute_dtype: Optional[str] = None
+    schedule: Optional[str] = None
+    abft: bool = False
 
     def __post_init__(self):
         if self.mode != "none" and self.mode not in QSPECS:
             raise ValueError(
                 f"unknown quantization mode {self.mode!r}; expected 'none' "
                 f"or one of {sorted(QSPECS)}")
+        if self.schedule is not None:
+            from repro_torch.kernels.quant_dot import SCHEDULES
+
+            if self.schedule not in SCHEDULES:
+                raise ValueError(f"unknown quant_dot schedule {self.schedule!r}; "
+                                 f"expected one of {SCHEDULES}")
 
     @classmethod
     def for_config(cls, n: int, cfg) -> "QuantDotSpec":
+        """The spec a QuantConfig implies; ``cfg.schedule`` pins the kernels'
+        schedule (the serving ladder's rungs rely on it)."""
         return cls(n=n, mode=cfg.mode, rotate=cfg.rotating,
                    per_token=cfg.per_token,
-                   backend=_cfg_backend_name(cfg.backend))
+                   backend=_cfg_backend_name(cfg.backend),
+                   schedule=getattr(cfg, "schedule", None),
+                   abft=bool(getattr(cfg, "abft", False)))
+
+    def _abft_verifying(self, w) -> bool:
+        """Verify this site? Needs both the stored checksum and the switch
+        (the spec's ``abft`` or ``REPRO_ABFT``)."""
+        from repro_torch.verify.abft import abft_enabled
+
+        return getattr(w, "check", None) is not None and (self.abft or abft_enabled())
 
     @property
     def quantizing(self) -> bool:
@@ -560,8 +653,11 @@ class QuantDotSpec:
             # natively: dequantize (NOT re-quantize) and run raw
             return self._apply_raw(w.dequant(x.dtype), x)
         if self.rotate:
-            return _dispatch_quant_dot(x, w.q, w.scale,
-                                       self.plan(x.dtype, x.device.type))
+            plan = self.plan(x.dtype, x.device.type)
+            if self._abft_verifying(w):
+                return _abft_quant_dot_impl(x, w.q, w.scale, w.check, plan,
+                                            self.schedule)
+            return _dispatch_quant_dot(x, w.q, w.scale, plan, self.schedule)
         q, s = registry._quantize_rows(
             x.to(torch.float32), self.mode,
             axis=-1 if self.per_token else None)
@@ -582,7 +678,20 @@ class QuantDotSpec:
         if not self.quantizing or w.mode != self.mode:
             return self._apply_experts_raw(w.dequant(x.dtype), x)
         if self.rotate:
-            return quant_dot_experts(x, w, self.plan(x.dtype, x.device.type))
+            plan = self.plan(x.dtype, x.device.type)
+            if self._abft_verifying(w):
+                from repro_torch.kernels.quant_dot import _resolve_schedule
+
+                if _qd_experts_fusable(plan, _resolve_schedule(self.schedule,
+                                                               experts=True)):
+                    return _abft_quant_dot_experts_impl(x, w.q, w.scale, w.check,
+                                                        plan, self.schedule)
+                registry.warn_once(
+                    ("abft", "experts_einsum_fallback"),
+                    "ABFT checksums are present but the expert site runs the "
+                    "einsum form (a plan the expert kernel does not take), "
+                    "which has no checksum output; it runs UNVERIFIED")
+            return quant_dot_experts(x, w, plan, self.schedule)
         from repro_torch.core.quant import quantize
 
         xq = quantize(x, self.mode, axis=-1 if self.per_token else None)
@@ -599,7 +708,8 @@ class QuantDotSpec:
             xq = quantize(x, self.mode, axis=-1 if self.per_token else None)
             return torch.einsum("becf,efd->becd", xq,
                                 quantize(w, self.mode, axis=-2))
-        return quant_dot_experts(x, w, self.plan(x.dtype, x.device.type))
+        return quant_dot_experts(x, w, self.plan(x.dtype, x.device.type),
+                                 self.schedule)
 
     def _apply_raw(self, w, x):
         if not self.quantizing:
@@ -617,4 +727,4 @@ class QuantDotSpec:
 
         qt = quantize_weight(w, self.mode)
         return _dispatch_quant_dot(x, qt.q, qt.scale,
-                                   self.plan(x.dtype, x.device.type))
+                                   self.plan(x.dtype, x.device.type), self.schedule)

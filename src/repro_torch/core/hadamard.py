@@ -34,6 +34,7 @@ __all__ = [
     "largest_pow2_divisor",
     "resolve_scale",
     "resolve_compute_dtype",
+    "hadamard_check",
 ]
 
 # Width of one pass (the reference's TPU matrix-unit tile). The port keeps
@@ -157,6 +158,38 @@ def hadamard_transform(x: torch.Tensor, scale="ortho") -> torch.Tensor:
     mats = [torch.from_numpy(m).to(x.device) for m in base_matrices_np(n, s)]
     y = _apply_passes(x.to(torch.float32).reshape(-1, n), n, mats)
     return y.reshape(x.shape).to(x.dtype)
+
+
+def hadamard_check(x: torch.Tensor, y: torch.Tensor, *, scale="ortho",
+                   compute_dtype=None) -> torch.Tensor:
+    """Linearity invariant of a pure-rotation site (ABFT; the reference's
+    ``hadamard_check``): the column sum of the outputs must equal the
+    transform of the column sum of the inputs,
+
+        sum_i H(x)[i, :]  ==  H(sum_i x[i, :]),
+
+    the right side recomputed here in f32 on the one summed row. The
+    tolerance, per column, is the reference's: 8 x (the compute / output
+    dtype's eps x (column mass / sqrt(m) + the largest |y|) + f32 eps x
+    sqrt(m + n) x column mass). Returns a 0-d bool tensor, True = the site
+    verified; a non-finite output fails (NaN compares false)."""
+    n = x.shape[-1]
+    xr = x.reshape(-1, n).to(torch.float32)
+    yr = y.reshape(-1, n).to(torch.float32)
+    m = max(xr.shape[0], 1)
+    cd = resolve_compute_dtype(x.dtype, compute_dtype)
+    eps = torch.finfo(torch_dtype(cd)).eps
+    if y.dtype.is_floating_point:
+        eps = max(eps, torch.finfo(y.dtype).eps)
+    eps32 = torch.finfo(torch.float32).eps
+    mats = [torch.from_numpy(mt).to(x.device)
+            for mt in base_matrices_np(n, resolve_scale(scale, n))]
+    ref = _apply_passes(xr.sum(0, keepdim=True), n, mats)
+    got = yr.sum(0, keepdim=True)
+    colmass = yr.abs().sum(0, keepdim=True)
+    tol = 8.0 * (eps * (colmass / math.sqrt(m) + yr.abs().amax())
+                 + eps32 * math.sqrt(m + n) * colmass) + 1e-30
+    return ((got - ref).abs() <= tol).all()
 
 
 def largest_pow2_divisor(n: int) -> int:

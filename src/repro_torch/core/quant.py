@@ -1,10 +1,12 @@
 """Simulated low-precision quantization (INT8 / FP8) for rotation-quantized
-inference (twin of ``repro.core.quant``, without the numeric guards).
+inference (twin of ``repro.core.quant``).
 
 Fake quant: values are quantized and immediately dequantized, reproducing
 the INT8/FP8 numerics with symmetric per-token or per-channel scales. The
 math is ``kernels.registry._quantize_rows`` / ``_dequantize``, shared with
-the K2 kernel's plain version.
+the K2 kernel's plain version. With ``REPRO_NUMERIC_GUARDS`` on,
+``quantize`` NaN-poisons the rows of a non-finite or non-positive scale
+(``core.guards.guard_dequant``).
 """
 from __future__ import annotations
 
@@ -12,6 +14,8 @@ import dataclasses
 from typing import Optional
 
 import torch
+
+from repro_torch.core import guards
 
 __all__ = ["QuantConfig", "quantize", "quant_dot", "kv_quantize"]
 
@@ -27,12 +31,22 @@ class QuantConfig:
               REPRO_HADAMARD_BACKEND, then the kernels for CUDA tensors and
               the plain versions for CPU tensors)
     kv_quant: quantize the KV cache (the paper's FP8-attention case)
+    schedule: the fused quant_dot kernels' schedule at every consumer site
+              ('rotate_once' | 'revisit' | 'streamed'; None defers to
+              REPRO_QUANT_DOT_SCHEDULE, then rotate-once). The serving
+              engine's degradation ladder pins it one rung down.
+    abft:     store ABFT column checksums on the quantized weights and
+              verify the fused quant_dot outputs and the serving KV cache
+              at run time (``repro_torch.verify``); ``REPRO_ABFT=1``
+              switches it on without a config edit.
     """
     mode: str = "none"
     rotate: str = "none"
     backend: str = "auto"
     kv_quant: bool = False
     per_token: bool = True
+    schedule: Optional[str] = None
+    abft: bool = False
 
     _MODES = ("none", "int8", "fp8_e4m3", "fp8_e5m2")
     _ROTATES = ("none", "hadamard")
@@ -45,6 +59,12 @@ class QuantConfig:
             raise ValueError(f"unknown rotate {self.rotate!r}; expected one of {self._ROTATES}")
         if self.backend not in self._BACKENDS:
             raise ValueError(f"unknown backend {self.backend!r}; expected one of {self._BACKENDS}")
+        if self.schedule is not None:
+            from repro_torch.kernels.quant_dot import SCHEDULES
+
+            if self.schedule not in SCHEDULES:
+                raise ValueError(f"unknown quant_dot schedule {self.schedule!r}; "
+                                 f"expected None or one of {SCHEDULES}")
 
     @property
     def enabled(self) -> bool:
@@ -74,7 +94,10 @@ def quantize(x: torch.Tensor, mode: str, axis: Optional[int] = -1) -> torch.Tens
     if mode not in QSPECS:
         raise ValueError(f"unknown quant mode {mode!r}")
     q, s = _quantize_rows(x.to(torch.float32), mode, axis=axis)
-    return _dequantize(q, s, mode).to(x.dtype)
+    y = _dequantize(q, s, mode).to(x.dtype)
+    if guards.guards_enabled():
+        y = guards.guard_dequant(y, s)
+    return y
 
 
 def quant_dot(x: torch.Tensor, w: torch.Tensor, cfg: QuantConfig) -> torch.Tensor:

@@ -1,5 +1,5 @@
 """Quantized weight storage: ``QTensor`` (twin of ``repro.core.wquant``,
-without the ABFT checksums and sharding axes).
+without the sharding axes).
 
 Matmul weights are stored quantized (int8 / fp8) with f32 per-output-
 channel scales and dequantized per layer in the forward. The rotation-
@@ -13,6 +13,13 @@ Stacked expert weights (E, n, d) carry per-(expert, out-channel) scales
 the port draws, quantizes and dequantizes such stacks a chunk of experts
 at a time (``CHUNK_ELEMS``): an f32 copy of a whole 128-expert stack at
 llama4-maverick's width would be 21.5 GB.
+
+ABFT: a QTensor may carry ``check``, the column checksum of its
+dequantized weight (``weight_checksum``), which the checksum-verified
+quant_dot kernels and ``verify.params_ok`` hold the live weight against.
+``quantize_weight(..., with_check=True)`` attaches it at quantization
+time; ``quantize_lm_weights`` and ``init_lm`` do so under
+``QuantConfig.abft`` or ``REPRO_ABFT=1``.
 """
 from __future__ import annotations
 
@@ -23,7 +30,8 @@ import torch
 from repro_torch.kernels.registry import QSPECS, _quantize_rows, cast_to
 
 __all__ = ["QTensor", "quantize_weight", "quantize_lm_weights", "dequant_tree",
-           "is_qleaf", "leaf_mode", "chunk_len", "QUANTIZE_WEIGHT_CALLS"]
+           "is_qleaf", "leaf_mode", "chunk_len", "weight_checksum",
+           "QUANTIZE_WEIGHT_CALLS"]
 
 _MIN_SIZE = 1 << 16   # don't quantize tiny leaves (norms, biases)
 
@@ -42,16 +50,20 @@ class QTensor:
     """A quantized weight: ``q`` (..., n, d) storage-dtype values (int8 /
     fp8) and ``scale`` (..., 1, d) f32 absmax scales over the contraction
     axis; ``mode`` is 'int8' | 'fp8_e4m3' | 'fp8_e5m2', and ``q`` must be
-    stored in that mode's dtype."""
+    stored in that mode's dtype. ``check`` is None or the (..., 1, n) f32
+    ABFT column checksum ``weight_checksum(q, scale)``: row k holds
+    sum_d q[k, d] * scale[d], so ``sum_d (a @ W)[d] == a . check`` in real
+    arithmetic for any activation row a."""
 
-    __slots__ = ("q", "scale", "mode")
+    __slots__ = ("q", "scale", "mode", "check")
 
-    def __init__(self, q: torch.Tensor, scale: torch.Tensor, mode: str = "int8"):
+    def __init__(self, q: torch.Tensor, scale: torch.Tensor, mode: str = "int8",
+                 check=None):
         if q.dtype != QSPECS[mode][1]:
             raise ValueError(
                 f"QTensor values are {q.dtype}, not the {mode!r} storage "
                 f"dtype {QSPECS[mode][1]}")
-        self.q, self.scale, self.mode = q, scale, mode
+        self.q, self.scale, self.mode, self.check = q, scale, mode, check
 
     def dequant(self, dtype=torch.float32) -> torch.Tensor:
         """``(q.float() * scale).to(dtype)``, computed in f32 and rounded
@@ -68,7 +80,7 @@ class QTensor:
 
     def __repr__(self):
         return (f"QTensor(q={tuple(self.q.shape)} {self.q.dtype}, "
-                f"mode={self.mode!r})")
+                f"mode={self.mode!r}, check={self.check is not None})")
 
 
 def _mul_into(q: torch.Tensor, s: torch.Tensor, out: torch.Tensor) -> torch.Tensor:
@@ -90,14 +102,44 @@ def chunk_len(per_item: int) -> int:
     return max(1, CHUNK_ELEMS // max(per_item, 1))
 
 
-def quantize_weight(w: torch.Tensor, mode: str) -> QTensor:
+def weight_checksum(q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    """The ABFT column checksum of a quantized weight: f32 (..., 1, n) with
+    entry k = sum_d q[..., k, d] * scale[..., 0, d], the row sums of the
+    dequantized weight, in the reference's op order
+    (``(q.float() * scale).sum(-1)``; ``verify.params_ok`` recomputes it
+    verbatim). A stacked leaf goes a chunk of its leading axis at a time,
+    so no f32 copy of a whole expert stack exists."""
+    if q.ndim < 3:
+        return (q.to(torch.float32) * scale).sum(-1)[..., None, :]
+    out = torch.empty((*q.shape[:-2], 1, q.shape[-2]), dtype=torch.float32,
+                      device=q.device)
+    step = chunk_len(q[0].numel())
+    for i in range(0, q.shape[0], step):
+        j = i + step
+        out[i:j] = (q[i:j].to(torch.float32) * scale[i:j]).sum(-1)[..., None, :]
+    return out
+
+
+def quantize_weight(w: torch.Tensor, mode: str, *,
+                    with_check: bool = False) -> QTensor:
     """Offline weight quantization: ``q`` in the mode's storage dtype and
     f32 per-OUT-channel scales (absmax over ``axis=-2``), through the same
-    ``_quantize_rows`` math as the activation epilogues. w: (..., n, d)."""
+    ``_quantize_rows`` math as the activation epilogues. w: (..., n, d).
+    ``with_check`` also stores the ABFT column checksum."""
     global QUANTIZE_WEIGHT_CALLS
     QUANTIZE_WEIGHT_CALLS += 1
     q, s = _quantize_rows(w.to(torch.float32), mode, axis=-2)
-    return QTensor(q=cast_to(q, QSPECS[mode][1]), scale=s, mode=mode)
+    q = cast_to(q, QSPECS[mode][1])
+    return QTensor(q=q, scale=s, mode=mode,
+                   check=weight_checksum(q, s) if with_check else None)
+
+
+def wants_checks(cfg=None) -> bool:
+    """Do the weights of this model config carry ABFT checksums
+    (``QuantConfig.abft`` or ``REPRO_ABFT``)?"""
+    from repro_torch.verify.abft import abft_enabled
+
+    return bool(getattr(getattr(cfg, "quant", None), "abft", False)) or abft_enabled()
 
 
 def _is_consumer(keys: Tuple[str, ...]) -> bool:
@@ -139,7 +181,9 @@ def quantize_leaf(keys: Tuple[str, ...], leaf, cfg=None):
     if not isinstance(leaf, torch.Tensor):
         return leaf
     mode = leaf_mode(keys, tuple(leaf.shape), leaf.dtype, cfg)
-    return leaf if mode is None else quantize_weight(leaf, mode)
+    if mode is None:
+        return leaf
+    return quantize_weight(leaf, mode, with_check=wants_checks(cfg))
 
 
 def _map_with_keys(fn, tree, keys=()):
@@ -153,7 +197,8 @@ def _map_with_keys(fn, tree, keys=()):
 def quantize_lm_weights(params, cfg=None):
     """Replace every large matmul weight with a :class:`QTensor`, once at
     load (the serving-path pre-quantization pass). ``cfg`` (a ModelConfig)
-    selects the consumer mode, as in ``quantize_leaf``."""
+    selects the consumer mode, as in ``quantize_leaf``; every leaf carries
+    its ABFT checksum when ``wants_checks(cfg)``."""
     return _map_with_keys(lambda keys, leaf: quantize_leaf(keys, leaf, cfg),
                           params)
 

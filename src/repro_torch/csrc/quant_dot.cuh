@@ -1,16 +1,22 @@
 // K4, K5, K6 and K6s: rotate -> per-token quantize -> int8 / fp8 GEMM in
 // one kernel, for sm_90a; dense (K4, K5: quant_dot.cu) and over stacked
 // experts (K6, K6s: quant_dot_experts.cu), each with the rotate-once (K4,
-// K6) or the streamed (K5, K6s) schedule. This header holds their shared
-// body; each source instantiates its own kernels, so the two build in
-// parallel.
+// K6) or the streamed (K5, K6s) schedule; and their checksum-verified
+// (ABFT) twins K7a-ro, K7a-s (quant_dot_abft.cu), K7b, K7b-s
+// (quant_dot_experts_abft.cu). This header holds their shared body; each
+// source instantiates its own kernels, so the four build in parallel.
 //
 // Replaces the TPU kernels of repro/kernels/quant_dot.py:
-//   K4  _quant_dot_kernel_rotate_once              (launched by _pallas_quant_dot)
-//   K5  _quant_dot_kernel_streamed, _ring_dmas     (_pallas_quant_dot, streamed)
-//   K6  _quant_dot_experts_kernel                  (_pallas_quant_dot_experts)
-//   K6s _quant_dot_experts_kernel_streamed         (_pallas_quant_dot_experts)
-// with the helpers _rotate_quantize_block, _operand_from_q, _operand_dot.
+//   K4     _quant_dot_kernel_rotate_once              (launched by _pallas_quant_dot)
+//   K5     _quant_dot_kernel_streamed, _ring_dmas     (_pallas_quant_dot, streamed)
+//   K6     _quant_dot_experts_kernel                  (_pallas_quant_dot_experts)
+//   K6s    _quant_dot_experts_kernel_streamed         (_pallas_quant_dot_experts)
+//   K7a-ro _quant_dot_kernel_rotate_once_abft         (_pallas_quant_dot_abft)
+//   K7a-s  _quant_dot_kernel_streamed_abft            (_pallas_quant_dot_abft)
+//   K7b    _quant_dot_experts_kernel_abft             (_pallas_quant_dot_experts_abft)
+//   K7b-s  _quant_dot_experts_kernel_streamed_abft    (_pallas_quant_dot_experts_abft)
+// with the helpers _rotate_quantize_block, _operand_from_q, _operand_dot,
+// _abft_check_col.
 // Same function, with the same rounding points: each row of x is rotated
 // through K1's passes in the compute dtype (hadacore.cuh), quantized per
 // token from the f32 copy of the rounded row (quant.cuh), contracted with the
@@ -83,6 +89,22 @@
 // separated stages are latency-bound at one block per SM, so more warps
 // hide more of it.
 //
+// ABFT twins (kAbft). Three additions, none on the output's path: (a) in
+// the rotation phase each cluster member sums chk = op . cw for the rows it
+// rotates (f32, a fixed order; cw, the weight's column checksum, is read
+// from global memory and, streamed, never through the ring, so a
+// mis-delivered ring stage shows in the residual) and stores it into every
+// member, beside the scales; (b) each block sums, per row, the f32
+// contributions acc * s * sw that the output casts (tile by tile, each
+// tile's columns in order); (c) the residual needs every split of the row
+// block: each block writes its row sums to a (row block, split) workspace
+// and bumps the row block's counter (__threadfence, atomicAdd); the last to
+// arrive adds the sums in split order, writes r = sum - s * chk and resets
+// the counter to 0. One launch per site, and the same bits every run (no
+// float atomics). The extra shared memory (about 2 KB at 16 rows) leaves
+// the rows per block of every n the kernels serve unchanged; the outputs
+// would not depend on them anyway (each output's sum has a fixed order).
+//
 // What this first version leaves on the table: CUDA-core dp4a / FMA instead
 // of the tensor cores (wgmma), 4-byte cp.async instead of TMA bulk copies,
 // the rotation repeated in every cluster, and the all-zero rows of a dense
@@ -133,23 +155,31 @@ __host__ __device__ __forceinline__ size_t op_bytes(int n, int bm, bool is_int) 
   return (size_t)bm * op_stride(n) * (is_int ? 1 : 2);
 }
 
+// ABFT twins only: each row's activation checksum, the f32 contributions
+// of one output tile, one partial sum per warp and the last-block flag.
+__host__ __device__ __forceinline__ size_t abft_bytes(int bm, bool abft) {
+  return abft ? (size_t)(bm + bm * kBN + kThreads / 32 + 1) * sizeof(float) : 0;
+}
+
 __host__ __device__ __forceinline__ size_t layout_bytes(int n, int bm, int rw, bool is_int,
-                                                        bool streamed) {
+                                                        bool streamed, bool abft) {
   return op_bytes(n, bm, is_int) + ring_bytes(streamed) + work_bytes(n, bm, rw) +
-         (size_t)bm * sizeof(float) + (size_t)rw * sizeof(int);
+         (size_t)bm * sizeof(float) + (size_t)rw * sizeof(int) + abft_bytes(bm, abft);
 }
 
 // Rows rotated at once: all bm when they fit, else the most (a power of 2)
 // that do. More rows per group means fewer barriers per row.
-__host__ __device__ __forceinline__ int work_rows(int n, int bm, bool is_int, bool streamed) {
+__host__ __device__ __forceinline__ int work_rows(int n, int bm, bool is_int, bool streamed,
+                                                  bool abft) {
   int rw = bm;
-  while (rw > 1 && layout_bytes(n, bm, rw, is_int, streamed) > kSmemLimit) rw /= 2;
+  while (rw > 1 && layout_bytes(n, bm, rw, is_int, streamed, abft) > kSmemLimit) rw /= 2;
   return rw;
 }
 
 __host__ __device__ __forceinline__ size_t smem_bytes(int n, int bm, bool is_int,
-                                                      bool streamed) {
-  return layout_bytes(n, bm, work_rows(n, bm, is_int, streamed), is_int, streamed);
+                                                      bool streamed, bool abft) {
+  return layout_bytes(n, bm, work_rows(n, bm, is_int, streamed, abft), is_int, streamed,
+                      abft);
 }
 
 // Element row of row r (0 <= r < m) of expert e in x (B, E, cap, n) and out
@@ -289,18 +319,62 @@ struct KStep {
   }
 };
 
-// One block of K4 / K5 / K6 / K6s: rows [row0, row0 + BM) of expert e
-// (dense: e = 0, E = cap = 1) against this block's run of column tiles.
-template <typename T, int BM, bool kInt, bool kStreamed>
+// The ABFT twins' extra operands (unused by K4 / K5 / K6 / K6s): cw the
+// (E, n) f32 column checksums, resid the (m) f32 per-row residuals (in
+// out's row order), part the per-(expert, row block, split) row partial
+// sums (gridDim.z * gridDim.x * gridDim.y * BM floats), count one arrival
+// counter per (expert, row block), zero on entry and left zero on exit.
+struct Abft {
+  const float* cw;
+  float* resid;
+  float* part;
+  unsigned int* count;
+};
+
+// Activation checksum of one operand row: sum_k op[k] * cw[k] in f32, each
+// thread over k = tid, tid + kThreads, ... in order, then the warp's lanes
+// by a fixed butterfly and the warps in order: the same bits in every block.
+template <bool kInt>
+__device__ __forceinline__ float row_check(const unsigned char* op_row, const float* cw, int n,
+                                           float* wsum) {
+  float a = 0.0f;
+  for (int k = threadIdx.x; k < n; k += blockDim.x) {
+    float v;
+    if constexpr (kInt) v = (float)(int8_t)op_row[k];
+    else v = bf16_bits_to_float(reinterpret_cast<const uint16_t*>(op_row)[k]);
+    a = __fadd_rn(a, __fmul_rn(v, __ldg(cw + k)));
+  }
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) a = __fadd_rn(a, __shfl_xor_sync(0xffffffffu, a, o));
+  if ((threadIdx.x & 31) == 0) wsum[threadIdx.x >> 5] = a;
+  __syncthreads();
+  float c = 0.0f;
+  for (int w = 0; w < kThreads / 32; ++w) c = __fadd_rn(c, wsum[w]);
+  __syncthreads();  // wsum is reused by the next row
+  return c;
+}
+
+// One block of K4 / K5 / K6 / K6s (kAbft = false) or of their ABFT twins
+// K7a-ro / K7a-s / K7b / K7b-s (kAbft = true): rows [row0, row0 + BM) of
+// expert e (dense: e = 0, E = cap = 1) against this block's run of column
+// tiles. The twins compute the outputs with the same operations in the
+// same order, so out is bitwise the unverified kernel's; besides, each
+// row's checksum chk = op . cw (in the rotation phase, cw read from global
+// memory: under the streamed schedule it never passes through the ring),
+// each block's per-row sum of its f32 contributions (tile by tile, each
+// tile's 32 columns in order), and, in the last block of the row block to
+// finish, r = (the blocks' sums in split order) - s * chk.
+template <typename T, int BM, bool kInt, bool kStreamed, bool kAbft>
 __device__ __forceinline__ void quant_dot_block(const T* x, const uint8_t* wq, const float* sw,
                                                 T* out, long long m, int n, int d, int E,
                                                 int cap, int e, int r, int cd, float scale,
-                                                int mode, int tiles_per_block, int vec) {
+                                                int mode, int tiles_per_block, int vec,
+                                                Abft ab) {
   using Acc = typename std::conditional<kInt, int, float>::type;
   extern __shared__ __align__(16) unsigned char smem[];
   const int np4 = op_stride(n);
   const int lg = __ffs(n) - 1;  // n is a power of 2
-  const int rw = work_rows(n, BM, kInt, kStreamed);
+  const int rw = work_rows(n, BM, kInt, kStreamed, kAbft);
   unsigned char* op = smem;  // BM x np4 int8, or BM x np4 bf16 bits
   uint32_t* ring = reinterpret_cast<uint32_t*>(smem + op_bytes(n, BM, kInt));
   float* work = reinterpret_cast<float*>(reinterpret_cast<unsigned char*>(ring) +
@@ -308,6 +382,10 @@ __device__ __forceinline__ void quant_dot_block(const T* x, const uint8_t* wq, c
   float* s_row = reinterpret_cast<float*>(reinterpret_cast<unsigned char*>(work) +
                                           work_bytes(n, BM, rw));
   int* amax = reinterpret_cast<int*>(s_row + BM);
+  float* chk = reinterpret_cast<float*>(amax + rw);  // ABFT: BM checksums,
+  float* tile_c = chk + BM;                          // BM x kBN contributions,
+  float* wsum = tile_c + BM * kBN;                   // kThreads / 32 warp sums,
+  int* last = reinterpret_cast<int*>(wsum + kThreads / 32);  // the last-block flag
   wq += (size_t)e * n * d;  // expert e's weight and scales
   sw += (size_t)e * d;
 
@@ -352,10 +430,12 @@ __device__ __forceinline__ void quant_dot_block(const T* x, const uint8_t* wq, c
   const int mine1 = mine0 + BM / csize < rows ? mine0 + BM / csize : rows;
   unsigned char* op_at[kMaxCluster];
   float* s_at[kMaxCluster];
+  float* chk_at[kMaxCluster];
 #pragma unroll
   for (int c = 0; c < kMaxCluster; ++c) {
     op_at[c] = c < csize ? cluster.map_shared_rank(op, c) : op;
     s_at[c] = c < csize ? cluster.map_shared_rank(s_row, c) : s_row;
+    if constexpr (kAbft) chk_at[c] = c < csize ? cluster.map_shared_rank(chk, c) : chk;
   }
   cluster.sync();  // every member runs before anyone writes into it
   for (int g = mine0; g < mine1; g += rw) {
@@ -386,6 +466,20 @@ __device__ __forceinline__ void quant_dot_block(const T* x, const uint8_t* wq, c
       }
     }
     __syncthreads();
+    if constexpr (kAbft) {
+      // this member's rows are in its own operand too: their checksums,
+      // into every member's chk
+      for (int i = 0; i < nr; ++i) {
+        const float c =
+            row_check<kInt>(op + (size_t)(g + i) * np4 * (kInt ? 1 : 2), ab.cw + (size_t)e * n,
+                            n, wsum);
+        if (threadIdx.x == 0) {
+#pragma unroll
+          for (int cc = 0; cc < kMaxCluster; ++cc)
+            if (cc < csize) chk_at[cc][g + i] = c;
+        }
+      }
+    }
   }
   // zero the masked rows, and the padding of rows shorter than a word
   for (int i = rows * np4 + threadIdx.x; i < BM * np4; i += blockDim.x) {
@@ -403,6 +497,7 @@ __device__ __forceinline__ void quant_dot_block(const T* x, const uint8_t* wq, c
 
   // ---- contract the operand with this block's run of column tiles
   Acc* red = reinterpret_cast<Acc*>(work);
+  float rowacc = 0.0f;  // ABFT: thread i < BM's running sum of row i
   int item = 0;
   for (int t = t0; t < t1; ++t) {
     w.j = t * kBN + cq * 4;
@@ -449,35 +544,72 @@ __device__ __forceinline__ void quant_dot_block(const T* x, const uint8_t* wq, c
       const int i = o / kBN, col = t * kBN + (o - i * kBN);
       Acc sum = 0;
       for (int kw = 0; kw < kKW; ++kw) sum += red[(kw * BM + i) * kBN + (o - i * kBN)];
+      float contrib = 0.0f;
       if (i < rows && col < d) {
         float v;
         if constexpr (kInt) v = __int2float_rn(sum);
         else v = sum;
-        out[row_index(row0 + i, E, cap, e) * d + col] =
-            hadacore::from_float<T>(__fmul_rn(__fmul_rn(v, s_row[i]), sw[col]));
+        contrib = __fmul_rn(__fmul_rn(v, s_row[i]), sw[col]);
+        out[row_index(row0 + i, E, cap, e) * d + col] = hadacore::from_float<T>(contrib);
       }
+      if constexpr (kAbft) tile_c[o] = contrib;
     }
     __syncthreads();
+    if constexpr (kAbft) {
+      // read before the next tile's contributions: those are written only
+      // after the barrier that follows its partial sums
+      if (threadIdx.x < BM) {
+        float a = 0.0f;
+        for (int c = 0; c < kBN; ++c) a = __fadd_rn(a, tile_c[threadIdx.x * kBN + c]);
+        rowacc = __fadd_rn(rowacc, a);
+      }
+    }
   }
   if constexpr (kStreamed) cp_async_wait<0>();  // only empty groups remain
+
+  if constexpr (kAbft) {
+    // ---- the residual: every block of the row block writes its row sums,
+    // then the last to arrive adds them in split order
+    const size_t grp = (size_t)e * gridDim.x + blockIdx.x;
+    const int splits = (int)gridDim.y;
+    if (threadIdx.x < BM) {
+      ab.part[(grp * splits + blockIdx.y) * BM + threadIdx.x] = rowacc;
+      __threadfence();
+    }
+    __syncthreads();
+    if (threadIdx.x == 0) *last = atomicAdd(ab.count + grp, 1u) == (unsigned)(splits - 1);
+    __syncthreads();
+    if (*last) {
+      __threadfence();
+      if (threadIdx.x < rows) {
+        float a = 0.0f;
+        for (int sp = 0; sp < splits; ++sp)
+          a = __fadd_rn(a, __ldcg(ab.part + (grp * splits + sp) * BM + threadIdx.x));
+        ab.resid[row_index(row0 + threadIdx.x, E, cap, e)] =
+            __fsub_rn(a, __fmul_rn(s_row[threadIdx.x], chk[threadIdx.x]));
+      }
+      if (threadIdx.x == 0) ab.count[grp] = 0u;
+    }
+  }
 }
 
-template <typename T, int BM, bool kInt, bool kStreamed>
+template <typename T, int BM, bool kInt, bool kStreamed, bool kAbft>
 __global__ void __launch_bounds__(kThreads)
     quant_dot_kernel(const T* x, const uint8_t* wq, const float* sw, T* out, long long m,
                      int n, int d, int r, int cd, float scale, int mode, int tiles_per_block,
-                     int vec) {
-  quant_dot_block<T, BM, kInt, kStreamed>(x, wq, sw, out, m, n, d, 1, 1, 0, r, cd, scale,
-                                          mode, tiles_per_block, vec);
+                     int vec, Abft ab) {
+  quant_dot_block<T, BM, kInt, kStreamed, kAbft>(x, wq, sw, out, m, n, d, 1, 1, 0, r, cd,
+                                                 scale, mode, tiles_per_block, vec, ab);
 }
 
-template <typename T, int BM, bool kInt, bool kStreamed>
+template <typename T, int BM, bool kInt, bool kStreamed, bool kAbft>
 __global__ void __launch_bounds__(kThreads)
     quant_dot_experts_kernel(const T* x, const uint8_t* wq, const float* sw, T* out,
                              long long m, int n, int d, int E, int cap, int r, int cd,
-                             float scale, int mode, int tiles_per_block, int vec) {
-  quant_dot_block<T, BM, kInt, kStreamed>(x, wq, sw, out, m, n, d, E, cap, (int)blockIdx.z, r,
-                                          cd, scale, mode, tiles_per_block, vec);
+                             float scale, int mode, int tiles_per_block, int vec, Abft ab) {
+  quant_dot_block<T, BM, kInt, kStreamed, kAbft>(x, wq, sw, out, m, n, d, E, cap,
+                                                 (int)blockIdx.z, r, cd, scale, mode,
+                                                 tiles_per_block, vec, ab);
 }
 
 // SM count of the current device, read once (0 when it cannot be read).
@@ -494,10 +626,10 @@ int sm_count() {
 
 // The row tile: the largest of 16, 8, 4, 2, 1 rows that the call needs and
 // that fits the shared-memory limit; 0 when not even one row fits.
-int pick_bm(long long m, int n, bool is_int, bool streamed) {
+int pick_bm(long long m, int n, bool is_int, bool streamed, bool abft) {
   int bm = 16;
   while (bm > 1 && bm / 2 >= m) bm /= 2;
-  while (bm >= 1 && smem_bytes(n, bm, is_int, streamed) > kSmemLimit) bm /= 2;
+  while (bm >= 1 && smem_bytes(n, bm, is_int, streamed, abft) > kSmemLimit) bm /= 2;
   return bm;
 }
 
@@ -532,11 +664,11 @@ Grid grid_for(long long m, int d, int bm, size_t smem, int experts) {
   return g;
 }
 
-template <typename T, int BM, bool kInt, bool kStreamed, bool kExperts>
+template <typename T, int BM, bool kInt, bool kStreamed, bool kExperts, bool kAbft>
 int launch_bm(const void* x, const void* wq, const void* sw, void* out, long long m, int n,
-              int d, int experts, int cap, int r, int cd, float scale, int mode,
+              int d, int experts, int cap, int r, int cd, float scale, int mode, Abft ab,
               cudaStream_t stream) {
-  const size_t smem = smem_bytes(n, BM, kInt, kStreamed);
+  const size_t smem = smem_bytes(n, BM, kInt, kStreamed, kAbft);
   const Grid g = grid_for(m, d, BM, smem, experts);
   if (g.row_blocks > 0x7fffffffLL || g.splits > 65535 || experts > 65535)
     return (int)cudaErrorInvalidConfiguration;
@@ -559,30 +691,32 @@ int launch_bm(const void* x, const void* wq, const void* sw, void* out, long lon
   T* o = static_cast<T*>(out);
   cudaError_t e;
   if constexpr (kExperts) {
-    auto kernel = quant_dot_experts_kernel<T, BM, kInt, kStreamed>;
+    auto kernel = quant_dot_experts_kernel<T, BM, kInt, kStreamed, kAbft>;
     e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return (int)e;
     e = cudaLaunchKernelEx(&cfg, kernel, xt, w8, s32, o, m, n, d, experts, cap, r, cd, scale,
-                           mode, (int)g.tpb, vec);
+                           mode, (int)g.tpb, vec, ab);
   } else {
-    auto kernel = quant_dot_kernel<T, BM, kInt, kStreamed>;
+    auto kernel = quant_dot_kernel<T, BM, kInt, kStreamed, kAbft>;
     e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return (int)e;
     e = cudaLaunchKernelEx(&cfg, kernel, xt, w8, s32, o, m, n, d, r, cd, scale, mode,
-                           (int)g.tpb, vec);
+                           (int)g.tpb, vec, ab);
   }
   if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
 }
 
-template <typename T, bool kInt, bool kStreamed, bool kExperts>
+template <typename T, bool kInt, bool kStreamed, bool kExperts, bool kAbft>
 int launch(const void* x, const void* wq, const void* sw, void* out, long long m, int n,
-           int d, int experts, int cap, int r, int cd, float scale, int mode, cudaStream_t s) {
-  switch (pick_bm(m, n, kInt, kStreamed)) {
+           int d, int experts, int cap, int r, int cd, float scale, int mode, Abft ab,
+           cudaStream_t s) {
+  switch (pick_bm(m, n, kInt, kStreamed, kAbft)) {
 #define QD_CASE(BM)                                                                        \
   case BM:                                                                                 \
-    return launch_bm<T, BM, kInt, kStreamed, kExperts>(x, wq, sw, out, m, n, d, experts,   \
-                                                       cap, r, cd, scale, mode, s);
+    return launch_bm<T, BM, kInt, kStreamed, kExperts, kAbft>(x, wq, sw, out, m, n, d,     \
+                                                              experts, cap, r, cd, scale,  \
+                                                              mode, ab, s);
     QD_CASE(16)
     QD_CASE(8)
     QD_CASE(4)
@@ -593,56 +727,58 @@ int launch(const void* x, const void* wq, const void* sw, void* out, long long m
   }
 }
 
-template <typename T, bool kExperts>
+template <typename T, bool kExperts, bool kAbft>
 int launch_io(const void* x, const void* wq, const void* sw, void* out, long long m, int n,
               int d, int experts, int cap, int streamed, int r, int cd, float scale, int mode,
-              cudaStream_t s) {
+              Abft ab, cudaStream_t s) {
   const bool is_int = mode == quant::kInt8;
   if (is_int && streamed)
-    return launch<T, true, true, kExperts>(x, wq, sw, out, m, n, d, experts, cap, r, cd, scale,
-                                           mode, s);
+    return launch<T, true, true, kExperts, kAbft>(x, wq, sw, out, m, n, d, experts, cap, r,
+                                                  cd, scale, mode, ab, s);
   if (is_int)
-    return launch<T, true, false, kExperts>(x, wq, sw, out, m, n, d, experts, cap, r, cd,
-                                            scale, mode, s);
+    return launch<T, true, false, kExperts, kAbft>(x, wq, sw, out, m, n, d, experts, cap, r,
+                                                   cd, scale, mode, ab, s);
   if (streamed)
-    return launch<T, false, true, kExperts>(x, wq, sw, out, m, n, d, experts, cap, r, cd,
-                                            scale, mode, s);
-  return launch<T, false, false, kExperts>(x, wq, sw, out, m, n, d, experts, cap, r, cd, scale,
-                                           mode, s);
+    return launch<T, false, true, kExperts, kAbft>(x, wq, sw, out, m, n, d, experts, cap, r,
+                                                   cd, scale, mode, ab, s);
+  return launch<T, false, false, kExperts, kAbft>(x, wq, sw, out, m, n, d, experts, cap, r,
+                                                  cd, scale, mode, ab, s);
 }
 
 // One launch of the dense (kExperts = false: experts = cap = 1) or the
-// expert kernel, of either schedule; argument checks, then the io dtype.
-template <bool kExperts>
+// expert kernel, of either schedule, unverified or (kAbft) its ABFT twin;
+// argument checks, then the io dtype.
+template <bool kExperts, bool kAbft>
 int launch_checked(const void* x, const void* wq, const void* sw, void* out, long long m,
                    int n, int d, int experts, int cap, int streamed, int r, int io, int cd,
-                   float scale, int mode, void* stream) {
+                   float scale, int mode, Abft ab, void* stream) {
   if (m <= 0 || d <= 0) return 0;
   if (n < 2 || (n & (n - 1)) != 0) return (int)cudaErrorInvalidValue;
   if (mode < quant::kInt8 || mode > quant::kE5M2) return (int)cudaErrorInvalidValue;
   if (experts < 1 || cap < 1 || m % cap != 0) return (int)cudaErrorInvalidValue;
+  if (kAbft && !(ab.cw && ab.resid && ab.part && ab.count)) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (io) {
     case hadacore::kF32:
-      return launch_io<float, kExperts>(x, wq, sw, out, m, n, d, experts, cap, streamed, r, cd,
-                                        scale, mode, s);
+      return launch_io<float, kExperts, kAbft>(x, wq, sw, out, m, n, d, experts, cap, streamed,
+                                               r, cd, scale, mode, ab, s);
     case hadacore::kBF16:
-      return launch_io<__nv_bfloat16, kExperts>(x, wq, sw, out, m, n, d, experts, cap, streamed,
-                                                r, cd, scale, mode, s);
+      return launch_io<__nv_bfloat16, kExperts, kAbft>(x, wq, sw, out, m, n, d, experts, cap,
+                                                       streamed, r, cd, scale, mode, ab, s);
     case hadacore::kF16:
-      return launch_io<__half, kExperts>(x, wq, sw, out, m, n, d, experts, cap, streamed, r, cd,
-                                         scale, mode, s);
+      return launch_io<__half, kExperts, kAbft>(x, wq, sw, out, m, n, d, experts, cap,
+                                                streamed, r, cd, scale, mode, ab, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }
 
 // The launch shape a call would get: rows per block (0 = does not fit),
 // dynamic shared memory bytes, grid size. For the wrappers' reports.
-inline int launch_shape(long long m, int n, int d, int experts, int streamed, int mode, int* bm,
-                        long long* smem, long long* blocks) {
+inline int launch_shape(long long m, int n, int d, int experts, int streamed, int mode,
+                        bool abft, int* bm, long long* smem, long long* blocks) {
   const bool is_int = mode == quant::kInt8;
-  *bm = pick_bm(m, n, is_int, streamed != 0);
-  *smem = *bm ? (long long)smem_bytes(n, *bm, is_int, streamed != 0) : 0;
+  *bm = pick_bm(m, n, is_int, streamed != 0, abft);
+  *smem = *bm ? (long long)smem_bytes(n, *bm, is_int, streamed != 0, abft) : 0;
   *blocks = 0;
   if (*bm == 0) return 1;
   const Grid g = grid_for(m, d, *bm, (size_t)*smem, experts);

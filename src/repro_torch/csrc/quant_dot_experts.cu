@@ -1,8 +1,8 @@
 // K6 and K6s: the fused rotate -> quantize -> GEMM over stacked expert
 // weights, rotate-once and streamed. Replace
 // repro/kernels/quant_dot.py::_quant_dot_experts_kernel and
-// ::_quant_dot_experts_kernel_streamed; the design, shared with K4 and K5,
-// is described in quant_dot.cuh.
+// ::_quant_dot_experts_kernel_streamed; the design, shared with K4 and K5
+// and the ABFT twins, is described in quant_dot.cuh.
 #include "quant_dot.cuh"
 
 // x (m / cap, E, cap, n) io dtype, wq (E, n, d) one storage byte per
@@ -13,12 +13,12 @@ extern "C" int quant_dot_experts_launch(const void* x, const void* wq, const voi
                                         void* out, long long m, int n, int d, int experts,
                                         int cap, int streamed, int r, int io, int cd,
                                         float scale, int mode, void* stream) {
-  return launch_checked<true>(x, wq, sw, out, m, n, d, experts, cap, streamed, r, io, cd, scale,
-                              mode, stream);
+  return launch_checked<true, false>(x, wq, sw, out, m, n, d, experts, cap, streamed, r, io,
+                                     cd, scale, mode, Abft{}, stream);
 }
 
 // The launch shape a call over `experts` experts of m rows each would get.
 extern "C" int quant_dot_experts_shape(long long m, int n, int d, int experts, int streamed,
                                        int mode, int* bm, long long* smem, long long* blocks) {
-  return launch_shape(m, n, d, experts, streamed, mode, bm, smem, blocks);
+  return launch_shape(m, n, d, experts, streamed, mode, false, bm, smem, blocks);
 }

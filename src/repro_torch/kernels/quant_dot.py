@@ -2,16 +2,21 @@
 kernels' wrappers, their plain PyTorch versions, and the quantized-GEMM
 host math (twin of ``repro.kernels.quant_dot``).
 
-Four kernels in two CUDA sources (``repro_torch/csrc/quant_dot.cu``: K4
-and K5; ``quant_dot_experts.cu``: K6 and K6s; their shared body in
-``quant_dot.cuh``), each replacing a TPU kernel of
+Eight kernels in four CUDA sources (``repro_torch/csrc/quant_dot.cu``:
+K4 and K5; ``quant_dot_experts.cu``: K6 and K6s; ``quant_dot_abft.cu``:
+K7a-ro and K7a-s; ``quant_dot_experts_abft.cu``: K7b and K7b-s; their
+shared body in ``quant_dot.cuh``), each replacing a TPU kernel of
 ``repro/kernels/quant_dot.py``:
 
-  K4   ``_quant_dot_kernel_rotate_once``           x (..., n) @ wq (n, d)
-  K5   ``_quant_dot_kernel_streamed``              K4, weight tiles streamed
-                                                   through a shared-memory ring
-  K6   ``_quant_dot_experts_kernel``               x (..., E, c, n) @ wq (E, n, d)
-  K6s  ``_quant_dot_experts_kernel_streamed``      K6, streamed as K5
+  K4     ``_quant_dot_kernel_rotate_once``           x (..., n) @ wq (n, d)
+  K5     ``_quant_dot_kernel_streamed``              K4, weight tiles streamed
+                                                     through a shared-memory ring
+  K6     ``_quant_dot_experts_kernel``               x (..., E, c, n) @ wq (E, n, d)
+  K6s    ``_quant_dot_experts_kernel_streamed``      K6, streamed as K5
+  K7a-ro ``_quant_dot_kernel_rotate_once_abft``      K4 + per-row checksum residual
+  K7a-s  ``_quant_dot_kernel_streamed_abft``         K5 + the same
+  K7b    ``_quant_dot_experts_kernel_abft``          K6 + a residual per (expert, row)
+  K7b-s  ``_quant_dot_experts_kernel_streamed_abft`` K6s + the same
 
 Each block rotates and quantizes its rows once into shared memory and
 contracts them with its run of weight-column tiles (int8: exact int32
@@ -31,6 +36,16 @@ CUDA tensor to the kernel of the resolved schedule. Each kernel's wrapper
 counts its launches (``quant_dot_cuda.launches`` and so on).
 ``kernel_fits`` is the port's size rule for the fused path, from the
 kernels' shared-memory layout.
+
+The ABFT twins (``check=`` the weight's column checksum ``cw``, from
+``wquant.weight_checksum``) return ``(y, resid)``: ``y`` bitwise the
+unverified kernel's, ``resid`` the per-row f32
+``sum_d (acc * s * sw) - s * (op . cw)``, ``op`` the quantized operand as
+the reference's ``_abft_check_col`` forms it; ``verify.residual_ok``
+turns it into a verdict. ``xla_quant_dot_resid`` is the residual of a site
+that runs no fused kernel (grouped sizes such as llama3-8b's d_ff =
+14336): it recomputes the checksum from the live weight and contracts the
+difference, so a healthy weight gives exactly 0.
 
 ``epilogue_dot`` is the quantized contraction outside any kernel: the
 unfused path (grouped sizes such as llama3-8b's d_ff = 14336, per-tensor
@@ -62,7 +77,11 @@ __all__ = ["epilogue_dot", "experts_epilogue_dot", "quant_dot",
            "quant_dot_cuda", "quant_dot_streamed_cuda", "quant_dot_plain",
            "quant_dot_experts", "quant_dot_experts_cuda",
            "quant_dot_experts_streamed_cuda", "quant_dot_experts_plain",
-           "kernel_fits", "launch_shape", "SCHEDULE_ENV_VAR", "SCHEDULES"]
+           "quant_dot_abft_cuda", "quant_dot_abft_streamed_cuda",
+           "quant_dot_experts_abft_cuda", "quant_dot_experts_abft_streamed_cuda",
+           "quant_dot_abft_plain", "quant_dot_experts_abft_plain",
+           "xla_quant_dot_resid", "kernel_fits", "launch_shape",
+           "SCHEDULE_ENV_VAR", "SCHEDULES"]
 
 SCHEDULE_ENV_VAR = "REPRO_QUANT_DOT_SCHEDULE"
 SCHEDULES = ("rotate_once", "revisit", "streamed")
@@ -107,14 +126,19 @@ def _low_precision_dot(q: torch.Tensor, wq: torch.Tensor, mode: str) -> torch.Te
     return torch.matmul(a.to(torch.float32), wq.to(torch.float32))
 
 
+def _epilogue_f32(q, s, wq, sw, mode: str) -> torch.Tensor:
+    """``epilogue_dot`` before its cast: the f32 ``acc * s * sw``."""
+    lead = q.shape[:-1]
+    n, d = q.shape[-1], wq.shape[-1]
+    acc = _low_precision_dot(q.reshape(-1, n), wq, mode).reshape(*lead, d)
+    return acc * s * sw.reshape((1,) * len(lead) + (d,))
+
+
 def epilogue_dot(q, s, wq, sw, mode: str, out_dtype) -> torch.Tensor:
     """``(q * s) @ (wq * sw)`` with the scales factored out of the matmul:
     ``(q @ wq) * s * sw``. q: (..., n) grid values, s per-token (or per-
     tensor) scales, wq: (n, d) storage dtype, sw: (1, d)."""
-    lead = q.shape[:-1]
-    n, d = q.shape[-1], wq.shape[-1]
-    acc = _low_precision_dot(q.reshape(-1, n), wq, mode).reshape(*lead, d)
-    return (acc * s * sw.reshape((1,) * len(lead) + (d,))).to(out_dtype)
+    return _epilogue_f32(q, s, wq, sw, mode).to(out_dtype)
 
 
 def experts_epilogue_dot(q, s, wq, sw, mode: str, out_dtype) -> torch.Tensor:
@@ -160,19 +184,23 @@ def _resolve_schedule(schedule=None, experts: bool = False) -> str:
 # words per thread), a work area (the f32 rows rotated at once -- all of
 # them when they fit, else the most, a power of 2, that do -- or the 16 x
 # rows x 32 partial sums), one f32 scale per row and one absmax per
-# rotated row. A call needs at least one row to fit the per-block limit.
+# rotated row; the ABFT twins add one checksum per row, one tile of f32
+# contributions (rows x 32), one sum per warp and a flag. A call needs at
+# least one row to fit the per-block limit.
 _SMEM_LIMIT = 232448     # 227 KB on sm_90
 _KW, _BN = 16, 32        # partial sums per output, columns per tile
 _THREADS, _STAGES, _RING_WORDS = 512, 3, 16
 
 
-def _smem_bytes(n: int, rows: int, mode: str, schedule: str = "rotate_once") -> int:
+def _smem_bytes(n: int, rows: int, mode: str, schedule: str = "rotate_once",
+                abft: bool = False) -> int:
     opb = 1 if QSPECS[mode][2] else 2
     ring = _STAGES * _THREADS * _RING_WORDS * 4 if schedule == "streamed" else 0
+    scratch = (rows + rows * _BN + _THREADS // 32 + 1) * 4 if abft else 0
 
     def layout(rw):
         return (rows * max(n, 4) * opb + ring + max(rw * n * 4, _KW * rows * _BN * 4)
-                + rows * 4 + rw * 4)
+                + rows * 4 + rw * 4 + scratch)
 
     rw = rows
     while rw > 1 and layout(rw) > _SMEM_LIMIT:
@@ -180,32 +208,37 @@ def _smem_bytes(n: int, rows: int, mode: str, schedule: str = "rotate_once") -> 
     return layout(rw)
 
 
-def kernel_fits(n: int, mode: str, schedule: str = "rotate_once") -> bool:
-    """Can the kernel of ``schedule`` take an n-point contraction in
-    ``mode``: does one row of its shared-memory layout fit the 227 KB
-    per-block limit? The streamed schedule charges its 96 KB weight ring.
-    (True for every power of 2 up to 16384 under both schedules, and up to
-    the 32768 cap under rotate-once.)"""
-    return _smem_bytes(n, 1, mode, schedule) <= _SMEM_LIMIT
+def kernel_fits(n: int, mode: str, schedule: str = "rotate_once",
+                abft: bool = False) -> bool:
+    """Can the kernel of ``schedule`` (``abft``: its checksum-verified
+    twin) take an n-point contraction in ``mode``: does one row of its
+    shared-memory layout fit the 227 KB per-block limit? The streamed
+    schedule charges its 96 KB weight ring. (True for every power of 2 up
+    to 16384 under both schedules, and up to the 32768 cap under
+    rotate-once, with or without ABFT.)"""
+    return _smem_bytes(n, 1, mode, schedule, abft) <= _SMEM_LIMIT
 
 
 _PTR = ctypes.c_void_p
 _INT = ctypes.c_int
 
 
-def _lib(experts: bool):
+def _lib(experts: bool, abft: bool = False):
     """The loaded library of the dense kernels (``csrc/quant_dot.cu``: K4,
-    K5) or of the expert kernels (``csrc/quant_dot_experts.cu``: K6, K6s),
-    built first if needed. The expert entry points take the expert count
-    and the rows per expert and batch row (c) after d."""
+    K5), of the expert kernels (``csrc/quant_dot_experts.cu``: K6, K6s), or
+    of their ABFT twins (``quant_dot_abft.cu``: K7a-ro, K7a-s;
+    ``quant_dot_experts_abft.cu``: K7b, K7b-s), built first if needed. The
+    expert entry points take the expert count and the rows per expert and
+    batch row (c) after d; the ABFT entry points take cw after sw and
+    resid, the workspace and the counters after out."""
     from repro_torch.kernels import build
 
-    stem = "quant_dot_experts" if experts else "quant_dot"
+    stem = ("quant_dot_experts" if experts else "quant_dot") + ("_abft" if abft else "")
     lib = build.load(stem)
     fn = getattr(lib, f"{stem}_launch")
     if fn.argtypes is None:
         extra = [_INT, _INT] if experts else []
-        fn.argtypes = ([_PTR] * 4 + [ctypes.c_longlong, _INT, _INT] + extra
+        fn.argtypes = ([_PTR] * (8 if abft else 4) + [ctypes.c_longlong, _INT, _INT] + extra
                        + [_INT] * 4 + [ctypes.c_float, _INT, _PTR])
         fn.restype = _INT
         shape = getattr(lib, f"{stem}_shape")
@@ -213,32 +246,53 @@ def _lib(experts: bool):
                           + [ctypes.POINTER(_INT), ctypes.POINTER(ctypes.c_longlong),
                              ctypes.POINTER(ctypes.c_longlong)])
         shape.restype = _INT
-    return lib
+    return lib, stem
 
 
 def launch_shape(m: int, n: int, d: int, mode: str, experts: int = 0,
-                 schedule: str = "rotate_once"):
+                 schedule: str = "rotate_once", abft: bool = False):
     """(rows per block, dynamic shared-memory bytes, blocks) of a launch
-    over ``experts`` experts of m rows each (0: the dense K4 / K5), as the
-    kernels' launcher decides them (builds the kernels)."""
+    over ``experts`` experts of m rows each (0: the dense kernels), as the
+    kernels' launcher decides them (builds the kernels); ``abft`` asks for
+    the checksum-verified twin's."""
     from repro_torch.kernels.fused_quant import MODE_CODES
 
     bm, smem, blocks = ctypes.c_int(), ctypes.c_longlong(), ctypes.c_longlong()
     lead = (m, n, d, experts) if experts else (m, n, d)
-    lib = _lib(bool(experts))
-    shape = lib.quant_dot_experts_shape if experts else lib.quant_dot_shape
-    shape(*lead, int(schedule == "streamed"), MODE_CODES[mode], ctypes.byref(bm),
-          ctypes.byref(smem), ctypes.byref(blocks))
+    lib, stem = _lib(bool(experts), abft)
+    getattr(lib, f"{stem}_shape")(*lead, int(schedule == "streamed"), MODE_CODES[mode],
+                                  ctypes.byref(bm), ctypes.byref(smem), ctypes.byref(blocks))
     return bm.value, smem.value, blocks.value
 
 
 # ------------------------------------------------------------ the launches
-def _launch(x, wq, sw, out, plan, streamed: bool) -> None:
+# The ABFT twins' arrival counters, one zeroed buffer per device that every
+# launch leaves zeroed (the last block of each row block resets its own);
+# launches on one stream use it in turn.
+_COUNTERS = {}
+
+
+def _abft_workspace(device, m: int, d: int, E: int):
+    """(partial-sum workspace, counters) for an ABFT launch of E experts of
+    m rows each against d columns: at most E x (m + 15) x ceil(d / 32)
+    floats (row blocks x rows per block <= m + 15, splits <= the 32-column
+    tiles), at most E x m counters."""
+    part = torch.empty(E * (m + 15) * -(-d // 32), dtype=torch.float32, device=device)
+    need = E * max(m, 1)
+    count = _COUNTERS.get(device)
+    if count is None or count.numel() < need:
+        count = torch.zeros(need, dtype=torch.int32, device=device)
+        _COUNTERS[device] = count
+    return part, count
+
+
+def _launch(x, wq, sw, out, plan, streamed: bool, cw=None, resid=None) -> None:
     """Check the operands of one launch and launch it on the current
     stream. Dense: x (m, n), wq (n, d), sw (d,), out (m, d). Experts: x
     (B, E, c, n), wq (E, n, d), sw (E, d), out (B, E, c, d). All
     contiguous CUDA tensors on one device; x and out in the io dtype, wq in
-    the mode's storage dtype, sw f32."""
+    the mode's storage dtype, sw f32. The ABFT twins also take cw ((n,),
+    experts (E, n)) f32 and resid (x's shape with last axis 1) f32."""
     from repro_torch.kernels.fused_quant import MODE_CODES
     from repro_torch.kernels.hadacore import (DTYPE_CODES, check_rows,
                                               scale_in_compute_dtype)
@@ -249,12 +303,13 @@ def _launch(x, wq, sw, out, plan, streamed: bool) -> None:
                          f"of a power-of-2 size, got {epi!r} n={plan.n}")
     n = x.shape[-1]
     experts = x.ndim == 4
+    abft = cw is not None
     E, cap = (x.shape[1], x.shape[2]) if experts else (1, 1)
     m = x.numel() // (n * E) if n * E else 0
     d = wq.shape[-1]
     check_rows(x.view(-1, n), x.view(-1, n), plan)
-    if not (wq.is_cuda and sw.is_cuda and out.is_cuda
-            and wq.device == sw.device == out.device == x.device):
+    tensors = (wq, sw, out) + ((cw, resid) if abft else ())
+    if not all(t.is_cuda and t.device == x.device for t in tensors):
         raise ValueError("quant_dot kernel operands must be CUDA tensors on one device")
     wshape = (E, n, d) if experts else (n, d)
     if wq.shape != wshape or wq.dtype != QSPECS[epi.mode][1] or not wq.is_contiguous():
@@ -268,17 +323,33 @@ def _launch(x, wq, sw, out, plan, streamed: bool) -> None:
     if out.shape != oshape or out.dtype != x.dtype or not out.is_contiguous():
         raise ValueError(f"out must be contiguous {oshape} {x.dtype}, got "
                          f"{tuple(out.shape)} {out.dtype}")
+    if abft:
+        cshape = (E, n) if experts else (n,)
+        if cw.shape != cshape or cw.dtype != torch.float32 or not cw.is_contiguous():
+            raise ValueError(f"cw must be contiguous {cshape} float32, got "
+                             f"{tuple(cw.shape)} {cw.dtype}")
+        rshape = (*x.shape[:-1], 1)
+        if resid.shape != rshape or resid.dtype != torch.float32 \
+                or not resid.is_contiguous():
+            raise ValueError(f"resid must be contiguous {rshape} float32, got "
+                             f"{tuple(resid.shape)} {resid.dtype}")
     schedule = "streamed" if streamed else "rotate_once"
-    if not kernel_fits(n, epi.mode, schedule):
+    if not kernel_fits(n, epi.mode, schedule, abft):
         raise ValueError(f"quant_dot kernel ({schedule}) cannot take n={n} in {epi.mode}")
     stream = torch.cuda.current_stream(x.device).cuda_stream
     lead = (m, n, d, E, cap) if experts else (m, n, d)
-    lib = _lib(experts)
-    launch = lib.quant_dot_experts_launch if experts else lib.quant_dot_launch
-    rc = launch(x.data_ptr(), wq.data_ptr(), sw.data_ptr(), out.data_ptr(), *lead,
-                int(streamed), plan.r, DTYPE_CODES[x.dtype],
-                DTYPE_CODES[torch_dtype(plan.compute_dtype)], scale_in_compute_dtype(plan),
-                MODE_CODES[epi.mode], stream)
+    lib, stem = _lib(experts, abft)
+    ptrs = [x.data_ptr(), wq.data_ptr(), sw.data_ptr()]
+    if abft:
+        part, count = _abft_workspace(x.device, m, d, E)
+        ptrs += [cw.data_ptr(), out.data_ptr(), resid.data_ptr(), part.data_ptr(),
+                 count.data_ptr()]
+    else:
+        ptrs.append(out.data_ptr())
+    rc = getattr(lib, f"{stem}_launch")(
+        *ptrs, *lead, int(streamed), plan.r, DTYPE_CODES[x.dtype],
+        DTYPE_CODES[torch_dtype(plan.compute_dtype)], scale_in_compute_dtype(plan),
+        MODE_CODES[epi.mode], stream)
     if rc != 0:
         raise RuntimeError(f"quant_dot kernel launch failed: CUDA error {rc}")
 
@@ -316,8 +387,41 @@ def quant_dot_experts_streamed_cuda(x4, wq, sw, out, plan) -> torch.Tensor:
     return out
 
 
+def quant_dot_abft_cuda(x2, wq, sw, cw, out, resid, plan):
+    """Launch K7a-ro: K4 plus each row's checksum residual, against the
+    (n,) f32 column checksum ``cw``, into ``out`` and ``resid`` ((m, 1)
+    f32)."""
+    _launch(x2, wq, sw, out, plan, streamed=False, cw=cw, resid=resid)
+    quant_dot_abft_cuda.launches += 1
+    return out, resid
+
+
+def quant_dot_abft_streamed_cuda(x2, wq, sw, cw, out, resid, plan):
+    """Launch K7a-s: K5 plus the residual (cw read outside the ring)."""
+    _launch(x2, wq, sw, out, plan, streamed=True, cw=cw, resid=resid)
+    quant_dot_abft_streamed_cuda.launches += 1
+    return out, resid
+
+
+def quant_dot_experts_abft_cuda(x4, wq, sw, cw, out, resid, plan):
+    """Launch K7b: K6 plus a residual per (expert, row) against expert
+    e's checksum ``cw[e]`` ((E, n) f32), into ``resid`` ((B, E, c, 1))."""
+    _launch(x4, wq, sw, out, plan, streamed=False, cw=cw, resid=resid)
+    quant_dot_experts_abft_cuda.launches += 1
+    return out, resid
+
+
+def quant_dot_experts_abft_streamed_cuda(x4, wq, sw, cw, out, resid, plan):
+    """Launch K7b-s: K6s plus the residual (cw read outside the ring)."""
+    _launch(x4, wq, sw, out, plan, streamed=True, cw=cw, resid=resid)
+    quant_dot_experts_abft_streamed_cuda.launches += 1
+    return out, resid
+
+
 for _fn in (quant_dot_cuda, quant_dot_streamed_cuda, quant_dot_experts_cuda,
-            quant_dot_experts_streamed_cuda):
+            quant_dot_experts_streamed_cuda, quant_dot_abft_cuda,
+            quant_dot_abft_streamed_cuda, quant_dot_experts_abft_cuda,
+            quant_dot_experts_abft_streamed_cuda):
     _fn.launches = 0
 
 
@@ -353,6 +457,64 @@ def quant_dot_experts_plain(x: torch.Tensor, wq: torch.Tensor, sw: torch.Tensor,
                                 x.dtype)
 
 
+def _abft_parts(q, s, wq, sw, cw, mode: str, out_dtype):
+    """One weight's output and residual from (q, s): the f32 contributions
+    cast to the output, and ``contrib.sum(-1) - s * (op . cw)`` with op the
+    quantized operand (int8, or the fp8 grid value) as f32."""
+    d = wq.shape[-1]
+    contrib = _epilogue_f32(q, s, wq, sw.reshape(1, d), mode)
+    op = _operand_from_q(q, mode).to(torch.float32)
+    chk = (op * cw.reshape(-1)).sum(-1, keepdim=True)
+    return contrib.to(out_dtype), contrib.sum(-1, keepdim=True) - s * chk
+
+
+def quant_dot_abft_plain(x, wq, sw, cw, plan):
+    """The plain version of K7a-ro and K7a-s: ``quant_dot_plain``'s output
+    (bitwise) and the per-row residual against the column checksum ``cw``
+    ((1, n) or (n,)). Returns (y (..., d), resid (..., 1) f32)."""
+    q, s = _rotate_quantize_plain(x, plan)
+    return _abft_parts(q, s, wq, sw, cw, plan.epilogue.mode, x.dtype)
+
+
+def quant_dot_experts_abft_plain(x, wq, sw, cw, plan):
+    """The plain version of K7b and K7b-s: per expert e,
+    ``quant_dot_abft_plain``'s output and residual against ``wq[e]``,
+    ``sw[e]`` and ``cw[e]`` ((E, 1, n)). Returns (y (..., E, c, d), resid
+    (..., E, c, 1) f32)."""
+    q, s = _rotate_quantize_plain(x, plan)
+    E, n, d = wq.shape
+    cw3 = cw.reshape(E, 1, n)
+    y = torch.empty((*q.shape[:-1], d), dtype=x.dtype, device=x.device)
+    r = torch.empty((*q.shape[:-1], 1), dtype=torch.float32, device=x.device)
+    for e in range(E):
+        y[..., e, :, :], r[..., e, :, :] = _abft_parts(
+            q[..., e, :, :], s[..., e, :, :], wq[e], sw[e], cw3[e],
+            plan.epilogue.mode, x.dtype)
+    return y, r
+
+
+def xla_quant_dot_resid(x, wq, sw, cw, plan) -> torch.Tensor:
+    """The residual of a site that runs no fused kernel (the reference's
+    ``xla_quant_dot_resid``): rotate and quantize x as the unfused path
+    does (grouped plans rotate per group), recompute the weight's column
+    checksum from the live ``wq`` and ``sw`` in ``wquant.weight_checksum``'s
+    op order, and contract q with the difference from the stored ``cw``:
+    ``s * (q . (recomputed - cw))``. Healthy weights make the difference,
+    and so the residual, exactly 0; a weight changed since quantization
+    shows as the change times the activation. One more rotation of x.
+    Returns (..., 1) f32."""
+    from repro_torch.core.api import _dispatch_transform, _strip
+    from repro_torch.core.wquant import weight_checksum
+
+    n, d = wq.shape
+    y = _dispatch_transform(x, _strip(plan))
+    epi = plan.epilogue
+    q, s = _quantize_rows(y.to(torch.float32), epi.mode,
+                          axis=-1 if epi.per_token else None)
+    dvec = weight_checksum(wq, sw.reshape(1, d)).reshape(n) - cw.reshape(n)
+    return s * (q.to(torch.float32) @ dvec)[..., None]
+
+
 # ------------------------------------------------------------ dispatchers
 def _on_cuda(x: torch.Tensor, name: str) -> bool:
     if x.device.type == "cpu":
@@ -363,31 +525,46 @@ def _on_cuda(x: torch.Tensor, name: str) -> bool:
 
 
 def quant_dot(x: torch.Tensor, wq: torch.Tensor, sw: torch.Tensor, plan,
-              schedule=None) -> torch.Tensor:
+              schedule=None, check=None):
     """Rotate x's last axis (== plan.p), quantize per token and contract
     with ``wq`` (n, d): the plain version for a CPU tensor, the kernel of
     the resolved schedule for a CUDA tensor (K4 rotate-once, K5
-    streamed)."""
+    streamed). With ``check`` (the weight's (1, n) column checksum) the
+    ABFT twin runs instead (K7a-ro, K7a-s) and the result is ``(y,
+    resid)``, resid (..., 1) f32."""
     streamed = _resolve_schedule(schedule) == "streamed"
     if not _on_cuda(x, "quant_dot"):
+        if check is not None:
+            return quant_dot_abft_plain(x, wq, sw, check, plan)
         return quant_dot_plain(x, wq, sw, plan)
     d = wq.shape[-1]
     x2 = x.contiguous().view(-1, plan.p)
     out = torch.empty((x2.shape[0], d), dtype=x.dtype, device=x.device)
-    launch = quant_dot_streamed_cuda if streamed else quant_dot_cuda
-    launch(x2, wq.contiguous(), sw.reshape(d).to(torch.float32).contiguous(), out, plan)
-    return out.view(*x.shape[:-1], d)
+    sw1 = sw.reshape(d).to(torch.float32).contiguous()
+    if check is None:
+        launch = quant_dot_streamed_cuda if streamed else quant_dot_cuda
+        launch(x2, wq.contiguous(), sw1, out, plan)
+        return out.view(*x.shape[:-1], d)
+    resid = torch.empty((x2.shape[0], 1), dtype=torch.float32, device=x.device)
+    launch = quant_dot_abft_streamed_cuda if streamed else quant_dot_abft_cuda
+    launch(x2, wq.contiguous(), sw1, check.reshape(plan.p).to(torch.float32).contiguous(),
+           out, resid, plan)
+    return out.view(*x.shape[:-1], d), resid.view(*x.shape[:-1], 1)
 
 
 def quant_dot_experts(x: torch.Tensor, wq: torch.Tensor, sw: torch.Tensor, plan,
-                      schedule=None) -> torch.Tensor:
+                      schedule=None, check=None):
     """The stacked-expert form, ``(..., E, c, n) x (E, n, d) -> (..., E, c,
     d)`` with per-(expert, out-channel) scales ``sw`` (E, 1, d): the plain
     version for a CPU tensor, the kernel of the resolved schedule for a
     CUDA tensor (K6 rotate-once, K6s streamed; ``revisit`` runs
-    rotate-once)."""
+    rotate-once). With ``check`` (the (E, 1, n) column checksums) the ABFT
+    twin runs instead (K7b, K7b-s) and the result is ``(y, resid)``, resid
+    (..., E, c, 1) f32."""
     streamed = _resolve_schedule(schedule, experts=True) == "streamed"
     if not _on_cuda(x, "quant_dot_experts"):
+        if check is not None:
+            return quant_dot_experts_abft_plain(x, wq, sw, check, plan)
         return quant_dot_experts_plain(x, wq, sw, plan)
     E, n, d = wq.shape
     if x.ndim < 3 or x.shape[-3] != E:
@@ -395,7 +572,14 @@ def quant_dot_experts(x: torch.Tensor, wq: torch.Tensor, sw: torch.Tensor, plan,
                          f"{tuple(x.shape)}")
     x4 = x.contiguous().view(-1, E, x.shape[-2], n)
     out = torch.empty((*x4.shape[:-1], d), dtype=x.dtype, device=x.device)
-    launch = quant_dot_experts_streamed_cuda if streamed else quant_dot_experts_cuda
-    launch(x4, wq.contiguous(), sw.reshape(E, d).to(torch.float32).contiguous(), out,
-           plan)
-    return out.view(*x.shape[:-1], d)
+    sw2 = sw.reshape(E, d).to(torch.float32).contiguous()
+    if check is None:
+        launch = quant_dot_experts_streamed_cuda if streamed else quant_dot_experts_cuda
+        launch(x4, wq.contiguous(), sw2, out, plan)
+        return out.view(*x.shape[:-1], d)
+    resid = torch.empty((*x4.shape[:-1], 1), dtype=torch.float32, device=x.device)
+    launch = (quant_dot_experts_abft_streamed_cuda if streamed
+              else quant_dot_experts_abft_cuda)
+    launch(x4, wq.contiguous(), sw2, check.reshape(E, n).to(torch.float32).contiguous(),
+           out, resid, plan)
+    return out.view(*x.shape[:-1], d), resid.view(*x.shape[:-1], 1)

@@ -7,14 +7,16 @@ A backend is a transform implementation registered with
   cuda  -- the hand-written Hopper kernels (``repro_torch/csrc``): K1
            ``hadacore`` (transform), K2 ``fused_dequant``, K3 ``fused``, K4 /
            K5 ``quant_dot`` (rotate-once / streamed) and K6 / K6s
-           ``quant_dot_experts``, up to ``MAX_KERNEL_SIZE`` points.
+           ``quant_dot_experts``, with their ABFT twins K7a-ro / K7a-s and
+           K7b / K7b-s (``check=``), up to ``MAX_KERNEL_SIZE`` points.
            Auto-selected for CUDA tensors. Its wrappers run the plain
            PyTorch versions on CPU tensors and launch the kernels on CUDA
            tensors.
   torch -- the plain PyTorch versions (the twin of the reference's ``xla``
            backend): the transform, and ``quant_dot`` / ``quant_dot_experts``
-           as the unfused math; auto-selected for CPU tensors only; a CUDA
-           tensor runs it only when it is asked for by name.
+           (and, with ``check=``, their ABFT residuals) as the unfused math;
+           auto-selected for CPU tensors only; a CUDA tensor runs it only
+           when it is asked for by name (the serving ladder's last rung).
   ref   -- the paper's Listing-1 scalar FWHT oracle (never auto-picked).
 
 An explicit request wins; otherwise the ``REPRO_HADAMARD_BACKEND``
@@ -65,8 +67,10 @@ QSPECS = {
     "fp8_e5m2": (57344.0, torch.float8_e5m2, False),
 }
 
-# Event counters (serving transitions, warn-once occurrences), keyed
-# (subsystem, event). Kernel launches are counted on the wrappers instead.
+# Event counters (serving transitions, ABFT sites and trips, warn-once
+# occurrences), keyed (subsystem, event), e.g. ("abft", "quant_dot_site"),
+# ("abft", "kv_trip"), ("serving", "step_retry"). Kernel launches are
+# counted on the wrappers instead.
 TRACE_COUNTS: collections.Counter = collections.Counter()
 
 WARN_ONCE_SEEN: set = set()
@@ -199,7 +203,9 @@ class Backend:
     unfused quantized GEMM): ``fused`` (rotate + quantize to
     ``(q, scales)``), ``fused_dequant`` (rotate + fake quant),
     ``quant_dot`` (rotate + quantize + GEMM) and ``quant_dot_experts``
-    (the same over stacked expert weights)."""
+    (the same over stacked expert weights); the two quant_dot forms take
+    ``check=`` (the weight's ABFT column checksum) and then return ``(y,
+    resid)``."""
 
     name: str = "?"
     priority: int = 0
@@ -245,15 +251,15 @@ class CudaBackend(Backend):
 
         return fused_dequant(x, plan)
 
-    def quant_dot(self, x, wq, sw, plan, schedule=None):
+    def quant_dot(self, x, wq, sw, plan, schedule=None, check=None):
         from repro_torch.kernels.quant_dot import quant_dot
 
-        return quant_dot(x, wq, sw, plan, schedule)
+        return quant_dot(x, wq, sw, plan, schedule, check)
 
-    def quant_dot_experts(self, x, wq, sw, plan, schedule=None):
+    def quant_dot_experts(self, x, wq, sw, plan, schedule=None, check=None):
         from repro_torch.kernels.quant_dot import quant_dot_experts
 
-        return quant_dot_experts(x, wq, sw, plan, schedule)
+        return quant_dot_experts(x, wq, sw, plan, schedule, check)
 
 
 @register_backend
@@ -273,20 +279,22 @@ class TorchBackend(Backend):
         y = transform_plain(x, plan)
         return x.copy_(y) if in_place else y
 
-    def quant_dot(self, x, wq, sw, plan, schedule=None):
+    def quant_dot(self, x, wq, sw, plan, schedule=None, check=None):
         # the unfused math, as the reference's xla backend hosts it
-        from repro_torch.kernels.quant_dot import (_resolve_schedule,
-                                                   quant_dot_plain)
+        from repro_torch.kernels import quant_dot as qd
 
-        _resolve_schedule(schedule)
-        return quant_dot_plain(x, wq, sw, plan)
+        qd._resolve_schedule(schedule)
+        if check is not None:
+            return qd.quant_dot_abft_plain(x, wq, sw, check, plan)
+        return qd.quant_dot_plain(x, wq, sw, plan)
 
-    def quant_dot_experts(self, x, wq, sw, plan, schedule=None):
-        from repro_torch.kernels.quant_dot import (_resolve_schedule,
-                                                   quant_dot_experts_plain)
+    def quant_dot_experts(self, x, wq, sw, plan, schedule=None, check=None):
+        from repro_torch.kernels import quant_dot as qd
 
-        _resolve_schedule(schedule, experts=True)
-        return quant_dot_experts_plain(x, wq, sw, plan)
+        qd._resolve_schedule(schedule, experts=True)
+        if check is not None:
+            return qd.quant_dot_experts_abft_plain(x, wq, sw, check, plan)
+        return qd.quant_dot_experts_plain(x, wq, sw, plan)
 
 
 @register_backend

@@ -18,8 +18,15 @@ scale maverick's 48 layers do not fit one 80 GB card.
 K6s.) Serves a seeded Poisson arrival stream (0.5 arrivals per decode step,
 prompts of 8 to --prefill-len tokens, 8 to 32 new tokens each) on the CUDA
 device (``--device cpu`` runs the plain versions on the CPU)
-and prints tokens/s, slot occupancy, p50/p99 per-token latency and the
-scheduler counters. A warm-up step runs before the first request.
+and prints tokens/s, slot occupancy, p50/p99 per-token latency, the
+scheduler counters, the requests by status and the engine's ``health:``
+line (ladder rung, retries, watchdog, guard and ABFT trips). A warm-up
+step runs before the first request. ``REPRO_ABFT=1`` serves checksum-
+verified steps (the ABFT twins K7a / K7b of the quant_dot kernels and the
+KV conservation check; a healthy run shows zero ``abft_*`` trips and
+rung=0), ``REPRO_NUMERIC_GUARDS=1`` the numerically guarded ones;
+``--max-queue``, ``--deadline-slack`` and ``--watchdog-ms`` set the
+engine's bounded queue, request deadlines and step watchdog.
 """
 from __future__ import annotations
 
@@ -61,7 +68,8 @@ def build_engine(args):
     params = init_lm(cfg, seed=args.seed, device=args.device)
     engine = ServeEngine(cfg, params, num_slots=args.slots,
                          max_len=args.max_len, prefill_len=args.prefill_len,
-                         device=args.device)
+                         device=args.device, max_queue=args.max_queue,
+                         watchdog_ms=args.watchdog_ms)
     return engine, cfg
 
 
@@ -79,6 +87,16 @@ def parse_args(argv=None):
     ap.add_argument("--kernel", default="cuda", choices=["cuda", "torch"])
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--max-queue", type=int, default=None,
+                    help="bounded admission queue: submits beyond this depth "
+                         "are rejected at once (backpressure)")
+    ap.add_argument("--deadline-slack", type=float, default=None,
+                    help="per-request TTL = arrival + max_new_tokens + slack "
+                         "steps; expired queued requests are shed, expired "
+                         "in-flight slots retired as timed_out")
+    ap.add_argument("--watchdog-ms", type=float, default=None,
+                    help="decode-step wall-clock bound; two consecutive trips "
+                         "move the engine one ladder rung down")
     return ap.parse_args(argv)
 
 
@@ -93,7 +111,8 @@ def main(argv=None):
     stream = synthetic_stream(
         args.requests, vocab_size=cfg.vocab_size,
         prompt_len=(min(8, args.prefill_len), args.prefill_len),
-        max_new_tokens=(8, 32), rate=0.5, seed=args.seed)
+        max_new_tokens=(8, 32), rate=0.5, seed=args.seed,
+        deadline_slack=args.deadline_slack)
     engine.run(stream)
     s = engine.summary()
     print(f"served {s['requests']} requests / {s['generated_tokens']} tokens "
@@ -105,6 +124,13 @@ def main(argv=None):
           f"retired={s.get('retired', 0)} "
           f"prefill_inserts={s.get('prefill_inserts', 0)} "
           f"queue_full_stalls={s.get('queue_full_stalls', 0)}")
+    print(f"robustness: ok={s.get('status_ok', 0)} "
+          f"timed_out={s.get('status_timed_out', 0)} "
+          f"rejected={s.get('status_rejected', 0)} "
+          f"degraded={s.get('status_degraded', 0)} (shed={s.get('shed', 0)} "
+          f"rung={s['rung']} guards={'on' if s['guards_enabled'] else 'off'} "
+          f"abft={'on' if s['abft_enabled'] else 'off'})")
+    print("health: " + " ".join(f"{k}={v}" for k, v in s["health"].items()))
     print(f"invariants: quantize_weight_calls={s['quantize_weight_calls']} "
           "during serve")
     return engine

@@ -54,16 +54,21 @@ def _expert_stack(gen: torch.Generator, cfg, device, n: int, d: int,
     dtype, drawn a chunk of experts at a time. With int8 weight storage
     each chunk is quantized as soon as it is drawn, per (expert,
     out-channel), into the stack's storage: an f32 draw of a whole
-    128-expert stack at maverick's width would be 21.5 GB."""
+    128-expert stack at maverick's width would be 21.5 GB. Under ABFT
+    (``wquant.wants_checks``) each chunk's column checksums are stored as
+    it is quantized."""
     E, dt = cfg.num_experts, dtype_of(cfg)
     mode = None
     if cfg.weight_quant == "int8":
         mode = wquant.leaf_mode(("layers", "moe", "experts", name), (E, n, d), dt, cfg)
+    check = None
     if mode is None:
         out = torch.empty((E, n, d), dtype=dt, device=device)
     else:
         q = torch.empty((E, n, d), dtype=QSPECS[mode][1], device=device)
         s = torch.empty((E, 1, d), dtype=torch.float32, device=device)
+        if wquant.wants_checks(cfg):
+            check = torch.empty((E, 1, n), dtype=torch.float32, device=device)
     step = wquant.chunk_len(n * d)
     for i in range(0, E, step):
         j = min(i + step, E)
@@ -72,9 +77,11 @@ def _expert_stack(gen: torch.Generator, cfg, device, n: int, d: int,
         if mode is None:
             out[i:j] = w
         else:
-            qt = wquant.quantize_weight(w, mode)
+            qt = wquant.quantize_weight(w, mode, with_check=check is not None)
             q[i:j], s[i:j] = qt.q, qt.scale
-    return out if mode is None else wquant.QTensor(q, s, mode)
+            if check is not None:
+                check[i:j] = qt.check
+    return out if mode is None else wquant.QTensor(q, s, mode, check)
 
 
 def init_moe(gen: torch.Generator, cfg, device) -> dict:

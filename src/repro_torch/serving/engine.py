@@ -1,5 +1,5 @@
 """Continuous-batching serving engine over pre-quantized QTensor weights
-(twin of the core of ``repro.serving.engine``).
+(twin of ``repro.serving.engine``).
 
 Three device operations, all with fixed shapes:
 
@@ -15,27 +15,87 @@ retirements and slot reuse are host-side scheduler bookkeeping
 (``serving.scheduler``). With ``cfg.weight_quant == 'int8'`` the weights
 are pre-quantized QTensors and serving performs no ``quantize_weight``
 call. ``warmup()`` runs one dummy prefill + insert + decode first, so the
-kernels' build and the first-use costs stay out of request latencies.
+kernels' build and the first-use costs stay out of request latencies; a
+kernel that fails to build or launch there raises. The decode step runs
+eagerly (capturing it as a CUDA graph is later work).
 
-The decode step runs eagerly (capturing it as a CUDA graph is later work),
-as do the robustness layers of the reference engine -- degradation ladder,
-watchdog, numeric guards, ABFT and fault hooks -- which are not ported yet.
+Robustness (the reference's hardened serving and ABFT layers, its
+DESIGN.md sections 12 and 14):
+
+  * request lifecycle -- deadlines (expired queued requests shed, in-flight
+    slots retired ``timed_out``), a bounded queue (``max_queue``) whose
+    overflow is ``rejected`` at once;
+  * degradation ladder -- a decode step that raises is retried once (the
+    fault hooks fire before the step; a step that fails part-way rewrites
+    the same rows with the same values when it runs again), then the
+    engine moves one rung down: cuda + streamed -> cuda + rotate-once ->
+    torch (the kernels' plain versions, on the same device). Every rung
+    computes the same tokens: the two schedules are bitwise equal, and the
+    plain versions differ from the kernels only where a bf16 rotation sum
+    lands on a midpoint. A rung change is loud: a warning, the
+    ``degrades`` counter and ``health()["rung"]``. Below the last rung
+    the in-flight requests fail (``engine_failed``) and the queue is shed;
+    the caller never sees the raise;
+  * watchdog -- ``watchdog_ms`` bounds a step's wall time after the fact
+    (a step cannot be preempted; its result is used), and two slow steps
+    in a row move one rung down;
+  * numeric guards (``REPRO_NUMERIC_GUARDS=1``) -- the guarded prefill and
+    decode also return ``core.guards.rows_ok`` of the logits per slot (of
+    the real vocabulary: the padding columns hold -inf by design, which
+    the reference's guard counts as a trip); a tripped slot retires as
+    ``nan_guard`` without emitting its token.
+    Guards-off steps run unchanged, and guards never change a healthy
+    token;
+  * ABFT (``REPRO_ABFT=1`` or ``QuantConfig.abft``) -- the weights get
+    their column checksums (``verify.with_checks``), every fused
+    quant_dot site runs its verified twin and NaN-poisons failing rows
+    (so the guarded step sees them), and a per-slot KV conservation sum is
+    checked before and rolled after each decode step. A KV trip retires
+    the slot as ``sdc_detected``; a logits trip is ``sdc_detected`` when
+    the live weights no longer match their checksums (``verify.params_ok``)
+    and ``nan_guard`` otherwise. Two SDC detections within
+    ``_SDC_WINDOW_STEPS`` steps move one rung down. A healthy ABFT-on run
+    is bitwise the ABFT-off run (exact selects only).
+
+Fault injection (``repro_torch.testing.faults``): a context-scoped
+``FaultPlan`` that the engine polls at each decode step -- kernel raises,
+step latency, NaN pokes, silent weight / KV / tile corruption.
+``health()`` reports the robustness counters of this engine.
 """
 from __future__ import annotations
 
+import collections
+import dataclasses
 import time
 from typing import Any, Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
 
-from repro_torch.core import wquant
+from repro_torch import verify
+from repro_torch.core import guards, wquant
 from repro_torch.device import resolve_device
-from repro_torch.kernels.registry import TRACE_COUNTS
+from repro_torch.kernels.registry import TRACE_COUNTS, warn_once
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.lm import lm_decode_step, lm_forward
 from repro_torch.serving.cache import alloc_kv_caches, cache_bytes, insert_kv
 from repro_torch.serving.scheduler import Completion, Request, Scheduler
+from repro_torch.testing import faults
+
+# TRACE_COUNTS keys snapshotted at construction, so ``health()`` reports
+# this engine's share of the process-wide counters.
+_HEALTH_TRACE_KEYS = (
+    ("abft", "kv_trip"),
+    ("abft", "sdc_detected"),
+    ("abft", "params_check"),
+    ("serving", "guard_trip"),
+    ("serving", "watchdog_trip"),
+    ("serving", "step_retry"),
+    ("serving", "deadline_retire"),
+)
+
+# Two SDC detections within this many steps move the ladder one rung.
+_SDC_WINDOW_STEPS = 16
 
 
 def _validate_config(cfg: ModelConfig) -> None:
@@ -50,25 +110,65 @@ def _validate_config(cfg: ModelConfig) -> None:
             f"{cfg.name!r} has kinds={sorted(kinds)}")
 
 
+def _degradation_ladder(cfg: ModelConfig) -> List[ModelConfig]:
+    """The rungs, most capable first: cuda + streamed -> cuda +
+    rotate-once -> torch (the kernels' plain versions). A config already
+    on 'torch' has no lower rung."""
+    ladder = [cfg]
+    q = cfg.quant
+    if q.backend in ("cuda", "auto"):
+        if q.schedule != "rotate_once":
+            ladder.append(cfg.with_quant(dataclasses.replace(q, schedule="rotate_once")))
+        ladder.append(cfg.with_quant(dataclasses.replace(q, backend="torch", schedule=None)))
+    elif q.backend == "ref":
+        ladder.append(cfg.with_quant(dataclasses.replace(q, backend="torch", schedule=None)))
+    return ladder
+
+
+def _rung_name(cfg: ModelConfig) -> str:
+    q = cfg.quant
+    if q.backend == "torch":
+        return "torch"
+    return q.schedule or "default"
+
+
 class ServeEngine:
     """Drives prefill / insert / decode over a request stream on
     ``device`` (the params must already live there)."""
 
     def __init__(self, cfg: ModelConfig, params, *, num_slots: int,
                  max_len: int, prefill_len: int, eos_id: Optional[int] = None,
-                 device="cuda"):
+                 device="cuda", max_queue: Optional[int] = None,
+                 watchdog_ms: Optional[float] = None):
         _validate_config(cfg)
         self.cfg = cfg
-        self.params = params
         self.device = resolve_device(device)
         self.eos_id = eos_id
         self.prefill_len = prefill_len
         self.max_len = max_len
-        self.sched = Scheduler(num_slots, max_len, prefill_len)
+        self.sched = Scheduler(num_slots, max_len, prefill_len, max_queue=max_queue)
+        self._guard = guards.guards_enabled()
+        self._abft = bool(cfg.quant.abft) or verify.abft_enabled()
+        # ABFT: weights quantized without checksums get them here, once
+        self.params = verify.with_checks(params) if self._abft else params
         # the ONE cache allocation of the engine's lifetime
         self.caches = alloc_kv_caches(cfg, num_slots, max_len, self.device)
+        # ABFT KV conservation state: per slot [sum, abs_sum] of its valid rows
+        self.kv_sums = (torch.zeros((num_slots, 2), dtype=torch.float32,
+                                    device=self.device) if self._abft else None)
         self.tokens_h = np.zeros((num_slots, 1), np.int64)
         self.positions_h = np.zeros((num_slots,), np.int64)
+
+        self._ladder = _degradation_ladder(cfg)
+        self._rung = 0
+        self._run_cfg = cfg
+        self._sdc_trips: collections.deque = collections.deque(maxlen=8)
+        self._params_check_step = -1
+        self._params_check_ok = True
+        self._trace_base = {k: TRACE_COUNTS[k] for k in _HEALTH_TRACE_KEYS}
+        self._watchdog_ms = watchdog_ms
+        self._watchdog_skip = 0
+        self._consec_slow = 0
 
         self.step = 0
         self.completions: List[Completion] = []
@@ -81,49 +181,126 @@ class ServeEngine:
         self._idle_steps = 0
         self._qw_calls_baseline = wquant.QUANTIZE_WEIGHT_CALLS
 
+    @property
+    def _guarded(self) -> bool:
+        # ABFT surfaces its kernel trips as NaN rows: it needs the guard seam
+        return self._guard or self._abft
+
     # --------------------------------------------------------- device ops
     @torch.inference_mode()
     def _prefill(self, padded: np.ndarray, length: int):
-        """(1, P) right-padded prompt -> (first token tensor, per-layer KV)."""
+        """(1, P) right-padded prompt -> (first token, per-layer KV), or,
+        guarded, (first token, ok (1,) bool, per-layer KV)."""
         self.prefill_calls += 1
         tokens = torch.from_numpy(padded).to(self.device)
-        logits, _, kv = lm_forward(self.cfg, self.params, {"tokens": tokens},
+        logits, _, kv = lm_forward(self._run_cfg, self.params, {"tokens": tokens},
                                    want_cache=True)
-        return torch.argmax(logits[0, length - 1]), kv
+        last = logits[:, length - 1]
+        tok = torch.argmax(last[0])
+        if self._guarded:
+            return tok, guards.rows_ok(last[:, :self.cfg.vocab_size], 1), kv
+        return tok, kv
 
     @torch.inference_mode()
-    def _decode(self) -> torch.Tensor:
-        """One step over every slot -> (slots,) next tokens."""
+    def _decode(self):
+        """One step over every slot -> (slots,) next tokens, or, guarded,
+        (tokens, ok (slots,) bool)."""
         self.decode_calls += 1
         tokens = torch.from_numpy(self.tokens_h).to(self.device)
         pos = torch.from_numpy(self.positions_h).to(self.device)
-        logits, self.caches = lm_decode_step(self.cfg, self.params,
+        logits, self.caches = lm_decode_step(self._run_cfg, self.params,
                                              self.caches, tokens, pos)
-        return torch.argmax(logits[:, -1], dim=-1)
+        tok = torch.argmax(logits[:, -1], dim=-1)
+        if self._guarded:
+            return tok, guards.rows_ok(logits[:, -1, :self.cfg.vocab_size], tok.shape[0])
+        return tok
 
     # ---------------------------------------------------------- warm-up
     def warmup(self) -> float:
         """One dummy prefill + insert + decode before serving, so no
-        request's latency includes the kernels' build or first-use costs.
-        It writes garbage into slot 0's rows, which are never attended
-        before being overwritten (insert rewrites [0, P) on admission;
-        decode rewrites row ``pos`` before attending it)."""
+        request's latency includes the kernels' build or first-use costs;
+        a kernel that fails to build or launch raises here. It writes
+        garbage into slot 0's rows, which are never attended before being
+        overwritten (insert rewrites [0, P) on admission; decode rewrites
+        row ``pos`` before attending it). The ABFT state stays zero: every
+        slot is re-anchored when it is admitted."""
         if self._warmup_s is not None:
             return self._warmup_s
         t0 = time.perf_counter()
-        _, kv = self._prefill(np.zeros((1, self.prefill_len), np.int64), 1)
-        insert_kv(self.caches, kv, 0)
-        int(self._decode()[0])
+        out = self._prefill(np.zeros((1, self.prefill_len), np.int64), 1)
+        insert_kv(self.caches, out[-1], 0)
+        out = self._decode()
+        int((out[0] if self._guarded else out)[0])
+        if self._abft:
+            pos = torch.zeros(self.sched.num_slots, dtype=torch.long, device=self.device)
+            _, cur = verify.kv_check(self.caches, pos, self.kv_sums)
+            verify.kv_roll(self.caches, pos, cur).sum().item()
         self._warmup_s = time.perf_counter() - t0
         self._qw_calls_baseline = wquant.QUANTIZE_WEIGHT_CALLS
         return self._warmup_s
 
+    # ------------------------------------------------------- degradation
+    def _bind_rung(self, i: int) -> None:
+        self._rung = i
+        self._run_cfg = self._ladder[i]
+
+    def _degrade(self, why: str) -> bool:
+        """Move one rung down the ladder, loudly; False when there is none.
+        The next step is exempt from the watchdog."""
+        if self._rung + 1 >= len(self._ladder):
+            warn_once(("serving", "ladder_exhausted"),
+                      f"serving degradation ladder exhausted ({why}); failing "
+                      "in-flight requests (warned once per process; "
+                      "TRACE_COUNTS[('serving', 'ladder_exhausted')] keeps counting)")
+            return False
+        self._bind_rung(self._rung + 1)
+        name = _rung_name(self._run_cfg)
+        self.sched.counters["degrades"] += 1
+        warn_once(("serving", f"degrade_{name}"),
+                  f"serving engine degraded to rung '{name}' ({self._rung + 1}/"
+                  f"{len(self._ladder)}) after {why} (warned once per process; "
+                  f"TRACE_COUNTS[('serving', 'degrade_{name}')] keeps counting)")
+        self._watchdog_skip = 1
+        self._consec_slow = 0
+        return True
+
+    def _fail_inflight(self, why: str) -> None:
+        """Ladder exhausted: retire every active slot and shed the queue,
+        all as ``degraded``; the engine never raises to the caller."""
+        now = float(self.step)
+        TRACE_COUNTS[("serving", "ladder_exhausted")] += 1
+        for slot in sorted(self.sched.active):
+            self.completions.append(self.sched.retire(slot, "engine_failed", now))
+        queued = list(self.sched.queue)
+        self.sched.queue.clear()
+        self.sched.counters["shed"] += len(queued)
+        for req in queued:
+            self.completions.append(
+                self.sched._unadmitted_completion(req, "shed_engine_failed"))
+
     # --------------------------------------------------------- lifecycle
+    def submit(self, req: Request) -> Optional[Completion]:
+        """None on acceptance, or the ``rejected`` completion (also kept in
+        ``self.completions``) when the bounded queue pushes back."""
+        rejected = self.sched.submit(req)
+        if rejected is not None:
+            self.completions.append(rejected)
+        return rejected
+
     def _admit(self, slot: int, req: Request) -> None:
         padded = np.zeros((1, self.prefill_len), np.int64)
         padded[0, :req.prompt_len] = req.tokens
         t0 = time.perf_counter()
-        tok, kv = self._prefill(padded, req.prompt_len)
+        out = self._prefill(padded, req.prompt_len)
+        if self._guarded:
+            tok, ok, kv = out
+            if not bool(ok[0]):
+                # poisoned prefill: never insert, never emit
+                self.completions.append(self.sched.retire(
+                    slot, self._trip_reason(), float(self.step)))
+                return
+        else:
+            tok, kv = out
         insert_kv(self.caches, kv, slot)
         tok_h = int(tok)                  # waits for the device
         dt_ms = (time.perf_counter() - t0) * 1e3
@@ -134,6 +311,9 @@ class ServeEngine:
         st.latencies_ms.append(dt_ms)
         self.tokens_h[slot, 0] = tok_h
         self.positions_h[slot] = st.pos
+        if self._abft:
+            # insert rewrote the slot's rows: re-anchor its conservation sum
+            verify.kv_slot_reset(self.kv_sums, self.caches, slot, st.pos)
         self._maybe_retire(slot, tok_h)
 
     def _maybe_retire(self, slot: int, last_tok: int) -> bool:
@@ -166,7 +346,7 @@ class ServeEngine:
         completion records (also accumulated on ``self.completions``)."""
         self.warmup()
         for req in requests:
-            self.sched.submit(req)
+            self.submit(req)
         while self.sched.has_work():
             now = float(self.step)
             self.completions.extend(self.sched.shed_expired(now))
@@ -187,16 +367,139 @@ class ServeEngine:
             self._decode_step()
         return self.completions
 
+    # ------------------------------------------------------ fault hooks
+    def _inject_faults(self) -> None:
+        """This step's scheduled state corruptions, at the top of the step
+        (before the ABFT KV check reads the caches), like a flip that
+        landed between two steps."""
+        plan = faults.active()
+        if plan is None:
+            return
+        if plan.should_poke(self.step):
+            row = int(self.positions_h[plan.nan_poke_slot]) - 1
+            if row >= 0:
+                faults.poke_nan(self.caches, plan.nan_poke_slot, row)
+        if plan.should_corrupt(self.step):
+            kind = plan.corrupt_kind
+            if kind == "weight":
+                plan.undo.append(faults.flip_weight_bit(self.params, bit=plan.corrupt_bit))
+            elif kind == "tile":
+                plan.undo.append(faults.clobber_stream_tile(self.params))
+            elif kind == "kv":
+                row = int(self.positions_h[plan.kv_corrupt_slot]) - 1
+                if row >= 0:
+                    faults.perturb_kv_row(self.caches, plan.kv_corrupt_slot, row)
+            else:
+                raise ValueError(f"unknown corrupt_kind {kind!r}")
+
+    def _dispatch_decode(self):
+        """One decode step at the current rung, with the per-attempt fault
+        hooks (delay, raise) before it."""
+        plan = faults.active()
+        if plan is not None:
+            d = plan.delay_s(self.step)
+            if d > 0.0:
+                time.sleep(d)
+            plan.maybe_raise(self.step)
+        return self._decode()
+
+    def _decode_with_recovery(self):
+        """Run the step; on failure retry it once on the same rung, then
+        walk the ladder. None when every rung failed."""
+        try:
+            return self._dispatch_decode()
+        except Exception as e:   # noqa: BLE001 -- any step failure is recovered
+            first = e
+        self.sched.counters["step_retries"] += 1
+        TRACE_COUNTS[("serving", "step_retry")] += 1
+        try:
+            return self._dispatch_decode()
+        except Exception:        # noqa: BLE001
+            pass
+        while self._degrade(f"decode failure: {first!r}"):
+            try:
+                return self._dispatch_decode()
+            except Exception:    # noqa: BLE001
+                continue
+        return None
+
+    # -------------------------------------------------------------- abft
+    def _weights_corrupt(self) -> bool:
+        """After a logits trip: do the live weights still match their
+        checksums? Checked once per step however many slots tripped."""
+        if self._params_check_step != self.step:
+            self._params_check_step = self.step
+            TRACE_COUNTS[("abft", "params_check")] += 1
+            self._params_check_ok = verify.params_ok(self.params)
+        return not self._params_check_ok
+
+    def _trip_reason(self) -> str:
+        """The retirement reason of a logits trip, with its counters: with
+        ABFT on, ``sdc_detected`` when the weights no longer match their
+        checksums; ``nan_guard`` otherwise."""
+        if self._abft and self._weights_corrupt():
+            self._note_sdc()
+            return "sdc_detected"
+        self.sched.counters["guard_trips"] += 1
+        TRACE_COUNTS[("serving", "guard_trip")] += 1
+        return "nan_guard"
+
+    def _note_sdc(self) -> None:
+        """Record an SDC detection; two within ``_SDC_WINDOW_STEPS`` steps
+        move one rung down (a sick kernel path clears; corruption that
+        persists exhausts the ladder, loudly)."""
+        TRACE_COUNTS[("abft", "sdc_detected")] += 1
+        self.sched.counters["sdc_retired"] += 1
+        self._sdc_trips.append(self.step)
+        if sum(self.step - s <= _SDC_WINDOW_STEPS for s in self._sdc_trips) >= 2:
+            self._sdc_trips.clear()
+            self._degrade("repeated ABFT SDC detections")
+
+    def _abft_rebase_slot(self, slot: int) -> None:
+        """Re-anchor a slot retired mid-trip to the cache as it is now: its
+        position stops advancing, so it verifies trivially until reuse."""
+        verify.kv_slot_reset(self.kv_sums, self.caches, slot, int(self.positions_h[slot]))
+
     def _decode_step(self) -> None:
         t0 = time.perf_counter()
-        new_tok_h = self._decode().cpu().numpy()      # waits for the device
+        self._inject_faults()
+        pos = kv_ok = cur = None
+        if self._abft:
+            # the integrity gate on the caches the step is about to read
+            pos = torch.from_numpy(self.positions_h).to(self.device)
+            kv_ok, cur = verify.kv_check(self.caches, pos, self.kv_sums)
+        out = self._decode_with_recovery()
+        if out is None:
+            self._fail_inflight("decode failed on every ladder rung")
+            return
+        new_tok, ok = out if self._guarded else (out, None)
+        if self._abft:
+            # roll the state over the row the step wrote per slot
+            self.kv_sums = verify.kv_roll(self.caches, pos, cur)
+        new_tok_h = new_tok.cpu().numpy()       # waits for the device
+        ok_h = ok.cpu().numpy() if ok is not None else None
+        kv_ok_h = kv_ok.cpu().numpy() if kv_ok is not None else None
         dt_ms = (time.perf_counter() - t0) * 1e3
         self._decode_s += dt_ms * 1e-3
         self._step_latencies_ms.append(dt_ms)
         self._occupancy.append(self.sched.occupancy)
         self.step += 1
+        self._watchdog(dt_ms)
         for slot in sorted(self.sched.active):
             st = self.sched.active[slot]
+            reason = None
+            if kv_ok_h is not None and not kv_ok_h[slot]:
+                # finite KV mismatch: silent corruption of written rows
+                TRACE_COUNTS[("abft", "kv_trip")] += 1
+                self._note_sdc()
+                reason = "sdc_detected"
+            elif ok_h is not None and not ok_h[slot]:
+                reason = self._trip_reason()
+            if reason is not None:
+                self.completions.append(self.sched.retire(slot, reason, float(self.step)))
+                if self._abft:
+                    self._abft_rebase_slot(slot)
+                continue
             tok = int(new_tok_h[slot])
             st.generated.append(tok)
             st.latencies_ms.append(dt_ms)
@@ -205,10 +508,48 @@ class ServeEngine:
             self.positions_h[slot] = st.pos
             self._maybe_retire(slot, tok)
 
+    def _watchdog(self, dt_ms: float) -> None:
+        """After-the-fact step bound: a slow step's result is used; two in
+        a row move one rung down."""
+        if self._watchdog_ms is None:
+            return
+        if self._watchdog_skip > 0:      # the first step on a new rung
+            self._watchdog_skip -= 1
+            return
+        if dt_ms <= self._watchdog_ms:
+            self._consec_slow = 0
+            return
+        self._consec_slow += 1
+        self.sched.counters["watchdog_trips"] += 1
+        TRACE_COUNTS[("serving", "watchdog_trip")] += 1
+        if self._consec_slow >= 2:
+            self._consec_slow = 0
+            self._degrade(f"watchdog: 2 consecutive steps over {self._watchdog_ms} ms")
+
     # ------------------------------------------------------ observability
     def quantize_weight_calls_during_serve(self) -> int:
         """quantize_weight calls since warm-up (0 on the prequant path)."""
         return wquant.QUANTIZE_WEIGHT_CALLS - self._qw_calls_baseline
+
+    def health(self) -> Dict[str, int]:
+        """This engine's robustness counters: ladder, watchdog, guards and
+        ABFT (process-wide TRACE_COUNTS as deltas since construction)."""
+        delta = {k: int(TRACE_COUNTS[k] - self._trace_base[k]) for k in _HEALTH_TRACE_KEYS}
+        c = self.sched.counters
+        return {
+            "abft_enabled": int(self._abft),
+            "guards_enabled": int(self._guard),
+            "rung": int(self._rung),
+            "degrades": int(c.get("degrades", 0)),
+            "watchdog_trips": int(c.get("watchdog_trips", 0)),
+            "step_retries": int(c.get("step_retries", 0)),
+            "deadline_retired": int(c.get("deadline_retired", 0)),
+            "nan_guard_trips": int(c.get("guard_trips", 0)),
+            "sdc_retired": int(c.get("sdc_retired", 0)),
+            "abft_kv_trips": delta[("abft", "kv_trip")],
+            "abft_sdc_detections": delta[("abft", "sdc_detected")],
+            "abft_params_checks": delta[("abft", "params_check")],
+        }
 
     def summary(self) -> Dict[str, Any]:
         # per-token latencies: decode-produced tokens only (index 0 is the
@@ -238,6 +579,10 @@ class ServeEngine:
             "quantize_weight_calls": self.quantize_weight_calls_during_serve(),
             "kv_cache_bytes": cache_bytes(self.cfg, self.sched.num_slots,
                                           self.max_len),
+            "rung": self._rung,
+            "guards_enabled": int(self._guard),
+            "abft_enabled": int(self._abft),
+            "health": self.health(),
             **{f"status_{k}": v for k, v in sorted(by_status.items())},
             **{k: int(v) for k, v in self.sched.counters.items()},
         }

@@ -5,7 +5,8 @@
            -> admit (free slot + arrived; expired queued requests are shed
                      before admission)
            -> prefill-insert (engine) -> decode steps -> retire
-           (EOS / max-new-tokens / cache-full / deadline)
+           (EOS / max-new-tokens / cache-full / deadline / guard or ABFT
+            trip / engine failure)
            -> slot back on the free list
 
 The free list gives retired slots back in LIFO order; admission is FCFS;
@@ -13,7 +14,10 @@ a step where the queue head has arrived but no slot is free counts one
 ``queue_full_stall``. ``now`` values pass through a monotonic high-water
 mark, so a backwards clock jump cannot stall admission. Every transition
 bumps ``kernels.registry.TRACE_COUNTS[("serving", <event>)]`` and the
-scheduler's own counters.
+scheduler's own counters, which also hold the engine's robustness
+counts (``guard_trips``, ``sdc_retired``, ``degrades``, ``step_retries``,
+``watchdog_trips``, ``deadline_retired``). Every Completion carries
+``status``: 'ok', 'timed_out', 'rejected' or 'degraded'.
 """
 from __future__ import annotations
 
@@ -64,6 +68,10 @@ STATUS_OF_REASON = {
     "deadline": "timed_out",        # in-flight slot past its TTL
     "deadline_shed": "timed_out",   # shed from the queue, never admitted
     "queue_full": "rejected",       # bounded-queue backpressure
+    "nan_guard": "degraded",        # the numeric guard tripped the slot
+    "sdc_detected": "degraded",     # ABFT caught silent corruption
+    "engine_failed": "degraded",    # the step failed beyond the ladder
+    "shed_engine_failed": "degraded",  # queued when the ladder ran out
 }
 
 
@@ -76,7 +84,7 @@ class Completion:
     admitted_step: int
     retired_step: int
     latencies_ms: Tuple[float, ...]
-    status: str = "ok"              # 'ok' | 'timed_out' | 'rejected'
+    status: str = "ok"              # 'ok' | 'timed_out' | 'rejected' | 'degraded'
 
 
 class Scheduler:
