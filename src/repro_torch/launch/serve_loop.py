@@ -26,7 +26,9 @@ verified steps (the ABFT twins K7a / K7b of the quant_dot kernels and the
 KV conservation check; a healthy run shows zero ``abft_*`` trips and
 rung=0), ``REPRO_NUMERIC_GUARDS=1`` the numerically guarded ones;
 ``--max-queue``, ``--deadline-slack`` and ``--watchdog-ms`` set the
-engine's bounded queue, request deadlines and step watchdog.
+engine's bounded queue, request deadlines and step watchdog. The command
+exits non-zero when a decode step failed on every rung of the engine's
+degradation ladder.
 """
 from __future__ import annotations
 
@@ -137,4 +139,8 @@ def main(argv=None):
 
 
 if __name__ == "__main__":
-    main()
+    # requests failed below the ladder's last rung: the run is not a success
+    if any(c.finish_reason in ("engine_failed", "shed_engine_failed")
+           for c in main().completions):
+        raise SystemExit("serve_loop: the degradation ladder was exhausted; "
+                         "in-flight requests failed (engine_failed)")

@@ -28,14 +28,14 @@ DESIGN.md sections 12 and 14):
   * degradation ladder -- a decode step that raises is retried once (the
     fault hooks fire before the step; a step that fails part-way rewrites
     the same rows with the same values when it runs again), then the
-    engine moves one rung down: cuda + streamed -> cuda + rotate-once ->
-    torch (the kernels' plain versions, on the same device). Every rung
-    computes the same tokens: the two schedules are bitwise equal, and the
-    plain versions differ from the kernels only where a bf16 rotation sum
-    lands on a midpoint. A rung change is loud: a warning, the
-    ``degrades`` counter and ``health()["rung"]``. Below the last rung
-    the in-flight requests fail (``engine_failed``) and the queue is shed;
-    the caller never sees the raise;
+    engine moves one rung down: cuda + streamed -> cuda + rotate-once,
+    and on the CPU -> torch (the plain versions). On the card no rung
+    swaps a kernel for its plain version: the two schedules are bitwise
+    equal, and below the last kernel rung the step has failed. A rung
+    change is loud: a warning, the ``degrades`` counter and
+    ``health()["rung"]``. Below the last rung the in-flight requests fail
+    (``engine_failed``) and the queue is shed; the caller never sees the
+    raise, ``launch/serve_loop.py`` exits non-zero;
   * watchdog -- ``watchdog_ms`` bounds a step's wall time after the fact
     (a step cannot be preempted; its result is used), and two slow steps
     in a row move one rung down;
@@ -110,17 +110,17 @@ def _validate_config(cfg: ModelConfig) -> None:
             f"{cfg.name!r} has kinds={sorted(kinds)}")
 
 
-def _degradation_ladder(cfg: ModelConfig) -> List[ModelConfig]:
+def _degradation_ladder(cfg: ModelConfig, device: torch.device) -> List[ModelConfig]:
     """The rungs, most capable first: cuda + streamed -> cuda +
-    rotate-once -> torch (the kernels' plain versions). A config already
-    on 'torch' has no lower rung."""
+    rotate-once, then, on the CPU only, torch (the plain versions). On the
+    card the ladder never leaves the kernels: a failure below the last
+    kernel rung fails the requests instead. A config already on 'torch'
+    has no lower rung."""
     ladder = [cfg]
     q = cfg.quant
-    if q.backend in ("cuda", "auto"):
-        if q.schedule != "rotate_once":
-            ladder.append(cfg.with_quant(dataclasses.replace(q, schedule="rotate_once")))
-        ladder.append(cfg.with_quant(dataclasses.replace(q, backend="torch", schedule=None)))
-    elif q.backend == "ref":
+    if q.backend in ("cuda", "auto") and q.schedule != "rotate_once":
+        ladder.append(cfg.with_quant(dataclasses.replace(q, schedule="rotate_once")))
+    if device.type == "cpu" and q.backend in ("cuda", "auto", "ref"):
         ladder.append(cfg.with_quant(dataclasses.replace(q, backend="torch", schedule=None)))
     return ladder
 
@@ -159,7 +159,7 @@ class ServeEngine:
         self.tokens_h = np.zeros((num_slots, 1), np.int64)
         self.positions_h = np.zeros((num_slots,), np.int64)
 
-        self._ladder = _degradation_ladder(cfg)
+        self._ladder = _degradation_ladder(cfg, self.device)
         self._rung = 0
         self._run_cfg = cfg
         self._sdc_trips: collections.deque = collections.deque(maxlen=8)
@@ -249,9 +249,10 @@ class ServeEngine:
         The next step is exempt from the watchdog."""
         if self._rung + 1 >= len(self._ladder):
             warn_once(("serving", "ladder_exhausted"),
-                      f"serving degradation ladder exhausted ({why}); failing "
-                      "in-flight requests (warned once per process; "
-                      "TRACE_COUNTS[('serving', 'ladder_exhausted')] keeps counting)")
+                      f"serving degradation ladder exhausted ({why}); a decode "
+                      "step that fails now fails the in-flight requests (warned "
+                      "once per process; TRACE_COUNTS[('serving', "
+                      "'ladder_exhausted')] keeps counting)")
             return False
         self._bind_rung(self._rung + 1)
         name = _rung_name(self._run_cfg)

@@ -16,7 +16,11 @@ so the port's and the reference's differ in their last bits; what must
 match is the verdict (``residual_ok``) on every row -- healthy (every row
 passes, the residual a few thousandths of the tolerance) and corrupted (a
 weight bit flipped, or a 128-column slab zeroed, with the stored checksum
-left stale: exactly the rows whose operand touches the change fail). The
+left stale: exactly the rows whose operand touches the change fail) --
+and, on every row the reference passes, the value, within RESID_C = 1e-2
+of the tolerance of the reference's (the two orders read at most 4e-3 at
+these sizes; a residual summed from bf16 outputs, or with a bf16
+checksum, reads ~1). The
 checksums, f32 sums over d of q * scale in another order, agree within
 2 f32 ulps of the row's absolute mass sum_d |q * scale|; the KV sums
 within 1e-6 relative.
@@ -47,6 +51,7 @@ from repro_torch.kernels.registry import TRACE_COUNTS
 from repro_torch.testing.faults import _finite_after_flip
 
 MODES = ["int8", "fp8_e4m3", "fp8_e5m2"]
+RESID_C = 1e-2
 
 
 @pytest.fixture
@@ -106,6 +111,17 @@ def _jverdicts(y, r, n, d):
     return np.asarray(jverify.residual_ok(y, r, n=n, d=d))
 
 
+def _value_gap(y, r, jr, n, d) -> float:
+    """max of |r - r_reference| over the tolerance, over the rows the
+    reference passes (a tripped row's residual carries the corruption's
+    own rounding; its verdict is what is held there)."""
+    rtol, atol = verify.abft_tolerance(n, d)
+    jr = torch.from_numpy(np.array(jr, dtype=np.float32))
+    tol = rtol * y.to(torch.float32).abs().sum(-1, keepdim=True) + atol
+    passing = jr.abs() <= tol
+    return float(((r - jr).abs() / tol)[passing].max())
+
+
 # ------------------------------------------------------------ K7a parity
 @pytest.mark.parametrize("schedule", ["rotate_once", "streamed"])
 @pytest.mark.parametrize("mode", MODES)
@@ -137,6 +153,7 @@ def test_plain_k7a_matches_pallas_abft_kernel(pallas_alias, monkeypatch, mode, s
         _close(y, jy, mode)
         got, want = _verdicts(y, r, n, d), _jverdicts(jy, jr, n, d)
         np.testing.assert_array_equal(got, want)
+        assert _value_gap(y, r, jr, n, d) <= RESID_C
         if kind == "healthy":
             assert got.all()
             rtol, _ = verify.abft_tolerance(n, d)
@@ -181,12 +198,53 @@ def test_plain_k7b_matches_pallas_experts_abft_kernel(pallas_alias, monkeypatch,
         _close(y.reshape(-1, d), jnp.asarray(jy).reshape(-1, d), mode)
         got, want = _verdicts(y, r, n, d), _jverdicts(jy, jr, n, d)
         np.testing.assert_array_equal(got, want)
+        assert _value_gap(y, r, jr, n, d) <= RESID_C
         if kind == "healthy":
             assert got.all()
             assert torch.equal(y, qd.quant_dot_experts_plain(xt, tt.q, tt.scale, plan))
         else:
             bad = ~got[..., 0]
             assert bad[1, 1].any() and not bad[:, [0, 2]].any() and not bad[0, 1].any()
+
+
+@pytest.mark.parametrize("mode", MODES)
+def test_residual_value_limit_separates_orders_from_mutants(mode):
+    """The value limit RESID_C (here and on the card) passes a correct
+    residual summed in another order and fails broken ones: r from bf16
+    outputs instead of the f32 contributions, the checksum or the row
+    scale rounded to bf16, one split's partial sums dropped. 16 x 2048 ->
+    1024, plain versions."""
+    m, n, d = 16, 2048, 1024
+    _, tt = _weights((n, d), mode, seed=13)
+    x = torch.from_numpy(np.random.default_rng(9).standard_normal((m, n)) * 3).to(
+        torch.bfloat16)
+    plan = plan_for(n, dtype=torch.bfloat16, backend="torch", device_type="cpu",
+                    epilogue=QuantEpilogue(mode))
+    q, s = qd._rotate_quantize_plain(x, plan)
+    contrib = qd._epilogue_f32(q, s, tt.q, tt.scale.reshape(1, d), mode)
+    op = qd._operand_from_q(q, mode).to(torch.float32)
+    cw = tt.check.reshape(-1)
+    y, r = qd.quant_dot_abft_plain(x, tt.q, tt.scale, tt.check, plan)
+
+    def gap(r2):
+        return _value_gap(y, r2, r.numpy(), n, d)
+
+    def chk(c):
+        return (op * c).sum(-1, keepdim=True)
+
+    reordered = (contrib.flip(-1).cumsum(-1)[:, -1:]
+                 - s * (op * cw).flip(-1).cumsum(-1)[:, -1:])
+    assert gap(reordered) <= RESID_C / 10
+    mutants = {
+        "bf16 outputs": y.to(torch.float32).sum(-1, keepdim=True) - s * chk(cw),
+        "bf16 checksum": contrib.sum(-1, keepdim=True)
+        - s * chk(cw.to(torch.bfloat16).to(torch.float32)),
+        "bf16 row scale": contrib.sum(-1, keepdim=True)
+        - s.to(torch.bfloat16).to(torch.float32) * chk(cw),
+        "a split dropped": contrib[:, 32:].sum(-1, keepdim=True) - s * chk(cw),
+    }
+    for name, bad in mutants.items():
+        assert gap(bad) > 10 * RESID_C, name
 
 
 @pytest.mark.parametrize("n", [256, 384])

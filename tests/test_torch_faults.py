@@ -149,18 +149,28 @@ def test_shed_expired_scans_whole_queue():
 
 # ------------------------------------------------------------ engine paths
 def test_degradation_ladder_rungs(auto_setup, torch_setup):
-    """cuda / auto + default schedule -> rotate-once -> torch; a config on
-    'torch' has no lower rung; a pinned rotate-once skips that rung."""
+    """cuda / auto + default schedule -> rotate-once -> torch on the CPU;
+    on the card no torch rung (a kernel is never swapped for its plain
+    version); a config on 'torch' has no lower rung; a pinned rotate-once
+    skips that rung."""
+    cpu, gpu = torch.device("cpu"), torch.device("cuda")
     cfg = auto_setup[0]
-    rungs = [(c.quant.backend, c.quant.schedule) for c in _degradation_ladder(cfg)]
-    assert rungs == [("auto", None), ("auto", "rotate_once"), ("torch", None)]
+
+    def rungs(c, dev):
+        return [(r.quant.backend, r.quant.schedule) for r in _degradation_ladder(c, dev)]
+
+    assert rungs(cfg, cpu) == [("auto", None), ("auto", "rotate_once"), ("torch", None)]
+    assert rungs(cfg, gpu) == [("auto", None), ("auto", "rotate_once")]
     cuda = cfg.with_quant(dataclasses.replace(cfg.quant, backend="cuda",
                                               schedule="streamed"))
-    assert [(c.quant.backend, c.quant.schedule) for c in _degradation_ladder(cuda)] \
-        == [("cuda", "streamed"), ("cuda", "rotate_once"), ("torch", None)]
+    assert rungs(cuda, cpu) == [("cuda", "streamed"), ("cuda", "rotate_once"),
+                                ("torch", None)]
+    assert rungs(cuda, gpu) == [("cuda", "streamed"), ("cuda", "rotate_once")]
     ro = cfg.with_quant(dataclasses.replace(cfg.quant, schedule="rotate_once"))
-    assert len(_degradation_ladder(ro)) == 2
-    assert len(_degradation_ladder(torch_setup[0])) == 1
+    assert len(_degradation_ladder(ro, cpu)) == 2
+    assert len(_degradation_ladder(ro, gpu)) == 1
+    assert len(_degradation_ladder(torch_setup[0], cpu)) == 1
+    assert len(_degradation_ladder(torch_setup[0], gpu)) == 1
 
 
 def test_deadline_shed_and_inflight_timeout(torch_setup):
