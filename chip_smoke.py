@@ -23,7 +23,11 @@ Runs from the repository root and needs the repository's ``src/``. It
      the shapes its path gives it (CUDA events, and a profile for K4-K6s)
      beside its bound, its plain version and one PyTorch library call where
      there is one (for K4-K6s the contraction alone, per weight matrix:
-     ``torch._int_mm`` in int8, ``torch._scaled_mm`` in fp8_e4m3);
+     ``torch._int_mm`` in int8, ``torch._scaled_mm`` in fp8_e4m3); K8 (the
+     revisit schedule: a (row block, 128-column tile) grid without
+     clusters) bitwise to K4 and under K4's rule against its plain version
+     at phi4-mini's 4 and 2048 (training) rows and maverick's 4 x 8192 ->
+     5120, int8 and fp8_e4m3, and timed beside K4 (the schedule A/B);
   4. entry-point phase: ``hadamard(x, epilogue=QuantEpilogue(mode))`` and
      ``quant_dot`` on CUDA tensors launch K3 and K4 once per call, K1 never;
   5. model phases, each at full width from ``--seed`` with int8 weight
@@ -58,12 +62,25 @@ Runs from the repository root and needs the repository's ``src/``. It
      free of trips, retries and ladder steps; then, on phi4-mini, fault
      runs (a tile clobber, a KV perturbation, a NaN poke, one and two
      kernel raises, a single bit flip) with their retirements and
-     counters checked (``fault_runs``). The kernel phase before holds the
-     ABFT twins K7a-ro / K7a-s / K7b / K7b-s against K4 / K5 / K6 / K6s
-     (bitwise) and their plain versions (residual values within 1e-2 of
-     the tolerance and verdicts, healthy and corrupted) and times them
-     beside their twins;
-  7. prints the kernels' JSON line, then the result line
+     counters checked (``fault_runs``), and the same 8 requests served with
+     ABFT on under the revisit schedule (32 K7a-rv + 64 K2 per pass). The
+     kernel phase before holds the ABFT twins K7a-ro / K7a-s / K7a-rv / K7b
+     / K7b-s against K4 / K5 / K8 / K6 / K6s (bitwise) and their plain
+     versions (residual values within 1e-2 of the tolerance and verdicts,
+     healthy and corrupted) and times them beside their twins;
+  7. training phase (``train_phase``): phi4-mini-3.8b at full width and
+     depth (int8 + Hadamard, int8 fake-quantized Q/K/V, tied embeddings,
+     per-block recomputation), 4 x 512 tokens per step from the
+     ``SyntheticDataset``: the step-0 loss and every gradient leaf through
+     the kernels against the plain versions on the card, within limits set
+     between two witnesses and two controls printed beside them; 3 AdamW
+     steps with f32 moments (step time, tokens/s, peak memory < 72 GB,
+     launches per step: 128 K1, 128 K2, 64 K4, checked) and a profile of
+     one more; the same 3 steps under the revisit schedule (64 K8 per step)
+     bitwise equal in losses and parameters; 3 steps with int8 moments; a
+     checkpoint at step 2 and a restart that resumes bitwise (at 2 layers,
+     full width);
+  8. prints the kernels' JSON line, then the result line
      ``{"ok": true, "device": {...}}`` last.
 
 Any failed check raises: the script then exits non-zero and prints no
@@ -577,11 +594,12 @@ def _bound(nbytes: float, int_ops: float, f32_ops: float, low_rate: float):
 
 
 def _profile_ms(fn, name: str, streamed: bool = False, abft: bool = False,
-                calls: int = 5) -> float:
+                calls: int = 5, revisit: bool = False) -> float:
     """Device time per call of the kernel ``name`` from ``torch.profiler``
     over ``calls`` calls of ``fn``. For the quant_dot kernels (template
-    arguments T, BM, kInt, kStreamed, kAbft) only the instantiations of
-    the schedule and the ABFT flag asked for count."""
+    arguments T, BM, kInt, kStreamed, kAbft, and for the dense kernel
+    kRevisit) only the instantiations of the schedule and the ABFT flag
+    asked for count."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -598,6 +616,8 @@ def _profile_ms(fn, name: str, streamed: bool = False, abft: bool = False,
         if name.startswith("quant_dot"):
             args = evt.key.split(f"{name}<", 1)[1].split(">", 1)[0].split(", ")
             if (args[3] == "true") != streamed or (args[4] == "true") != abft:
+                continue
+            if len(args) > 5 and (args[5] == "true") != revisit:
                 continue
         dev = getattr(evt, "self_device_time_total", None)
         total += evt.self_cuda_time_total if dev is None else dev
@@ -707,10 +727,13 @@ def time_k5_k6(gen) -> dict:
 
 
 # ------------------------------------------------------------------ ABFT
-ABFT_SHAPES = (  # (label, rows per expert, n, d, experts; 0 = dense)
-    ("phi4-mini decode", SLOTS, *PHI4_DOWN, 0),
-    ("maverick dense decode", SLOTS, *MAVERICK_DOWN, 0),
-    ("maverick experts decode", SLOTS, *MAVERICK_DOWN, EXPERTS),
+TRAIN_ROWS = 2048                  # the training phase's batch x sequence (4 x 512)
+ABFT_SHAPES = (  # (label, rows per expert, n, d, experts (0 = dense), schedules)
+    ("phi4-mini decode", SLOTS, *PHI4_DOWN, 0, ("rotate_once", "streamed", "revisit")),
+    ("phi4-mini training rows", TRAIN_ROWS, *PHI4_DOWN, 0, ("revisit",)),
+    ("maverick dense decode", SLOTS, *MAVERICK_DOWN, 0,
+     ("rotate_once", "streamed", "revisit")),
+    ("maverick experts decode", SLOTS, *MAVERICK_DOWN, EXPERTS, ("rotate_once", "streamed")),
 )
 BAND = 0.01   # verdicts may differ only where |r| is within 1% of the tolerance
 # |r - r_plain| on K1's rotation, over the tolerance, must stay below this
@@ -731,12 +754,12 @@ def _ratio(y, r, n: int, d: int) -> torch.Tensor:
 def _geometry(m, n, d, mode, experts, sched, abft) -> str:
     """Rows per block, column splits, cluster size and shared memory of a
     launch, as the launcher decides them (cluster: the largest power of 2
-    up to 8 within the rows per block and the splits)."""
+    up to 8 within the rows per block and the splits; revisit: none)."""
     from repro_torch.kernels.quant_dot import launch_shape
 
     bm, smem, blocks = launch_shape(m, n, d, mode, experts, sched, abft)
     splits = blocks // (-(-m // bm) * max(experts, 1))
-    cl = 8
+    cl = 1 if sched == "revisit" else 8      # revisit: no cluster
     while cl > 1 and (cl > bm or cl > splits):
         cl //= 2
     return f"BM {bm}, {splits} splits, cluster {cl}, {smem} B shared"
@@ -779,11 +802,12 @@ def _corrupt_weight(qt, kind: str, expert: int):
 
 
 def hold_abft_kernels(gen) -> tuple:
-    """K7a-ro, K7a-s, K7b and K7b-s against their twins K4, K5, K6, K6s and
-    their plain versions, at phi4-mini's decode shape (4 x 8192 -> 3072),
-    maverick's dense one (4 x 8192 -> 5120) and its expert one ((4, 128, 1,
-    8192) -> 5120, every third expert's rows zero), in int8 and fp8_e4m3,
-    on exact-sum and Gaussian rows:
+    """K7a-ro, K7a-s, K7a-rv, K7b and K7b-s against their twins K4, K5, K8,
+    K6, K6s and their plain versions, at phi4-mini's decode shape (4 x 8192
+    -> 3072; K7a-rv also at the training phase's 2048 rows), maverick's
+    dense one (4 x 8192 -> 5120) and its expert one ((4, 128, 1, 8192) ->
+    5120, every third expert's rows zero), in int8 and fp8_e4m3, on
+    exact-sum and Gaussian rows:
 
       * the output is bitwise the twin's;
       * the residual's value is the plain ABFT math's on K1's own rotation
@@ -814,13 +838,14 @@ def hold_abft_kernels(gen) -> tuple:
                                                quant_dot_abft_plain, quant_dot_experts,
                                                quant_dot_experts_abft_plain)
 
-    print("-- kernel phase: ABFT twins K7a-ro / K7a-s / K7b / K7b-s against K4 / K5 / "
-          "K6 / K6s and their plain versions")
+    print("-- kernel phase: ABFT twins K7a-ro / K7a-s / K7a-rv / K7b / K7b-s against K4 / "
+          "K5 / K8 / K6 / K6s and their plain versions")
     worst = worst_dev = 0.0
     cpu = torch.Generator().manual_seed(3)
     names = {(0, "rotate_once"): ("K7a-ro", "K4"), (0, "streamed"): ("K7a-s", "K5"),
+             (0, "revisit"): ("K7a-rv", "K8"),
              (1, "rotate_once"): ("K7b", "K6"), (1, "streamed"): ("K7b-s", "K6s")}
-    for label, m, n, d, E in ABFT_SHAPES:
+    for label, m, n, d, E, schedules in ABFT_SHAPES:
         for mode in ("int8", "fp8_e4m3"):
             plan = plan_for(n, dtype=torch.bfloat16, backend="cuda", device_type="cuda",
                             epilogue=QuantEpilogue(mode))
@@ -831,7 +856,7 @@ def hold_abft_kernels(gen) -> tuple:
                 w = (torch.randn(n, d, generator=cpu) / math.sqrt(n)).to("cuda", torch.bfloat16)
                 qt = quantize_weight(w, mode, with_check=True)
                 cw = qt.check
-            for sched in ("rotate_once", "streamed"):
+            for sched in schedules:
                 name, twin = names[(int(E > 0), sched)]
                 print(f"{name} {label} {mode}: {_geometry(m, n, d, mode, E, sched, True)}; "
                       f"{twin}: {_geometry(m, n, d, mode, E, sched, False)}")
@@ -990,6 +1015,133 @@ def time_abft(gen) -> dict:
                              "library_ms": None}
     weights.clear()
     torch.cuda.empty_cache()
+    return entries
+
+
+REVISIT_SHAPES = (  # (label, rows, n, d): the paths that give K8 and K7a-rv rows
+    ("phi4-mini decode", SLOTS, *PHI4_DOWN),
+    ("phi4-mini training rows", TRAIN_ROWS, *PHI4_DOWN),
+    ("maverick dense decode", SLOTS, *MAVERICK_DOWN),
+)
+
+
+def hold_k8(gen) -> None:
+    """K8 (the revisit schedule) at phi4-mini's decode and training row
+    counts and maverick's dense decode shape, int8 and fp8_e4m3, exact-sum
+    and Gaussian rows: bitwise K4's output, and the K4 rule against the
+    plain version (``_hold_rows``)."""
+    from repro_torch.core.api import QuantEpilogue, plan_for
+    from repro_torch.core.wquant import quantize_weight
+    from repro_torch.kernels.hadacore import transform_plain
+    from repro_torch.kernels.quant_dot import epilogue_dot, quant_dot, quant_dot_plain
+
+    print("-- kernel phase: K8 (revisit) against K4 and its plain version")
+    cpu = torch.Generator().manual_seed(4)
+    for label, m, n, d in REVISIT_SHAPES:
+        w = (torch.randn(n, d, generator=cpu) / math.sqrt(n)).to("cuda", torch.bfloat16)
+        for mode in ("int8", "fp8_e4m3"):
+            qt = quantize_weight(w, mode)
+            plan = plan_for(n, dtype=torch.bfloat16, backend="cuda", device_type="cuda",
+                            epilogue=QuantEpilogue(mode))
+            print(f"K8 {label} {mode}: {_geometry(m, n, d, mode, 0, 'revisit', False)}; "
+                  f"K4: {_geometry(m, n, d, mode, 0, 'rotate_once', False)}")
+            for kind in ("exact", "gaussian"):
+                x = _k34_input(gen, m, n, kind)
+                k8 = quant_dot(x, qt.q, qt.scale, plan, "revisit")
+                k4 = quant_dot(x, qt.q, qt.scale, plan, "rotate_once")
+                torch.cuda.synchronize()
+                same = bool(torch.equal(_bits(k8), _bits(k4)))
+                tag = f"K8 {m:4d} x {n} -> {d} {mode:8s} {kind:8s}"
+                print(f"{tag}: bitwise to K4 {same}")
+                if not same:
+                    fail(f"{tag}: differs from K4")
+                y1, (q1, s1) = _k1_epilogue(x, plan)
+                agree = _same_rows(y1, transform_plain(x, plan))
+                from_k1 = epilogue_dot(q1, s1, qt.q, qt.scale, mode, torch.bfloat16)
+                _hold_rows(tag, k8, quant_dot_plain(x, qt.q, qt.scale, plan), from_k1,
+                           agree, mode, kind == "exact")
+        del w, qt
+        torch.cuda.empty_cache()
+
+
+def time_revisit(gen) -> dict:
+    """The schedule A/B: K8 beside K4 at the revisit shapes, int8 and
+    fp8_e4m3, in turns (K4, K8, K8, K4) with CUDA events, and the profiler;
+    the rotations each row block gets (K8: one per weight tile of 128
+    columns; K4: one per cluster); the bound (the same work as K4's: the
+    redundant rotations are not needed work), the plain version and the
+    library contraction (``_library_dot``). Then K7a-rv beside K8 at
+    phi4-mini's decode shape (int8; the ABFT revisit serving path). The
+    JSON entries: K8 at the training rows in int8 (the training path's
+    shape), K7a-rv at phi4-mini's decode shape."""
+    from repro_torch.core.api import QuantEpilogue, plan_for
+    from repro_torch.core.wquant import quantize_weight
+    from repro_torch.kernels.quant_dot import (REVISIT_BLOCK_N, launch_shape, quant_dot,
+                                               quant_dot_abft_plain, quant_dot_plain)
+
+    print("-- kernel phase: schedule A/B, K8 (revisit) beside K4 (rotate-once)")
+    entries = {}
+    for label, m, n, d in REVISIT_SHAPES:
+        w = (torch.randn(n, d, generator=gen, device="cuda") / math.sqrt(n)).to(
+            torch.bfloat16)
+        for mode in ("int8", "fp8_e4m3"):
+            low = INT8_OPS_PER_S if mode == "int8" else FP8_OPS_PER_S
+            qt = quantize_weight(w, mode, with_check=True)
+            plan = plan_for(n, dtype=torch.bfloat16, backend="cuda", device_type="cuda",
+                            epilogue=QuantEpilogue(mode))
+            x = (torch.randn(m, n, generator=gen, device="cuda") * 3).to(torch.bfloat16)
+            k8 = lambda: quant_dot(x, qt.q, qt.scale, plan, "revisit")        # noqa: E731
+            k4 = lambda: quant_dot(x, qt.q, qt.scale, plan, "rotate_once")    # noqa: E731
+            plain = lambda: quant_dot_plain(x, qt.q, qt.scale, plan)           # noqa: E731
+            err = float((k8().float() - plain().float()).abs().max())
+            iters = 20 if m > SLOTS else 200
+            t4, t8 = cuda_time_ms(k4, iters=iters), cuda_time_ms(k8, iters=iters)
+            t8b, t4b = cuda_time_ms(k8, iters=iters), cuda_time_ms(k4, iters=iters)
+            d4 = _profile_ms(k4, "quant_dot_kernel")
+            d8 = _profile_ms(k8, "quant_dot_kernel", revisit=True)
+            plain_ms = cuda_time_ms(plain, iters=5 if m > SLOTS else 20, warmup=1)
+            lib, lib_name = _library_dot(x, qt.q, qt.scale, mode, False)
+            lib_ms = cuda_time_ms(lib, iters=iters)
+            bound, by = _bound(2 * m * n + qt.q.numel() + 4 * d + 2 * m * d, 2 * m * n * d,
+                               m * n * (math.log2(n) + 6), low)
+            bm4, _, blocks4 = launch_shape(m, n, d, mode, 0, "rotate_once")
+            bm8, _, blocks8 = launch_shape(m, n, d, mode, 0, "revisit")
+            splits4 = blocks4 // -(-m // bm4)
+            cl = 8
+            while cl > 1 and (cl > bm4 or cl > splits4):
+                cl //= 2
+            per_rb8 = -(-d // REVISIT_BLOCK_N)
+            ms = (t8 + t8b) / 2
+            print(f"{label} {mode:8s} {m} x {n} -> {d}: events K4 {t4:.5f} / K8 {t8:.5f} / "
+                  f"K8 {t8b:.5f} / K4 {t4b:.5f} ms; profile K4 {d4:.5f} ms, K8 {d8:.5f} ms "
+                  f"({d8 / d4:.2f}x); rotations per row block K8 {per_rb8}, K4 "
+                  f"{splits4 // cl} ({blocks8} and {blocks4} blocks of {bm8} / {bm4} "
+                  f"rows); plain {plain_ms:.5f} ms; {lib_name} {lib_ms:.5f} ms; bound "
+                  f"{bound:.6f} ms ({by}); K8 max abs err against plain {err:g}")
+            if label == "phi4-mini training rows" and mode == "int8":
+                entries["K8"] = {"mode": mode, "max_abs_err": err, "ms": ms,
+                                 "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
+                                 "library_ms": lib_ms}
+            if label == "phi4-mini decode" and mode == "int8":
+                cw = qt.check
+                rv = lambda: quant_dot(x, qt.q, qt.scale, plan, "revisit", check=cw)  # noqa: E731
+                abft_plain = lambda: quant_dot_abft_plain(x, qt.q, qt.scale, cw, plan)  # noqa: E731
+                (y, _), (yp, _) = rv(), abft_plain()
+                e_rv = float((y.float() - yp.float()).abs().max())
+                t_rv = (cuda_time_ms(rv) + cuda_time_ms(rv)) / 2
+                d_rv = _profile_ms(rv, "quant_dot_kernel", abft=True, revisit=True)
+                p_rv = cuda_time_ms(abft_plain, iters=20, warmup=1)
+                b_rv, by_rv = _bound(2 * m * n + qt.q.numel() + 8 * d + 4 * n + 2 * m * d
+                                     + 4 * m, 2 * m * n * d, m * n * (math.log2(n) + 8), low)
+                print(f"K7a-rv {label} int8: events {t_rv:.5f} ms, profile {d_rv:.5f} ms "
+                      f"(K8 {d8:.5f} ms, {(d_rv / d8 - 1) * 100:+.1f}%); plain {p_rv:.5f} "
+                      f"ms; bound {b_rv:.6f} ms ({by_rv}); library none; max abs err {e_rv:g}")
+                entries["K7a-rv"] = {"mode": mode, "max_abs_err": e_rv, "ms": t_rv,
+                                     "plain_ms": p_rv, "bound_ms": b_rv, "bound_by": by_rv,
+                                     "library_ms": None}
+            del qt
+        del w
+        torch.cuda.empty_cache()
     return entries
 
 
@@ -1412,7 +1564,8 @@ def _counters():
             "K6": qd.quant_dot_experts_cuda, "K6s": qd.quant_dot_experts_streamed_cuda,
             "K7a-ro": qd.quant_dot_abft_cuda, "K7a-s": qd.quant_dot_abft_streamed_cuda,
             "K7b": qd.quant_dot_experts_abft_cuda,
-            "K7b-s": qd.quant_dot_experts_abft_streamed_cuda}
+            "K7b-s": qd.quant_dot_experts_abft_streamed_cuda,
+            "K8": qd.quant_dot_revisit_cuda, "K7a-rv": qd.quant_dot_abft_revisit_cuda}
 
 
 # The models served, each with its quantization, the launches one model
@@ -1426,6 +1579,7 @@ MODELS = {
                       controls=("k2_no_quant", "k1_exact_scale")),
     "phi4-mini-3.8b": dict(mode="int8", per_pass={"K2": 64, "K4": 32},
                            abft_per_pass={"K2": 64, "K7a-ro": 32},
+                           revisit_abft_per_pass={"K2": 64, "K7a-rv": 32},
                            controls=("k4_no_rotate", "k2_no_quant")),
     # 2 of the 24 (attn, moe) groups: 4 of 48 layers, ~35 GB of int8 / fp8
     # weights; all 48 would take ~390 GB, beyond one 80 GB card
@@ -1834,10 +1988,11 @@ def abft_phase(arch, cfg, params, stream, off_engine, seed: int) -> dict:
     launches = {k: launches[k] + got[k] for k in launches}
     abft_step_split(off_engine, on_engine)
     del on_engine
-    if "streamed_abft_per_pass" in spec:
-        got, _ = abft_serving(f"{arch} streamed", _abft_cfg(cfg, "streamed"), checked,
-                              stream, off, spec["streamed_abft_per_pass"])
-        launches = {k: launches[k] + got[k] for k in launches}
+    for sched in ("streamed", "revisit"):
+        if f"{sched}_abft_per_pass" in spec:
+            got, _ = abft_serving(f"{arch} {sched}", _abft_cfg(cfg, sched), checked,
+                                  stream, off, spec[f"{sched}_abft_per_pass"])
+            launches = {k: launches[k] + got[k] for k in launches}
     if arch == "phi4-mini-3.8b":
         fault_runs(cfg, checked, seed)
     return launches
@@ -1964,20 +2119,297 @@ def fault_runs(cfg, params, seed: int) -> None:
         fail("the fault runs left the weights corrupted")
 
 
+# The training phase: phi4-mini at full width and depth, W8A8 int8 +
+# Hadamard + int8 fake-quantized Q/K/V, remat per block (the config's
+# default), batch x sequence cut from train_4k's 256 x 4096 to 4 x 512.
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 4, 512, 3
+# Launches per step: the forward (64 K2 at the Q/K sites, 32 K4 at the down
+# projections) twice -- the recomputation of each block in the backward
+# pass -- and the backward's K1: 64 at n = 128 (the Q/K sites'
+# straight-through rotation) and 2 x 32 at n = 8192 (the down projection's
+# gx, and the rotated x for gw). Revisit: K8 in K4's place.
+TRAIN_PER_STEP = {"K1": 128, "K2": 128, "K4": 64}
+# Largest per-leaf relative L2 of the step-0 gradients against the plain
+# versions' on the card, per class of leaf, and the loss's difference:
+# limits set between the witnesses (correct paths that differ as the kernels
+# may: the rotation as f32 butterflies rounded once, the ``ref`` backend;
+# the gradient accumulated over 2 microbatches in f32) and the controls (the
+# plain path without its rotations; without quantization), PERF.md section
+# 6, PR 15. The V projections form their own class: the V site
+# fake-quantizes without a straight-through estimator, as the reference
+# does, so their gradient is only the scales' (through each row's absmax)
+# and moves with any change of the forward's values.
+# "global" is the relative L2 over all leaves. Each limit is the geometric
+# mean of the class's largest witness or kernel reading and its smallest
+# control reading in the calibration call (PERF.md).
+TRAIN_GRAD_LIMITS = {"v_proj": 0.57, "other": 0.38, "global": 0.24}
+TRAIN_LOSS_LIMIT = 2e-3
+CKPT_LAYERS = 2     # the checkpoint / restart check's depth (full width)
+
+
+def _train_cfg(backend="cuda", schedule=None, rotate="hadamard", mode="int8", layers=None):
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.quant import QuantConfig
+
+    cfg = get_config("phi4-mini-3.8b").with_quant(QuantConfig(
+        mode=mode, rotate=rotate, backend=backend, kv_quant=mode != "none",
+        schedule=schedule))
+    if layers is not None:
+        cfg = dataclasses.replace(cfg, groups=((("attn",), layers),))
+    return cfg
+
+
+def _grads(cfg, params, batch, microbatches: int = 1):
+    """(loss, gradients as a list in leaf order): the loss's gradients, over
+    ``microbatches`` slices of the batch accumulated in f32 when > 1."""
+    from repro_torch import tree as T
+    from repro_torch.models.lm import lm_loss
+
+    flat = T.leaves(params)
+    for p in flat:
+        p.requires_grad_(True)
+    acc, total = None, 0.0
+    for i in range(microbatches):
+        part = {k: v.chunk(microbatches)[i] for k, v in batch.items()}
+        loss, _ = lm_loss(cfg, params, part)
+        g = torch.autograd.grad(loss, flat)
+        total += float(loss.detach())
+        if microbatches == 1:
+            acc = list(g)
+        elif acc is None:
+            acc = [t.float() for t in g]
+        else:
+            for a, t in zip(acc, g):
+                a.add_(t)
+        del g
+    if microbatches > 1:
+        acc = [a.mul_(1.0 / microbatches) for a in acc]
+    for p in flat:
+        p.requires_grad_(False)
+    return total / microbatches, acc
+
+
+def _leaf_class(path: str) -> str:
+    return "v_proj" if "['attn']['wv']" in path else "other"
+
+
+def _leaf_rel(got, want, paths) -> dict:
+    """Per class of leaf: (largest per-leaf relative L2 of got against
+    want, that leaf's path); and "global": the relative L2 over every
+    leaf."""
+    out, num, den = {}, 0.0, 0.0
+    for g, w, path in zip(got, want, paths):
+        d2 = float((g.double() - w.double()).square().sum())
+        w2 = float(w.double().square().sum())
+        num, den = num + d2, den + w2
+        r = math.sqrt(d2 / max(w2, 1e-60))
+        c = _leaf_class(path)
+        if r >= out.get(c, (-1.0, ""))[0]:
+            out[c] = (r, path)
+    out["global"] = (math.sqrt(num / max(den, 1e-60)), "all leaves")
+    return out
+
+
+def train_phase(args) -> dict:
+    """phi4-mini training at full width and depth through the kernels
+    (rotate-once K4, K8 under revisit; K2; K1 in the backward): the step-0
+    loss and gradients held against the plain versions' on the card (a
+    witness and two controls printed beside them), then TRAIN_STEPS AdamW
+    steps with f32 moments (step time, tokens/s, peak memory, launches per
+    step), the same steps under the revisit schedule bitwise equal, the
+    same steps with int8 moments, and a checkpoint / restart at
+    CKPT_LAYERS layers resuming bitwise. Returns the launches."""
+    import shutil
+    import tempfile
+
+    from repro_torch import tree as T
+    from repro_torch.data import SyntheticDataset
+    from repro_torch.launch.shapes import SHAPES, ShapeSpec
+    from repro_torch.launch.steps import batch_to, make_train_step
+    from repro_torch.launch.train import restore_state, save_state
+    from repro_torch.models.lm import init_lm
+    from repro_torch.optim import OptConfig, init_opt_state
+
+    cfg = _train_cfg()
+    full = SHAPES["train_4k"]
+    shape = ShapeSpec("train_4k", "train", TRAIN_SEQ, TRAIN_BATCH)
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    print(f"-- training phase: {cfg.name} at full width and depth ({cfg.num_layers} "
+          f"layers, d_model {cfg.d_model}, d_ff {cfg.d_ff}, vocab {cfg.vocab_size}, tied), "
+          f"int8 + hadamard + int8 KV fake quantization, remat {cfg.remat}; batch x seq "
+          f"{TRAIN_BATCH} x {TRAIN_SEQ} (cut from {full.name}'s {full.batch} x {full.seq})")
+    ds = SyntheticDataset(cfg, shape, seed=args.seed)
+    batches = [batch_to(ds.batch(k), "cuda") for k in range(TRAIN_STEPS)]
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = init_lm(cfg, seed=args.seed, device="cuda")
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in T.leaves(params))
+    print(f"init: {n_params / 1e9:.3f} B parameters in {time.perf_counter() - t0:.1f} s")
+
+    # ---- step-0 loss and gradients against the plain versions
+    loss_p, plain = _grads(_train_cfg("torch"), params, batches[0])
+    paths = [p for p, _ in T.leaves_with_paths(params)]
+    readings = {}
+    for name, c, mb in (("kernels", cfg, 1),
+                        ("witness_ref_rotation", _train_cfg("ref"), 1),
+                        ("witness_microbatches_2", _train_cfg("torch"), 2),
+                        ("control_no_rotate", _train_cfg("torch", rotate="none"), 1),
+                        ("control_no_quant", _train_cfg("torch", mode="none"), 1)):
+        loss, g = _grads(c, params, batches[0], mb)
+        rel = _leaf_rel(g, plain, paths)
+        readings[name] = (rel, abs(loss - loss_p))
+        print(f"step-0 gradients, {name}: |loss - plain loss| {abs(loss - loss_p):.3e} "
+              f"(plain loss {loss_p:.6f}); relative L2 against the plain versions, "
+              + "; ".join(f"{k} {v:.6f} ({where})" for k, (v, where) in rel.items()))
+        del g
+    torch.cuda.empty_cache()
+    del plain
+
+    def passes(name):
+        rel, dloss = readings[name]
+        return dloss <= TRAIN_LOSS_LIMIT and all(rel[c][0] <= lim
+                                                 for c, lim in TRAIN_GRAD_LIMITS.items())
+
+    print(f"limits: {TRAIN_GRAD_LIMITS} (a class's largest leaf; global over every "
+          f"leaf), loss {TRAIN_LOSS_LIMIT:g}; within them: "
+          + ", ".join(f"{k} {passes(k)}" for k in readings))
+    for name in readings:
+        if passes(name) != (not name.startswith("control")):
+            fail(f"training: {name} {'fails' if passes(name) is False else 'passes'} the "
+                 "gradient limits")
+
+    # ---- AdamW steps, f32 moments: rotate-once, then revisit from the same init
+    def steps(c, opt_cfg, params, what, profile=False):
+        """TRAIN_STEPS steps from ``params`` (launches counted): (the
+        parameters after them, on the host; the losses; the launches).
+        ``profile``: then one more step under the profiler."""
+        opt_state = init_opt_state(params, opt_cfg)
+        step = make_train_step(c, opt_cfg)
+        losses, times = [], []
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+
+        def run():
+            nonlocal params, opt_state
+            for b in batches:
+                t = time.perf_counter()
+                params, opt_state, m = step(params, opt_state, b)
+                losses.append(float(m["loss"]))
+                times.append(time.perf_counter() - t)
+            return params
+
+        params, launches = _counted(run)
+        peak = torch.cuda.max_memory_allocated()
+        per = {k: v / TRAIN_STEPS for k, v in launches.items() if v}
+        step_s = sum(times[1:]) / (len(times) - 1)
+        print(f"{what}: losses {losses}; step {step_s * 1e3:.1f} ms (mean of steps 1-"
+              f"{TRAIN_STEPS - 1}; step 0 {times[0] * 1e3:.1f} ms), {tokens / step_s:.0f} "
+              f"tokens/s; peak {peak / 1e9:.2f} GB (limit {PEAK_LIMIT / 1e9:g}); launches "
+              f"per step {per}")
+        if not all(math.isfinite(v) for v in losses):
+            fail(f"training {what}: a loss is not finite")
+        if peak > PEAK_LIMIT:
+            fail(f"training {what}: peak memory {peak / 1e9:.2f} GB")
+        host = [p.detach().cpu() for p in T.leaves(params)]
+        if profile:
+            def one():
+                nonlocal params, opt_state
+                params, opt_state, _ = step(params, opt_state, batches[0])
+
+            _profile_window(one, 1, f"training step ({what})")
+        del opt_state, params
+        torch.cuda.empty_cache()
+        return host, losses, launches
+
+    opt_cfg = OptConfig(lr=1e-4, warmup_steps=1, total_steps=TRAIN_STEPS)
+    after, losses, launches = steps(cfg, opt_cfg, params, "rotate-once, f32 moments",
+                                    profile=True)
+    del params
+    want = {k: TRAIN_STEPS * TRAIN_PER_STEP.get(k, 0) for k in launches}
+    if launches != want:
+        fail(f"training launched {launches}, expected {want}")
+    rv_cfg = _train_cfg(schedule="revisit")
+    params = init_lm(rv_cfg, seed=args.seed, device="cuda")
+    rv_after, rv_losses, rv_launches = steps(rv_cfg, opt_cfg, params,
+                                             "revisit, f32 moments")
+    del params
+    same = rv_losses == losses and all(torch.equal(a, b) for a, b in zip(after, rv_after))
+    print(f"revisit against rotate-once: losses and parameters bitwise {same}")
+    want = {k: TRAIN_STEPS * ({**TRAIN_PER_STEP, "K8": TRAIN_PER_STEP["K4"], "K4": 0}
+                              ).get(k, 0) for k in rv_launches}
+    if not same or rv_launches != want:
+        fail(f"training under revisit: bitwise {same}, launched {rv_launches}, "
+             f"expected {want}")
+    launches = {k: launches[k] + rv_launches[k] for k in launches}
+    del after, rv_after
+
+    # ---- int8 moments
+    params = init_lm(cfg, seed=args.seed, device="cuda")
+    q8 = OptConfig(lr=1e-4, warmup_steps=1, total_steps=TRAIN_STEPS, state_dtype="int8")
+    steps(cfg, q8, params, "rotate-once, int8 moments")
+    del params
+    torch.cuda.empty_cache()
+
+    # ---- checkpoint at step 2, restart, step 2 again (CKPT_LAYERS layers)
+    small = _train_cfg(layers=CKPT_LAYERS)
+    step = make_train_step(small, q8)
+    params = init_lm(small, seed=args.seed, device="cuda")
+    opt_state = init_opt_state(params, q8)
+    for b in batches[:2]:
+        params, opt_state, _ = step(params, opt_state, b)
+    ckpt = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    try:
+        t0 = time.perf_counter()
+        save_state(ckpt, 2, small, params, opt_state)
+        _, opt_state, m = step(params, opt_state, batches[2])
+        from repro_torch.checkpoint import wait_for_writes
+
+        wait_for_writes()
+        t_save = time.perf_counter() - t0
+        fresh = init_lm(small, seed=args.seed + 1, device="cuda")
+        t0 = time.perf_counter()
+        p2, o2 = restore_state(ckpt, 2, small, fresh, init_opt_state(fresh, q8), "cuda")
+        t_load = time.perf_counter() - t0
+        _, _, m2 = step(p2, o2, batches[2])
+    finally:
+        shutil.rmtree(ckpt, ignore_errors=True)
+    same = float(m["loss"]) == float(m2["loss"]) and all(
+        torch.equal(a, b) for a, b in zip(T.leaves(params), T.leaves(p2)))
+    print(f"checkpoint ({CKPT_LAYERS} layers, full width, int8 moments): saved at step 2 "
+          f"in {t_save:.1f} s with step 2 running, restored in {t_load:.1f} s; step-2 "
+          f"loss {float(m['loss']):.6f} before, {float(m2['loss']):.6f} after the "
+          f"restart; loss and updated parameters bitwise {same}")
+    if not same:
+        fail("training: the restart did not resume bitwise")
+    del params, opt_state, p2, o2, fresh
+    torch.cuda.empty_cache()
+    return launches
+
+
 def profile_decode(engine, steps: int = 3) -> None:
     """Where a decode step's time goes: ``torch.profiler`` over a few
     decode steps on the engine's 4 slots (after the counted run, at the
     positions the run left), device time by kernel and the device's busy
     share of the window."""
+    engine._decode()
+    torch.cuda.synchronize()
+    _profile_window(engine._decode, steps, "decode steps")
+
+
+def _profile_window(fn, steps: int, what: str) -> None:
+    """``steps`` calls of ``fn`` under ``torch.profiler``: the wall time per
+    call, the device's busy share of the window and the device time by
+    kernel (the 8 largest, and the port's own kernels)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    engine._decode()
-    torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(steps):
-            engine._decode()
+            fn()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     rows = []
@@ -1991,7 +2423,7 @@ def profile_decode(engine, steps: int = 3) -> None:
             rows.append((dev, evt.count, evt.key))
     rows.sort(reverse=True)
     busy = sum(r[0] for r in rows)
-    print(f"-- profile: {steps} decode steps, {wall_us / steps / 1e3:.2f} ms "
+    print(f"-- profile: {steps} {what}, {wall_us / steps / 1e3:.2f} ms "
           f"wall per step (profiler on), kernels busy {busy / steps / 1e3:.2f} "
           f"ms per step ({100 * busy / wall_us:.1f}% of the window)")
     ours = ("hadacore_kernel", "fused_dequant_kernel", "fused_kernel",
@@ -2051,6 +2483,8 @@ def main() -> int:
     timed.update(time_k3_k4(gen))
     hold_k5_k6(gen)
     timed.update(time_k5_k6(gen))
+    hold_k8(gen)
+    timed.update(time_revisit(gen))
     hold_abft_kernels(gen)
     timed.update(time_abft(gen))
     entry = entry_point_phase(gen)
@@ -2060,6 +2494,8 @@ def main() -> int:
         for k, v in got.items():
             launches[k] = launches.get(k, 0) + v
         torch.cuda.empty_cache()
+    for k, v in train_phase(args).items():
+        launches[k] += v
     launches["K3"] = entry["K3"]    # K3's path is the entry point
 
     quant_dot_cu = "src/repro_torch/csrc/quant_dot.cu"
@@ -2090,6 +2526,10 @@ def main() -> int:
                 "replaces": "src/repro/kernels/quant_dot.py:845"},
         "K7b-s": {"name": "quant_dot_experts_abft_streamed", "source": experts_abft_cu,
                   "replaces": "src/repro/kernels/quant_dot.py:872"},
+        "K8": {"name": "quant_dot_revisit", "source": quant_dot_cu,
+               "replaces": "src/repro/kernels/quant_dot.py:440"},
+        "K7a-rv": {"name": "quant_dot_abft_revisit", "source": abft_cu,
+                   "replaces": "src/repro/kernels/quant_dot.py:540"},
     }
     kernels = [{"name": meta[k]["name"], "route": "cuda",
                 "source": meta[k]["source"], "replaces": meta[k]["replaces"],

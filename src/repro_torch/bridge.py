@@ -12,6 +12,16 @@ list, quantized leaves as :class:`~repro_torch.core.wquant.QTensor`.
 bf16 and fp8 arrays (numpy extension dtypes that ``torch.from_numpy``
 rejects) cross through a same-width unsigned-integer view; nothing here
 imports the reference's packages.
+
+Training state crosses both ways: ``opt_state_from_reference`` takes the
+reference's AdamW state (f32 moments or blockwise-int8 ``{"q", "s"}``
+moments, ``step``, error-feedback ``ef``) into the port's per-layer layout,
+and ``to_reference`` stacks a port tree (parameters or optimizer state)
+back into the reference's layout as numpy (bf16 and fp8 as their unsigned
+views), which is what the checkpoint store writes -- or, ``meta=True``, as
+data-free tensors of the stacked shapes and dtypes, a restore template.
+Every function here that takes the reference's layout also takes it with
+torch leaves (a restored checkpoint).
 """
 from __future__ import annotations
 
@@ -23,7 +33,8 @@ import torch
 from repro_torch.core.wquant import QTensor
 from repro_torch.device import resolve_device
 
-__all__ = ["to_torch", "params_from_reference"]
+__all__ = ["to_torch", "params_from_reference", "opt_state_from_reference",
+           "to_reference"]
 
 # numpy extension dtype name -> (same-width view dtype, torch dtype)
 _VIEWED = {
@@ -35,15 +46,18 @@ _VIEWED = {
 
 def to_torch(arr, device="cuda") -> torch.Tensor:
     """One numpy array (bf16 / fp8 extension dtypes included) as a torch
-    tensor of the same dtype and bits on ``device``."""
-    arr = np.asarray(arr)
+    tensor of the same dtype and bits on ``device``; a torch tensor moves
+    there as it is."""
     dev = resolve_device(device)
+    if isinstance(arr, torch.Tensor):
+        return arr.to(dev)
+    arr = np.asarray(arr)
     viewed = _VIEWED.get(arr.dtype.name)
     if viewed is not None:
         raw, tdt = viewed
-        t = torch.from_numpy(np.ascontiguousarray(arr).view(raw).copy()).view(tdt)
+        t = torch.from_numpy(arr.copy(order="C").view(raw)).view(tdt)
     else:
-        t = torch.from_numpy(np.ascontiguousarray(arr).copy())
+        t = torch.from_numpy(arr.copy(order="C"))
     return t.to(dev)
 
 
@@ -62,21 +76,30 @@ def _convert(tree, device):
     return to_torch(tree, device)
 
 
-def _slice(tree, i: int):
-    """Layer ``i`` of a stacked subtree (numpy level, before conversion)."""
+def _is_qstate(x) -> bool:
+    return isinstance(x, dict) and set(x) == {"q", "s"}
+
+
+def _slice(tree, i: int, repeats: int = 0):
+    """Layer ``i`` of a stacked subtree (numpy level, before conversion).
+    A blockwise-int8 moment ``{"q", "s"}`` of a stacked parameter holds its
+    ``repeats`` layers as consecutive row ranges."""
     if _is_qdict(tree):
         return {k: (v if k == "mode" or v is None else v[i]) for k, v in tree.items()}
+    if _is_qstate(tree):
+        rows = tree["q"].shape[0] // repeats
+        return {k: v[i * rows:(i + 1) * rows] for k, v in tree.items()}
     if isinstance(tree, dict):
-        return {k: _slice(v, i) for k, v in tree.items()}
+        return {k: _slice(v, i, repeats) for k, v in tree.items()}
     return tree[i]
 
 
 def _repeats(tree) -> int:
     if _is_qdict(tree):
-        return int(np.shape(tree["q"])[0])
+        return int(tree["q"].shape[0])
     if isinstance(tree, dict):
         return _repeats(next(iter(tree.values())))
-    return int(np.shape(tree)[0])
+    return int(tree.shape[0])
 
 
 def params_from_reference(tree: Dict[str, Any], device="cuda") -> Dict[str, Any]:
@@ -84,14 +107,95 @@ def params_from_reference(tree: Dict[str, Any], device="cuda") -> Dict[str, Any]
     tree -> the port's ``init_lm`` layout on ``device``. Each entry of
     ``tree["groups"]`` maps ``p<j>`` to the stacked params of pattern
     position j; layers come out in execution order (repeat r, then j)."""
-    dev = resolve_device(device)
+    return _from_reference(tree, resolve_device(device))
+
+
+def _from_reference(tree, dev, repeats: List[int] = ()):
     out: Dict[str, Any] = {k: _convert(v, dev) for k, v in tree.items()
                            if k != "groups"}
     layers: List[dict] = []
-    for group in tree["groups"]:
+    for gi, group in enumerate(tree["groups"]):
         positions = sorted(group, key=lambda k: int(k[1:]))
-        for r in range(_repeats(group[positions[0]])):
+        reps = repeats[gi] if repeats else _repeats(group[positions[0]])
+        for r in range(reps):
             for pj in positions:
-                layers.append(_convert(_slice(group[pj], r), dev))
+                layers.append(_convert(_slice(group[pj], r, reps), dev))
     out["layers"] = layers
     return out
+
+
+def opt_state_from_reference(state: Dict[str, Any], cfg, device="cuda") -> Dict[str, Any]:
+    """The reference's ``init_opt_state`` / ``apply_updates`` state as numpy
+    -- {"m", "v"} shaped like the parameters (f32 arrays, or ``{"q", "s"}``
+    blockwise-int8 dicts), "step", and "ef" under int8_ef -- in the port's
+    per-layer layout on ``device``; ``cfg`` gives each group's repeats."""
+    dev = resolve_device(device)
+    reps = [r for _, r in cfg.groups]
+    out = {k: _from_reference(v, dev, reps) for k, v in state.items() if k != "step"}
+    out["step"] = to_torch(state["step"], dev)
+    return out
+
+
+class _Numpy:
+    """Leaves as numpy (bf16 / fp8 as their unsigned views)."""
+
+    @staticmethod
+    def leaf(t):
+        from repro_torch.checkpoint.store import _to_numpy
+
+        return _to_numpy(t)
+
+    stack, cat = staticmethod(np.stack), staticmethod(np.concatenate)
+
+
+class _Meta:
+    """Leaves as data-free tensors (shape and dtype only)."""
+
+    @staticmethod
+    def leaf(t):
+        return t.to("meta")
+
+    stack, cat = staticmethod(torch.stack), staticmethod(torch.cat)
+
+
+def _stack(items, to):
+    """Stack one leaf of every layer of a group: arrays along a new axis 0,
+    blockwise-int8 moments row-wise (the reference's state of the stacked
+    parameter)."""
+    first = items[0]
+    if _is_qstate(first):
+        return {k: to.cat([to.leaf(it[k]) for it in items]) for k in first}
+    if isinstance(first, dict):
+        return {k: _stack([it[k] for it in items], to) for k in first}
+    return to.stack([to.leaf(it) for it in items])
+
+
+def _to_reference_tree(tree, cfg, to):
+    def conv(x):
+        if isinstance(x, dict):
+            return {k: conv(v) for k, v in x.items()}
+        return to.leaf(x)
+
+    out = {k: conv(v) for k, v in tree.items() if k != "layers"}
+    groups, i = [], 0
+    for pattern, repeats in cfg.groups:
+        width = len(pattern)
+        groups.append({f"p{j}": _stack([tree["layers"][i + r * width + j]
+                                        for r in range(repeats)], to)
+                       for j in range(width)})
+        i += width * repeats
+    out["groups"] = groups
+    return out
+
+
+def to_reference(tree: Dict[str, Any], cfg, meta: bool = False) -> Dict[str, Any]:
+    """A port tree of raw (training) parameters in the reference's layout
+    (the per-layer list stacked back into ``groups``), or of an AdamW state
+    ({"m", "v", "step", "ef"}, each moment tree converted the same way).
+    Leaves as numpy, or with ``meta`` as data-free tensors (a restore
+    template)."""
+    to = _Meta if meta else _Numpy
+    if "layers" in tree:
+        return _to_reference_tree(tree, cfg, to)
+    return {k: (to.leaf(v) if k == "step" else _to_reference_tree(v, cfg, to))
+            for k, v in tree.items()}

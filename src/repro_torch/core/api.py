@@ -1,5 +1,5 @@
 """Plan-based Hadamard API: one entry point for every transform (twin of
-``repro.core.api``, forward only, without the mesh parts).
+``repro.core.api``, without the mesh parts).
 
 ``plan_for`` builds (and caches) a :class:`HadamardPlan` per
 ``(n, dtype, compute_dtype, backend, epilogue, scale, device type)``: the
@@ -29,8 +29,16 @@ K6 (or K6s) launch over every expert when the plan fuses
 Declarative sites: :class:`RotationSpec` (attention Q/K/V) and
 :class:`QuantDotSpec` (the down-projection consumer, bound to a weight
 with ``bind``, or to a stacked expert weight with ``bind_experts``).
-Forward only: gradients (the reference's custom_vjps) come with the
-training slice, mesh axes with the multi-device slice.
+Mesh axes come with the multi-device slice.
+
+Gradients: the reference's nine ``custom_vjp``s are ``torch.autograd.
+Function``s around the same forwards. The transform is self-adjoint (its
+backward is the transform); the fused epilogues and both quant_dot forms
+are straight-through: the backward of quantize(rotate(x)) is the rotation
+(of g / s for the (q, s) form; int8 q carries no gradient, so x gets
+zeros), the pre-quantized forms give x ``rotate(g @ W^T)`` and the weight
+none, and the raw-weight forms also give ``gw = rotate(x)^T g`` (on the
+card: K1 twice per call, for gx and for y).
 
 ABFT (``REPRO_ABFT=1`` or ``QuantConfig.abft``): a consumer site whose
 weight carries its column checksum runs the verified twin
@@ -223,6 +231,195 @@ def _dispatch_fused_dequant(x, plan: HadamardPlan):
     return _apply_epilogue_torch(y, plan.epilogue, x.dtype)
 
 
+# --------------------------------------------------------------- autograd
+class _Transform(torch.autograd.Function):
+    """The rotation: H^T = H and the scale is scalar, so the op is
+    self-adjoint (``_transform`` of the reference)."""
+
+    @staticmethod
+    def forward(ctx, x, plan):
+        ctx.plan = plan
+        return _dispatch_transform(x, plan)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _dispatch_transform(g.contiguous(), ctx.plan), None
+
+
+class _Fused(torch.autograd.Function):
+    """The (q, scales) epilogue with a straight-through backward: q =
+    had(x) / s with s a statistic, so the pullback of gq is had(gq / s) and
+    the scales contribute nothing. int8 q is integer-typed and carries no
+    gradient: x then gets zeros in its dtype (``_fused`` of the reference,
+    whose int8 cotangent is float0)."""
+
+    @staticmethod
+    def forward(ctx, x, plan):
+        q, s = _dispatch_fused(x, plan)
+        ctx.plan = plan
+        ctx.x_meta = (x.shape, x.dtype)
+        if not q.is_floating_point():
+            ctx.mark_non_differentiable(q)
+        ctx.save_for_backward(s)
+        return q, s
+
+    @staticmethod
+    def backward(ctx, gq, _gs):
+        (s,) = ctx.saved_tensors
+        shape, dtype = ctx.x_meta
+        if not QSPECS[ctx.plan.epilogue.mode][1].is_floating_point or gq is None:
+            return torch.zeros(shape, dtype=dtype, device=s.device), None
+        gy = gq.to(torch.float32) / s
+        return _dispatch_transform(gy.contiguous(), _strip(ctx.plan)).to(dtype), None
+
+
+class _FusedDequant(torch.autograd.Function):
+    """Quantize-dequantize of the rotation, straight-through: the backward
+    is the plain rotation (``_fused_dequant``; the raw fake-quant gradient,
+    round()'s, is zero almost everywhere)."""
+
+    @staticmethod
+    def forward(ctx, x, plan):
+        ctx.plan = plan
+        return _dispatch_fused_dequant(x, plan)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _dispatch_transform(g.contiguous(), _strip(ctx.plan)), None
+
+
+def _ste_gx(g, W, plan, spec: str):
+    """x's straight-through gradient of a quant_dot against the f32 weight
+    ``W``: the rotation of ``g @ W^T`` (``spec`` the einsum for experts),
+    in the plan's dtype."""
+    gf = g.to(torch.float32)
+    if spec:
+        gy = torch.einsum(spec, gf, W)
+    else:
+        gy = torch.matmul(gf, W.T)
+    return _dispatch_transform(gy.to(torch_dtype(plan.dtype)).contiguous(), _strip(plan))
+
+
+class _QuantDotQW(torch.autograd.Function):
+    """The serving form (``_quant_dot_qw``): pre-quantized weight,
+    differentiable in x only; the weight and its scales are statistics."""
+
+    @staticmethod
+    def forward(ctx, x, wq, sw, plan, schedule):
+        ctx.plan = plan
+        ctx.save_for_backward(wq, sw)
+        return _dispatch_quant_dot(x, wq, sw, plan, schedule)
+
+    @staticmethod
+    def backward(ctx, g):
+        wq, sw = ctx.saved_tensors
+        W = wq.to(torch.float32) * sw
+        return _ste_gx(g, W, ctx.plan, ""), None, None, None, None
+
+
+class _QuantDotQWAbft(torch.autograd.Function):
+    """ABFT twin of ``_QuantDotQW`` (``_quant_dot_qw_abft``): the verified
+    forward, the same straight-through backward; ``cw`` is a statistic."""
+
+    @staticmethod
+    def forward(ctx, x, wq, sw, cw, plan, schedule):
+        ctx.plan = plan
+        ctx.save_for_backward(wq, sw)
+        return _abft_quant_dot_impl(x, wq, sw, cw, plan, schedule)
+
+    @staticmethod
+    def backward(ctx, g):
+        wq, sw = ctx.saved_tensors
+        W = wq.to(torch.float32) * sw
+        return _ste_gx(g, W, ctx.plan, ""), None, None, None, None, None
+
+
+class _QuantDotW(torch.autograd.Function):
+    """The training form (``_quant_dot_w``): a full-precision weight,
+    quantized per out-channel on the fly; straight-through in both
+    operands: out ~= had(x) @ w, so gx = had(g @ w^T) and gw = had(x)^T g,
+    f32 products, gw cast to w's dtype."""
+
+    @staticmethod
+    def forward(ctx, x, w, plan, schedule):
+        from repro_torch.core.wquant import quantize_weight
+
+        ctx.plan = plan
+        ctx.save_for_backward(x, w)
+        qt = quantize_weight(w, plan.epilogue.mode)
+        return _dispatch_quant_dot(x, qt.q, qt.scale, plan, schedule)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w = ctx.saved_tensors
+        gx = _ste_gx(g, w.to(torch.float32), ctx.plan, "")
+        y = _dispatch_transform(x.contiguous(), _strip(ctx.plan))
+        gf = g.to(torch.float32)
+        gw = torch.matmul(y.reshape(-1, y.shape[-1]).to(torch.float32).T,
+                          gf.reshape(-1, gf.shape[-1]))
+        return gx, gw.to(w.dtype), None, None
+
+
+class _QuantDotExpertsQW(torch.autograd.Function):
+    """The serving expert form (``_quant_dot_experts_qw``): pre-quantized
+    stacked weights, differentiable in x only."""
+
+    @staticmethod
+    def forward(ctx, x, wq, sw, plan, schedule):
+        ctx.plan = plan
+        ctx.save_for_backward(wq, sw)
+        return _quant_dot_experts_qw(x, wq, sw, plan, schedule)
+
+    @staticmethod
+    def backward(ctx, g):
+        wq, sw = ctx.saved_tensors
+        W = wq.to(torch.float32) * sw                      # (E, f, d)
+        return _ste_gx(g, W, ctx.plan, "...ecd,efd->...ecf"), None, None, None, None
+
+
+class _QuantDotExpertsQWAbft(torch.autograd.Function):
+    """ABFT twin of ``_QuantDotExpertsQW`` (``_quant_dot_experts_qw_abft``)."""
+
+    @staticmethod
+    def forward(ctx, x, wq, sw, cw, plan, schedule):
+        ctx.plan = plan
+        ctx.save_for_backward(wq, sw)
+        return _abft_quant_dot_experts_impl(x, wq, sw, cw, plan, schedule)
+
+    @staticmethod
+    def backward(ctx, g):
+        wq, sw = ctx.saved_tensors
+        W = wq.to(torch.float32) * sw
+        return (_ste_gx(g, W, ctx.plan, "...ecd,efd->...ecf"),
+                None, None, None, None, None)
+
+
+class _QuantDotExpertsW(torch.autograd.Function):
+    """The training expert form (``_quant_dot_experts_w``): raw (E, f, d)
+    weights quantized per (expert, out-channel) on the fly; straight-
+    through in both operands."""
+
+    @staticmethod
+    def forward(ctx, x, w, plan, schedule):
+        from repro_torch.core.wquant import quantize_weight
+
+        ctx.plan = plan
+        ctx.save_for_backward(x, w)
+        qt = quantize_weight(w, plan.epilogue.mode)
+        return _quant_dot_experts_qw(x, qt.q, qt.scale, plan, schedule)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w = ctx.saved_tensors
+        gf = g.to(torch.float32)
+        gx = _ste_gx(g, w.to(torch.float32), ctx.plan, "...ecd,efd->...ecf")
+        y = _dispatch_transform(x.contiguous(), _strip(ctx.plan))
+        gw = torch.einsum("becf,becd->efd",
+                          y.reshape(-1, *y.shape[-3:]).to(torch.float32),
+                          gf.reshape(-1, *gf.shape[-3:]))
+        return gx, gw.to(w.dtype), None, None
+
+
 _UNSET = object()  # distinguishes "not passed" from an explicit default
 
 
@@ -265,10 +462,10 @@ def hadamard(
                 f"plan was built for dtype {plan.dtype} but x is "
                 f"{dtype_name(x.dtype)}")
     if plan.epilogue is None:
-        return _dispatch_transform(x, plan)
+        return _Transform.apply(x, plan)
     if plan.epilogue.dequant:
-        return _dispatch_fused_dequant(x, plan)
-    return _dispatch_fused(x, plan)
+        return _FusedDequant.apply(x, plan)
+    return _Fused.apply(x, plan)
 
 
 # ------------------------------------------------------- quantized GEMM
@@ -362,10 +559,11 @@ def quant_dot(
     compute_dtype: Any = _UNSET,
     schedule: Optional[str] = None,
 ) -> torch.Tensor:
-    """``quantize(hadamard(x)) @ quantize(w)`` as one consumer path (forward
-    only): the row is rotated, per-token quantized and contracted with the
-    int8 / fp8 weight, ``scale_x * scale_w`` applied in the epilogue -- one
-    K4 launch on the card when the plan fuses.
+    """``quantize(hadamard(x)) @ quantize(w)`` as one consumer path: the row
+    is rotated, per-token quantized and contracted with the int8 / fp8
+    weight, ``scale_x * scale_w`` applied in the epilogue -- one K4 launch
+    on the card when the plan fuses. Differentiable (straight-through): in
+    x for a QTensor, in x and w for a raw weight.
 
     ``w`` is a pre-quantized :class:`~repro_torch.core.wquant.QTensor` (the
     serving form, in the plan's mode) or a raw (n, d) weight, quantized per
@@ -373,9 +571,9 @@ def quant_dot(
     and ``x`` (``mode`` defaults to 'int8'); an explicit plan must carry a
     non-dequant :class:`QuantEpilogue`, and configuration keywords beside it
     raise. ``schedule`` picks the kernel's grid schedule: None (then
-    ``REPRO_QUANT_DOT_SCHEDULE``), 'rotate_once' (K4) or 'streamed' (K5);
-    'revisit' is not ported and raises NotImplementedError."""
-    from repro_torch.core.wquant import QTensor, quantize_weight
+    ``REPRO_QUANT_DOT_SCHEDULE``), 'rotate_once' (K4), 'streamed' (K5) or
+    'revisit' (K8)."""
+    from repro_torch.core.wquant import QTensor
 
     n = x.shape[-1]
     if plan is None:
@@ -415,11 +613,10 @@ def quant_dot(
             raise ValueError(
                 f"pre-quantized weight is stored as {w.mode!r}, not the plan's "
                 f"{epi_mode!r}; quantize with wquant.quantize_weight(w, mode)")
-        return _dispatch_quant_dot(x, w.q, w.scale, plan, schedule)
+        return _QuantDotQW.apply(x, w.q, w.scale, plan, schedule)
     if w.shape[0] != n:
         raise ValueError(f"weight has contraction dim {w.shape[0]}, expected {n}")
-    qt = quantize_weight(w, epi_mode)
-    return _dispatch_quant_dot(x, qt.q, qt.scale, plan, schedule)
+    return _QuantDotW.apply(x, w, plan, schedule)
 
 
 # ---------------------------------------------------- expert consumers
@@ -466,22 +663,25 @@ def quant_dot_experts(x: torch.Tensor, w, plan: HadamardPlan,
     per-(expert, out-channel) scales. ``w`` is a pre-quantized stacked
     :class:`~repro_torch.core.wquant.QTensor` (serving) or a raw (E, f, d)
     weight, quantized per (expert, out-channel) on the fly. Fusable plans
-    run one K6 (streamed: K6s) launch on the card."""
-    from repro_torch.core.wquant import QTensor, quantize_weight
+    run one K6 (streamed: K6s) launch on the card. Differentiable
+    (straight-through): in x for a QTensor, in x and w for a raw weight."""
+    from repro_torch.core.wquant import QTensor
 
     if plan.epilogue is None or plan.epilogue.dequant:
         raise ValueError("quant_dot_experts requires a plan with a non-dequant "
                          f"QuantEpilogue (got {plan.epilogue!r})")
-    if not isinstance(w, QTensor):
-        w = quantize_weight(w, plan.epilogue.mode)
-    if w.mode != plan.epilogue.mode:
+    raw = not isinstance(w, QTensor)
+    wshape = tuple(w.shape) if raw else tuple(w.q.shape)
+    if not raw and w.mode != plan.epilogue.mode:
         raise ValueError(f"expert weights are stored as {w.mode!r}, not the "
                          f"plan's {plan.epilogue.mode!r}")
-    if w.q.ndim != 3 or w.q.shape[1] != plan.n or x.shape[-1] != plan.n \
-            or x.ndim < 3 or x.shape[-3] != w.q.shape[0]:
+    if len(wshape) != 3 or wshape[1] != plan.n or x.shape[-1] != plan.n \
+            or x.ndim < 3 or x.shape[-3] != wshape[0]:
         raise ValueError(f"expert form takes x (..., E, c, {plan.n}) and w (E, "
-                         f"{plan.n}, d), got {tuple(x.shape)} and {tuple(w.q.shape)}")
-    return _quant_dot_experts_qw(x, w.q, w.scale, plan, schedule)
+                         f"{plan.n}, d), got {tuple(x.shape)} and {wshape}")
+    if raw:
+        return _QuantDotExpertsW.apply(x, w, plan, schedule)
+    return _QuantDotExpertsQW.apply(x, w.q, w.scale, plan, schedule)
 
 
 def _cfg_backend_name(backend: str) -> Optional[str]:
@@ -655,9 +855,9 @@ class QuantDotSpec:
         if self.rotate:
             plan = self.plan(x.dtype, x.device.type)
             if self._abft_verifying(w):
-                return _abft_quant_dot_impl(x, w.q, w.scale, w.check, plan,
-                                            self.schedule)
-            return _dispatch_quant_dot(x, w.q, w.scale, plan, self.schedule)
+                return _QuantDotQWAbft.apply(x, w.q, w.scale, w.check, plan,
+                                             self.schedule)
+            return _QuantDotQW.apply(x, w.q, w.scale, plan, self.schedule)
         q, s = registry._quantize_rows(
             x.to(torch.float32), self.mode,
             axis=-1 if self.per_token else None)
@@ -684,7 +884,7 @@ class QuantDotSpec:
 
                 if _qd_experts_fusable(plan, _resolve_schedule(self.schedule,
                                                                experts=True)):
-                    return _abft_quant_dot_experts_impl(x, w.q, w.scale, w.check,
+                    return _QuantDotExpertsQWAbft.apply(x, w.q, w.scale, w.check,
                                                         plan, self.schedule)
                 registry.warn_once(
                     ("abft", "experts_einsum_fallback"),
@@ -723,8 +923,4 @@ class QuantDotSpec:
 
             return _fake_quant_dot(
                 x, w, QuantConfig(mode=self.mode, per_token=self.per_token))
-        from repro_torch.core.wquant import quantize_weight
-
-        qt = quantize_weight(w, self.mode)
-        return _dispatch_quant_dot(x, qt.q, qt.scale,
-                                   self.plan(x.dtype, x.device.type), self.schedule)
+        return _QuantDotW.apply(x, w, self.plan(x.dtype, x.device.type), self.schedule)

@@ -3,8 +3,10 @@
 // experts (K6, K6s: quant_dot_experts.cu), each with the rotate-once (K4,
 // K6) or the streamed (K5, K6s) schedule; and their checksum-verified
 // (ABFT) twins K7a-ro, K7a-s (quant_dot_abft.cu), K7b, K7b-s
-// (quant_dot_experts_abft.cu). This header holds their shared body; each
-// source instantiates its own kernels, so the four build in parallel.
+// (quant_dot_experts_abft.cu); and the dense revisit schedule K8
+// (quant_dot.cu) with its ABFT twin K7a-rv (quant_dot_abft.cu). This header
+// holds their shared body; each source instantiates its own kernels, so the
+// four build in parallel.
 //
 // Replaces the TPU kernels of repro/kernels/quant_dot.py:
 //   K4     _quant_dot_kernel_rotate_once              (launched by _pallas_quant_dot)
@@ -15,6 +17,8 @@
 //   K7a-s  _quant_dot_kernel_streamed_abft            (_pallas_quant_dot_abft)
 //   K7b    _quant_dot_experts_kernel_abft             (_pallas_quant_dot_experts_abft)
 //   K7b-s  _quant_dot_experts_kernel_streamed_abft    (_pallas_quant_dot_experts_abft)
+//   K8     _quant_dot_kernel_revisit                  (_pallas_quant_dot, revisit)
+//   K7a-rv _quant_dot_kernel_revisit_abft             (_pallas_quant_dot_abft, revisit)
 // with the helpers _rotate_quantize_block, _operand_from_q, _operand_dot,
 // _abft_check_col.
 // Same function, with the same rounding points: each row of x is rotated
@@ -104,6 +108,19 @@
 // float atomics). The extra shared memory (about 2 KB at 16 rows) leaves
 // the rows per block of every n the kernels serve unchanged; the outputs
 // would not depend on them anyway (each output's sum has a fixed order).
+//
+// Revisit schedule (K8, K7a-rv; kRevisit). The reference's A/B baseline for
+// rotate-once: the grid is (row blocks) x (column tiles of block_n), with no
+// thread-block cluster and no distributed shared memory. Every block
+// rotates and quantizes its WHOLE row block into its own shared memory and
+// contracts it with its one weight tile of block_n columns (block_n / 32 of
+// the 32-column tiles), so a row is rotated ceil(d / block_n) times -- the
+// redundancy the schedule exists to show. The rotation, the quantization,
+// the contraction and its k-order are the rotate-once code's, so K8's
+// output is bitwise K4's; the shared-memory layout is K4's too (K4's blocks
+// also hold every row of the row block), so are the rows per block. K7a-rv
+// is K8 with kAbft: each block's row sums go to the (row block, tile)
+// workspace and the last block of a row block adds them in tile order.
 //
 // What this first version leaves on the table: CUDA-core dp4a / FMA instead
 // of the tensor cores (wgmma), 4-byte cp.async instead of TMA bulk copies,
@@ -354,6 +371,14 @@ __device__ __forceinline__ float row_check(const unsigned char* op_row, const fl
   return c;
 }
 
+// The barrier around the rotation phase: the cluster's, or (revisit, no
+// cluster) the block's own.
+template <bool kLocal>
+__device__ __forceinline__ void rows_sync() {
+  if constexpr (kLocal) __syncthreads();
+  else cg::this_cluster().sync();
+}
+
 // One block of K4 / K5 / K6 / K6s (kAbft = false) or of their ABFT twins
 // K7a-ro / K7a-s / K7b / K7b-s (kAbft = true): rows [row0, row0 + BM) of
 // expert e (dense: e = 0, E = cap = 1) against this block's run of column
@@ -364,7 +389,7 @@ __device__ __forceinline__ float row_check(const unsigned char* op_row, const fl
 // each block's per-row sum of its f32 contributions (tile by tile, each
 // tile's 32 columns in order), and, in the last block of the row block to
 // finish, r = (the blocks' sums in split order) - s * chk.
-template <typename T, int BM, bool kInt, bool kStreamed, bool kAbft>
+template <typename T, int BM, bool kInt, bool kStreamed, bool kAbft, bool kRevisit>
 __device__ __forceinline__ void quant_dot_block(const T* x, const uint8_t* wq, const float* sw,
                                                 T* out, long long m, int n, int d, int E,
                                                 int cap, int e, int r, int cd, float scale,
@@ -421,23 +446,35 @@ __device__ __forceinline__ void quant_dot_block(const T* x, const uint8_t* wq, c
   // ---- rotate + quantize the row block once per cluster: the blocks of a
   // cluster (consecutive column splits of one row block) each rotate
   // BM / csize of the rows, rw at a time, and store the quantized rows and
-  // their scales into the shared memory of every member
-  cg::cluster_group cluster = cg::this_cluster();
-  const int csize = (int)cluster.num_blocks();
+  // their scales into the shared memory of every member. Revisit: no
+  // cluster, the block rotates every row itself.
+  constexpr int kMembers = kRevisit ? 1 : kMaxCluster;
+  int csize = 1, crank = 0;
+  if constexpr (!kRevisit) {
+    csize = (int)cg::this_cluster().num_blocks();
+    crank = (int)cg::this_cluster().block_rank();
+  }
   const long long row0 = (long long)blockIdx.x * BM;
   const int rows = (int)(m - row0 < BM ? m - row0 : BM);
-  const int mine0 = (int)cluster.block_rank() * (BM / csize);
+  const int mine0 = crank * (BM / csize);
   const int mine1 = mine0 + BM / csize < rows ? mine0 + BM / csize : rows;
-  unsigned char* op_at[kMaxCluster];
-  float* s_at[kMaxCluster];
-  float* chk_at[kMaxCluster];
+  unsigned char* op_at[kMembers];
+  float* s_at[kMembers];
+  float* chk_at[kMembers];
 #pragma unroll
-  for (int c = 0; c < kMaxCluster; ++c) {
-    op_at[c] = c < csize ? cluster.map_shared_rank(op, c) : op;
-    s_at[c] = c < csize ? cluster.map_shared_rank(s_row, c) : s_row;
-    if constexpr (kAbft) chk_at[c] = c < csize ? cluster.map_shared_rank(chk, c) : chk;
+  for (int c = 0; c < kMembers; ++c) {
+    op_at[c] = op;
+    s_at[c] = s_row;
+    chk_at[c] = chk;
+    if constexpr (!kRevisit) {
+      if (c < csize) {
+        op_at[c] = cg::this_cluster().map_shared_rank(op, c);
+        s_at[c] = cg::this_cluster().map_shared_rank(s_row, c);
+        if constexpr (kAbft) chk_at[c] = cg::this_cluster().map_shared_rank(chk, c);
+      }
+    }
   }
-  cluster.sync();  // every member runs before anyone writes into it
+  rows_sync<kRevisit>();  // every member runs before anyone writes into it
   for (int g = mine0; g < mine1; g += rw) {
     const int nr = mine1 - g < rw ? mine1 - g : rw;
     quant::rotate_rows_absmax_at<T>(
@@ -446,7 +483,7 @@ __device__ __forceinline__ void quant_dot_block(const T* x, const uint8_t* wq, c
     for (int i = threadIdx.x; i < nr; i += blockDim.x) {
       const float s = quant::row_scale(__int_as_float(amax[i]), mode);
 #pragma unroll
-      for (int c = 0; c < kMaxCluster; ++c)
+      for (int c = 0; c < kMembers; ++c)
         if (c < csize) s_at[c][g + i] = s;
     }
     __syncthreads();
@@ -455,7 +492,7 @@ __device__ __forceinline__ void quant_dot_block(const T* x, const uint8_t* wq, c
       const float q = quant::to_grid(work[i], s_row[g + rr], mode);
       const size_t at = (size_t)(g + rr) * np4 + k;
 #pragma unroll
-      for (int c = 0; c < kMaxCluster; ++c) {
+      for (int c = 0; c < kMembers; ++c) {
         if (c >= csize) break;
         if constexpr (kInt) {
           op_at[c][at] = (uint8_t)(int8_t)(int)q;
@@ -475,7 +512,7 @@ __device__ __forceinline__ void quant_dot_block(const T* x, const uint8_t* wq, c
                             n, wsum);
         if (threadIdx.x == 0) {
 #pragma unroll
-          for (int cc = 0; cc < kMaxCluster; ++cc)
+          for (int cc = 0; cc < kMembers; ++cc)
             if (cc < csize) chk_at[cc][g + i] = c;
         }
       }
@@ -493,7 +530,7 @@ __device__ __forceinline__ void quant_dot_block(const T* x, const uint8_t* wq, c
       else reinterpret_cast<uint16_t*>(op)[i] = 0;
     }
   }
-  cluster.sync();  // every member's rows and scales are in place
+  rows_sync<kRevisit>();  // every member's rows and scales are in place
 
   // ---- contract the operand with this block's run of column tiles
   Acc* red = reinterpret_cast<Acc*>(work);
@@ -593,13 +630,14 @@ __device__ __forceinline__ void quant_dot_block(const T* x, const uint8_t* wq, c
   }
 }
 
-template <typename T, int BM, bool kInt, bool kStreamed, bool kAbft>
+template <typename T, int BM, bool kInt, bool kStreamed, bool kAbft, bool kRevisit>
 __global__ void __launch_bounds__(kThreads)
     quant_dot_kernel(const T* x, const uint8_t* wq, const float* sw, T* out, long long m,
                      int n, int d, int r, int cd, float scale, int mode, int tiles_per_block,
                      int vec, Abft ab) {
-  quant_dot_block<T, BM, kInt, kStreamed, kAbft>(x, wq, sw, out, m, n, d, 1, 1, 0, r, cd,
-                                                 scale, mode, tiles_per_block, vec, ab);
+  quant_dot_block<T, BM, kInt, kStreamed, kAbft, kRevisit>(x, wq, sw, out, m, n, d, 1, 1, 0, r,
+                                                           cd, scale, mode, tiles_per_block,
+                                                           vec, ab);
 }
 
 template <typename T, int BM, bool kInt, bool kStreamed, bool kAbft>
@@ -607,9 +645,9 @@ __global__ void __launch_bounds__(kThreads)
     quant_dot_experts_kernel(const T* x, const uint8_t* wq, const float* sw, T* out,
                              long long m, int n, int d, int E, int cap, int r, int cd,
                              float scale, int mode, int tiles_per_block, int vec, Abft ab) {
-  quant_dot_block<T, BM, kInt, kStreamed, kAbft>(x, wq, sw, out, m, n, d, E, cap,
-                                                 (int)blockIdx.z, r, cd, scale, mode,
-                                                 tiles_per_block, vec, ab);
+  quant_dot_block<T, BM, kInt, kStreamed, kAbft, false>(x, wq, sw, out, m, n, d, E, cap,
+                                                        (int)blockIdx.z, r, cd, scale, mode,
+                                                        tiles_per_block, vec, ab);
 }
 
 // SM count of the current device, read once (0 when it cannot be read).
@@ -640,16 +678,23 @@ int pick_bm(long long m, int n, bool is_int, bool streamed, bool abft) {
 // while every split repeats the rotation. They are a multiple of the
 // cluster size (the largest power of 2 up to 8 that divides the rows among
 // the blocks and does not exceed the splits), rounded down, and the tiles
-// are spread evenly over them.
+// are spread evenly over them. Revisit (block_n > 0): one split per weight
+// tile of block_n columns (block_n / 32 tiles each), no cluster.
 struct Grid {
   long long row_blocks, splits, tpb;
   int csize;
 };
 
-Grid grid_for(long long m, int d, int bm, size_t smem, int experts) {
+Grid grid_for(long long m, int d, int bm, size_t smem, int experts, int block_n = 0) {
   Grid g;
   g.row_blocks = (m + bm - 1) / bm;
   const long long tiles = (d + kBN - 1) / kBN;
+  if (block_n > 0) {
+    g.tpb = block_n / kBN;
+    g.splits = (tiles + g.tpb - 1) / g.tpb;
+    g.csize = 1;
+    return g;
+  }
   long long per_sm = (long long)(kSmemPerSM / (smem + 1024));  // 1 KB reserved per block
   if (per_sm < 1) per_sm = 1;
   if (per_sm > 2) per_sm = 2;
@@ -664,12 +709,13 @@ Grid grid_for(long long m, int d, int bm, size_t smem, int experts) {
   return g;
 }
 
-template <typename T, int BM, bool kInt, bool kStreamed, bool kExperts, bool kAbft>
+template <typename T, int BM, bool kInt, bool kStreamed, bool kExperts, bool kAbft,
+          bool kRevisit>
 int launch_bm(const void* x, const void* wq, const void* sw, void* out, long long m, int n,
-              int d, int experts, int cap, int r, int cd, float scale, int mode, Abft ab,
-              cudaStream_t stream) {
+              int d, int experts, int cap, int block_n, int r, int cd, float scale, int mode,
+              Abft ab, cudaStream_t stream) {
   const size_t smem = smem_bytes(n, BM, kInt, kStreamed, kAbft);
-  const Grid g = grid_for(m, d, BM, smem, experts);
+  const Grid g = grid_for(m, d, BM, smem, experts, kRevisit ? block_n : 0);
   if (g.row_blocks > 0x7fffffffLL || g.splits > 65535 || experts > 65535)
     return (int)cudaErrorInvalidConfiguration;
   const int vec = (d % 4 == 0) && (reinterpret_cast<uintptr_t>(wq) % 4 == 0);
@@ -684,7 +730,7 @@ int launch_bm(const void* x, const void* wq, const void* sw, void* out, long lon
   attr[0].val.clusterDim.y = (unsigned)g.csize;
   attr[0].val.clusterDim.z = 1;
   cfg.attrs = attr;
-  cfg.numAttrs = 1;
+  cfg.numAttrs = kRevisit ? 0 : 1;  // revisit: no cluster
   const T* xt = static_cast<const T*>(x);
   const uint8_t* w8 = static_cast<const uint8_t*>(wq);
   const float* s32 = static_cast<const float*>(sw);
@@ -692,12 +738,13 @@ int launch_bm(const void* x, const void* wq, const void* sw, void* out, long lon
   cudaError_t e;
   if constexpr (kExperts) {
     auto kernel = quant_dot_experts_kernel<T, BM, kInt, kStreamed, kAbft>;
+    static_assert(!kRevisit, "the expert grid has no revisit schedule");
     e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return (int)e;
     e = cudaLaunchKernelEx(&cfg, kernel, xt, w8, s32, o, m, n, d, experts, cap, r, cd, scale,
                            mode, (int)g.tpb, vec, ab);
   } else {
-    auto kernel = quant_dot_kernel<T, BM, kInt, kStreamed, kAbft>;
+    auto kernel = quant_dot_kernel<T, BM, kInt, kStreamed, kAbft, kRevisit>;
     e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return (int)e;
     e = cudaLaunchKernelEx(&cfg, kernel, xt, w8, s32, o, m, n, d, r, cd, scale, mode,
@@ -707,16 +754,15 @@ int launch_bm(const void* x, const void* wq, const void* sw, void* out, long lon
   return (int)cudaGetLastError();
 }
 
-template <typename T, bool kInt, bool kStreamed, bool kExperts, bool kAbft>
+template <typename T, bool kInt, bool kStreamed, bool kExperts, bool kAbft, bool kRevisit>
 int launch(const void* x, const void* wq, const void* sw, void* out, long long m, int n,
-           int d, int experts, int cap, int r, int cd, float scale, int mode, Abft ab,
-           cudaStream_t s) {
+           int d, int experts, int cap, int block_n, int r, int cd, float scale, int mode,
+           Abft ab, cudaStream_t s) {
   switch (pick_bm(m, n, kInt, kStreamed, kAbft)) {
-#define QD_CASE(BM)                                                                        \
-  case BM:                                                                                 \
-    return launch_bm<T, BM, kInt, kStreamed, kExperts, kAbft>(x, wq, sw, out, m, n, d,     \
-                                                              experts, cap, r, cd, scale,  \
-                                                              mode, ab, s);
+#define QD_CASE(BM)                                                                         \
+  case BM:                                                                                  \
+    return launch_bm<T, BM, kInt, kStreamed, kExperts, kAbft, kRevisit>(                    \
+        x, wq, sw, out, m, n, d, experts, cap, block_n, r, cd, scale, mode, ab, s);
     QD_CASE(16)
     QD_CASE(8)
     QD_CASE(4)
@@ -727,31 +773,51 @@ int launch(const void* x, const void* wq, const void* sw, void* out, long long m
   }
 }
 
+// Schedule codes of the C interface.
+constexpr int kRotateOnce = 0, kStreamedSchedule = 1, kRevisitSchedule = 2;
+
 template <typename T, bool kExperts, bool kAbft>
 int launch_io(const void* x, const void* wq, const void* sw, void* out, long long m, int n,
-              int d, int experts, int cap, int streamed, int r, int cd, float scale, int mode,
-              Abft ab, cudaStream_t s) {
+              int d, int experts, int cap, int schedule, int block_n, int r, int cd,
+              float scale, int mode, Abft ab, cudaStream_t s) {
   const bool is_int = mode == quant::kInt8;
+  if (schedule == kRevisitSchedule) {
+    if constexpr (kExperts) {
+      return (int)cudaErrorInvalidValue;  // the expert grid has no revisit body
+    } else {
+      if (is_int)
+        return launch<T, true, false, false, kAbft, true>(x, wq, sw, out, m, n, d, experts,
+                                                          cap, block_n, r, cd, scale, mode, ab,
+                                                          s);
+      return launch<T, false, false, false, kAbft, true>(x, wq, sw, out, m, n, d, experts, cap,
+                                                         block_n, r, cd, scale, mode, ab, s);
+    }
+  }
+  const bool streamed = schedule == kStreamedSchedule;
   if (is_int && streamed)
-    return launch<T, true, true, kExperts, kAbft>(x, wq, sw, out, m, n, d, experts, cap, r,
-                                                  cd, scale, mode, ab, s);
+    return launch<T, true, true, kExperts, kAbft, false>(x, wq, sw, out, m, n, d, experts, cap,
+                                                         0, r, cd, scale, mode, ab, s);
   if (is_int)
-    return launch<T, true, false, kExperts, kAbft>(x, wq, sw, out, m, n, d, experts, cap, r,
-                                                   cd, scale, mode, ab, s);
+    return launch<T, true, false, kExperts, kAbft, false>(x, wq, sw, out, m, n, d, experts,
+                                                          cap, 0, r, cd, scale, mode, ab, s);
   if (streamed)
-    return launch<T, false, true, kExperts, kAbft>(x, wq, sw, out, m, n, d, experts, cap, r,
-                                                   cd, scale, mode, ab, s);
-  return launch<T, false, false, kExperts, kAbft>(x, wq, sw, out, m, n, d, experts, cap, r,
-                                                  cd, scale, mode, ab, s);
+    return launch<T, false, true, kExperts, kAbft, false>(x, wq, sw, out, m, n, d, experts,
+                                                          cap, 0, r, cd, scale, mode, ab, s);
+  return launch<T, false, false, kExperts, kAbft, false>(x, wq, sw, out, m, n, d, experts, cap,
+                                                         0, r, cd, scale, mode, ab, s);
 }
 
 // One launch of the dense (kExperts = false: experts = cap = 1) or the
-// expert kernel, of either schedule, unverified or (kAbft) its ABFT twin;
-// argument checks, then the io dtype.
+// expert kernel, of the schedule's code (0 rotate-once, 1 streamed, 2
+// revisit: dense only, block_n a positive multiple of 32), unverified or
+// (kAbft) its ABFT twin; argument checks, then the io dtype.
 template <bool kExperts, bool kAbft>
 int launch_checked(const void* x, const void* wq, const void* sw, void* out, long long m,
-                   int n, int d, int experts, int cap, int streamed, int r, int io, int cd,
-                   float scale, int mode, Abft ab, void* stream) {
+                   int n, int d, int experts, int cap, int schedule, int block_n, int r, int io,
+                   int cd, float scale, int mode, Abft ab, void* stream) {
+  if (schedule < kRotateOnce || schedule > kRevisitSchedule) return (int)cudaErrorInvalidValue;
+  if (schedule == kRevisitSchedule && (block_n <= 0 || block_n % kBN != 0))
+    return (int)cudaErrorInvalidValue;
   if (m <= 0 || d <= 0) return 0;
   if (n < 2 || (n & (n - 1)) != 0) return (int)cudaErrorInvalidValue;
   if (mode < quant::kInt8 || mode > quant::kE5M2) return (int)cudaErrorInvalidValue;
@@ -760,28 +826,32 @@ int launch_checked(const void* x, const void* wq, const void* sw, void* out, lon
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (io) {
     case hadacore::kF32:
-      return launch_io<float, kExperts, kAbft>(x, wq, sw, out, m, n, d, experts, cap, streamed,
-                                               r, cd, scale, mode, ab, s);
+      return launch_io<float, kExperts, kAbft>(x, wq, sw, out, m, n, d, experts, cap, schedule,
+                                               block_n, r, cd, scale, mode, ab, s);
     case hadacore::kBF16:
       return launch_io<__nv_bfloat16, kExperts, kAbft>(x, wq, sw, out, m, n, d, experts, cap,
-                                                       streamed, r, cd, scale, mode, ab, s);
+                                                       schedule, block_n, r, cd, scale, mode,
+                                                       ab, s);
     case hadacore::kF16:
       return launch_io<__half, kExperts, kAbft>(x, wq, sw, out, m, n, d, experts, cap,
-                                                streamed, r, cd, scale, mode, ab, s);
+                                                schedule, block_n, r, cd, scale, mode, ab, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }
 
 // The launch shape a call would get: rows per block (0 = does not fit),
 // dynamic shared memory bytes, grid size. For the wrappers' reports.
-inline int launch_shape(long long m, int n, int d, int experts, int streamed, int mode,
-                        bool abft, int* bm, long long* smem, long long* blocks) {
+inline int launch_shape(long long m, int n, int d, int experts, int schedule, int block_n,
+                        int mode, bool abft, int* bm, long long* smem, long long* blocks) {
   const bool is_int = mode == quant::kInt8;
-  *bm = pick_bm(m, n, is_int, streamed != 0, abft);
-  *smem = *bm ? (long long)smem_bytes(n, *bm, is_int, streamed != 0, abft) : 0;
+  const bool streamed = schedule == kStreamedSchedule;
+  *bm = pick_bm(m, n, is_int, streamed, abft);
+  *smem = *bm ? (long long)smem_bytes(n, *bm, is_int, streamed, abft) : 0;
   *blocks = 0;
   if (*bm == 0) return 1;
-  const Grid g = grid_for(m, d, *bm, (size_t)*smem, experts);
+  if (schedule == kRevisitSchedule && (block_n <= 0 || block_n % kBN != 0)) return 1;
+  const Grid g = grid_for(m, d, *bm, (size_t)*smem, experts,
+                          schedule == kRevisitSchedule ? block_n : 0);
   *blocks = g.row_blocks * g.splits * experts;
   return 0;
 }

@@ -13,12 +13,12 @@ extern "C" int quant_dot_experts_launch(const void* x, const void* wq, const voi
                                         void* out, long long m, int n, int d, int experts,
                                         int cap, int streamed, int r, int io, int cd,
                                         float scale, int mode, void* stream) {
-  return launch_checked<true, false>(x, wq, sw, out, m, n, d, experts, cap, streamed, r, io,
-                                     cd, scale, mode, Abft{}, stream);
+  return launch_checked<true, false>(x, wq, sw, out, m, n, d, experts, cap, streamed, 0, r,
+                                     io, cd, scale, mode, Abft{}, stream);
 }
 
 // The launch shape a call over `experts` experts of m rows each would get.
 extern "C" int quant_dot_experts_shape(long long m, int n, int d, int experts, int streamed,
                                        int mode, int* bm, long long* smem, long long* blocks) {
-  return launch_shape(m, n, d, experts, streamed, mode, false, bm, smem, blocks);
+  return launch_shape(m, n, d, experts, streamed, 0, mode, false, bm, smem, blocks);
 }

@@ -17,12 +17,12 @@ extern "C" int quant_dot_experts_abft_launch(const void* x, const void* wq, cons
                                              void* stream) {
   const Abft ab{static_cast<const float*>(cw), static_cast<float*>(resid),
                 static_cast<float*>(part), static_cast<unsigned int*>(count)};
-  return launch_checked<true, true>(x, wq, sw, out, m, n, d, experts, cap, streamed, r, io, cd,
-                                    scale, mode, ab, stream);
+  return launch_checked<true, true>(x, wq, sw, out, m, n, d, experts, cap, streamed, 0, r, io,
+                                    cd, scale, mode, ab, stream);
 }
 
 extern "C" int quant_dot_experts_abft_shape(long long m, int n, int d, int experts,
                                             int streamed, int mode, int* bm, long long* smem,
                                             long long* blocks) {
-  return launch_shape(m, n, d, experts, streamed, mode, true, bm, smem, blocks);
+  return launch_shape(m, n, d, experts, streamed, 0, mode, true, bm, smem, blocks);
 }

@@ -141,8 +141,11 @@ def hadacore(x: torch.Tensor, scale: Optional[str] = "ortho", *,
     backend: the CUDA kernel on a CUDA tensor, its plain version on a CPU
     tensor. n must be a power of 2 <= 32768; ``scale`` is "ortho"
     (1/sqrt(n)), None (+-1) or a number; ``in_place`` writes the result
-    into ``x`` (the paper's Appendix B)."""
-    from repro_torch.core.api import plan_for
+    into ``x`` (the paper's Appendix B). The out-of-place form is
+    differentiable (the transform is self-adjoint: its backward is the
+    transform); the in-place form refuses a tensor that requires grad
+    rather than drop its graph."""
+    from repro_torch.core.api import _Transform, plan_for
 
     n = x.shape[-1]
     if n > MAX_KERNEL_SIZE:
@@ -153,4 +156,10 @@ def hadacore(x: torch.Tensor, scale: Optional[str] = "ortho", *,
         raise ValueError(f"Hadamard size must be a power of 2, got {n}")
     plan = plan_for(n, dtype=x.dtype, scale=scale, backend="cuda",
                     device_type=x.device.type)
-    return transform(x, plan, in_place)
+    if not in_place:
+        return _Transform.apply(x, plan)
+    if x.requires_grad:
+        raise ValueError("hadacore(in_place=True) got a tensor that requires grad: "
+                         "an in-place transform would drop its graph; call it "
+                         "with in_place=False to differentiate through it")
+    return transform(x, plan, in_place=True)

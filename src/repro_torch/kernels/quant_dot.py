@@ -2,19 +2,23 @@
 kernels' wrappers, their plain PyTorch versions, and the quantized-GEMM
 host math (twin of ``repro.kernels.quant_dot``).
 
-Eight kernels in four CUDA sources (``repro_torch/csrc/quant_dot.cu``:
-K4 and K5; ``quant_dot_experts.cu``: K6 and K6s; ``quant_dot_abft.cu``:
-K7a-ro and K7a-s; ``quant_dot_experts_abft.cu``: K7b and K7b-s; their
-shared body in ``quant_dot.cuh``), each replacing a TPU kernel of
+Ten kernels in four CUDA sources (``repro_torch/csrc/quant_dot.cu``:
+K4, K5 and K8; ``quant_dot_experts.cu``: K6 and K6s; ``quant_dot_abft.cu``:
+K7a-ro, K7a-s and K7a-rv; ``quant_dot_experts_abft.cu``: K7b and K7b-s;
+their shared body in ``quant_dot.cuh``), each replacing a TPU kernel of
 ``repro/kernels/quant_dot.py``:
 
   K4     ``_quant_dot_kernel_rotate_once``           x (..., n) @ wq (n, d)
   K5     ``_quant_dot_kernel_streamed``              K4, weight tiles streamed
                                                      through a shared-memory ring
+  K8     ``_quant_dot_kernel_revisit``               K4's math, every block re-rotating
+                                                     its row block for its one
+                                                     weight tile of block_n columns
   K6     ``_quant_dot_experts_kernel``               x (..., E, c, n) @ wq (E, n, d)
   K6s    ``_quant_dot_experts_kernel_streamed``      K6, streamed as K5
   K7a-ro ``_quant_dot_kernel_rotate_once_abft``      K4 + per-row checksum residual
   K7a-s  ``_quant_dot_kernel_streamed_abft``         K5 + the same
+  K7a-rv ``_quant_dot_kernel_revisit_abft``          K8 + the same
   K7b    ``_quant_dot_experts_kernel_abft``          K6 + a residual per (expert, row)
   K7b-s  ``_quant_dot_experts_kernel_streamed_abft`` K6s + the same
 
@@ -27,7 +31,9 @@ down-projection site when d_ff is a power of 2 (phi4-mini: 8192 -> 3072;
 llama4-maverick's dense and shared-expert MLPs: 8192 -> 5120), K6 the MoE
 expert down projection (maverick: 128 experts of 8192 -> 5120). The
 streamed schedule gives the same bits as rotate-once: the ring changes
-where a weight word waits, not the order of any sum.
+where a weight word waits, not the order of any sum; so does the revisit
+schedule, which changes how often a row is rotated (ceil(d / block_n)
+times), not how.
 
 ``quant_dot`` and ``quant_dot_experts`` are what the ``cuda`` backend
 calls: a CPU tensor goes to the plain version (K1's plain passes,
@@ -58,9 +64,9 @@ scales) and the plain version use it:
 
 then ``acc * s * sw`` in that order.
 
-The reference's ``revisit`` schedule (K8, the A/B baseline of a benchmark)
-is not ported: a dense call asking for it raises, and an expert call runs
-rotate-once, as the reference's expert grid does.
+``revisit`` is the reference's A/B baseline for rotate-once: a dense call
+runs K8 (K7a-rv under ABFT) on the card and the plain version on the CPU;
+an expert call runs rotate-once, as the reference's expert grid does.
 """
 from __future__ import annotations
 
@@ -74,17 +80,23 @@ from repro_torch.core.hadamard import torch_dtype
 from repro_torch.kernels.registry import QSPECS, _quantize_rows, cast_to
 
 __all__ = ["epilogue_dot", "experts_epilogue_dot", "quant_dot",
-           "quant_dot_cuda", "quant_dot_streamed_cuda", "quant_dot_plain",
+           "quant_dot_cuda", "quant_dot_streamed_cuda", "quant_dot_revisit_cuda",
+           "quant_dot_plain",
            "quant_dot_experts", "quant_dot_experts_cuda",
            "quant_dot_experts_streamed_cuda", "quant_dot_experts_plain",
            "quant_dot_abft_cuda", "quant_dot_abft_streamed_cuda",
+           "quant_dot_abft_revisit_cuda",
            "quant_dot_experts_abft_cuda", "quant_dot_experts_abft_streamed_cuda",
            "quant_dot_abft_plain", "quant_dot_experts_abft_plain",
            "xla_quant_dot_resid", "kernel_fits", "launch_shape",
-           "SCHEDULE_ENV_VAR", "SCHEDULES"]
+           "SCHEDULE_ENV_VAR", "SCHEDULES", "REVISIT_BLOCK_N"]
 
 SCHEDULE_ENV_VAR = "REPRO_QUANT_DOT_SCHEDULE"
 SCHEDULES = ("rotate_once", "revisit", "streamed")
+# The revisit schedule's weight tile (columns per block), as the reference's
+# schedule A/B pins it; a positive multiple of the kernels' 32-column tile.
+REVISIT_BLOCK_N = 128
+_SCHEDULE_CODES = {"rotate_once": 0, "streamed": 1, "revisit": 2}
 
 # Largest contraction whose worst-case int8 x int8 row sum stays in int32:
 # 127 * 127 * 2^17 ~= 2.11e9 < 2^31 - 1.
@@ -157,23 +169,17 @@ def experts_epilogue_dot(q, s, wq, sw, mode: str, out_dtype) -> torch.Tensor:
 # ------------------------------------------------------------ schedules
 def _resolve_schedule(schedule=None, experts: bool = False) -> str:
     """The grid schedule: the argument, then ``REPRO_QUANT_DOT_SCHEDULE``,
-    then ``rotate_once``. ``streamed`` runs K5 (dense) or K6s (experts).
-    ``revisit`` (K8) is not ported: an expert call runs ``rotate_once``,
-    as the reference's expert grid has no revisit body; a dense call
-    raises rather than run another schedule in its place. An unknown
-    name raises ValueError."""
+    then ``rotate_once``. ``streamed`` runs K5 (dense) or K6s (experts),
+    ``revisit`` K8 (dense); an expert call runs ``rotate_once`` for
+    ``revisit``, as the reference's expert grid has no revisit body. An
+    unknown name raises ValueError."""
     if schedule is None:
         schedule = os.environ.get(SCHEDULE_ENV_VAR) or "rotate_once"
     if schedule not in SCHEDULES:
         raise ValueError(f"unknown quant_dot schedule {schedule!r}; expected one "
                          f"of {SCHEDULES}")
-    if schedule == "revisit":
-        if experts:
-            return "rotate_once"
-        raise NotImplementedError(
-            "quant_dot schedule 'revisit' is not ported yet (ROADMAP section "
-            "2: K8, the benchmark's A/B baseline, is queued with "
-            "bench_pt_quant_dot.py); 'rotate_once' and 'streamed' run")
+    if schedule == "revisit" and experts:
+        return "rotate_once"
     return schedule
 
 
@@ -186,7 +192,9 @@ def _resolve_schedule(schedule=None, experts: bool = False) -> str:
 # rows x 32 partial sums), one f32 scale per row and one absmax per
 # rotated row; the ABFT twins add one checksum per row, one tile of f32
 # contributions (rows x 32), one sum per warp and a flag. A call needs at
-# least one row to fit the per-block limit.
+# least one row to fit the per-block limit. The revisit schedule's layout is
+# rotate-once's: a K4 block also holds every row of its row block (the
+# cluster's members store into each other), so K8 takes the same rows.
 _SMEM_LIMIT = 232448     # 227 KB on sm_90
 _KW, _BN = 16, 32        # partial sums per output, columns per tile
 _THREADS, _STAGES, _RING_WORDS = 512, 3, 16
@@ -213,9 +221,10 @@ def kernel_fits(n: int, mode: str, schedule: str = "rotate_once",
     """Can the kernel of ``schedule`` (``abft``: its checksum-verified
     twin) take an n-point contraction in ``mode``: does one row of its
     shared-memory layout fit the 227 KB per-block limit? The streamed
-    schedule charges its 96 KB weight ring. (True for every power of 2 up
-    to 16384 under both schedules, and up to the 32768 cap under
-    rotate-once, with or without ABFT.)"""
+    schedule charges its 96 KB weight ring; revisit has rotate-once's
+    layout. (True for every power of 2 up to 16384 under every schedule,
+    and up to the 32768 cap under rotate-once and revisit, with or without
+    ABFT.)"""
     return _smem_bytes(n, 1, mode, schedule, abft) <= _SMEM_LIMIT
 
 
@@ -229,7 +238,8 @@ def _lib(experts: bool, abft: bool = False):
     of their ABFT twins (``quant_dot_abft.cu``: K7a-ro, K7a-s;
     ``quant_dot_experts_abft.cu``: K7b, K7b-s), built first if needed. The
     expert entry points take the expert count and the rows per expert and
-    batch row (c) after d; the ABFT entry points take cw after sw and
+    batch row (c) after d, then the schedule (0 or 1); the dense ones the
+    schedule code and block_n; the ABFT entry points take cw after sw and
     resid, the workspace and the counters after out."""
     from repro_torch.kernels import build
 
@@ -237,12 +247,14 @@ def _lib(experts: bool, abft: bool = False):
     lib = build.load(stem)
     fn = getattr(lib, f"{stem}_launch")
     if fn.argtypes is None:
-        extra = [_INT, _INT] if experts else []
+        # experts: E, c, schedule; dense: schedule, block_n
+        extra = [_INT] * 3 if experts else [_INT] * 2
         fn.argtypes = ([_PTR] * (8 if abft else 4) + [ctypes.c_longlong, _INT, _INT] + extra
-                       + [_INT] * 4 + [ctypes.c_float, _INT, _PTR])
+                       + [_INT] * 3 + [ctypes.c_float, _INT, _PTR])
         fn.restype = _INT
         shape = getattr(lib, f"{stem}_shape")
-        shape.argtypes = ([ctypes.c_longlong, _INT, _INT] + extra[:1] + [_INT, _INT]
+        # experts: E, schedule; dense: schedule, block_n; then the mode
+        shape.argtypes = ([ctypes.c_longlong] + [_INT] * 5
                           + [ctypes.POINTER(_INT), ctypes.POINTER(ctypes.c_longlong),
                              ctypes.POINTER(ctypes.c_longlong)])
         shape.restype = _INT
@@ -250,18 +262,22 @@ def _lib(experts: bool, abft: bool = False):
 
 
 def launch_shape(m: int, n: int, d: int, mode: str, experts: int = 0,
-                 schedule: str = "rotate_once", abft: bool = False):
+                 schedule: str = "rotate_once", abft: bool = False,
+                 block_n: int = REVISIT_BLOCK_N):
     """(rows per block, dynamic shared-memory bytes, blocks) of a launch
     over ``experts`` experts of m rows each (0: the dense kernels), as the
     kernels' launcher decides them (builds the kernels); ``abft`` asks for
-    the checksum-verified twin's."""
+    the checksum-verified twin's, ``block_n`` is revisit's weight tile."""
     from repro_torch.kernels.fused_quant import MODE_CODES
 
     bm, smem, blocks = ctypes.c_int(), ctypes.c_longlong(), ctypes.c_longlong()
-    lead = (m, n, d, experts) if experts else (m, n, d)
     lib, stem = _lib(bool(experts), abft)
-    getattr(lib, f"{stem}_shape")(*lead, int(schedule == "streamed"), MODE_CODES[mode],
-                                  ctypes.byref(bm), ctypes.byref(smem), ctypes.byref(blocks))
+    if experts:
+        lead = (m, n, d, experts, int(schedule == "streamed"))
+    else:
+        lead = (m, n, d, _SCHEDULE_CODES[schedule], block_n)
+    getattr(lib, f"{stem}_shape")(*lead, MODE_CODES[mode], ctypes.byref(bm),
+                                  ctypes.byref(smem), ctypes.byref(blocks))
     return bm.value, smem.value, blocks.value
 
 
@@ -286,9 +302,11 @@ def _abft_workspace(device, m: int, d: int, E: int):
     return part, count
 
 
-def _launch(x, wq, sw, out, plan, streamed: bool, cw=None, resid=None) -> None:
-    """Check the operands of one launch and launch it on the current
-    stream. Dense: x (m, n), wq (n, d), sw (d,), out (m, d). Experts: x
+def _launch(x, wq, sw, out, plan, schedule: str, cw=None, resid=None,
+            block_n: int = REVISIT_BLOCK_N) -> None:
+    """Check the operands of one launch of ``schedule``'s kernel and launch
+    it on the current stream (revisit: dense only, ``block_n`` a positive
+    multiple of 32). Dense: x (m, n), wq (n, d), sw (d,), out (m, d). Experts: x
     (B, E, c, n), wq (E, n, d), sw (E, d), out (B, E, c, d). All
     contiguous CUDA tensors on one device; x and out in the io dtype, wq in
     the mode's storage dtype, sw f32. The ABFT twins also take cw ((n,),
@@ -333,11 +351,16 @@ def _launch(x, wq, sw, out, plan, streamed: bool, cw=None, resid=None) -> None:
                 or not resid.is_contiguous():
             raise ValueError(f"resid must be contiguous {rshape} float32, got "
                              f"{tuple(resid.shape)} {resid.dtype}")
-    schedule = "streamed" if streamed else "rotate_once"
+    if schedule == "revisit" and (experts or block_n <= 0 or block_n % _BN):
+        raise ValueError(f"the revisit kernel is dense with block_n a positive multiple "
+                         f"of {_BN}, got block_n={block_n} experts={experts}")
     if not kernel_fits(n, epi.mode, schedule, abft):
         raise ValueError(f"quant_dot kernel ({schedule}) cannot take n={n} in {epi.mode}")
     stream = torch.cuda.current_stream(x.device).cuda_stream
-    lead = (m, n, d, E, cap) if experts else (m, n, d)
+    if experts:
+        lead = (m, n, d, E, cap, int(schedule == "streamed"))
+    else:
+        lead = (m, n, d, _SCHEDULE_CODES[schedule], block_n)
     lib, stem = _lib(experts, abft)
     ptrs = [x.data_ptr(), wq.data_ptr(), sw.data_ptr()]
     if abft:
@@ -347,7 +370,7 @@ def _launch(x, wq, sw, out, plan, streamed: bool, cw=None, resid=None) -> None:
     else:
         ptrs.append(out.data_ptr())
     rc = getattr(lib, f"{stem}_launch")(
-        *ptrs, *lead, int(streamed), plan.r, DTYPE_CODES[x.dtype],
+        *ptrs, *lead, plan.r, DTYPE_CODES[x.dtype],
         DTYPE_CODES[torch_dtype(plan.compute_dtype)], scale_in_compute_dtype(plan),
         MODE_CODES[epi.mode], stream)
     if rc != 0:
@@ -358,15 +381,24 @@ def quant_dot_cuda(x2, wq, sw, out, plan) -> torch.Tensor:
     """Launch K4 (rotate-once) on contiguous (m, n) CUDA rows ``x2``
     against the (n, d) storage-dtype weight ``wq`` and its (d,) f32 scales
     ``sw``, into ``out`` ((m, d), the io dtype), on the current stream."""
-    _launch(x2, wq, sw, out, plan, streamed=False)
+    _launch(x2, wq, sw, out, plan, "rotate_once")
     quant_dot_cuda.launches += 1
     return out
 
 
 def quant_dot_streamed_cuda(x2, wq, sw, out, plan) -> torch.Tensor:
     """Launch K5: K4 with the weight tiles streamed through the ring."""
-    _launch(x2, wq, sw, out, plan, streamed=True)
+    _launch(x2, wq, sw, out, plan, "streamed")
     quant_dot_streamed_cuda.launches += 1
+    return out
+
+
+def quant_dot_revisit_cuda(x2, wq, sw, out, plan,
+                           block_n: int = REVISIT_BLOCK_N) -> torch.Tensor:
+    """Launch K8: K4's output (bitwise) from a (row block, weight tile of
+    ``block_n`` columns) grid, each block rotating its row block anew."""
+    _launch(x2, wq, sw, out, plan, "revisit", block_n=block_n)
+    quant_dot_revisit_cuda.launches += 1
     return out
 
 
@@ -375,14 +407,14 @@ def quant_dot_experts_cuda(x4, wq, sw, out, plan) -> torch.Tensor:
     against the (E, n, d) expert weights ``wq`` and their (E, d) f32
     scales ``sw``, into ``out`` ((B, E, c, d), the io dtype). The kernel
     reads expert e's B * c rows in place, through their strides."""
-    _launch(x4, wq, sw, out, plan, streamed=False)
+    _launch(x4, wq, sw, out, plan, "rotate_once")
     quant_dot_experts_cuda.launches += 1
     return out
 
 
 def quant_dot_experts_streamed_cuda(x4, wq, sw, out, plan) -> torch.Tensor:
     """Launch K6s: K6 with the weight tiles streamed through the ring."""
-    _launch(x4, wq, sw, out, plan, streamed=True)
+    _launch(x4, wq, sw, out, plan, "streamed")
     quant_dot_experts_streamed_cuda.launches += 1
     return out
 
@@ -391,36 +423,46 @@ def quant_dot_abft_cuda(x2, wq, sw, cw, out, resid, plan):
     """Launch K7a-ro: K4 plus each row's checksum residual, against the
     (n,) f32 column checksum ``cw``, into ``out`` and ``resid`` ((m, 1)
     f32)."""
-    _launch(x2, wq, sw, out, plan, streamed=False, cw=cw, resid=resid)
+    _launch(x2, wq, sw, out, plan, "rotate_once", cw=cw, resid=resid)
     quant_dot_abft_cuda.launches += 1
     return out, resid
 
 
 def quant_dot_abft_streamed_cuda(x2, wq, sw, cw, out, resid, plan):
     """Launch K7a-s: K5 plus the residual (cw read outside the ring)."""
-    _launch(x2, wq, sw, out, plan, streamed=True, cw=cw, resid=resid)
+    _launch(x2, wq, sw, out, plan, "streamed", cw=cw, resid=resid)
     quant_dot_abft_streamed_cuda.launches += 1
+    return out, resid
+
+
+def quant_dot_abft_revisit_cuda(x2, wq, sw, cw, out, resid, plan,
+                                block_n: int = REVISIT_BLOCK_N):
+    """Launch K7a-rv: K8 plus the residual (the row sums of the weight
+    tiles added in tile order by the last block of each row block)."""
+    _launch(x2, wq, sw, out, plan, "revisit", cw=cw, resid=resid, block_n=block_n)
+    quant_dot_abft_revisit_cuda.launches += 1
     return out, resid
 
 
 def quant_dot_experts_abft_cuda(x4, wq, sw, cw, out, resid, plan):
     """Launch K7b: K6 plus a residual per (expert, row) against expert
     e's checksum ``cw[e]`` ((E, n) f32), into ``resid`` ((B, E, c, 1))."""
-    _launch(x4, wq, sw, out, plan, streamed=False, cw=cw, resid=resid)
+    _launch(x4, wq, sw, out, plan, "rotate_once", cw=cw, resid=resid)
     quant_dot_experts_abft_cuda.launches += 1
     return out, resid
 
 
 def quant_dot_experts_abft_streamed_cuda(x4, wq, sw, cw, out, resid, plan):
     """Launch K7b-s: K6s plus the residual (cw read outside the ring)."""
-    _launch(x4, wq, sw, out, plan, streamed=True, cw=cw, resid=resid)
+    _launch(x4, wq, sw, out, plan, "streamed", cw=cw, resid=resid)
     quant_dot_experts_abft_streamed_cuda.launches += 1
     return out, resid
 
 
-for _fn in (quant_dot_cuda, quant_dot_streamed_cuda, quant_dot_experts_cuda,
-            quant_dot_experts_streamed_cuda, quant_dot_abft_cuda,
-            quant_dot_abft_streamed_cuda, quant_dot_experts_abft_cuda,
+for _fn in (quant_dot_cuda, quant_dot_streamed_cuda, quant_dot_revisit_cuda,
+            quant_dot_experts_cuda, quant_dot_experts_streamed_cuda, quant_dot_abft_cuda,
+            quant_dot_abft_streamed_cuda, quant_dot_abft_revisit_cuda,
+            quant_dot_experts_abft_cuda,
             quant_dot_experts_abft_streamed_cuda):
     _fn.launches = 0
 
@@ -437,7 +479,7 @@ def _rotate_quantize_plain(x: torch.Tensor, plan):
 
 def quant_dot_plain(x: torch.Tensor, wq: torch.Tensor, sw: torch.Tensor,
                     plan) -> torch.Tensor:
-    """The plain version of K4 and K5 (the reference's ``xla_quant_dot``):
+    """The plain version of K4, K5 and K8 (the reference's ``xla_quant_dot``):
     rotate, quantize per token, then ``epilogue_dot`` against ``wq`` (n, d)
     and ``sw``. Returns (..., d) in x's dtype."""
     q, s = _rotate_quantize_plain(x, plan)
@@ -469,7 +511,7 @@ def _abft_parts(q, s, wq, sw, cw, mode: str, out_dtype):
 
 
 def quant_dot_abft_plain(x, wq, sw, cw, plan):
-    """The plain version of K7a-ro and K7a-s: ``quant_dot_plain``'s output
+    """The plain version of K7a-ro, K7a-s and K7a-rv: ``quant_dot_plain``'s output
     (bitwise) and the per-row residual against the column checksum ``cw``
     ((1, n) or (n,)). Returns (y (..., d), resid (..., 1) f32)."""
     q, s = _rotate_quantize_plain(x, plan)
@@ -525,14 +567,15 @@ def _on_cuda(x: torch.Tensor, name: str) -> bool:
 
 
 def quant_dot(x: torch.Tensor, wq: torch.Tensor, sw: torch.Tensor, plan,
-              schedule=None, check=None):
+              schedule=None, check=None, block_n: int = REVISIT_BLOCK_N):
     """Rotate x's last axis (== plan.p), quantize per token and contract
     with ``wq`` (n, d): the plain version for a CPU tensor, the kernel of
     the resolved schedule for a CUDA tensor (K4 rotate-once, K5
-    streamed). With ``check`` (the weight's (1, n) column checksum) the
-    ABFT twin runs instead (K7a-ro, K7a-s) and the result is ``(y,
-    resid)``, resid (..., 1) f32."""
-    streamed = _resolve_schedule(schedule) == "streamed"
+    streamed, K8 revisit with ``block_n``-column weight tiles). With
+    ``check`` (the weight's (1, n) column checksum) the ABFT twin runs
+    instead (K7a-ro, K7a-s, K7a-rv) and the result is ``(y, resid)``,
+    resid (..., 1) f32."""
+    sched = _resolve_schedule(schedule)
     if not _on_cuda(x, "quant_dot"):
         if check is not None:
             return quant_dot_abft_plain(x, wq, sw, check, plan)
@@ -542,13 +585,20 @@ def quant_dot(x: torch.Tensor, wq: torch.Tensor, sw: torch.Tensor, plan,
     out = torch.empty((x2.shape[0], d), dtype=x.dtype, device=x.device)
     sw1 = sw.reshape(d).to(torch.float32).contiguous()
     if check is None:
-        launch = quant_dot_streamed_cuda if streamed else quant_dot_cuda
-        launch(x2, wq.contiguous(), sw1, out, plan)
+        if sched == "revisit":
+            quant_dot_revisit_cuda(x2, wq.contiguous(), sw1, out, plan, block_n)
+        else:
+            launch = quant_dot_streamed_cuda if sched == "streamed" else quant_dot_cuda
+            launch(x2, wq.contiguous(), sw1, out, plan)
         return out.view(*x.shape[:-1], d)
     resid = torch.empty((x2.shape[0], 1), dtype=torch.float32, device=x.device)
-    launch = quant_dot_abft_streamed_cuda if streamed else quant_dot_abft_cuda
-    launch(x2, wq.contiguous(), sw1, check.reshape(plan.p).to(torch.float32).contiguous(),
-           out, resid, plan)
+    cw = check.reshape(plan.p).to(torch.float32).contiguous()
+    if sched == "revisit":
+        quant_dot_abft_revisit_cuda(x2, wq.contiguous(), sw1, cw, out, resid, plan, block_n)
+    else:
+        launch = (quant_dot_abft_streamed_cuda if sched == "streamed"
+                  else quant_dot_abft_cuda)
+        launch(x2, wq.contiguous(), sw1, cw, out, resid, plan)
     return out.view(*x.shape[:-1], d), resid.view(*x.shape[:-1], 1)
 
 

@@ -43,6 +43,8 @@ class ModelConfig:
     tie_embeddings: bool = False     # logits contract with emb^T; no unemb
     quant: QuantConfig = dataclasses.field(default_factory=QuantConfig)
     dtype: str = "bfloat16"
+    remat: str = "dots"              # none | dots | full: recompute each block in
+                                     # the backward pass unless "none"
 
     def __post_init__(self):
         if self.head_dim is None:

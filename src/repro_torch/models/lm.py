@@ -19,14 +19,20 @@ Any matrix may be a pre-quantized :class:`~repro_torch.core.wquant.QTensor`.
 KV caches are a list with one ``{"k", "v"}`` dict per layer, each
 (B, T, KH, hd) in the KV dtype -- the reference's per-layer layout.
 
-Entry points: ``init_lm``, ``lm_forward``, ``lm_prefill``,
-``pad_kv_caches``, ``lm_decode_step``.
+Entry points: ``init_lm``, ``lm_forward``, ``lm_loss`` (training: raw
+weights, quantized on the fly at the consumer sites, straight-through
+gradients), ``lm_prefill``, ``pad_kv_caches``, ``lm_decode_step``.
+
+Training recomputes each block in the backward pass when ``cfg.remat`` is
+not "none" (``torch.utils.checkpoint``; the reference's jax.checkpoint of
+its scan body): the same values, one block's activations held at a time.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, List, Optional
+from typing import Any, Dict, List, Optional, Tuple
 
 import torch
+import torch.utils.checkpoint
 
 from repro_torch.core.wquant import (_is_consumer, dequant_tree, is_qleaf,
                                      quantize_leaf)
@@ -178,13 +184,40 @@ def lm_forward(cfg: ModelConfig, params, batch, want_cache: bool = False):
                              device=x.device)[None].expand(B, S)
     caches: Optional[List[dict]] = [] if want_cache else None
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    remat = cfg.remat != "none" and not want_cache and torch.is_grad_enabled()
     for kind, lp in zip(cfg.layer_kinds, params["layers"]):
-        x, a, cache = _block_prefill(cfg, kind, _layer_params(cfg, lp, x.dtype),
-                                     x, positions, want_cache)
+        if remat:
+            x, a = torch.utils.checkpoint.checkpoint(
+                _block_train, cfg, kind, lp, x, positions, use_reentrant=False)
+        else:
+            x, a, cache = _block_prefill(cfg, kind, _layer_params(cfg, lp, x.dtype),
+                                         x, positions, want_cache)
+            if want_cache:
+                caches.append(cache)
         aux = aux + a
-        if want_cache:
-            caches.append(cache)
     return _logits(cfg, params, x), aux, caches
+
+
+def _block_train(cfg, kind, lp, x, positions):
+    x, aux, _ = _block_prefill(cfg, kind, _layer_params(cfg, lp, x.dtype), x,
+                               positions, False)
+    return x, torch.as_tensor(aux, dtype=torch.float32, device=x.device)
+
+
+def lm_loss(cfg: ModelConfig, params, batch) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Mean next-token cross-entropy over the labels >= 0 (f32 log-softmax
+    over the padded vocabulary, whose padding columns are -inf), plus 0.01 x
+    the MoE load-balancing loss. Returns (loss, {"ce", "aux"})."""
+    logits, aux, _ = lm_forward(cfg, params, batch)
+    labels = batch["labels"].to(torch.int64)
+    lf = logits.to(torch.float32)
+    del logits
+    lse = torch.logsumexp(lf, dim=-1)
+    ll = torch.gather(lf, -1, labels.clamp_min(0)[..., None])[..., 0]
+    mask = (labels >= 0).to(torch.float32)
+    ce = ((lse - ll) * mask).sum() / torch.clamp_min(mask.sum(), 1.0)
+    loss = ce + 0.01 * aux
+    return loss, {"ce": ce, "aux": aux}
 
 
 def lm_prefill(cfg: ModelConfig, params, batch):

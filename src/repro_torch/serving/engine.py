@@ -28,10 +28,10 @@ DESIGN.md sections 12 and 14):
   * degradation ladder -- a decode step that raises is retried once (the
     fault hooks fire before the step; a step that fails part-way rewrites
     the same rows with the same values when it runs again), then the
-    engine moves one rung down: cuda + streamed -> cuda + rotate-once,
-    and on the CPU -> torch (the plain versions). On the card no rung
-    swaps a kernel for its plain version: the two schedules are bitwise
-    equal, and below the last kernel rung the step has failed. A rung
+    engine moves one rung down: cuda + streamed (or revisit) -> cuda +
+    rotate-once, and on the CPU -> torch (the plain versions). On the card
+    no rung swaps a kernel for its plain version: the schedules are
+    bitwise equal, and below the last kernel rung the step has failed. A rung
     change is loud: a warning, the ``degrades`` counter and
     ``health()["rung"]``. Below the last rung the in-flight requests fail
     (``engine_failed``) and the queue is shed; the caller never sees the
@@ -111,7 +111,7 @@ def _validate_config(cfg: ModelConfig) -> None:
 
 
 def _degradation_ladder(cfg: ModelConfig, device: torch.device) -> List[ModelConfig]:
-    """The rungs, most capable first: cuda + streamed -> cuda +
+    """The rungs, most capable first: cuda + streamed (or revisit) -> cuda +
     rotate-once, then, on the CPU only, torch (the plain versions). On the
     card the ladder never leaves the kernels: a failure below the last
     kernel rung fails the requests instead. A config already on 'torch'

@@ -1,5 +1,6 @@
 """PyTorch port, ABFT (algorithm-based fault tolerance): the plain versions
-of the checksum-verified quant_dot kernels K7a (rotate-once, streamed) and
+of the checksum-verified quant_dot kernels K7a (rotate-once, streamed,
+revisit) and
 K7b (the same over stacked experts), ``xla_quant_dot_resid``, the
 tolerance, the weight checksums and audit, the KV conservation sums and
 the rotation check, held against the JAX reference on the CPU.
@@ -123,12 +124,14 @@ def _value_gap(y, r, jr, n, d) -> float:
 
 
 # ------------------------------------------------------------ K7a parity
-@pytest.mark.parametrize("schedule", ["rotate_once", "streamed"])
+@pytest.mark.parametrize("schedule", ["rotate_once", "streamed", "revisit"])
 @pytest.mark.parametrize("mode", MODES)
 def test_plain_k7a_matches_pallas_abft_kernel(pallas_alias, monkeypatch, mode, schedule):
     """n = 256, d = 384, 8 rows: the output as K4's tests hold it, the
     residual's verdict equal on every row, healthy and with the weight
-    corrupted (bit flip, zeroed slab) under a stale checksum."""
+    corrupted (bit flip, zeroed slab) under a stale checksum. ``revisit``
+    holds K7a-rv's plain version against the reference's
+    ``_quant_dot_kernel_revisit_abft``."""
     if schedule == "streamed":
         monkeypatch.setenv("REPRO_QUANT_DOT_STREAM_INTERPRET", "1")
     m, n, d = 8, 256, 384
@@ -141,7 +144,9 @@ def test_plain_k7a_matches_pallas_abft_kernel(pallas_alias, monkeypatch, mode, s
                       epilogue=JQuantEpilogue(mode))
     plan = plan_for(n, dtype=torch.bfloat16, backend="cuda", device_type="cpu",
                     epilogue=QuantEpilogue(mode))
-    before = qd.quant_dot_abft_cuda.launches, qd.quant_dot_abft_streamed_cuda.launches
+    wrappers = (qd.quant_dot_abft_cuda, qd.quant_dot_abft_streamed_cuda,
+                qd.quant_dot_abft_revisit_cuda)
+    before = [w.launches for w in wrappers]
     for kind in ("healthy", "flip", "slab"):
         q, touched = (np.asarray(jt.q), None) if kind == "healthy" else \
             _corrupt(np.asarray(jt.q), kind, mode)
@@ -163,8 +168,7 @@ def test_plain_k7a_matches_pallas_abft_kernel(pallas_alias, monkeypatch, mode, s
             assert torch.equal(y, qd.quant_dot_plain(xt, tt.q, tt.scale, plan))
         else:   # the zero row's operand touches nothing; most rows trip
             assert got[5] and (~got).sum() >= m // 2, got[:, 0]
-    assert (qd.quant_dot_abft_cuda.launches,
-            qd.quant_dot_abft_streamed_cuda.launches) == before
+    assert [w.launches for w in wrappers] == before
 
 
 @pytest.mark.parametrize("schedule", ["rotate_once", "streamed"])

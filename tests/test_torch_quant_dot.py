@@ -213,7 +213,9 @@ def test_plain_streamed_matches_reference_streamed_kernels(pallas_alias, monkeyp
 
 def test_experts_revisit_runs_rotate_once(pallas_alias):
     """The reference's expert grid has no revisit body and runs rotate-once
-    for it; so does the port (the dense revisit, K8, raises instead)."""
+    for it; so does the port. The dense revisit (K8 on the card) runs its
+    plain version here and equals the reference's revisit kernel
+    (interpret mode) bitwise in int8."""
     x, jt, tt, _ = _experts_case((1, 2, 3, 128, 24), "int8", seed=13)
     xt = torch.from_numpy(x).to(torch.bfloat16)
     plan = plan_for(128, dtype=torch.bfloat16, backend="cuda", device_type="cpu",
@@ -227,9 +229,11 @@ def test_experts_revisit_runs_rotate_once(pallas_alias):
     want = jqd.pallas_quant_dot_experts(jnp.asarray(x, jnp.bfloat16), jt.q, jt.scale,
                                         jplan, True, schedule="revisit")
     _close(once.reshape(-1, 24), want.reshape(-1, 24), "int8")
-    with pytest.raises(NotImplementedError, match="revisit"):
-        quant_dot(xt[0, 0], wquant.QTensor(tt.q[0], tt.scale[0], "int8"), plan,
-                  schedule="revisit")
+    dense = quant_dot(xt[0, 0], wquant.QTensor(tt.q[0], tt.scale[0], "int8"), plan,
+                      schedule="revisit")
+    want = jqd.pallas_quant_dot(jnp.asarray(x[0, 0], jnp.bfloat16), jt.q[0], jt.scale[0],
+                                jplan, True, schedule="revisit")
+    _close(dense, want, "int8")
 
 
 @pytest.mark.parametrize("n", [128, 96])
@@ -330,32 +334,35 @@ def test_kernel_size_rule():
 
 
 # ------------------------------------------------------------ schedules
-def test_schedules_resolve_or_raise(monkeypatch):
-    """rotate_once and streamed (K4 and K5 on the card) give the plain
-    result on a CPU tensor, named or through REPRO_QUANT_DOT_SCHEDULE;
-    revisit (K8, not ported) raises for the dense form."""
-    x, _, _, tt = _case(2, 64, 8, "int8", seed=3)
+def test_schedules_resolve_or_raise(monkeypatch, pallas_alias):
+    """rotate_once, streamed and revisit (K4, K5 and K8 on the card) give
+    the plain result on a CPU tensor, named or through
+    REPRO_QUANT_DOT_SCHEDULE; the dense revisit equals the reference's
+    revisit kernel (interpret mode) bitwise in int8. An unknown name
+    raises, on the grouped (unfused) path too."""
+    x, _, jt, tt = _case(2, 64, 8, "int8", seed=3)
     xt = torch.from_numpy(x)
     ref = quant_dot(xt, tt)
-    for name in ("rotate_once", "streamed"):
+    for name in ("rotate_once", "streamed", "revisit"):
         assert torch.equal(quant_dot(xt, tt, schedule=name), ref)
         assert torch.equal(quant_dot(xt, tt, schedule=name, backend="torch"), ref)
+        assert torch.equal(quant_dot(xt, tt, schedule=name, backend="cuda"), ref)
         monkeypatch.setenv(qd.SCHEDULE_ENV_VAR, name)
         assert torch.equal(quant_dot(xt, tt), ref)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        quant_dot(xt, tt, schedule="revisit")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        quant_dot(xt, tt, schedule="revisit", backend="cuda")
-    monkeypatch.setenv(qd.SCHEDULE_ENV_VAR, "revisit")
-    with pytest.raises(NotImplementedError, match="revisit"):
-        quant_dot(xt, tt)
+    jplan = jplan_for(64, dtype=jnp.float32, backend="pallas",
+                      epilogue=JQuantEpilogue("int8"))
+    want = jqd.pallas_quant_dot(jnp.asarray(x), jt.q, jt.scale, jplan, True,
+                                schedule="revisit")
+    _close(ref, want, "int8")
     monkeypatch.setenv(qd.SCHEDULE_ENV_VAR, "rotate_once")
     with pytest.raises(ValueError, match="unknown quant_dot schedule"):
         quant_dot(xt, tt, schedule="rotate_twice")
     # the grouped (unfused) path validates the schedule too
-    xg = torch.from_numpy(_case(2, 96, 8, "int8", seed=4)[0])
-    with pytest.raises(NotImplementedError):
-        quant_dot(xg, _case(2, 96, 8, "int8", seed=4)[3], schedule="revisit")
+    xg, _, _, tg = _case(2, 96, 8, "int8", seed=4)
+    xg = torch.from_numpy(xg)
+    assert torch.equal(quant_dot(xg, tg, schedule="revisit"), quant_dot(xg, tg))
+    with pytest.raises(ValueError, match="unknown quant_dot schedule"):
+        quant_dot(xg, tg, schedule="rotate_twice")
 
 
 # --------------------------------------------------------------- errors
@@ -423,3 +430,33 @@ def test_k5_k6_wrappers_take_cuda_tensors_only():
     with pytest.raises(ValueError, match="expert"):
         quant_dot_experts(xt[:, :1], tt, plan)
     assert [f.launches for f in counters] == before
+
+
+def test_k8_k7a_rv_wrappers_and_size_rule():
+    """K8 and K7a-rv take CUDA tensors only (a CPU call raises and counts no
+    launch); revisit has rotate-once's shared-memory layout, so the same
+    sizes fuse (up to the 32768 cap, ABFT or not), and a training row count
+    changes nothing in the rule."""
+    x, _, _, tt = _case(2, 64, 8, "int8", seed=6)
+    xt = torch.from_numpy(x).to(torch.bfloat16)
+    plan = plan_for(64, dtype=torch.bfloat16, backend="cuda", device_type="cpu",
+                    epilogue=QuantEpilogue("int8"))
+    before = qd.quant_dot_revisit_cuda.launches, qd.quant_dot_abft_revisit_cuda.launches
+    out = torch.empty(2, 8, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="CUDA"):
+        qd.quant_dot_revisit_cuda(xt, tt.q, tt.scale.reshape(-1), out, plan)
+    with pytest.raises(ValueError, match="CUDA"):
+        qd.quant_dot_abft_revisit_cuda(xt, tt.q, tt.scale.reshape(-1), torch.zeros(64),
+                                       out, torch.empty(2, 1), plan)
+    assert (qd.quant_dot_revisit_cuda.launches,
+            qd.quant_dot_abft_revisit_cuda.launches) == before
+    for n in (2, 128, 8192, 32768):
+        for mode in MODES:
+            for abft in (False, True):
+                assert qd.kernel_fits(n, mode, "revisit", abft) == \
+                    qd.kernel_fits(n, mode, "rotate_once", abft)
+    assert qd._smem_bytes(8192, 16, "int8", "revisit") == qd._smem_bytes(8192, 16, "int8")
+    big = plan_for(32768, dtype=torch.bfloat16, backend="cuda", device_type="cpu",
+                   epilogue=QuantEpilogue("fp8_e4m3"))
+    assert api._qd_fusable(big, "revisit")
+    assert qd.REVISIT_BLOCK_N % 32 == 0
