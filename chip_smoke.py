@@ -80,8 +80,29 @@ Runs from the repository root and needs the repository's ``src/``. It
      bitwise equal in losses and parameters; 3 steps with int8 moments; a
      checkpoint at step 2 and a restart that resumes bitwise (at 2 layers,
      full width);
-  8. prints the kernels' JSON line, then the result line
-     ``{"ok": true, "device": {...}}`` last.
+  8. lint phase (``lint_phase``): the kernel-contract linter
+     (``repro_torch.analysis.lint``) in process at full width over
+     phi4-mini's int8 8192 -> 3072 and llama4-maverick's fp8_e4m3 8192 ->
+     5120 fused sites under rotate-once, streamed and revisit with their
+     ABFT twins (K4-K8, K7a-*, K7b-*), the MLP model sites and the serving
+     sites (a decode step and a prefill-insert) of the llama3-8b and
+     phi4-mini engines the model phases served with: the clean run must
+     exit 0, printing each site's launches, rotations per row against the
+     launch geometry and shared-memory readings; ``--mutation`` must exit
+     non-zero with M1 (K4 re-rotating before every tile) flagged by the
+     rotate-once rule and M2 (K5 without its cp.async waits) by the DMA
+     rule, their launches counted from 0 just before; M1 bitwise K4 in int8
+     and fp8_e4m3 and timed beside it, M2 run beside K5 (its differing
+     elements printed); both held against their plain versions (K4's and
+     K5's) under the K4 rule;
+  9. rotation phase (``rotation_phase``): llama3-8b at full width, random
+     bf16 weights, ``fuse_down_proj_rotations`` through K1 (one grouped
+     launch per layer), then the fused model's 64-token prefill with the
+     online rotations against the unrotated model, without quantization
+     and with fp8_e4m3 + Hadamard + fp8 KV, each within a limit set between
+     its witness (the plain rotation) and control (no online rotation);
+ 10. prints the kernels' JSON line (K1-K8, the ABFT twins, M1 and M2), then
+     the result line ``{"ok": true, "device": {...}}`` last.
 
 Any failed check raises: the script then exits non-zero and prints no
 result line. Without a CUDA device it exits non-zero at once.
@@ -257,14 +278,16 @@ def kernel_phase(gen: torch.Generator):
         ms = cuda_time_ms(run)
         plain_ms = cuda_time_ms(plain, iters=50)
         library_ms = cuda_time_ms(library) if library else None
+        library_dev = _device_ms(library) if library else None
         nbytes = 2 * rows * n * IO_BYTES[torch.bfloat16]
         t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
         t_ops = ops / F32_CUDA_CORE_OPS_PER_S * 1e3
         bound_ms = max(t_bytes, t_ops)
         bound_by = "bytes" if t_bytes >= t_ops else "operations"
-        lib = f"{library_ms:.5f}" if library_ms is not None else "none"
+        lib = (f"{library_ms:.5f} ms (events) {_dev(library_dev)} (device)"
+               if library_ms is not None else "none")
         print(f"{kern} {site:18s} ({rows} x {n}): kernel {ms:.5f} ms, plain "
-              f"{plain_ms:.5f} ms, torch.matmul(x, H_n) {lib} ms, bound "
+              f"{plain_ms:.5f} ms, torch.matmul(x, H_n) {lib}, bound "
               f"{bound_ms:.6f} ms ({bound_by}), max abs err {err:g}")
         if kern not in entries:    # the decode shape: the path's most frequent
             entries[kern] = {"mode": mode, "max_abs_err": err, "ms": ms,
@@ -444,7 +467,7 @@ def time_k3_k4(gen) -> dict:
         bound = max(t_bytes, t_ops)
         by = "bytes" if t_bytes >= t_ops else "operations"
         print(f"K3 {m:2d} x {n}: max abs err {err:g}, kernel {ms:.5f} ms (events), "
-              f"{dev_ms:.5f} ms (profile), plain {plain_ms:.5f} ms, "
+              f"{_dev(dev_ms)} (profile), plain {plain_ms:.5f} ms, "
               f"library none, bound {bound:.6f} ms ({by})")
         if "K3" not in entries:
             entries["K3"] = {"mode": "int8", "max_abs_err": err, "ms": ms,
@@ -593,13 +616,10 @@ def _bound(nbytes: float, int_ops: float, f32_ops: float, low_rate: float):
     return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
 
 
-def _profile_ms(fn, name: str, streamed: bool = False, abft: bool = False,
-                calls: int = 5, revisit: bool = False) -> float:
-    """Device time per call of the kernel ``name`` from ``torch.profiler``
-    over ``calls`` calls of ``fn``. For the quant_dot kernels (template
-    arguments T, BM, kInt, kStreamed, kAbft, and for the dense kernel
-    kRevisit) only the instantiations of the schedule and the ABFT flag
-    asked for count."""
+def _kernel_times(fn, calls: int = 5):
+    """(kernel name, device microseconds) of every kernel that ``calls``
+    calls of ``fn`` launch, from ``torch.profiler``: empty when the capture
+    holds no device event (seen now and then late in a long run)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -609,19 +629,53 @@ def _profile_ms(fn, name: str, streamed: bool = False, abft: bool = False,
         for _ in range(calls):
             fn()
         torch.cuda.synchronize()
-    total = 0.0
+    rows = []
     for evt in prof.key_averages():
-        if evt.device_type != DeviceType.CUDA or f"{name}<" not in evt.key:
+        if evt.device_type == DeviceType.CUDA:
+            dev = getattr(evt, "self_device_time_total", None)
+            us = evt.self_cuda_time_total if dev is None else dev
+            if us > 0:
+                rows.append((evt.key, us))
+    return rows
+
+
+def _dev(ms) -> str:
+    """A device time for print: 'not measured' where the profiler captured
+    no matching device event, never 0."""
+    return "not measured" if ms is None else f"{ms:.5f} ms"
+
+
+def _dev_ratio(a, b) -> str:
+    return "not measured" if a is None or b is None else f"{a / b:.2f}x"
+
+
+def _profile_ms(fn, name: str, streamed: bool = False, abft: bool = False,
+                calls: int = 5, revisit: bool = False):
+    """Device time per call of the kernel ``name`` from ``torch.profiler``
+    over ``calls`` calls of ``fn``, or None when no device event of it was
+    captured. For the quant_dot kernels (template arguments T, BM, kInt,
+    kStreamed, kAbft, and for the dense kernel kRevisit) only the
+    instantiations of the schedule and the ABFT flag asked for count."""
+    total, matched = 0.0, False
+    for key, us in _kernel_times(fn, calls):
+        if f"{name}<" not in key:
             continue
         if name.startswith("quant_dot"):
-            args = evt.key.split(f"{name}<", 1)[1].split(">", 1)[0].split(", ")
+            args = key.split(f"{name}<", 1)[1].split(">", 1)[0].split(", ")
             if (args[3] == "true") != streamed or (args[4] == "true") != abft:
                 continue
             if len(args) > 5 and (args[5] == "true") != revisit:
                 continue
-        dev = getattr(evt, "self_device_time_total", None)
-        total += evt.self_cuda_time_total if dev is None else dev
-    return total / calls / 1e3
+        total, matched = total + us, True
+    return total / calls / 1e3 if matched else None
+
+
+def _device_ms(fn, calls: int = 5):
+    """Device time per call of ``fn`` from ``torch.profiler``: every kernel
+    it launches, summed (a library call may launch more than one); None
+    when the capture holds no device event."""
+    rows = _kernel_times(fn, calls)
+    return sum(us for _, us in rows) / calls / 1e3 if rows else None
 
 
 def _library_dot(x, wq, sw, mode: str, experts: bool):
@@ -707,15 +761,17 @@ def time_k5_k6(gen) -> dict:
             lib, lib_name = (_library_dot(x, ex.q, ex.scale, mode, True) if experts
                               else _library_dot(x, qt.q, qt.scale, mode, False))
             lib_ms = cuda_time_ms(lib, iters=10 if experts else 200)
+            lib_dev = _device_ms(lib)
             del lib
             bound, by = _bound(2 * rows * n + wbytes + 2 * rows * d, 2 * rows * n * d,
                                rows * n * (math.log2(n) + 6), low)
             bm, smem, blocks = launch_shape(m, n, d, mode, EXPERTS if experts else 0,
                                             sched)
             print(f"{kern:3s} {mode:8s} {tuple(x.shape)} -> {d}: max abs err {err:g}, "
-                  f"kernel {ms:.5f} ms (events), {dev_ms:.5f} ms (profile), plain "
-                  f"{plain_ms:.5f} ms, {lib_name} {lib_ms:.5f} ms, bound {bound:.6f} "
-                  f"ms ({by}); launch: {blocks} blocks of {bm} rows, {smem} B shared")
+                  f"kernel {ms:.5f} ms (events), {_dev(dev_ms)} (profile), plain "
+                  f"{plain_ms:.5f} ms, {lib_name} {lib_ms:.5f} ms (events) {_dev(lib_dev)} "
+                  f"(device), bound {bound:.6f} ms ({by}); launch: {blocks} blocks of {bm} "
+                  f"rows, {smem} B shared")
             if mode == "fp8_e4m3" and m == SLOTS:   # the decode shape, the path's mode
                 entries[kern] = {"mode": mode, "max_abs_err": err, "ms": ms,
                                  "plain_ms": plain_ms, "bound_ms": bound,
@@ -1006,8 +1062,8 @@ def time_abft(gen) -> dict:
         ms = (t_run + t_run2) / 2
         print(f"{name:6s} {mode:8s} {tuple(x.shape)} -> {d}: events {t_base:.5f} / "
               f"{t_run:.5f} / {t_run2:.5f} / {t_base2:.5f} ms ({twin} / {name} / {name} / "
-              f"{twin}); profile {twin} {d_base:.5f} ms, {name} {d_run:.5f} ms "
-              f"({(d_run / d_base - 1) * 100:+.1f}%); plain {plain_ms:.5f} ms; bound "
+              f"{twin}); profile {twin} {_dev(d_base)}, {name} {_dev(d_run)} "
+              f"({_dev_ratio(d_run, d_base)}); plain {plain_ms:.5f} ms; bound "
               f"{bound:.6f} ms ({by}); library none; max abs err {err:g}")
         if name not in entries:
             entries[name] = {"mode": mode, "max_abs_err": err, "ms": ms,
@@ -1113,8 +1169,8 @@ def time_revisit(gen) -> dict:
             per_rb8 = -(-d // REVISIT_BLOCK_N)
             ms = (t8 + t8b) / 2
             print(f"{label} {mode:8s} {m} x {n} -> {d}: events K4 {t4:.5f} / K8 {t8:.5f} / "
-                  f"K8 {t8b:.5f} / K4 {t4b:.5f} ms; profile K4 {d4:.5f} ms, K8 {d8:.5f} ms "
-                  f"({d8 / d4:.2f}x); rotations per row block K8 {per_rb8}, K4 "
+                  f"K8 {t8b:.5f} / K4 {t4b:.5f} ms; profile K4 {_dev(d4)}, K8 {_dev(d8)} "
+                  f"({_dev_ratio(d8, d4)}); rotations per row block K8 {per_rb8}, K4 "
                   f"{splits4 // cl} ({blocks8} and {blocks4} blocks of {bm8} / {bm4} "
                   f"rows); plain {plain_ms:.5f} ms; {lib_name} {lib_ms:.5f} ms; bound "
                   f"{bound:.6f} ms ({by}); K8 max abs err against plain {err:g}")
@@ -1133,8 +1189,8 @@ def time_revisit(gen) -> dict:
                 p_rv = cuda_time_ms(abft_plain, iters=20, warmup=1)
                 b_rv, by_rv = _bound(2 * m * n + qt.q.numel() + 8 * d + 4 * n + 2 * m * d
                                      + 4 * m, 2 * m * n * d, m * n * (math.log2(n) + 8), low)
-                print(f"K7a-rv {label} int8: events {t_rv:.5f} ms, profile {d_rv:.5f} ms "
-                      f"(K8 {d8:.5f} ms, {(d_rv / d8 - 1) * 100:+.1f}%); plain {p_rv:.5f} "
+                print(f"K7a-rv {label} int8: events {t_rv:.5f} ms, profile {_dev(d_rv)} "
+                      f"(K8 {_dev(d8)}, {_dev_ratio(d_rv, d8)}); plain {p_rv:.5f} "
                       f"ms; bound {b_rv:.6f} ms ({by_rv}); library none; max abs err {e_rv:g}")
                 entries["K7a-rv"] = {"mode": mode, "max_abs_err": e_rv, "ms": t_rv,
                                      "plain_ms": p_rv, "bound_ms": b_rv, "bound_by": by_rv,
@@ -1596,10 +1652,12 @@ HEALTH_ZERO = ("rung", "degrades", "watchdog_trips", "step_retries", "nan_guard_
 PEAK_LIMIT = 72e9   # bytes: "well under" the card's 80 GB
 
 
-def model_phase(args, arch: str):
+def model_phase(args, arch: str, lint_sites=None):
     """One model at full width and depth: the layer-0 stage trace and the
     calibrated prefill check, then the serving run with the launch counters
-    zeroed just before and read just after, then a decode profile. Returns
+    zeroed just before and read just after, then a decode profile; for the
+    dense models the linter's serving sites of the engine that served (a
+    decode step and a prefill-insert, appended to ``lint_sites``). Returns
     (summary, launches)."""
     import dataclasses
 
@@ -1669,6 +1727,10 @@ def model_phase(args, arch: str):
     if peak > PEAK_LIMIT:
         fail(f"{arch}: peak memory {peak / 1e9:.2f} GB")
     profile_decode(engine)
+    if lint_sites is not None and not cfg.num_experts:
+        from repro_torch.analysis.sites import serving_sites
+
+        lint_sites += serving_sites(arch, engine=engine)
     if cfg.num_experts:
         streamed = streamed_pass(cfg, params, args.seed)
         launches.update({k: streamed[k] for k in ("K5", "K6s")})
@@ -1939,9 +2001,11 @@ def abft_step_split(off_engine, on_engine, rounds: int = 15) -> None:
             if "quant_dot" in evt.key:
                 qd += t
         w = sorted(walls[label])
+        device = (f"{ops:5d} device operations, device {dev / 1e3:8.3f} ms, of it quant_dot "
+                  f"kernels {qd / 1e3:.3f} ms" if ops else
+                  "device not measured (the profiler captured no device event)")
         print(f"   {label:27s} {float(np.median(w)):9.3f} ms wall (min {w[0]:.3f}, max "
-              f"{w[-1]:.3f}); {ops:5d} device operations, device {dev / 1e3:8.3f} ms, of it "
-              f"quant_dot kernels {qd / 1e3:.3f} ms")
+              f"{w[-1]:.3f}); {device}")
 
 
 def abft_phase(arch, cfg, params, stream, off_engine, seed: int) -> dict:
@@ -2423,6 +2487,10 @@ def _profile_window(fn, steps: int, what: str) -> None:
             rows.append((dev, evt.count, evt.key))
     rows.sort(reverse=True)
     busy = sum(r[0] for r in rows)
+    if not rows:
+        print(f"-- profile: {steps} {what}, {wall_us / steps / 1e3:.2f} ms wall per step "
+              "(profiler on), device time not measured (no device event captured)")
+        return
     print(f"-- profile: {steps} {what}, {wall_us / steps / 1e3:.2f} ms "
           f"wall per step (profiler on), kernels busy {busy / steps / 1e3:.2f} "
           f"ms per step ({100 * busy / wall_us:.1f}% of the window)")
@@ -2432,6 +2500,236 @@ def _profile_window(fn, steps: int, what: str) -> None:
         if i < 8 or any(k in key for k in ours):
             print(f"   {dev / steps / 1e3:8.3f} ms/step  {count // steps:5d} "
                   f"calls/step  {key[:90]}")
+
+
+# ---------------------------------------------------------------- linter
+LINT_ARGS = ["--config", "phi4-mini-3.8b", "--config", "llama4-maverick-400b-a17b",
+             "--schedule", "rotate_once", "--schedule", "streamed", "--schedule", "revisit",
+             "--abft", "--no-serving"]
+
+
+def _site_line(site) -> str:
+    """One lint site's readings: launches, rotations per row against the
+    geometry, shared memory, PTX verdicts."""
+    parts = [f"launches {site.launches}"]
+    if site.rotations is not None:
+        c = site.rotations
+        g = site.geometry
+        parts.append(f"rotations/row {int(c.min())}..{int(c.max())} over {len(c)} rows "
+                     f"(expected {site.expected_rotations}: {g.get('splits')} splits / "
+                     f"cluster {g.get('cluster')}, {g.get('tiles_per_block')} tiles/block, "
+                     f"bm {g.get('bm')})")
+    if site.smem:
+        sm = site.smem
+        libs = ", ".join(f"{k} static {v['static_smem']} + dynamic {v['max_dynamic_smem']} "
+                         f"({v['regs']} regs, {v['local']} B local)"
+                         for k, v in sm.items() if isinstance(v, dict))
+        parts.append(f"smem planned {sm['planned']} requested {sm['requested']}; {libs}; "
+                     f"optin {sm['optin']}")
+    if site.ptx_events is not None:
+        from repro_torch.analysis.ptx import dma_findings
+
+        kinds = [e.kind for e in site.ptx_events]
+        parts.append(f"PTX {kinds.count('copy')} cp.async, {kinds.count('commit')} commits, "
+                     f"{kinds.count('wait')} waits, {len(dma_findings(site.ptx_events))} "
+                     "findings")
+    return f"   {site.name}: " + "; ".join(parts)
+
+
+def lint_phase(seed: int, serving_sites) -> dict:
+    """The kernel-contract linter in process at full width: the clean run
+    (phi4-mini's int8 8192 -> 3072 sites: K4, K5, K8 and their ABFT twins;
+    llama4-maverick's fp8_e4m3 8192 -> 5120 sites: K4, K5, K8, K6, K6s and
+    theirs; the MLP model sites; the serving sites the model phases
+    recorded) must exit 0; ``--mutation`` must exit non-zero with both
+    mutants among the violations, M1 by the rotate-once rule (its counts
+    strictly above K4's) and M2 by the DMA rule. Then M1 is held bitwise to
+    K4 in int8 and fp8_e4m3 and timed beside it, and both mutants are held
+    against their plain versions (K4's and K5's) under the K4 rule
+    (``_hold_rows``), M2 at 64 x 8192 -> 5120 fp8_e4m3 as K5 is; M2's
+    elements that differ from K5 are printed beside it. A race in M2 that
+    changed its output would fail that hold: the DMA rule does not depend
+    on it. Returns M1's and M2's entries of the JSON line, their launches
+    from the mutation run."""
+    from repro_torch.analysis import lint
+    from repro_torch.analysis import mutations as mu
+    from repro_torch.analysis.rules import all_rules
+    from repro_torch.kernels import build
+    from repro_torch.kernels.hadacore import transform_plain
+    from repro_torch.kernels.quant_dot import epilogue_dot, quant_dot, quant_dot_plain
+
+    print("-- lint phase: python -m repro_torch.analysis.lint " + " ".join(LINT_ARGS)
+          + f" (+ {len(serving_sites)} serving sites of the model phases)")
+    t0 = time.perf_counter()
+    code, report, sites = lint.run(LINT_ARGS, extra_sites=serving_sites)
+    for site in sites:
+        print(_site_line(site))
+    print(f"clean lint: exit {code}, {len(report.checked)} (site, rule) pairs, "
+          f"{time.perf_counter() - t0:.1f} s")
+    if code != 0:
+        fail(f"the clean lint exited {code}: {report.format_text()}")
+    # every rule but deprecated-shim-in-trace, which applies where a shim ran
+    missing = set(all_rules()) - {"deprecated-shim-in-trace"} - {r for _, r in report.checked}
+    if missing:
+        fail(f"the clean lint never ran {sorted(missing)}")
+    del sites
+
+    report_path = str(build.BUILD_DIR / "lint_mutation.json")
+    mu.mutant_unguarded_rotate_cuda.launches = mu.mutant_dangling_dma_cuda.launches = 0
+    code, report, msites = lint.run(["--mutation", "--json", report_path])
+    launches = {"M1": mu.mutant_unguarded_rotate_cuda.launches,
+                "M2": mu.mutant_dangling_dma_cuda.launches}
+    for site in msites:
+        print(_site_line(site))
+    flagged = {(v.site, v.rule) for v in report.violations}
+    print(f"mutation lint: exit {code}; launches {launches}; flagged {sorted(flagged)}")
+    with open(report_path) as f:
+        named = {v["site"] for v in json.load(f)["violations"]}
+    if code == 0 or {"mutant[unguarded_rotate]", "mutant[dangling_dma]"} - named:
+        fail(f"--mutation exited {code} naming {sorted(named)}: the rules lost their teeth")
+    if ("mutant[unguarded_rotate]", "rotate-once-contract") not in flagged or \
+            ("mutant[dangling_dma]", "dma-safety") not in flagged:
+        fail(f"the mutants were not caught by their own rules: {sorted(flagged)}")
+    m1 = msites[0]
+    if not int(m1.rotations.min()) > m1.expected_rotations:
+        fail(f"M1 rotates {int(m1.rotations.min())} times per row, not above K4's "
+             f"{m1.expected_rotations}")
+
+    entries = {}
+    for name, kern, sched in (("unguarded_rotate", "M1", "rotate_once"),
+                              ("dangling_dma", "M2", "streamed")):
+        twin = "K4" if kern == "M1" else "K5"
+        for mode in ("int8", "fp8_e4m3") if kern == "M1" else ("fp8_e4m3",):
+            x, qt, plan = mu.mutant_inputs(name, seed=seed + 1, mode=mode)
+            m, n = x.shape
+            d = qt.q.shape[-1]
+            sw = qt.scale.reshape(d).contiguous()
+            out = torch.empty((m, d), dtype=x.dtype, device="cuda")
+            run = lambda: mu.WRAPPERS[name](x, qt.q, sw, out, plan)         # noqa: E731
+            ref = lambda: quant_dot(x, qt.q, qt.scale, plan, sched)          # noqa: E731
+            plain = lambda: quant_dot_plain(x, qt.q, qt.scale, plan)         # noqa: E731
+            got = run().clone()
+            want = ref()
+            torch.cuda.synchronize()
+            same = bool(torch.equal(got.view(torch.int16), want.view(torch.int16)))
+            differ = int((got.view(torch.int16) != want.view(torch.int16)).sum())
+            err = float((got.float() - plain().float()).abs().max())
+            ms, twin_ms = cuda_time_ms(run, iters=50), cuda_time_ms(ref, iters=50)
+            dev = _profile_ms(run, "quant_dot_kernel", sched == "streamed")
+            twin_dev = _profile_ms(ref, "quant_dot_kernel", sched == "streamed")
+            plain_ms = cuda_time_ms(plain, iters=20, warmup=2)
+            lib, lib_name = _library_dot(x, qt.q, qt.scale, mode, False)
+            lib_ms, lib_dev = cuda_time_ms(lib, iters=50), _device_ms(lib)
+            low = INT8_OPS_PER_S if mode == "int8" else FP8_OPS_PER_S
+            bound, by = _bound(2 * m * n + qt.q.numel() + 4 * d + 2 * m * d, 2 * m * n * d,
+                               m * n * (math.log2(n) + 6), low)
+            print(f"{kern} {mode:8s} {m} x {n} -> {d}: {differ} of {got.numel()} elements "
+                  f"differ from {twin} (bitwise {same}), max abs err vs plain {err:g}; "
+                  f"{kern} {ms:.5f} ms (events) {_dev(dev)} (profile), {twin} {twin_ms:.5f} "
+                  f"ms / {_dev(twin_dev)}, plain {plain_ms:.5f} ms, {lib_name} {lib_ms:.5f} "
+                  f"ms / {_dev(lib_dev)}, bound {bound:.6f} ms ({by})")
+            if kern == "M1" and not same:
+                fail(f"M1 differs from K4 in {differ} elements ({mode})")
+            y1, (q1, s1) = _k1_epilogue(x, plan)
+            agree = _same_rows(y1, transform_plain(x, plan))
+            _hold_rows(f"{kern} {m} x {n} -> {d} {mode:8s} against plain", got,
+                       plain(), epilogue_dot(q1, s1, qt.q, qt.scale, mode, torch.bfloat16),
+                       agree, mode, False)
+            if (kern, mode) in (("M1", "int8"), ("M2", "fp8_e4m3")):
+                entries[kern] = {"mode": mode, "max_abs_err": err, "ms": ms,
+                                 "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
+                                 "library_ms": lib_ms, "launches": launches[kern]}
+    return entries
+
+
+# ------------------------------------------------------- offline rotation
+# The rotation phase's limits on the relative RMS difference of the
+# prefill logits (64 positions, full depth) between llama3-8b with its
+# down projections fused (fuse_down_proj_rotations through K1) and served
+# with the online rotations, and the unrotated model with no quantization:
+# "exact" with no quantization (the rotations cancel up to bf16 roundings),
+# "fp8" with fp8_e4m3 + Hadamard + fp8 KV. Each sits between the witness
+# (the same comparison with the plain rotation on the card) and the control
+# (the fused weights served without the online rotation), PERF.md.
+ROTATION_LIMITS = {"exact": 0.16, "fp8": 0.35}
+
+
+def rotation_phase(args) -> dict:
+    """llama3-8b at full width from ``--seed`` (random bf16 weights, the
+    model phase's draws unquantized): ``fuse_down_proj_rotations`` through
+    K1 (the grouped 7 x 2048 transform, one launch per layer), then the
+    prefill logits of the fused model with the online rotations, against
+    the unrotated model without quantization, with no quantization and with
+    fp8_e4m3 + Hadamard + fp8 KV (the reference's ``tests/test_archs.py``
+    offline-fusion checks at full width), each beside its witness and
+    control. Prints every reading before it checks any. Returns the
+    launches of the fusion."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.quant import QuantConfig
+    from repro_torch.core.rotations import fuse_down_proj_rotations
+    from repro_torch.kernels.hadacore import hadacore_cuda
+    from repro_torch.models.lm import init_lm, lm_forward
+
+    cfg0 = get_config("llama3-8b")
+    print(f"-- rotation phase: {cfg0.name} d_model={cfg0.d_model} d_ff={cfg0.d_ff} "
+          f"layers={cfg0.num_layers}, bf16 weights (seed {args.seed}), offline fusion of "
+          "the down projections, prefill of 64 tokens")
+    torch.cuda.reset_peak_memory_stats()
+    params = init_lm(cfg0, seed=args.seed, device="cuda")
+    torch.cuda.synchronize()
+    hadacore_cuda.launches = 0
+    t0 = time.perf_counter()
+    with torch.inference_mode():
+        fused = fuse_down_proj_rotations(params)
+    torch.cuda.synchronize()
+    k1 = hadacore_cuda.launches
+    print(f"fuse_down_proj_rotations: {time.perf_counter() - t0:.2f} s, {k1} K1 launches "
+          f"(expected {cfg0.num_layers}), peak {torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+    if k1 != cfg0.num_layers:
+        fail(f"the fusion launched K1 {k1} times, expected {cfg0.num_layers}")
+    prompt = torch.from_numpy(np.random.default_rng(args.seed).integers(
+        0, cfg0.vocab_size, (1, 64))).cuda()
+
+    def logits(quant, p):
+        with torch.inference_mode():
+            out = lm_forward(cfg0.with_quant(quant), p, {"tokens": prompt})[0]
+        out = out[..., :cfg0.vocab_size].float()
+        if not torch.isfinite(out).all():
+            fail(f"non-finite prefill logits ({quant})")
+        return out
+
+    base = logits(QuantConfig(), params)
+    runs = {
+        "exact": dict(mode="none", kv_quant=False),
+        "fp8": dict(mode="fp8_e4m3", kv_quant=True),
+    }
+    rel = {}
+    for label, kw in runs.items():
+        for route, quant in (("kernels", QuantConfig(rotate="hadamard", backend="cuda", **kw)),
+                             ("witness", QuantConfig(rotate="hadamard", backend="torch", **kw)),
+                             ("control", QuantConfig(rotate="none", backend="cuda", **kw))):
+            hadacore_cuda.launches = 0
+            got = logits(quant, fused)
+            r = float((got - base).norm() / base.norm())
+            top1 = float((got.argmax(-1) == base.argmax(-1)).float().mean())
+            rel[label, route] = r
+            print(f"rotation {label:5s} {route:8s} vs unrotated bf16: relative RMS {r:.6f}, "
+                  f"top-1 {top1 * 100:.1f}%, K1 launches {hadacore_cuda.launches}")
+    print(f"peak device memory in the rotation phase: "
+          f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+    for label in runs:
+        limit = ROTATION_LIMITS[label]
+        print(f"rotation {label}: limit {limit}")
+        for route in ("kernels", "witness"):
+            if not rel[label, route] <= limit:
+                fail(f"rotation {label}: {route} at {rel[label, route]} > {limit}")
+        if not rel[label, "control"] > limit:
+            fail(f"rotation {label}: control at {rel[label, 'control']} passes {limit}")
+    del params, fused
+    torch.cuda.empty_cache()
+    return {"K1": k1}
 
 
 def _leaves(tree):
@@ -2473,7 +2771,7 @@ def main() -> int:
           f"{torch.cuda.get_device_name(0)}")
 
     t0 = time.perf_counter()
-    spent = build.build_all()
+    spent = build.build_all(lint=True)   # the linter's builds too, all in parallel
     print(f"kernel build: {time.perf_counter() - t0:.1f} s "
           + " ".join(f"{k}={v:.1f}s" for k, v in spent.items()))
 
@@ -2489,14 +2787,21 @@ def main() -> int:
     timed.update(time_abft(gen))
     entry = entry_point_phase(gen)
     launches = {}
+    serving_sites = []
     for arch in MODELS:
-        _, got = model_phase(args, arch)
+        _, got = model_phase(args, arch, serving_sites)
         for k, v in got.items():
             launches[k] = launches.get(k, 0) + v
         torch.cuda.empty_cache()
     for k, v in train_phase(args).items():
         launches[k] += v
     launches["K3"] = entry["K3"]    # K3's path is the entry point
+    t0 = time.perf_counter()
+    mutants = lint_phase(args.seed, serving_sites)
+    del serving_sites
+    t1 = time.perf_counter()
+    rotation_phase(args)
+    print(f"lint phase {t1 - t0:.1f} s, rotation phase {time.perf_counter() - t1:.1f} s")
 
     quant_dot_cu = "src/repro_torch/csrc/quant_dot.cu"
     experts_cu = "src/repro_torch/csrc/quant_dot_experts.cu"
@@ -2530,7 +2835,16 @@ def main() -> int:
                "replaces": "src/repro/kernels/quant_dot.py:440"},
         "K7a-rv": {"name": "quant_dot_abft_revisit", "source": abft_cu,
                    "replaces": "src/repro/kernels/quant_dot.py:540"},
+        "M1": {"name": "mutant_unguarded_rotate",
+               "source": "src/repro_torch/csrc/mutants/unguarded_rotate.cu",
+               "replaces": "src/repro/analysis/mutations.py:30"},
+        "M2": {"name": "mutant_dangling_dma",
+               "source": "src/repro_torch/csrc/mutants/dangling_dma.cu",
+               "replaces": "src/repro/analysis/mutations.py:46"},
     }
+    for k, e in mutants.items():   # their path is the mutation lint
+        launches[k] = e.pop("launches")
+        timed[k] = e
     kernels = [{"name": meta[k]["name"], "route": "cuda",
                 "source": meta[k]["source"], "replaces": meta[k]["replaces"],
                 "launches": launches[k], **timed[k]} for k in meta]

@@ -130,7 +130,11 @@ def _apply_passes(x: torch.Tensor, n: int, mats: List[torch.Tensor]) -> torch.Te
     the minor-axis pass, then one 128-wide pass per major factor with a
     transpose in and out. Each pass multiplies in f32 (products of 16-bit
     values are exact there), accumulates in f32 and rounds to the compute
-    dtype, as the reference's ``preferred_element_type=f32`` dots do."""
+    dtype, as the reference's ``preferred_element_type=f32`` dots do. The
+    operands are the compute dtype's values, widened exactly: on the card a
+    16-bit product with an f32 result (``torch.mm(..., out_dtype=float32)``)
+    runs on tensor cores, whose accumulator is not IEEE f32 (PERF.md), and
+    the CPU has no such product."""
     m = x.shape[0]
     cd = x.dtype
     mats = [mt.to(cd).to(torch.float32) for mt in mats]

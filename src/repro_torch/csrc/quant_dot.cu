@@ -18,9 +18,7 @@ extern "C" int quant_dot_launch(const void* x, const void* wq, const void* sw, v
                                       cd, scale, mode, Abft{}, stream);
 }
 
-// The launch shape a call would get: rows per block (0 = does not fit),
-// dynamic shared memory bytes, blocks.
-extern "C" int quant_dot_shape(long long m, int n, int d, int schedule, int block_n, int mode,
-                               int* bm, long long* smem, long long* blocks) {
-  return launch_shape(m, n, d, 1, schedule, block_n, mode, false, bm, smem, blocks);
-}
+// The launch geometry and the linter's queries (quant_dot.cuh): *_grid,
+// *_attributes and, built with REPRO_COUNT_ROTATIONS, *_rotations and
+// *_rotations_reset.
+QUANT_DOT_LINT_EXPORTS(quant_dot, false, false)

@@ -122,6 +122,15 @@
 // is K8 with kAbft: each block's row sums go to the (row block, tile)
 // workspace and the last block of a row block adds them in tile order.
 //
+// Linter builds (repro_torch/analysis). With -DREPRO_COUNT_ROTATIONS the body
+// counts, per element row of x, how often a rotation phase rotated it
+// (g_rotations: one atomicAdd per row and phase, read and zeroed through the
+// sources' *_rotations exports); without it the code is unchanged. The
+// mutants of csrc/mutants/ define REPRO_MUTANT_UNGUARDED_ROTATE (M1: the
+// rotation runs again before every column tile) or
+// REPRO_MUTANT_DANGLING_DMA (M2: the streamed ring's waits are gone) before
+// including this header; no main source defines either.
+//
 // What this first version leaves on the table: CUDA-core dp4a / FMA instead
 // of the tensor cores (wgmma), 4-byte cp.async instead of TMA bulk copies,
 // the rotation repeated in every cluster, and the all-zero rows of a dense
@@ -150,6 +159,19 @@ constexpr int kStages = 3;           // streamed: k-steps in the ring
 constexpr int kMaxCluster = 8;       // blocks sharing one row block's rotation (portable max)
 constexpr size_t kSmemLimit = 232448;  // 227 KB, the per-block maximum on sm_90
 constexpr size_t kSmemPerSM = 233472;  // 228 KB of shared memory on an SM
+
+#if defined(REPRO_COUNT_ROTATIONS)
+// Rotations per element row of x (row_index order), for the linter's
+// rotate-once rule; rows past the array count in g_rotations_lost.
+constexpr long long kCountRows = 1LL << 20;
+__device__ unsigned int g_rotations[kCountRows];
+__device__ unsigned int g_rotations_lost;
+
+__device__ __forceinline__ void count_rotation(size_t row) {
+  if (row < (size_t)kCountRows) atomicAdd(&g_rotations[row], 1u);
+  else atomicAdd(&g_rotations_lost, 1u);
+}
+#endif
 
 // Operand row stride: n rounded up to a whole 32-bit word of int8 values.
 __host__ __device__ __forceinline__ int op_stride(int n) { return n < 4 ? 4 : n; }
@@ -474,69 +496,87 @@ __device__ __forceinline__ void quant_dot_block(const T* x, const uint8_t* wq, c
       }
     }
   }
-  rows_sync<kRevisit>();  // every member runs before anyone writes into it
-  for (int g = mine0; g < mine1; g += rw) {
-    const int nr = mine1 - g < rw ? mine1 - g : rw;
-    quant::rotate_rows_absmax_at<T>(
-        [=](int i) { return x + row_index(row0 + g + i, E, cap, e) * n; }, work, amax, nr, n,
-        r, cd, scale);
-    for (int i = threadIdx.x; i < nr; i += blockDim.x) {
-      const float s = quant::row_scale(__int_as_float(amax[i]), mode);
+  auto rotate_rows = [&]() {
+    rows_sync<kRevisit>();  // every member runs before anyone writes into it
+    for (int g = mine0; g < mine1; g += rw) {
+      const int nr = mine1 - g < rw ? mine1 - g : rw;
+      quant::rotate_rows_absmax_at<T>(
+          [=](int i) { return x + row_index(row0 + g + i, E, cap, e) * n; }, work, amax, nr, n,
+          r, cd, scale);
+#if defined(REPRO_COUNT_ROTATIONS)
+      for (int i = threadIdx.x; i < nr; i += blockDim.x)
+        count_rotation(row_index(row0 + g + i, E, cap, e));
+#endif
+      for (int i = threadIdx.x; i < nr; i += blockDim.x) {
+        const float s = quant::row_scale(__int_as_float(amax[i]), mode);
 #pragma unroll
-      for (int c = 0; c < kMembers; ++c)
-        if (c < csize) s_at[c][g + i] = s;
-    }
-    __syncthreads();
-    for (int i = threadIdx.x; i < nr * n; i += blockDim.x) {
-      const int rr = i >> lg, k = i & (n - 1);
-      const float q = quant::to_grid(work[i], s_row[g + rr], mode);
-      const size_t at = (size_t)(g + rr) * np4 + k;
+        for (int c = 0; c < kMembers; ++c)
+          if (c < csize) s_at[c][g + i] = s;
+      }
+      __syncthreads();
+      for (int i = threadIdx.x; i < nr * n; i += blockDim.x) {
+        const int rr = i >> lg, k = i & (n - 1);
+        const float q = quant::to_grid(work[i], s_row[g + rr], mode);
+        const size_t at = (size_t)(g + rr) * np4 + k;
 #pragma unroll
-      for (int c = 0; c < kMembers; ++c) {
-        if (c >= csize) break;
-        if constexpr (kInt) {
-          op_at[c][at] = (uint8_t)(int8_t)(int)q;
-        } else {
-          reinterpret_cast<uint16_t*>(op_at[c])[at] =
-              __bfloat16_as_ushort(__float2bfloat16_rn(q));  // exact: q is on the fp8 grid
+        for (int c = 0; c < kMembers; ++c) {
+          if (c >= csize) break;
+          if constexpr (kInt) {
+            op_at[c][at] = (uint8_t)(int8_t)(int)q;
+          } else {
+            reinterpret_cast<uint16_t*>(op_at[c])[at] =
+                __bfloat16_as_ushort(__float2bfloat16_rn(q));  // exact: q is on the fp8 grid
+          }
+        }
+      }
+      __syncthreads();
+      if constexpr (kAbft) {
+        // this member's rows are in its own operand too: their checksums,
+        // into every member's chk
+        for (int i = 0; i < nr; ++i) {
+          const float c =
+              row_check<kInt>(op + (size_t)(g + i) * np4 * (kInt ? 1 : 2), ab.cw + (size_t)e * n,
+                              n, wsum);
+          if (threadIdx.x == 0) {
+#pragma unroll
+            for (int cc = 0; cc < kMembers; ++cc)
+              if (cc < csize) chk_at[cc][g + i] = c;
+          }
         }
       }
     }
-    __syncthreads();
-    if constexpr (kAbft) {
-      // this member's rows are in its own operand too: their checksums,
-      // into every member's chk
-      for (int i = 0; i < nr; ++i) {
-        const float c =
-            row_check<kInt>(op + (size_t)(g + i) * np4 * (kInt ? 1 : 2), ab.cw + (size_t)e * n,
-                            n, wsum);
-        if (threadIdx.x == 0) {
-#pragma unroll
-          for (int cc = 0; cc < kMembers; ++cc)
-            if (cc < csize) chk_at[cc][g + i] = c;
-        }
-      }
-    }
-  }
-  // zero the masked rows, and the padding of rows shorter than a word
-  for (int i = rows * np4 + threadIdx.x; i < BM * np4; i += blockDim.x) {
-    if constexpr (kInt) op[i] = 0;
-    else reinterpret_cast<uint16_t*>(op)[i] = 0;
-  }
-  if (n < 4) {
-    for (int i = threadIdx.x; i < rows * 4; i += blockDim.x) {
-      if ((i & 3) < n) continue;
+    // zero the masked rows, and the padding of rows shorter than a word
+    for (int i = rows * np4 + threadIdx.x; i < BM * np4; i += blockDim.x) {
       if constexpr (kInt) op[i] = 0;
       else reinterpret_cast<uint16_t*>(op)[i] = 0;
     }
-  }
-  rows_sync<kRevisit>();  // every member's rows and scales are in place
+    if (n < 4) {
+      for (int i = threadIdx.x; i < rows * 4; i += blockDim.x) {
+        if ((i & 3) < n) continue;
+        if constexpr (kInt) op[i] = 0;
+        else reinterpret_cast<uint16_t*>(op)[i] = 0;
+      }
+    }
+    rows_sync<kRevisit>();  // every member's rows and scales are in place
+  };
+#if !defined(REPRO_MUTANT_UNGUARDED_ROTATE)
+  rotate_rows();
+#endif
 
   // ---- contract the operand with this block's run of column tiles
   Acc* red = reinterpret_cast<Acc*>(work);
   float rowacc = 0.0f;  // ABFT: thread i < BM's running sum of row i
   int item = 0;
+#if defined(REPRO_MUTANT_UNGUARDED_ROTATE)
+  // M1: the row block is rotated and quantized again before every tile.
+  // Every member walks tiles_per_block tiles, real or not, so the cluster's
+  // barriers inside rotate_rows stay matched.
+  for (int t = t0; t < t0 + tiles_per_block; ++t) {
+    rotate_rows();
+    if (t >= t1) continue;
+#else
   for (int t = t0; t < t1; ++t) {
+#endif
     w.j = t * kBN + cq * 4;
     Acc acc[BM][4];
 #pragma unroll
@@ -551,7 +591,9 @@ __device__ __forceinline__ void quant_dot_block(const T* x, const uint8_t* wq, c
       if constexpr (kStreamed) {
         if (item + kStages - 1 < items) fetch(item + kStages - 1);
         cp_async_commit();
+#if !defined(REPRO_MUTANT_DANGLING_DMA)
         cp_async_wait<kStages - 1>();
+#endif
         const uint32_t* stage = ring + (size_t)(item % kStages) * kStepRows * kThreads;
 #pragma unroll
         for (int u = 0; u < kStepRows; ++u) wv[u] = stage[u * kThreads + threadIdx.x];
@@ -602,7 +644,9 @@ __device__ __forceinline__ void quant_dot_block(const T* x, const uint8_t* wq, c
       }
     }
   }
+#if !defined(REPRO_MUTANT_DANGLING_DMA)
   if constexpr (kStreamed) cp_async_wait<0>();  // only empty groups remain
+#endif
 
   if constexpr (kAbft) {
     // ---- the residual: every block of the row block writes its row sums,
@@ -839,21 +883,152 @@ int launch_checked(const void* x, const void* wq, const void* sw, void* out, lon
   }
 }
 
-// The launch shape a call would get: rows per block (0 = does not fit),
-// dynamic shared memory bytes, grid size. For the wrappers' reports.
-inline int launch_shape(long long m, int n, int d, int experts, int schedule, int block_n,
-                        int mode, bool abft, int* bm, long long* smem, long long* blocks) {
+// The launch geometry of a call (the wrappers' launch_shape and the
+// linter's rotate-once rule): out = {rows per block, dynamic shared bytes,
+// row blocks, column splits, tiles per block, cluster size (1 under
+// revisit)}. Nonzero when it does not fit.
+inline int launch_grid(long long m, int n, int d, int experts, int schedule, int block_n,
+                       int mode, bool abft, long long* out) {
   const bool is_int = mode == quant::kInt8;
   const bool streamed = schedule == kStreamedSchedule;
-  *bm = pick_bm(m, n, is_int, streamed, abft);
-  *smem = *bm ? (long long)smem_bytes(n, *bm, is_int, streamed, abft) : 0;
-  *blocks = 0;
-  if (*bm == 0) return 1;
+  const int bm = pick_bm(m, n, is_int, streamed, abft);
+  if (bm == 0) return 1;
   if (schedule == kRevisitSchedule && (block_n <= 0 || block_n % kBN != 0)) return 1;
-  const Grid g = grid_for(m, d, *bm, (size_t)*smem, experts,
-                          schedule == kRevisitSchedule ? block_n : 0);
-  *blocks = g.row_blocks * g.splits * experts;
+  const size_t smem = smem_bytes(n, bm, is_int, streamed, abft);
+  const Grid g = grid_for(m, d, bm, smem, experts, schedule == kRevisitSchedule ? block_n : 0);
+  out[0] = bm;
+  out[1] = (long long)smem;
+  out[2] = g.row_blocks;
+  out[3] = g.splits;
+  out[4] = g.tpb;
+  out[5] = schedule == kRevisitSchedule ? 1 : g.csize;
   return 0;
 }
 
+// The kernel function of one instantiation, and of a call's (rows per block
+// bm, schedule, mode), for cudaFuncGetAttributes.
+template <typename T, int BM, bool kInt, bool kStreamed, bool kExperts, bool kAbft,
+          bool kRevisit>
+const void* kernel_ptr() {
+  if constexpr (kExperts)
+    return reinterpret_cast<const void*>(quant_dot_experts_kernel<T, BM, kInt, kStreamed, kAbft>);
+  else
+    return reinterpret_cast<const void*>(
+        quant_dot_kernel<T, BM, kInt, kStreamed, kAbft, kRevisit>);
+}
+
+template <typename T, bool kInt, bool kStreamed, bool kExperts, bool kAbft, bool kRevisit>
+const void* kernel_for_bm(int bm) {
+  switch (bm) {
+    case 16: return kernel_ptr<T, 16, kInt, kStreamed, kExperts, kAbft, kRevisit>();
+    case 8: return kernel_ptr<T, 8, kInt, kStreamed, kExperts, kAbft, kRevisit>();
+    case 4: return kernel_ptr<T, 4, kInt, kStreamed, kExperts, kAbft, kRevisit>();
+    case 2: return kernel_ptr<T, 2, kInt, kStreamed, kExperts, kAbft, kRevisit>();
+    case 1: return kernel_ptr<T, 1, kInt, kStreamed, kExperts, kAbft, kRevisit>();
+    default: return nullptr;
+  }
+}
+
+template <typename T, bool kExperts, bool kAbft>
+const void* kernel_for_io(int bm, int schedule, int mode) {
+  const bool is_int = mode == quant::kInt8;
+  if (schedule == kRevisitSchedule) {
+    if constexpr (kExperts) {
+      return nullptr;
+    } else {
+      return is_int ? kernel_for_bm<T, true, false, false, kAbft, true>(bm)
+                    : kernel_for_bm<T, false, false, false, kAbft, true>(bm);
+    }
+  }
+  if (schedule == kStreamedSchedule)
+    return is_int ? kernel_for_bm<T, true, true, kExperts, kAbft, false>(bm)
+                  : kernel_for_bm<T, false, true, kExperts, kAbft, false>(bm);
+  return is_int ? kernel_for_bm<T, true, false, kExperts, kAbft, false>(bm)
+                : kernel_for_bm<T, false, false, kExperts, kAbft, false>(bm);
+}
+
+// cudaFuncGetAttributes of f into out = {bm, static shared bytes, the
+// largest dynamic shared memory it may take (what its last launch set),
+// registers per thread, local bytes per thread}.
+inline int func_attributes(const void* f, int bm, long long* out) {
+  if (!f) return (int)cudaErrorInvalidValue;
+  cudaFuncAttributes a;
+  const cudaError_t e = cudaFuncGetAttributes(&a, f);
+  if (e != cudaSuccess) return (int)e;
+  out[0] = bm;
+  out[1] = (long long)a.sharedSizeBytes;
+  out[2] = a.maxDynamicSharedSizeBytes;
+  out[3] = a.numRegs;
+  out[4] = (long long)a.localSizeBytes;
+  return 0;
+}
+
+// The attributes of the instantiation a call of m rows launches.
+template <bool kExperts, bool kAbft>
+int kernel_attributes(long long m, int n, int schedule, int io, int mode, long long* out) {
+  if (mode < quant::kInt8 || mode > quant::kE5M2 || schedule < kRotateOnce ||
+      schedule > kRevisitSchedule)
+    return (int)cudaErrorInvalidValue;
+  const int bm = pick_bm(m, n, mode == quant::kInt8, schedule == kStreamedSchedule, kAbft);
+  switch (io) {
+    case hadacore::kF32:
+      return func_attributes(kernel_for_io<float, kExperts, kAbft>(bm, schedule, mode), bm, out);
+    case hadacore::kBF16:
+      return func_attributes(kernel_for_io<__nv_bfloat16, kExperts, kAbft>(bm, schedule, mode),
+                             bm, out);
+    case hadacore::kF16:
+      return func_attributes(kernel_for_io<__half, kExperts, kAbft>(bm, schedule, mode), bm, out);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+#if defined(REPRO_COUNT_ROTATIONS)
+// The first `rows` rotation counters into host memory, and the count of
+// rotations of rows past the array.
+inline int rotation_counts(unsigned int* host, long long rows, unsigned int* lost) {
+  if (rows < 0 || rows > kCountRows) return (int)cudaErrorInvalidValue;
+  cudaError_t e = cudaDeviceSynchronize();
+  if (e == cudaSuccess && rows > 0)
+    e = cudaMemcpyFromSymbol(host, g_rotations, (size_t)rows * sizeof(unsigned int));
+  if (e == cudaSuccess) e = cudaMemcpyFromSymbol(lost, g_rotations_lost, sizeof(unsigned int));
+  return (int)e;
+}
+
+// Every counter to 0.
+inline int rotation_reset() {
+  void* p = nullptr;
+  cudaError_t e = cudaDeviceSynchronize();
+  if (e == cudaSuccess) e = cudaGetSymbolAddress(&p, g_rotations);
+  if (e == cudaSuccess) e = cudaMemset(p, 0, sizeof(g_rotations));
+  if (e == cudaSuccess) e = cudaGetSymbolAddress(&p, g_rotations_lost);
+  if (e == cudaSuccess) e = cudaMemset(p, 0, sizeof(unsigned int));
+  if (e == cudaSuccess) e = cudaDeviceSynchronize();
+  return (int)e;
+}
+#define QUANT_DOT_COUNT_EXPORTS(prefix)                                                     \
+  extern "C" int prefix##_rotations(unsigned int* host, long long rows, unsigned int* lost) { \
+    return rotation_counts(host, rows, lost);                                               \
+  }                                                                                         \
+  extern "C" int prefix##_rotations_reset() { return rotation_reset(); }
+#else
+#define QUANT_DOT_COUNT_EXPORTS(prefix)
+#endif
+
 }  // namespace
+
+// The queries of one source's kernels: the launch geometry of a call
+// (experts: the expert count, m the rows of one expert; schedule 0
+// rotate-once, 1 streamed, 2 revisit), and for the linter
+// (repro_torch/analysis) the attributes of the instantiation it launches
+// and, in the builds with REPRO_COUNT_ROTATIONS, the rotation counters.
+#define QUANT_DOT_LINT_EXPORTS(prefix, kExperts, kAbft)                                      \
+  extern "C" int prefix##_grid(long long m, int n, int d, int experts, int schedule,         \
+                               int block_n, int mode, long long* out) {                      \
+    return launch_grid(m, n, d, (kExperts) ? experts : 1, schedule, block_n, mode, (kAbft),  \
+                       out);                                                                 \
+  }                                                                                          \
+  extern "C" int prefix##_attributes(long long m, int n, int schedule, int io, int mode,     \
+                                     long long* out) {                                       \
+    return kernel_attributes<(kExperts), (kAbft)>(m, n, schedule, io, mode, out);            \
+  }                                                                                          \
+  QUANT_DOT_COUNT_EXPORTS(prefix)

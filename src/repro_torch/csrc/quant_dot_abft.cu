@@ -21,7 +21,7 @@ extern "C" int quant_dot_abft_launch(const void* x, const void* wq, const void* 
                                      cd, scale, mode, ab, stream);
 }
 
-extern "C" int quant_dot_abft_shape(long long m, int n, int d, int schedule, int block_n,
-                                    int mode, int* bm, long long* smem, long long* blocks) {
-  return launch_shape(m, n, d, 1, schedule, block_n, mode, true, bm, smem, blocks);
-}
+// The launch geometry and the linter's queries (quant_dot.cuh): *_grid,
+// *_attributes and, built with REPRO_COUNT_ROTATIONS, *_rotations and
+// *_rotations_reset.
+QUANT_DOT_LINT_EXPORTS(quant_dot_abft, false, true)

@@ -17,8 +17,7 @@ extern "C" int quant_dot_experts_launch(const void* x, const void* wq, const voi
                                      io, cd, scale, mode, Abft{}, stream);
 }
 
-// The launch shape a call over `experts` experts of m rows each would get.
-extern "C" int quant_dot_experts_shape(long long m, int n, int d, int experts, int streamed,
-                                       int mode, int* bm, long long* smem, long long* blocks) {
-  return launch_shape(m, n, d, experts, streamed, 0, mode, false, bm, smem, blocks);
-}
+// The launch geometry and the linter's queries (quant_dot.cuh): *_grid,
+// *_attributes and, built with REPRO_COUNT_ROTATIONS, *_rotations and
+// *_rotations_reset.
+QUANT_DOT_LINT_EXPORTS(quant_dot_experts, true, false)

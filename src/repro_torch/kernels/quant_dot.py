@@ -67,9 +67,17 @@ then ``acc * s * sw`` in that order.
 ``revisit`` is the reference's A/B baseline for rotate-once: a dense call
 runs K8 (K7a-rv under ABFT) on the card and the plain version on the CPU;
 an expert call runs rotate-once, as the reference's expert grid does.
+
+For the kernel-contract linter (``repro_torch.analysis``): inside
+``counting_rotations()`` every wrapper launches the same kernels from their
+rotation-counting builds (``build.counting``; the same outputs, bitwise),
+whose per-row counters ``rotation_counts`` reads; ``launch_grid`` gives a
+call's whole launch geometry and ``kernel_attributes`` the
+``cudaFuncGetAttributes`` of the instantiation it launches.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import os
 
@@ -88,7 +96,8 @@ __all__ = ["epilogue_dot", "experts_epilogue_dot", "quant_dot",
            "quant_dot_abft_revisit_cuda",
            "quant_dot_experts_abft_cuda", "quant_dot_experts_abft_streamed_cuda",
            "quant_dot_abft_plain", "quant_dot_experts_abft_plain",
-           "xla_quant_dot_resid", "kernel_fits", "launch_shape",
+           "xla_quant_dot_resid", "kernel_fits", "launch_shape", "launch_grid",
+           "kernel_attributes", "counting_rotations", "rotation_counts", "counting_lib",
            "SCHEDULE_ENV_VAR", "SCHEDULES", "REVISIT_BLOCK_N"]
 
 SCHEDULE_ENV_VAR = "REPRO_QUANT_DOT_SCHEDULE"
@@ -230,6 +239,33 @@ def kernel_fits(n: int, mode: str, schedule: str = "rotate_once",
 
 _PTR = ctypes.c_void_p
 _INT = ctypes.c_int
+_LL = ctypes.c_longlong
+# True while counting_rotations() is active: the wrappers load the
+# rotation-counting builds
+_COUNTING = [False]
+
+
+@contextlib.contextmanager
+def counting_rotations():
+    """Launch the kernels from their rotation-counting builds while the
+    context is active (the linter's rotate-once evidence)."""
+    prev = _COUNTING[0]
+    _COUNTING[0] = True
+    try:
+        yield
+    finally:
+        _COUNTING[0] = prev
+
+
+def _lint_queries(lib, stem: str) -> None:
+    """argtypes of the linter's queries of ``lib`` (``quant_dot.cuh``)."""
+    grid = getattr(lib, f"{stem}_grid")
+    if grid.argtypes is None:
+        grid.argtypes = [_LL, _INT, _INT, _INT, _INT, _INT, _INT, ctypes.POINTER(_LL)]
+        grid.restype = _INT
+        attrs = getattr(lib, f"{stem}_attributes")
+        attrs.argtypes = [_LL, _INT, _INT, _INT, _INT, ctypes.POINTER(_LL)]
+        attrs.restype = _INT
 
 
 def _lib(experts: bool, abft: bool = False):
@@ -244,7 +280,7 @@ def _lib(experts: bool, abft: bool = False):
     from repro_torch.kernels import build
 
     stem = ("quant_dot_experts" if experts else "quant_dot") + ("_abft" if abft else "")
-    lib = build.load(stem)
+    lib = build.load_target(build.counting(stem)) if _COUNTING[0] else build.load(stem)
     fn = getattr(lib, f"{stem}_launch")
     if fn.argtypes is None:
         # experts: E, c, schedule; dense: schedule, block_n
@@ -252,12 +288,7 @@ def _lib(experts: bool, abft: bool = False):
         fn.argtypes = ([_PTR] * (8 if abft else 4) + [ctypes.c_longlong, _INT, _INT] + extra
                        + [_INT] * 3 + [ctypes.c_float, _INT, _PTR])
         fn.restype = _INT
-        shape = getattr(lib, f"{stem}_shape")
-        # experts: E, schedule; dense: schedule, block_n; then the mode
-        shape.argtypes = ([ctypes.c_longlong] + [_INT] * 5
-                          + [ctypes.POINTER(_INT), ctypes.POINTER(ctypes.c_longlong),
-                             ctypes.POINTER(ctypes.c_longlong)])
-        shape.restype = _INT
+        _lint_queries(lib, stem)
     return lib, stem
 
 
@@ -268,17 +299,78 @@ def launch_shape(m: int, n: int, d: int, mode: str, experts: int = 0,
     over ``experts`` experts of m rows each (0: the dense kernels), as the
     kernels' launcher decides them (builds the kernels); ``abft`` asks for
     the checksum-verified twin's, ``block_n`` is revisit's weight tile."""
+    g = launch_grid(m, n, d, mode, experts, schedule, abft, block_n)
+    return g["bm"], g["smem"], g["row_blocks"] * g["splits"] * max(experts, 1)
+
+
+def launch_grid(m: int, n: int, d: int, mode: str, experts: int = 0,
+                schedule: str = "rotate_once", abft: bool = False,
+                block_n: int = REVISIT_BLOCK_N) -> dict:
+    """A call's whole launch geometry, as the launcher decides it: rows
+    per block ``bm``, dynamic shared bytes ``smem``, ``row_blocks``,
+    column ``splits``, ``tiles_per_block`` (of 32 columns) and the
+    thread-block ``cluster`` size (1 under revisit, which runs no
+    cluster). An expert call under revisit runs rotate-once, as its
+    dispatch does."""
     from repro_torch.kernels.fused_quant import MODE_CODES
 
-    bm, smem, blocks = ctypes.c_int(), ctypes.c_longlong(), ctypes.c_longlong()
+    schedule = _resolve_schedule(schedule, experts=bool(experts))
     lib, stem = _lib(bool(experts), abft)
-    if experts:
-        lead = (m, n, d, experts, int(schedule == "streamed"))
-    else:
-        lead = (m, n, d, _SCHEDULE_CODES[schedule], block_n)
-    getattr(lib, f"{stem}_shape")(*lead, MODE_CODES[mode], ctypes.byref(bm),
-                                  ctypes.byref(smem), ctypes.byref(blocks))
-    return bm.value, smem.value, blocks.value
+    out = (_LL * 6)()
+    rc = getattr(lib, f"{stem}_grid")(m, n, d, max(experts, 1), _SCHEDULE_CODES[schedule],
+                                      block_n, MODE_CODES[mode], out)
+    if rc != 0:
+        raise ValueError(f"no launch of {stem} fits m={m} n={n} d={d} {mode} {schedule}")
+    return dict(zip(("bm", "smem", "row_blocks", "splits", "tiles_per_block", "cluster"),
+                    list(out)))
+
+
+def kernel_attributes(m: int, n: int, mode: str, io_dtype, experts: bool = False,
+                      schedule: str = "rotate_once", abft: bool = False) -> dict:
+    """``cudaFuncGetAttributes`` of the instantiation a call of m rows (per
+    expert) launches, from the library the wrappers load now (the counting
+    build inside ``counting_rotations``): ``bm``, ``static_smem``,
+    ``max_dynamic_smem`` (what its last launch set), ``regs``, ``local``."""
+    from repro_torch.kernels.fused_quant import MODE_CODES
+    from repro_torch.kernels.hadacore import DTYPE_CODES
+
+    lib, stem = _lib(experts, abft)
+    out = (_LL * 5)()
+    rc = getattr(lib, f"{stem}_attributes")(m, n, _SCHEDULE_CODES[schedule],
+                                            DTYPE_CODES[io_dtype], MODE_CODES[mode], out)
+    if rc != 0:
+        raise RuntimeError(f"cudaFuncGetAttributes of {stem} failed: CUDA error {rc}")
+    return dict(zip(("bm", "static_smem", "max_dynamic_smem", "regs", "local"), list(out)))
+
+
+def rotation_counts(lib, prefix: str, rows: int):
+    """The first ``rows`` per-row rotation counters of a counting build
+    ``lib`` (exports ``<prefix>_rotations``), as a numpy uint32 array, and
+    the rotations of rows past the counter array; then every counter back
+    to 0. Synchronizes the device."""
+    import numpy as np
+
+    fn = getattr(lib, f"{prefix}_rotations")
+    if fn.argtypes is None:
+        fn.argtypes = [_PTR, _LL, _PTR]
+        fn.restype = _INT
+        getattr(lib, f"{prefix}_rotations_reset").argtypes = []
+        getattr(lib, f"{prefix}_rotations_reset").restype = _INT
+    host = np.zeros(max(rows, 1), dtype=np.uint32)
+    lost = np.zeros(1, dtype=np.uint32)
+    rc = fn(host.ctypes.data, rows, lost.ctypes.data)
+    if rc == 0:
+        rc = getattr(lib, f"{prefix}_rotations_reset")()
+    if rc != 0:
+        raise RuntimeError(f"{prefix} rotation counters: CUDA error {rc}")
+    return host[:rows], int(lost[0])
+
+
+def counting_lib(experts: bool, abft: bool = False):
+    """(library, export prefix) of the counting build the wrappers launch
+    inside ``counting_rotations``."""
+    with counting_rotations():
+        return _lib(experts, abft)
 
 
 # ------------------------------------------------------------ the launches

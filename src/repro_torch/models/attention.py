@@ -65,17 +65,35 @@ def _rotate_quant_qk(cfg, q, k):
     return spec(q), spec(k)
 
 
+def _scores(q, k):
+    """f32 attention scores (B, KH, G, S, T) of q (B, S, KH, G, hd) and k
+    (B, T, KH, hd): exact products of the operands, f32 sums, as the
+    reference's ``preferred_element_type=f32`` einsum. On the card a 16-bit
+    pair goes into one batched product with an f32 result
+    (``torch.bmm(..., out_dtype=float32)``), so serving makes no f32 copy
+    of the KV cache (the linter's dtype-flow rule); the CPU has no bf16 x
+    bf16 -> f32 product, and that product has no derivative, so the CPU and
+    a pass that records gradients (training) widen both sides first."""
+    B, S, KH, G, hd = q.shape
+    T = k.shape[1]
+    grad = torch.is_grad_enabled() and (q.requires_grad or k.requires_grad)
+    if q.device.type == "cuda" and q.dtype in (torch.bfloat16, torch.float16) \
+            and k.dtype == q.dtype and not grad:
+        a = q.permute(0, 2, 3, 1, 4).reshape(B * KH, G * S, hd)
+        b = k.permute(0, 2, 3, 1).reshape(B * KH, hd, T)
+        return torch.bmm(a, b, out_dtype=torch.float32).reshape(B, KH, G, S, T)
+    return torch.einsum("bskgd,btkd->bkgst", q.to(torch.float32), k.to(torch.float32))
+
+
 def _sdpa(cfg, q, k, v, mask):
     """q: (B,S,H,hd), k/v: (B,T,KH,hd), mask: broadcastable (B,1,S,T)
     bool. Written out as the reference does: f32 scores (exact products of
-    the 16-bit operands, f32 sums), mask, f32 softmax, then the weights in
-    the value dtype."""
+    the 16-bit operands, f32 sums; ``_scores``), mask, f32 softmax, then
+    the weights in the value dtype."""
     B, S, H, hd = q.shape
     KH = k.shape[2]
     G = H // KH
-    qg = q.reshape(B, S, KH, G, hd)
-    scores = torch.einsum("bskgd,btkd->bkgst", qg.to(torch.float32),
-                          k.to(torch.float32))
+    scores = _scores(q.reshape(B, S, KH, G, hd), k)
     # the reference divides by sqrt(hd); XLA compiles that to a product
     # with the f32 reciprocal
     scores = scores * f32_reciprocal(math.sqrt(hd))
