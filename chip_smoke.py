@@ -20,10 +20,14 @@ Runs from the repository root and needs the repository's ``src/``. It
      128 experts, with every third expert's rows all zero: K6s equal to K6,
      K6 to K4 per expert, bitwise, zero rows exact zeros, K6 against its
      plain version (int8 and fp8_e4m3 for K5/K6/K6s) -- and times each at
-     the shapes its path gives it (CUDA events, and a profile for K4-K6s)
-     beside its bound, its plain version and one PyTorch library call where
-     there is one (for K4-K6s the contraction alone, per weight matrix:
-     ``torch._int_mm`` in int8, ``torch._scaled_mm`` in fp8_e4m3); K8 (the
+     the shapes its path gives it (CUDA events, and a profile for K4-K6s;
+     the quant_dot family through the port's timing harness,
+     ``repro_torch.bench.quant_dot``) beside its bound, its plain version
+     and one PyTorch library call where there is one (for K4-K6s the
+     contraction alone, per weight matrix: ``torch._int_mm`` in int8,
+     ``torch._scaled_mm`` in fp8_e4m3); K4 and K5 at 512 x 8192 -> 3072,
+     where a block runs whole rounds of tiles and then split ones, in the 3
+     modes (K5 bitwise K4, both under K4's rule); K8 (the
      revisit schedule: a (row block, 128-column tile) grid without
      clusters) bitwise to K4 and under K4's rule against its plain version
      at phi4-mini's 4 and 2048 (training) rows and maverick's 4 x 8192 ->
@@ -88,13 +92,15 @@ Runs from the repository root and needs the repository's ``src/``. It
      sites (a decode step and a prefill-insert) of the llama3-8b and
      phi4-mini engines the model phases served with: the clean run must
      exit 0, printing each site's launches, rotations per row against the
-     launch geometry and shared-memory readings; ``--mutation`` must exit
+     launch geometry and shared-memory readings; every instantiation of the
+     four quant_dot sources and of M2 must contract on the tensor cores
+     (``mma.sync`` and no ``dp4a`` in its PTX, counts printed per kernel);
+     ``--mutation`` must exit
      non-zero with M1 (K4 re-rotating before every tile) flagged by the
-     rotate-once rule and M2 (K5 without its cp.async waits) by the DMA
+     rotate-once rule and M2 (K5 without its ring's final drain) by the DMA
      rule, their launches counted from 0 just before; M1 bitwise K4 in int8
-     and fp8_e4m3 and timed beside it, M2 run beside K5 (its differing
-     elements printed); both held against their plain versions (K4's and
-     K5's) under the K4 rule;
+     and fp8_e4m3 and M2 bitwise K5 in fp8_e4m3, each timed beside its twin
+     and held against its plain version (its twin's) under the K4 rule;
   9. rotation phase (``rotation_phase``): llama3-8b at full width, random
      bf16 weights, ``fuse_down_proj_rotations`` through K1 (one grouped
      launch per layer), then the fused model's 64-token prefill with the
@@ -121,10 +127,6 @@ import numpy as np
 import torch
 
 SLOTS, PREFILL_LEN, MAX_LEN = 4, 64, 256   # the serving run's engine
-HBM_BYTES_PER_S = 3.35e12          # H100 SXM HBM3
-F32_CUDA_CORE_OPS_PER_S = 67e12    # H100 SXM, f32 outside the tensor cores
-INT8_OPS_PER_S = 1979e12           # H100 SXM, dense int8 tensor cores
-FP8_OPS_PER_S = 1979e12            # H100 SXM, dense fp8 tensor cores
 MODES = ("int8", "fp8_e4m3", "fp8_e5m2")
 PHI4_DOWN = (8192, 3072)           # phi4-mini's down projection, n -> d
 MAVERICK_DOWN = (8192, 5120)       # llama4-maverick's down projections, n -> d
@@ -136,20 +138,6 @@ EPS = {torch.float32: 2.0 ** -23, torch.bfloat16: 2.0 ** -7,
 
 def fail(msg: str) -> None:
     raise AssertionError(msg)
-
-
-def cuda_time_ms(fn, iters: int = 200, warmup: int = 10) -> float:
-    """Mean time of ``fn()`` on the current stream, from CUDA events."""
-    for _ in range(warmup):
-        fn()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
 
 
 def k1_ulps(got: torch.Tensor, want: torch.Tensor, cd: torch.dtype) -> float:
@@ -192,6 +180,8 @@ def k2_excess(got: torch.Tensor, want: torch.Tensor, x: torch.Tensor, plan) -> f
 def kernel_phase(gen: torch.Generator):
     """Build-free check and timing of K1 and K2 (the build happened
     before). Returns the two kernels' entries of the JSON line."""
+    from repro_torch.bench.quant_dot import (HBM_BYTES_PER_S, INT8_OPS_PER_S, bound,
+                                             cuda_time_ms, device_ms)
     from repro_torch.core.api import QuantEpilogue, hadamard, plan_for
     from repro_torch.kernels.fused_quant import fused_dequant, fused_dequant_plain
     from repro_torch.kernels.hadacore import transform, transform_plain
@@ -278,12 +268,9 @@ def kernel_phase(gen: torch.Generator):
         ms = cuda_time_ms(run)
         plain_ms = cuda_time_ms(plain, iters=50)
         library_ms = cuda_time_ms(library) if library else None
-        library_dev = _device_ms(library) if library else None
-        nbytes = 2 * rows * n * IO_BYTES[torch.bfloat16]
-        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-        t_ops = ops / F32_CUDA_CORE_OPS_PER_S * 1e3
-        bound_ms = max(t_bytes, t_ops)
-        bound_by = "bytes" if t_bytes >= t_ops else "operations"
+        library_dev = device_ms(library) if library else None
+        bound_ms, bound_by = bound(2 * rows * n * IO_BYTES[torch.bfloat16], 0, ops,
+                                   INT8_OPS_PER_S)
         lib = (f"{library_ms:.5f} ms (events) {_dev(library_dev)} (device)"
                if library_ms is not None else "none")
         print(f"{kern} {site:18s} ({rows} x {n}): kernel {ms:.5f} ms, plain "
@@ -405,18 +392,103 @@ def hold_k3_k4(gen) -> None:
                            mode, kind == "exact")
 
 
+
+def hold_mixed_rounds(seed: int) -> None:
+    """K4 and K5 at 512 x 8192 -> 3072 (phi4-mini's down projection at a
+    prefill or training size), where each block runs whole rounds of 16
+    tiles and then split rounds (the launcher's geometry, read and checked
+    here): K5 bitwise K4, and K4 under K4's rule against its plain version,
+    in the 3 modes on both kinds of input. No other hold has both kinds of
+    round in one block. Its own generator leaves the later phases' draws as
+    they were."""
+    from repro_torch.core.api import QuantEpilogue, plan_for
+    from repro_torch.core.wquant import quantize_weight
+    from repro_torch.kernels.hadacore import transform_plain
+    from repro_torch.kernels.quant_dot import (epilogue_dot, launch_grid, quant_dot,
+                                               quant_dot_plain)
+
+    gen = torch.Generator(device="cuda").manual_seed(seed + 17)
+    (n, d), m = PHI4_DOWN, 512
+    print(f"-- kernel phase: K4 and K5 at {m} x {n} -> {d}, whole rounds then split rounds")
+    cpu = torch.Generator().manual_seed(2)
+    w = (torch.randn(n, d, generator=cpu) / math.sqrt(n)).to("cuda", torch.bfloat16)
+    for mode in MODES:
+        qt = quantize_weight(w, mode)
+        plan = plan_for(n, dtype=torch.bfloat16, backend="cuda",
+                        device_type="cuda", epilogue=QuantEpilogue(mode))
+        for sched in ("rotate_once", "streamed"):
+            g = launch_grid(m, n, d, mode, 0, sched)
+            whole, rest = divmod(g["tiles_per_block"], 16)
+            print(f"{sched} {mode}: {g['row_blocks']} x {g['splits']} blocks of {g['bm']} "
+                  f"rows, {whole} whole and {rest} split rounds each")
+            if not (whole and rest):
+                fail(f"{m} x {n} -> {d} {mode} {sched}: not a mixed shape {g}")
+        for kind in ("exact", "gaussian"):
+            x = _k34_input(gen, m, n, kind)
+            got = quant_dot(x, qt.q, qt.scale, plan)
+            streamed = quant_dot(x, qt.q, qt.scale, plan, "streamed")
+            torch.cuda.synchronize()
+            differ = int((got.view(torch.int16) != streamed.view(torch.int16)).sum())
+            print(f"K5 {m} x {n} -> {d} {mode:9s} {kind:8s}: {differ} elements differ from K4")
+            if differ:
+                fail(f"K5 {m} x {n} -> {d} {mode} {kind}: not bitwise K4")
+            y1, (q1, s1) = _k1_epilogue(x, plan)
+            agree = _same_rows(y1, transform_plain(x, plan))
+            from_k1 = epilogue_dot(q1, s1, qt.q, qt.scale, mode, torch.bfloat16)
+            _hold_rows(f"K4 {m} x {n} -> {d} {mode:9s} {kind:8s}", got,
+                       quant_dot_plain(x, qt.q, qt.scale, plan), from_k1, agree,
+                       mode, kind == "exact")
+
+def _record_line(tag: str, rec: dict) -> str:
+    """One record of the quant_dot timing harness, for print."""
+    lib = (f"{rec['library']} {rec['library_ms']:.5f} ms (events) "
+           f"{_dev(rec['library_device_ms'])} (device)" if rec["library"] else "library none")
+    g = rec["grid"]
+    return (f"{tag}: kernel {rec['ms']:.5f} ms (events) {_dev(rec['device_ms'])} (profile), "
+            f"plain {rec['plain_ms']:.5f} ms, {lib}, bound {rec['bound_ms']:.6f} ms "
+            f"({rec['bound_by']}), max abs err {rec['max_abs_err']:g}; launch: "
+            f"{g['row_blocks']} x {g['splits']} blocks of {g['bm']} rows, "
+            f"{g['tiles_per_block']} tiles each, cluster {g['cluster']}, {g['smem']} B shared")
+
+
+def _measure(case, gen, qt, cw, x) -> dict:
+    """``repro_torch.bench.quant_dot.measure`` of one case, with the launch
+    geometry it read from the launcher held to the size rule's Python
+    mirror (``kernels.quant_dot._grid_plan``) on this card's SM count."""
+    from repro_torch.bench.quant_dot import KERNELS, measure
+    from repro_torch.kernels.quant_dot import _grid_plan
+
+    rec = measure(case, gen, qt, cw, x)
+    sched, _, abft = KERNELS[case.kernel]
+    want = _grid_plan(case.rows, case.n, case.d, case.mode, case.experts, sched, abft,
+                      sms=torch.cuda.get_device_properties(0).multi_processor_count)
+    if rec["grid"] != want:
+        fail(f"{case}: the launcher's geometry {rec['grid']} is not the size rule's {want}")
+    return rec
+
+
+def _entry(rec: dict) -> dict:
+    """A kernel's entry of the JSON line from one harness record."""
+    return {k: rec[k] for k in ("mode", "max_abs_err", "ms", "plain_ms", "bound_ms",
+                                "bound_by", "library_ms")}
+
+
 def time_k3_k4(gen) -> dict:
-    """K3 and K4 at phi4-mini's shapes, CUDA events, beside their bounds,
-    their plain versions and (K4) ``torch._int_mm`` on the already-quantized
-    operand: the contraction alone, since no single PyTorch call computes
-    rotate + quantize + GEMM. K3 has no library counterpart. The JSON
-    entries take the decode shape, with the largest |kernel - plain| there
-    (K3: in q's grid units)."""
+    """K3 and K4 at phi4-mini's shapes. K4 through the quant_dot timing
+    harness (``repro_torch.bench.quant_dot.measure``: CUDA events and the
+    profiler, beside its bound, its plain version and ``torch._int_mm`` on
+    the already-quantized operand -- the contraction alone, since no single
+    PyTorch call computes rotate + quantize + GEMM); K3 with the harness's
+    timers (no library counterpart). The JSON entries take the decode
+    shape, with the largest |kernel - plain| there (K3: in q's grid units).
+    The draws from ``gen`` are the earlier script's, so the phases after
+    this one see the same inputs."""
+    from repro_torch.bench.quant_dot import (INT8_OPS_PER_S, Case, bound, cuda_time_ms,
+                                             profile_ms)
     from repro_torch.core.api import QuantEpilogue, plan_for
     from repro_torch.core.wquant import quantize_weight
     from repro_torch.kernels.fused_quant import fused, fused_plain
-    from repro_torch.kernels.quant_dot import launch_shape, quant_dot, quant_dot_plain
-    from repro_torch.kernels.registry import _quantize_rows
+    from repro_torch.kernels.quant_dot import quant_dot
 
     n, d = PHI4_DOWN
     print("-- kernel phase: K3 and K4 times at phi4-mini's down projection "
@@ -429,30 +501,9 @@ def time_k3_k4(gen) -> dict:
                     epilogue=QuantEpilogue("int8"))
     for m in (SLOTS, PREFILL_LEN):
         x = (torch.randn(m, n, generator=gen, device="cuda") * 3).to(torch.bfloat16)
-        # K4
-        run = lambda: quant_dot(x, qt.q, qt.scale, plan)             # noqa: E731
-        plain = lambda: quant_dot_plain(x, qt.q, qt.scale, plan)     # noqa: E731
-        q, _ = _quantize_rows(x.float(), "int8")
-        a = torch.zeros(max(32, m), n, dtype=torch.int8, device="cuda")
-        a[:m] = q.to(torch.int8)
-        library = lambda: torch._int_mm(a, qt.q)                     # noqa: E731
-        err = float((run().float() - plain().float()).abs().max())
-        ms, plain_ms, lib_ms = (cuda_time_ms(run), cuda_time_ms(plain, iters=50),
-                                cuda_time_ms(library))
-        nbytes = m * n * 2 + n * d + d * 4 + m * d * 2
-        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-        t_ops = (2 * m * n * d / INT8_OPS_PER_S
-                 + m * n * (math.log2(n) + 6) / F32_CUDA_CORE_OPS_PER_S) * 1e3
-        bound = max(t_bytes, t_ops)
-        by = "bytes" if t_bytes >= t_ops else "operations"
-        bm, smem, blocks = launch_shape(m, n, d, "int8")
-        print(f"K4 {m:2d} x {n} -> {d}: max abs err {err:g}, kernel {ms:.5f} ms, plain {plain_ms:.5f} ms, "
-              f"torch._int_mm (contraction only) {lib_ms:.5f} ms, bound {bound:.6f} ms "
-              f"({by}); launch: {blocks} blocks of {bm} rows, {smem} B shared")
-        if "K4" not in entries:   # the decode shape: the path's most frequent
-            entries["K4"] = {"mode": "int8", "max_abs_err": err, "ms": ms,
-                             "plain_ms": plain_ms,
-                             "bound_ms": bound, "bound_by": by, "library_ms": lib_ms}
+        rec = _measure(Case("K4", "int8", m, n, d), gen, qt, None, x)
+        print(_record_line(f"K4 {m:2d} x {n} -> {d} int8", rec))
+        entries.setdefault("K4", _entry(rec))   # the decode shape: the path's most frequent
         # K3 on the same rows
         run = lambda: fused(x, plan)                                 # noqa: E731
         plain = lambda: fused_plain(x, plan)                         # noqa: E731
@@ -460,41 +511,22 @@ def time_k3_k4(gen) -> dict:
         err = max(float((q.float() - qp.float()).abs().max()),
                   float((sc - sp).abs().max()))
         ms, plain_ms = cuda_time_ms(run), cuda_time_ms(plain, iters=50)
-        dev_ms = _profile_ms(run, "fused_kernel")
-        nbytes = m * n * 2 + m * n + m * 4
-        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-        t_ops = m * n * (math.log2(n) + 6) / F32_CUDA_CORE_OPS_PER_S * 1e3
-        bound = max(t_bytes, t_ops)
-        by = "bytes" if t_bytes >= t_ops else "operations"
+        dev_ms = profile_ms(run, "fused_kernel")
+        bound_ms, by = bound(m * n * 2 + m * n + m * 4, 0, m * n * (math.log2(n) + 6),
+                             INT8_OPS_PER_S)
         print(f"K3 {m:2d} x {n}: max abs err {err:g}, kernel {ms:.5f} ms (events), "
               f"{_dev(dev_ms)} (profile), plain {plain_ms:.5f} ms, "
-              f"library none, bound {bound:.6f} ms ({by})")
+              f"library none, bound {bound_ms:.6f} ms ({by})")
         if "K3" not in entries:
             entries["K3"] = {"mode": "int8", "max_abs_err": err, "ms": ms,
                              "plain_ms": plain_ms,
-                             "bound_ms": bound, "bound_by": by, "library_ms": None}
+                             "bound_ms": bound_ms, "bound_by": by, "library_ms": None}
     # device throughput at a size where launch overhead does not dominate
     x = (torch.randn(1024, n, generator=gen, device="cuda") * 3).to(torch.bfloat16)
     ms = cuda_time_ms(lambda: quant_dot(x, qt.q, qt.scale, plan), iters=20)
     print(f"K4 1024 x {n} -> {d} int8 (not a path shape): {ms:.4f} ms, "
           f"{2 * 1024 * n * d / ms / 1e9:.1f} TOP/s")
     return entries
-
-
-def _expert_weights(gen, n: int, d: int, mode: str):
-    """(EXPERTS, n, d) expert weights ~ N(0, 1/n) in bf16, drawn and
-    quantized per (expert, out-channel) 8 experts at a time on the card."""
-    from repro_torch.core.wquant import QTensor, quantize_weight
-    from repro_torch.kernels.registry import QSPECS
-
-    q = torch.empty((EXPERTS, n, d), dtype=QSPECS[mode][1], device="cuda")
-    sc = torch.empty((EXPERTS, 1, d), dtype=torch.float32, device="cuda")
-    for i in range(0, EXPERTS, 8):
-        w = (torch.randn((8, n, d), generator=gen, device="cuda") / math.sqrt(n)).to(
-            torch.bfloat16)
-        qt = quantize_weight(w, mode)
-        q[i:i + 8], sc[i:i + 8] = qt.q, qt.scale
-    return QTensor(q, sc, mode)
 
 
 def _k1_epilogue(x2, plan):
@@ -543,6 +575,7 @@ def hold_k5_k6(gen) -> None:
     expert e equals K4 on expert e's rows and weight bitwise; the zero rows
     give exact zeros; and K6 follows the K4 rule against its plain
     version, which contracts one expert at a time."""
+    from repro_torch.bench.quant_dot import expert_weights
     from repro_torch.core.api import QuantEpilogue, plan_for
     from repro_torch.core.wquant import quantize_weight
     from repro_torch.kernels.hadacore import transform_plain
@@ -578,7 +611,7 @@ def hold_k5_k6(gen) -> None:
                            quant_dot_plain(x, qt.q, qt.scale, plan), from_k1, agree,
                            mode, kind == "exact")
         del w, qt
-        ex = _expert_weights(gen, n, d, mode)
+        ex = expert_weights(gen, n, d, mode)
         for bt in (SLOTS, 1):
             for kind in ("exact", "gaussian"):
                 x = _k34_input(gen, bt * EXPERTS, n, kind).view(bt, EXPERTS, 1, n)
@@ -608,37 +641,6 @@ def hold_k5_k6(gen) -> None:
         torch.cuda.empty_cache()
 
 
-def _bound(nbytes: float, int_ops: float, f32_ops: float, low_rate: float):
-    """(bound ms, 'bytes' or 'operations'): the larger of the bytes over
-    the HBM rate and the operations over their peak rates."""
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = (int_ops / low_rate + f32_ops / F32_CUDA_CORE_OPS_PER_S) * 1e3
-    return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
-
-
-def _kernel_times(fn, calls: int = 5):
-    """(kernel name, device microseconds) of every kernel that ``calls``
-    calls of ``fn`` launch, from ``torch.profiler``: empty when the capture
-    holds no device event (seen now and then late in a long run)."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
-    rows = []
-    for evt in prof.key_averages():
-        if evt.device_type == DeviceType.CUDA:
-            dev = getattr(evt, "self_device_time_total", None)
-            us = evt.self_cuda_time_total if dev is None else dev
-            if us > 0:
-                rows.append((evt.key, us))
-    return rows
-
-
 def _dev(ms) -> str:
     """A device time for print: 'not measured' where the profiler captured
     no matching device event, never 0."""
@@ -649,79 +651,16 @@ def _dev_ratio(a, b) -> str:
     return "not measured" if a is None or b is None else f"{a / b:.2f}x"
 
 
-def _profile_ms(fn, name: str, streamed: bool = False, abft: bool = False,
-                calls: int = 5, revisit: bool = False):
-    """Device time per call of the kernel ``name`` from ``torch.profiler``
-    over ``calls`` calls of ``fn``, or None when no device event of it was
-    captured. For the quant_dot kernels (template arguments T, BM, kInt,
-    kStreamed, kAbft, and for the dense kernel kRevisit) only the
-    instantiations of the schedule and the ABFT flag asked for count."""
-    total, matched = 0.0, False
-    for key, us in _kernel_times(fn, calls):
-        if f"{name}<" not in key:
-            continue
-        if name.startswith("quant_dot"):
-            args = key.split(f"{name}<", 1)[1].split(">", 1)[0].split(", ")
-            if (args[3] == "true") != streamed or (args[4] == "true") != abft:
-                continue
-            if len(args) > 5 and (args[5] == "true") != revisit:
-                continue
-        total, matched = total + us, True
-    return total / calls / 1e3 if matched else None
-
-
-def _device_ms(fn, calls: int = 5):
-    """Device time per call of ``fn`` from ``torch.profiler``: every kernel
-    it launches, summed (a library call may launch more than one); None
-    when the capture holds no device event."""
-    rows = _kernel_times(fn, calls)
-    return sum(us for _, us in rows) / calls / 1e3 if rows else None
-
-
-def _library_dot(x, wq, sw, mode: str, experts: bool):
-    """One PyTorch library call per weight matrix (per expert for the
-    expert form) that contracts the already-quantized rows of x with wq:
-    ``torch._int_mm`` for int8, ``torch._scaled_mm`` with row-wise scales
-    for fp8_e4m3. The contraction alone, since no PyTorch call rotates,
-    quantizes and contracts. Returns (call, its name)."""
-    from repro_torch.kernels.registry import QSPECS, _quantize_rows, cast_to
-
-    n = x.shape[-1]
-    m = x.shape[0]
-    E = wq.shape[0] if experts else 1
-    w = wq if experts else wq[None]
-    q, s = _quantize_rows(x.reshape(-1, n).float(), mode)
-    if mode == "int8":
-        per = max(32, m)      # _int_mm wants more than 16 rows
-        a = torch.zeros(E, per, n, dtype=torch.int8, device="cuda")
-        a[:, :m] = q.to(torch.int8).view(m, E, n).transpose(0, 1)
-        return (lambda: [torch._int_mm(a[e], w[e]) for e in range(E)]), "torch._int_mm"
-    per = -(-m // 16) * 16    # _scaled_mm wants rows in multiples of 16
-    a = torch.zeros(E, per, n, dtype=QSPECS[mode][1], device="cuda")
-    a[:, :m] = cast_to(q, QSPECS[mode][1]).view(m, E, n).transpose(0, 1)
-    sa = torch.ones(E, per, 1, device="cuda")
-    sa[:, :m] = s.view(m, E, 1).transpose(0, 1)
-    wt = w.transpose(1, 2).contiguous()     # column-major (n, d) per expert
-    sb = sw.reshape(E, 1, -1).contiguous()
-    return (lambda: [torch._scaled_mm(a[e], wt[e].t(), scale_a=sa[e], scale_b=sb[e],
-                                      out_dtype=torch.bfloat16)
-                     for e in range(E)]), "torch._scaled_mm"
-
-
 def time_k5_k6(gen) -> dict:
     """K4, K5, K6 and K6s at llama4-maverick's decode and prefill shapes,
     fp8_e4m3 (the path's mode) and int8, Gaussian rows in every expert (so
-    the whole weight is needed): CUDA events and a profile per kernel,
-    beside the bound, the plain version and one library contraction per
-    weight matrix on the already-quantized operand (``_library_dot``). The
-    JSON entries take the fp8_e4m3 decode shape, every field of an entry
-    from that run."""
-    from repro_torch.core.api import QuantEpilogue, plan_for
+    the whole weight is needed), through the quant_dot timing harness
+    (``repro_torch.bench.quant_dot.measure``): CUDA events and a profile per
+    kernel, beside the bound, the plain version and one library contraction
+    per weight matrix on the already-quantized operand. The JSON entries
+    take the fp8_e4m3 decode shape, every field of an entry from that run."""
+    from repro_torch.bench.quant_dot import Case, expert_weights
     from repro_torch.core.wquant import quantize_weight
-    from repro_torch.kernels.quant_dot import (launch_shape, quant_dot,
-                                               quant_dot_experts,
-                                               quant_dot_experts_plain,
-                                               quant_dot_plain)
 
     n, d = MAVERICK_DOWN
     print("-- kernel phase: K4, K5, K6 and K6s times at llama4-maverick's down "
@@ -729,53 +668,23 @@ def time_k5_k6(gen) -> dict:
           f"{PREFILL_LEN}; experts: {SLOTS} and 1 rows per expert, {EXPERTS} experts)")
     entries = {}
     for mode in ("int8", "fp8_e4m3"):
-        low = INT8_OPS_PER_S if mode == "int8" else FP8_OPS_PER_S
-        plan = plan_for(n, dtype=torch.bfloat16, backend="cuda", device_type="cuda",
-                        epilogue=QuantEpilogue(mode))
         qt = quantize_weight((torch.randn(n, d, generator=gen, device="cuda")
                               / math.sqrt(n)).to(torch.bfloat16), mode)
-        ex = _expert_weights(gen, n, d, mode)
-        cases = [("K4", "rotate_once", m) for m in (SLOTS, PREFILL_LEN)]
-        cases += [("K5", "streamed", m) for m in (SLOTS, PREFILL_LEN)]
-        cases += [("K6", "rotate_once", bt) for bt in (SLOTS, 1)]
-        cases += [("K6s", "streamed", bt) for bt in (SLOTS, 1)]
-        for kern, sched, m in cases:
+        ex = expert_weights(gen, n, d, mode)
+        cases = [("K4", m) for m in (SLOTS, PREFILL_LEN)]
+        cases += [("K5", m) for m in (SLOTS, PREFILL_LEN)]
+        cases += [("K6", bt) for bt in (SLOTS, 1)]
+        cases += [("K6s", bt) for bt in (SLOTS, 1)]
+        for kern, m in cases:
             experts = kern.startswith("K6")
             rows = m * EXPERTS if experts else m
             x = (torch.randn(rows, n, generator=gen, device="cuda") * 3).to(torch.bfloat16)
             if experts:
                 x = x.view(m, EXPERTS, 1, n)
-                run = lambda: quant_dot_experts(x, ex.q, ex.scale, plan, sched)  # noqa: E731
-                plain = lambda: quant_dot_experts_plain(x, ex.q, ex.scale, plan)  # noqa: E731
-                wbytes = ex.q.numel() + ex.scale.numel() * 4
-                key = "quant_dot_experts_kernel"
-            else:
-                run = lambda: quant_dot(x, qt.q, qt.scale, plan, sched)       # noqa: E731
-                plain = lambda: quant_dot_plain(x, qt.q, qt.scale, plan)      # noqa: E731
-                wbytes = qt.q.numel() + qt.scale.numel() * 4
-                key = "quant_dot_kernel"
-            err = float((run().float() - plain().float()).abs().max())
-            ms = cuda_time_ms(run, iters=20 if experts else 200)
-            dev_ms = _profile_ms(run, key, sched == "streamed")
-            plain_ms = cuda_time_ms(plain, iters=3 if experts else 20, warmup=1)
-            lib, lib_name = (_library_dot(x, ex.q, ex.scale, mode, True) if experts
-                              else _library_dot(x, qt.q, qt.scale, mode, False))
-            lib_ms = cuda_time_ms(lib, iters=10 if experts else 200)
-            lib_dev = _device_ms(lib)
-            del lib
-            bound, by = _bound(2 * rows * n + wbytes + 2 * rows * d, 2 * rows * n * d,
-                               rows * n * (math.log2(n) + 6), low)
-            bm, smem, blocks = launch_shape(m, n, d, mode, EXPERTS if experts else 0,
-                                            sched)
-            print(f"{kern:3s} {mode:8s} {tuple(x.shape)} -> {d}: max abs err {err:g}, "
-                  f"kernel {ms:.5f} ms (events), {_dev(dev_ms)} (profile), plain "
-                  f"{plain_ms:.5f} ms, {lib_name} {lib_ms:.5f} ms (events) {_dev(lib_dev)} "
-                  f"(device), bound {bound:.6f} ms ({by}); launch: {blocks} blocks of {bm} "
-                  f"rows, {smem} B shared")
+            rec = _measure(Case(kern, mode, m, n, d), gen, ex if experts else qt, None, x)
+            print(_record_line(f"{kern:3s} {mode:8s} {tuple(x.shape)} -> {d}", rec))
             if mode == "fp8_e4m3" and m == SLOTS:   # the decode shape, the path's mode
-                entries[kern] = {"mode": mode, "max_abs_err": err, "ms": ms,
-                                 "plain_ms": plain_ms, "bound_ms": bound,
-                                 "bound_by": by, "library_ms": lib_ms}
+                entries[kern] = _entry(rec)
         del ex, qt
         torch.cuda.empty_cache()
     entries.pop("K4")      # K4's entry is phi4-mini's (time_k3_k4)
@@ -887,6 +796,7 @@ def hold_abft_kernels(gen) -> tuple:
 
     Returns (the largest healthy |r| / tolerance, the largest |r -
     r_plain| / tolerance)."""
+    from repro_torch.bench.quant_dot import expert_weights
     from repro_torch.core.api import QuantEpilogue, plan_for
     from repro_torch.core.wquant import quantize_weight, weight_checksum
     from repro_torch.kernels.hadacore import transform_plain
@@ -906,7 +816,7 @@ def hold_abft_kernels(gen) -> tuple:
             plan = plan_for(n, dtype=torch.bfloat16, backend="cuda", device_type="cuda",
                             epilogue=QuantEpilogue(mode))
             if E:
-                qt = _expert_weights(gen, n, d, mode)
+                qt = expert_weights(gen, n, d, mode)
                 cw = weight_checksum(qt.q, qt.scale)
             else:
                 w = (torch.randn(n, d, generator=cpu) / math.sqrt(n)).to("cuda", torch.bfloat16)
@@ -996,36 +906,31 @@ def hold_abft_kernels(gen) -> tuple:
 
 def time_abft(gen) -> dict:
     """The ABFT twins beside their twins at the decode shapes of their
-    paths, in turns (twin, twin's ABFT, ABFT, twin) with CUDA events, and
-    the profiler: K7a-ro at phi4-mini (int8) and maverick's dense sites
+    paths, each through the quant_dot timing harness (CUDA events and the
+    profiler): K7a-ro at phi4-mini (int8) and maverick's dense sites
     (fp8_e4m3), K7a-s at maverick's dense sites, K7b and K7b-s at
-    maverick's experts (fp8_e4m3). The bound is the twin's bytes plus the
-    checksum read and the residual written; no PyTorch call computes the
-    product with its residual, so there is no library time: the overhead
-    against the twin stands in its place. Returns the JSON entries
-    (K7a-ro: phi4-mini's)."""
-    from repro_torch.core.api import QuantEpilogue, plan_for
+    maverick's experts (fp8_e4m3), each with its twin on the same rows. The
+    bound is the twin's bytes plus the checksum read and the residual
+    written; no PyTorch call computes the product with its residual, so
+    there is no library time: the device-time overhead against the twin
+    stands in its place. Returns the JSON entries (K7a-ro: phi4-mini's)."""
+    from repro_torch.bench.quant_dot import Case, expert_weights
     from repro_torch.core.wquant import quantize_weight, weight_checksum
-    from repro_torch.kernels.quant_dot import (quant_dot, quant_dot_abft_plain,
-                                               quant_dot_experts,
-                                               quant_dot_experts_abft_plain)
 
     print("-- kernel phase: ABFT twins' times beside their twins (decode shapes)")
     entries = {}
-    cases = [("K7a-ro", "K4", "int8", *PHI4_DOWN, 0, "rotate_once"),
-             ("K7a-ro", "K4", "fp8_e4m3", *MAVERICK_DOWN, 0, "rotate_once"),
-             ("K7a-s", "K5", "fp8_e4m3", *MAVERICK_DOWN, 0, "streamed"),
-             ("K7b", "K6", "fp8_e4m3", *MAVERICK_DOWN, EXPERTS, "rotate_once"),
-             ("K7b-s", "K6s", "fp8_e4m3", *MAVERICK_DOWN, EXPERTS, "streamed")]
+    cases = [("K7a-ro", "K4", "int8", *PHI4_DOWN, 0),
+             ("K7a-ro", "K4", "fp8_e4m3", *MAVERICK_DOWN, 0),
+             ("K7a-s", "K5", "fp8_e4m3", *MAVERICK_DOWN, 0),
+             ("K7b", "K6", "fp8_e4m3", *MAVERICK_DOWN, EXPERTS),
+             ("K7b-s", "K6s", "fp8_e4m3", *MAVERICK_DOWN, EXPERTS)]
     weights = {}
-    for name, twin, mode, n, d, E, sched in cases:
-        plan = plan_for(n, dtype=torch.bfloat16, backend="cuda", device_type="cuda",
-                        epilogue=QuantEpilogue(mode))
+    for name, twin, mode, n, d, E in cases:
         if (mode, n, d, E) not in weights:
             weights.clear()
             torch.cuda.empty_cache()
             if E:
-                qt = _expert_weights(gen, n, d, mode)
+                qt = expert_weights(gen, n, d, mode)
                 weights[(mode, n, d, E)] = (qt, weight_checksum(qt.q, qt.scale))
             else:
                 qt = quantize_weight((torch.randn(n, d, generator=gen, device="cuda")
@@ -1033,42 +938,16 @@ def time_abft(gen) -> dict:
                                      with_check=True)
                 weights[(mode, n, d, E)] = (qt, qt.check)
         qt, cw = weights[(mode, n, d, E)]
-        rows = SLOTS * max(E, 1)
-        x = (torch.randn(rows, n, generator=gen, device="cuda") * 3).to(torch.bfloat16)
+        x = (torch.randn(SLOTS * max(E, 1), n, generator=gen, device="cuda") * 3).to(
+            torch.bfloat16)
         if E:
             x = x.view(SLOTS, E, 1, n)
-            run = lambda: quant_dot_experts(x, qt.q, qt.scale, plan, sched, check=cw)  # noqa: E731
-            base = lambda: quant_dot_experts(x, qt.q, qt.scale, plan, sched)  # noqa: E731
-            plain = lambda: quant_dot_experts_abft_plain(x, qt.q, qt.scale, cw, plan)  # noqa: E731
-            key = "quant_dot_experts_kernel"
-        else:
-            run = lambda: quant_dot(x, qt.q, qt.scale, plan, sched, check=cw)  # noqa: E731
-            base = lambda: quant_dot(x, qt.q, qt.scale, plan, sched)  # noqa: E731
-            plain = lambda: quant_dot_abft_plain(x, qt.q, qt.scale, cw, plan)  # noqa: E731
-            key = "quant_dot_kernel"
-        (y, _), (yp, _) = run(), plain()
-        err = float((y.float() - yp.float()).abs().max())
-        streamed = sched == "streamed"
-        iters = 20 if E else 200
-        t_base, t_run = cuda_time_ms(base, iters=iters), cuda_time_ms(run, iters=iters)
-        t_run2, t_base2 = cuda_time_ms(run, iters=iters), cuda_time_ms(base, iters=iters)
-        d_base = _profile_ms(base, key, streamed, False)
-        d_run = _profile_ms(run, key, streamed, True)
-        plain_ms = cuda_time_ms(plain, iters=3 if E else 20, warmup=1)
-        low = INT8_OPS_PER_S if mode == "int8" else FP8_OPS_PER_S
-        wbytes = qt.q.numel() + qt.scale.numel() * 4 + cw.numel() * 4
-        bound, by = _bound(2 * rows * n + wbytes + 2 * rows * d + 4 * rows,
-                           2 * rows * n * d, rows * n * (math.log2(n) + 8), low)
-        ms = (t_run + t_run2) / 2
-        print(f"{name:6s} {mode:8s} {tuple(x.shape)} -> {d}: events {t_base:.5f} / "
-              f"{t_run:.5f} / {t_run2:.5f} / {t_base2:.5f} ms ({twin} / {name} / {name} / "
-              f"{twin}); profile {twin} {_dev(d_base)}, {name} {_dev(d_run)} "
-              f"({_dev_ratio(d_run, d_base)}); plain {plain_ms:.5f} ms; bound "
-              f"{bound:.6f} ms ({by}); library none; max abs err {err:g}")
-        if name not in entries:
-            entries[name] = {"mode": mode, "max_abs_err": err, "ms": ms,
-                             "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
-                             "library_ms": None}
+        base = _measure(Case(twin, mode, SLOTS, n, d), gen, qt, cw, x)
+        rec = _measure(Case(name, mode, SLOTS, n, d), gen, qt, cw, x)
+        print(_record_line(f"{twin:6s} {mode:8s} {tuple(x.shape)} -> {d}", base))
+        print(_record_line(f"{name:6s} {mode:8s} {tuple(x.shape)} -> {d}", rec)
+              + f"; device time over {twin} {_dev_ratio(rec['device_ms'], base['device_ms'])}")
+        entries.setdefault(name, _entry(rec))
     weights.clear()
     torch.cuda.empty_cache()
     return entries
@@ -1122,18 +1001,17 @@ def hold_k8(gen) -> None:
 
 def time_revisit(gen) -> dict:
     """The schedule A/B: K8 beside K4 at the revisit shapes, int8 and
-    fp8_e4m3, in turns (K4, K8, K8, K4) with CUDA events, and the profiler;
+    fp8_e4m3, both through the quant_dot timing harness on the same rows;
     the rotations each row block gets (K8: one per weight tile of 128
     columns; K4: one per cluster); the bound (the same work as K4's: the
     redundant rotations are not needed work), the plain version and the
-    library contraction (``_library_dot``). Then K7a-rv beside K8 at
-    phi4-mini's decode shape (int8; the ABFT revisit serving path). The
-    JSON entries: K8 at the training rows in int8 (the training path's
-    shape), K7a-rv at phi4-mini's decode shape."""
-    from repro_torch.core.api import QuantEpilogue, plan_for
+    library contraction. Then K7a-rv beside K8 at phi4-mini's decode shape
+    (int8; the ABFT revisit serving path). The JSON entries: K8 at the
+    training rows in int8 (the training path's shape), K7a-rv at
+    phi4-mini's decode shape."""
+    from repro_torch.bench.quant_dot import Case
     from repro_torch.core.wquant import quantize_weight
-    from repro_torch.kernels.quant_dot import (REVISIT_BLOCK_N, launch_shape, quant_dot,
-                                               quant_dot_abft_plain, quant_dot_plain)
+    from repro_torch.kernels.quant_dot import REVISIT_BLOCK_N
 
     print("-- kernel phase: schedule A/B, K8 (revisit) beside K4 (rotate-once)")
     entries = {}
@@ -1141,60 +1019,23 @@ def time_revisit(gen) -> dict:
         w = (torch.randn(n, d, generator=gen, device="cuda") / math.sqrt(n)).to(
             torch.bfloat16)
         for mode in ("int8", "fp8_e4m3"):
-            low = INT8_OPS_PER_S if mode == "int8" else FP8_OPS_PER_S
             qt = quantize_weight(w, mode, with_check=True)
-            plan = plan_for(n, dtype=torch.bfloat16, backend="cuda", device_type="cuda",
-                            epilogue=QuantEpilogue(mode))
             x = (torch.randn(m, n, generator=gen, device="cuda") * 3).to(torch.bfloat16)
-            k8 = lambda: quant_dot(x, qt.q, qt.scale, plan, "revisit")        # noqa: E731
-            k4 = lambda: quant_dot(x, qt.q, qt.scale, plan, "rotate_once")    # noqa: E731
-            plain = lambda: quant_dot_plain(x, qt.q, qt.scale, plan)           # noqa: E731
-            err = float((k8().float() - plain().float()).abs().max())
-            iters = 20 if m > SLOTS else 200
-            t4, t8 = cuda_time_ms(k4, iters=iters), cuda_time_ms(k8, iters=iters)
-            t8b, t4b = cuda_time_ms(k8, iters=iters), cuda_time_ms(k4, iters=iters)
-            d4 = _profile_ms(k4, "quant_dot_kernel")
-            d8 = _profile_ms(k8, "quant_dot_kernel", revisit=True)
-            plain_ms = cuda_time_ms(plain, iters=5 if m > SLOTS else 20, warmup=1)
-            lib, lib_name = _library_dot(x, qt.q, qt.scale, mode, False)
-            lib_ms = cuda_time_ms(lib, iters=iters)
-            bound, by = _bound(2 * m * n + qt.q.numel() + 4 * d + 2 * m * d, 2 * m * n * d,
-                               m * n * (math.log2(n) + 6), low)
-            bm4, _, blocks4 = launch_shape(m, n, d, mode, 0, "rotate_once")
-            bm8, _, blocks8 = launch_shape(m, n, d, mode, 0, "revisit")
-            splits4 = blocks4 // -(-m // bm4)
-            cl = 8
-            while cl > 1 and (cl > bm4 or cl > splits4):
-                cl //= 2
-            per_rb8 = -(-d // REVISIT_BLOCK_N)
-            ms = (t8 + t8b) / 2
-            print(f"{label} {mode:8s} {m} x {n} -> {d}: events K4 {t4:.5f} / K8 {t8:.5f} / "
-                  f"K8 {t8b:.5f} / K4 {t4b:.5f} ms; profile K4 {_dev(d4)}, K8 {_dev(d8)} "
-                  f"({_dev_ratio(d8, d4)}); rotations per row block K8 {per_rb8}, K4 "
-                  f"{splits4 // cl} ({blocks8} and {blocks4} blocks of {bm8} / {bm4} "
-                  f"rows); plain {plain_ms:.5f} ms; {lib_name} {lib_ms:.5f} ms; bound "
-                  f"{bound:.6f} ms ({by}); K8 max abs err against plain {err:g}")
+            r4 = _measure(Case("K4", mode, m, n, d), gen, qt, qt.check, x)
+            r8 = _measure(Case("K8", mode, m, n, d), gen, qt, qt.check, x)
+            g4 = r4["grid"]
+            print(_record_line(f"K4 {label} {mode:8s} {m} x {n} -> {d}", r4))
+            print(_record_line(f"K8 {label} {mode:8s} {m} x {n} -> {d}", r8)
+                  + f"; device time over K4 {_dev_ratio(r8['device_ms'], r4['device_ms'])}; "
+                  f"rotations per row block K8 {-(-d // REVISIT_BLOCK_N)}, K4 "
+                  f"{g4['splits'] // g4['cluster']}")
             if label == "phi4-mini training rows" and mode == "int8":
-                entries["K8"] = {"mode": mode, "max_abs_err": err, "ms": ms,
-                                 "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
-                                 "library_ms": lib_ms}
+                entries["K8"] = _entry(r8)
             if label == "phi4-mini decode" and mode == "int8":
-                cw = qt.check
-                rv = lambda: quant_dot(x, qt.q, qt.scale, plan, "revisit", check=cw)  # noqa: E731
-                abft_plain = lambda: quant_dot_abft_plain(x, qt.q, qt.scale, cw, plan)  # noqa: E731
-                (y, _), (yp, _) = rv(), abft_plain()
-                e_rv = float((y.float() - yp.float()).abs().max())
-                t_rv = (cuda_time_ms(rv) + cuda_time_ms(rv)) / 2
-                d_rv = _profile_ms(rv, "quant_dot_kernel", abft=True, revisit=True)
-                p_rv = cuda_time_ms(abft_plain, iters=20, warmup=1)
-                b_rv, by_rv = _bound(2 * m * n + qt.q.numel() + 8 * d + 4 * n + 2 * m * d
-                                     + 4 * m, 2 * m * n * d, m * n * (math.log2(n) + 8), low)
-                print(f"K7a-rv {label} int8: events {t_rv:.5f} ms, profile {_dev(d_rv)} "
-                      f"(K8 {_dev(d8)}, {_dev_ratio(d_rv, d8)}); plain {p_rv:.5f} "
-                      f"ms; bound {b_rv:.6f} ms ({by_rv}); library none; max abs err {e_rv:g}")
-                entries["K7a-rv"] = {"mode": mode, "max_abs_err": e_rv, "ms": t_rv,
-                                     "plain_ms": p_rv, "bound_ms": b_rv, "bound_by": by_rv,
-                                     "library_ms": None}
+                rv = _measure(Case("K7a-rv", mode, m, n, d), gen, qt, qt.check, x)
+                print(_record_line(f"K7a-rv {label} int8", rv) + f"; device time over K8 "
+                      f"{_dev_ratio(rv['device_ms'], r8['device_ms'])}")
+                entries["K7a-rv"] = _entry(rv)
             del qt
         del w
         torch.cuda.empty_cache()
@@ -2536,6 +2377,46 @@ def _site_line(site) -> str:
     return f"   {site.name}: " + "; ".join(parts)
 
 
+def _kernel_of(inst) -> str:
+    """The kernel name (K4 ... K8, K7a-*, K7b-*) of a PTX entry's
+    instantiation."""
+    if inst.kernel == "quant_dot_experts_kernel":
+        return ("K7b" if inst.abft else "K6") + ("-s" if inst.abft and inst.streamed
+                                                 else "s" if inst.streamed else "")
+    if inst.revisit:
+        return "K7a-rv" if inst.abft else "K8"
+    if inst.streamed:
+        return "K7a-s" if inst.abft else "K5"
+    return "K7a-ro" if inst.abft else "K4"
+
+
+def tensor_core_check(build) -> None:
+    """The contraction of every instantiation of the four main quant_dot
+    sources, and of M2, runs on the tensor cores: its PTX (``nvcc -ptx``,
+    the linter's own build) has ``mma.sync`` and no ``dp4a``. Prints the
+    counts per kernel (over its io dtypes, rows per block and modes)."""
+    from repro_torch.analysis.ptx import contraction_counts, parse_name
+
+    print("-- lint phase: tensor-core contraction, mma.sync / dp4a per instantiation (PTX)")
+    for source in [f"{s}.cu" for s in build.QUANT_DOT_SOURCES] + ["mutants/dangling_dma.cu"]:
+        kernels = {}
+        for name, c in contraction_counts(build.ptx_text(source)).items():
+            inst = parse_name(name)
+            if inst is not None:
+                k = "M2" if source.startswith("mutants") else _kernel_of(inst)
+                kernels.setdefault(k, []).append(c)
+        if not kernels:
+            fail(f"no quant_dot entry in the PTX of {source}")
+        for k, counts in sorted(kernels.items()):
+            mma = [c["mma"] for c in counts]
+            dp4a = [c["dp4a"] for c in counts]
+            print(f"   {source} {k}: {len(counts)} instantiations, mma.sync {min(mma)}..{max(mma)}"
+                  f" per entry, dp4a {min(dp4a)}..{max(dp4a)}")
+            if min(mma) == 0 or max(dp4a) > 0:
+                fail(f"{source} {k}: an instantiation contracts off the tensor cores "
+                     f"(mma.sync {min(mma)}..{max(mma)}, dp4a up to {max(dp4a)})")
+
+
 def lint_phase(seed: int, serving_sites) -> dict:
     """The kernel-contract linter in process at full width: the clean run
     (phi4-mini's int8 8192 -> 3072 sites: K4, K5, K8 and their ABFT twins;
@@ -2544,16 +2425,18 @@ def lint_phase(seed: int, serving_sites) -> dict:
     recorded) must exit 0; ``--mutation`` must exit non-zero with both
     mutants among the violations, M1 by the rotate-once rule (its counts
     strictly above K4's) and M2 by the DMA rule. Then M1 is held bitwise to
-    K4 in int8 and fp8_e4m3 and timed beside it, and both mutants are held
-    against their plain versions (K4's and K5's) under the K4 rule
-    (``_hold_rows``), M2 at 64 x 8192 -> 5120 fp8_e4m3 as K5 is; M2's
-    elements that differ from K5 are printed beside it. A race in M2 that
-    changed its output would fail that hold: the DMA rule does not depend
-    on it. Returns M1's and M2's entries of the JSON line, their launches
-    from the mutation run."""
+    K4 in int8 and fp8_e4m3 and M2 bitwise to K5 at 64 x 8192 -> 5120
+    fp8_e4m3 (it lacks only the ring's final drain, after which no real
+    copy is left), each timed beside its twin and held against its plain
+    version (its twin's) under the K4 rule (``_hold_rows``). Returns M1's
+    and M2's entries of the JSON line, their launches from the mutation
+    run."""
     from repro_torch.analysis import lint
     from repro_torch.analysis import mutations as mu
     from repro_torch.analysis.rules import all_rules
+    from repro_torch.bench.quant_dot import (FP8_OPS_PER_S, INT8_OPS_PER_S, bound,
+                                             cuda_time_ms, device_ms, library_dot,
+                                             profile_ms)
     from repro_torch.kernels import build
     from repro_torch.kernels.hadacore import transform_plain
     from repro_torch.kernels.quant_dot import epilogue_dot, quant_dot, quant_dot_plain
@@ -2573,6 +2456,7 @@ def lint_phase(seed: int, serving_sites) -> dict:
     if missing:
         fail(f"the clean lint never ran {sorted(missing)}")
     del sites
+    tensor_core_check(build)
 
     report_path = str(build.BUILD_DIR / "lint_mutation.json")
     mu.mutant_unguarded_rotate_cuda.launches = mu.mutant_dangling_dma_cuda.launches = 0
@@ -2615,30 +2499,30 @@ def lint_phase(seed: int, serving_sites) -> dict:
             differ = int((got.view(torch.int16) != want.view(torch.int16)).sum())
             err = float((got.float() - plain().float()).abs().max())
             ms, twin_ms = cuda_time_ms(run, iters=50), cuda_time_ms(ref, iters=50)
-            dev = _profile_ms(run, "quant_dot_kernel", sched == "streamed")
-            twin_dev = _profile_ms(ref, "quant_dot_kernel", sched == "streamed")
+            dev = profile_ms(run, "quant_dot_kernel", sched == "streamed")
+            twin_dev = profile_ms(ref, "quant_dot_kernel", sched == "streamed")
             plain_ms = cuda_time_ms(plain, iters=20, warmup=2)
-            lib, lib_name = _library_dot(x, qt.q, qt.scale, mode, False)
-            lib_ms, lib_dev = cuda_time_ms(lib, iters=50), _device_ms(lib)
+            lib, lib_name = library_dot(x, qt.q, qt.scale, mode, False)
+            lib_ms, lib_dev = cuda_time_ms(lib, iters=50), device_ms(lib)
             low = INT8_OPS_PER_S if mode == "int8" else FP8_OPS_PER_S
-            bound, by = _bound(2 * m * n + qt.q.numel() + 4 * d + 2 * m * d, 2 * m * n * d,
-                               m * n * (math.log2(n) + 6), low)
+            bound_ms, by = bound(2 * m * n + qt.q.numel() + 4 * d + 2 * m * d, 2 * m * n * d,
+                                 m * n * (math.log2(n) + 6), low)
             print(f"{kern} {mode:8s} {m} x {n} -> {d}: {differ} of {got.numel()} elements "
                   f"differ from {twin} (bitwise {same}), max abs err vs plain {err:g}; "
                   f"{kern} {ms:.5f} ms (events) {_dev(dev)} (profile), {twin} {twin_ms:.5f} "
                   f"ms / {_dev(twin_dev)}, plain {plain_ms:.5f} ms, {lib_name} {lib_ms:.5f} "
-                  f"ms / {_dev(lib_dev)}, bound {bound:.6f} ms ({by})")
-            if kern == "M1" and not same:
-                fail(f"M1 differs from K4 in {differ} elements ({mode})")
+                  f"ms / {_dev(lib_dev)}, bound {bound_ms:.6f} ms ({by})")
+            if (kern, mode) in (("M1", "int8"), ("M2", "fp8_e4m3")):
+                entries[kern] = {"mode": mode, "max_abs_err": err, "ms": ms,
+                                 "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": by,
+                                 "library_ms": lib_ms, "launches": launches[kern]}
+            if not same:
+                fail(f"{kern} differs from {twin} in {differ} elements ({mode})")
             y1, (q1, s1) = _k1_epilogue(x, plan)
             agree = _same_rows(y1, transform_plain(x, plan))
             _hold_rows(f"{kern} {m} x {n} -> {d} {mode:8s} against plain", got,
                        plain(), epilogue_dot(q1, s1, qt.q, qt.scale, mode, torch.bfloat16),
                        agree, mode, False)
-            if (kern, mode) in (("M1", "int8"), ("M2", "fp8_e4m3")):
-                entries[kern] = {"mode": mode, "max_abs_err": err, "ms": ms,
-                                 "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
-                                 "library_ms": lib_ms, "launches": launches[kern]}
     return entries
 
 
@@ -2778,6 +2662,7 @@ def main() -> int:
     gen = torch.Generator(device="cuda").manual_seed(args.seed)
     timed = kernel_phase(gen)
     hold_k3_k4(gen)
+    hold_mixed_rounds(args.seed)
     timed.update(time_k3_k4(gen))
     hold_k5_k6(gen)
     timed.update(time_k5_k6(gen))

@@ -11,8 +11,9 @@ both named).
   the ``rotate-once-contract`` rule must catch it from the rotation counts.
 * M2 ``mutant_dangling_dma_cuda`` (``csrc/mutants/dangling_dma.cu``,
   replacing ``mutations.py::_mutant_dangling_dma``): K5 with the ring's
-  waits and its drain removed. The ``dma-safety`` rule must catch it from
-  its PTX alone (a race may still give the right answer).
+  final drain removed, so copies may dangle when a block ends. Its per-step
+  waits stay, so its output is bitwise K5's; the ``dma-safety`` rule must
+  catch it from its PTX alone.
 
 Both are built only by the linter (``kernels/build.py``, ``LINT_TARGETS``)
 and reached by no dispatch. They compute K4's and K5's function, so their
@@ -107,7 +108,7 @@ def mutant_unguarded_rotate_cuda(x2, wq, sw, out, plan) -> torch.Tensor:
 
 
 def mutant_dangling_dma_cuda(x2, wq, sw, out, plan) -> torch.Tensor:
-    """Launch M2: K5 reading its ring without waiting for the copies."""
+    """Launch M2: K5 ending its blocks without draining its ring."""
     _launch("dangling_dma", x2, wq, sw, out, plan)
     mutant_dangling_dma_cuda.launches += 1
     return out

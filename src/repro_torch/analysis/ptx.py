@@ -17,6 +17,12 @@ memory), ``commit`` (``cp.async.commit_group``), ``wait N``
 ``ld_shared`` (any ``ld`` from shared memory), ``barrier`` (a block or
 cluster barrier that blocks: ``bar.sync``, ``barrier.sync``, ``bar.red``,
 ``barrier.cluster.wait``) and ``ret``.
+
+``contraction_counts`` counts, per entry, the instructions that say where
+the contraction runs: ``mma.sync`` (the tensor cores) and ``dp4a`` (CUDA
+cores). Every quant_dot instantiation contracts through ``mma.sync`` and
+has no ``dp4a``; ``chip_smoke.py``'s lint phase prints and checks the
+counts of every entry of the built sources.
 """
 from __future__ import annotations
 
@@ -25,7 +31,7 @@ import re
 from typing import Dict, Iterable, List, Optional, Tuple
 
 __all__ = ["Instantiation", "Event", "entries", "events_of", "parse_name",
-           "dma_findings"]
+           "dma_findings", "contraction_counts"]
 
 _ENTRY = re.compile(r"^\s*(?:\.visible\s+|\.weak\s+)?\.entry\s+([\w$.]+)")
 _KERNEL = re.compile(r"(quant_dot(?:_experts)?_kernel)I(13__nv_bfloat16|6__half|f)"
@@ -34,6 +40,7 @@ _IO = {"13__nv_bfloat16": "bfloat16", "6__half": "float16", "f": "float32"}
 _PRED = re.compile(r"^@!?%\w+\s+")
 _WAIT = re.compile(r"^cp\.async\.wait_group\s+(\d+)")
 _LD_SHARED = re.compile(r"^ld(?:\.\w+)*\.shared\b")
+_CONTRACTIONS = {"mma": re.compile(r"^mma\.sync\."), "dp4a": re.compile(r"^dp4a\.")}
 _BARRIER = re.compile(r"^(?:(?:bar|barrier)(?:\.cta)?\.(?:sync|red)\b|barrier\.cluster\.wait\b)")
 
 
@@ -165,4 +172,28 @@ def dma_findings(events: Iterable[Event]) -> List[str]:
             out.append(f"ret at PTX line {e.line} with no cp.async.wait_group 0 after "
                        f"the commit_group at line {last_commit.line}: copies may still "
                        "be in flight when the block ends (the ring does not drain)")
+    return out
+
+
+def contraction_counts(text: str) -> Dict[str, Dict[str, int]]:
+    """Per ``.entry`` of a PTX text (by mangled name), the count of its
+    ``mma.sync`` and ``dp4a`` instructions (predicated ones included)."""
+    out: Dict[str, Dict[str, int]] = {}
+    name, depth = None, 0
+    for raw in text.splitlines():
+        line = raw.split("//", 1)[0]
+        if name is None:
+            m = _ENTRY.match(line)
+            if m:
+                name, depth = m.group(1), 0
+                out[name] = {k: 0 for k in _CONTRACTIONS}
+            continue
+        depth += line.count("{") - line.count("}")
+        for instr in line.split(";"):
+            instr = _PRED.sub("", instr.strip())
+            for key, pat in _CONTRACTIONS.items():
+                if pat.match(instr):
+                    out[name][key] += 1
+        if depth <= 0 and "}" in line:
+            name = None
     return out

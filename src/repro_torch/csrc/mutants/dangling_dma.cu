@@ -1,12 +1,13 @@
 // M2: a deliberately broken K5 for the linter's dma-safety rule, the Hopper
 // twin of repro/analysis/mutations.py::_mutant_dangling_dma (launched
 // there through the pallas_call of _launch). It is K5 -- the dense streamed
-// body of ../quant_dot.cuh, kStreamed = true -- with the ring's
-// cp.async.wait_group before each k-step's read and the final drain
-// removed: the contraction reads ring stages whose copies may still be in
-// flight, and copies are still in flight when the block ends. A race can
-// still give the right answer, so the rule reads this kernel's PTX, not its
-// output. Its plain version is K5's (kernels/quant_dot.py::quant_dot_plain).
+// body of ../quant_dot.cuh, kStreamed = true -- with the ring's final
+// drain (cp.async.wait_group 0 before the block ends) removed: nothing in
+// the code any longer makes the block's copies land before it ends, the
+// reference mutant's "a start dangles at the end of every row block". Each
+// k-step still waits for its own stage before reading it, so the output is
+// K5's, bitwise; the rule catches the fault from the PTX alone. Its plain
+// version is K5's (kernels/quant_dot.py::quant_dot_plain).
 //
 // Built only by the linter (repro_torch/kernels/build.py, lint targets); no
 // dispatch reaches it. bf16 activations, int8 / fp8 weights.
@@ -36,7 +37,7 @@ extern "C" int mutant_dangling_dma_grid(long long m, int n, int d, int mode, lon
 
 extern "C" int mutant_dangling_dma_attributes(long long m, int n, int mode, long long* out) {
   const bool is_int = mode == quant::kInt8;
-  const int bm = pick_bm(m, n, is_int, true, false);
+  const int bm = pick_bm(m, n, true, false);
   return func_attributes(is_int ? kernel_for_bm<__nv_bfloat16, true, true, false, false, false>(bm)
                                 : kernel_for_bm<__nv_bfloat16, false, true, false, false, false>(bm),
                          bm, out);

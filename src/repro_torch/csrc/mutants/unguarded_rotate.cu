@@ -2,9 +2,11 @@
 // Hopper twin of repro/analysis/mutations.py::_mutant_unguarded_rotate
 // (launched there through the pallas_call of _launch). It is K4 -- the
 // dense rotate-once body of ../quant_dot.cuh with kStreamed = kRevisit =
-// false -- with the rotate + quantize phase moved inside the column-tile
-// loop, so every block's row block is rotated and quantized again before
-// each of its 32-column tiles. The rotation is deterministic, so the output
+// false -- with the rotate + quantize phase moved inside the loop over the
+// block's rounds of column tiles, so every block's row block is rotated
+// and quantized again before each round (each 32-column tile where the
+// block's tiles are split across its warps, as at the linter's 64-row
+// site). The rotation is deterministic, so the output
 // is bitwise K4's: only a count of rotations tells the two apart
 // (repro_torch/analysis/rules.py, rotate-once-contract). Its plain version
 // is K4's (kernels/quant_dot.py::quant_dot_plain).
@@ -41,7 +43,7 @@ extern "C" int mutant_unguarded_rotate_grid(long long m, int n, int d, int mode,
 
 extern "C" int mutant_unguarded_rotate_attributes(long long m, int n, int mode, long long* out) {
   const bool is_int = mode == quant::kInt8;
-  const int bm = pick_bm(m, n, is_int, false, false);
+  const int bm = pick_bm(m, n, false, false);
   return func_attributes(is_int ? kernel_for_bm<__nv_bfloat16, true, false, false, false, false>(bm)
                                 : kernel_for_bm<__nv_bfloat16, false, false, false, false, false>(bm),
                          bm, out);

@@ -25,17 +25,36 @@
 // through K1's passes in the compute dtype (hadacore.cuh), quantized per
 // token from the f32 copy of the rounded row (quant.cuh), contracted with the
 // (n, d) weight wq, and scaled as (float)acc * s * sw[col], then rounded
-// once to the io dtype.
-//   int8: exact int32 accumulation (dp4a), converted with __int2float_rn as
-//         XLA converts -- the result equals the plain version bitwise
-//         whenever the two rotations agree;
-//   fp8:  both operands embedded exactly (the activation's grid values as
-//         bf16, the weight bytes decoded to f32, e4m3 by the hardware's
-//         exact cvt to f16), every product exact in f32, f32 accumulation in
-//         a fixed order. Not fp8 tensor-core MMA: Hopper keeps fewer than
-//         f32's bits in that accumulator.
-// An all-zero row has absmax 0, scale 1e-8 / qmax and q = 0: its outputs
-// are exact zeros.
+// once to the io dtype. An all-zero row has absmax 0, scale 1e-8 / qmax and
+// q = 0: its outputs are exact zeros.
+//
+// The contraction runs on the tensor cores: mma.sync m16n8k32 with 8-bit
+// operands, s8 x s8 -> s32 for int8 and e4m3 / e5m2 -> f32 for fp8 (Hopper
+// lowers the fp8 mma.sync to fp8 -> f16 conversions and f16 MMAs, as its
+// SASS shows, PERF.md PR 17; the rate it reaches beside int8's is not
+// measured). Not wgmma: Hopper's 8-bit wgmma takes only K-major operands
+// from shared memory, and the weight is stored (n, d) with d contiguous
+// (N-major). The weight columns are the MMA's A operand (M = 16 output
+// columns) and the quantized rows its B operand (N = 8 rows): a decode step
+// has 4 rows, so this orientation wastes half of each instruction where the
+// other would waste three quarters. A lane reads 8 words of a staged weight
+// block (4 columns of 8 consecutive k) and transposes them with byte
+// permutes into two 4 x 4 blocks: each word then holds 4 consecutive k of
+// one column, an A fragment register. Its B fragment is 8 consecutive k of
+// one row, one 8-byte shared load. Within an MMA, logical k 4t..4t+3 is k
+// 8t..8t+3 of the step and logical 16+4t.. is 8t+4.., the same permutation
+// for both operands, so the products pair as they should.
+//   int8: exact int32 accumulation on the tensor core (n <= 32768, so
+//         |sum| <= 127^2 * 2^15 < 2^31), converted with __int2float_rn as XLA
+//         converts -- the result equals the plain version bitwise whenever
+//         the two rotations agree;
+//   fp8:  the products of two fp8 values are exact, but the tensor core
+//         does not accumulate in IEEE f32. So it sums at most 128 k (C
+//         carried over at most 4 instructions, a "chunk"); the chunks are
+//         added into f32 registers with __fadd_rn in k order from zero: one
+//         fixed order for every schedule, split and run. The output is within
+//         2^-7 of the row max of the plain GEMM (chip_smoke.py), no longer
+//         bitwise the CUDA-core FMA sum of earlier versions.
 //
 // Experts (K6, K6s). x is (B, E, c, n), the dispatched activations; wq is
 // (E, n, d) and sw (E, d); out is (B, E, c, d). blockIdx.z is the expert:
@@ -44,11 +63,17 @@
 // through their strides, in place, and written back the same way. With
 // E = c = 1 the expert kernel's body is the dense kernel's.
 //
-// Bound on an H100: at decode bytes -- the weight is read once (K6 at
+// Bounds on an H100. At decode, bytes: the weight is read once (K6 at
 // llama4-maverick's 128 x 8192 x 5120 fp8: 5.37 GB, 1.60 ms at 3.35 TB/s)
-// against 2 * rows * n * d operations. The design keeps the rotated,
-// quantized rows in shared memory (int8, or bf16 for fp8) and streams the
-// weight past them, so the activations never round-trip through HBM.
+// against 2 * rows * n * d operations; K4 / K5 at a dense decode site read
+// 25-42 MB, and the rotation of a few rows and the launch weigh as much.
+// At training rows (2048 x 8192 -> 3072), operations: 103 G, 0.052 ms at
+// 1979 TOP/s; a block keeps 16 rows, so each weight byte fetched from L2
+// serves 16 rows, and the L2 -> SM feed and the rotation bound the kernel
+// long before the tensor cores do. The design keeps the rotated, quantized
+// rows in shared memory (1 byte a value, fp8 as its storage byte) and
+// streams the weight past them, so the activations never round-trip
+// through HBM.
 //
 // Launch. A decode step gives the kernel a few rows against the whole
 // weight, so one block per row block would leave most SMs idle. The grid is
@@ -59,39 +84,59 @@
 // once per cluster; then each block walks its run of 32-column tiles. The
 // splits are chosen for about one wave of resident blocks; every split gives
 // the same bits (the rotation of a row does not depend on the block, and
-// each output's sum runs in a fixed order). Within a tile, thread (cq, ks)
-// owns 4 columns and the ks-th of 64 contiguous k-chunks; its 4 x 4 byte
-// blocks of the weight are read as 32-bit words (a warp reads 32 contiguous
-// bytes of 4 weight rows), 16 words per k-step of 16 rows, and transposed
-// with byte permutes into dp4a operands. A warp adds its 4 chunks' partial
-// sums with shuffles and the 16 warps' sums are added in shared memory in
-// warp order. Rows beyond m and columns beyond d are masked; neither input
-// is padded.
+// each output's sum runs in a fixed order).
 //
-// Streamed schedule (K5, K6s). The TPU ring holds whole (n, bn) weight
-// tiles; at n = 8192 one such tile does not fit beside the operand, so here
-// the ring holds k-steps: each stage is one k-step's 16 weight words of
-// every thread (32 KB), kStages stages deep, filled by cp.async (4-byte
-// copies, zero-filled past the edges) kStages - 1 k-steps ahead of the
-// contraction, across tile boundaries. Each thread copies exactly the words
-// it later reads, so a thread's own cp.async groups order its ring and no
-// barrier is needed. The first stages are issued before the rotation, so
-// their latency hides behind it (the reference's j == 0 warm-up). A copy is
-// issued only for a k-step that exists (the reference's j + 1 < nj guard)
-// and waited on before it is read, so no copy is in flight when a block's
-// run of tiles -- its (expert, row block) pair -- ends. The contraction reads
-// the same words in the same order as the rotate-once loop, so the two
-// schedules give the same bits.
+// Work of a block: its tiles in rounds. A whole round gives each of the 16
+// warps one tile over the full k range (two m16 column halves x ceil(BM / 8)
+// n8 row groups of MMAs), with no reduction across warps: its outputs leave
+// from the warp's registers. The tiles left (fewer than 16) go one per
+// split round, in which the warps share the tile's k range. A tile's
+// k-steps fall in groups, each summed from zero and the groups' sums added
+// in group order: int8 the 16 k-slices (exact, so a whole round's tensor
+// core simply carries one sum over the tile), fp8 the 128-k chunks (so a
+// whole round's warp holds only the tile's f32 sums and one chunk's). In a
+// split round warp w takes groups w, w + 16, ... (int8: its slice; fp8 at n
+// = 8192: 4 chunks, one per pass), and the threads of the block add the
+// groups' partial sums through shared memory in group order. Both kinds of
+// round give the same bits. Rows beyond m and columns beyond d are masked;
+// neither input is padded.
 //
-// Shared memory: the operand (BM x n, 1 or 2 bytes), the ring (streamed
-// only: kStages x 32 KB), a work area that holds the f32 rows being rotated
-// (all BM rows at once when they fit, else rw at a time) and later the
-// partial sums, and the scales. BM is the largest of 16, 8, 4, 2, 1 that the
-// rows need and the 227 KB limit allows (n = 8192, rotate-once: 16 rows for
-// int8, 8 for fp8; streamed: 8 and 4); a launch that cannot fit returns an
-// error, which the wrapper raises. 512 threads: the rotation's barrier-
-// separated stages are latency-bound at one block per SM, so more warps
-// hide more of it.
+// Weight reads: 16 bytes a copy. Each quad of 4 warps has a ring of
+// kStages k-steps (one k-step: 32 weight rows x 128 columns, 4 KB), filled
+// by cp.async.cg of 16 bytes (zero-filled past n and d; synchronous loads
+// when d is not a multiple of 16) kStages - 1 k-steps ahead of the
+// contraction, across tile and round boundaries. In a whole round the
+// quad's 4 adjacent tiles share each stage: each warp copies 8 rows of all
+// 128 columns, so a warp's copy instruction covers 4 rows x 128 contiguous
+// bytes (on the H100 the L2 delivers whole lines at a much higher rate
+// than the 32-byte pieces of one tile's rows); in a split round each
+// warp copies its own k-steps of its tile into its quarter of the stage.
+// The lanes read words other lanes (or warps) copied, so each k-step
+// starts with cp.async.wait_group and the quad's barrier (a named barrier
+// of 128 threads) or the warp's; the lanes read the stage and their B
+// fragments, then issue the next copy and commit, then run the MMAs. A
+// block barrier separates the last whole round from the first split one:
+// the first split k-step refills the stage that the quad read last. The
+// stages are swizzled so that the 32 words a warp reads at once fall in 32
+// banks. Under rotate-once (K4, K6) the ring shares the rotation's work
+// area and is filled after the rotation; under the streamed schedule (K5,
+// K6s) it has its own shared memory and its first k-steps are issued before
+// the rotation, so their latency hides behind it (the reference's j == 0
+// warm-up). A copy is issued only for a k-step that exists (the reference's
+// j + 1 < nj guard) and the ring drains before the block ends. Both
+// schedules contract the same words in the same order, so they give the
+// same bits.
+//
+// Shared memory: the operand (BM rows of n bytes, padded so the 8 rows an
+// MMA reads start in distinct banks), the ring (streamed only: 4 quads x
+// kStages x 4 KB), a work area that holds the f32 rows being rotated (all
+// BM rows at once when they fit, else rw at a time) and later the split
+// rounds' partial sums and, under rotate-once, the ring; the scales. BM is
+// the largest of 16, 8, 4, 2, 1 that the rows need and the 227 KB limit
+// allows (n = 8192: 16 rows under both schedules, int8 and fp8 alike); a
+// launch that cannot fit returns an error, which the wrapper raises. 512
+// threads: the rotation's barrier-separated stages are latency-bound at one
+// block per SM, so more warps hide more of it.
 //
 // ABFT twins (kAbft). Three additions, none on the output's path: (a) in
 // the rotation phase each cluster member sums chk = op . cw for the rows it
@@ -100,26 +145,27 @@
 // mis-delivered ring stage shows in the residual) and stores it into every
 // member, beside the scales; (b) each block sums, per row, the f32
 // contributions acc * s * sw that the output casts (tile by tile, each
-// tile's columns in order); (c) the residual needs every split of the row
-// block: each block writes its row sums to a (row block, split) workspace
-// and bumps the row block's counter (__threadfence, atomicAdd); the last to
-// arrive adds the sums in split order, writes r = sum - s * chk and resets
-// the counter to 0. One launch per site, and the same bits every run (no
-// float atomics). The extra shared memory (about 2 KB at 16 rows) leaves
-// the rows per block of every n the kernels serve unchanged; the outputs
-// would not depend on them anyway (each output's sum has a fixed order).
+// tile's columns in order; a whole round's 16 tiles through shared memory
+// in tile order); (c) the residual needs every split of the row block: each
+// block writes its row sums to a (row block, split) workspace and bumps the
+// row block's counter (__threadfence, atomicAdd); the last to arrive adds
+// the sums in split order, writes r = sum - s * chk and resets the counter
+// to 0. One launch per site, and the same bits every run (no float
+// atomics). The extra shared memory (about 2 KB at 16 rows) leaves the rows
+// per block of every n the kernels serve unchanged; the outputs would not
+// depend on them anyway (each output's sum has a fixed order).
 //
 // Revisit schedule (K8, K7a-rv; kRevisit). The reference's A/B baseline for
 // rotate-once: the grid is (row blocks) x (column tiles of block_n), with no
 // thread-block cluster and no distributed shared memory. Every block
 // rotates and quantizes its WHOLE row block into its own shared memory and
 // contracts it with its one weight tile of block_n columns (block_n / 32 of
-// the 32-column tiles), so a row is rotated ceil(d / block_n) times -- the
-// redundancy the schedule exists to show. The rotation, the quantization,
-// the contraction and its k-order are the rotate-once code's, so K8's
-// output is bitwise K4's; the shared-memory layout is K4's too (K4's blocks
-// also hold every row of the row block), so are the rows per block. K7a-rv
-// is K8 with kAbft: each block's row sums go to the (row block, tile)
+// the 32-column tiles, split rounds), so a row is rotated ceil(d / block_n)
+// times -- the redundancy the schedule exists to show. The rotation, the
+// quantization, the contraction and its k-order are the rotate-once code's,
+// so K8's output is bitwise K4's; the shared-memory layout is K4's too (K4's
+// blocks also hold every row of the row block), so are the rows per block.
+// K7a-rv is K8 with kAbft: each block's row sums go to the (row block, tile)
 // workspace and the last block of a row block adds them in tile order.
 //
 // Linter builds (repro_torch/analysis). With -DREPRO_COUNT_ROTATIONS the body
@@ -127,14 +173,23 @@
 // (g_rotations: one atomicAdd per row and phase, read and zeroed through the
 // sources' *_rotations exports); without it the code is unchanged. The
 // mutants of csrc/mutants/ define REPRO_MUTANT_UNGUARDED_ROTATE (M1: the
-// rotation runs again before every column tile) or
-// REPRO_MUTANT_DANGLING_DMA (M2: the streamed ring's waits are gone) before
-// including this header; no main source defines either.
+// rotation runs again before every round, which is every tile where the
+// tiles are split, and the ring restarts after it) or
+// REPRO_MUTANT_DANGLING_DMA (M2: the ring's final drain, cp.async.wait_group
+// 0 before the block ends, is gone) before including this header; no main
+// source defines either.
 //
-// What this first version leaves on the table: CUDA-core dp4a / FMA instead
-// of the tensor cores (wgmma), 4-byte cp.async instead of TMA bulk copies,
-// the rotation repeated in every cluster, and the all-zero rows of a dense
-// MoE dispatch rotated and contracted like any other.
+// What this version leaves on the table: wgmma (the full tensor rate, int8
+// and fp8 alike; what mma.sync reaches on Hopper is not measured) with TMA
+// bulk copies, mbarriers, warp-specialised producers and a deeper ring (they need a
+// K-major copy of the weight or a transpose in shared memory), and TMA
+// multicast of a weight tile to the row blocks of a cluster (each weight
+// byte from L2 serves only 16 rows at training sizes); the rotation on
+// CUDA-core f32 butterflies (K1's code: about 30% of K4's time at 2048
+// rows, PERF.md) rather than the paper's tensor-core form; the
+// rotation repeated in every cluster; and the all-zero rows of a dense MoE
+// dispatch rotated and contracted like any other (K6 streams the weights of
+// experts that only multiply zeros).
 #pragma once
 
 #include <cooperative_groups.h>
@@ -149,16 +204,17 @@ namespace cg = cooperative_groups;
 namespace {
 
 constexpr int kThreads = 512;
-constexpr int kBN = 32;              // output columns per tile
-constexpr int kCQ = kBN / 4;         // column quads across a tile (lanes 0-7 of a warp)
-constexpr int kKS = kThreads / kCQ;  // k-chunks per tile (4 per warp)
-constexpr int kKW = kKS / 4;         // partial sums per output once a warp has added its 4
-constexpr int kSteps = 4;            // k-steps of 4 whose weight loads are issued together
-constexpr int kStepRows = 4 * kSteps;  // weight rows (32-bit words per thread) per k-step
-constexpr int kStages = 3;           // streamed: k-steps in the ring
-constexpr int kMaxCluster = 8;       // blocks sharing one row block's rotation (portable max)
-constexpr size_t kSmemLimit = 232448;  // 227 KB, the per-block maximum on sm_90
-constexpr size_t kSmemPerSM = 233472;  // 228 KB of shared memory on an SM
+constexpr int kWarps = kThreads / 32;
+constexpr int kBN = 32;                    // output columns per tile (one warp's in a whole round)
+constexpr int kKStep = 32;                 // k per MMA (m16n8k32)
+constexpr int kSlices = kWarps;            // int8: a tile's k-slices (one per warp when split)
+constexpr int kChunkSteps = 4;             // fp8: k-steps summed on the tensor core (128 k)
+constexpr int kStageBytes = kKStep * kBN;  // one warp's k-step of weight: 32 rows x 32 columns
+constexpr int kStages = 4;                 // k-steps in a ring (a power of 2)
+constexpr int kQuad = 4;                   // warps whose whole-round tiles share a stage
+constexpr int kMaxCluster = 8;             // blocks sharing one row block's rotation (portable max)
+constexpr size_t kSmemLimit = 232448;      // 227 KB, the per-block maximum on sm_90
+constexpr size_t kSmemPerSM = 233472;      // 228 KB of shared memory on an SM
 
 #if defined(REPRO_COUNT_ROTATIONS)
 // Rotations per element row of x (row_index order), for the linter's
@@ -173,52 +229,63 @@ __device__ __forceinline__ void count_rotation(size_t row) {
 }
 #endif
 
-// Operand row stride: n rounded up to a whole 32-bit word of int8 values.
-__host__ __device__ __forceinline__ int op_stride(int n) { return n < 4 ? 4 : n; }
+// The contraction's k extent: n, at least one MMA's k (zeros beyond n).
+__host__ __device__ __forceinline__ int k_extent(int n) { return n < kKStep ? kKStep : n; }
 
-// Bytes of the streamed schedule's ring (0 for rotate-once).
-__host__ __device__ __forceinline__ size_t ring_bytes(bool streamed) {
-  return streamed ? (size_t)kStages * kStepRows * kThreads * sizeof(uint32_t) : 0;
+// Operand row stride in bytes: the k extent rounded up to 128, plus 32, so
+// the 8 rows of a B fragment start 8 banks apart.
+__host__ __device__ __forceinline__ int op_stride(int n) {
+  return (k_extent(n) + 127) / 128 * 128 + 32;
 }
 
-// Shared memory of a block of bm rows that rotates rw rows at a time: the
-// operand, the ring, the work area (rw f32 rows, later the partial sums),
-// bm scales and rw absmax words.
-__host__ __device__ __forceinline__ size_t work_bytes(int n, int bm, int rw) {
+__host__ __device__ __forceinline__ size_t op_bytes(int n, int bm) {
+  return (size_t)bm * op_stride(n);
+}
+
+// The quads' rings, kStages k-steps of 4 KB each.
+__host__ __device__ __forceinline__ size_t ring_bytes() {
+  return (size_t)kWarps * kStages * kStageBytes;
+}
+
+// A split round's partial sums (one tile's per warp of a pass), and a whole
+// round's ABFT contributions (one tile's per warp).
+__host__ __device__ __forceinline__ size_t red_bytes(int bm) {
+  return (size_t)kSlices * bm * kBN * sizeof(float);
+}
+
+// The work area: rw f32 rows being rotated, later the partial sums and,
+// under rotate-once, the ring.
+__host__ __device__ __forceinline__ size_t work_bytes(int n, int bm, int rw, bool streamed) {
   const size_t rot = (size_t)rw * n * sizeof(float);
-  const size_t red = (size_t)kKW * bm * kBN * sizeof(float);
-  return rot > red ? rot : red;
-}
-
-__host__ __device__ __forceinline__ size_t op_bytes(int n, int bm, bool is_int) {
-  return (size_t)bm * op_stride(n) * (is_int ? 1 : 2);
+  const size_t con = red_bytes(bm) + (streamed ? 0 : ring_bytes());
+  return rot > con ? rot : con;
 }
 
 // ABFT twins only: each row's activation checksum, the f32 contributions
 // of one output tile, one partial sum per warp and the last-block flag.
 __host__ __device__ __forceinline__ size_t abft_bytes(int bm, bool abft) {
-  return abft ? (size_t)(bm + bm * kBN + kThreads / 32 + 1) * sizeof(float) : 0;
+  return abft ? (size_t)(bm + bm * kBN + kWarps + 1) * sizeof(float) : 0;
 }
 
-__host__ __device__ __forceinline__ size_t layout_bytes(int n, int bm, int rw, bool is_int,
-                                                        bool streamed, bool abft) {
-  return op_bytes(n, bm, is_int) + ring_bytes(streamed) + work_bytes(n, bm, rw) +
+// Shared memory of a block of bm rows that rotates rw rows at a time: the
+// operand, the ring (streamed), the work area, bm scales, rw absmax words
+// and the ABFT scratch.
+__host__ __device__ __forceinline__ size_t layout_bytes(int n, int bm, int rw, bool streamed,
+                                                        bool abft) {
+  return op_bytes(n, bm) + (streamed ? ring_bytes() : 0) + work_bytes(n, bm, rw, streamed) +
          (size_t)bm * sizeof(float) + (size_t)rw * sizeof(int) + abft_bytes(bm, abft);
 }
 
 // Rows rotated at once: all bm when they fit, else the most (a power of 2)
 // that do. More rows per group means fewer barriers per row.
-__host__ __device__ __forceinline__ int work_rows(int n, int bm, bool is_int, bool streamed,
-                                                  bool abft) {
+__host__ __device__ __forceinline__ int work_rows(int n, int bm, bool streamed, bool abft) {
   int rw = bm;
-  while (rw > 1 && layout_bytes(n, bm, rw, is_int, streamed, abft) > kSmemLimit) rw /= 2;
+  while (rw > 1 && layout_bytes(n, bm, rw, streamed, abft) > kSmemLimit) rw /= 2;
   return rw;
 }
 
-__host__ __device__ __forceinline__ size_t smem_bytes(int n, int bm, bool is_int,
-                                                      bool streamed, bool abft) {
-  return layout_bytes(n, bm, work_rows(n, bm, is_int, streamed, abft), is_int, streamed,
-                      abft);
+__host__ __device__ __forceinline__ size_t smem_bytes(int n, int bm, bool streamed, bool abft) {
+  return layout_bytes(n, bm, work_rows(n, bm, streamed, abft), streamed, abft);
 }
 
 // Element row of row r (0 <= r < m) of expert e in x (B, E, cap, n) and out
@@ -239,72 +306,57 @@ __device__ __forceinline__ uint32_t load_w4(const uint8_t* w, int k, int j, int 
   return v;
 }
 
-// The four fp8 bytes of a little-endian word as f32 (exact: every e4m3 and
-// e5m2 value is an f16 value). e4m3 goes through the hardware's cvt of two
-// bytes to two f16 at once; e5m2 is the high byte of its f16 encoding.
-__device__ __forceinline__ void fp8x4_to_float(uint32_t w, int mode, float (&f)[4]) {
+// The fp8 byte b as f32 (exact: every e4m3 and e5m2 value is an f16 value;
+// e5m2 is the high byte of its f16 encoding).
+__device__ __forceinline__ float fp8_to_float(uint8_t b, int mode) {
+  if (mode == quant::kE4M3)
+    return __half2float(__ushort_as_half(
+        __nv_cvt_fp8x2_to_halfraw2((__nv_fp8x2_storage_t)b, __NV_E4M3).x));
+  return __half2float(__ushort_as_half((unsigned short)((unsigned)b << 8)));
+}
+
+// 4 x 4 byte transpose: w[u] holds 4 columns of k-row u; col[c] gets column
+// c's bytes of rows 0..3, row 0 in the low byte -- an 8-bit MMA fragment
+// register.
+__device__ __forceinline__ void transpose4(const uint32_t* w, uint32_t (&col)[4]) {
+  const uint32_t lo01 = __byte_perm(w[0], w[1], 0x5140), hi01 = __byte_perm(w[0], w[1], 0x7362);
+  const uint32_t lo23 = __byte_perm(w[2], w[3], 0x5140), hi23 = __byte_perm(w[2], w[3], 0x7362);
+  col[0] = __byte_perm(lo01, lo23, 0x5410);
+  col[1] = __byte_perm(lo01, lo23, 0x7632);
+  col[2] = __byte_perm(hi01, hi23, 0x5410);
+  col[3] = __byte_perm(hi01, hi23, 0x7632);
+}
+
+// D = A B + C on the tensor cores, m16n8k32: A 16 x 32 (row), B 32 x 8
+// (col), 8-bit operands.
+__device__ __forceinline__ void mma_s8(int (&c)[4], uint32_t a0, uint32_t a1, uint32_t a2,
+                                       uint32_t a3, uint32_t b0, uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, "
+      "{%8,%9}, {%0,%1,%2,%3};\n"
+      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ void mma_fp8(float (&c)[4], uint32_t a0, uint32_t a1, uint32_t a2,
+                                        uint32_t a3, uint32_t b0, uint32_t b1, int mode) {
   if (mode == quant::kE4M3) {
-    const __half2_raw lo =
-        __nv_cvt_fp8x2_to_halfraw2((__nv_fp8x2_storage_t)(w & 0xffffu), __NV_E4M3);
-    const __half2_raw hi =
-        __nv_cvt_fp8x2_to_halfraw2((__nv_fp8x2_storage_t)(w >> 16), __NV_E4M3);
-    f[0] = __half2float(__ushort_as_half(lo.x));
-    f[1] = __half2float(__ushort_as_half(lo.y));
-    f[2] = __half2float(__ushort_as_half(hi.x));
-    f[3] = __half2float(__ushort_as_half(hi.y));
+    asm("mma.sync.aligned.m16n8k32.row.col.f32.e4m3.e4m3.f32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, "
+        "{%8,%9}, {%0,%1,%2,%3};\n"
+        : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+        : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
   } else {
-#pragma unroll
-    for (int c = 0; c < 4; ++c)
-      f[c] = __half2float(__ushort_as_half((unsigned short)(((w >> (8 * c)) & 0xffu) << 8)));
+    asm("mma.sync.aligned.m16n8k32.row.col.f32.e5m2.e5m2.f32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, "
+        "{%8,%9}, {%0,%1,%2,%3};\n"
+        : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+        : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
   }
 }
 
-__device__ __forceinline__ float bf16_bits_to_float(uint32_t h) {
-  return __uint_as_float(h << 16);
-}
-
-// acc[i][c] += the contraction of rows k..k+3 of the operand (row i) with
-// weight columns c of the four words w[0..3] (rows k..k+3, 4 columns each).
-template <int BM, bool kInt, typename Acc>
-__device__ __forceinline__ void contract4(Acc (&acc)[BM][4], const uint32_t* w,
-                                          const unsigned char* op, int k, int np4, int mode) {
-  if constexpr (kInt) {
-    // 4 x 4 byte transpose: col[c] holds column c's weights of rows k..k+3
-    const uint32_t lo01 = __byte_perm(w[0], w[1], 0x5140), hi01 = __byte_perm(w[0], w[1], 0x7362);
-    const uint32_t lo23 = __byte_perm(w[2], w[3], 0x5140), hi23 = __byte_perm(w[2], w[3], 0x7362);
-    const int col[4] = {(int)__byte_perm(lo01, lo23, 0x5410), (int)__byte_perm(lo01, lo23, 0x7632),
-                        (int)__byte_perm(hi01, hi23, 0x5410), (int)__byte_perm(hi01, hi23, 0x7632)};
-    const int* op32 = reinterpret_cast<const int*>(op);
-#pragma unroll
-    for (int i = 0; i < BM; ++i) {
-      const int a = op32[(i * np4 + k) >> 2];
-#pragma unroll
-      for (int c = 0; c < 4; ++c) acc[i][c] = __dp4a(a, col[c], acc[i][c]);
-    }
-  } else {
-    float wf[4][4];
-#pragma unroll
-    for (int u = 0; u < 4; ++u) fp8x4_to_float(w[u], mode, wf[u]);
-    const uint2* op64 = reinterpret_cast<const uint2*>(op);
-#pragma unroll
-    for (int i = 0; i < BM; ++i) {
-      const uint2 h = op64[(i * np4 + k) >> 2];
-      const float a[4] = {bf16_bits_to_float(h.x & 0xffffu), bf16_bits_to_float(h.x >> 16),
-                          bf16_bits_to_float(h.y & 0xffffu), bf16_bits_to_float(h.y >> 16)};
-#pragma unroll
-      for (int u = 0; u < 4; ++u)
-#pragma unroll
-        for (int c = 0; c < 4; ++c)
-          acc[i][c] = __fmaf_rn(a[u], wf[u][c], acc[i][c]);  // exact product, f32 sum
-    }
-  }
-}
-
-// cp.async of one 32-bit word into shared memory, zero-filled when src_bytes
-// is 0 (no byte is read then), and the group bookkeeping around it.
-__device__ __forceinline__ void cp_async_word(uint32_t* dst, const void* src, int src_bytes) {
+// cp.async of 16 bytes into shared memory, zero-filled when src_bytes is 0
+// (no byte is read then), and the group bookkeeping around it.
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, int src_bytes) {
   const unsigned saddr = (unsigned)__cvta_generic_to_shared(dst);
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(saddr), "l"(src),
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(saddr), "l"(src),
                "r"(src_bytes)
                : "memory");
 }
@@ -313,50 +365,17 @@ __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::: "memory");
 }
 
+// The barrier of the 4 warps of quad q (named barrier 1 + q of 128
+// threads; __syncthreads is barrier 0).
+__device__ __forceinline__ void quad_sync(int q) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(1 + q), "r"(kQuad * 32) : "memory");
+}
+
 template <int N>
 __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
-// The k-step of 16 weight rows that thread (cq, ks) contracts: rows
-// k0 .. k0 + 15 of columns j .. j + 3, as 16 little-endian words (0 beyond
-// ke, n or d) -- the words the rotate-once loop loads into registers.
-struct KStep {
-  const uint8_t* wq;
-  int n, d, j, ke;
-  bool vec;
-
-  __device__ __forceinline__ void load(int k0, uint32_t (&wv)[kStepRows]) const {
-    const bool whole = vec && j + 3 < d && ke <= n;
-#pragma unroll
-    for (int u = 0; u < kStepRows; ++u) {
-      const int k = k0 + u;
-      if (whole) {
-        wv[u] = k < ke ? __ldg(reinterpret_cast<const unsigned int*>(wq + (size_t)k * d + j))
-                       : 0u;
-      } else {
-        wv[u] = k < ke ? load_w4(wq, k, j, n, d, vec) : 0u;
-      }
-    }
-  }
-
-  // Streamed: the same words into a ring stage (thread-major: word u of
-  // thread t at stage[u * kThreads + t]), by cp.async where the words are
-  // whole aligned quads of real columns, synchronously otherwise.
-  __device__ __forceinline__ void fetch(int k0, uint32_t* stage) const {
-#pragma unroll
-    for (int u = 0; u < kStepRows; ++u) {
-      const int k = k0 + u;
-      uint32_t* dst = stage + u * kThreads + threadIdx.x;
-      if (vec) {
-        const bool real = k < ke && k < n && j + 3 < d;
-        cp_async_word(dst, real ? wq + (size_t)k * d + j : wq, real ? 4 : 0);
-      } else {
-        *dst = k < ke ? load_w4(wq, k, j, n, d, false) : 0u;
-      }
-    }
-  }
-};
 
 // The ABFT twins' extra operands (unused by K4 / K5 / K6 / K6s): cw the
 // (E, n) f32 column checksums, resid the (m) f32 per-row residuals (in
@@ -375,12 +394,12 @@ struct Abft {
 // by a fixed butterfly and the warps in order: the same bits in every block.
 template <bool kInt>
 __device__ __forceinline__ float row_check(const unsigned char* op_row, const float* cw, int n,
-                                           float* wsum) {
+                                           float* wsum, int mode) {
   float a = 0.0f;
   for (int k = threadIdx.x; k < n; k += blockDim.x) {
     float v;
     if constexpr (kInt) v = (float)(int8_t)op_row[k];
-    else v = bf16_bits_to_float(reinterpret_cast<const uint16_t*>(op_row)[k]);
+    else v = fp8_to_float(op_row[k], mode);
     a = __fadd_rn(a, __fmul_rn(v, __ldg(cw + k)));
   }
 #pragma unroll
@@ -388,7 +407,7 @@ __device__ __forceinline__ float row_check(const unsigned char* op_row, const fl
   if ((threadIdx.x & 31) == 0) wsum[threadIdx.x >> 5] = a;
   __syncthreads();
   float c = 0.0f;
-  for (int w = 0; w < kThreads / 32; ++w) c = __fadd_rn(c, wsum[w]);
+  for (int w = 0; w < kWarps; ++w) c = __fadd_rn(c, wsum[w]);
   __syncthreads();  // wsum is reused by the next row
   return c;
 }
@@ -418,52 +437,121 @@ __device__ __forceinline__ void quant_dot_block(const T* x, const uint8_t* wq, c
                                                 int mode, int tiles_per_block, int vec,
                                                 Abft ab) {
   using Acc = typename std::conditional<kInt, int, float>::type;
+  constexpr int NF = (BM + 7) / 8;  // the MMA's n8 row groups
   extern __shared__ __align__(16) unsigned char smem[];
-  const int np4 = op_stride(n);
+  const int ops = op_stride(n);
   const int lg = __ffs(n) - 1;  // n is a power of 2
-  const int rw = work_rows(n, BM, kInt, kStreamed, kAbft);
-  unsigned char* op = smem;  // BM x np4 int8, or BM x np4 bf16 bits
-  uint32_t* ring = reinterpret_cast<uint32_t*>(smem + op_bytes(n, BM, kInt));
-  float* work = reinterpret_cast<float*>(reinterpret_cast<unsigned char*>(ring) +
-                                         ring_bytes(kStreamed));
+  const int rw = work_rows(n, BM, kStreamed, kAbft);
+  unsigned char* op = smem;  // BM x ops bytes: int8, or the fp8 storage bytes
+  unsigned char* after_op = smem + op_bytes(n, BM);
+  float* work = reinterpret_cast<float*>(after_op + (kStreamed ? ring_bytes() : 0));
   float* s_row = reinterpret_cast<float*>(reinterpret_cast<unsigned char*>(work) +
-                                          work_bytes(n, BM, rw));
+                                          work_bytes(n, BM, rw, kStreamed));
   int* amax = reinterpret_cast<int*>(s_row + BM);
   float* chk = reinterpret_cast<float*>(amax + rw);  // ABFT: BM checksums,
   float* tile_c = chk + BM;                          // BM x kBN contributions,
-  float* wsum = tile_c + BM * kBN;                   // kThreads / 32 warp sums,
-  int* last = reinterpret_cast<int*>(wsum + kThreads / 32);  // the last-block flag
+  float* wsum = tile_c + BM * kBN;                   // kWarps warp sums,
+  int* last = reinterpret_cast<int*>(wsum + kWarps);  // the last-block flag
+  Acc* red = reinterpret_cast<Acc*>(work);  // kSlices x BM x kBN partial sums
   wq += (size_t)e * n * d;  // expert e's weight and scales
   sw += (size_t)e * d;
 
-  // this thread's share of the contraction: k-chunk [kb, ke) of columns
-  // j .. j + 3 of every tile in [t0, t1)
-  const int tiles = (d + kBN - 1) / kBN;
+  // ---- this block's tiles in rounds (see the header): `whole` rounds of
+  // one tile per warp over all k-steps, then `rest` split rounds of one
+  // tile. A tile's k-steps fall in G groups of gs, each summed from zero:
+  // int8 the 16 k-slices (exact, so a whole round's tensor core carries one
+  // sum over the tile), fp8 the 128-k chunks the tensor core sums before
+  // their f32 promotion. In a split round warp w takes groups w, w + 16,
+  // ..., one pass each, and the groups' partial sums are added in group
+  // order: the order a whole round adds them in.
   const int t0 = blockIdx.y * tiles_per_block;
-  const int t1 = t0 + tiles_per_block < tiles ? t0 + tiles_per_block : tiles;
+#if defined(REPRO_MUTANT_UNGUARDED_ROTATE)
+  // M1 walks tiles_per_block tiles, real or not (past d they are masked), so
+  // every member of the cluster runs as many rotations and barriers
+  const int ntiles = tiles_per_block;
+#else
+  const int tiles = (d + kBN - 1) / kBN;
+  const int ntiles =
+      t0 + tiles_per_block < tiles ? tiles_per_block : (tiles > t0 ? tiles - t0 : 0);
+#endif
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int cq = lane & (kCQ - 1), ks = warp * 4 + (lane >> 3);
-  int chunk = (np4 + kKS - 1) / kKS;
-  chunk = (chunk + 3) & ~3;
-  const int kb = ks * chunk;
-  const int ke = kb + chunk < np4 ? kb + chunk : np4;
-  const int steps = ke > kb ? (ke - kb + kStepRows - 1) / kStepRows : 0;
-  const int items = (t1 > t0 ? t1 - t0 : 0) * steps;  // k-steps of the whole run
-  KStep w{wq, n, d, 0, ke, vec != 0};
-  auto fetch = [&](int item) {  // streamed: k-step `item` into its ring stage
-    KStep at = w;
-    at.j = (t0 + item / steps) * kBN + cq * 4;
-    at.fetch(kb + (item % steps) * kStepRows,
-             ring + (size_t)(item % kStages) * kStepRows * kThreads);
+  const int grp = lane >> 2, tig = lane & 3;  // the MMA fragments' row group, lane in group
+  const int ksteps = k_extent(n) / kKStep;   // a power of 2
+  const int slices = ksteps < kSlices ? ksteps : kSlices;
+  const int gs = kInt ? ksteps / slices : (ksteps < kChunkSteps ? ksteps : kChunkSteps);
+  const int groups = ksteps / gs, passes = (groups + kWarps - 1) / kWarps;
+  const int per_split = warp < groups ? passes * gs : 0;  // k-steps per split round
+  const int lks = __ffs(ksteps) - 1, lgs = __ffs(gs) - 1, lps = __ffs(passes * gs) - 1;
+  const int whole = ntiles / kWarps, rest = ntiles % kWarps;
+  const int wi = whole * ksteps;  // this warp's k-steps in the whole rounds
+  const int items = wi + rest * per_split;
+  // the ring of this warp's quad (warps 4q .. 4q + 3): kStages stages of
+  // 4 KB; in a whole round the quad's four adjacent tiles share each stage
+  // (32 rows x 128 columns), in a split round each warp has its quarter
+  unsigned char* ring =
+      kStreamed ? after_op : reinterpret_cast<unsigned char*>(work) + red_bytes(BM);
+  const int quad = warp >> 2, qw = warp & 3;
+  unsigned char* ring_q = ring + (size_t)quad * kStages * kQuad * kStageBytes;
+
+  // k-step `it` of this warp's sequence into its ring stage, as two
+  // 16-byte copies per lane. Whole rounds: this warp copies rows 8 qw ..
+  // 8 qw + 7 of the quad's 128 columns (a warp's copy covers 4 rows x 128
+  // contiguous bytes: L2 serves whole lines at a much higher rate than
+  // 32-byte pieces), row rr at rr * 128 with its 16-byte chunks XORed
+  // by 2 (rr / 8). Split rounds: rows 0..31 of this warp's own 32 columns
+  // into its quarter, row rr at slot (rr % 8) * 4 + rr / 8. Either way the
+  // 32 words the warp reads at once fall in 32 banks.
+  auto fetch = [&](int it) {
+    unsigned char* st = ring_q + (it & (kStages - 1)) * kQuad * kStageBytes;
+    int k0, j0;
+    const bool together = it < wi;
+    if (together) {
+      k0 = (it & (ksteps - 1)) * kKStep;
+      j0 = (t0 + (it >> lks) * kWarps + 4 * quad) * kBN;
+    } else {
+      const int j = it - wi, jj = j & (passes * gs - 1);  // split round j / (passes gs)
+      k0 = (((warp + kWarps * (jj >> lgs)) << lgs) + (jj & (gs - 1))) * kKStep;
+      j0 = (t0 + whole * kWarps + (j >> lps)) * kBN;
+      st += qw * kStageBytes;
+    }
+#pragma unroll
+    for (int q = 0; q < 2; ++q) {  // 64 16-byte chunks per warp, two per lane
+      const int c = lane + 32 * q;
+      int rr, j;
+      unsigned char* dst;
+      if (together) {
+        rr = 8 * qw + (c >> 3);
+        j = j0 + 16 * (c & 7);
+        dst = st + rr * (kQuad * kBN) + 16 * ((c & 7) ^ (2 * qw));
+      } else {
+        rr = c >> 1;
+        j = j0 + 16 * (c & 1);
+        dst = st + ((rr & 7) * 4 + (rr >> 3)) * kBN + 16 * (c & 1);
+      }
+      const int k = k0 + rr;
+      if (vec == 2) {
+        const bool real = k < n && j < d;
+        cp_async16(dst, real ? wq + (size_t)k * d + j : wq, real ? 16 : 0);
+      } else {
+        uint4 v;
+        v.x = load_w4(wq, k, j, n, d, vec == 1);
+        v.y = load_w4(wq, k, j + 4, n, d, vec == 1);
+        v.z = load_w4(wq, k, j + 8, n, d, vec == 1);
+        v.w = load_w4(wq, k, j + 12, n, d, vec == 1);
+        *reinterpret_cast<uint4*>(dst) = v;
+      }
+    }
   };
-  if constexpr (kStreamed) {
-    // warm-up: the first kStages - 1 k-steps fly while the rows rotate
+  int next = 0;  // the next k-step to fetch
+  // the first kStages - 1 k-steps below lim, one commit group each
+  auto prologue = [&](int lim) {
 #pragma unroll
     for (int i = 0; i < kStages - 1; ++i) {
-      if (i < items) fetch(i);
+      if (next < lim) fetch(next++);
       cp_async_commit();
     }
-  }
+  };
+  if constexpr (kStreamed) prologue(items);  // the warm-up flies while the rows rotate
 
   // ---- rotate + quantize the row block once per cluster: the blocks of a
   // cluster (consecutive column splits of one row block) each rotate
@@ -514,18 +602,43 @@ __device__ __forceinline__ void quant_dot_block(const T* x, const uint8_t* wq, c
           if (c < csize) s_at[c][g + i] = s;
       }
       __syncthreads();
-      for (int i = threadIdx.x; i < nr * n; i += blockDim.x) {
-        const int rr = i >> lg, k = i & (n - 1);
-        const float q = quant::to_grid(work[i], s_row[g + rr], mode);
-        const size_t at = (size_t)(g + rr) * np4 + k;
+      // the int8 value, or the storage byte of the fp8 grid value (exact;
+      // e4m3 by the hardware's conversion, which is exact on the grid: no
+      // grid value is out of range, and a NaN stays NaN), 4 consecutive k
+      // a word: one 32-bit store into each member
+      auto grid_byte = [&](float y, float s) {
+        return (uint32_t)quant::encode(quant::to_grid(y, s, mode), mode);
+      };
+      auto grid_word = [&](float4 v, float s) -> uint32_t {
+        if (mode == quant::kE4M3) {
+          const float2 lo = make_float2(quant::to_grid(v.x, s, mode), quant::to_grid(v.y, s, mode));
+          const float2 hi = make_float2(quant::to_grid(v.z, s, mode), quant::to_grid(v.w, s, mode));
+          return (uint32_t)__nv_cvt_float2_to_fp8x2(lo, __NV_SATFINITE, __NV_E4M3) |
+                 (uint32_t)__nv_cvt_float2_to_fp8x2(hi, __NV_SATFINITE, __NV_E4M3) << 16;
+        }
+        return grid_byte(v.x, s) | grid_byte(v.y, s) << 8 | grid_byte(v.z, s) << 16 |
+               grid_byte(v.w, s) << 24;
+      };
+      if (n >= 4) {
+        const float4* w4 = reinterpret_cast<const float4*>(work);
+        for (int i = threadIdx.x; i < (nr * n) >> 2; i += blockDim.x) {
+          const int rr = (i << 2) >> lg, k = (i << 2) & (n - 1);
+          const uint32_t word = grid_word(w4[i], s_row[g + rr]);
+          const size_t at = (size_t)(g + rr) * ops + k;
 #pragma unroll
-        for (int c = 0; c < kMembers; ++c) {
-          if (c >= csize) break;
-          if constexpr (kInt) {
-            op_at[c][at] = (uint8_t)(int8_t)(int)q;
-          } else {
-            reinterpret_cast<uint16_t*>(op_at[c])[at] =
-                __bfloat16_as_ushort(__float2bfloat16_rn(q));  // exact: q is on the fp8 grid
+          for (int c = 0; c < kMembers; ++c) {
+            if (c >= csize) break;
+            *reinterpret_cast<uint32_t*>(op_at[c] + at) = word;
+          }
+        }
+      } else {
+        for (int i = threadIdx.x; i < nr * n; i += blockDim.x) {
+          const int rr = i >> lg, k = i & (n - 1);
+          const uint8_t b = (uint8_t)grid_byte(work[i], s_row[g + rr]);
+#pragma unroll
+          for (int c = 0; c < kMembers; ++c) {
+            if (c >= csize) break;
+            op_at[c][(size_t)(g + rr) * ops + k] = b;
           }
         }
       }
@@ -535,8 +648,7 @@ __device__ __forceinline__ void quant_dot_block(const T* x, const uint8_t* wq, c
         // into every member's chk
         for (int i = 0; i < nr; ++i) {
           const float c =
-              row_check<kInt>(op + (size_t)(g + i) * np4 * (kInt ? 1 : 2), ab.cw + (size_t)e * n,
-                              n, wsum);
+              row_check<kInt>(op + (size_t)(g + i) * ops, ab.cw + (size_t)e * n, n, wsum, mode);
           if (threadIdx.x == 0) {
 #pragma unroll
             for (int cc = 0; cc < kMembers; ++cc)
@@ -545,131 +657,247 @@ __device__ __forceinline__ void quant_dot_block(const T* x, const uint8_t* wq, c
         }
       }
     }
-    // zero the masked rows, and the padding of rows shorter than a word
-    for (int i = rows * np4 + threadIdx.x; i < BM * np4; i += blockDim.x) {
-      if constexpr (kInt) op[i] = 0;
-      else reinterpret_cast<uint16_t*>(op)[i] = 0;
-    }
-    if (n < 4) {
-      for (int i = threadIdx.x; i < rows * 4; i += blockDim.x) {
-        if ((i & 3) < n) continue;
-        if constexpr (kInt) op[i] = 0;
-        else reinterpret_cast<uint16_t*>(op)[i] = 0;
-      }
+    // zero the masked rows, and the k padding of rows shorter than an MMA
+    for (int i = rows * ops + threadIdx.x; i < BM * ops; i += blockDim.x) op[i] = 0;
+    if (n < kKStep) {
+      for (int i = threadIdx.x; i < rows * kKStep; i += blockDim.x)
+        if (i % kKStep >= n) op[(size_t)(i / kKStep) * ops + i % kKStep] = 0;
     }
     rows_sync<kRevisit>();  // every member's rows and scales are in place
   };
+  // each lane's output rows (2 tig, 2 tig + 1 of each n8 group) and scales
+  float s_own[NF][2];
+  auto load_scales = [&]() {
+#pragma unroll
+    for (int f = 0; f < NF; ++f)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int tok = f * 8 + 2 * tig + h;
+        s_own[f][h] = tok < BM ? s_row[tok] : 0.0f;
+      }
+  };
+  int lim = items;  // no copy is issued for a k-step at or past lim
 #if !defined(REPRO_MUTANT_UNGUARDED_ROTATE)
   rotate_rows();
+  load_scales();
+  if constexpr (!kStreamed) prologue(lim);  // the ring shares the rotation's work area
 #endif
 
-  // ---- contract the operand with this block's run of column tiles
-  Acc* red = reinterpret_cast<Acc*>(work);
+  // ---- contract the operand with this block's tiles, round by round
   float rowacc = 0.0f;  // ABFT: thread i < BM's running sum of row i
-  int item = 0;
+  int it = 0;           // this warp's k-steps so far
+  // this warp's k-step `at` (k-step ks of its tile) into the MMA
+  // accumulators C
+  auto kstep = [&](int at, int ks, bool together, auto& C) {
+    cp_async_wait<kStages - 2>();  // this lane's copies of k-step `at` have landed
+    // ... and every lane's of the quad (whole rounds) or the warp; all of
+    // them are done with the stage refilled next
+    const uint32_t* st32 = reinterpret_cast<const uint32_t*>(
+        ring_q + (at & (kStages - 1)) * kQuad * kStageBytes);
+    uint32_t wv[8];  // rows 8 tig + u, columns 4 grp .. 4 grp + 3 of the tile
+    if (together) {
+      quad_sync(quad);
+#pragma unroll
+      for (int u = 0; u < 8; ++u) wv[u] = st32[(8 * tig + u) * 32 + 8 * (qw ^ tig) + grp];
+    } else {
+      __syncwarp();
+      st32 += qw * (kStageBytes / 4);
+#pragma unroll
+      for (int u = 0; u < 8; ++u) wv[u] = st32[32 * u + 8 * tig + grp];
+    }
+    uint2 b[NF];  // row f * 8 + grp, k 8 tig .. 8 tig + 7
+#pragma unroll
+    for (int f = 0; f < NF; ++f) {
+      const int tok = f * 8 + grp;
+      b[f] = tok < BM ? *reinterpret_cast<const uint2*>(op + (size_t)tok * ops +
+                                                         ks * kKStep + 8 * tig)
+                      : make_uint2(0u, 0u);
+    }
+    if (next < lim) fetch(next++);
+    cp_async_commit();
+    uint32_t lo[4], hi[4];  // column 4 grp + c: k 8 tig .. +3 and 8 tig + 4 .. +7
+    transpose4(wv, lo);
+    transpose4(wv + 4, hi);
+#pragma unroll
+    for (int mf = 0; mf < 2; ++mf)  // MMA rows grp, grp + 8: columns 4 grp + 2 mf, + 1
+#pragma unroll
+      for (int f = 0; f < NF; ++f) {
+        if constexpr (kInt)
+          mma_s8(C[mf][f], lo[2 * mf], lo[2 * mf + 1], hi[2 * mf], hi[2 * mf + 1], b[f].x,
+                 b[f].y);
+        else
+          mma_fp8(C[mf][f], lo[2 * mf], lo[2 * mf + 1], hi[2 * mf], hi[2 * mf + 1], b[f].x,
+                  b[f].y, mode);
+      }
+  };
+  // group g of the tile, from zero, added into acc: int8 on the tensor core
+  // itself, fp8 through one chunk's accumulator and __fadd_rn
+  auto group = [&](int g, bool together, Acc (&acc)[2][NF][4]) {
+    if constexpr (kInt) {
+      for (int stp = 0; stp < gs; ++stp, ++it) kstep(it, g * gs + stp, together, acc);
+    } else {
+      float ck[2][NF][4];
+#pragma unroll
+      for (int mf = 0; mf < 2; ++mf)
+#pragma unroll
+        for (int f = 0; f < NF; ++f)
+#pragma unroll
+          for (int i = 0; i < 4; ++i) ck[mf][f][i] = 0.0f;
+      for (int stp = 0; stp < gs; ++stp, ++it) kstep(it, g * gs + stp, together, ck);
+#pragma unroll
+      for (int mf = 0; mf < 2; ++mf)
+#pragma unroll
+        for (int f = 0; f < NF; ++f)
+#pragma unroll
+          for (int i = 0; i < 4; ++i) acc[mf][f][i] = __fadd_rn(acc[mf][f][i], ck[mf][f][i]);
+    }
+  };
+  auto zero = [](Acc (&a)[2][NF][4]) {
+#pragma unroll
+    for (int mf = 0; mf < 2; ++mf)
+#pragma unroll
+      for (int f = 0; f < NF; ++f)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) a[mf][f][i] = 0;
+  };
+  for (int rd = 0; rd < whole + rest; ++rd) {
+    const bool split = rd >= whole;
+    const int tile = split ? t0 + whole * kWarps + (rd - whole) : t0 + rd * kWarps + warp;
+    // the first split k-step refills the stage of the last whole one, which
+    // every warp of the quad read, and syncs only its own warp: wait until
+    // all warps are past the whole rounds
+    if (split && rd == whole && whole > 0) __syncthreads();
 #if defined(REPRO_MUTANT_UNGUARDED_ROTATE)
-  // M1: the row block is rotated and quantized again before every tile.
-  // Every member walks tiles_per_block tiles, real or not, so the cluster's
-  // barriers inside rotate_rows stay matched.
-  for (int t = t0; t < t0 + tiles_per_block; ++t) {
+    // M1: the row block is rotated and quantized again before every round;
+    // the ring, in the rotation's work area, restarts for the round's own
+    // k-steps once the last round's copies have landed
+    cp_async_wait<0>();
     rotate_rows();
-    if (t >= t1) continue;
-#else
-  for (int t = t0; t < t1; ++t) {
+    load_scales();
+    lim = it + (split ? per_split : ksteps);
+    prologue(lim);
 #endif
-    w.j = t * kBN + cq * 4;
-    Acc acc[BM][4];
+    // register i of fragment (mf, f): column 4 grp + 2 mf + i / 2 of the
+    // tile, row f * 8 + 2 tig + i % 2
+    if (!split) {
+      // a whole round: the warp's own tile, all groups in order, leaves
+      // from its registers
+      Acc acc[2][NF][4];
+      zero(acc);
+      for (int g = 0; g < groups; ++g) group(g, true, acc);
 #pragma unroll
-    for (int i = 0; i < BM; ++i)
+      for (int mf = 0; mf < 2; ++mf)
 #pragma unroll
-      for (int c = 0; c < 4; ++c) acc[i][c] = 0;
-    for (int k0 = kb; k0 < ke; k0 += kStepRows, ++item) {
-      // 16 weight words per k-step: rotate-once issues their loads
-      // together before using any; streamed issues the copies of the
-      // k-step kStages - 1 ahead, then waits for this one's
-      uint32_t wv[kStepRows];
-      if constexpr (kStreamed) {
-        if (item + kStages - 1 < items) fetch(item + kStages - 1);
-        cp_async_commit();
-#if !defined(REPRO_MUTANT_DANGLING_DMA)
-        cp_async_wait<kStages - 1>();
-#endif
-        const uint32_t* stage = ring + (size_t)(item % kStages) * kStepRows * kThreads;
+        for (int f = 0; f < NF; ++f)
 #pragma unroll
-        for (int u = 0; u < kStepRows; ++u) wv[u] = stage[u * kThreads + threadIdx.x];
-      } else {
-        w.load(k0, wv);
+          for (int i = 0; i < 4; ++i) {
+            const int tok = f * 8 + 2 * tig + (i & 1);
+            const int cc = 4 * grp + 2 * mf + (i >> 1), col = tile * kBN + cc;
+            float contrib = 0.0f;
+            if (tok < rows && col < d) {
+              float v;
+              if constexpr (kInt) v = __int2float_rn(acc[mf][f][i]);
+              else v = acc[mf][f][i];
+              contrib = __fmul_rn(__fmul_rn(v, s_own[f][i & 1]), __ldg(sw + col));
+              out[row_index(row0 + tok, E, cap, e) * d + col] = hadacore::from_float<T>(contrib);
+            }
+            if constexpr (kAbft)
+              if (tok < BM) work[(warp * BM + tok) * kBN + cc] = contrib;
+          }
+      if constexpr (kAbft) {
+        // the round's 16 tiles' row sums, in tile order
+        __syncthreads();
+        if (threadIdx.x < BM) {
+          for (int w = 0; w < kWarps; ++w) {
+            float a = 0.0f;
+            for (int c = 0; c < kBN; ++c) a = __fadd_rn(a, work[(w * BM + threadIdx.x) * kBN + c]);
+            rowacc = __fadd_rn(rowacc, a);
+          }
+        }
+        __syncthreads();
       }
-#pragma unroll
-      for (int st = 0; st < kSteps; ++st) {
-        const int k = k0 + 4 * st;
-        if (k >= ke) break;
-        contract4<BM, kInt>(acc, wv + 4 * st, op, k, np4, mode);
-      }
-    }
-    // the warp adds its 4 k-chunks ((0 + 1) + (2 + 3), lanes 8 apart), then
-    // the kKW warp sums are added in warp order: a fixed order
-#pragma unroll
-    for (int i = 0; i < BM; ++i)
-#pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        Acc v = acc[i][c];
-        v += __shfl_xor_sync(0xffffffffu, v, 8);
-        v += __shfl_xor_sync(0xffffffffu, v, 16);
-        if (lane < kCQ) red[(warp * BM + i) * kBN + cq * 4 + c] = v;
-      }
-    __syncthreads();
-    for (int o = threadIdx.x; o < BM * kBN; o += blockDim.x) {
-      const int i = o / kBN, col = t * kBN + (o - i * kBN);
+    } else {
+      // a split round: pass p, warp w adds group w + 16 p into red, and
+      // thread o (< BM x 32) adds the pass's groups in group order
+      const int o = threadIdx.x, oi = o / kBN, oc = o - oi * kBN;
       Acc sum = 0;
-      for (int kw = 0; kw < kKW; ++kw) sum += red[(kw * BM + i) * kBN + (o - i * kBN)];
-      float contrib = 0.0f;
-      if (i < rows && col < d) {
-        float v;
-        if constexpr (kInt) v = __int2float_rn(sum);
-        else v = sum;
-        contrib = __fmul_rn(__fmul_rn(v, s_row[i]), sw[col]);
-        out[row_index(row0 + i, E, cap, e) * d + col] = hadacore::from_float<T>(contrib);
+      for (int p = 0; p < passes; ++p) {
+        const int g = warp + kWarps * p;
+        if (g < groups) {
+          Acc part[2][NF][4];
+          zero(part);
+          group(g, false, part);
+#pragma unroll
+          for (int mf = 0; mf < 2; ++mf)
+#pragma unroll
+            for (int f = 0; f < NF; ++f)
+#pragma unroll
+              for (int i = 0; i < 4; ++i) {
+                const int tok = f * 8 + 2 * tig + (i & 1);
+                if (tok < BM)
+                  red[(warp * BM + tok) * kBN + 4 * grp + 2 * mf + (i >> 1)] = part[mf][f][i];
+              }
+        }
+        __syncthreads();
+        if (o < BM * kBN) {
+          const int last_g = groups - kWarps * p < kWarps ? groups - kWarps * p : kWarps;
+          for (int s = 0; s < last_g; ++s) {
+            if constexpr (kInt) sum += red[(s * BM + oi) * kBN + oc];
+            else sum = __fadd_rn(sum, red[(s * BM + oi) * kBN + oc]);
+          }
+        }
+        __syncthreads();
       }
-      if constexpr (kAbft) tile_c[o] = contrib;
-    }
-    __syncthreads();
-    if constexpr (kAbft) {
-      // read before the next tile's contributions: those are written only
-      // after the barrier that follows its partial sums
-      if (threadIdx.x < BM) {
-        float a = 0.0f;
-        for (int c = 0; c < kBN; ++c) a = __fadd_rn(a, tile_c[threadIdx.x * kBN + c]);
-        rowacc = __fadd_rn(rowacc, a);
+      if (o < BM * kBN) {
+        const int col = tile * kBN + oc;
+        float contrib = 0.0f;
+        if (oi < rows && col < d) {
+          float v;
+          if constexpr (kInt) v = __int2float_rn(sum);
+          else v = sum;
+          contrib = __fmul_rn(__fmul_rn(v, s_row[oi]), __ldg(sw + col));
+          out[row_index(row0 + oi, E, cap, e) * d + col] = hadacore::from_float<T>(contrib);
+        }
+        if constexpr (kAbft) tile_c[o] = contrib;
+      }
+      if constexpr (kAbft) {
+        __syncthreads();
+        // read before the next tile's contributions: those are written only
+        // after the barriers of its first pass
+        if (threadIdx.x < BM) {
+          float a = 0.0f;
+          for (int c = 0; c < kBN; ++c) a = __fadd_rn(a, tile_c[threadIdx.x * kBN + c]);
+          rowacc = __fadd_rn(rowacc, a);
+        }
       }
     }
   }
 #if !defined(REPRO_MUTANT_DANGLING_DMA)
-  if constexpr (kStreamed) cp_async_wait<0>();  // only empty groups remain
+  cp_async_wait<0>();  // only empty groups remain: the ring drains
 #endif
 
   if constexpr (kAbft) {
     // ---- the residual: every block of the row block writes its row sums,
     // then the last to arrive adds them in split order
-    const size_t grp = (size_t)e * gridDim.x + blockIdx.x;
+    const size_t grp_id = (size_t)e * gridDim.x + blockIdx.x;
     const int splits = (int)gridDim.y;
     if (threadIdx.x < BM) {
-      ab.part[(grp * splits + blockIdx.y) * BM + threadIdx.x] = rowacc;
+      ab.part[(grp_id * splits + blockIdx.y) * BM + threadIdx.x] = rowacc;
       __threadfence();
     }
     __syncthreads();
-    if (threadIdx.x == 0) *last = atomicAdd(ab.count + grp, 1u) == (unsigned)(splits - 1);
+    if (threadIdx.x == 0) *last = atomicAdd(ab.count + grp_id, 1u) == (unsigned)(splits - 1);
     __syncthreads();
     if (*last) {
       __threadfence();
       if (threadIdx.x < rows) {
         float a = 0.0f;
         for (int sp = 0; sp < splits; ++sp)
-          a = __fadd_rn(a, __ldcg(ab.part + (grp * splits + sp) * BM + threadIdx.x));
+          a = __fadd_rn(a, __ldcg(ab.part + (grp_id * splits + sp) * BM + threadIdx.x));
         ab.resid[row_index(row0 + threadIdx.x, E, cap, e)] =
             __fsub_rn(a, __fmul_rn(s_row[threadIdx.x], chk[threadIdx.x]));
       }
-      if (threadIdx.x == 0) ab.count[grp] = 0u;
+      if (threadIdx.x == 0) ab.count[grp_id] = 0u;
     }
   }
 }
@@ -708,10 +936,10 @@ int sm_count() {
 
 // The row tile: the largest of 16, 8, 4, 2, 1 rows that the call needs and
 // that fits the shared-memory limit; 0 when not even one row fits.
-int pick_bm(long long m, int n, bool is_int, bool streamed, bool abft) {
+int pick_bm(long long m, int n, bool streamed, bool abft) {
   int bm = 16;
   while (bm > 1 && bm / 2 >= m) bm /= 2;
-  while (bm >= 1 && smem_bytes(n, bm, is_int, streamed, abft) > kSmemLimit) bm /= 2;
+  while (bm >= 1 && smem_bytes(n, bm, streamed, abft) > kSmemLimit) bm /= 2;
   return bm;
 }
 
@@ -758,11 +986,14 @@ template <typename T, int BM, bool kInt, bool kStreamed, bool kExperts, bool kAb
 int launch_bm(const void* x, const void* wq, const void* sw, void* out, long long m, int n,
               int d, int experts, int cap, int block_n, int r, int cd, float scale, int mode,
               Abft ab, cudaStream_t stream) {
-  const size_t smem = smem_bytes(n, BM, kInt, kStreamed, kAbft);
+  const size_t smem = smem_bytes(n, BM, kStreamed, kAbft);
   const Grid g = grid_for(m, d, BM, smem, experts, kRevisit ? block_n : 0);
   if (g.row_blocks > 0x7fffffffLL || g.splits > 65535 || experts > 65535)
     return (int)cudaErrorInvalidConfiguration;
-  const int vec = (d % 4 == 0) && (reinterpret_cast<uintptr_t>(wq) % 4 == 0);
+  // weight reads: 2 16-byte cp.async, 1 32-bit loads, 0 bytes (every
+  // expert's weight starts as aligned as the first: n * d is a multiple of d)
+  const uintptr_t wa = reinterpret_cast<uintptr_t>(wq);
+  const int vec = (d % 16 == 0 && wa % 16 == 0) ? 2 : (d % 4 == 0 && wa % 4 == 0) ? 1 : 0;
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3((unsigned)g.row_blocks, (unsigned)g.splits, (unsigned)experts);
   cfg.blockDim = dim3(kThreads);
@@ -802,7 +1033,7 @@ template <typename T, bool kInt, bool kStreamed, bool kExperts, bool kAbft, bool
 int launch(const void* x, const void* wq, const void* sw, void* out, long long m, int n,
            int d, int experts, int cap, int block_n, int r, int cd, float scale, int mode,
            Abft ab, cudaStream_t s) {
-  switch (pick_bm(m, n, kInt, kStreamed, kAbft)) {
+  switch (pick_bm(m, n, kStreamed, kAbft)) {
 #define QD_CASE(BM)                                                                         \
   case BM:                                                                                  \
     return launch_bm<T, BM, kInt, kStreamed, kExperts, kAbft, kRevisit>(                    \
@@ -889,12 +1120,12 @@ int launch_checked(const void* x, const void* wq, const void* sw, void* out, lon
 // revisit)}. Nonzero when it does not fit.
 inline int launch_grid(long long m, int n, int d, int experts, int schedule, int block_n,
                        int mode, bool abft, long long* out) {
-  const bool is_int = mode == quant::kInt8;
+  if (mode < quant::kInt8 || mode > quant::kE5M2) return 1;
   const bool streamed = schedule == kStreamedSchedule;
-  const int bm = pick_bm(m, n, is_int, streamed, abft);
+  const int bm = pick_bm(m, n, streamed, abft);
   if (bm == 0) return 1;
   if (schedule == kRevisitSchedule && (block_n <= 0 || block_n % kBN != 0)) return 1;
-  const size_t smem = smem_bytes(n, bm, is_int, streamed, abft);
+  const size_t smem = smem_bytes(n, bm, streamed, abft);
   const Grid g = grid_for(m, d, bm, smem, experts, schedule == kRevisitSchedule ? block_n : 0);
   out[0] = bm;
   out[1] = (long long)smem;
@@ -969,7 +1200,7 @@ int kernel_attributes(long long m, int n, int schedule, int io, int mode, long l
   if (mode < quant::kInt8 || mode > quant::kE5M2 || schedule < kRotateOnce ||
       schedule > kRevisitSchedule)
     return (int)cudaErrorInvalidValue;
-  const int bm = pick_bm(m, n, mode == quant::kInt8, schedule == kStreamedSchedule, kAbft);
+  const int bm = pick_bm(m, n, schedule == kStreamedSchedule, kAbft);
   switch (io) {
     case hadacore::kF32:
       return func_attributes(kernel_for_io<float, kExperts, kAbft>(bm, schedule, mode), bm, out);

@@ -22,11 +22,12 @@ their shared body in ``quant_dot.cuh``), each replacing a TPU kernel of
   K7b    ``_quant_dot_experts_kernel_abft``          K6 + a residual per (expert, row)
   K7b-s  ``_quant_dot_experts_kernel_streamed_abft`` K6s + the same
 
-Each block rotates and quantizes its rows once into shared memory and
-contracts them with its run of weight-column tiles (int8: exact int32
-accumulation; fp8: exact products, f32 accumulation in a fixed order),
-then applies ``acc * s * sw``; the rotated activations never reach HBM. At
-a decode step they are bound by the bytes of the weight. K4 is the MLP
+Each block rotates and quantizes its rows once into shared memory (one
+byte a value) and contracts them with its run of weight-column tiles on
+the tensor cores (``mma.sync`` m16n8k32; int8: exact int32 accumulation;
+fp8: exact products, at most 128 k on the tensor core, then f32 sums in a
+fixed order), then applies ``acc * s * sw``; the rotated activations never
+reach HBM. At a decode step they are bound by the bytes of the weight. K4 is the MLP
 down-projection site when d_ff is a power of 2 (phi4-mini: 8192 -> 3072;
 llama4-maverick's dense and shared-expert MLPs: 8192 -> 5120), K6 the MoE
 expert down projection (maverick: 128 experts of 8192 -> 5120). The
@@ -194,30 +195,43 @@ def _resolve_schedule(schedule=None, experts: bool = False) -> str:
 
 # ------------------------------------------------------ the kernels' sizes
 # Shared-memory layout of csrc/quant_dot.cuh, for the size rule: the
-# operand (rows x n, 1 byte for int8, 2 for fp8 as bf16), under the
-# streamed schedule the weight ring (_STAGES stages of _RING_WORDS 32-bit
-# words per thread), a work area (the f32 rows rotated at once -- all of
-# them when they fit, else the most, a power of 2, that do -- or the 16 x
-# rows x 32 partial sums), one f32 scale per row and one absmax per
-# rotated row; the ABFT twins add one checksum per row, one tile of f32
-# contributions (rows x 32), one sum per warp and a flag. A call needs at
+# operand (rows x n one-byte values -- int8, or the fp8 storage bytes the
+# tensor cores read -- each row padded to a multiple of 128 bytes plus 32
+# so that the 8 rows of an MMA fragment start in distinct banks), under the
+# streamed schedule the weight ring (_STAGES k-steps of 1 KB for each of the
+# 16 warps), a work area (the f32 rows rotated at once -- all of them when
+# they fit, else the most, a power of 2, that do -- or the split rounds'
+# 16 x rows x 32 partial sums, and under rotate-once also the ring), one f32
+# scale per row and one absmax per rotated row; the ABFT twins add one
+# checksum per row, one tile of f32 contributions (rows x 32), one sum per
+# warp and a flag. The layout is the same for int8 and fp8. A call needs at
 # least one row to fit the per-block limit. The revisit schedule's layout is
 # rotate-once's: a K4 block also holds every row of its row block (the
 # cluster's members store into each other), so K8 takes the same rows.
 _SMEM_LIMIT = 232448     # 227 KB on sm_90
-_KW, _BN = 16, 32        # partial sums per output, columns per tile
-_THREADS, _STAGES, _RING_WORDS = 512, 3, 16
+_KW, _BN = 16, 32        # warps (and k-slices of a split tile), columns per tile
+_STAGES, _STAGE_BYTES = 4, 32 * 32   # a warp's ring: k-steps of 32 rows x 32 columns
+_RING = _KW * _STAGES * _STAGE_BYTES
+
+
+def _op_stride(n: int) -> int:
+    """Bytes per operand row: the k extent (n, at least 32) rounded up to
+    128, plus 32."""
+    return -(-max(n, 32) // 128) * 128 + 32
 
 
 def _smem_bytes(n: int, rows: int, mode: str, schedule: str = "rotate_once",
                 abft: bool = False) -> int:
-    opb = 1 if QSPECS[mode][2] else 2
-    ring = _STAGES * _THREADS * _RING_WORDS * 4 if schedule == "streamed" else 0
-    scratch = (rows + rows * _BN + _THREADS // 32 + 1) * 4 if abft else 0
+    """The dynamic shared memory of a launch of ``rows`` rows per block (the
+    same for every mode: the operand holds one byte a value)."""
+    streamed = schedule == "streamed"
+    red = _KW * rows * _BN * 4
+    scratch = (rows + rows * _BN + _KW + 1) * 4 if abft else 0
 
     def layout(rw):
-        return (rows * max(n, 4) * opb + ring + max(rw * n * 4, _KW * rows * _BN * 4)
-                + rows * 4 + rw * 4 + scratch)
+        work = max(rw * n * 4, red + (0 if streamed else _RING))
+        return (rows * _op_stride(n) + (_RING if streamed else 0) + work + rows * 4
+                + rw * 4 + scratch)
 
     rw = rows
     while rw > 1 and layout(rw) > _SMEM_LIMIT:
@@ -229,12 +243,57 @@ def kernel_fits(n: int, mode: str, schedule: str = "rotate_once",
                 abft: bool = False) -> bool:
     """Can the kernel of ``schedule`` (``abft``: its checksum-verified
     twin) take an n-point contraction in ``mode``: does one row of its
-    shared-memory layout fit the 227 KB per-block limit? The streamed
-    schedule charges its 96 KB weight ring; revisit has rotate-once's
-    layout. (True for every power of 2 up to 16384 under every schedule,
-    and up to the 32768 cap under rotate-once and revisit, with or without
-    ABFT.)"""
+    shared-memory layout fit the 227 KB per-block limit? (True for every
+    power of 2 up to the 32768 cap under every schedule, with or without
+    ABFT, in every mode.)"""
     return _smem_bytes(n, 1, mode, schedule, abft) <= _SMEM_LIMIT
+
+
+_SMEM_PER_SM = 233472   # 228 KB of shared memory on an SM
+_SMS = 132              # an H100 SXM's SMs
+
+
+def _rows_per_block(m: int, n: int, mode: str, schedule: str = "rotate_once",
+                    abft: bool = False) -> int:
+    """The launcher's rows per block (``pick_bm``): the largest of 16, 8, 4,
+    2, 1 that m rows need and the layout fits; 0 when none fits."""
+    bm = 16
+    while bm > 1 and bm // 2 >= m:
+        bm //= 2
+    while bm >= 1 and _smem_bytes(n, bm, mode, schedule, abft) > _SMEM_LIMIT:
+        bm //= 2
+    return bm
+
+
+def _grid_plan(m: int, n: int, d: int, mode: str, experts: int = 0,
+               schedule: str = "rotate_once", abft: bool = False,
+               block_n: int = REVISIT_BLOCK_N, sms: int = _SMS) -> dict:
+    """``launch_grid``'s geometry from the launcher's rules (``pick_bm``,
+    ``grid_for`` in csrc/quant_dot.cuh) on a card of ``sms`` SMs, without
+    the library: splits for about one wave of resident blocks, a multiple
+    of the cluster (the largest power of 2 up to 8 within the rows per
+    block and the splits); revisit one split per weight tile of block_n
+    columns and no cluster. Each row is rotated splits / cluster times
+    (revisit: splits)."""
+    schedule = _resolve_schedule(schedule, experts=bool(experts))
+    bm = _rows_per_block(m, n, mode, schedule, abft)
+    if bm == 0:
+        raise ValueError(f"no launch fits n={n} {mode} {schedule}")
+    smem = _smem_bytes(n, bm, mode, schedule, abft)
+    row_blocks, tiles = -(-m // bm), -(-d // _BN)
+    if schedule == "revisit":
+        tpb = block_n // _BN
+        return dict(bm=bm, smem=smem, row_blocks=row_blocks, splits=-(-tiles // tpb),
+                    tiles_per_block=tpb, cluster=1)
+    per_sm = min(2, max(1, _SMEM_PER_SM // (smem + 1024)))   # 1 KB reserved per block
+    tpb = max(1, -(-(tiles * row_blocks * max(experts, 1)) // (per_sm * sms)))
+    splits = -(-tiles // tpb)
+    cluster = 8
+    while cluster > 1 and (cluster > bm or cluster > splits):
+        cluster //= 2
+    splits = splits // cluster * cluster
+    return dict(bm=bm, smem=smem, row_blocks=row_blocks, splits=splits,
+                tiles_per_block=-(-tiles // splits), cluster=cluster)
 
 
 _PTR = ctypes.c_void_p

@@ -21,7 +21,8 @@ longer has), so these tests hold the port's rules on the port's own sites:
   leaf whose pointer moved;
 * the PTX reader parses an entry's instantiation from its mangled name,
   passes an intact streamed ring and flags it with its wait_group (or its
-  drain) removed;
+  drain) removed; it counts each entry's tensor-core ``mma.sync`` and
+  CUDA-core ``dp4a`` instructions;
 * the CLI refuses to run the card's rules, or the mutants, on the CPU, and
   refuses every rule set when the card was asked for and is not there: it
   exits 2 with a message and reports nothing as passed.
@@ -249,11 +250,41 @@ def test_ptx_reader_passes_the_ring_and_flags_a_missing_wait():
                                 .replace("\tcp.async.wait_group 0;\n", ""))[want]
     assert len(ptx.dma_findings(dangling)) == 3
     assert ptx.dma_findings([e for e in events if e.kind != "copy"])[0].startswith("no cp.async")
-    site = _kernel_site(name="mutant[dangling_dma]", schedule="streamed", ptx_entry=NAME,
-                        ptx_events=tuple(broken))
-    assert _names(run_rules([site], ["dma-safety"])) == {("mutant[dangling_dma]",
-                                                          "dma-safety")}
+    for evs in (broken, undrained):  # undrained: M2's fault
+        site = _kernel_site(name="mutant[dangling_dma]", schedule="streamed", ptx_entry=NAME,
+                            ptx_events=tuple(evs))
+        assert _names(run_rules([site], ["dma-safety"])) == {("mutant[dangling_dma]",
+                                                              "dma-safety")}
     assert dataclasses.replace(want, bm=8) not in ptx.events_of(PTX)
+
+
+MMA_PTX = f"""
+.version 8.7
+.target sm_90a
+.entry {NAME}(
+\t.param .u64 {NAME}_param_0
+)
+{{
+\tmma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 {{%r1, %r2, %r3, %r4}}, {{%r5, %r6, %r7, %r8}}, {{%r9, %r10}}, {{%r1, %r2, %r3, %r4}};
+\t@%p1 mma.sync.aligned.m16n8k32.row.col.f32.e4m3.e4m3.f32 {{%f1, %f2, %f3, %f4}}, {{%r5, %r6, %r7, %r8}}, {{%r9, %r10}}, {{%f1, %f2, %f3, %f4}};
+\tret;
+}}
+.entry {NAME}_cuda_cores(
+\t.param .u64 p
+)
+{{
+\tdp4a.s32.s32 %r1, %r2, %r3, %r1;
+\tdp4a.s32.s32 %r1, %r4, %r5, %r1;  // mma.sync in a comment does not count
+\tret;
+}}
+"""
+
+
+def test_ptx_counts_tensor_core_and_cuda_core_contractions():
+    counts = ptx.contraction_counts(MMA_PTX)
+    assert counts == {NAME: {"mma": 2, "dp4a": 0},
+                      NAME + "_cuda_cores": {"mma": 0, "dp4a": 2}}
+    assert ptx.contraction_counts(PTX) == {NAME: {"mma": 0, "dp4a": 0}}
 
 
 def test_cli_refuses_the_cards_rules_on_the_cpu(capsys):

@@ -305,32 +305,118 @@ def test_quant_dot_spec_site_takes_the_fused_path(monkeypatch):
 def test_kernel_size_rule():
     """The port's fusability rule comes from K4's shared-memory layout: one
     row of operand + work area fits the 227 KB block limit for every power
-    of 2 up to the 32768 cap, int8 and fp8; the torch backend hosts the
-    unfused math as quant_dot (the reference's xla backend does too)."""
+    of 2 up to the 32768 cap, int8 and fp8 alike (the operand holds one
+    byte a value: the fp8 storage bytes the tensor cores read); the torch
+    backend hosts the unfused math as quant_dot (the reference's xla
+    backend does too)."""
     for n in (2, 128, 8192, 32768):
         for mode in MODES:
             assert qd.kernel_fits(n, mode)
-    assert qd._smem_bytes(32768, 1, "fp8_e4m3") == 196616
+    # one row at the cap: 32800 operand bytes + 4 f32 rows of 32768 + its
+    # scale and absmax
+    assert qd._smem_bytes(32768, 1, "fp8_e4m3") == 163880
     assert qd._smem_bytes(8192, 16, "int8") <= qd._SMEM_LIMIT
     assert qd._smem_bytes(8192, 8, "fp8_e4m3") <= qd._SMEM_LIMIT
-    assert qd._smem_bytes(8192, 16, "fp8_e4m3") > qd._SMEM_LIMIT
+    assert qd._smem_bytes(8192, 16, "fp8_e4m3") == qd._smem_bytes(8192, 16, "int8")
+    assert qd._smem_bytes(8192, 16, "fp8_e4m3") <= qd._SMEM_LIMIT
     assert not qd.kernel_fits(1 << 17, "int8")
-    # the streamed schedule charges its 96 KB weight ring: fewer rows per
-    # block at n = 8192 (8 int8, 4 fp8), and no room for n = 32768
-    assert qd._smem_bytes(8192, 8, "int8", "streamed") <= qd._SMEM_LIMIT
-    assert qd._smem_bytes(8192, 16, "int8", "streamed") > qd._SMEM_LIMIT
-    assert qd._smem_bytes(8192, 4, "fp8_e4m3", "streamed") <= qd._SMEM_LIMIT
-    assert qd._smem_bytes(8192, 8, "fp8_e4m3", "streamed") > qd._SMEM_LIMIT
-    assert qd.kernel_fits(16384, "fp8_e4m3", "streamed")
-    assert not qd.kernel_fits(32768, "int8", "streamed")
+    # the streamed schedule charges its 64 KB weight ring (16 warps x 4
+    # k-steps of 1 KB) beside the work area instead of inside it: 16 rows
+    # still fit at n = 8192, and one row at n = 32768
+    assert qd._smem_bytes(8192, 16, "int8", "streamed") <= qd._SMEM_LIMIT
+    assert qd._smem_bytes(8192, 16, "fp8_e4m3", "streamed") <= qd._SMEM_LIMIT
+    assert qd._smem_bytes(32768, 2, "int8", "streamed") > qd._SMEM_LIMIT
+    assert qd.kernel_fits(32768, "int8", "streamed")
+    assert not qd.kernel_fits(1 << 16, "int8", "streamed")
     big = plan_for(32768, dtype=torch.bfloat16, backend="cuda", device_type="cpu",
                    epilogue=QuantEpilogue("int8"))
-    assert api._qd_fusable(big) and not api._qd_fusable(big, "streamed")
-    assert not api._qd_experts_fusable(big, "streamed")
+    assert api._qd_fusable(big) and api._qd_fusable(big, "streamed")
+    assert api._qd_experts_fusable(big, "streamed")
     torch_plan = plan_for(256, dtype=torch.bfloat16, backend="torch",
                           device_type="cpu", epilogue=QuantEpilogue("int8"))
     assert api._qd_fusable(torch_plan)
     assert registry.get_backend("ref").quant_dot is None
+
+
+# Rows per block at the training phase's 2048 rows, by (n, schedule): the
+# same in every mode and with or without ABFT, now that the operand holds
+# one byte a value (the bf16 embedding of fp8 halved fp8's rows at 8192)
+ROWS_PER_BLOCK = {
+    (2048, "rotate_once"): 16, (2048, "streamed"): 16, (2048, "revisit"): 16,
+    (8192, "rotate_once"): 16, (8192, "streamed"): 16, (8192, "revisit"): 16,
+    (32768, "rotate_once"): 2, (32768, "streamed"): 1, (32768, "revisit"): 2,
+}
+
+
+@pytest.mark.parametrize("abft", [False, True], ids=["plain", "abft"])
+@pytest.mark.parametrize("schedule", qd.SCHEDULES)
+@pytest.mark.parametrize("mode", MODES)
+@pytest.mark.parametrize("n", [2048, 8192, 32768])
+def test_rows_per_block(n, mode, schedule, abft):
+    """The launcher's rows per block (pick_bm) from the layout: the table's,
+    fewer rows for fewer needed, and the layout of those rows fits."""
+    bm = qd._rows_per_block(2048, n, mode, schedule, abft)
+    assert bm == ROWS_PER_BLOCK[n, schedule]
+    assert qd._smem_bytes(n, bm, mode, schedule, abft) <= qd._SMEM_LIMIT
+    assert bm == 16 or qd._smem_bytes(n, 2 * bm, mode, schedule, abft) > qd._SMEM_LIMIT
+    assert qd._rows_per_block(4, n, mode, schedule, abft) == min(4, bm)
+    assert qd._rows_per_block(1, n, mode, schedule, abft) == 1
+
+
+@pytest.mark.parametrize("abft", [False, True], ids=["plain", "abft"])
+@pytest.mark.parametrize("schedule", qd.SCHEDULES)
+def test_kernel_fits_every_promised_power_of_two(schedule, abft):
+    """kernel_fits holds for every power of 2 up to the 32768 cap, in every
+    mode (its docstring's promise), and not beyond."""
+    for lg in range(1, 16):
+        for mode in MODES:
+            assert qd.kernel_fits(1 << lg, mode, schedule, abft), (1 << lg, mode)
+    assert not any(qd.kernel_fits(1 << 16, mode, schedule, abft) for mode in MODES)
+
+
+# The sites' launch geometry on an H100 (132 SMs): (m, n, d, mode, experts,
+# schedule) -> (rows per block, row blocks, splits, cluster, tiles per
+# block); each row is rotated splits / cluster times (revisit: splits)
+GEOMETRY = {
+    # phi4-mini's down projection: decode, prefill, the training step's rows
+    (4, 8192, 3072, "int8", 0, "rotate_once"): (4, 1, 96, 4, 1),
+    (4, 8192, 3072, "int8", 0, "streamed"): (4, 1, 96, 4, 1),
+    (4, 8192, 3072, "int8", 0, "revisit"): (4, 1, 24, 1, 4),
+    (64, 8192, 3072, "int8", 0, "rotate_once"): (16, 4, 32, 8, 3),
+    (64, 8192, 3072, "int8", 0, "revisit"): (16, 4, 24, 1, 4),
+    (2048, 8192, 3072, "int8", 0, "rotate_once"): (16, 128, 2, 2, 48),
+    (2048, 8192, 3072, "int8", 0, "revisit"): (16, 128, 24, 1, 4),
+    # llama4-maverick's dense and expert down projections
+    (4, 8192, 5120, "fp8_e4m3", 0, "rotate_once"): (4, 1, 80, 4, 2),
+    (4, 8192, 5120, "fp8_e4m3", 0, "streamed"): (4, 1, 80, 4, 2),
+    (64, 8192, 5120, "fp8_e4m3", 0, "rotate_once"): (16, 4, 32, 8, 5),
+    (64, 8192, 5120, "fp8_e4m3", 0, "streamed"): (16, 4, 32, 8, 5),
+    (4, 8192, 5120, "fp8_e4m3", 128, "rotate_once"): (4, 1, 2, 2, 80),
+    (4, 8192, 5120, "fp8_e4m3", 128, "streamed"): (4, 1, 2, 2, 80),
+}
+
+
+@pytest.mark.parametrize("site", list(GEOMETRY), ids=lambda s: "-".join(map(str, s)))
+def test_launch_geometry_rotations_per_row(site):
+    """launch_grid's geometry at phi4-mini's and llama4-maverick's sites
+    from the launcher's rules, and the rotations per row the linter's
+    rotate-once rule expects of it: splits / cluster, every split a whole
+    cluster, the tiles covered; revisit one rotation per 128-column tile."""
+    m, n, d, mode, experts, schedule = site
+    g = qd._grid_plan(m, n, d, mode, experts, schedule)
+    assert (g["bm"], g["row_blocks"], g["splits"], g["cluster"],
+            g["tiles_per_block"]) == GEOMETRY[site]
+    assert g["smem"] == qd._smem_bytes(n, g["bm"], mode, schedule)
+    assert g["row_blocks"] * g["bm"] >= m > (g["row_blocks"] - 1) * g["bm"]
+    assert g["splits"] * g["tiles_per_block"] >= -(-d // 32)
+    assert g["splits"] % g["cluster"] == 0 and g["bm"] % g["cluster"] == 0
+    per_row = g["splits"] // g["cluster"]
+    if schedule == "revisit":
+        assert per_row == -(-d // qd.REVISIT_BLOCK_N)
+    else:
+        # the clusters of a row block split its tiles: fewer tiles per
+        # block than a cluster's worth would leave a member idle
+        assert g["tiles_per_block"] * (g["splits"] - g["cluster"]) < -(-d // 32)
 
 
 # ------------------------------------------------------------ schedules
@@ -456,6 +542,8 @@ def test_k8_k7a_rv_wrappers_and_size_rule():
                 assert qd.kernel_fits(n, mode, "revisit", abft) == \
                     qd.kernel_fits(n, mode, "rotate_once", abft)
     assert qd._smem_bytes(8192, 16, "int8", "revisit") == qd._smem_bytes(8192, 16, "int8")
+    assert qd._smem_bytes(8192, 16, "fp8_e4m3", "revisit") == \
+        qd._smem_bytes(8192, 16, "fp8_e4m3")
     big = plan_for(32768, dtype=torch.bfloat16, backend="cuda", device_type="cpu",
                    epilogue=QuantEpilogue("fp8_e4m3"))
     assert api._qd_fusable(big, "revisit")
