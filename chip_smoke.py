@@ -8,22 +8,33 @@ Runs from the repository root and needs the repository's ``src/``. It
   2. builds the port's CUDA kernels from ``src/repro_torch/csrc`` (one nvcc
      per source, in parallel) and prints the build seconds;
   3. kernel phase: holds every kernel against its plain PyTorch version on
-     the card -- K1 ``hadacore`` at n in {128, 2048, 32768} x {bf16, fp16,
-     f32} and grouped 14336; K2 ``fused_dequant`` at n in {128, 2048} x
-     {int8, fp8_e4m3, fp8_e5m2}, bf16; K3 ``fused`` at n in {128, 2048,
-     8192} x the 3 modes (q and s bitwise); K4 ``quant_dot`` at phi4-mini's
+     the card -- K1 ``hadacore`` on the tensor cores at n in {8, 16, 128,
+     256, 512, 1024, 2048, 4096, 32768} x {bf16, fp16} x {1, 5, 28, 64}
+     rows (1 ulp at the row max; in place bitwise out of place), at f32
+     compute (the CUDA-core body) and the baseline FWHT (``fwht_cuda``) in
+     the 3 dtypes at n in {128, 2048, 32768}, and grouped 14336; K2
+     ``fused_dequant`` at 32, 256 and 2048 x 128 and 256 x 2048 x {int8,
+     fp8_e4m3, fp8_e5m2}, bf16, and at the path shapes it is timed at (128,
+     32, 2048 and 512 x 128 fp8_e4m3), each against its plain version and
+     bitwise the plain epilogue on K1's own rotation; K3 ``fused`` at n in
+     {128, 2048, 8192} x the 3 modes (q and s bitwise, and on K1's
+     rotation); K4 ``quant_dot`` at phi4-mini's
      down projection (4 and 64 x 8192 -> 3072) and a ragged 5 x 8192 ->
-     3000 in the 3 modes (int8 bitwise, fp8 within 2^-7 of the row max);
+     3000 in the 3 modes (int8 bitwise, fp8 within 2^-7 of the row max; the
+     quant_dot family against the plain GEMM on the rotation it runs, the
+     CUDA-core FWHT's);
      K5 (streamed K4) against K4 bitwise and its plain version at
      llama4-maverick's 4 and 64 x 8192 -> 5120; K6 ``quant_dot_experts``
      and K6s (streamed K6) at maverick's (4 | 1, 128, 1, 8192) -> 5120 over
      128 experts, with every third expert's rows all zero: K6s equal to K6,
      K6 to K4 per expert, bitwise, zero rows exact zeros, K6 against its
      plain version (int8 and fp8_e4m3 for K5/K6/K6s) -- and times each at
-     the shapes its path gives it (CUDA events, and a profile for K4-K6s;
-     the quant_dot family through the port's timing harness,
+     the shapes its path gives it (CUDA events and a profile; K1 and K2
+     through the transform harness, ``repro_torch.bench.hadamard``, K1
+     beside the FWHT; the quant_dot family through its harness,
      ``repro_torch.bench.quant_dot``) beside its bound, its plain version
-     and one PyTorch library call where there is one (for K4-K6s the
+     and one PyTorch library call where there is one (K1
+     ``torch.matmul(x, H_n)``; for K4-K6s the
      contraction alone, per weight matrix: ``torch._int_mm`` in int8,
      ``torch._scaled_mm`` in fp8_e4m3); K4 and K5 at 512 x 8192 -> 3072,
      where a block runs whole rounds of tiles and then split ones, in the 3
@@ -94,7 +105,9 @@ Runs from the repository root and needs the repository's ``src/``. It
      exit 0, printing each site's launches, rotations per row against the
      launch geometry and shared-memory readings; every instantiation of the
      four quant_dot sources and of M2 must contract on the tensor cores
-     (``mma.sync`` and no ``dp4a`` in its PTX, counts printed per kernel);
+     (``mma.sync`` and no ``dp4a`` in its PTX, counts printed per kernel),
+     and every bf16 / fp16-compute instantiation of K1, K2 and K3 must
+     rotate there (``mma.sync`` in its PTX entry);
      ``--mutation`` must exit
      non-zero with M1 (K4 re-rotating before every tile) flagged by the
      rotate-once rule and M2 (K5 without its ring's final drain) by the DMA
@@ -126,7 +139,12 @@ import time
 import numpy as np
 import torch
 
-SLOTS, PREFILL_LEN, MAX_LEN = 4, 64, 256   # the serving run's engine
+sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "src"))
+# the serving run's and the training phase's traffic, which the transform
+# harness's path and train cases stand for
+from repro_torch.bench.hadamard import PREFILL_LEN, SLOTS, TRAIN_BATCH, TRAIN_SEQ  # noqa: E402
+
+MAX_LEN = 256                      # the serving run's engine: SLOTS slots of MAX_LEN
 MODES = ("int8", "fp8_e4m3", "fp8_e5m2")
 PHI4_DOWN = (8192, 3072)           # phi4-mini's down projection, n -> d
 MAVERICK_DOWN = (8192, 5120)       # llama4-maverick's down projections, n -> d
@@ -177,29 +195,99 @@ def k2_excess(got: torch.Tensor, want: torch.Tensor, x: torch.Tensor, plan) -> f
     return float(((got.float() - w).abs() / tol).max())
 
 
+def _k2_plan(n: int, mode: str):
+    from repro_torch.core.api import QuantEpilogue, plan_for
+
+    return plan_for(n, dtype=torch.bfloat16, backend="cuda", device_type="cuda",
+                    epilogue=QuantEpilogue(mode, dequant=True))
+
+
+def hold_k2(x: torch.Tensor, mode: str, got: torch.Tensor) -> None:
+    """K2's output ``got`` on bf16 rows ``x`` against its plain version
+    (``k2_excess`` <= 1) and bitwise the plain epilogue on K1's own
+    rotation of ``x``; prints the readings."""
+    from repro_torch.core.api import plan_for
+    from repro_torch.kernels.fused_quant import fused_dequant_plain
+    from repro_torch.kernels.hadacore import transform
+    from repro_torch.kernels.registry import _dequantize, _quantize_rows
+
+    rows, n = x.shape
+    plan = _k2_plan(n, mode)
+    y1 = transform(x, plan_for(n, dtype=torch.bfloat16, backend="cuda", device_type="cuda"))
+    torch.cuda.synchronize()
+    own = _dequantize(*_quantize_rows(y1.float(), mode), mode).to(torch.bfloat16)
+    want = fused_dequant_plain(x, plan)
+    exc = k2_excess(got, want, x, plan)
+    bitwise = bool(torch.equal(got, want))
+    on_k1 = bool(torch.equal(got.view(torch.int16), own.view(torch.int16)))
+    print(f"K2 {rows:4d} x {n:4d} {mode:9s} error / (grid step x row scale) "
+          f"{exc:.3f} (tolerance 1), bitwise to plain {bitwise}, to K1's rotation "
+          f"+ plain epilogue {on_k1}")
+    if not exc <= 1.0:
+        fail(f"K2 {rows} x {n} {mode}: {exc} grid steps")
+    if not on_k1:
+        fail(f"K2 {rows} x {n} {mode}: not the plain epilogue on K1's rotation")
+
+
+K1_SIZES = (8, 16, 128, 256, 512, 1024, 2048, 4096, 32768)  # every r and log16 remainder
+K1_ROWS = (1, 5, 28, 64)
+
+
 def kernel_phase(gen: torch.Generator):
     """Build-free check and timing of K1 and K2 (the build happened
-    before). Returns the two kernels' entries of the JSON line."""
-    from repro_torch.bench.quant_dot import (HBM_BYTES_PER_S, INT8_OPS_PER_S, bound,
-                                             cuda_time_ms, device_ms)
+    before): K1 on the tensor cores against its plain version at K1_SIZES x
+    {bf16, fp16} x K1_ROWS, in place bitwise out of place; f32 compute (the
+    CUDA-core body) and the baseline FWHT (``fwht_cuda``) as before; the
+    grouped 14336; K2 against its plain version and bitwise the plain
+    epilogue on K1's own rotation; then the path shapes through the
+    transform timing harness (``repro_torch.bench.hadamard.measure``).
+    Returns the two kernels' entries of the JSON line."""
+    from repro_torch.bench.hadamard import CASES, measure
+    from repro_torch.bench.quant_dot import HBM_BYTES_PER_S, cuda_time_ms, profile_ms
     from repro_torch.core.api import QuantEpilogue, hadamard, plan_for
-    from repro_torch.kernels.fused_quant import fused_dequant, fused_dequant_plain
-    from repro_torch.kernels.hadacore import transform, transform_plain
-    from repro_torch.kernels.ref import hadamard_matrix
+    from repro_torch.kernels.fused_quant import fused_dequant
+    from repro_torch.kernels.hadacore import fwht_cuda, transform, transform_plain
 
-    print("-- kernel phase: K1 hadacore against its plain version")
+    print("-- kernel phase: K1 hadacore on the tensor cores against its plain version "
+          f"(rows {K1_ROWS}; in place against out of place)")
+    for n in K1_SIZES:
+        for dt in (torch.bfloat16, torch.float16):
+            plan = plan_for(n, dtype=dt, backend="cuda", device_type="cuda")
+            worst = 0.0
+            for rows in K1_ROWS:
+                x = torch.randn(rows, n, generator=gen, device="cuda").to(dt)
+                got = transform(x, plan)
+                buf = x.clone()
+                transform(buf, plan, in_place=True)
+                torch.cuda.synchronize()
+                err = k1_ulps(got, transform_plain(x, plan), dt)
+                worst = max(worst, err)
+                if not err <= k1_tolerance(n, dt):
+                    fail(f"K1 n={n} {dt} rows={rows}: {err} ulps > {k1_tolerance(n, dt)}")
+                if not torch.equal(buf, got):
+                    fail(f"K1 n={n} {dt} rows={rows}: in place differs from out of place")
+            print(f"K1 n={n:5d} {str(dt):14s} max err {worst:.3f} ulp(row max) "
+                  f"(tolerance {k1_tolerance(n, dt):g}); in place bitwise out of place")
+    print("-- kernel phase: K1 at f32 compute (the CUDA-core body) and the baseline FWHT "
+          "(fwht_cuda) against the plain version")
     for n in (128, 2048, 32768):
         for dt in (torch.bfloat16, torch.float16, torch.float32):
             x = torch.randn(64, n, generator=gen, device="cuda").to(dt)
             plan = plan_for(n, dtype=dt, backend="cuda", device_type="cuda")
-            got = transform(x, plan)
+            want = transform_plain(x, plan)
+            base = fwht_cuda(x, torch.empty_like(x), plan)
+            got = transform(x, plan) if dt == torch.float32 else None
             torch.cuda.synchronize()
-            err = k1_ulps(got, transform_plain(x, plan), dt)
             tol = k1_tolerance(n, dt)
-            print(f"K1 n={n:5d} {str(dt):15s} max err {err:.3f} ulp(row max) "
-                  f"(tolerance {tol:g})")
-            if not err <= tol:
-                fail(f"K1 n={n} {dt}: {err} ulps > {tol}")
+            errs = {"FWHT": k1_ulps(base, want, dt)}
+            if got is not None:
+                errs["K1"] = k1_ulps(got, want, dt)
+            print(f"n={n:5d} {str(dt):14s} " + ", ".join(
+                f"{k} max err {v:.3f} ulp(row max)" for k, v in errs.items())
+                + f" (tolerance {tol:g})")
+            for k, v in errs.items():
+                if not v <= tol:
+                    fail(f"{k} n={n} {dt}: {v} ulps > {tol}")
     x = torch.randn(4, 14336, generator=gen, device="cuda").to(torch.bfloat16)
     plan = plan_for(14336, dtype=torch.bfloat16, backend="cuda", device_type="cuda")
     got = hadamard(x, plan)
@@ -211,87 +299,61 @@ def kernel_phase(gen: torch.Generator):
     if not err <= 1.0:
         fail(f"K1 grouped 14336: {err} ulps")
 
-    print("-- kernel phase: K2 fused_dequant against its plain version")
-    for n in (128, 2048):
-        for mode in ("int8", "fp8_e4m3", "fp8_e5m2"):
-            x = (torch.randn(256, n, generator=gen, device="cuda") * 3).to(torch.bfloat16)
-            plan = plan_for(n, dtype=torch.bfloat16, backend="cuda",
-                            device_type="cuda",
-                            epilogue=QuantEpilogue(mode, dequant=True))
-            got = fused_dequant(x, plan)
-            torch.cuda.synchronize()
-            want = fused_dequant_plain(x, plan)
-            exc = k2_excess(got, want, x, plan)
-            bitwise = bool(torch.equal(got, want))
-            print(f"K2 n={n:5d} {mode:9s} error / (grid step x row scale) "
-                  f"{exc:.3f} (tolerance 1), bitwise={bitwise}")
-            if not exc <= 1.0:
-                fail(f"K2 n={n} {mode}: {exc} grid steps")
+    print("-- kernel phase: K2 fused_dequant against its plain version, and bitwise the "
+          "plain epilogue on K1's own rotation")
+    for n, rows in ((128, 32), (128, 256), (128, 2048), (2048, 256)):
+        for mode in MODES:
+            x = (torch.randn(rows, n, generator=gen, device="cuda") * 3).to(torch.bfloat16)
+            hold_k2(x, mode, fused_dequant(x, _k2_plan(n, mode)))
 
-    print("-- kernel phase: times at the serving path's shapes "
-          "(llama3-8b, bf16; decode = one token on each of "
-          f"{SLOTS} slots, prefill = {PREFILL_LEN} tokens)")
+    print("-- kernel phase: times at the serving path's shapes (llama3-8b, bf16; decode = "
+          f"one token on each of {SLOTS} slots, prefill = {PREFILL_LEN} tokens) through "
+          "repro_torch.bench.hadamard.measure")
     entries = {}
-    shapes = [  # (kernel, site, rows, n, mode)
-        ("K1", "decode down-proj", SLOTS * 7, 2048, None),
-        ("K1", "prefill down-proj", PREFILL_LEN * 7, 2048, None),
-        ("K2", "decode Q", SLOTS * 32, 128, "fp8_e4m3"),
-        ("K2", "decode K", SLOTS * 8, 128, "fp8_e4m3"),
-        ("K2", "prefill Q", PREFILL_LEN * 32, 128, "fp8_e4m3"),
-        ("K2", "prefill K", PREFILL_LEN * 8, 128, "fp8_e4m3"),
-    ]
-    for kern, site, rows, n, mode in shapes:
-        x = torch.randn(rows, n, generator=gen, device="cuda").to(torch.bfloat16)
-        epi = QuantEpilogue(mode, dequant=True) if mode else None
-        plan = plan_for(n, dtype=torch.bfloat16, backend="cuda",
-                        device_type="cuda", epilogue=epi)
-        if kern == "K1":
-            run = lambda: transform(x, plan)                       # noqa: E731
-            plain = lambda: transform_plain(x, plan)               # noqa: E731
-            H = torch.from_numpy(hadamard_matrix(n, 1.0 / math.sqrt(n))).to(
-                device="cuda", dtype=torch.bfloat16)
-            library = lambda: torch.matmul(x, H)                   # noqa: E731
-            ops = rows * n * math.log2(n)
-        else:
-            run = lambda: fused_dequant(x, plan)                   # noqa: E731
-            plain = lambda: fused_dequant_plain(x, plan)           # noqa: E731
-            library = None
-            ops = rows * n * (math.log2(n) + 6)
-        got, want = run(), plain()
-        err = float((got.float() - want.float()).abs().max())
-        if kern == "K1":
-            exc = k1_ulps(got, want, torch.bfloat16)
-        else:
-            exc = k2_excess(got, want, x, plan)
-        if not exc <= 1.0:
-            fail(f"{kern} {site}: error {exc} of its tolerance")
-        ms = cuda_time_ms(run)
-        plain_ms = cuda_time_ms(plain, iters=50)
-        library_ms = cuda_time_ms(library) if library else None
-        library_dev = device_ms(library) if library else None
-        bound_ms, bound_by = bound(2 * rows * n * IO_BYTES[torch.bfloat16], 0, ops,
-                                   INT8_OPS_PER_S)
-        lib = (f"{library_ms:.5f} ms (events) {_dev(library_dev)} (device)"
-               if library_ms is not None else "none")
-        print(f"{kern} {site:18s} ({rows} x {n}): kernel {ms:.5f} ms, plain "
-              f"{plain_ms:.5f} ms, torch.matmul(x, H_n) {lib}, bound "
-              f"{bound_ms:.6f} ms ({bound_by}), max abs err {err:g}")
-        if kern not in entries:    # the decode shape: the path's most frequent
-            entries[kern] = {"mode": mode, "max_abs_err": err, "ms": ms,
-                             "plain_ms": plain_ms, "bound_ms": bound_ms,
-                             "bound_by": bound_by, "library_ms": library_ms}
+    for case in CASES:
+        if case.group != "path":
+            continue
+        x = None
+        if case.kernel == "K2":
+            x = torch.randn(case.rows, case.n, generator=gen, device="cuda").to(torch.bfloat16)
+            hold_k2(x, case.mode, fused_dequant(x, _k2_plan(case.n, case.mode)))
+        rec = measure(case, gen, x)
+        fwht = (f", FWHT {rec['baseline_ms']:.5f} ms / {_dev(rec['baseline_device_ms'])} "
+                f"(K1 {_dev_ratio(rec['baseline_device_ms'], rec['device_ms'])} faster)"
+                if case.kernel == "K1" else "")
+        lib = (f", {rec['library']} {rec['library_ms']:.5f} ms / "
+               f"{_dev(rec['library_device_ms'])} (K1 / library "
+               f"{_dev_ratio(rec['device_ms'], rec['library_device_ms'])})"
+               if rec["library"] else ", library none")
+        print(f"{case.kernel} {case.site:28s} ({case.rows} x {case.n}"
+              f"{' ' + case.mode if case.mode else ''}): kernel {rec['ms']:.5f} ms (events) "
+              f"{_dev(rec['device_ms'])} (profile){fwht}{lib}, plain {rec['plain_ms']:.5f} "
+              f"ms, bound {rec['bound_ms']:.6f} ms ({rec['bound_by']}), max abs err "
+              f"{rec['max_abs_err']:g}" + (f", {rec['ulps']:.3f} ulp" if rec["ulps"] is not None
+                                           else ""))
+        if case.kernel == "K1" and not rec["ulps"] <= 1.0:
+            fail(f"K1 {case.site}: {rec['ulps']} ulps")
+        if case.kernel not in entries:    # the decode shape: the path's most frequent
+            entries[case.kernel] = {k: rec[k] for k in (
+                "mode", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+                "library_ms")}
     # device throughput at a size where launch overhead does not dominate
     x = torch.randn(16384, 2048, generator=gen, device="cuda").to(torch.bfloat16)
     plan = plan_for(2048, dtype=torch.bfloat16, backend="cuda", device_type="cuda")
-    ms = cuda_time_ms(lambda: transform(x, plan), iters=50)
-    print(f"K1 16384 x 2048 bf16 (not a path shape): {ms:.4f} ms, "
-          f"{2 * x.numel() * 2 / ms / 1e6:.0f} GB/s of {HBM_BYTES_PER_S / 1e9:.0f}")
+    out = torch.empty_like(x)
+    for name, fn, key in (("K1", lambda: transform(x, plan), "hadacore_tc_kernel"),
+                          ("FWHT", lambda: fwht_cuda(x, out, plan), "fwht_kernel")):
+        ms, dev = cuda_time_ms(fn, iters=50), profile_ms(fn, key)
+        print(f"{name} 16384 x 2048 bf16 (not a path shape): {ms:.4f} ms (events), "
+              f"{_dev(dev)} (profile), {2 * x.numel() * 2 / dev / 1e6 if dev else 0:.0f} "
+              f"GB/s of {HBM_BYTES_PER_S / 1e9:.0f}")
     plan = plan_for(128, dtype=torch.bfloat16, backend="cuda", device_type="cuda",
                     epilogue=QuantEpilogue("fp8_e4m3", dequant=True))
     x = x.reshape(-1, 128)
-    ms = cuda_time_ms(lambda: fused_dequant(x, plan), iters=50)
-    print(f"K2 262144 x 128 bf16 fp8_e4m3 (not a path shape): {ms:.4f} ms, "
-          f"{2 * x.numel() * 2 / ms / 1e6:.0f} GB/s")
+    run = lambda: fused_dequant(x, plan)                          # noqa: E731
+    ms, dev = cuda_time_ms(run, iters=50), profile_ms(run, "fused_dequant_tc_kernel")
+    print(f"K2 262144 x 128 bf16 fp8_e4m3 (not a path shape): {ms:.4f} ms (events), "
+          f"{_dev(dev)} (profile), {2 * x.numel() * 2 / dev / 1e6 if dev else 0:.0f} GB/s")
     return entries
 
 
@@ -325,15 +387,17 @@ def _k34_input(gen, rows: int, n: int, kind: str) -> torch.Tensor:
 def hold_k3_k4(gen) -> None:
     """K3 and K4 against their plain versions on both kinds of input.
 
-    A kernel rotates with K1's arithmetic (butterflies); the plain version
-    with cuBLAS products. Where the two rotations agree bitwise, K3 must
-    give the plain q and s bitwise and K4 (int8) the plain output bitwise;
-    on 'exact' inputs they must agree everywhere. On every input the kernel
-    must equal the plain epilogue applied to K1's own rotation bitwise (K3,
-    K4 int8), so any difference left is the rotation's, which K1's
-    tolerance holds. fp8 K4 sums exact products in another order: within
-    2^-7 of the row's largest |value| of the plain GEMM on K1's rotation
-    (every row), and of the plain version (rows whose rotations agree)."""
+    A kernel rotates with its own arithmetic -- K3 with K1's tensor-core
+    routine, K4 with the CUDA-core FWHT (``fwht_cuda``'s body) -- the plain
+    version with cuBLAS products. Where the two rotations agree bitwise, K3
+    must give the plain q and s bitwise and K4 (int8) the plain output
+    bitwise; on 'exact' inputs they must agree everywhere. On every input
+    the kernel must equal the plain epilogue applied to its own rotation
+    bitwise (K3: K1's; K4 int8: the FWHT's), so any difference left is the
+    rotation's, which K1's tolerance holds. fp8 K4 sums exact products in
+    another order: within 2^-7 of the row's largest |value| of the plain
+    GEMM on the FWHT's rotation (every row), and of the plain version (rows
+    whose rotations agree)."""
     from repro_torch.core.api import QuantEpilogue, plan_for
     from repro_torch.core.wquant import quantize_weight
     from repro_torch.kernels.fused_quant import fused, fused_plain
@@ -384,11 +448,11 @@ def hold_k3_k4(gen) -> None:
                 x = _k34_input(gen, m, n, kind)
                 got = quant_dot(x, qt.q, qt.scale, plan)
                 torch.cuda.synchronize()
-                y1, (q1, s1) = _k1_epilogue(x, plan)
+                y1, (q1, s1) = _fwht_epilogue(x, plan)
                 agree = _same_rows(y1, transform_plain(x, plan))
-                from_k1 = epilogue_dot(q1, s1, qt.q, qt.scale, mode, torch.bfloat16)
+                from_rot = epilogue_dot(q1, s1, qt.q, qt.scale, mode, torch.bfloat16)
                 _hold_rows(f"K4 {m:2d} x {n} -> {d} {mode:9s} {kind:8s}", got,
-                           quant_dot_plain(x, qt.q, qt.scale, plan), from_k1, agree,
+                           quant_dot_plain(x, qt.q, qt.scale, plan), from_rot, agree,
                            mode, kind == "exact")
 
 
@@ -432,11 +496,11 @@ def hold_mixed_rounds(seed: int) -> None:
             print(f"K5 {m} x {n} -> {d} {mode:9s} {kind:8s}: {differ} elements differ from K4")
             if differ:
                 fail(f"K5 {m} x {n} -> {d} {mode} {kind}: not bitwise K4")
-            y1, (q1, s1) = _k1_epilogue(x, plan)
+            y1, (q1, s1) = _fwht_epilogue(x, plan)
             agree = _same_rows(y1, transform_plain(x, plan))
-            from_k1 = epilogue_dot(q1, s1, qt.q, qt.scale, mode, torch.bfloat16)
+            from_rot = epilogue_dot(q1, s1, qt.q, qt.scale, mode, torch.bfloat16)
             _hold_rows(f"K4 {m} x {n} -> {d} {mode:9s} {kind:8s}", got,
-                       quant_dot_plain(x, qt.q, qt.scale, plan), from_k1, agree,
+                       quant_dot_plain(x, qt.q, qt.scale, plan), from_rot, agree,
                        mode, kind == "exact")
 
 def _record_line(tag: str, rec: dict) -> str:
@@ -511,7 +575,7 @@ def time_k3_k4(gen) -> dict:
         err = max(float((q.float() - qp.float()).abs().max()),
                   float((sc - sp).abs().max()))
         ms, plain_ms = cuda_time_ms(run), cuda_time_ms(plain, iters=50)
-        dev_ms = profile_ms(run, "fused_kernel")
+        dev_ms = profile_ms(run, "fused_tc_kernel")
         bound_ms, by = bound(m * n * 2 + m * n + m * 4, 0, m * n * (math.log2(n) + 6),
                              INT8_OPS_PER_S)
         print(f"K3 {m:2d} x {n}: max abs err {err:g}, kernel {ms:.5f} ms (events), "
@@ -529,37 +593,40 @@ def time_k3_k4(gen) -> dict:
     return entries
 
 
-def _k1_epilogue(x2, plan):
-    """The plain epilogue on K1's own rotation of the rows x2: (q, s)."""
+def _fwht_epilogue(x2, plan):
+    """The rotation the quant_dot family runs inside its kernels -- the
+    CUDA-core FWHT, ``fwht_cuda`` -- of the rows x2, and the plain
+    epilogue on it: (y, (q, s))."""
     from repro_torch.core.api import plan_for
-    from repro_torch.kernels.hadacore import transform
+    from repro_torch.kernels.hadacore import fwht_cuda
     from repro_torch.kernels.registry import _quantize_rows
 
-    y1 = transform(x2, plan_for(plan.n, dtype=x2.dtype, backend="cuda",
-                                device_type="cuda"))
+    x2 = x2.contiguous()
+    y1 = fwht_cuda(x2, torch.empty_like(x2), plan_for(plan.n, dtype=x2.dtype,
+                                                      backend="cuda", device_type="cuda"))
     return y1, _quantize_rows(y1.float(), plan.epilogue.mode)
 
 
-def _hold_rows(tag, got, want, from_k1, agree, mode, exact) -> None:
-    """The K4 rule on rows: int8 bitwise to the plain GEMM on K1's own
+def _hold_rows(tag, got, want, from_rot, agree, mode, exact) -> None:
+    """The K4 rule on rows: int8 bitwise to the plain GEMM on the kernel's own
     rotation in every row, to the plain version where the two rotations
     agree (everywhere on exact inputs); fp8 within 2^-7 of the row max of
     both (the plain version where the rotations agree)."""
     same = _same_rows(got, want)
-    own = bool(_same_rows(got, from_k1).all())
-    rel_k1 = float(_rel_rows(got, from_k1).max())
+    own = bool(_same_rows(got, from_rot).all())
+    rel_rot = float(_rel_rows(got, from_rot).max())
     rel = _rel_rows(got, want)
     rel_agree = float(rel[agree].max()) if bool(agree.any()) else 0.0
     print(f"{tag}: rows with the plain rotation {int(agree.sum())}/{len(agree)}, bitwise "
-          f"to plain {int(same.sum())}/{len(agree)}, to K1's rotation + plain GEMM "
-          f"{own}; max |d| / row max {rel_k1:.3e} against K1's rotation + plain "
+          f"to plain {int(same.sum())}/{len(agree)}, to the FWHT's rotation + plain GEMM "
+          f"{own}; max |d| / row max {rel_rot:.3e} against the FWHT's rotation + plain "
           f"GEMM, {rel_agree:.3e} against plain where the rotations agree")
     if mode == "int8":
         if not own or not bool(same[agree].all()):
             fail(f"{tag}: not bitwise beyond the rotation's flips")
         if exact and not bool(same.all()):
             fail(f"{tag}: exact input not bitwise")
-    elif not (rel_k1 <= 2.0 ** -7 and rel_agree <= 2.0 ** -7):
+    elif not (rel_rot <= 2.0 ** -7 and rel_agree <= 2.0 ** -7):
         fail(f"{tag}: beyond 2^-7 of the row max")
 
 
@@ -601,14 +668,14 @@ def hold_k5_k6(gen) -> None:
                 k5 = quant_dot(x, qt.q, qt.scale, plan, "streamed")
                 torch.cuda.synchronize()
                 same45 = bool(_same_rows(k5, k4).all())
-                y1, (q1, s1) = _k1_epilogue(x, plan)
+                y1, (q1, s1) = _fwht_epilogue(x, plan)
                 agree = _same_rows(y1, transform_plain(x, plan))
-                from_k1 = epilogue_dot(q1, s1, qt.q, qt.scale, mode, torch.bfloat16)
+                from_rot = epilogue_dot(q1, s1, qt.q, qt.scale, mode, torch.bfloat16)
                 print(f"K5 {m:2d} x {n} -> {d} {mode:8s} {kind:8s}: bitwise to K4 {same45}")
                 if not same45:
                     fail(f"K5 {m}x{n}->{d} {mode} {kind}: differs from K4")
                 _hold_rows(f"K5 {m:2d} x {n} -> {d} {mode:8s} {kind:8s}", k5,
-                           quant_dot_plain(x, qt.q, qt.scale, plan), from_k1, agree,
+                           quant_dot_plain(x, qt.q, qt.scale, plan), from_rot, agree,
                            mode, kind == "exact")
         del w, qt
         ex = expert_weights(gen, n, d, mode)
@@ -630,13 +697,13 @@ def hold_k5_k6(gen) -> None:
                 if not (same6s and same64 and zeros):
                     fail(f"{tag}: K6s == K6 {same6s}, K6 == K4 {same64}, zeros {zeros}")
                 x2 = x.reshape(-1, n)
-                y1, (q1, s1) = _k1_epilogue(x2, plan)
+                y1, (q1, s1) = _fwht_epilogue(x2, plan)
                 agree = _same_rows(y1, transform_plain(x2, plan))
-                from_k1 = experts_epilogue_dot(q1.view(*x.shape), s1.view(*x.shape[:-1], 1),
+                from_rot = experts_epilogue_dot(q1.view(*x.shape), s1.view(*x.shape[:-1], 1),
                                                ex.q, ex.scale, mode, torch.bfloat16)
                 want = quant_dot_experts_plain(x, ex.q, ex.scale, plan)
                 _hold_rows(tag, k6.reshape(-1, d), want.reshape(-1, d),
-                           from_k1.reshape(-1, d), agree, mode, kind == "exact")
+                           from_rot.reshape(-1, d), agree, mode, kind == "exact")
         del ex
         torch.cuda.empty_cache()
 
@@ -692,7 +759,7 @@ def time_k5_k6(gen) -> dict:
 
 
 # ------------------------------------------------------------------ ABFT
-TRAIN_ROWS = 2048                  # the training phase's batch x sequence (4 x 512)
+TRAIN_ROWS = TRAIN_BATCH * TRAIN_SEQ   # the training phase's rows
 ABFT_SHAPES = (  # (label, rows per expert, n, d, experts (0 = dense), schedules)
     ("phi4-mini decode", SLOTS, *PHI4_DOWN, 0, ("rotate_once", "streamed", "revisit")),
     ("phi4-mini training rows", TRAIN_ROWS, *PHI4_DOWN, 0, ("revisit",)),
@@ -701,7 +768,7 @@ ABFT_SHAPES = (  # (label, rows per expert, n, d, experts (0 = dense), schedules
     ("maverick experts decode", SLOTS, *MAVERICK_DOWN, EXPERTS, ("rotate_once", "streamed")),
 )
 BAND = 0.01   # verdicts may differ only where |r| is within 1% of the tolerance
-# |r - r_plain| on K1's rotation, over the tolerance, must stay below this
+# |r - r_plain| on the kernels' rotation (the FWHT's), over the tolerance, must stay below this
 # on the rows r_plain passes: two correct summation orders read ~1e-4..1e-3
 # of the tolerance, a residual summed from bf16 outputs or with a bf16
 # checksum ~1 (tests/test_torch_abft.py holds both sides of this limit)
@@ -775,12 +842,13 @@ def hold_abft_kernels(gen) -> tuple:
     exact-sum and Gaussian rows:
 
       * the output is bitwise the twin's;
-      * the residual's value is the plain ABFT math's on K1's own rotation
+      * the residual's value is the plain ABFT math's on the rotation the
+        kernels run (the CUDA-core FWHT, ``fwht_cuda``)
         within RESID_C of the tolerance on every row that math passes,
         healthy and corrupted (the largest reading is printed beside
         RESID_C; a tripped row's value carries the corruption's own
         rounding, and its verdict is held);
-      * the residual's verdict equals the plain ABFT math's on K1's own
+      * the residual's verdict equals the plain ABFT math's on that
         rotation on every row (outside a band of 1% around the tolerance,
         where two summation orders may land on either side; the band's
         rows are counted), and the plain version's on every row whose
@@ -845,7 +913,7 @@ def hold_abft_kernels(gen) -> tuple:
                         yp, rp = quant_dot_abft_plain(x, qt.q, qt.scale, cw, plan)
                     torch.cuda.synchronize()
                     x2 = x.reshape(-1, n)
-                    y1, (q1, s1) = _k1_epilogue(x2, plan)
+                    y1, (q1, s1) = _fwht_epilogue(x2, plan)
                     agree = _same_rows(y1, transform_plain(x2, plan))
                     shp = (m, E, 1, n) if E else (m, n)
                     yk1, rk1 = _abft_from_q(q1.view(shp), s1.view(*shp[:-1], 1), qt.q,
@@ -874,13 +942,13 @@ def hold_abft_kernels(gen) -> tuple:
                     trips = int((~ok).sum())
                     print(f"  {kind:8s} {name:6s} bitwise to {twin} {same}; trips {trips}/"
                           f"{len(ok)} of which touched by the change {int((~missed).sum())} "
-                          f"(plain on K1's rotation {int((~ok1).sum())}, plain "
+                          f"(plain on the FWHT's rotation {int((~ok1).sum())}, plain "
                           f"{int((~okp).sum())}); |r| / tolerance max {float(ratio.max()):.3e}"
                           f", over touched rows min "
                           f"{float(ratio[~missed].min()) if bool((~missed).any()) else 0:.3e}; "
-                          f"verdicts off K1's {bad1}, off plain where rotations agree {badp}, "
+                          f"verdicts off the FWHT's {bad1}, off plain where rotations agree {badp}, "
                           f"rows in the 1% band {int(band.sum())}; untouched rows tripped "
-                          f"{false_pos}; |r - r_plain on K1's rotation| / tolerance max "
+                          f"{false_pos}; |r - r_plain on the FWHT's rotation| / tolerance max "
                           f"{dev:.3e} over the rows it passes (limit {RESID_C:g}), "
                           f"{float(gaps.max()):.3e} over all rows")
                     if not same:
@@ -899,7 +967,7 @@ def hold_abft_kernels(gen) -> tuple:
                         fail(f"{name} {label} {mode}: the slab tripped no row")
             del qt, cw
             torch.cuda.empty_cache()
-    print(f"largest healthy |r| / tolerance: {worst:.3e}; largest |r - r_plain on K1's "
+    print(f"largest healthy |r| / tolerance: {worst:.3e}; largest |r - r_plain on the FWHT's "
           f"rotation| / tolerance: {worst_dev:.3e} (limit {RESID_C:g})")
     return worst, worst_dev
 
@@ -990,10 +1058,10 @@ def hold_k8(gen) -> None:
                 print(f"{tag}: bitwise to K4 {same}")
                 if not same:
                     fail(f"{tag}: differs from K4")
-                y1, (q1, s1) = _k1_epilogue(x, plan)
+                y1, (q1, s1) = _fwht_epilogue(x, plan)
                 agree = _same_rows(y1, transform_plain(x, plan))
-                from_k1 = epilogue_dot(q1, s1, qt.q, qt.scale, mode, torch.bfloat16)
-                _hold_rows(tag, k8, quant_dot_plain(x, qt.q, qt.scale, plan), from_k1,
+                from_rot = epilogue_dot(q1, s1, qt.q, qt.scale, mode, torch.bfloat16)
+                _hold_rows(tag, k8, quant_dot_plain(x, qt.q, qt.scale, plan), from_rot,
                            agree, mode, kind == "exact")
         del w, qt
         torch.cuda.empty_cache()
@@ -1099,10 +1167,12 @@ def _calibration_backends():
     The witness, a correct path that differs from the plain one as the
     kernels may:
 
-      k1_rotations   every site rotates with K1 (butterflies, the kernels'
-                     summation order) and applies the plain epilogue, and
-                     the down projections contract with the plain GEMM:
-                     the kernels' arithmetic up to the fp8 GEMM's summation
+      k1_rotations   every site rotates with the routine its kernel runs
+                     -- K1's tensor cores at the transform and K2 sites,
+                     the CUDA-core FWHT (``fwht_cuda``) at the K4 / K6
+                     sites -- and applies the plain epilogue, and the
+                     down projections contract with the plain GEMM: the
+                     kernels' arithmetic up to the fp8 GEMM's summation
                      order, without K2-K6
 
     The controls, paths with a known fault:
@@ -1124,7 +1194,7 @@ def _calibration_backends():
     from repro_torch.kernels import registry
     from repro_torch.kernels.fused_quant import fused_dequant_plain
     from repro_torch.core.api import plan_for
-    from repro_torch.kernels.hadacore import transform, transform_plain
+    from repro_torch.kernels.hadacore import fwht_cuda, transform, transform_plain
     from repro_torch.kernels.quant_dot import (epilogue_dot, experts_epilogue_dot,
                                                quant_dot_plain)
 
@@ -1150,12 +1220,15 @@ def _calibration_backends():
         def fused_dequant(self, x, plan):
             return transform_plain(x, plan)
 
-    def k1_rows(x, plan):
-        """K1's rotation of x, then the plain per-token quantization."""
-        y = transform(x.to(torch_dtype(plan.compute_dtype)),
-                      plan_for(plan.p, dtype=torch_dtype(plan.compute_dtype),
-                               backend="cuda", device_type="cuda"))
-        return registry._quantize_rows(y.float(), plan.epilogue.mode)
+    def k1_rows(x, plan, fwht=False):
+        """K1's rotation of x (``fwht``: the CUDA-core FWHT's, the quant_dot
+        kernels' own), then the plain per-token quantization."""
+        cd = torch_dtype(plan.compute_dtype)
+        rplan = plan_for(plan.p, dtype=cd, backend="cuda", device_type="cuda")
+        x2 = x.to(cd).reshape(-1, plan.p).contiguous()
+        y = fwht_cuda(x2, torch.empty_like(x2), rplan) if fwht else transform(x2, rplan)
+        q, s = registry._quantize_rows(y.float(), plan.epilogue.mode)
+        return q.reshape(x.shape), s.reshape(*x.shape[:-1], 1)
 
     @registry.register_backend
     class K1Rotations(Calibration):
@@ -1169,12 +1242,12 @@ def _calibration_backends():
             return registry._dequantize(q, s, plan.epilogue.mode).to(x.dtype)
 
         def quant_dot(self, x, wq, sw, plan, schedule=None):
-            q, s = k1_rows(x, plan)
+            q, s = k1_rows(x, plan, fwht=True)
             return epilogue_dot(q, s, wq, sw.reshape(1, -1), plan.epilogue.mode,
                                 x.dtype)
 
         def quant_dot_experts(self, x, wq, sw, plan, schedule=None):
-            q, s = k1_rows(x, plan)
+            q, s = k1_rows(x, plan, fwht=True)
             return experts_epilogue_dot(q, s, wq, sw, plan.epilogue.mode, x.dtype)
 
     @functools.lru_cache(maxsize=None)
@@ -1452,11 +1525,14 @@ def routing_flips(got, plain) -> None:
 
 
 def _counters():
+    """Every launch counter by kernel; "FWHT", the baseline, is on no path
+    (every expected count of it is 0: nothing falls back to it)."""
     from repro_torch.kernels.fused_quant import fused_cuda, fused_dequant_cuda
-    from repro_torch.kernels.hadacore import hadacore_cuda
+    from repro_torch.kernels.hadacore import fwht_cuda, hadacore_cuda
     from repro_torch.kernels import quant_dot as qd
 
-    return {"K1": hadacore_cuda, "K2": fused_dequant_cuda, "K3": fused_cuda,
+    return {"K1": hadacore_cuda, "FWHT": fwht_cuda, "K2": fused_dequant_cuda,
+            "K3": fused_cuda,
             "K4": qd.quant_dot_cuda, "K5": qd.quant_dot_streamed_cuda,
             "K6": qd.quant_dot_experts_cuda, "K6s": qd.quant_dot_experts_streamed_cuda,
             "K7a-ro": qd.quant_dot_abft_cuda, "K7a-s": qd.quant_dot_abft_streamed_cuda,
@@ -2027,7 +2103,7 @@ def fault_runs(cfg, params, seed: int) -> None:
 # The training phase: phi4-mini at full width and depth, W8A8 int8 +
 # Hadamard + int8 fake-quantized Q/K/V, remat per block (the config's
 # default), batch x sequence cut from train_4k's 256 x 4096 to 4 x 512.
-TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 4, 512, 3
+TRAIN_STEPS = 3
 # Launches per step: the forward (64 K2 at the Q/K sites, 32 K4 at the down
 # projections) twice -- the recomputation of each block in the backward
 # pass -- and the backward's K1: 64 at n = 128 (the Q/K sites'
@@ -2335,7 +2411,8 @@ def _profile_window(fn, steps: int, what: str) -> None:
     print(f"-- profile: {steps} {what}, {wall_us / steps / 1e3:.2f} ms "
           f"wall per step (profiler on), kernels busy {busy / steps / 1e3:.2f} "
           f"ms per step ({100 * busy / wall_us:.1f}% of the window)")
-    ours = ("hadacore_kernel", "fused_dequant_kernel", "fused_kernel",
+    ours = ("hadacore_tc_kernel", "fwht_kernel", "fused_dequant_tc_kernel",
+            "fused_tc_kernel", "fused_dequant_kernel", "fused_kernel",
             "quant_dot_kernel", "quant_dot_experts_kernel")
     for i, (dev, count, key) in enumerate(rows):
         if i < 8 or any(k in key for k in ours):
@@ -2390,12 +2467,22 @@ def _kernel_of(inst) -> str:
     return "K7a-ro" if inst.abft else "K4"
 
 
+# K1 / K2 / K3 entries in their sources' PTX: the tensor-core kernels and
+# the CUDA-core ones (``analysis.ptx.TRANSFORM_KERNELS``)
+TC_KERNELS = {"hadacore.cu": {"hadacore_tc_kernel": "K1", "fwht_kernel": "FWHT (f32 K1)"},
+              "fused_quant.cu": {"fused_dequant_tc_kernel": "K2", "fused_tc_kernel": "K3",
+                                 "fused_dequant_kernel": "K2 f32", "fused_kernel": "K3 f32"}}
+
+
 def tensor_core_check(build) -> None:
     """The contraction of every instantiation of the four main quant_dot
     sources, and of M2, runs on the tensor cores: its PTX (``nvcc -ptx``,
-    the linter's own build) has ``mma.sync`` and no ``dp4a``. Prints the
-    counts per kernel (over its io dtypes, rows per block and modes)."""
-    from repro_torch.analysis.ptx import contraction_counts, parse_name
+    the linter's own build) has ``mma.sync`` and no ``dp4a``. And every
+    bf16 / fp16-compute instantiation of K1, K2 and K3 (io f32, bf16, fp16
+    x compute bf16, fp16: six each) rotates on the tensor cores: its entry
+    has ``mma.sync``. Prints the counts per kernel (over its io dtypes, rows
+    per block and modes)."""
+    from repro_torch.analysis.ptx import contraction_counts, parse_name, parse_transform_name
 
     print("-- lint phase: tensor-core contraction, mma.sync / dp4a per instantiation (PTX)")
     for source in [f"{s}.cu" for s in build.QUANT_DOT_SOURCES] + ["mutants/dangling_dma.cu"]:
@@ -2415,6 +2502,26 @@ def tensor_core_check(build) -> None:
             if min(mma) == 0 or max(dp4a) > 0:
                 fail(f"{source} {k}: an instantiation contracts off the tensor cores "
                      f"(mma.sync {min(mma)}..{max(mma)}, dp4a up to {max(dp4a)})")
+    every = {(io, cd) for io in ("float32", "bfloat16", "float16")
+             for cd in ("bfloat16", "float16")}
+    for source, kinds in TC_KERNELS.items():
+        counts = contraction_counts(build.ptx_text(source))
+        for kernel, label in kinds.items():
+            found = {}
+            for name, c in counts.items():
+                inst = parse_transform_name(name)
+                if inst is not None and inst[0] == kernel:
+                    found[inst[1:]] = c["mma"]
+            if kernel.endswith("tc_kernel"):
+                print(f"   {source} {label} ({kernel}): " + ", ".join(
+                    f"{io}/{cd} {m}" for (io, cd), m in sorted(found.items()))
+                    + " mma.sync per entry (io / compute)")
+                if set(found) != every or min(found.values()) == 0:
+                    fail(f"{source} {label}: a bf16 / fp16 instantiation lacks mma.sync or is "
+                         f"missing ({sorted(found.items())})")
+            else:
+                print(f"   {source} {label} ({kernel}, CUDA cores): {len(found)} "
+                      f"instantiations, mma.sync {sorted(set(found.values()))}")
 
 
 def lint_phase(seed: int, serving_sites) -> dict:
@@ -2518,7 +2625,7 @@ def lint_phase(seed: int, serving_sites) -> dict:
                                  "library_ms": lib_ms, "launches": launches[kern]}
             if not same:
                 fail(f"{kern} differs from {twin} in {differ} elements ({mode})")
-            y1, (q1, s1) = _k1_epilogue(x, plan)
+            y1, (q1, s1) = _fwht_epilogue(x, plan)
             agree = _same_rows(y1, transform_plain(x, plan))
             _hold_rows(f"{kern} {m} x {n} -> {d} {mode:8s} against plain", got,
                        plain(), epilogue_dot(q1, s1, qt.q, qt.scale, mode, torch.bfloat16),
@@ -2641,8 +2748,6 @@ def main() -> int:
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)",
               file=sys.stderr)
         return 2
-    here = os.path.dirname(os.path.abspath(__file__))
-    sys.path.insert(0, os.path.join(here, "src"))
     from repro_torch.kernels import build
 
     torch.backends.cuda.matmul.allow_tf32 = False

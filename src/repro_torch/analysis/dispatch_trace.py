@@ -111,7 +111,8 @@ def kernel_wrappers() -> Dict[str, object]:
     from repro_torch.kernels import fused_quant, hadacore
     from repro_torch.kernels import quant_dot as qd
 
-    fns = [hadacore.hadacore_cuda, fused_quant.fused_dequant_cuda, fused_quant.fused_cuda,
+    fns = [hadacore.hadacore_cuda, hadacore.fwht_cuda, fused_quant.fused_dequant_cuda,
+           fused_quant.fused_cuda,
            mutations.mutant_unguarded_rotate_cuda, mutations.mutant_dangling_dma_cuda]
     fns += [getattr(qd, name) for name in sorted(FUSED_WRAPPERS) if hasattr(qd, name)]
     return {f.__name__: f for f in fns}

@@ -31,7 +31,8 @@ import re
 from typing import Dict, Iterable, List, Optional, Tuple
 
 __all__ = ["Instantiation", "Event", "entries", "events_of", "parse_name",
-           "dma_findings", "contraction_counts"]
+           "TRANSFORM_KERNELS", "parse_transform_name", "dma_findings",
+           "contraction_counts"]
 
 _ENTRY = re.compile(r"^\s*(?:\.visible\s+|\.weak\s+)?\.entry\s+([\w$.]+)")
 _KERNEL = re.compile(r"(quant_dot(?:_experts)?_kernel)I(13__nv_bfloat16|6__half|f)"
@@ -79,6 +80,29 @@ def parse_name(name: str) -> Optional[Instantiation]:
     if len(flags) < 3:
         return None
     return Instantiation(m.group(1), _IO[m.group(2)], int(m.group(3)), *flags[:4])
+
+
+# The transform kernels' entries (hadacore.cu, fused_quant.cu): the
+# tensor-core bodies are templated on (io dtype, compute dtype), the
+# CUDA-core ones on the io dtype alone.
+TRANSFORM_KERNELS = ("hadacore_tc_kernel", "fwht_kernel", "fused_dequant_tc_kernel",
+                     "fused_tc_kernel", "fused_dequant_kernel", "fused_kernel")
+_DT = "f|13__nv_bfloat16|6__half"
+
+
+def parse_transform_name(name: str) -> Optional[Tuple[str, str, Optional[str]]]:
+    """(kernel, io dtype, compute dtype) of a mangled transform kernel
+    entry, or None for another entry. The compute dtype is None where it is
+    no template argument (the CUDA-core bodies), the io dtype where the
+    mangling repeats it (``S_``). The length prefix tells ``fused_kernel``
+    from the end of ``fused_dequant_kernel``."""
+    for kernel in TRANSFORM_KERNELS:
+        m = re.search(rf"{len(kernel)}{kernel}I({_DT})({_DT}|S\d*_)?E", name)
+        if m is not None:
+            io, cd = _IO[m.group(1)], m.group(2)
+            return kernel, io, (None if cd is None else io if cd.startswith("S")
+                                else _IO[cd])
+    return None
 
 
 def _classify(instr: str) -> Optional[Tuple[str, int]]:

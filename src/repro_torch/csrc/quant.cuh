@@ -24,8 +24,15 @@ __device__ __forceinline__ float qmax(int mode) {
   return mode == kInt8 ? 127.0f : (mode == kE4M3 ? 448.0f : 57344.0f);
 }
 
+// 2^k as an f32 value, for k in [-126, 127] (a normal number).
+__device__ __forceinline__ float pow2(int k) { return __int_as_float((127 + k) << 23); }
+
 // Round q to the fp8 grid (3 or 2 mantissa bits, smallest normal exponent
 // emin, subnormal spacing 2^(emin - mbits)), nearest even, no saturation.
+// e is ilogb(a) for a normal a >= 2^emin (its exponent field less the
+// bias), else emin; then a * 2^(mbits - e) and rint(...) * 2^(e - mbits) are
+// exact products by powers of 2 within [-125, 125] (ldexpf's values, or
+// inf where the rounding overflows f32, as ldexpf), without its calls.
 __device__ __forceinline__ float round_fp8(float q, int mbits, int emin, float maxv,
                                            bool nan_on_overflow) {
   if (isnan(q)) return q;
@@ -34,8 +41,8 @@ __device__ __forceinline__ float round_fp8(float q, int mbits, int emin, float m
   if (isinf(a)) {
     rq = a;
   } else {
-    const int e = a >= ldexpf(1.0f, emin) ? ilogbf(a) : emin;
-    rq = ldexpf(rintf(ldexpf(a, mbits - e)), e - mbits);
+    const int e = a >= pow2(emin) ? (__float_as_int(a) >> 23) - 127 : emin;
+    rq = __fmul_rn(rintf(__fmul_rn(a, pow2(mbits - e))), pow2(e - mbits));
   }
   if (rq > maxv) rq = nan_on_overflow ? __int_as_float(0x7fc00000) : INFINITY;
   return copysignf(rq, q);

@@ -16,7 +16,8 @@ its own name and hash, which only the linter loads), the two mutants of
 ``csrc/mutants/`` (not picked up by ``sources()``, whose glob does not
 recurse, so no dispatch reaches them), and the PTX of the streamed
 kernels' sources and of the M2 mutant (``nvcc -ptx`` with the same
-front-end flags), for the DMA rule.
+front-end flags), for the DMA rule, and of K1 / K2 / K3's sources, for
+the check that their 16-bit rotation runs on the tensor cores.
 
 Nothing here runs at import time: the tests import every module on
 machines without ``nvcc``.
@@ -44,6 +45,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 # PTX: the same front end (NVVM) and its flags, without ptxas or linking
 PTX_FLAGS = ("-arch=compute_90a", "-std=c++17", "-O3", "--fmad=false", "-ptx")
 COUNT_DEFINE = "REPRO_COUNT_ROTATIONS"
+STAMP_DEFINE = "REPRO_STAMP_PHASES"   # fused_quant.cu's phase-stamping build
 QUANT_DOT_SOURCES = ("quant_dot", "quant_dot_abft", "quant_dot_experts",
                      "quant_dot_experts_abft")
 MUTANTS = ("unguarded_rotate", "dangling_dma")
@@ -93,10 +95,15 @@ def ptx(source: str) -> Target:
     return Target(source, ptx=True)
 
 
+# the sources of K1, K2 and K3, whose PTX shows their 16-bit rotation on
+# the tensor cores (chip_smoke.py's tensor-core check)
+TRANSFORM_SOURCES = ("hadacore", "fused_quant")
+
 LINT_TARGETS = (tuple(counting(s) for s in QUANT_DOT_SOURCES)
                 + tuple(mutant(m) for m in MUTANTS)
                 + tuple(ptx(f"{s}.cu") for s in QUANT_DOT_SOURCES)  # each has a streamed kernel
-                + (ptx("mutants/dangling_dma.cu"),))
+                + (ptx("mutants/dangling_dma.cu"),)
+                + tuple(ptx(f"{s}.cu") for s in TRANSFORM_SOURCES))
 
 
 def _nvcc() -> str:

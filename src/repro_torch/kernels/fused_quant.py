@@ -3,10 +3,12 @@ kernels' wrappers and their plain PyTorch versions (twin of the
 ``_pallas_fused_dequant`` and ``_pallas_fused`` launchers in
 ``repro.kernels.registry``, and of ``repro.kernels.fused_quant``).
 
-Both kernels (``repro_torch/csrc/fused_quant.cu``) run K1's passes on each
-row in shared memory, then quantize the compute-dtype-rounded row on the
-int8 / fp8 grid, so the rotated row never round trips through HBM. On an
-H100 they are bound by bytes, as K1.
+Both kernels (``repro_torch/csrc/fused_quant.cu``) run K1's rotation on
+each row in shared memory -- for a 16-bit compute dtype the tensor-core
+routine with K1's own layout (``hadacore.tc_launch``), bitwise K1's --
+then quantize the compute-dtype-rounded row on the int8 / fp8 grid, so the
+rotated row never round trips through HBM. On an H100 they are bound by
+bytes, as K1.
 
   * K2 ``fused_dequant`` replaces ``repro/kernels/registry.py::
     _fused_dequant_kernel``: it dequantizes again (fake quant). It is the
@@ -32,12 +34,13 @@ import torch
 from repro_torch.core.hadamard import resolve_scale, torch_dtype
 from repro_torch.kernels.hadacore import (DTYPE_CODES, MAX_KERNEL_SIZE,
                                           check_rows, scale_in_compute_dtype,
-                                          transform_plain)
+                                          tc_geometry, tc_launch_arg, transform_plain)
 from repro_torch.kernels.ref import fwht, is_pow2
 from repro_torch.kernels.registry import (QSPECS, _dequantize,
                                           _quantize_rows, cast_to, warn_once)
 
 __all__ = ["fused_dequant", "fused_dequant_cuda", "fused_dequant_plain",
+           "fused_dequant_phases", "PHASES",
            "fused", "fused_cuda", "fused_plain", "ref_fused",
            "fused_hadamard_quantize", "MODE_CODES"]
 
@@ -47,44 +50,85 @@ MODE_CODES = {"int8": 0, "fp8_e4m3": 1, "fp8_e5m2": 2}
 _PTR = ctypes.c_void_p
 
 
-def _lib():
+def _lib(stamped: bool = False):
+    """The main build of csrc/fused_quant.cu, or (``stamped``) its
+    phase-stamping build."""
     from repro_torch.kernels import build
 
-    lib = build.load("fused_quant")
+    lib = (build.load_target(build.Target("fused_quant.cu", (build.STAMP_DEFINE,)))
+           if stamped else build.load("fused_quant"))
     fn = lib.fused_dequant_launch
     if fn.argtypes is None:
         fn.argtypes = [_PTR, _PTR, ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
                        ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_int,
-                       _PTR]
+                       _PTR, _PTR]
         fn.restype = ctypes.c_int
         k3 = lib.fused_launch
         k3.argtypes = [_PTR, _PTR, _PTR, ctypes.c_longlong, ctypes.c_int,
                        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_float,
-                       ctypes.c_int, _PTR]
+                       ctypes.c_int, _PTR, _PTR]
         k3.restype = ctypes.c_int
+    return lib
+
+
+def _launch_dequant(x2: torch.Tensor, out: torch.Tensor, plan, stamped: bool = False):
+    """K2's launch from the main build or (``stamped``) the phase-stamping
+    one; returns that library."""
+    check_rows(x2, out, plan)
+    epi = plan.epilogue
+    if epi is None or not epi.dequant or not epi.per_token or plan.grouped:
+        raise ValueError("fused_dequant kernel takes per-token dequant plans "
+                         f"of a power-of-2 size, got {epi!r} n={plan.n}")
+    if stamped and plan.compute_dtype == "float32":
+        raise ValueError("fused_dequant_phases stamps the tensor-core kernel only")
+    lib = _lib(stamped)
+    stream = torch.cuda.current_stream(x2.device).cuda_stream
+    rc = lib.fused_dequant_launch(
+        x2.data_ptr(), out.data_ptr(), x2.shape[0], plan.p, plan.r,
+        DTYPE_CODES[x2.dtype], DTYPE_CODES[torch_dtype(plan.compute_dtype)],
+        scale_in_compute_dtype(plan), MODE_CODES[epi.mode],
+        tc_launch_arg(x2.shape[0], plan, True), stream)
+    if rc != 0:
+        raise RuntimeError(f"fused_dequant kernel launch failed: CUDA error {rc}")
     return lib
 
 
 def fused_dequant_cuda(x2: torch.Tensor, out: torch.Tensor, plan) -> torch.Tensor:
     """Launch K2 on contiguous (m, p) CUDA rows into ``out`` on the
     current stream; the plan carries the per-token dequant epilogue."""
-    check_rows(x2, out, plan)
-    epi = plan.epilogue
-    if epi is None or not epi.dequant or not epi.per_token or plan.grouped:
-        raise ValueError("fused_dequant kernel takes per-token dequant plans "
-                         f"of a power-of-2 size, got {epi!r} n={plan.n}")
-    stream = torch.cuda.current_stream(x2.device).cuda_stream
-    rc = _lib().fused_dequant_launch(
-        x2.data_ptr(), out.data_ptr(), x2.shape[0], plan.p, plan.r,
-        DTYPE_CODES[x2.dtype], DTYPE_CODES[torch_dtype(plan.compute_dtype)],
-        scale_in_compute_dtype(plan), MODE_CODES[epi.mode], stream)
-    if rc != 0:
-        raise RuntimeError(f"fused_dequant kernel launch failed: CUDA error {rc}")
+    _launch_dequant(x2, out, plan)
     fused_dequant_cuda.launches += 1
     return out
 
 
 fused_dequant_cuda.launches = 0
+
+
+# the phase-stamping build's clock readings per block (csrc/hadacore_tc.cuh
+# stamp): the block's start, then the end of each phase
+PHASES = ("prologue", "load", "passes", "pass", "absmax", "barrier", "epilogue")
+
+
+def fused_dequant_phases(x2: torch.Tensor, plan) -> torch.Tensor:
+    """K2 once on contiguous (m, p) CUDA rows from its phase-stamping build
+    (a measurement aid; no path calls it): per block of the launch (at
+    most 4096), the SM clock in cycles at its start and at the end of each
+    of the ``PHASES`` -- the prologue (the plan staged, the first pass's
+    lane constants derived under the rows' loads, the thread's rows
+    stored), the load's barrier, the passes before the last and its lane
+    constants, its mmas, butterflies and stores, its absmax, its barrier,
+    the quantize epilogue -- as a (blocks, 8) int64 tensor on the host. Tensor-core (bf16 / fp16 compute) plans only."""
+    lib = _launch_dequant(x2, torch.empty_like(x2), plan, stamped=True)
+    torch.cuda.synchronize(x2.device)
+    geom = tc_geometry(plan.p, x2.shape[0], True)
+    blocks = min(-(-x2.shape[0] // geom.rows_per_block), 4096)
+    host = torch.zeros(blocks, len(PHASES) + 1, dtype=torch.int64)
+    fn = lib.fused_dequant_stamps
+    fn.argtypes, fn.restype = [_PTR, ctypes.c_int], ctypes.c_int
+    rc = fn(host.data_ptr(), blocks)
+    if rc != 0:
+        raise RuntimeError(f"fused_dequant_stamps failed: CUDA error {rc}")
+    return host
 
 
 def fused_dequant_plain(x: torch.Tensor, plan) -> torch.Tensor:
@@ -130,7 +174,7 @@ def fused_cuda(x2: torch.Tensor, q: torch.Tensor, s: torch.Tensor, plan):
     rc = _lib().fused_launch(
         x2.data_ptr(), q.data_ptr(), s.data_ptr(), m, plan.p, plan.r,
         DTYPE_CODES[x2.dtype], DTYPE_CODES[torch_dtype(plan.compute_dtype)],
-        scale_in_compute_dtype(plan), MODE_CODES[epi.mode], stream)
+        scale_in_compute_dtype(plan), MODE_CODES[epi.mode], tc_launch_arg(m, plan, True), stream)
     if rc != 0:
         raise RuntimeError(f"fused kernel launch failed: CUDA error {rc}")
     fused_cuda.launches += 1
