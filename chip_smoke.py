@@ -48,10 +48,17 @@ Runs from the repository root and needs the repository's ``src/``. It
   5. model phases, each at full width from ``--seed`` with int8 weight
      storage: llama3-8b (fp8_e4m3 + Hadamard + fp8 KV cache, 32 layers),
      phi4-mini-3.8b (int8 W8A8 + Hadamard + int8 fake-quantized KV, tied
-     embeddings, 32 layers) and llama4-maverick-400b-a17b (fp8_e4m3 +
+     embeddings, 32 layers), llama4-maverick-400b-a17b (fp8_e4m3 +
      Hadamard + fp8 KV, 128 experts top-1 + a shared expert; depth cut to 2
-     of its 24 (attn, moe) groups, 4 of 48 layers, ~35 GB of weights). Each
-     reports which layer-0 stage first differs between the kernels and the
+     of its 24 (attn, moe) groups, 4 of 48 layers, ~35 GB of weights), and
+     the families whose d_ff is not a power of 2, so that each down
+     projection is one grouped K1 launch: llama3-405b (fp8, depth cut to
+     ``LLAMA3_405B_LAYERS`` of 126 layers), qwen1.5-4b (int8 W8A8, QKV
+     biases, 40 layers), starcoder2-15b (fp8; LayerNorm, tanh-GELU MLP, QKV
+     biases; 40 layers) and mixtral-8x7b (fp8; 8 experts top-2, the expert
+     site in its einsum form, a 4096-token window; 32 layers). Each checks
+     that its weights hold ``launch.flops.count_params`` values, reports
+     which layer-0 stage first differs between the kernels and the
      plain versions, holds a prefill through the kernels against one
      through the plain versions (a limit calibrated in the same run:
      witnesses, correct paths that differ as a kernel may, must pass it and
@@ -61,12 +68,15 @@ Runs from the repository root and needs the repository's ``src/``. It
      requests on 4 slots through ``ServeEngine`` with the launch counters
      zeroed just before and read just after, and checks the launches per
      model pass (llama3: 32 K1 + 64 K2; phi4-mini: 32 K4 + 64 K2; maverick:
-     8 K2 + 4 K4 + 2 K6; every other kernel 0), the peak device memory and
-     a profile of the decode step. Maverick then runs a prefill and 4
+     8 K2 + 4 K4 + 2 K6; llama3-405b: one K1 and two K2 per layer;
+     qwen1.5-4b and starcoder2-15b 40 K1 + 80 K2; mixtral 32 K1 + 64 K2;
+     every other kernel 0), the peak device memory and a profile of the
+     decode step. Maverick then runs a prefill and 4
      decode steps under ``REPRO_QUANT_DOT_SCHEDULE=streamed``: logits and
      KV caches bitwise equal to rotate-once, with 4 K5 + 2 K6s launches per
      pass in place of K4 and K6;
-  6. ABFT (checksum-verified serving), after each model phase, on its own
+  6. ABFT (checksum-verified serving), after the model phases of llama3-8b,
+     phi4-mini-3.8b and llama4-maverick-400b-a17b, on its own
      weights with their checksums attached: a prefill + 4 decode steps
      with ABFT on bitwise equal to ABFT off (logits and caches; maverick
      also under the streamed schedule), every verified site's healthy
@@ -83,7 +93,16 @@ Runs from the repository root and needs the repository's ``src/``. It
      / K7b-s against K4 / K5 / K8 / K6 / K6s (bitwise) and their plain
      versions (residual values within 1e-2 of the tolerance and verdicts,
      healthy and corrupted) and times them beside their twins;
-  7. training phase (``train_phase``): phi4-mini-3.8b at full width and
+  7. window phase (``window_phase``): mixtral-8x7b at full width, 2 of its
+     32 layers, one prompt of 4096 + 128 tokens and 8 decode steps at a
+     scalar position: past the window the kernels (one K1 and two K2 per
+     layer and pass) and the witnesses within a limit of the plain versions,
+     full attention (``sliding_window=0``) beyond it, and bitwise the window
+     run before it; launcher phase (``launcher_phase``): the one-shot
+     launcher ``repro_torch.launch.serve.main`` at full width on qwen1.5-4b,
+     4 prompts of 64 tokens and 16 greedy tokens each, with its tok/s and
+     exactly 40 K1 + 80 K2 per model pass;
+     training phase (``train_phase``): phi4-mini-3.8b at full width and
      depth (int8 + Hadamard, int8 fake-quantized Q/K/V, tied embeddings,
      per-block recomputation), 4 x 512 tokens per step from the
      ``SyntheticDataset``: the step-0 loss and every gradient leaf through
@@ -1152,11 +1171,20 @@ def entry_point_phase(gen) -> dict:
 # may) and the smallest reading of the controls (paths with a known fault)
 # on an H100 (PERF.md); the run re-measures all of them and re-asserts the
 # order.
+# of llama3-405b's 126 layers: the most that keep every peak of its model
+# phase under PEAK_LIMIT; the binding one is init's (an f32 draw of a 16384 x
+# 53248 matrix and its quantization, ~18.6 GB above the weights)
+LLAMA3_405B_LAYERS = 15
 PREFILL_LIMITS = {
     "llama3-8b": {1: 3e-3, 32: 0.045},
     "phi4-mini-3.8b": {1: 3e-3, 32: 0.0275},
     # depth 2 is the first (dense, MoE) pair, 4 the whole cut model
     "llama4-maverick-400b-a17b": {2: 0.03, 4: 0.044},
+    "llama3-405b": {1: 8.9e-3, LLAMA3_405B_LAYERS: 0.041},
+    "qwen1.5-4b": {1: 1.5e-3, 40: 0.030},
+    "starcoder2-15b": {1: 3.9e-3, 40: 0.032},
+    # depth 1 is the first MoE layer, 32 the whole model
+    "mixtral-8x7b": {1: 3.4e-3, 32: 0.036},
 }
 
 
@@ -1300,29 +1328,37 @@ def _calibration_backends():
 
 
 class _one_flip:
-    """A context in which the first MLP output (layer 0) has its largest
-    value moved by 1 ulp: the smallest change a rounding can make to the
-    residual stream that every later layer reads. (A flip inside a rotation
-    is mostly absorbed by the quantization step of the site after it.)"""
+    """A context in which the first feed-forward output (layer 0's MLP, or
+    its MoE block in a model without dense layers) has its largest value
+    moved by 1 ulp: the smallest change a rounding can make to the residual
+    stream that every later layer reads. (A flip inside a rotation is
+    mostly absorbed by the quantization step of the site after it.)"""
 
     def __enter__(self):
         from repro_torch.models import mlp
 
-        self.mlp, self.apply = mlp, mlp.apply_mlp
+        self.mlp, self.apply, self.apply_moe = mlp, mlp.apply_mlp, mlp.apply_moe
         armed = [True]
 
-        def apply_mlp(cfg, p, x):
-            y = self.apply(cfg, p, x).contiguous()
+        def flip(y):
+            y = y.contiguous()
             if armed[0]:
                 flat = y.view(-1)
                 flat.view(torch.int16)[int(flat.float().abs().argmax())] ^= 1
                 armed[0] = False
             return y
 
-        mlp.apply_mlp = apply_mlp
+        def apply_mlp(cfg, p, x):
+            return flip(self.apply(cfg, p, x))
+
+        def apply_moe(cfg, p, x):
+            y, aux = self.apply_moe(cfg, p, x)
+            return flip(y), aux
+
+        mlp.apply_mlp, mlp.apply_moe = apply_mlp, apply_moe
 
     def __exit__(self, *exc):
-        self.mlp.apply_mlp = self.apply
+        self.mlp.apply_mlp, self.mlp.apply_moe = self.apply, self.apply_moe
 
 
 def _with_backend(cfg, quant, backend: str):
@@ -1543,7 +1579,9 @@ def _counters():
 
 # The models served, each with its quantization, the launches one model
 # pass must make (every kernel not named: 0) with ABFT off and on, the
-# controls of its prefill check, and (maverick) the depth it is cut to.
+# controls of its prefill check, the depth a model is cut to, and whether
+# its ABFT phase (and, dense, its linter serving sites) runs: the ABFT-on
+# and fault runs stay on the three models of the earlier slices.
 MODELS = {
     # ABFT on: the unfused down projection (d_ff = 14336) rotates twice,
     # the second time in xla_quant_dot_resid
@@ -1562,6 +1600,19 @@ MODELS = {
         streamed_abft_per_pass={"K2": 8, "K7a-s": 4, "K7b-s": 2},
         controls=("k6_no_rotate", "k4_no_rotate", "k2_no_quant"),
         groups=((("attn", "moe"), 2),)),
+    # d_ff not a power of 2: the down projection (mixtral: the expert site,
+    # over the dispatched rows) is one grouped K1 launch per layer, then
+    # the unfused quantize and contraction; K2 at the Q and K sites
+    "llama3-405b": dict(mode="fp8_e4m3",
+                        per_pass={"K1": LLAMA3_405B_LAYERS, "K2": 2 * LLAMA3_405B_LAYERS},
+                        controls=("k2_no_quant", "k1_exact_scale"), abft=False,
+                        groups=((("attn",), LLAMA3_405B_LAYERS),)),
+    "qwen1.5-4b": dict(mode="int8", per_pass={"K1": 40, "K2": 80},
+                       controls=("k2_no_quant", "k1_exact_scale"), abft=False),
+    "starcoder2-15b": dict(mode="fp8_e4m3", per_pass={"K1": 40, "K2": 80},
+                           controls=("k2_no_quant", "k1_exact_scale"), abft=False),
+    "mixtral-8x7b": dict(mode="fp8_e4m3", per_pass={"K1": 32, "K2": 64},
+                         controls=("k2_no_quant", "k1_exact_scale"), abft=False),
 }
 # health() counters a healthy run must leave at 0
 HEALTH_ZERO = ("rung", "degrades", "watchdog_trips", "step_retries", "nan_guard_trips",
@@ -1593,8 +1644,9 @@ def model_phase(args, arch: str, lint_sites=None):
           f"{cfg.num_heads}/{cfg.num_kv_heads} head_dim={cfg.head_dim} d_ff="
           f"{cfg.d_ff} vocab={cfg.vocab_size} layers={cfg.num_layers} tied="
           f"{cfg.tie_embeddings} experts={cfg.num_experts} top-"
-          f"{cfg.experts_per_token} shared={cfg.moe_shared_expert}, {spec['mode']} "
-          f"+ hadamard + {spec['mode']} KV quantization, int8 weights")
+          f"{cfg.experts_per_token} shared={cfg.moe_shared_expert} act={cfg.act} "
+          f"norm={cfg.norm} qkv_bias={cfg.qkv_bias} window={cfg.sliding_window}, "
+          f"{spec['mode']} + hadamard + {spec['mode']} KV quantization, int8 weights")
     if cfg.num_layers != full.num_layers:
         print(f"depth cut: {cfg.groups} of the published {full.groups}: "
               f"{cfg.num_layers} of {full.num_layers} layers at full width")
@@ -1603,9 +1655,12 @@ def model_phase(args, arch: str, lint_sites=None):
     params = init_lm(cfg, seed=args.seed, device="cuda")
     torch.cuda.synchronize()
     wbytes = sum(t.numel() * t.element_size() for t in _leaves(params))
+    peak = torch.cuda.max_memory_allocated()
     print(f"init + quantize layer by layer: {time.perf_counter() - t0:.1f} s, "
-          f"{wbytes / 1e9:.2f} GB of weights, peak "
-          f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+          f"{wbytes / 1e9:.2f} GB of weights, peak {peak / 1e9:.2f} GB")
+    if peak > PEAK_LIMIT:
+        fail(f"{arch}: init's peak memory {peak / 1e9:.2f} GB")
+    check_param_count(cfg, params)
     torch.cuda.reset_peak_memory_stats()
 
     hold_prefill_against_plain(cfg, params, quant, args.seed, spec["controls"])
@@ -1644,6 +1699,8 @@ def model_phase(args, arch: str, lint_sites=None):
     if peak > PEAK_LIMIT:
         fail(f"{arch}: peak memory {peak / 1e9:.2f} GB")
     profile_decode(engine)
+    if not spec.get("abft", True):
+        return s, launches
     if lint_sites is not None and not cfg.num_experts:
         from repro_torch.analysis.sites import serving_sites
 
@@ -1654,6 +1711,159 @@ def model_phase(args, arch: str, lint_sites=None):
     got = abft_phase(arch, cfg, params, stream, engine, args.seed)
     launches = {k: launches[k] + got[k] for k in launches}
     return s, launches
+
+
+def check_param_count(cfg, params) -> None:
+    """The weights on the card hold ``launch.flops.count_params``'s number
+    of values (a quantized leaf's values and scales), counted from the
+    port's own parameter shapes on the meta device."""
+    from repro_torch.launch.flops import count_params
+
+    held = sum(t.numel() for t in _leaves(params))
+    want = count_params(cfg)["total"]
+    print(f"parameters on the card: {held} values, count_params {want:.0f}")
+    if held != want:
+        fail(f"{cfg.name}: {held} parameter values on the card, count_params {want}")
+
+
+# The window check: mixtral-8x7b at full width, depth cut to 2 of its 32
+# layers, one prompt of WINDOW_PROMPT tokens (the 4096-token window plus
+# 128) and WINDOW_STEPS greedy decode steps at a shared scalar position. The
+# limit on the relative RMS difference of the logits past the window
+# (prefill positions >= 4096 and every decode step) between the kernels and
+# the plain versions sits between the witnesses and the control (full
+# attention, ``sliding_window=0``), PERF.md.
+WINDOW_PROMPT, WINDOW_STEPS, WINDOW_LAYERS = 4096 + 128, 8, 2
+WINDOW_LIMIT = 0.07
+
+
+def window_phase(args) -> dict:
+    """mixtral-8x7b's sliding window where it bites: the prefill of one
+    prompt longer than the window, then ``WINDOW_STEPS`` decode steps fed the
+    plain run's greedy tokens, through the plain versions, the kernels (the
+    launch counters zeroed just before and read just after: one K1 and two
+    K2 per layer and pass), the witnesses ``one_flip`` and ``k1_rotations``
+    and the control, the kernels without the window (every run but the plain
+    one routed as the plain run was, as the prefill holds are). Past the
+    window the kernels and witnesses must stay within ``WINDOW_LIMIT`` of
+    the plain run and the control beyond it; before the window the control
+    is bitwise the kernels' run (the masks agree there). Returns the
+    kernels' launches."""
+    import contextlib
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.quant import QuantConfig
+    from repro_torch.kernels.registry import BACKEND_ENV_VAR
+    from repro_torch.models.lm import init_lm, lm_decode_step, lm_forward, pad_kv_caches
+
+    quant = QuantConfig(mode="fp8_e4m3", rotate="hadamard", backend="cuda", kv_quant=True)
+    full = get_config("mixtral-8x7b")
+    cfg = dataclasses.replace(full.with_quant(quant), weight_quant="int8",
+                              groups=((("moe",), WINDOW_LAYERS),))
+    W, P, V = cfg.sliding_window, WINDOW_PROMPT, cfg.vocab_size
+    print(f"-- window phase: {cfg.name} at full width, depth cut to {cfg.num_layers} of "
+          f"{full.num_layers} layers; one prompt of {P} tokens against the window of {W}, "
+          f"then {WINDOW_STEPS} decode steps at a scalar position")
+    _calibration_backends()
+    params = init_lm(cfg, seed=args.seed, device="cuda")
+    rng = np.random.default_rng(args.seed + 7)
+    prompt = torch.from_numpy(rng.integers(0, V, (1, P))).cuda()
+    forced = []
+
+    def run(route, window=W, routing=None):
+        c = _with_backend(cfg, quant, "torch" if route in ("torch", "one_flip") else
+                          "cuda" if route == "cuda" else "auto")
+        c = dataclasses.replace(c, sliding_window=window)
+        if route not in ("torch", "one_flip", "cuda"):
+            os.environ[BACKEND_ENV_VAR] = route
+        flip = _one_flip() if route == "one_flip" else contextlib.nullcontext()
+        try:
+            with torch.inference_mode(), flip, routing or contextlib.nullcontext():
+                logits, _, caches = lm_forward(c, params, {"tokens": prompt}, want_cache=True)
+                caches = pad_kv_caches(c, caches, P + WINDOW_STEPS)
+                outs = [logits[0, :, :V].float()]
+                for i in range(WINDOW_STEPS):
+                    if len(forced) <= i:
+                        forced.append(outs[-1][-1].argmax().reshape(1, 1))
+                    step, caches = lm_decode_step(c, params, caches, forced[i],
+                                                  torch.tensor(P + i, device="cuda"))
+                    outs.append(step[0, :, :V].float())
+            torch.cuda.synchronize()
+        finally:
+            os.environ.pop(BACKEND_ENV_VAR, None)
+        out = torch.cat(outs)
+        if not torch.isfinite(out).all():
+            fail(f"window phase: non-finite logits ({route}, window {window})")
+        return out
+
+    plain_routing = _routing()
+    plain = run("torch", routing=plain_routing)
+    kern, launches = _counted(lambda: run("cuda", routing=_routing(plain_routing.experts)))
+    passes = 1 + WINDOW_STEPS
+    want = {k: 0 for k in launches}
+    want.update({"K1": cfg.num_layers * passes, "K2": 2 * cfg.num_layers * passes})
+    print(f"kernels' launches over {passes} passes: {launches}")
+    if launches != want:
+        fail(f"window phase: launches {launches}, expected {want}")
+    ctl = run("cuda", window=0, routing=_routing(plain_routing.experts))
+    same_before = torch.equal(kern[:W], ctl[:W])
+    rel = {}
+    for name, got in (("cuda", kern),
+                      ("one_flip", run("one_flip", routing=_routing(plain_routing.experts))),
+                      ("k1_rotations", run("k1_rotations",
+                                           routing=_routing(plain_routing.experts))),
+                      ("full attention", ctl)):
+        before = float((got[:W] - plain[:W]).norm() / plain[:W].norm())
+        rel[name] = float((got[W:] - plain[W:]).norm() / plain[W:].norm())
+        print(f"window: {name:14s} vs plain: relative RMS past the window {rel[name]:.6f} "
+              f"(positions {W}..{P + WINDOW_STEPS - 1}), before it {before:.6f}")
+    print(f"window: control before the window bitwise the kernels' run: "
+          f"{same_before}; limit {WINDOW_LIMIT:g}")
+    if not same_before:
+        fail("window phase: full attention differs from the window before the window bites")
+    for name in ("cuda", "one_flip", "k1_rotations"):
+        if not rel[name] <= WINDOW_LIMIT:
+            fail(f"window phase: {name} at {rel[name]} > {WINDOW_LIMIT}")
+    if not rel["full attention"] > WINDOW_LIMIT:
+        fail(f"window phase: the control (no window) at {rel['full attention']} passes "
+             f"{WINDOW_LIMIT}")
+    del params
+    torch.cuda.empty_cache()
+    return launches
+
+
+LAUNCHER_GEN = 16
+
+
+def launcher_phase(args) -> dict:
+    """The one-shot launcher, ``repro_torch.launch.serve.main``, once at full
+    width on qwen1.5-4b (int8 W8A8 + Hadamard + int8 KV, int8 weights; 4
+    prompts of 64 tokens, 16 greedy tokens each at a scalar position), the
+    launch counters zeroed just before and read just after: 40 K1 and 80 K2
+    per model pass (the prefill and 15 decode steps), nothing else. Returns
+    the launches."""
+    from repro_torch.launch import serve
+
+    argv = ["--arch", "qwen1.5-4b", "--scale", "1.0", "--batch", str(SLOTS),
+            "--prompt-len", str(PREFILL_LEN), "--gen", str(LAUNCHER_GEN), "--quant",
+            "int8", "--rotate", "hadamard", "--kernel", "cuda", "--device", "cuda",
+            "--seed", str(args.seed)]
+    print("-- launcher phase: python -m repro_torch.launch.serve " + " ".join(argv))
+    out, launches = _counted(lambda: serve.main(argv))
+    cfg, toks = out["cfg"], out["tokens"]
+    want = {k: 0 for k in launches}
+    want.update({"K1": 40 * LAUNCHER_GEN, "K2": 80 * LAUNCHER_GEN})
+    print(f"launcher: {out['tokens_per_s']:.1f} tok/s steady state, prefill "
+          f"{out['prefill_s']:.3f} s; launches {launches} over {LAUNCHER_GEN} model passes")
+    if launches != want:
+        fail(f"launcher phase: launches {launches}, expected {want}")
+    if toks.shape != (SLOTS, LAUNCHER_GEN) or not ((toks >= 0) & (toks < cfg.vocab_size)).all():
+        fail(f"launcher phase: bad tokens {toks}")
+    if not out["tokens_per_s"] > 0:
+        fail("launcher phase: no steady-state decode rate")
+    torch.cuda.empty_cache()
+    return launches
 
 
 def streamed_pass(cfg, params, seed: int) -> dict:
@@ -2783,8 +2993,9 @@ def main() -> int:
         for k, v in got.items():
             launches[k] = launches.get(k, 0) + v
         torch.cuda.empty_cache()
-    for k, v in train_phase(args).items():
-        launches[k] += v
+    for phase in (window_phase, launcher_phase, train_phase):
+        for k, v in phase(args).items():
+            launches[k] += v
     launches["K3"] = entry["K3"]    # K3's path is the entry point
     t0 = time.perf_counter()
     mutants = lint_phase(args.seed, serving_sites)

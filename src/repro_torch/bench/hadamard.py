@@ -31,7 +31,11 @@ below), in three groups:
     (the paper's sweep);
   * ``path``: K1 at llama3-8b's down projection, 7 groups of 2048 at decode
     (4 slots: 28 rows) and prefill (64 tokens: 448 rows); K2 fp8_e4m3 at
-    its Q and K sites (32 and 8 heads of 128) at decode and prefill;
+    its Q and K sites (32 and 8 heads of 128) at decode and prefill; K1 at
+    the grouped down projections of qwen1.5-4b (27 x 256), llama3-405b (13
+    x 4096) and starcoder2-15b (3 x 8192) and at mixtral-8x7b's expert site
+    (7 x 2048 over the dispatched rows: every expert's capacity slots), at
+    decode and prefill;
   * ``train``: the phi4-mini training step's K1 calls (4 x 512 tokens): the
     straight-through backward of the down projection (2 per layer, 8192
     points) and of the Q / K fake-quantized rotations (24 and 8 heads of
@@ -95,19 +99,36 @@ def _cases() -> tuple:
     from repro_torch.configs import get_config
     from repro_torch.core.api import plan_for
 
+    def groups(cfg):   # the down projection's plan: (groups per row, p)
+        plan = plan_for(cfg.d_ff, dtype=torch.bfloat16, backend="cuda", device_type="cuda")
+        return cfg.d_ff // plan.p, plan.p
+
+    def dispatched(cfg, batch, seq):   # rows at the expert site: B x E x capacity
+        E, K = cfg.num_experts, cfg.experts_per_token
+        return batch * E * max(1, int(cfg.capacity_factor * seq * K / E))
+
     llama, phi4 = get_config("llama3-8b"), get_config("phi4-mini-3.8b")
-    down = plan_for(llama.d_ff, dtype=torch.bfloat16, backend="cuda", device_type="cuda")
+    g, p = groups(llama)
     serve = (("decode", SLOTS), ("prefill", PREFILL_LEN))
     train = TRAIN_BATCH * TRAIN_SEQ
+    mixtral = get_config("mixtral-8x7b")
+    mg, mp = groups(mixtral)
     return tuple(
         [Case("K1", "sweep", SWEEP_BYTES // (2 << k), 1 << k, dt)
          for k in range(7, 16) for dt in ("bfloat16", "float16")]
-        + [Case("K1", f"llama3 {phase} down-proj", tokens * (llama.d_ff // down.p), down.p)
+        + [Case("K1", f"llama3 {phase} down-proj", tokens * g, p)
            for phase, tokens in serve]
         + [Case("K2", f"llama3 {phase} {site}", tokens * heads, llama.head_dim,
                 mode="fp8_e4m3")
            for phase, tokens in serve
            for site, heads in (("Q", llama.num_heads), ("K", llama.num_kv_heads))]
+        + [Case("K1", f"{name} {phase} down-proj", tokens * groups(cfg)[0], groups(cfg)[1])
+           for name, cfg in ((n, get_config(n)) for n in
+                             ("qwen1.5-4b", "llama3-405b", "starcoder2-15b"))
+           for phase, tokens in serve]
+        + [Case("K1", f"mixtral-8x7b {phase} experts down-proj",
+                dispatched(mixtral, batch, seq) * mg, mp)
+           for phase, batch, seq in (("decode", SLOTS, 1), ("prefill", 1, PREFILL_LEN))]
         + [Case("K1", "train down-proj backward", train, phi4.d_ff,
                 per_step=2 * phi4.num_layers),
            Case("K1", "train Q backward", train * phi4.num_heads, phi4.head_dim,

@@ -1,5 +1,5 @@
-"""The assigned input shapes (twin of ``repro.launch.shapes``, without the
-jax shape builders).
+"""The assigned input shapes and a host batch builder (twin of
+``repro.launch.shapes``, without the jax shape builders).
 
     train_4k     seq 4,096   global_batch 256   (train_step)
     prefill_32k  seq 32,768  global_batch 32    (prefill_step)
@@ -12,7 +12,9 @@ from __future__ import annotations
 import dataclasses
 from typing import Dict, Optional
 
-__all__ = ["ShapeSpec", "SHAPES", "shape_applicable"]
+import numpy as np
+
+__all__ = ["ShapeSpec", "SHAPES", "shape_applicable", "make_batch"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -39,3 +41,11 @@ def shape_applicable(cfg, shape: ShapeSpec) -> Optional[str]:
     if shape.kind == "decode" and not getattr(cfg, "has_decoder", True):
         return "encoder-only arch has no decode step"
     return None
+
+
+def make_batch(cfg, shape: ShapeSpec, seed: int = 0) -> Dict[str, np.ndarray]:
+    """A real host batch of int32 tokens and next-token labels, drawn from
+    ``seed`` as the reference's ``make_batch`` draws them."""
+    rng = np.random.default_rng(seed)
+    toks = rng.integers(0, cfg.vocab_size, (shape.batch, shape.seq + 1), dtype=np.int32)
+    return {"tokens": toks[:, :-1], "labels": toks[:, 1:]}

@@ -1,5 +1,6 @@
-"""GQA causal attention with the QuaRot rotation hooks (twin of
-``repro.models.attention``, self-attention only).
+"""GQA causal attention, optionally sliding-window and with QKV biases,
+with the QuaRot rotation hooks (twin of ``repro.models.attention``,
+self-attention only).
 
 The paper's deployment (section 4.2): FP8 attention where Q and K are
 Hadamard-rotated per head before quantization -- the rotation cancels in
@@ -23,15 +24,21 @@ from repro_torch.models.common import (apply_rope_angles, dense_init, dtype_of,
 
 
 def init_attention(gen: torch.Generator, cfg, device) -> dict:
+    """The projections, plus zero biases ``bq`` / ``bk`` / ``bv`` in the
+    model dtype when ``cfg.qkv_bias``."""
     d, H, KH, hd = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     dt = dtype_of(cfg)
-    return {
+    p = {
         "wq": dense_init(gen, d, H * hd, dt, device=device),
         "wk": dense_init(gen, d, KH * hd, dt, device=device),
         "wv": dense_init(gen, d, KH * hd, dt, device=device),
         "wo": dense_init(gen, H * hd, d, dt, scale=1.0 / math.sqrt(H * hd),
                          device=device),
     }
+    if cfg.qkv_bias:
+        for name, width in (("bq", H * hd), ("bk", KH * hd), ("bv", KH * hd)):
+            p[name] = torch.zeros((width,), dtype=dt, device=device)
+    return p
 
 
 def _positions_angles(cfg, positions: torch.Tensor) -> torch.Tensor:
@@ -43,10 +50,10 @@ def _positions_angles(cfg, positions: torch.Tensor) -> torch.Tensor:
 def _project_qkv(cfg, p, x):
     B, S, _ = x.shape
     H, KH, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
-    q = (x @ p["wq"]).reshape(B, S, H, hd)
-    k = (x @ p["wk"]).reshape(B, S, KH, hd)
-    v = (x @ p["wv"]).reshape(B, S, KH, hd)
-    return q, k, v
+    q, k, v = x @ p["wq"], x @ p["wk"], x @ p["wv"]
+    if cfg.qkv_bias:   # added to the 16-bit products, as the reference does
+        q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
+    return q.reshape(B, S, H, hd), k.reshape(B, S, KH, hd), v.reshape(B, S, KH, hd)
 
 
 def _qk_spec(cfg, hd: int) -> RotationSpec:
@@ -105,11 +112,27 @@ def _sdpa(cfg, q, k, v, mask):
     return ctx.reshape(B, S, H * hd)
 
 
-def _causal_mask(S: int, T: int, device) -> torch.Tensor:
-    """Batch-independent (1, 1, S, T) causal mask."""
+def _causal_mask(cfg, S: int, T: int, device) -> torch.Tensor:
+    """Batch-independent (1, 1, S, T) causal mask; with a sliding window W
+    a query sees the keys k with q - W < k <= q."""
     q = torch.arange(S, dtype=torch.int32, device=device)[:, None]
     k = torch.arange(T, dtype=torch.int32, device=device)[None, :]
-    return (k <= q)[None, None]
+    m = k <= q
+    if cfg.sliding_window:
+        m &= k > q - cfg.sliding_window
+    return m[None, None]
+
+
+def _decode_mask(cfg, cache_pos: torch.Tensor, T: int, device) -> torch.Tensor:
+    """The decode step's mask over the T cache rows: (B, 1, 1, T) for
+    per-slot positions (B,), (1, 1, 1, T) for a shared scalar position;
+    the same window rule as ``_causal_mask``."""
+    kpos = torch.arange(T, dtype=torch.int32, device=device)
+    pos = cache_pos[:, None] if cache_pos.ndim == 1 else cache_pos.reshape(1, 1)
+    m = kpos[None] <= pos
+    if cfg.sliding_window:
+        m &= kpos[None] > pos - cfg.sliding_window
+    return m[:, None, None]
 
 
 def apply_attention(cfg, p, x: torch.Tensor, positions: torch.Tensor, *,
@@ -123,7 +146,7 @@ def apply_attention(cfg, p, x: torch.Tensor, positions: torch.Tensor, *,
     k = apply_rope_angles(k, ang)
     q, k = _rotate_quant_qk(cfg, q, k)
     v = _v_spec(cfg, v.shape[-1])(v)
-    ctx = _sdpa(cfg, q, k, v, _causal_mask(S, S, x.device))
+    ctx = _sdpa(cfg, q, k, v, _causal_mask(cfg, S, S, x.device))
     y = ctx @ p["wo"]
     if return_kv:
         kvdt = cfg.quant.kv_cache_dtype(x.dtype)
@@ -156,11 +179,6 @@ def decode_attention(cfg, p, x: torch.Tensor, cache_k: torch.Tensor,
     else:
         cache_k[:, cache_pos] = cast_to(k[:, 0], cache_k.dtype)
         cache_v[:, cache_pos] = cast_to(v[:, 0], cache_v.dtype)
-    T = cache_k.shape[1]
-    kpos = torch.arange(T, dtype=torch.int32, device=x.device)
-    if per_slot:
-        mask = (kpos[None] <= cache_pos[:, None])[:, None, None]  # (B, 1, 1, T)
-    else:
-        mask = (kpos <= cache_pos)[None, None, None]              # (1, 1, 1, T)
+    mask = _decode_mask(cfg, cache_pos, cache_k.shape[1], x.device)
     ctx = _sdpa(cfg, q, cache_k.to(q.dtype), cache_v.to(q.dtype), mask)
     return ctx @ p["wo"], cache_k, cache_v

@@ -1,5 +1,5 @@
-"""Shared building blocks: initializers, RMSNorm, RoPE (twin of
-``repro.models.common``)."""
+"""Shared building blocks: initializers, RMSNorm and LayerNorm, RoPE (twin
+of ``repro.models.common``)."""
 from __future__ import annotations
 
 import math
@@ -25,14 +25,26 @@ def dense_init(gen: torch.Generator, d_in: int, d_out: int, dtype,
 
 
 def init_norm(cfg, d: int, device) -> dict:
-    return {"scale": torch.ones((d,), dtype=torch.float32, device=device)}
+    p = {"scale": torch.ones((d,), dtype=torch.float32, device=device)}
+    if cfg.norm == "layernorm":
+        p["bias"] = torch.zeros((d,), dtype=torch.float32, device=device)
+    return p
 
 
 def apply_norm(cfg, p, x: torch.Tensor) -> torch.Tensor:
-    """RMSNorm in f32, cast back to the io dtype."""
+    """RMSNorm (eps 1e-6) or LayerNorm (eps 1e-5, with a bias) in f32, cast
+    back to the io dtype. LayerNorm's variance is ``jnp.var``'s: the mean
+    of the squared centred values (population form), computed from the
+    mean over the row as the reference computes it."""
     xf = x.to(torch.float32)
-    ms = xf.square().mean(dim=-1, keepdim=True)
-    return (xf * torch.rsqrt(ms + 1e-6) * p["scale"]).to(x.dtype)
+    if cfg.norm == "layernorm":
+        mu = xf.mean(dim=-1, keepdim=True)
+        var = (xf - mu).square().mean(dim=-1, keepdim=True)
+        y = (xf - mu) * torch.rsqrt(var + 1e-5) * p["scale"] + p["bias"]
+    else:
+        ms = xf.square().mean(dim=-1, keepdim=True)
+        y = xf * torch.rsqrt(ms + 1e-6) * p["scale"]
+    return y.to(x.dtype)
 
 
 def rope_freqs(head_dim: int, theta: float, device=None) -> torch.Tensor:

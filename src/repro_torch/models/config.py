@@ -3,13 +3,14 @@ the port runs: causal-attention decoders, dense or mixture-of-experts).
 
 A model is a list of ``groups``; each group is ``(pattern, repeats)`` with
 ``pattern`` a tuple of layer kinds. The port runs two kinds, both with GQA
-attention and RMSNorm: 'attn' (dense SwiGLU MLP: llama3-8b, and phi4-mini
-with tied embeddings) and 'moe' (top-k routed SwiGLU experts with capacity
-dropping, plus an optional shared expert: llama4-maverick interleaves the
-two). Its layers are a plain list, one entry per layer, where the reference
-scans stacked parameters. The reference's other options (sliding windows,
-GELU, LayerNorm, state-space and encoder layers) come with the configs that
-need them.
+attention: 'attn' (a dense MLP) and 'moe' (top-k routed experts with
+capacity dropping, plus an optional shared expert). The attention flavour
+and the MLP are the reference's options: ``sliding_window`` (mixtral),
+``qkv_bias`` (qwen1.5, starcoder2), ``act`` (SwiGLU, or the tanh GELU MLP
+without a gate: starcoder2) and ``norm`` (RMSNorm or LayerNorm:
+starcoder2). Its layers are a plain list, one entry per layer, where the
+reference scans stacked parameters. The reference's other options (M-RoPE,
+state-space, RWKV and encoder layers) come with the configs that need them.
 """
 from __future__ import annotations
 
@@ -33,11 +34,15 @@ class ModelConfig:
     vocab_size: int
     groups: Tuple[Group, ...]
     head_dim: Optional[int] = None   # None -> d_model // num_heads
+    sliding_window: int = 0          # 0 = full attention
     rope_theta: float = 10000.0
+    qkv_bias: bool = False           # qwen1.5, starcoder2
     num_experts: int = 0
     experts_per_token: int = 0
     moe_shared_expert: bool = False  # llama4
     capacity_factor: float = 1.25
+    act: str = "swiglu"              # swiglu | gelu
+    norm: str = "rmsnorm"            # rmsnorm | layernorm
     vocab_pad_multiple: int = 256
     weight_quant: str = "none"       # none | int8 (weight-only storage, serving)
     tie_embeddings: bool = False     # logits contract with emb^T; no unemb
@@ -70,8 +75,10 @@ class ModelConfig:
     def scaled_down(self, **overrides) -> "ModelConfig":
         """Reduced config for CPU tests: shrink the capacity knobs, keep
         the GQA ratio, the power-of-2-ness of d_ff, tied embeddings, the MoE
-        routing (at most 4 experts, at most 2 per token) and the quant
-        settings (the reference's rule, restricted to these fields)."""
+        routing (at most 4 experts, at most 2 per token), the attention and
+        MLP flavour (a window of at most 8 tokens, so that it bites at test
+        lengths) and the quant settings (the reference's rule, restricted
+        to these fields)."""
         ratio = max(1, self.num_heads // max(self.num_kv_heads, 1))
         heads = max(2, ratio)
         small = dict(
@@ -84,6 +91,8 @@ class ModelConfig:
             num_experts=min(self.num_experts, 4) if self.num_experts else 0,
             experts_per_token=(min(self.experts_per_token, 2)
                                if self.experts_per_token else 0),
+            sliding_window=(min(self.sliding_window, 8)
+                            if self.sliding_window else 0),
             head_dim=None,
         )
         small.update(overrides)

@@ -11,7 +11,9 @@ Parameters:
                  "mlp": {w_gate, w_up, w_down}}, ...]}
 
 with no "unemb" when ``cfg.tie_embeddings`` (the logits contract with
-``emb`` transposed). A layer of kind 'moe' holds "moe": {router, experts:
+``emb`` transposed). A norm is {scale}, plus {bias} under LayerNorm; the
+attention adds the 1-D biases {bq, bk, bv} under ``cfg.qkv_bias``; the GELU
+MLP has no w_gate. A layer of kind 'moe' holds "moe": {router, experts:
 {w_gate, w_up (E, d, f), w_down (E, f, d)}, shared: {...}} in place of
 "mlp"; ``cfg.layer_kinds`` names each layer's kind.
 
@@ -85,16 +87,18 @@ def init_lm(cfg: ModelConfig, *, seed: int = 0, device="cuda") -> Dict[str, Any]
     exists at once."""
     _check_kinds(cfg)
     dev = resolve_device(device)
-    gen = torch.Generator(device=dev).manual_seed(seed)
+    # the meta device (shapes only, ``launch.flops``) draws nothing
+    gen = torch.Generator(device="cpu" if dev.type == "meta" else dev).manual_seed(seed)
     dt = dtype_of(cfg)
     params: Dict[str, Any] = {
         "emb": _quantized(cfg, dense_init(gen, cfg.padded_vocab, cfg.d_model,
-                                          dt, scale=0.02), ("emb",)),
+                                          dt, scale=0.02, device=dev), ("emb",)),
         "final_norm": init_norm(cfg, cfg.d_model, dev),
     }
     if not cfg.tie_embeddings:
         params["unemb"] = _quantized(
-            cfg, dense_init(gen, cfg.d_model, cfg.padded_vocab, dt), ("unemb",))
+            cfg, dense_init(gen, cfg.d_model, cfg.padded_vocab, dt, device=dev),
+            ("unemb",))
     params["layers"] = [_quantized(cfg, _init_block(gen, cfg, kind, dev), ("layers",))
                         for kind in cfg.layer_kinds]
     return params

@@ -1,4 +1,4 @@
-"""SwiGLU MLPs with the QuaRot online Hadamard on the down-projection
+"""SwiGLU / GELU MLPs with the QuaRot online Hadamard on the down-projection
 input: the dense block and the top-k mixture of experts (twin of
 ``repro.models.mlp``).
 
@@ -9,7 +9,9 @@ K4 launch when d_ff is a power of 2. The MoE block uses the reference's
 GShard-style capacity-factor dense dispatch (one-hot dispatch and combine
 einsums). All experts share one d_ff Hadamard, so the expert down
 projection is one ``bind_experts`` site over the stacked weights: one K6
-launch for every expert on the card.
+launch for every expert on the card when d_ff is a power of 2, else one
+grouped K1 launch over the dispatched rows and the einsum form (mixtral's
+14336 = 7 * 2048).
 """
 from __future__ import annotations
 
@@ -31,18 +33,37 @@ def _silu(g: torch.Tensor) -> torch.Tensor:
     return g * (1.0 / (1.0 + torch.exp(-g)))
 
 
+def _gelu(g: torch.Tensor) -> torch.Tensor:
+    # jax.nn.gelu (approximate=True, its default: the tanh form) lowers to
+    # g * (0.5 * (1 + tanh(c1 * (g + c0 * ((g * g) * g))))) with every op
+    # rounded to the io dtype and the constants c0 = 0.044715, c1 =
+    # sqrt(2 / pi) rounded to it first (0-dim host tensors: scalars to a
+    # CUDA op, no copy); F.gelu's default is the erf form
+    c0 = torch.tensor(0.044715, dtype=g.dtype)
+    c1 = torch.tensor(math.sqrt(2.0 / math.pi), dtype=g.dtype)
+    return g * (0.5 * (1.0 + torch.tanh(c1 * (g + c0 * (g * g * g)))))
+
+
+def _act(cfg, g: torch.Tensor) -> torch.Tensor:
+    return _silu(g) if cfg.act == "swiglu" else _gelu(g)
+
+
 # -------------------------------------------------------------------- dense
 def init_mlp(gen: torch.Generator, cfg, device) -> dict:
+    """{w_gate (SwiGLU only), w_up, w_down}."""
     d, f = cfg.d_model, cfg.d_ff
     dt = dtype_of(cfg)
-    return {"w_gate": dense_init(gen, d, f, dt, device=device),
-            "w_up": dense_init(gen, d, f, dt, device=device),
-            "w_down": dense_init(gen, f, d, dt, scale=1.0 / math.sqrt(f),
-                                 device=device)}
+    p = {}
+    if cfg.act == "swiglu":
+        p["w_gate"] = dense_init(gen, d, f, dt, device=device)
+    p["w_up"] = dense_init(gen, d, f, dt, device=device)
+    p["w_down"] = dense_init(gen, f, d, dt, scale=1.0 / math.sqrt(f), device=device)
+    return p
 
 
 def apply_mlp(cfg, p, x: torch.Tensor) -> torch.Tensor:
-    h = _silu(x @ p["w_gate"]) * (x @ p["w_up"])
+    h = (_act(cfg, x @ p["w_gate"]) * (x @ p["w_up"]) if cfg.act == "swiglu"
+         else _act(cfg, x @ p["w_up"]))
     spec = QuantDotSpec.for_config(h.shape[-1], cfg.quant)
     return spec.bind(p["w_down"])(h)
 
@@ -124,7 +145,7 @@ def apply_moe(cfg, p, x: torch.Tensor):
 
     xin = torch.einsum("bsec,bsd->becd", dispatch.to(x.dtype), x)
     we = p["experts"]
-    h = (_silu(torch.einsum("becd,edf->becf", xin, we["w_gate"]))
+    h = (_act(cfg, torch.einsum("becd,edf->becf", xin, we["w_gate"]))
          * torch.einsum("becd,edf->becf", xin, we["w_up"]))
     spec = QuantDotSpec.for_config(h.shape[-1], cfg.quant)
     yout = spec.bind_experts(we["w_down"])(h)                      # (B,E,cap,d)
