@@ -8,19 +8,22 @@ Runs from the repository root and needs the repository's ``src/``. It
   2. builds the port's CUDA kernels from ``src/repro_torch/csrc`` (one nvcc
      per source, in parallel) and prints the build seconds;
   3. kernel phase: holds every kernel against its plain PyTorch version on
-     the card -- K1 ``hadacore`` on the tensor cores at n in {8, 16, 128,
+     the card -- K1 ``hadacore`` on the tensor cores at n in {8, 16, 64, 128,
      256, 512, 1024, 2048, 4096, 32768} x {bf16, fp16} x {1, 5, 28, 64}
      rows (1 ulp at the row max; in place bitwise out of place), at f32
      compute (the CUDA-core body) and the baseline FWHT (``fwht_cuda``) in
      the 3 dtypes at n in {128, 2048, 32768}, and grouped 14336; K2
      ``fused_dequant`` at 32, 256 and 2048 x 128 and 256 x 2048 x {int8,
-     fp8_e4m3, fp8_e5m2}, bf16, and at the path shapes it is timed at (128,
-     32, 2048 and 512 x 128 fp8_e4m3), each against its plain version and
+     fp8_e4m3, fp8_e5m2}, bf16, at whisper-base's n = 64 (32, 512 and 48000
+     rows x {int8, fp8_e4m3}), and at the path shapes it is timed at (128,
+     32, 2048 and 512 x 128 fp8_e4m3; qwen2-vl-7b's and whisper-base's, see
+     the launcher model phases), each against its plain version and
      bitwise the plain epilogue on K1's own rotation; K3 ``fused`` at n in
      {128, 2048, 8192} x the 3 modes (q and s bitwise, and on K1's
      rotation); K4 ``quant_dot`` at phi4-mini's
      down projection (4 and 64 x 8192 -> 3072) and a ragged 5 x 8192 ->
-     3000 in the 3 modes (int8 bitwise, fp8 within 2^-7 of the row max; the
+     3000 in the 3 modes, and at whisper-base's 4 and 6000 x 2048 -> 512 in
+     int8 (int8 bitwise, fp8 within 2^-7 of the row max; the
      quant_dot family against the plain GEMM on the rotation it runs, the
      CUDA-core FWHT's);
      K5 (streamed K4) against K4 bitwise and its plain version at
@@ -102,6 +105,21 @@ Runs from the repository root and needs the repository's ``src/``. It
      launcher ``repro_torch.launch.serve.main`` at full width on qwen1.5-4b,
      4 prompts of 64 tokens and 16 greedy tokens each, with its tok/s and
      exactly 40 K1 + 80 K2 per model pass;
+     launcher model phases (``launcher_model_phase``), the two families the
+     serving engine refuses, at full width and depth: whisper-base (int8
+     W8A8 + Hadamard + int8 KV; 6 encoder + 6 decoder layers, LayerNorm,
+     GELU, tied embeddings, 1500 frames an input) and qwen2-vl-7b (fp8_e4m3
+     + Hadamard + fp8 KV; 28 layers, M-RoPE, 1024 patch embeddings, d_ff 37 x
+     512): each checks its weights against ``count_params`` and its init
+     peak, holds a prefill (whisper: 64 tokens and 1500 frames; qwen2-vl:
+     1024 patches on a 32 x 32 (t = 0, h, w) grid and 64 tokens after it)
+     against the plain path at depth 1 and at full depth and 4 decode steps
+     after it (limits between witnesses and controls, PERF.md), counts the
+     kernels' launches per prefill and decode step (whisper 30 K2 + 12 K4 /
+     12 K2 + 6 K4, qwen2-vl 28 K1 + 56 K2 both), profiles a decode step of 4
+     requests, then serves 4 requests through the launcher (whisper: 16
+     prompt tokens, 64 greedy tokens; qwen2-vl: 1024 patches + 64 tokens,
+     16 greedy tokens) with its prefill s, steady tok/s, launches and peak;
      training phase (``train_phase``): phi4-mini-3.8b at full width and
      depth (int8 + Hadamard, int8 fake-quantized Q/K/V, tied embeddings,
      per-block recomputation), 4 x 512 tokens per step from the
@@ -161,12 +179,15 @@ import torch
 sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "src"))
 # the serving run's and the training phase's traffic, which the transform
 # harness's path and train cases stand for
-from repro_torch.bench.hadamard import PREFILL_LEN, SLOTS, TRAIN_BATCH, TRAIN_SEQ  # noqa: E402
+from repro_torch.bench.hadamard import (ENCDEC_PROMPT, PREFILL_LEN, SLOTS,  # noqa: E402
+                                        TRAIN_BATCH, TRAIN_SEQ, VLM_TEXT)
+from repro_torch.bench.quant_dot import WHISPER_ENCODER_ROWS  # noqa: E402
 
 MAX_LEN = 256                      # the serving run's engine: SLOTS slots of MAX_LEN
 MODES = ("int8", "fp8_e4m3", "fp8_e5m2")
 PHI4_DOWN = (8192, 3072)           # phi4-mini's down projection, n -> d
 MAVERICK_DOWN = (8192, 5120)       # llama4-maverick's down projections, n -> d
+WHISPER_DOWN = (2048, 512)         # whisper-base's down projections, n -> d
 EXPERTS = 128                      # llama4-maverick's experts per MoE layer
 IO_BYTES = {torch.float32: 4, torch.bfloat16: 2, torch.float16: 2}
 EPS = {torch.float32: 2.0 ** -23, torch.bfloat16: 2.0 ** -7,
@@ -248,7 +269,7 @@ def hold_k2(x: torch.Tensor, mode: str, got: torch.Tensor) -> None:
         fail(f"K2 {rows} x {n} {mode}: not the plain epilogue on K1's rotation")
 
 
-K1_SIZES = (8, 16, 128, 256, 512, 1024, 2048, 4096, 32768)  # every r and log16 remainder
+K1_SIZES = (8, 16, 64, 128, 256, 512, 1024, 2048, 4096, 32768)  # every r and log16 remainder
 K1_ROWS = (1, 5, 28, 64)
 
 
@@ -324,6 +345,14 @@ def kernel_phase(gen: torch.Generator):
         for mode in MODES:
             x = (torch.randn(rows, n, generator=gen, device="cuda") * 3).to(torch.bfloat16)
             hold_k2(x, mode, fused_dequant(x, _k2_plan(n, mode)))
+    # whisper-base's head_dim 64: its decode (4 slots x 8 heads), decoder
+    # prefill (4 x 16 tokens x 8 heads) and encoder / cross K rows (4 x 1500
+    # frames x 8 heads), where 16 rows share a block's tile and each keeps
+    # its own absmax
+    for rows in (32, 512, 48000):
+        for mode in ("int8", "fp8_e4m3"):
+            x = (torch.randn(rows, 64, generator=gen, device="cuda") * 3).to(torch.bfloat16)
+            hold_k2(x, mode, fused_dequant(x, _k2_plan(64, mode)))
 
     print("-- kernel phase: times at the serving path's shapes (llama3-8b, bf16; decode = "
           f"one token on each of {SLOTS} slots, prefill = {PREFILL_LEN} tokens) through "
@@ -453,13 +482,15 @@ def hold_k3_k4(gen) -> None:
                 if kind == "exact" and not bool(same.all()):
                     fail(f"K3 n={n} {mode}: exact input not bitwise")
 
-    print("-- kernel phase: K4 quant_dot against its plain version "
-          "(phi4-mini down projection and a ragged case)")
-    n = PHI4_DOWN[0]
+    print("-- kernel phase: K4 quant_dot against its plain version (phi4-mini's down "
+          "projection, a ragged case, whisper-base's 2048 -> 512 at decode and at its "
+          f"encoder's {WHISPER_ENCODER_ROWS} rows, not a multiple of the row block)")
     cpu = torch.Generator().manual_seed(1)
-    for m, d in ((SLOTS, PHI4_DOWN[1]), (PREFILL_LEN, PHI4_DOWN[1]), (5, 3000)):
+    for m, n, d, modes in ((SLOTS, *PHI4_DOWN, MODES), (PREFILL_LEN, *PHI4_DOWN, MODES),
+                           (5, PHI4_DOWN[0], 3000, MODES), (SLOTS, *WHISPER_DOWN, ("int8",)),
+                           (WHISPER_ENCODER_ROWS, *WHISPER_DOWN, ("int8",))):
         w = (torch.randn(n, d, generator=cpu) / math.sqrt(n)).to("cuda", torch.bfloat16)
-        for mode in MODES:
+        for mode in modes:
             qt = quantize_weight(w, mode)
             plan = plan_for(n, dtype=torch.bfloat16, backend="cuda",
                             device_type="cuda", epilogue=QuantEpilogue(mode))
@@ -609,6 +640,16 @@ def time_k3_k4(gen) -> dict:
     ms = cuda_time_ms(lambda: quant_dot(x, qt.q, qt.scale, plan), iters=20)
     print(f"K4 1024 x {n} -> {d} int8 (not a path shape): {ms:.4f} ms, "
           f"{2 * 1024 * n * d / ms / 1e9:.1f} TOP/s")
+    # whisper-base's down projections (its own generator: the draws above
+    # stay the earlier script's)
+    wgen = torch.Generator(device="cuda").manual_seed(23)
+    (n, d) = WHISPER_DOWN
+    w = (torch.randn(n, d, generator=wgen, device="cuda") / math.sqrt(n)).to(torch.bfloat16)
+    qt = quantize_weight(w, "int8")
+    for m in (SLOTS, WHISPER_ENCODER_ROWS):
+        x = (torch.randn(m, n, generator=wgen, device="cuda") * 3).to(torch.bfloat16)
+        rec = _measure(Case("K4", "int8", m, n, d), wgen, qt, None, x)
+        print(_record_line(f"K4 {m:4d} x {n} -> {d} int8 (whisper-base)", rec))
     return entries
 
 
@@ -1185,7 +1226,13 @@ PREFILL_LIMITS = {
     "starcoder2-15b": {1: 3.9e-3, 40: 0.032},
     # depth 1 is the first MoE layer, 32 the whole model
     "mixtral-8x7b": {1: 3.4e-3, 32: 0.036},
+    # depth 1: the first encoder and decoder layers
+    "whisper-base": {1: 0.0123, 6: 0.0263},
+    "qwen2-vl-7b": {1: 0.0094, 28: 0.070},
 }
+# The same for the DECODE_STEPS greedy decode steps after the full-depth
+# prefill (every run fed the plain run's tokens): their logits together.
+DECODE_LIMITS = {"whisper-base": 0.0259, "qwen2-vl-7b": 0.127}
 
 
 def _calibration_backends():
@@ -1367,10 +1414,20 @@ def _with_backend(cfg, quant, backend: str):
     return cfg.with_quant(dataclasses.replace(quant, backend=backend))
 
 
-def trace_layer0(cfg, params, quant, prompt) -> None:
+def _cut(params, depth: int):
+    """The model cut to its first ``depth`` layers (an encoder-decoder: the
+    first ``depth`` of each stack)."""
+    p = dict(params, layers=params["layers"][:depth])
+    if "enc_layers" in params:
+        p["enc_layers"] = params["enc_layers"][:depth]
+    return p
+
+
+def trace_layer0(cfg, params, quant, batch) -> None:
     """Which layer-0 stage first differs between the kernels and the plain
-    versions, and by how many elements: the prompt runs through layer 0
-    once with the kernels and once with the plain versions, recording each
+    versions, and by how many elements: the batch runs through layer 0
+    (of each stack) once with the kernels and once with the plain versions,
+    recording each
     rotation site (Q, K, V) and the down projection in call order. For every
     site it prints how many output elements differ between the two runs and
     how many the site itself makes differ (the plain version of the site on
@@ -1384,25 +1441,34 @@ def trace_layer0(cfg, params, quant, prompt) -> None:
     records = {}
     rot_call, qd_apply = api.RotationSpec.__call__, api.QuantDotSpec._apply_qtensor
 
+    # an encoder-decoder's sites in call order: the encoder layer's, then
+    # the decoder layer's with the cross attention's K and V
+    encdec = ("enc Q", "enc K", "enc V", "enc down", "Q", "K", "V", "cross K",
+              "cross V", "down-proj")
+
     def rot(spec, x):
         y = rot_call(spec, x)
-        name = ("Q", "K")[sum(1 for k in records[run] if k[0] in "QK") % 2] \
-            if spec.rotate else "V"
+        if cfg.is_encdec:
+            name = encdec[len(records[run])]
+        else:
+            name = ("Q", "K")[sum(1 for k in records[run] if k[0] in "QK") % 2] \
+                if spec.rotate else "V"
         records[run].append((name, spec, None, x, y))
         return y
 
     def down(spec, w, x):
         y = qd_apply(spec, w, x)
-        records[run].append(("down-proj", spec, w, x, y))
+        name = encdec[len(records[run])] if cfg.is_encdec else "down-proj"
+        records[run].append((name, spec, w, x, y))
         return y
 
-    p0 = dict(params, layers=params["layers"][:1])
+    p0 = _cut(params, 1)
     api.RotationSpec.__call__, api.QuantDotSpec._apply_qtensor = rot, down
     try:
         for run in ("cuda", "torch"):
             records[run] = []
             with torch.inference_mode():
-                lm_forward(_with_backend(cfg, quant, run), p0, {"tokens": prompt})
+                lm_forward(_with_backend(cfg, quant, run), p0, batch)
     finally:
         api.RotationSpec.__call__, api.QuantDotSpec._apply_qtensor = rot_call, qd_apply
     first = None
@@ -1430,12 +1496,20 @@ def trace_layer0(cfg, params, quant, prompt) -> None:
     print(f"   first stage where the kernels differ: {first or 'none'}")
 
 
-def hold_prefill_against_plain(cfg, params, quant, seed: int, controls) -> None:
-    """One 64-token prompt through the kernels, the plain versions, the
-    witnesses and the controls, at each depth of the model's limits. The
-    kernels' difference from the plain versions must stay within the limit,
-    every witness's too, and every control's beyond it. Prints every
-    reading before it checks any.
+def hold_prefill_against_plain(cfg, params, quant, seed: int, controls, batch=None,
+                               decode_steps: int = 0) -> dict:
+    """One 64-token prompt (or ``batch``, one prompt) through the kernels,
+    the plain versions, the witnesses and the controls, at each depth of the
+    model's limits. The kernels' difference from the plain versions must
+    stay within the limit, every witness's too, and every control's beyond
+    it. Prints every reading before it checks any.
+
+    With ``decode_steps``, each run at full depth goes on past its prefill
+    for that many greedy decode steps at a scalar position, every run fed
+    the plain run's tokens: their logits are held the same way to
+    ``DECODE_LIMITS``, and the kernels' launches of the prefill and of the
+    decode steps (the counters zeroed just before each and read just after)
+    are returned as {"prefill": ..., "decode": ...}.
 
     In a MoE model every held run routes each token to the experts the
     plain run chose (``_routing``; the gate values stay the run's own):
@@ -1446,66 +1520,107 @@ def hold_prefill_against_plain(cfg, params, quant, seed: int, controls) -> None:
     import contextlib
 
     from repro_torch.kernels.registry import BACKEND_ENV_VAR
-    from repro_torch.models.lm import lm_forward
+    from repro_torch.models.lm import lm_decode_step, lm_forward, pad_kv_caches
 
     _calibration_backends()
-    rng = np.random.default_rng(seed)
-    prompt = torch.from_numpy(rng.integers(0, cfg.vocab_size, (1, 64))).cuda()
-    trace_layer0(cfg, params, quant, prompt)
+    if batch is None:
+        rng = np.random.default_rng(seed)
+        batch = {"tokens": torch.from_numpy(rng.integers(0, cfg.vocab_size, (1, 64))).cuda()}
+    trace_layer0(cfg, params, quant, batch)
     named = {b: _with_backend(cfg, quant, b) for b in ("cuda", "torch", "auto")}
+    full = len(params["layers"])
+    S = batch["tokens"].shape[1] + (batch["patch_embeds"].shape[1]
+                                    if "patch_embeds" in batch else 0)
+    forced, launches = [], {}
 
     def logits(route, depth, routing):
-        p = dict(params, layers=params["layers"][:depth])
+        p = _cut(params, depth)
         if route in ("cuda", "torch", "one_flip"):
             c = named["torch" if route == "one_flip" else route]
         else:
             c = named["auto"]
             os.environ[BACKEND_ENV_VAR] = route
         flip = _one_flip() if route == "one_flip" else contextlib.nullcontext()
+        steps = decode_steps if depth == full else 0
+        count = route == "cuda" and steps
         try:
             with torch.inference_mode(), flip, routing:
-                out = lm_forward(c, p, {"tokens": prompt})[0]
+                if count:
+                    (out, _, caches), launches["prefill"] = _counted(
+                        lambda: lm_forward(c, p, batch, want_cache=True))
+                else:
+                    out, _, caches = lm_forward(c, p, batch, want_cache=bool(steps))
+                outs = []
+
+                def decode():
+                    nonlocal caches
+                    caches = pad_kv_caches(c, caches, S + steps)
+                    last = out[:, -1]
+                    for i in range(steps):
+                        if len(forced) <= i:
+                            forced.append(last[:, :cfg.vocab_size].argmax(-1, keepdim=True))
+                        step, caches = lm_decode_step(c, p, caches, forced[i],
+                                                      torch.tensor(S + i, device="cuda"))
+                        last = step[:, -1]
+                        outs.append(last[:, :cfg.vocab_size].float())
+
+                if count:
+                    _, launches["decode"] = _counted(decode)
+                elif steps:
+                    decode()
         finally:
             os.environ.pop(BACKEND_ENV_VAR, None)
         out = out[..., :cfg.vocab_size].float()
-        if not torch.isfinite(out).all():
-            fail(f"non-finite prefill logits ({route}, depth {depth})")
-        return out
+        dec = torch.cat(outs) if steps else None
+        if not torch.isfinite(out).all() or (steps and not torch.isfinite(dec).all()):
+            fail(f"non-finite logits ({route}, depth {depth})")
+        return out if not steps else (out, dec)
 
     def read(depth, route, got, plain, pinned):
         r = float((got - plain).norm() / plain.norm())
         top1 = float((got.argmax(-1) == plain.argmax(-1)).float().mean())
-        print(f"prefill depth {depth:2d}, {route:14s} vs plain{pinned}: relative "
+        print(f"{_stage(depth)}, {route:14s} vs plain{pinned}: relative "
               f"RMS {r:.6f}, max |dlogit| {float((got - plain).abs().max()):.5f} "
               f"of {float(plain.abs().max()):.3f}, top-1 {top1 * 100:.1f}%")
         return r
 
     witnesses = ("one_flip", "k1_rotations")
-    limits = PREFILL_LIMITS[cfg.name]
+    limits = dict(PREFILL_LIMITS[cfg.name])
     moe = bool(cfg.num_experts)
     pinned = ", routing pinned" if moe else ""
     rel = {}
     for depth in sorted(limits):
         plain_routing = _routing()
         plain = logits("torch", depth, plain_routing)
+        if isinstance(plain, tuple):
+            plain, plain_dec = plain
         for route in ("cuda",) + witnesses + controls:
             got = logits(route, depth, _routing(plain_routing.experts))
+            if isinstance(got, tuple):
+                got, dec = got
+                rel["decode", route] = read("decode", route, dec, plain_dec, pinned)
             rel[depth, route] = read(depth, route, got, plain, pinned)
         for route in ("cuda", "k1_rotations") if moe else ():
             free = _routing()
             read(depth, route, logits(route, depth, free), plain, "")
             routing_flips(free, plain_routing)
-    for depth in sorted(limits):
+    if decode_steps:
+        limits["decode"] = DECODE_LIMITS[cfg.name]
+    for depth in limits:
         limit = limits[depth]
-        print(f"prefill depth {depth:2d}: limit {limit:g}{pinned}")
+        print(f"{_stage(depth)}: limit {limit:g}{pinned}")
         for route in ("cuda",) + witnesses:
             if not rel[depth, route] <= limit:
-                fail(f"prefill depth {depth}: {route} at {rel[depth, route]} "
-                     f"> {limit}")
+                fail(f"{_stage(depth)}: {route} at {rel[depth, route]} > {limit}")
         for route in controls:
             if not rel[depth, route] > limit:
-                fail(f"prefill depth {depth}: control {route} at "
+                fail(f"{_stage(depth)}: control {route} at "
                      f"{rel[depth, route]} passes the limit {limit}")
+    return launches
+
+
+def _stage(depth) -> str:
+    return "decode after the full prefill" if depth == "decode" else f"prefill depth {depth:2d}"
 
 
 class _routing:
@@ -1862,6 +1977,171 @@ def launcher_phase(args) -> dict:
         fail(f"launcher phase: bad tokens {toks}")
     if not out["tokens_per_s"] > 0:
         fail("launcher phase: no steady-state decode rate")
+    torch.cuda.empty_cache()
+    return launches
+
+
+# The models the serving engine refuses (an encoder-decoder and a vlm: its
+# batches carry tokens only, as the reference's engine rules), served through
+# the one-shot launcher at full width and depth: each with its quantization,
+# its kernels' launches per prefill and per decode step (every kernel not
+# named: 0), the controls of its holds and its launcher traffic (SLOTS
+# requests of ``prompt`` tokens -- for the vlm its vlm_patches patches and
+# VLM_TEXT tokens -- and ``gen`` greedy tokens each).
+LAUNCHER_MODELS = {
+    # 6 encoder + 6 decoder layers: a prefill rotates the encoder's Q / K
+    # (12 K2) and the decoder's Q / K / cross K (18), and every down
+    # projection is one fused K4 (2048 -> 512; 12); a decode step 12 K2 and
+    # 6 K4, the cross K / V read from the cache
+    "whisper-base": dict(mode="int8", prefill={"K2": 30, "K4": 12},
+                         decode={"K2": 12, "K4": 6},
+                         controls=("k4_no_rotate", "k2_no_quant"), gen=64),
+    # 28 layers: one grouped K1 (37 x 512) and two K2 per layer and pass
+    "qwen2-vl-7b": dict(mode="fp8_e4m3", prefill={"K1": 28, "K2": 56},
+                        decode={"K1": 28, "K2": 56},
+                        controls=("k2_no_quant", "k1_exact_scale"), gen=16),
+}
+DECODE_STEPS = 4   # the decode hold's greedy steps after the full-depth prefill
+
+
+def _launcher_prompt(cfg) -> int:
+    """The launcher cell's ``--prompt-len``: a vlm's patches and VLM_TEXT
+    tokens, else ENCDEC_PROMPT tokens (beside the encoder's frames)."""
+    return cfg.vlm_patches + VLM_TEXT if cfg.family == "vlm" else ENCDEC_PROMPT
+
+
+def _hold_batch(cfg, seed: int) -> dict:
+    """The holds' one prompt: 64 tokens; a vlm's after its vlm_patches
+    N(0, 1) patch embeddings on a sqrt(P) x sqrt(P) (t = 0, h, w) position
+    grid, the text after it at t = h = w = side + j, so that the three
+    M-RoPE sections read different streams; an encoder-decoder's beside
+    encoder_seq N(0, 1) frames (``make_batch``'s draws)."""
+    rng = np.random.default_rng(seed)
+    text = 64
+    batch = {"tokens": torch.from_numpy(rng.integers(0, cfg.vocab_size, (1, text))).cuda()}
+    if cfg.family == "vlm":
+        P = cfg.vlm_patches
+        side = math.isqrt(P)
+        i = np.arange(P)
+        grid = np.stack([np.zeros(P), i // side, i % side]).astype(np.int32)
+        txt = np.broadcast_to(np.arange(side, side + text, dtype=np.int32), (3, text))
+        batch["patch_embeds"] = torch.from_numpy(
+            rng.standard_normal((1, P, cfg.d_model)).astype(np.float32)).cuda()
+        batch["positions"] = torch.from_numpy(
+            np.concatenate([grid, txt], 1)[:, None].copy()).cuda()
+    if cfg.is_encdec:
+        batch["frames"] = torch.from_numpy(
+            rng.standard_normal((1, cfg.encoder_seq, cfg.d_model)).astype(np.float32)).cuda()
+    return batch
+
+
+def _per_pass(want: dict, passes: int, keys) -> dict:
+    out = {k: 0 for k in keys}
+    out.update({k: v * passes for k, v in want.items()})
+    return out
+
+
+def launcher_model_phase(args, arch: str) -> dict:
+    """One of ``LAUNCHER_MODELS`` at full width and depth: init (its peak),
+    the weights against ``count_params``, the layer-0 stage trace, the
+    prefill held against the plain path at depth 1 and at full depth and
+    ``DECODE_STEPS`` greedy decode steps after it (witnesses and controls
+    as the model phases'; the kernels' launches per prefill and per decode
+    step counted there and checked), the holds' peak, a decode profile on
+    SLOTS requests of the launcher traffic, then the one-shot launcher
+    ``repro_torch.launch.serve.main`` on that traffic with the launch
+    counters zeroed just before and read just after (checked: one prefill
+    and gen - 1 decode steps), its prefill seconds and steady tok/s and its
+    peak. Returns the launcher's launches."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.quant import QuantConfig
+    from repro_torch.launch import serve
+    from repro_torch.launch.shapes import ShapeSpec, make_batch
+    from repro_torch.models.lm import init_lm, lm_decode_step, lm_prefill, pad_kv_caches
+
+    spec = LAUNCHER_MODELS[arch]
+    quant = QuantConfig(mode=spec["mode"], rotate="hadamard", backend="cuda", kv_quant=True)
+    cfg = dataclasses.replace(get_config(arch).with_quant(quant), weight_quant="int8")
+    print(f"-- launcher model phase: {cfg.name} d_model={cfg.d_model} heads="
+          f"{cfg.num_heads}/{cfg.num_kv_heads} head_dim={cfg.head_dim} d_ff={cfg.d_ff} "
+          f"vocab={cfg.vocab_size} layers={cfg.num_layers} encoder layers="
+          f"{len(cfg.encoder_layer_kinds)} frames={cfg.encoder_seq if cfg.is_encdec else 0} "
+          f"patches={cfg.vlm_patches if cfg.family == 'vlm' else 0} mrope="
+          f"{cfg.mrope_sections if cfg.mrope else None} act={cfg.act} norm={cfg.norm} "
+          f"tied={cfg.tie_embeddings}, {spec['mode']} + hadamard + {spec['mode']} KV, "
+          "int8 weights; nothing cut")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = init_lm(cfg, seed=args.seed, device="cuda")
+    torch.cuda.synchronize()
+    wbytes = sum(t.numel() * t.element_size() for t in _leaves(params))
+    peak = torch.cuda.max_memory_allocated()
+    print(f"init + quantize layer by layer: {time.perf_counter() - t0:.1f} s, "
+          f"{wbytes / 1e9:.3f} GB of weights, peak {peak / 1e9:.2f} GB")
+    if peak > PEAK_LIMIT:
+        fail(f"{arch}: init's peak memory {peak / 1e9:.2f} GB")
+    check_param_count(cfg, params)
+
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    got = hold_prefill_against_plain(cfg, params, quant, args.seed, spec["controls"],
+                                     _hold_batch(cfg, args.seed), DECODE_STEPS)
+    peak = torch.cuda.max_memory_allocated()
+    print(f"holds: {time.perf_counter() - t0:.1f} s; the kernels' launches: prefill "
+          f"{got['prefill']}, {DECODE_STEPS} decode steps {got['decode']}; peak device "
+          f"memory of the prefill and decode holds {peak / 1e9:.2f} GB")
+    keys = got["prefill"].keys()
+    for stage, passes in (("prefill", 1), ("decode", DECODE_STEPS)):
+        want = _per_pass(spec[stage], passes, keys)
+        if got[stage] != want:
+            fail(f"{arch}: {stage} launches {got[stage]}, expected {want}")
+    if peak > PEAK_LIMIT:
+        fail(f"{arch}: the holds' peak memory {peak / 1e9:.2f} GB")
+
+    prompt = _launcher_prompt(cfg)
+    b = make_batch(cfg, ShapeSpec("serve", "prefill", prompt, SLOTS), seed=args.seed)
+    b = {k: torch.from_numpy(v).cuda() for k, v in b.items() if k != "labels"}
+    b["tokens"] = b["tokens"].long()
+    with torch.inference_mode():
+        logits, caches = lm_prefill(cfg, params, b)
+        caches = pad_kv_caches(cfg, caches, prompt + 1)
+        tok = logits[:, -1, :cfg.vocab_size].argmax(-1)[:, None]
+    pos = torch.tensor(prompt, device="cuda")
+
+    def step():
+        with torch.inference_mode():
+            lm_decode_step(cfg, params, caches, tok, pos)
+
+    step()
+    torch.cuda.synchronize()
+    print(f"decode profile: {SLOTS} requests after a prefill of {prompt} positions")
+    _profile_window(step, 3, "decode steps")
+    del params, caches, logits, b
+    torch.cuda.empty_cache()
+
+    argv = ["--arch", arch, "--scale", "1.0", "--batch", str(SLOTS), "--prompt-len",
+            str(prompt), "--gen", str(spec["gen"]), "--quant", spec["mode"], "--rotate",
+            "hadamard", "--kernel", "cuda", "--device", "cuda", "--seed", str(args.seed)]
+    print("-- launcher: python -m repro_torch.launch.serve " + " ".join(argv))
+    torch.cuda.reset_peak_memory_stats()
+    out, launches = _counted(lambda: serve.main(argv))
+    peak = torch.cuda.max_memory_allocated()
+    toks = out["tokens"]
+    want = _per_pass(spec["prefill"], 1, launches)
+    for k, v in spec["decode"].items():
+        want[k] += v * (spec["gen"] - 1)
+    print(f"launcher: prefill {out['prefill_s']:.3f} s, {out['tokens_per_s']:.1f} tok/s "
+          f"steady state ({out['decode_steps']} steps); launches {launches} over one "
+          f"prefill and {spec['gen'] - 1} decode steps; peak device memory "
+          f"{peak / 1e9:.2f} GB (init included)")
+    if launches != want:
+        fail(f"{arch} launcher: launches {launches}, expected {want}")
+    if toks.shape != (SLOTS, spec["gen"]) or not ((toks >= 0) & (toks < cfg.vocab_size)).all():
+        fail(f"{arch} launcher: bad tokens {toks}")
+    if not out["tokens_per_s"] > 0 or peak > PEAK_LIMIT:
+        fail(f"{arch} launcher: rate {out['tokens_per_s']}, peak {peak / 1e9:.2f} GB")
     torch.cuda.empty_cache()
     return launches
 
@@ -2993,9 +3273,14 @@ def main() -> int:
         for k, v in got.items():
             launches[k] = launches.get(k, 0) + v
         torch.cuda.empty_cache()
-    for phase in (window_phase, launcher_phase, train_phase):
+    for phase in (window_phase, launcher_phase):
         for k, v in phase(args).items():
             launches[k] += v
+    for arch in LAUNCHER_MODELS:
+        for k, v in launcher_model_phase(args, arch).items():
+            launches[k] += v
+    for k, v in train_phase(args).items():
+        launches[k] += v
     launches["K3"] = entry["K3"]    # K3's path is the entry point
     t0 = time.perf_counter()
     mutants = lint_phase(args.seed, serving_sites)

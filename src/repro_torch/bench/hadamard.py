@@ -35,7 +35,12 @@ below), in three groups:
     the grouped down projections of qwen1.5-4b (27 x 256), llama3-405b (13
     x 4096) and starcoder2-15b (3 x 8192) and at mixtral-8x7b's expert site
     (7 x 2048 over the dispatched rows: every expert's capacity slots), at
-    decode and prefill;
+    decode and prefill; the one-shot launcher's cells: qwen2-vl-7b (K1 at
+    37 x 512; K2 fp8_e4m3 at its Q and K sites, 28 and 4 heads of 128) at
+    decode and at a prefill of 4 x (1024 patches + VLM_TEXT tokens), and
+    whisper-base (K2 int8 at n = 64, 8 heads) at decode, at its decoder's
+    prefill of 4 x ENCDEC_PROMPT tokens (Q, K and the cross K over 4 x 1500
+    frames) and at its encoder's Q and K;
   * ``train``: the phi4-mini training step's K1 calls (4 x 512 tokens): the
     straight-through backward of the down projection (2 per layer, 8192
     points) and of the Q / K fake-quantized rotations (24 and 8 heads of
@@ -69,6 +74,10 @@ SWEEP_BYTES = 64 << 20
 # step TRAIN_BATCH x TRAIN_SEQ tokens.
 SLOTS, PREFILL_LEN = 4, 64
 TRAIN_BATCH, TRAIN_SEQ = 4, 512
+# The one-shot launcher's cells (SLOTS requests each): qwen2-vl-7b's prompts
+# are its vlm_patches patch embeddings and VLM_TEXT tokens; whisper-base's
+# ENCDEC_PROMPT tokens beside its encoder_seq frames.
+VLM_TEXT, ENCDEC_PROMPT = 64, 16
 
 
 @dataclasses.dataclass(frozen=True)
@@ -107,7 +116,16 @@ def _cases() -> tuple:
         E, K = cfg.num_experts, cfg.experts_per_token
         return batch * E * max(1, int(cfg.capacity_factor * seq * K / E))
 
+    def qk(name, cfg, phase, tokens, mode, sites=("Q", "K")):
+        heads = {"Q": cfg.num_heads, "K": cfg.num_kv_heads, "cross K": cfg.num_kv_heads}
+        return [Case("K2", f"{name} {phase} {site}", tokens * heads[site], cfg.head_dim,
+                     mode=mode) for site in sites]
+
     llama, phi4 = get_config("llama3-8b"), get_config("phi4-mini-3.8b")
+    qwen2vl, whisper = get_config("qwen2-vl-7b"), get_config("whisper-base")
+    vg, vp = groups(qwen2vl)
+    vlm_prefill = SLOTS * (qwen2vl.vlm_patches + VLM_TEXT)
+    frames = SLOTS * whisper.encoder_seq
     g, p = groups(llama)
     serve = (("decode", SLOTS), ("prefill", PREFILL_LEN))
     train = TRAIN_BATCH * TRAIN_SEQ
@@ -129,6 +147,14 @@ def _cases() -> tuple:
         + [Case("K1", f"mixtral-8x7b {phase} experts down-proj",
                 dispatched(mixtral, batch, seq) * mg, mp)
            for phase, batch, seq in (("decode", SLOTS, 1), ("prefill", 1, PREFILL_LEN))]
+        + [Case("K1", f"qwen2-vl-7b {phase} down-proj", tokens * vg, vp)
+           for phase, tokens in (("decode", SLOTS), ("prefill", vlm_prefill))]
+        + qk("qwen2-vl-7b", qwen2vl, "decode", SLOTS, "fp8_e4m3")
+        + qk("qwen2-vl-7b", qwen2vl, "prefill", vlm_prefill, "fp8_e4m3")
+        + qk("whisper-base", whisper, "decode", SLOTS, "int8")
+        + qk("whisper-base", whisper, "prefill", SLOTS * ENCDEC_PROMPT, "int8")
+        + qk("whisper-base", whisper, "prefill", frames, "int8", ("cross K",))
+        + qk("whisper-base", whisper, "encoder", frames, "int8")
         + [Case("K1", "train down-proj backward", train, phi4.d_ff,
                 per_step=2 * phi4.num_layers),
            Case("K1", "train Q backward", train * phi4.num_heads, phi4.head_dim,

@@ -22,7 +22,9 @@ The default cases are the shapes of the port's paths: phi4-mini's down
 projection (8192 -> 3072, int8) at decode (4 rows), prefill (64) and the
 training step's rows (2048); llama4-maverick's (8192 -> 5120, fp8_e4m3)
 dense at 4 and 64 rows and over 128 experts at (4, 128, 1, 8192); fp8 at
-the training rows; the ABFT twins at their decode shapes. Two cases at the
+the training rows; whisper-base's (2048 -> 512, int8) at decode (4 rows)
+and at its encoder's rows (4 inputs of 1500 frames: 6000, not a multiple of
+the row block); the ABFT twins at their decode shapes. Two cases at the
 training rows against 64 columns (2 tiles of the 96 at 3072) read the
 rotation's share of K4 there: the rotation of every row is the same work,
 the contraction a 48th of it. ``chip_smoke.py`` times its kernels through
@@ -78,7 +80,8 @@ class Case:
         return f"{self.rows}x{self.n}x{self.d}"
 
 
-PHI4, MAVERICK = (8192, 3072), (8192, 5120)
+PHI4, MAVERICK, WHISPER = (8192, 3072), (8192, 5120), (2048, 512)
+WHISPER_ENCODER_ROWS = 4 * 1500    # 4 inputs of whisper's 1500 frames
 CASES = (
     Case("K4", "int8", 4, *PHI4), Case("K5", "int8", 4, *PHI4), Case("K4", "int8", 64, *PHI4),
     Case("K4", "int8", 2048, *PHI4), Case("K8", "int8", 2048, *PHI4),
@@ -87,6 +90,7 @@ CASES = (
     Case("K4", "fp8_e4m3", 4, *MAVERICK), Case("K5", "fp8_e4m3", 4, *MAVERICK),
     Case("K4", "fp8_e4m3", 64, *MAVERICK), Case("K5", "fp8_e4m3", 64, *MAVERICK),
     Case("K8", "fp8_e4m3", 4, *MAVERICK),
+    Case("K4", "int8", 4, *WHISPER), Case("K4", "int8", WHISPER_ENCODER_ROWS, *WHISPER),
     Case("K6", "fp8_e4m3", 4, *MAVERICK), Case("K6s", "fp8_e4m3", 4, *MAVERICK),
     Case("K7a-ro", "int8", 4, *PHI4), Case("K7a-rv", "int8", 4, *PHI4),
     Case("K7a-ro", "fp8_e4m3", 4, *MAVERICK), Case("K7a-s", "fp8_e4m3", 4, *MAVERICK),

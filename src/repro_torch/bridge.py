@@ -7,7 +7,9 @@ tree as nested dicts and lists of numpy arrays -- a quantized leaf given as
 ``{"q", "scale", "mode"}``, plus ``"check"`` when the reference leaf carries
 its ABFT column checksum -- and returns the port's parameters on a
 device: the same leaves, the stacked groups split into the port's per-layer
-list, quantized leaves as :class:`~repro_torch.core.wquant.QTensor`.
+list, quantized leaves as :class:`~repro_torch.core.wquant.QTensor`. An
+encoder-decoder's ``"enc_groups"`` become ``"enc_layers"`` the same way
+(``"enc_norm"`` crosses as it is).
 
 bf16 and fp8 arrays (numpy extension dtypes that ``torch.from_numpy``
 rejects) cross through a same-width unsigned-integer view; nothing here
@@ -110,17 +112,27 @@ def params_from_reference(tree: Dict[str, Any], device="cuda") -> Dict[str, Any]
     return _from_reference(tree, resolve_device(device))
 
 
-def _from_reference(tree, dev, repeats: List[int] = ()):
-    out: Dict[str, Any] = {k: _convert(v, dev) for k, v in tree.items()
-                           if k != "groups"}
+# the reference's stacked groups -> the port's per-layer list
+_STACKS = {"groups": "layers", "enc_groups": "enc_layers"}
+
+
+def _unstack(groups, dev, repeats: List[int] = ()) -> List[dict]:
     layers: List[dict] = []
-    for gi, group in enumerate(tree["groups"]):
+    for gi, group in enumerate(groups):
         positions = sorted(group, key=lambda k: int(k[1:]))
         reps = repeats[gi] if repeats else _repeats(group[positions[0]])
         for r in range(reps):
             for pj in positions:
                 layers.append(_convert(_slice(group[pj], r, reps), dev))
-    out["layers"] = layers
+    return layers
+
+
+def _from_reference(tree, dev, repeats: Dict[str, List[int]] = None):
+    out: Dict[str, Any] = {k: _convert(v, dev) for k, v in tree.items()
+                           if k not in _STACKS}
+    for key, name in _STACKS.items():
+        if key in tree:
+            out[name] = _unstack(tree[key], dev, (repeats or {}).get(key, ()))
     return out
 
 
@@ -130,7 +142,8 @@ def opt_state_from_reference(state: Dict[str, Any], cfg, device="cuda") -> Dict[
     blockwise-int8 dicts), "step", and "ef" under int8_ef -- in the port's
     per-layer layout on ``device``; ``cfg`` gives each group's repeats."""
     dev = resolve_device(device)
-    reps = [r for _, r in cfg.groups]
+    reps = {"groups": [r for _, r in cfg.groups],
+            "enc_groups": [r for _, r in cfg.encoder_groups]}
     out = {k: _from_reference(v, dev, reps) for k, v in state.items() if k != "step"}
     out["step"] = to_torch(state["step"], dev)
     return out
@@ -176,21 +189,28 @@ def _to_reference_tree(tree, cfg, to):
             return {k: conv(v) for k, v in x.items()}
         return to.leaf(x)
 
-    out = {k: conv(v) for k, v in tree.items() if k != "layers"}
+    out = {k: conv(v) for k, v in tree.items() if k not in ("layers", "enc_layers")}
+    out["groups"] = _restack(tree["layers"], cfg.groups, to)
+    if "enc_layers" in tree:
+        out["enc_groups"] = _restack(tree["enc_layers"], cfg.encoder_groups, to)
+    return out
+
+
+def _restack(layers, groups_cfg, to) -> List[dict]:
     groups, i = [], 0
-    for pattern, repeats in cfg.groups:
+    for pattern, repeats in groups_cfg:
         width = len(pattern)
-        groups.append({f"p{j}": _stack([tree["layers"][i + r * width + j]
+        groups.append({f"p{j}": _stack([layers[i + r * width + j]
                                         for r in range(repeats)], to)
                        for j in range(width)})
         i += width * repeats
-    out["groups"] = groups
-    return out
+    return groups
 
 
 def to_reference(tree: Dict[str, Any], cfg, meta: bool = False) -> Dict[str, Any]:
     """A port tree of raw (training) parameters in the reference's layout
-    (the per-layer list stacked back into ``groups``), or of an AdamW state
+    (the per-layer lists stacked back into ``groups`` and, for an
+    encoder-decoder, ``enc_groups``), or of an AdamW state
     ({"m", "v", "step", "ef"}, each moment tree converted the same way).
     Leaves as numpy, or with ``meta`` as data-free tensors (a restore
     template)."""

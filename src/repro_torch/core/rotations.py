@@ -183,9 +183,11 @@ def fuse_down_proj_rotations(params):
     Apply ONCE to a model trained WITHOUT rotations (the post-training
     quantization deployment of QuaRot and the paper); a model trained with
     rotations on learned the rotated basis and must not be fused again.
-    Walks the port's parameter tree (dicts and per-layer lists) and
-    rewrites every 'w_down' -- the dense MLP's, the MoE experts' stack and
-    the shared expert's -- and the RWKV channel mix's 'wv' where present;
+    Walks the whole parameter tree (dicts and per-layer lists, the
+    encoder's ``enc_layers`` too, as the reference walks its whole tree) and
+    rewrites every 'w_down' -- the dense MLP's, the encoder's, the MoE
+    experts' stack and the shared expert's -- and the RWKV channel mix's
+    'wv' where present;
     returns a new tree (other leaves shared). The weights must be raw:
     quantize after fusing."""
     from repro_torch.core.wquant import is_qleaf

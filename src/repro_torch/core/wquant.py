@@ -196,7 +196,9 @@ def _map_with_keys(fn, tree, keys=()):
 
 def quantize_lm_weights(params, cfg=None):
     """Replace every large matmul weight with a :class:`QTensor`, once at
-    load (the serving-path pre-quantization pass). ``cfg`` (a ModelConfig)
+    load (the serving-path pre-quantization pass), over the whole tree: the
+    decoder's layers, an encoder's ``enc_layers`` and the cross-attention
+    matrices alike. ``cfg`` (a ModelConfig)
     selects the consumer mode, as in ``quantize_leaf``; every leaf carries
     its ABFT checksum when ``wants_checks(cfg)``."""
     return _map_with_keys(lambda keys, leaf: quantize_leaf(keys, leaf, cfg),

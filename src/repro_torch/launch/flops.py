@@ -6,7 +6,10 @@ Conventions (PaLM-style MFU accounting), as the reference's:
     (activation grads + weight grads).
   * MoE counts only routed-active experts (6 * N_active * D).
   * attention scores/context add 4*B*S^2*H*hd per full-attention layer
-    forward (the full square); sliding-window uses S*W.
+    forward (the full square), encoder layers included at the decoder's S;
+    sliding-window uses S*W; an encoder-decoder adds 4*B*S*T_enc*H*hd per
+    'xattn' entry of a group's pattern (not per layer, as the reference
+    counts it) to train and prefill.
   * decode counts one token against the full KV cache.
 
 Parameter counts come from the port's own parameter shapes: ``init_lm`` on
@@ -71,7 +74,9 @@ def count_params(cfg: ModelConfig) -> Dict[str, float]:
 
 
 def _attn_layers(cfg: ModelConfig) -> int:
-    return sum(1 for k in cfg.layer_kinds if k in ("attn", "moe"))
+    """Attention layers of both stacks (the reference's count)."""
+    return sum(1 for k in cfg.layer_kinds + cfg.encoder_layer_kinds
+               if k in ("attn", "moe", "xattn", "enc_attn"))
 
 
 def _matmul_params(cfg: ModelConfig, active: bool = True) -> float:
@@ -92,6 +97,11 @@ def model_flops(cfg: ModelConfig, shape: shp.ShapeSpec) -> float:
 
     if shape.kind in ("train", "prefill"):
         fwd = 2.0 * n_mm * B * S + 4.0 * B * S * eff_kv * H * hd * La
+        if cfg.is_encdec:
+            # once per 'xattn' entry of a group's pattern, not per layer:
+            # the reference's count, kept so that the two agree
+            fwd += 4.0 * B * S * cfg.encoder_seq * H * hd * sum(
+                1 for p, _ in cfg.groups for k in p if k == "xattn")
         return fwd * (3.0 if shape.kind == "train" else 1.0)
 
     # decode: one token, full cache

@@ -10,15 +10,29 @@ KV cache -- the paper's deployment scenario (twin of
         --scale 1.0 --batch 4 --prompt-len 64 --gen 16 --quant int8 \
         --rotate hadamard
 
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch whisper-base \
+        --scale 1.0 --batch 4 --prompt-len 16 --gen 64 --quant int8 \
+        --rotate hadamard
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-vl-7b \
+        --scale 1.0 --batch 4 --prompt-len 1088 --gen 16 --quant fp8_e4m3 \
+        --rotate hadamard
+
 Runs on the CUDA device unless ``--device cpu`` (the plain versions). The
 weights are drawn from ``--seed`` and pre-quantized layer by layer at load
 whenever ``--quant`` is not 'none' (``--no-prequant``: raw weights,
 quantized on the fly at the consumer sites). The prompt batch is
-``shapes.make_batch``'s. Prefill, ``pad_kv_caches`` to prompt + gen, then
-``--gen - 1`` greedy decode steps at a shared scalar ``cache_pos``; the
-first decode step is timed apart (it pays the first-use costs), so the
-reported tok/s is the steady state. ``--mp`` > 1 (model parallelism) is
-not ported yet.
+``shapes.make_batch``'s, all of it to ``lm_prefill``: a vlm's
+``--prompt-len`` positions are ``vlm_patches`` patch embeddings and the
+tokens after them; an encoder-decoder's batch adds ``encoder_seq`` frames
+per prompt, which the prefill encodes once. Then ``--gen - 1`` greedy
+decode steps at a shared scalar ``cache_pos``, from ``--prompt-len``, or,
+for a vlm, from ``--prompt-len`` + ``vlm_patches`` as the reference
+starts it (``repro.launch.serve``); the KV caches are padded to the first
+decode position + ``--gen``, so every step's row lies in the cache (the
+reference pads them to prompt + gen, and its later rows clamp onto the
+last: ROADMAP.md, "Reference health"). The first decode step is timed
+apart (it pays the first-use costs), so the reported tok/s is the steady
+state. ``--mp`` > 1 (model parallelism) is not ported yet.
 """
 from __future__ import annotations
 
@@ -87,15 +101,17 @@ def main(argv=None) -> dict:
     if prequant:
         print("weights pre-quantized once at load (QTensor leaves; "
               f"consumer mode={args.quant})")
-    max_len = args.prompt_len + args.gen
+    pos = args.prompt_len + (cfg.vlm_patches if cfg.family == "vlm" else 0)
+    max_len = pos + args.gen
     batch = shp.make_batch(cfg, shp.ShapeSpec("serve", "prefill", args.prompt_len,
                                               args.batch), seed=args.seed)
-    tokens = torch.from_numpy(batch["tokens"]).long().to(device)
+    batch = {k: torch.from_numpy(v).to(device) for k, v in batch.items() if k != "labels"}
+    batch["tokens"] = batch["tokens"].long()
 
     with torch.inference_mode():
         _sync(device)
         t0 = time.perf_counter()
-        logits, caches = lm_prefill(cfg, params, {"tokens": tokens})
+        logits, caches = lm_prefill(cfg, params, batch)
         caches = pad_kv_caches(cfg, caches, max_len)
         tok = logits[:, -1, :cfg.vocab_size].argmax(-1)[:, None]
         _sync(device)
@@ -103,7 +119,6 @@ def main(argv=None) -> dict:
         print(f"prefill: B={args.batch} S={args.prompt_len} in {t_prefill:.2f}s")
 
         out = [tok]
-        pos = args.prompt_len
 
         def step(i):
             logits, _ = lm_decode_step(cfg, params, caches, out[-1],

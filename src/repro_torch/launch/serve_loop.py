@@ -56,6 +56,7 @@ def scaled_config(cfg, scale: float):
         d_ff=max(256, int(cfg.d_ff * f) // 128 * 128),
         vocab_size=min(cfg.vocab_size, 32768),
         groups=tuple((p, max(1, int(r * f))) for p, r in cfg.groups),
+        encoder_groups=tuple((p, max(1, int(r * f))) for p, r in cfg.encoder_groups),
         head_dim=None)
 
 

@@ -34,8 +34,9 @@ SHAPES: Dict[str, ShapeSpec] = {
 
 
 def shape_applicable(cfg, shape: ShapeSpec) -> Optional[str]:
-    """None if the (arch, shape) cell runs; else the reason for the skip.
-    Every architecture of the port is a causal decoder with full attention."""
+    """None if the (arch, shape) cell runs; else the reason for the skip
+    (the reference's rules: long_500k needs sub-quadratic attention, which
+    no ported architecture has; an encoder-only model has no decode)."""
     if shape.name == "long_500k" and not getattr(cfg, "sub_quadratic", False):
         return "long_500k needs sub-quadratic attention (pure full-attention arch)"
     if shape.kind == "decode" and not getattr(cfg, "has_decoder", True):
@@ -44,8 +45,27 @@ def shape_applicable(cfg, shape: ShapeSpec) -> Optional[str]:
 
 
 def make_batch(cfg, shape: ShapeSpec, seed: int = 0) -> Dict[str, np.ndarray]:
-    """A real host batch of int32 tokens and next-token labels, drawn from
-    ``seed`` as the reference's ``make_batch`` draws them."""
+    """A real host batch drawn from ``seed`` as the reference's
+    ``make_batch`` draws it, in its order: int32 tokens and next-token
+    labels; a vlm's sequence of ``shape.seq`` holds ``vlm_patches`` patch
+    embeddings (B, P, d) and S - P tokens, with (3, B, S) int32 M-RoPE
+    positions, each stream 0..S-1; an encoder-decoder adds the frames
+    (B, encoder_seq, d). The embeddings are f32 here; the reference's
+    model-dtype values are these rounded once more (``jnp.asarray`` of the
+    f64 draw rounds through f32 as well), where the model casts them."""
     rng = np.random.default_rng(seed)
-    toks = rng.integers(0, cfg.vocab_size, (shape.batch, shape.seq + 1), dtype=np.int32)
-    return {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+    B, S = shape.batch, shape.seq
+    out: Dict[str, np.ndarray] = {}
+    if cfg.family == "vlm":
+        P = cfg.vlm_patches
+        toks = rng.integers(0, cfg.vocab_size, (B, S - P + 1), dtype=np.int32)
+        out["tokens"], out["labels"] = toks[:, :-1], toks[:, 1:]
+        out["patch_embeds"] = rng.standard_normal((B, P, cfg.d_model)).astype(np.float32)
+        out["positions"] = np.broadcast_to(np.arange(S, dtype=np.int32), (3, B, S)).copy()
+    else:
+        toks = rng.integers(0, cfg.vocab_size, (B, S + 1), dtype=np.int32)
+        out["tokens"], out["labels"] = toks[:, :-1], toks[:, 1:]
+    if cfg.is_encdec:
+        out["frames"] = rng.standard_normal(
+            (B, cfg.encoder_seq, cfg.d_model)).astype(np.float32)
+    return out

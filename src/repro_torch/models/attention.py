@@ -1,12 +1,14 @@
-"""GQA causal attention, optionally sliding-window and with QKV biases,
-with the QuaRot rotation hooks (twin of ``repro.models.attention``,
-self-attention only).
+"""GQA attention -- causal (optionally sliding-window), non-causal (an
+encoder's) and cross attention (decoder to encoder), with QKV biases and
+RoPE or M-RoPE -- with the QuaRot rotation hooks (twin of
+``repro.models.attention``).
 
 The paper's deployment (section 4.2): FP8 attention where Q and K are
 Hadamard-rotated per head before quantization -- the rotation cancels in
 QK^T (H H^T = I) while crushing per-head outliers; V's rotation is fused
 offline into (W_v, W_o). With rotation and KV quantization on, each of the
-Q and K sites is one K2 launch on the card (``RotationSpec``).
+Q and K sites is one K2 launch on the card (``RotationSpec``), and so is
+the cross-attention K site (``cross_kv``), once per prefill.
 
 Layouts follow the reference at the public functions: activations
 (B, S, d), heads (B, S, H, hd), KV caches (B, T, KH, hd).
@@ -20,12 +22,13 @@ import torch
 from repro_torch.core.api import RotationSpec
 from repro_torch.kernels.registry import cast_to, f32_reciprocal
 from repro_torch.models.common import (apply_rope_angles, dense_init, dtype_of,
-                                      rope_freqs)
+                                      mrope_angles, rope_freqs)
 
 
 def init_attention(gen: torch.Generator, cfg, device) -> dict:
     """The projections, plus zero biases ``bq`` / ``bk`` / ``bv`` in the
-    model dtype when ``cfg.qkv_bias``."""
+    model dtype when ``cfg.qkv_bias``. Cross attention has the same leaves
+    (its K / V project the encoder output)."""
     d, H, KH, hd = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     dt = dtype_of(cfg)
     p = {
@@ -42,7 +45,10 @@ def init_attention(gen: torch.Generator, cfg, device) -> dict:
 
 
 def _positions_angles(cfg, positions: torch.Tensor) -> torch.Tensor:
-    """positions: (B, S) int -> (B, S, half) f32 RoPE angles."""
+    """positions: (B, S) int, or (3, B, S) under M-RoPE -> (B, S, half) f32
+    RoPE angles."""
+    if cfg.mrope:
+        return mrope_angles(positions, cfg.head_dim, cfg.rope_theta, cfg.mrope_sections)
     freqs = rope_freqs(cfg.head_dim, cfg.rope_theta, device=positions.device)
     return positions[..., None].to(torch.float32) * freqs
 
@@ -135,10 +141,17 @@ def _decode_mask(cfg, cache_pos: torch.Tensor, T: int, device) -> torch.Tensor:
     return m[:, None, None]
 
 
+def _full_mask(device) -> torch.Tensor:
+    """The mask of attention that sees every key (an encoder's, cross
+    attention): (1, 1, 1, 1) True, as the reference writes it."""
+    return torch.ones((1, 1, 1, 1), dtype=torch.bool, device=device)
+
+
 def apply_attention(cfg, p, x: torch.Tensor, positions: torch.Tensor, *,
-                    return_kv: bool = False):
-    """Full-sequence causal attention (prefill). With ``return_kv`` also
-    returns the (B, S, KH, hd) K/V rows in the KV-cache dtype."""
+                    causal: bool = True, return_kv: bool = False):
+    """Full-sequence attention (prefill; ``causal=False``: an encoder's,
+    every query seeing every key). With ``return_kv`` also returns the
+    (B, S, KH, hd) K/V rows in the KV-cache dtype."""
     B, S, _ = x.shape
     q, k, v = _project_qkv(cfg, p, x)
     ang = _positions_angles(cfg, positions)
@@ -146,12 +159,48 @@ def apply_attention(cfg, p, x: torch.Tensor, positions: torch.Tensor, *,
     k = apply_rope_angles(k, ang)
     q, k = _rotate_quant_qk(cfg, q, k)
     v = _v_spec(cfg, v.shape[-1])(v)
-    ctx = _sdpa(cfg, q, k, v, _causal_mask(cfg, S, S, x.device))
+    mask = _causal_mask(cfg, S, S, x.device) if causal else _full_mask(x.device)
+    ctx = _sdpa(cfg, q, k, v, mask)
     y = ctx @ p["wo"]
     if return_kv:
         kvdt = cfg.quant.kv_cache_dtype(x.dtype)
         return y, (cast_to(k, kvdt), cast_to(v, kvdt))
     return y
+
+
+def apply_cross_attention(cfg, p, x: torch.Tensor, kv) -> torch.Tensor:
+    """Decoder -> encoder cross attention of x (B, S, d) on the precomputed
+    ``kv`` (``cross_kv``: (B, T, KH, hd) each), every query seeing every
+    encoder frame.
+
+    Q is neither rotated nor quantized here, while ``cross_kv`` rotates K:
+    with rotation on, the scores are q . (H k), not q . k. This is the
+    reference's own code (``repro.models.attention.apply_cross_attention``),
+    carried as it is because the port is held to it; ROADMAP.md, "Reference
+    health", records the fault."""
+    B, S, _ = x.shape
+    q = x @ p["wq"]
+    if cfg.qkv_bias:
+        q = q + p["bq"]
+    q = q.reshape(B, S, cfg.num_heads, cfg.head_dim)
+    k, v = kv
+    return _sdpa(cfg, q, k, v, _full_mask(x.device)) @ p["wo"]
+
+
+def cross_kv(cfg, p, enc_out: torch.Tensor):
+    """The cross-attention K / V of the encoder output (B, T, d), computed
+    once per prefill and kept in the decoder's cache: K through the Q / K
+    site (rotated and fake-quantized: one K2 launch on the card), V through
+    the V site (quantized only), both in the model dtype."""
+    B, T, _ = enc_out.shape
+    KH, hd = cfg.num_kv_heads, cfg.head_dim
+    k, v = enc_out @ p["wk"], enc_out @ p["wv"]
+    if cfg.qkv_bias:
+        k, v = k + p["bk"], v + p["bv"]
+    k, v = k.reshape(B, T, KH, hd), v.reshape(B, T, KH, hd)
+    # K rotates here but Q never does (apply_cross_attention): the
+    # reference's fault, carried as it is (ROADMAP.md, "Reference health")
+    return _qk_spec(cfg, hd)(k), _v_spec(cfg, hd)(v)
 
 
 def decode_attention(cfg, p, x: torch.Tensor, cache_k: torch.Tensor,

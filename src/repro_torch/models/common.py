@@ -1,9 +1,9 @@
-"""Shared building blocks: initializers, RMSNorm and LayerNorm, RoPE (twin
-of ``repro.models.common``)."""
+"""Shared building blocks: initializers, RMSNorm and LayerNorm, RoPE and
+M-RoPE, sinusoidal positions (twin of ``repro.models.common``)."""
 from __future__ import annotations
 
 import math
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
@@ -61,3 +61,36 @@ def apply_rope_angles(x: torch.Tensor, ang: torch.Tensor) -> torch.Tensor:
     x2 = x[..., half:].to(torch.float32)
     return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin],
                      dim=-1).to(x.dtype)
+
+
+def mrope_angles(positions: torch.Tensor, hd: int, theta: float,
+                 sections: Tuple[int, ...]) -> torch.Tensor:
+    """(3, B, S) positions -> (B, S, half) f32 angles, each rotary
+    frequency taking its angle from one of the temporal / height / width
+    streams (Qwen2-VL: the first ``sections[0]`` frequencies from t, the
+    next ``sections[1]`` from h, the rest from w; frequencies past the
+    sections from t). The reference selects with a one-hot f32 einsum,
+    whose sums add exact zeros to the chosen product: an index gather gives
+    the same bits."""
+    half = hd // 2
+    ang = positions[..., None].to(torch.float32) * rope_freqs(
+        hd, theta, device=positions.device)                     # (3, B, S, half)
+    idx = [i for i, s in enumerate(sections) for _ in range(s)]
+    idx = torch.tensor((idx + [0] * half)[:half], device=positions.device)
+    return ang[idx, :, :, torch.arange(half, device=positions.device)].permute(1, 2, 0)
+
+
+def sinusoidal_positions(seq: int, d: int, device=None) -> torch.Tensor:
+    """Whisper-style (seq, d) f32 sinusoidal embeddings: sin of pos x
+    10000^(-2i/d) in the first half of the columns, cos in the second (any
+    length: the reference's 448 -> 32k decode-context adaptation,
+    DESIGN.md). The exponent and the angles are the reference's f32 values;
+    the exp, sin and cos are computed in f64 and rounded once to f32. XLA's
+    f32 exp gives those values (torch's f32 exp is 1 ulp off in a few
+    entries, which the angles of late positions multiply); its sin and cos
+    are within 1 f32 ulp of them."""
+    pos = torch.arange(seq, dtype=torch.float32, device=device)[:, None]
+    dim = torch.arange(0, d, 2, dtype=torch.float32, device=device)[None, :]
+    inv = torch.exp((-math.log(10000.0) * dim / d).double()).float()
+    ang = (pos * inv).double()
+    return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1).float()

@@ -1,16 +1,23 @@
 """Model configuration (twin of ``repro.models.config``, trimmed to what
-the port runs: causal-attention decoders, dense or mixture-of-experts).
+the port runs: attention stacks, decoder-only or encoder-decoder).
 
 A model is a list of ``groups``; each group is ``(pattern, repeats)`` with
-``pattern`` a tuple of layer kinds. The port runs two kinds, both with GQA
-attention: 'attn' (a dense MLP) and 'moe' (top-k routed experts with
-capacity dropping, plus an optional shared expert). The attention flavour
-and the MLP are the reference's options: ``sliding_window`` (mixtral),
-``qkv_bias`` (qwen1.5, starcoder2), ``act`` (SwiGLU, or the tanh GELU MLP
-without a gate: starcoder2) and ``norm`` (RMSNorm or LayerNorm:
-starcoder2). Its layers are a plain list, one entry per layer, where the
-reference scans stacked parameters. The reference's other options (M-RoPE,
-state-space, RWKV and encoder layers) come with the configs that need them.
+``pattern`` a tuple of layer kinds. The port runs four kinds, all with GQA
+attention: 'attn' (causal, a dense MLP), 'moe' (causal, top-k routed
+experts with capacity dropping, plus an optional shared expert), and the
+encoder-decoder pair of whisper: 'enc_attn' (the encoder's non-causal
+self-attention and MLP, in ``encoder_groups``) and 'xattn' (the decoder's
+causal self-attention, cross-attention to the encoder output, MLP). The
+attention flavour and the MLP are the reference's options:
+``sliding_window`` (mixtral), ``qkv_bias`` (qwen1.5, starcoder2), ``mrope``
+(qwen2-vl's three position streams), ``act`` (SwiGLU, or the tanh GELU MLP
+without a gate) and ``norm`` (RMSNorm or LayerNorm). A vlm prepends
+``vlm_patches`` precomputed patch embeddings to the tokens; an
+encoder-decoder reads ``encoder_seq`` precomputed frame embeddings (the
+reference stubs both frontends alike). Its layers are a plain list, one
+entry per layer, where the reference scans stacked parameters. The
+reference's state-space and RWKV options come with the configs that need
+them.
 """
 from __future__ import annotations
 
@@ -26,17 +33,21 @@ Group = Tuple[Tuple[LayerKind, ...], int]
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
     name: str
-    family: str                      # dense | moe
+    family: str                      # dense | moe | vlm | audio
     d_model: int
     num_heads: int
     num_kv_heads: int
     d_ff: int
     vocab_size: int
-    groups: Tuple[Group, ...]
+    groups: Tuple[Group, ...]        # decoder stack (or the only stack)
     head_dim: Optional[int] = None   # None -> d_model // num_heads
+    encoder_groups: Tuple[Group, ...] = ()   # whisper's encoder stack
+    encoder_seq: int = 1500          # precomputed frame embeddings per input
     sliding_window: int = 0          # 0 = full attention
     rope_theta: float = 10000.0
     qkv_bias: bool = False           # qwen1.5, starcoder2
+    mrope: bool = False              # qwen2-vl M-RoPE (3 position streams)
+    mrope_sections: Tuple[int, ...] = (16, 24, 24)
     num_experts: int = 0
     experts_per_token: int = 0
     moe_shared_expert: bool = False  # llama4
@@ -46,10 +57,12 @@ class ModelConfig:
     vocab_pad_multiple: int = 256
     weight_quant: str = "none"       # none | int8 (weight-only storage, serving)
     tie_embeddings: bool = False     # logits contract with emb^T; no unemb
+    vlm_patches: int = 1024          # precomputed patch embeddings (vlm only)
     quant: QuantConfig = dataclasses.field(default_factory=QuantConfig)
     dtype: str = "bfloat16"
     remat: str = "dots"              # none | dots | full: recompute each block in
                                      # the backward pass unless "none"
+    has_decoder: bool = True         # encoder-only models skip decode shapes
 
     def __post_init__(self):
         if self.head_dim is None:
@@ -65,6 +78,15 @@ class ModelConfig:
         return tuple(k for p, r in self.groups for _ in range(r) for k in p)
 
     @property
+    def encoder_layer_kinds(self) -> Tuple[LayerKind, ...]:
+        """Every encoder layer's kind, in order (empty without an encoder)."""
+        return tuple(k for p, r in self.encoder_groups for _ in range(r) for k in p)
+
+    @property
+    def is_encdec(self) -> bool:
+        return bool(self.encoder_groups)
+
+    @property
     def padded_vocab(self) -> int:
         m = self.vocab_pad_multiple
         return ((self.vocab_size + m - 1) // m) * m
@@ -77,8 +99,9 @@ class ModelConfig:
         the GQA ratio, the power-of-2-ness of d_ff, tied embeddings, the MoE
         routing (at most 4 experts, at most 2 per token), the attention and
         MLP flavour (a window of at most 8 tokens, so that it bites at test
-        lengths) and the quant settings (the reference's rule, restricted
-        to these fields)."""
+        lengths), M-RoPE and its sections, the encoder (at most 2 repeats
+        of each group, 16 frames) and 4 patches, and the quant settings
+        (the reference's rule, restricted to these fields)."""
         ratio = max(1, self.num_heads // max(self.num_kv_heads, 1))
         heads = max(2, ratio)
         small = dict(
@@ -88,11 +111,14 @@ class ModelConfig:
             d_ff=128 if self.d_ff & (self.d_ff - 1) == 0 else 96,
             vocab_size=512,
             groups=tuple((p, min(r, 2)) for p, r in self.groups),
+            encoder_groups=tuple((p, min(r, 2)) for p, r in self.encoder_groups),
+            encoder_seq=16,
             num_experts=min(self.num_experts, 4) if self.num_experts else 0,
             experts_per_token=(min(self.experts_per_token, 2)
                                if self.experts_per_token else 0),
             sliding_window=(min(self.sliding_window, 8)
                             if self.sliding_window else 0),
+            vlm_patches=4,
             head_dim=None,
         )
         small.update(overrides)

@@ -1,5 +1,6 @@
-"""Model assembly for causal decoders, dense and MoE (twin of
-``repro.models.lm``).
+"""Model assembly for attention stacks: causal decoders, dense and MoE,
+vlm decoders with prepended patch embeddings and M-RoPE positions, and
+encoder-decoders (twin of ``repro.models.lm``).
 
 The reference stacks each group's parameters over a leading layer axis and
 runs the group as one ``lax.scan``; the port keeps the layers as a plain
@@ -15,11 +16,22 @@ with no "unemb" when ``cfg.tie_embeddings`` (the logits contract with
 attention adds the 1-D biases {bq, bk, bv} under ``cfg.qkv_bias``; the GELU
 MLP has no w_gate. A layer of kind 'moe' holds "moe": {router, experts:
 {w_gate, w_up (E, d, f), w_down (E, f, d)}, shared: {...}} in place of
-"mlp"; ``cfg.layer_kinds`` names each layer's kind.
+"mlp"; a decoder layer of kind 'xattn' adds "norm_x" and "xattn" (the
+cross attention, the leaves of "attn"). An encoder-decoder also holds
+"enc_layers" (the encoder's layers of kind 'enc_attn', in execution order)
+and "enc_norm". ``cfg.layer_kinds`` / ``cfg.encoder_layer_kinds`` name
+each layer's kind.
+
+The batch: "tokens" (B, S) int; a vlm adds "patch_embeds" (B, P, d),
+prepended to the token embeddings, and "positions" (3, B, P + S), the
+M-RoPE streams; an encoder-decoder adds "frames" (B, T, d), the encoder's
+precomputed input, and adds sinusoidal positions to both stacks' inputs.
 
 Any matrix may be a pre-quantized :class:`~repro_torch.core.wquant.QTensor`.
-KV caches are a list with one ``{"k", "v"}`` dict per layer, each
-(B, T, KH, hd) in the KV dtype -- the reference's per-layer layout.
+KV caches are a list with one ``{"k", "v"}`` dict per decoder layer, each
+(B, T, KH, hd) in the KV dtype -- the reference's per-layer layout; an
+'xattn' layer's also holds "xk" / "xv" (B, T_enc, KH, hd), the cross
+attention's K / V in the model dtype, computed once at prefill.
 
 Entry points: ``init_lm``, ``lm_forward``, ``lm_loss`` (training: raw
 weights, quantized on the fly at the consumer sites, straight-through
@@ -42,26 +54,31 @@ from repro_torch.device import resolve_device
 from repro_torch.models import attention as A
 from repro_torch.models import mlp as M
 from repro_torch.models.common import (apply_norm, dense_init, dtype_of,
-                                       init_norm)
+                                       init_norm, sinusoidal_positions)
 from repro_torch.models.config import ModelConfig
 
 
-KINDS = ("attn", "moe")
+KINDS = ("attn", "moe", "xattn")    # decoder layers
+ENCODER_KINDS = ("enc_attn",)
 
 
 def _check_kinds(cfg: ModelConfig) -> None:
-    bad = set(cfg.layer_kinds) - set(KINDS)
+    bad = (set(cfg.layer_kinds) - set(KINDS)) | (
+        set(cfg.encoder_layer_kinds) - set(ENCODER_KINDS))
     if bad:
         raise NotImplementedError(
-            f"the port runs the layer kinds {KINDS}; {cfg.name!r} has "
-            f"{sorted(bad)}")
+            f"the port runs the layer kinds {KINDS} (encoder {ENCODER_KINDS}); "
+            f"{cfg.name!r} has {sorted(bad)}")
 
 
 def _init_block(gen: torch.Generator, cfg: ModelConfig, kind: str, device) -> dict:
     d = cfg.d_model
     p = {"norm1": init_norm(cfg, d, device),
-         "attn": A.init_attention(gen, cfg, device),
-         "norm2": init_norm(cfg, d, device)}
+         "attn": A.init_attention(gen, cfg, device)}
+    if kind == "xattn":
+        p["norm_x"] = init_norm(cfg, d, device)
+        p["xattn"] = A.init_attention(gen, cfg, device)
+    p["norm2"] = init_norm(cfg, d, device)
     if kind == "moe":
         p["moe"] = M.init_moe(gen, cfg, device)
     else:
@@ -101,6 +118,11 @@ def init_lm(cfg: ModelConfig, *, seed: int = 0, device="cuda") -> Dict[str, Any]
             ("unemb",))
     params["layers"] = [_quantized(cfg, _init_block(gen, cfg, kind, dev), ("layers",))
                         for kind in cfg.layer_kinds]
+    if cfg.is_encdec:
+        params["enc_layers"] = [
+            _quantized(cfg, _init_block(gen, cfg, kind, dev), ("enc_layers",))
+            for kind in cfg.encoder_layer_kinds]
+        params["enc_norm"] = init_norm(cfg, cfg.d_model, dev)
     return params
 
 
@@ -161,58 +183,113 @@ def _ffn(cfg, kind: str, p, h: torch.Tensor):
     return M.apply_mlp(cfg, p["mlp"], h), 0.0
 
 
-def _block_prefill(cfg, kind, p, x, positions, want_cache: bool):
+def _block_prefill(cfg, kind, p, x, positions, enc_out, want_cache: bool):
+    """One full-sequence block: (x, aux, cache or None). An 'enc_attn'
+    block attends without the causal mask and keeps no cache; an 'xattn'
+    block adds the cross attention to ``enc_out`` after its self-attention
+    and caches the cross K / V beside its own."""
     h = apply_norm(cfg, p["norm1"], x)
+    causal = kind != "enc_attn"
     cache = None
-    if want_cache:
+    if want_cache and causal:
         y, (ck, cv) = A.apply_attention(cfg, p["attn"], h, positions,
                                         return_kv=True)
         cache = {"k": ck, "v": cv}
     else:
-        y = A.apply_attention(cfg, p["attn"], h, positions)
+        y = A.apply_attention(cfg, p["attn"], h, positions, causal=causal)
     x = x + y
+    if kind == "xattn":
+        h = apply_norm(cfg, p["norm_x"], x)
+        xk, xv = A.cross_kv(cfg, p["xattn"], enc_out)
+        x = x + A.apply_cross_attention(cfg, p["xattn"], h, (xk, xv))
+        if cache is not None:
+            cache.update(xk=xk, xv=xv)
     y, aux = _ffn(cfg, kind, p, apply_norm(cfg, p["norm2"], x))
     return x + y, aux, cache
 
 
-def lm_forward(cfg: ModelConfig, params, batch, want_cache: bool = False):
-    """Full-sequence forward. ``batch["tokens"]``: (B, S) int. Returns
-    (logits (B, S, padded_vocab), aux (the MoE layers' load-balancing
-    losses summed; 0 for a dense model), caches or None). Each layer's
-    dequantized parameters live only while the layer runs."""
-    _check_kinds(cfg)
-    tokens = batch["tokens"]
-    x = _embed(cfg, params, tokens)
-    B, S = tokens.shape
-    positions = torch.arange(S, dtype=torch.int32,
-                             device=x.device)[None].expand(B, S)
+def _run_stack(cfg, kinds, layers, x, positions, enc_out, want_cache: bool):
+    """Every layer of one stack in order: (x, aux summed, caches or None).
+    Each layer's dequantized parameters live only while the layer runs;
+    in a pass that records gradients each block is recomputed in the
+    backward pass unless ``cfg.remat`` is "none"."""
     caches: Optional[List[dict]] = [] if want_cache else None
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     remat = cfg.remat != "none" and not want_cache and torch.is_grad_enabled()
-    for kind, lp in zip(cfg.layer_kinds, params["layers"]):
+    for kind, lp in zip(kinds, layers):
         if remat:
             x, a = torch.utils.checkpoint.checkpoint(
-                _block_train, cfg, kind, lp, x, positions, use_reentrant=False)
+                _block_train, cfg, kind, lp, x, positions, enc_out,
+                use_reentrant=False)
         else:
             x, a, cache = _block_prefill(cfg, kind, _layer_params(cfg, lp, x.dtype),
-                                         x, positions, want_cache)
+                                         x, positions, enc_out, want_cache)
             if want_cache:
                 caches.append(cache)
         aux = aux + a
-    return _logits(cfg, params, x), aux, caches
+    return x, aux, caches
 
 
-def _block_train(cfg, kind, lp, x, positions):
+def _block_train(cfg, kind, lp, x, positions, enc_out):
     x, aux, _ = _block_prefill(cfg, kind, _layer_params(cfg, lp, x.dtype), x,
-                               positions, False)
+                               positions, enc_out, False)
     return x, torch.as_tensor(aux, dtype=torch.float32, device=x.device)
+
+
+def _positions(B: int, S: int, device) -> torch.Tensor:
+    return torch.arange(S, dtype=torch.int32, device=device)[None].expand(B, S)
+
+
+def _embed_inputs(cfg: ModelConfig, params, batch):
+    """(x, positions) for the decoder stack: the token embeddings, after
+    the patch embeddings of a vlm; positions (B, S), or the batch's
+    (3, B, S) M-RoPE streams; an encoder-decoder adds the sinusoidal
+    positions of 0..S-1."""
+    x = _embed(cfg, params, batch["tokens"])
+    if cfg.family == "vlm" and "patch_embeds" in batch:
+        x = torch.cat([batch["patch_embeds"].to(x.dtype), x], dim=1)
+    B, S = x.shape[:2]
+    positions = batch["positions"] if cfg.mrope else _positions(B, S, x.device)
+    if cfg.is_encdec:
+        x = x + sinusoidal_positions(S, cfg.d_model, x.device).to(x.dtype)[None]
+    return x, positions
+
+
+def _run_encoder(cfg: ModelConfig, params, frames: torch.Tensor) -> torch.Tensor:
+    """The encoder on precomputed frame embeddings (B, T, d) (the
+    reference's stub of whisper's conv frontend): sinusoidal positions
+    added, the 'enc_attn' layers, then ``enc_norm``."""
+    B, T, _ = frames.shape
+    x = frames + sinusoidal_positions(T, cfg.d_model, frames.device).to(frames.dtype)[None]
+    x, _, _ = _run_stack(cfg, cfg.encoder_layer_kinds, params["enc_layers"], x,
+                         _positions(B, T, x.device), None, False)
+    return apply_norm(cfg, params["enc_norm"], x)
+
+
+def lm_forward(cfg: ModelConfig, params, batch, want_cache: bool = False):
+    """Full-sequence forward of a batch (module docstring). Returns
+    (logits (B, S, padded_vocab) over every position, patches included;
+    aux (the MoE layers' load-balancing losses summed; 0 for a dense
+    model); caches or None)."""
+    _check_kinds(cfg)
+    enc_out = None
+    if cfg.is_encdec:
+        enc_out = _run_encoder(cfg, params, batch["frames"].to(dtype_of(cfg)))
+    x, positions = _embed_inputs(cfg, params, batch)
+    x, aux, caches = _run_stack(cfg, cfg.layer_kinds, params["layers"], x,
+                                positions, enc_out, want_cache)
+    return _logits(cfg, params, x), aux, caches
 
 
 def lm_loss(cfg: ModelConfig, params, batch) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Mean next-token cross-entropy over the labels >= 0 (f32 log-softmax
     over the padded vocabulary, whose padding columns are -inf), plus 0.01 x
-    the MoE load-balancing loss. Returns (loss, {"ce", "aux"})."""
+    the MoE load-balancing loss. A vlm's logits at its patch positions are
+    dropped first (the labels cover the tokens). Returns (loss, {"ce",
+    "aux"})."""
     logits, aux, _ = lm_forward(cfg, params, batch)
+    if cfg.family == "vlm" and "patch_embeds" in batch:
+        logits = logits[:, batch["patch_embeds"].shape[1]:]
     labels = batch["labels"].to(torch.int64)
     lf = logits.to(torch.float32)
     del logits
@@ -231,12 +308,14 @@ def lm_prefill(cfg: ModelConfig, params, batch):
 
 
 def pad_kv_caches(cfg: ModelConfig, caches, max_len: int):
-    """Grow every layer's K/V cache along seq to ``max_len``."""
+    """Grow every layer's self-attention K/V cache along seq to
+    ``max_len``; the cross attention's "xk" / "xv" keep the encoder's
+    length."""
     out = []
     for c in caches:
         grown = {}
         for key, t in c.items():
-            if t.shape[1] < max_len:
+            if key in ("k", "v") and t.shape[1] < max_len:
                 g = torch.zeros((t.shape[0], max_len) + tuple(t.shape[2:]),
                                 dtype=t.dtype, device=t.device)
                 g[:, :t.shape[1]] = t
@@ -249,15 +328,25 @@ def pad_kv_caches(cfg: ModelConfig, caches, max_len: int):
 def lm_decode_step(cfg: ModelConfig, params, caches, tokens: torch.Tensor,
                    cache_pos: torch.Tensor):
     """One decode step. tokens: (B, 1) int; cache_pos: () int shared by the
-    batch, or (B,) per-slot positions (continuous batching). The caches
-    are updated in place and returned with the logits."""
+    batch, or (B,) per-slot positions (continuous batching); under M-RoPE
+    the three streams all take the position. The caches are updated in
+    place and returned with the logits.
+
+    An encoder-decoder adds the sinusoidal embedding of position 0 to
+    every decoded token, where prefill adds positions 0..S-1: the
+    reference's ``sinusoidal_positions(1, d)``, carried as it is
+    (ROADMAP.md, "Reference health")."""
     _check_kinds(cfg)
     x = _embed(cfg, params, tokens)
     B = x.shape[0]
+    if cfg.is_encdec:
+        x = x + sinusoidal_positions(1, cfg.d_model, x.device).to(x.dtype)[None]
     if cache_pos.ndim == 1:
         positions = cache_pos[:, None].to(torch.int32)
     else:
         positions = cache_pos.reshape(1, 1).expand(B, 1).to(torch.int32)
+    if cfg.mrope:
+        positions = positions[None].expand(3, B, 1)
     for kind, lp, c in zip(cfg.layer_kinds, params["layers"], caches):
         x = _block_decode(cfg, kind, _layer_params(cfg, lp, x.dtype), x, c,
                           cache_pos, positions)
@@ -269,4 +358,7 @@ def _block_decode(cfg, kind, p, x, c, cache_pos, positions):
     y, c["k"], c["v"] = A.decode_attention(cfg, p["attn"], h, c["k"], c["v"],
                                            cache_pos, positions)
     x = x + y
+    if kind == "xattn":
+        h = apply_norm(cfg, p["norm_x"], x)
+        x = x + A.apply_cross_attention(cfg, p["xattn"], h, (c["xk"], c["xv"]))
     return x + _ffn(cfg, kind, p, apply_norm(cfg, p["norm2"], x))[0]

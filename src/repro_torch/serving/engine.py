@@ -98,16 +98,23 @@ _HEALTH_TRACE_KEYS = (
 _SDC_WINDOW_STEPS = 16
 
 
+_SUPPORTED_KINDS = ("attn", "moe")
+
+
 def _validate_config(cfg: ModelConfig) -> None:
     """Continuous batching needs position-addressable per-token caches and
     causal attention (right-padded prefill is exact only then): stacks of
-    'attn' and 'moe' layers. (A MoE layer's capacity counts the padding
-    too, but only after the real tokens, so it never drops one of them.)"""
+    'attn' and 'moe' layers, and neither an encoder-decoder nor a vlm (the
+    engine's batches carry tokens only), as the reference rules. (A MoE
+    layer's capacity counts the padding too, but only after the real
+    tokens, so it never drops one of them.)"""
     kinds = set(cfg.layer_kinds)
-    if not kinds <= {"attn", "moe"}:
+    if not kinds <= set(_SUPPORTED_KINDS) or cfg.is_encdec or cfg.family == "vlm":
         raise ValueError(
-            f"serving engine supports causal attention stacks only; config "
-            f"{cfg.name!r} has kinds={sorted(kinds)}")
+            f"serving engine supports causal attention stacks only "
+            f"(kinds {_SUPPORTED_KINDS}); config {cfg.name!r} has "
+            f"kinds={sorted(kinds)} family={cfg.family!r} "
+            f"encdec={cfg.is_encdec}")
 
 
 def _degradation_ladder(cfg: ModelConfig, device: torch.device) -> List[ModelConfig]:
