@@ -105,21 +105,29 @@ Runs from the repository root and needs the repository's ``src/``. It
      launcher ``repro_torch.launch.serve.main`` at full width on qwen1.5-4b,
      4 prompts of 64 tokens and 16 greedy tokens each, with its tok/s and
      exactly 40 K1 + 80 K2 per model pass;
-     launcher model phases (``launcher_model_phase``), the two families the
+     launcher model phases (``launcher_model_phase``), the families the
      serving engine refuses, at full width and depth: whisper-base (int8
      W8A8 + Hadamard + int8 KV; 6 encoder + 6 decoder layers, LayerNorm,
-     GELU, tied embeddings, 1500 frames an input) and qwen2-vl-7b (fp8_e4m3
+     GELU, tied embeddings, 1500 frames an input), qwen2-vl-7b (fp8_e4m3
      + Hadamard + fp8 KV; 28 layers, M-RoPE, 1024 patch embeddings, d_ff 37 x
-     512): each checks its weights against ``count_params`` and its init
-     peak, holds a prefill (whisper: 64 tokens and 1500 frames; qwen2-vl:
-     1024 patches on a 32 x 32 (t = 0, h, w) grid and 64 tokens after it)
-     against the plain path at depth 1 and at full depth and 4 decode steps
-     after it (limits between witnesses and controls, PERF.md), counts the
-     kernels' launches per prefill and decode step (whisper 30 K2 + 12 K4 /
-     12 K2 + 6 K4, qwen2-vl 28 K1 + 56 K2 both), profiles a decode step of 4
-     requests, then serves 4 requests through the launcher (whisper: 16
-     prompt tokens, 64 greedy tokens; qwen2-vl: 1024 patches + 64 tokens,
-     16 greedy tokens) with its prefill s, steady tok/s, launches and peak;
+     512), rwkv6-7b (int8 W8A8 + Hadamard; 32 RWKV6 layers, d_ff 7 x 2048)
+     and zamba2-7b (fp8_e4m3 + Hadamard + fp8 KV; 68 Mamba2 layers and 13
+     attention layers of head_dim 112 = I_7 (x) H_16): each checks its
+     weights against ``count_params`` and its init peak, holds a prefill
+     (whisper: 64 tokens and 1500 frames; qwen2-vl: 1024 patches on a 32 x
+     32 (t = 0, h, w) grid and 64 tokens after it; rwkv6 and zamba2: 512
+     tokens, the chunked forms' carry across 16 and 4 chunks) against the
+     plain path at its first depth (zamba2: the first 6 layers) and at full
+     depth and 4 decode steps after it (the recurrent decode from the
+     chunked prefill's state), rwkv6 also a 100-token prompt at depth 1
+     (the recurrence's form) (limits between witnesses and controls,
+     PERF.md), counts the kernels' launches per prefill and decode step
+     (whisper 30 K2 + 12 K4 / 12 K2 + 6 K4, qwen2-vl 28 K1 + 56 K2 both,
+     rwkv6 32 K1, zamba2 39 K1), profiles a decode step of 4 requests, then
+     serves 4 requests through the launcher (whisper: 16 prompt tokens, 64
+     greedy tokens; qwen2-vl: 1024 patches + 64 tokens, 16 greedy tokens;
+     rwkv6 and zamba2: 512 tokens, 32 greedy tokens) with its prefill s,
+     steady tok/s, launches and peak;
      training phase (``train_phase``): phi4-mini-3.8b at full width and
      depth (int8 + Hadamard, int8 fake-quantized Q/K/V, tied embeddings,
      per-block recomputation), 4 x 512 tokens per step from the
@@ -160,6 +168,9 @@ Runs from the repository root and needs the repository's ``src/``. It
  10. prints the kernels' JSON line (K1-K8, the ABFT twins, M1 and M2), then
      the result line ``{"ok": true, "device": {...}}`` last.
 
+A line ``phase <name> <s> s`` follows the build and each phase (each
+model of a model phase apart), and ``phase total <s> s`` the last phase.
+
 Any failed check raises: the script then exits non-zero and prints no
 result line. Without a CUDA device it exits non-zero at once.
 """
@@ -179,8 +190,9 @@ import torch
 sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "src"))
 # the serving run's and the training phase's traffic, which the transform
 # harness's path and train cases stand for
-from repro_torch.bench.hadamard import (ENCDEC_PROMPT, PREFILL_LEN, SLOTS,  # noqa: E402
-                                        TRAIN_BATCH, TRAIN_SEQ, VLM_TEXT)
+from repro_torch.bench.hadamard import (ENCDEC_PROMPT, PREFILL_LEN,  # noqa: E402
+                                        RECURRENT_PROMPT, SLOTS, TRAIN_BATCH,
+                                        TRAIN_SEQ, VLM_TEXT)
 from repro_torch.bench.quant_dot import WHISPER_ENCODER_ROWS  # noqa: E402
 
 MAX_LEN = 256                      # the serving run's engine: SLOTS slots of MAX_LEN
@@ -1229,10 +1241,21 @@ PREFILL_LIMITS = {
     # depth 1: the first encoder and decoder layers
     "whisper-base": {1: 0.0123, 6: 0.0263},
     "qwen2-vl-7b": {1: 0.0094, 28: 0.070},
+    # 512 tokens: the chunked time mix (16 chunks of 32)
+    "rwkv6-7b": {1: 1.9e-3, 32: 0.326},
+    # depth 6: the first superblock (5 mamba + 1 attn; a mamba layer alone
+    # has no rotation site); 512 tokens: 4 SSD chunks of 128
+    "zamba2-7b": {6: 1.4e-3, 81: 0.065},
 }
 # The same for the DECODE_STEPS greedy decode steps after the full-depth
 # prefill (every run fed the plain run's tokens): their logits together.
-DECODE_LIMITS = {"whisper-base": 0.0259, "qwen2-vl-7b": 0.127}
+DECODE_LIMITS = {"whisper-base": 0.0259, "qwen2-vl-7b": 0.127,
+                 "rwkv6-7b": 0.368, "zamba2-7b": 0.068}
+# rwkv6-7b's hold of a prompt whose length is no multiple of the chunk (the
+# reference's rule then runs the time mix's recurrence, ``_tmix_scan``),
+# at depth 1.
+SCAN_PROMPT = 100
+SCAN_LIMITS = {"rwkv6-7b": {1: 2.0e-3}}
 
 
 def _calibration_backends():
@@ -1261,6 +1284,10 @@ def _calibration_backends():
                      unrotated row (K4 without its rotation)
       k6_no_rotate   the fused expert down projection does the same (K6
                      without its rotation); every other site is plain
+      k1_no_rotate   every standalone transform returns its input (K1
+                     without its rotation): the grouped sites, whose
+                     quantize and contraction run outside the kernel, see
+                     the unrotated rows; every other site is plain
     """
     import functools
 
@@ -1356,6 +1383,19 @@ def _calibration_backends():
             return epilogue_dot(q, s, wq, sw.reshape(1, -1), mode, x.dtype)
 
     @registry.register_backend
+    class K1NoRotate(Calibration):
+        name = "k1_no_rotate"
+
+        def transform(self, x, plan, in_place=False):
+            return x
+
+        def fused_dequant(self, x, plan):
+            return fused_dequant_plain(x, plan)
+
+        def quant_dot(self, x, wq, sw, plan, schedule=None):
+            return quant_dot_plain(x, wq, sw, plan)
+
+    @registry.register_backend
     class K6NoRotate(Calibration):
         name = "k6_no_rotate"
 
@@ -1375,16 +1415,17 @@ def _calibration_backends():
 
 
 class _one_flip:
-    """A context in which the first feed-forward output (layer 0's MLP, or
-    its MoE block in a model without dense layers) has its largest value
-    moved by 1 ulp: the smallest change a rounding can make to the residual
-    stream that every later layer reads. (A flip inside a rotation is
-    mostly absorbed by the quantization step of the site after it.)"""
+    """A context in which the first feed-forward output (the first MLP, MoE
+    block or RWKV channel mix the model runs) has its largest value moved by
+    1 ulp: the smallest change a rounding can make to the residual stream
+    that every later layer reads. (A flip inside a rotation is mostly
+    absorbed by the quantization step of the site after it.)"""
 
     def __enter__(self):
-        from repro_torch.models import mlp
+        from repro_torch.models import mlp, rwkv
 
         self.mlp, self.apply, self.apply_moe = mlp, mlp.apply_mlp, mlp.apply_moe
+        self.rwkv, self.cmix = rwkv, rwkv.apply_rwkv_cmix
         armed = [True]
 
         def flip(y):
@@ -1402,10 +1443,15 @@ class _one_flip:
             y, aux = self.apply_moe(cfg, p, x)
             return flip(y), aux
 
-        mlp.apply_mlp, mlp.apply_moe = apply_mlp, apply_moe
+        def cmix(cfg, p, x, x_prev=None, *, return_state=False):
+            out = self.cmix(cfg, p, x, x_prev, return_state=return_state)
+            return (flip(out[0]), out[1]) if return_state else flip(out)
+
+        mlp.apply_mlp, mlp.apply_moe, rwkv.apply_rwkv_cmix = apply_mlp, apply_moe, cmix
 
     def __exit__(self, *exc):
         self.mlp.apply_mlp, self.mlp.apply_moe = self.apply, self.apply_moe
+        self.rwkv.apply_rwkv_cmix = self.cmix
 
 
 def _with_backend(cfg, quant, backend: str):
@@ -1423,10 +1469,11 @@ def _cut(params, depth: int):
     return p
 
 
-def trace_layer0(cfg, params, quant, batch) -> None:
+def trace_layer0(cfg, params, quant, batch, depth: int = 1) -> None:
     """Which layer-0 stage first differs between the kernels and the plain
     versions, and by how many elements: the batch runs through layer 0
-    (of each stack) once with the kernels and once with the plain versions,
+    (of each stack; the first ``depth`` layers, where layer 0 has no
+    rotation site) once with the kernels and once with the plain versions,
     recording each
     rotation site (Q, K, V) and the down projection in call order. For every
     site it prints how many output elements differ between the two runs and
@@ -1462,7 +1509,8 @@ def trace_layer0(cfg, params, quant, batch) -> None:
         records[run].append((name, spec, w, x, y))
         return y
 
-    p0 = _cut(params, 1)
+    p0 = _cut(params, depth)
+    where = "layer 0" if depth == 1 else f"layers 0-{depth - 1}"
     api.RotationSpec.__call__, api.QuantDotSpec._apply_qtensor = rot, down
     try:
         for run in ("cuda", "torch"):
@@ -1490,19 +1538,20 @@ def trace_layer0(cfg, params, quant, batch) -> None:
             inside = (f"; its rotation: {int(flips.sum())} of {yk.numel()} bf16 "
                       f"values differ, in {int(flips.reshape(-1, yk.shape[-1]).any(-1).sum())}"
                       f" of {yk.numel() // yk.shape[-1]} rows")
-        print(f"   layer 0 {name:9s} {tuple(y.shape)}: {diff} of {y.numel()} "
+        print(f"   {where} {name:9s} {tuple(y.shape)}: {diff} of {y.numel()} "
               f"elements differ from the plain run, {born} made by the site"
               + inside)
-    print(f"   first stage where the kernels differ: {first or 'none'}")
+    print(f"   first stage where the kernels differ ({where}): {first or 'none'}")
 
 
 def hold_prefill_against_plain(cfg, params, quant, seed: int, controls, batch=None,
-                               decode_steps: int = 0) -> dict:
+                               decode_steps: int = 0, limits=None) -> dict:
     """One 64-token prompt (or ``batch``, one prompt) through the kernels,
     the plain versions, the witnesses and the controls, at each depth of the
-    model's limits. The kernels' difference from the plain versions must
-    stay within the limit, every witness's too, and every control's beyond
-    it. Prints every reading before it checks any.
+    model's limits (``PREFILL_LIMITS``, or ``limits``). The kernels'
+    difference from the plain versions must stay within the limit, every
+    witness's too, and every control's beyond it. Prints every reading
+    before it checks any.
 
     With ``decode_steps``, each run at full depth goes on past its prefill
     for that many greedy decode steps at a scalar position, every run fed
@@ -1526,7 +1575,8 @@ def hold_prefill_against_plain(cfg, params, quant, seed: int, controls, batch=No
     if batch is None:
         rng = np.random.default_rng(seed)
         batch = {"tokens": torch.from_numpy(rng.integers(0, cfg.vocab_size, (1, 64))).cuda()}
-    trace_layer0(cfg, params, quant, batch)
+    limits = dict(PREFILL_LIMITS[cfg.name] if limits is None else limits)
+    trace_layer0(cfg, params, quant, batch, min(limits))
     named = {b: _with_backend(cfg, quant, b) for b in ("cuda", "torch", "auto")}
     full = len(params["layers"])
     S = batch["tokens"].shape[1] + (batch["patch_embeds"].shape[1]
@@ -1585,7 +1635,6 @@ def hold_prefill_against_plain(cfg, params, quant, seed: int, controls, batch=No
         return r
 
     witnesses = ("one_flip", "k1_rotations")
-    limits = dict(PREFILL_LIMITS[cfg.name])
     moe = bool(cfg.num_experts)
     pinned = ", routing pinned" if moe else ""
     rel = {}
@@ -1982,12 +2031,13 @@ def launcher_phase(args) -> dict:
 
 
 # The models the serving engine refuses (an encoder-decoder and a vlm: its
-# batches carry tokens only, as the reference's engine rules), served through
-# the one-shot launcher at full width and depth: each with its quantization,
-# its kernels' launches per prefill and per decode step (every kernel not
-# named: 0), the controls of its holds and its launcher traffic (SLOTS
-# requests of ``prompt`` tokens -- for the vlm its vlm_patches patches and
-# VLM_TEXT tokens -- and ``gen`` greedy tokens each).
+# batches carry tokens only; the recurrent kinds: a padded prefill would fold
+# the padding into their state -- as the reference's engine rules), served
+# through the one-shot launcher at full width and depth: each with its
+# quantization, its kernels' launches per prefill and per decode step (every
+# kernel not named: 0), the controls of its holds and its launcher traffic
+# (SLOTS requests of ``_launcher_prompt`` tokens -- for the vlm its
+# vlm_patches patches and VLM_TEXT tokens -- and ``gen`` greedy tokens each).
 LAUNCHER_MODELS = {
     # 6 encoder + 6 decoder layers: a prefill rotates the encoder's Q / K
     # (12 K2) and the decoder's Q / K / cross K (18), and every down
@@ -2000,24 +2050,39 @@ LAUNCHER_MODELS = {
     "qwen2-vl-7b": dict(mode="fp8_e4m3", prefill={"K1": 28, "K2": 56},
                         decode={"K1": 28, "K2": 56},
                         controls=("k2_no_quant", "k1_exact_scale"), gen=16),
+    # 32 layers: the channel mix's down projection is one grouped K1 (7 x
+    # 2048) per layer and pass; no KV cache, no other site
+    "rwkv6-7b": dict(mode="int8", prefill={"K1": 32}, decode={"K1": 32},
+                     controls=("k1_no_rotate", "k1_exact_scale"), gen=32),
+    # 68 mamba layers (no site) and 13 attention layers, each with one
+    # grouped K1 at Q and at K (head_dim 112 = I_7 (x) H_16, not a K2) and one
+    # at the down projection (7 x 2048): 39 per pass
+    "zamba2-7b": dict(mode="fp8_e4m3", prefill={"K1": 39}, decode={"K1": 39},
+                      controls=("k1_no_rotate", "k1_exact_scale"), gen=32),
 }
 DECODE_STEPS = 4   # the decode hold's greedy steps after the full-depth prefill
 
 
+def _recurrent(cfg) -> bool:
+    return bool({"rwkv", "mamba"} & set(cfg.layer_kinds))
+
+
 def _launcher_prompt(cfg) -> int:
     """The launcher cell's ``--prompt-len``: a vlm's patches and VLM_TEXT
-    tokens, else ENCDEC_PROMPT tokens (beside the encoder's frames)."""
-    return cfg.vlm_patches + VLM_TEXT if cfg.family == "vlm" else ENCDEC_PROMPT
+    tokens, RECURRENT_PROMPT tokens for a recurrent model, else
+    ENCDEC_PROMPT tokens (beside the encoder's frames)."""
+    if cfg.family == "vlm":
+        return cfg.vlm_patches + VLM_TEXT
+    return RECURRENT_PROMPT if _recurrent(cfg) else ENCDEC_PROMPT
 
 
-def _hold_batch(cfg, seed: int) -> dict:
-    """The holds' one prompt: 64 tokens; a vlm's after its vlm_patches
+def _hold_batch(cfg, seed: int, text: int = 64) -> dict:
+    """The holds' one prompt: ``text`` tokens; a vlm's after its vlm_patches
     N(0, 1) patch embeddings on a sqrt(P) x sqrt(P) (t = 0, h, w) position
     grid, the text after it at t = h = w = side + j, so that the three
     M-RoPE sections read different streams; an encoder-decoder's beside
     encoder_seq N(0, 1) frames (``make_batch``'s draws)."""
     rng = np.random.default_rng(seed)
-    text = 64
     batch = {"tokens": torch.from_numpy(rng.integers(0, cfg.vocab_size, (1, text))).cuda()}
     if cfg.family == "vlm":
         P = cfg.vlm_patches
@@ -2044,9 +2109,12 @@ def _per_pass(want: dict, passes: int, keys) -> dict:
 def launcher_model_phase(args, arch: str) -> dict:
     """One of ``LAUNCHER_MODELS`` at full width and depth: init (its peak),
     the weights against ``count_params``, the layer-0 stage trace, the
-    prefill held against the plain path at depth 1 and at full depth and
-    ``DECODE_STEPS`` greedy decode steps after it (witnesses and controls
-    as the model phases'; the kernels' launches per prefill and per decode
+    prefill held against the plain path at its first depth and at full
+    depth and ``DECODE_STEPS`` greedy decode steps after it (a recurrent
+    model: a RECURRENT_PROMPT-token prompt, so that the chunked prefill's
+    state goes to the recurrent decode; rwkv6-7b also a SCAN_PROMPT-token
+    prompt at depth 1, the recurrence's form; witnesses and controls as the
+    model phases'; the kernels' launches per prefill and per decode
     step counted there and checked), the holds' peak, a decode profile on
     SLOTS requests of the launcher traffic, then the one-shot launcher
     ``repro_torch.launch.serve.main`` on that traffic with the launch
@@ -2070,8 +2138,9 @@ def launcher_model_phase(args, arch: str) -> dict:
           f"{len(cfg.encoder_layer_kinds)} frames={cfg.encoder_seq if cfg.is_encdec else 0} "
           f"patches={cfg.vlm_patches if cfg.family == 'vlm' else 0} mrope="
           f"{cfg.mrope_sections if cfg.mrope else None} act={cfg.act} norm={cfg.norm} "
-          f"tied={cfg.tie_embeddings}, {spec['mode']} + hadamard + {spec['mode']} KV, "
-          "int8 weights; nothing cut")
+          f"tied={cfg.tie_embeddings} kinds={sorted(set(cfg.layer_kinds))} rwkv heads of "
+          f"{cfg.rwkv_head_dim} ssm state={cfg.ssm_state} head_dim={cfg.ssm_head_dim}, "
+          f"{spec['mode']} + hadamard + {spec['mode']} KV, int8 weights; nothing cut")
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     params = init_lm(cfg, seed=args.seed, device="cuda")
@@ -2086,8 +2155,15 @@ def launcher_model_phase(args, arch: str) -> dict:
 
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
+    prompt = _launcher_prompt(cfg) if _recurrent(cfg) else 64
     got = hold_prefill_against_plain(cfg, params, quant, args.seed, spec["controls"],
-                                     _hold_batch(cfg, args.seed), DECODE_STEPS)
+                                     _hold_batch(cfg, args.seed, prompt), DECODE_STEPS)
+    if cfg.name in SCAN_LIMITS:
+        print(f"-- hold of a {SCAN_PROMPT}-token prompt (no multiple of the chunk "
+              f"{cfg.rwkv_chunk}: the time mix's recurrence)")
+        hold_prefill_against_plain(cfg, params, quant, args.seed, spec["controls"],
+                                   _hold_batch(cfg, args.seed, SCAN_PROMPT),
+                                   limits=SCAN_LIMITS[cfg.name])
     peak = torch.cuda.max_memory_allocated()
     print(f"holds: {time.perf_counter() - t0:.1f} s; the kernels' launches: prefill "
           f"{got['prefill']}, {DECODE_STEPS} decode steps {got['decode']}; peak device "
@@ -3229,7 +3305,18 @@ def _leaves(tree):
         yield tree
 
 
+def phase(name: str, fn, *args):
+    """``fn(*args)``, then a line ``phase <name> <s> s``: its wall seconds,
+    the card synchronized."""
+    t0 = time.perf_counter()
+    out = fn(*args)
+    torch.cuda.synchronize()
+    print(f"phase {name} {time.perf_counter() - t0:.1f} s", flush=True)
+    return out
+
+
 def main() -> int:
+    start = time.perf_counter()
     ap = argparse.ArgumentParser()
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args()
@@ -3253,41 +3340,39 @@ def main() -> int:
     spent = build.build_all(lint=True)   # the linter's builds too, all in parallel
     print(f"kernel build: {time.perf_counter() - t0:.1f} s "
           + " ".join(f"{k}={v:.1f}s" for k, v in spent.items()))
+    print(f"phase build {time.perf_counter() - t0:.1f} s", flush=True)
 
     gen = torch.Generator(device="cuda").manual_seed(args.seed)
-    timed = kernel_phase(gen)
-    hold_k3_k4(gen)
-    hold_mixed_rounds(args.seed)
-    timed.update(time_k3_k4(gen))
-    hold_k5_k6(gen)
-    timed.update(time_k5_k6(gen))
-    hold_k8(gen)
-    timed.update(time_revisit(gen))
-    hold_abft_kernels(gen)
-    timed.update(time_abft(gen))
-    entry = entry_point_phase(gen)
+    timed = phase("kernel", kernel_phase, gen)
+    phase("hold_k3_k4", hold_k3_k4, gen)
+    phase("hold_mixed_rounds", hold_mixed_rounds, args.seed)
+    timed.update(phase("time_k3_k4", time_k3_k4, gen))
+    phase("hold_k5_k6", hold_k5_k6, gen)
+    timed.update(phase("time_k5_k6", time_k5_k6, gen))
+    phase("hold_k8", hold_k8, gen)
+    timed.update(phase("time_revisit", time_revisit, gen))
+    phase("hold_abft_kernels", hold_abft_kernels, gen)
+    timed.update(phase("time_abft", time_abft, gen))
+    entry = phase("entry_point", entry_point_phase, gen)
     launches = {}
     serving_sites = []
     for arch in MODELS:
-        _, got = model_phase(args, arch, serving_sites)
+        _, got = phase(f"model:{arch}", model_phase, args, arch, serving_sites)
         for k, v in got.items():
             launches[k] = launches.get(k, 0) + v
         torch.cuda.empty_cache()
-    for phase in (window_phase, launcher_phase):
-        for k, v in phase(args).items():
+    for name, fn in (("window", window_phase), ("launcher", launcher_phase)):
+        for k, v in phase(name, fn, args).items():
             launches[k] += v
     for arch in LAUNCHER_MODELS:
-        for k, v in launcher_model_phase(args, arch).items():
+        for k, v in phase(f"launcher_model:{arch}", launcher_model_phase, args, arch).items():
             launches[k] += v
-    for k, v in train_phase(args).items():
+    for k, v in phase("train", train_phase, args).items():
         launches[k] += v
     launches["K3"] = entry["K3"]    # K3's path is the entry point
-    t0 = time.perf_counter()
-    mutants = lint_phase(args.seed, serving_sites)
+    mutants = phase("lint", lint_phase, args.seed, serving_sites)
     del serving_sites
-    t1 = time.perf_counter()
-    rotation_phase(args)
-    print(f"lint phase {t1 - t0:.1f} s, rotation phase {time.perf_counter() - t1:.1f} s")
+    phase("rotation", rotation_phase, args)
 
     quant_dot_cu = "src/repro_torch/csrc/quant_dot.cu"
     experts_cu = "src/repro_torch/csrc/quant_dot_experts.cu"
@@ -3334,6 +3419,7 @@ def main() -> int:
     kernels = [{"name": meta[k]["name"], "route": "cuda",
                 "source": meta[k]["source"], "replaces": meta[k]["replaces"],
                 "launches": launches[k], **timed[k]} for k in meta]
+    print(f"phase total {time.perf_counter() - start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

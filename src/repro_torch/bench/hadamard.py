@@ -40,7 +40,11 @@ below), in three groups:
     decode and at a prefill of 4 x (1024 patches + VLM_TEXT tokens), and
     whisper-base (K2 int8 at n = 64, 8 heads) at decode, at its decoder's
     prefill of 4 x ENCDEC_PROMPT tokens (Q, K and the cross K over 4 x 1500
-    frames) and at its encoder's Q and K;
+    frames) and at its encoder's Q and K; the recurrent-state cells
+    (RECURRENT_PROMPT tokens a request): K1 at the channel-mix / MLP down
+    projection of rwkv6-7b and zamba2-7b (7 x 2048) at decode and prefill,
+    and at zamba2-7b's Q / K sites, head_dim 112 = I_7 (x) H_16 (32 heads x
+    7 groups of 16 points per token);
   * ``train``: the phi4-mini training step's K1 calls (4 x 512 tokens): the
     straight-through backward of the down projection (2 per layer, 8192
     points) and of the Q / K fake-quantized rotations (24 and 8 heads of
@@ -78,6 +82,9 @@ TRAIN_BATCH, TRAIN_SEQ = 4, 512
 # are its vlm_patches patch embeddings and VLM_TEXT tokens; whisper-base's
 # ENCDEC_PROMPT tokens beside its encoder_seq frames.
 VLM_TEXT, ENCDEC_PROMPT = 64, 16
+# The recurrent-state cells (rwkv6-7b, zamba2-7b): prompts of RECURRENT_PROMPT
+# tokens, 16 chunks of the RWKV6 time mix and 4 of the Mamba2 SSD.
+RECURRENT_PROMPT = 512
 
 
 @dataclasses.dataclass(frozen=True)
@@ -131,6 +138,12 @@ def _cases() -> tuple:
     train = TRAIN_BATCH * TRAIN_SEQ
     mixtral = get_config("mixtral-8x7b")
     mg, mp = groups(mixtral)
+    rwkv, zamba = get_config("rwkv6-7b"), get_config("zamba2-7b")
+    assert rwkv.d_ff == zamba.d_ff
+    rg, rp = groups(rwkv)
+    zp = plan_for(zamba.head_dim, dtype=torch.bfloat16, backend="cuda", device_type="cuda").p
+    zg = zamba.head_dim // zp
+    recurrent = (("decode", SLOTS), ("prefill", SLOTS * RECURRENT_PROMPT))
     return tuple(
         [Case("K1", "sweep", SWEEP_BYTES // (2 << k), 1 << k, dt)
          for k in range(7, 16) for dt in ("bfloat16", "float16")]
@@ -155,6 +168,10 @@ def _cases() -> tuple:
         + qk("whisper-base", whisper, "prefill", SLOTS * ENCDEC_PROMPT, "int8")
         + qk("whisper-base", whisper, "prefill", frames, "int8", ("cross K",))
         + qk("whisper-base", whisper, "encoder", frames, "int8")
+        + [Case("K1", f"rwkv6 / zamba2 {phase} down-proj", tokens * rg, rp)
+           for phase, tokens in recurrent]
+        + [Case("K1", f"zamba2-7b {phase} Q / K", tokens * zamba.num_heads * zg, zp)
+           for phase, tokens in recurrent]
         + [Case("K1", "train down-proj backward", train, phi4.d_ff,
                 per_step=2 * phi4.num_layers),
            Case("K1", "train Q backward", train * phi4.num_heads, phi4.head_dim,

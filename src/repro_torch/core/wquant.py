@@ -20,6 +20,15 @@ quant_dot kernels and ``verify.params_ok`` hold the live weight against.
 ``quantize_weight(..., with_check=True)`` attaches it at quantization
 time; ``quantize_lm_weights`` and ``init_lm`` do so under
 ``QuantConfig.abft`` or ``REPRO_ABFT=1``.
+
+The size floor (``_MIN_SIZE`` values) applies to each layer's leaf here and
+to the stacked (layers, ...) leaf in the reference. The two rules agree at
+the scaled-down test sizes; at full width the reference also quantizes
+these small leaves (int8, the port keeps them as drawn): rwkv6-7b's f32
+``tmix`` ``mu_base``, ``mu``, ``w0``, ``u``, ``ln_scale``, ``ln_bias`` and
+``cmix`` ``mu_r``, ``mu_k`` (32 layers stacked); zamba2-7b's bf16 mamba
+``conv_x`` in both groups, and its f32 mamba ``norm`` in the 13-repeat
+group only (13 x 7168 values pass the floor, 3 x 7168 do not).
 """
 from __future__ import annotations
 

@@ -16,6 +16,12 @@ KV cache -- the paper's deployment scenario (twin of
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-vl-7b \
         --scale 1.0 --batch 4 --prompt-len 1088 --gen 16 --quant fp8_e4m3 \
         --rotate hadamard
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch rwkv6-7b \
+        --scale 1.0 --batch 4 --prompt-len 512 --gen 32 --quant int8 \
+        --rotate hadamard
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2-7b \
+        --scale 1.0 --batch 4 --prompt-len 512 --gen 32 --quant fp8_e4m3 \
+        --rotate hadamard
 
 Runs on the CUDA device unless ``--device cpu`` (the plain versions). The
 weights are drawn from ``--seed`` and pre-quantized layer by layer at load
@@ -26,13 +32,17 @@ quantized on the fly at the consumer sites). The prompt batch is
 tokens after them; an encoder-decoder's batch adds ``encoder_seq`` frames
 per prompt, which the prefill encodes once. Then ``--gen - 1`` greedy
 decode steps at a shared scalar ``cache_pos``, from ``--prompt-len``, or,
-for a vlm, from ``--prompt-len`` + ``vlm_patches`` as the reference
-starts it (``repro.launch.serve``); the KV caches are padded to the first
-decode position + ``--gen``, so every step's row lies in the cache (the
-reference pads them to prompt + gen, and its later rows clamp onto the
-last: ROADMAP.md, "Reference health"). The first decode step is timed
-apart (it pays the first-use costs), so the reported tok/s is the steady
-state. ``--mp`` > 1 (model parallelism) is not ported yet.
+for a vlm, from ``--prompt-len`` + ``vlm_patches``, in KV caches padded to
+``--prompt-len`` + ``--gen``: the reference's launcher (``repro.launch.
+serve``), whose vlm decode starts past its cache's end, so that every
+step writes the cache's last row (``decode_attention`` clamps the row as
+JAX's ``dynamic_update_slice`` does) and attends to every row, the zero
+rows of the padding included (ROADMAP.md, "Reference health"). A
+recurrent model (rwkv, mamba) carries its state instead; a mamba prompt
+of 128 tokens or more must be a multiple of 128 (the SSD's chunk). The
+first decode step is timed apart (it pays the first-use costs), so the
+reported tok/s is the steady state. ``--mp`` > 1 (model parallelism) is
+not ported yet.
 """
 from __future__ import annotations
 
@@ -102,7 +112,7 @@ def main(argv=None) -> dict:
         print("weights pre-quantized once at load (QTensor leaves; "
               f"consumer mode={args.quant})")
     pos = args.prompt_len + (cfg.vlm_patches if cfg.family == "vlm" else 0)
-    max_len = pos + args.gen
+    max_len = args.prompt_len + args.gen
     batch = shp.make_batch(cfg, shp.ShapeSpec("serve", "prefill", args.prompt_len,
                                               args.batch), seed=args.seed)
     batch = {k: torch.from_numpy(v).to(device) for k, v in batch.items() if k != "labels"}

@@ -36,10 +36,10 @@ SHAPES: Dict[str, ShapeSpec] = {
 def shape_applicable(cfg, shape: ShapeSpec) -> Optional[str]:
     """None if the (arch, shape) cell runs; else the reason for the skip
     (the reference's rules: long_500k needs sub-quadratic attention, which
-    no ported architecture has; an encoder-only model has no decode)."""
-    if shape.name == "long_500k" and not getattr(cfg, "sub_quadratic", False):
+    rwkv6-7b and zamba2-7b have; an encoder-only model has no decode)."""
+    if shape.name == "long_500k" and not cfg.sub_quadratic:
         return "long_500k needs sub-quadratic attention (pure full-attention arch)"
-    if shape.kind == "decode" and not getattr(cfg, "has_decoder", True):
+    if shape.kind == "decode" and not cfg.has_decoder:
         return "encoder-only arch has no decode step"
     return None
 

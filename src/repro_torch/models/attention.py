@@ -210,7 +210,10 @@ def decode_attention(cfg, p, x: torch.Tensor, cache_k: torch.Tensor,
     KV dtype; cache_pos: () int shared by the batch, or (B,) per-slot
     positions (continuous batching: each slot writes and attends at its
     own depth). The caches are updated IN PLACE (row ``pos`` of each slot)
-    and returned, where the reference returns updated copies."""
+    and returned, where the reference returns updated copies. A position
+    past the cache writes its row onto the cache's last row, as the
+    reference's ``dynamic_update_slice`` clamps its start; the mask still
+    reads the position itself."""
     B, S, _ = x.shape
     if S != 1:
         raise ValueError(f"decode_attention takes one token, got S={S}")
@@ -220,14 +223,14 @@ def decode_attention(cfg, p, x: torch.Tensor, cache_k: torch.Tensor,
     k = apply_rope_angles(k, ang)
     q, k = _rotate_quant_qk(cfg, q, k)
     v = _v_spec(cfg, v.shape[-1])(v)
-    per_slot = cache_pos.ndim == 1
-    if per_slot:
-        rows = torch.arange(B, device=x.device)
-        cache_k[rows, cache_pos] = cast_to(k[:, 0], cache_k.dtype)
-        cache_v[rows, cache_pos] = cast_to(v[:, 0], cache_v.dtype)
+    row = cache_pos.clamp(0, cache_k.shape[1] - 1)
+    if cache_pos.ndim == 1:
+        slots = torch.arange(B, device=x.device)
+        cache_k[slots, row] = cast_to(k[:, 0], cache_k.dtype)
+        cache_v[slots, row] = cast_to(v[:, 0], cache_v.dtype)
     else:
-        cache_k[:, cache_pos] = cast_to(k[:, 0], cache_k.dtype)
-        cache_v[:, cache_pos] = cast_to(v[:, 0], cache_v.dtype)
+        cache_k[:, row] = cast_to(k[:, 0], cache_k.dtype)
+        cache_v[:, row] = cast_to(v[:, 0], cache_v.dtype)
     mask = _decode_mask(cfg, cache_pos, cache_k.shape[1], x.device)
     ctx = _sdpa(cfg, q, cache_k.to(q.dtype), cache_v.to(q.dtype), mask)
     return ctx @ p["wo"], cache_k, cache_v

@@ -1,23 +1,25 @@
-"""Model configuration (twin of ``repro.models.config``, trimmed to what
-the port runs: attention stacks, decoder-only or encoder-decoder).
+"""Model configuration (twin of ``repro.models.config``).
 
 A model is a list of ``groups``; each group is ``(pattern, repeats)`` with
-``pattern`` a tuple of layer kinds. The port runs four kinds, all with GQA
-attention: 'attn' (causal, a dense MLP), 'moe' (causal, top-k routed
+``pattern`` a tuple of layer kinds. The port runs six kinds: four with GQA
+attention -- 'attn' (causal, a dense MLP), 'moe' (causal, top-k routed
 experts with capacity dropping, plus an optional shared expert), and the
 encoder-decoder pair of whisper: 'enc_attn' (the encoder's non-causal
 self-attention and MLP, in ``encoder_groups``) and 'xattn' (the decoder's
-causal self-attention, cross-attention to the encoder output, MLP). The
-attention flavour and the MLP are the reference's options:
+causal self-attention, cross-attention to the encoder output, MLP) -- and
+two with a recurrent state in place of a KV cache: 'rwkv' (RWKV6's time
+mix and channel mix, ``rwkv_head_dim``, ``rwkv_impl``, ``rwkv_chunk``) and
+'mamba' (Mamba2's chunked SSD, ``ssm_state``, ``ssm_head_dim``,
+``ssm_expand``). ``sub_quadratic`` marks the models eligible for the
+long_500k shape. The attention flavour and the MLP are the reference's
+options:
 ``sliding_window`` (mixtral), ``qkv_bias`` (qwen1.5, starcoder2), ``mrope``
 (qwen2-vl's three position streams), ``act`` (SwiGLU, or the tanh GELU MLP
 without a gate) and ``norm`` (RMSNorm or LayerNorm). A vlm prepends
 ``vlm_patches`` precomputed patch embeddings to the tokens; an
 encoder-decoder reads ``encoder_seq`` precomputed frame embeddings (the
 reference stubs both frontends alike). Its layers are a plain list, one
-entry per layer, where the reference scans stacked parameters. The
-reference's state-space and RWKV options come with the configs that need
-them.
+entry per layer, where the reference scans stacked parameters.
 """
 from __future__ import annotations
 
@@ -33,7 +35,7 @@ Group = Tuple[Tuple[LayerKind, ...], int]
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
     name: str
-    family: str                      # dense | moe | vlm | audio
+    family: str                      # dense | moe | vlm | audio | ssm | hybrid
     d_model: int
     num_heads: int
     num_kv_heads: int
@@ -52,6 +54,12 @@ class ModelConfig:
     experts_per_token: int = 0
     moe_shared_expert: bool = False  # llama4
     capacity_factor: float = 1.25
+    ssm_state: int = 0               # mamba2 N
+    ssm_head_dim: int = 64           # mamba2 P
+    ssm_expand: int = 2
+    rwkv_head_dim: int = 64
+    rwkv_impl: str = "chunked"       # chunked (GLA-style) | scan (the recurrence)
+    rwkv_chunk: int = 32             # chunk length of the chunked form
     act: str = "swiglu"              # swiglu | gelu
     norm: str = "rmsnorm"            # rmsnorm | layernorm
     vocab_pad_multiple: int = 256
@@ -62,6 +70,7 @@ class ModelConfig:
     dtype: str = "bfloat16"
     remat: str = "dots"              # none | dots | full: recompute each block in
                                      # the backward pass unless "none"
+    sub_quadratic: bool = False      # eligible for long_500k
     has_decoder: bool = True         # encoder-only models skip decode shapes
 
     def __post_init__(self):
@@ -101,7 +110,10 @@ class ModelConfig:
         MLP flavour (a window of at most 8 tokens, so that it bites at test
         lengths), M-RoPE and its sections, the encoder (at most 2 repeats
         of each group, 16 frames) and 4 patches, and the quant settings
-        (the reference's rule, restricted to these fields)."""
+        (the reference's rule, restricted to these fields). The state
+        sizes shrink as the reference's do (an SSM state of at most 16, SSM
+        and RWKV heads of 16), and zamba2-7b keeps a head_dim that is not a
+        power of 2 (d_model 28 x heads)."""
         ratio = max(1, self.num_heads // max(self.num_kv_heads, 1))
         heads = max(2, ratio)
         small = dict(
@@ -119,7 +131,12 @@ class ModelConfig:
             sliding_window=(min(self.sliding_window, 8)
                             if self.sliding_window else 0),
             vlm_patches=4,
+            ssm_state=min(self.ssm_state, 16) if self.ssm_state else 0,
+            ssm_head_dim=16 if self.ssm_state else 64,
+            rwkv_head_dim=16,
             head_dim=None,
         )
+        if self.name == "zamba2-7b":
+            small["d_model"] = 28 * heads
         small.update(overrides)
         return dataclasses.replace(self, **small)

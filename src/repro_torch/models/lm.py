@@ -1,6 +1,7 @@
-"""Model assembly for attention stacks: causal decoders, dense and MoE,
-vlm decoders with prepended patch embeddings and M-RoPE positions, and
-encoder-decoders (twin of ``repro.models.lm``).
+"""Model assembly: causal decoders, dense and MoE, vlm decoders with
+prepended patch embeddings and M-RoPE positions, encoder-decoders, and the
+recurrent-state stacks of RWKV6 and of the Mamba2 hybrid (twin of
+``repro.models.lm``).
 
 The reference stacks each group's parameters over a leading layer axis and
 runs the group as one ``lax.scan``; the port keeps the layers as a plain
@@ -17,7 +18,9 @@ attention adds the 1-D biases {bq, bk, bv} under ``cfg.qkv_bias``; the GELU
 MLP has no w_gate. A layer of kind 'moe' holds "moe": {router, experts:
 {w_gate, w_up (E, d, f), w_down (E, f, d)}, shared: {...}} in place of
 "mlp"; a decoder layer of kind 'xattn' adds "norm_x" and "xattn" (the
-cross attention, the leaves of "attn"). An encoder-decoder also holds
+cross attention, the leaves of "attn"). A layer of kind 'rwkv' holds
+{"norm1", "tmix", "norm2", "cmix"} (``models.rwkv``), one of kind 'mamba'
+{"norm1", "mamba"} (``models.ssm``). An encoder-decoder also holds
 "enc_layers" (the encoder's layers of kind 'enc_attn', in execution order)
 and "enc_norm". ``cfg.layer_kinds`` / ``cfg.encoder_layer_kinds`` name
 each layer's kind.
@@ -31,7 +34,12 @@ Any matrix may be a pre-quantized :class:`~repro_torch.core.wquant.QTensor`.
 KV caches are a list with one ``{"k", "v"}`` dict per decoder layer, each
 (B, T, KH, hd) in the KV dtype -- the reference's per-layer layout; an
 'xattn' layer's also holds "xk" / "xv" (B, T_enc, KH, hd), the cross
-attention's K / V in the model dtype, computed once at prefill.
+attention's K / V in the model dtype, computed once at prefill. A
+recurrent layer's cache is its state, the reference's: 'rwkv' {"S" (B, H,
+K, K) f32, "xp_t" / "xp_c" (B, d), the time and channel mixes' last
+inputs}, 'mamba' {"ssm" (B, H, P, N) f32, "conv_x" / "conv_bc" (B, 3, C),
+the last three pre-conv inputs}; a decode step updates both kinds of cache
+in place.
 
 Entry points: ``init_lm``, ``lm_forward``, ``lm_loss`` (training: raw
 weights, quantized on the fly at the consumer sites, straight-through
@@ -53,12 +61,14 @@ from repro_torch.core.wquant import (_is_consumer, dequant_tree, is_qleaf,
 from repro_torch.device import resolve_device
 from repro_torch.models import attention as A
 from repro_torch.models import mlp as M
+from repro_torch.models import rwkv as R
+from repro_torch.models import ssm as SSM
 from repro_torch.models.common import (apply_norm, dense_init, dtype_of,
                                        init_norm, sinusoidal_positions)
 from repro_torch.models.config import ModelConfig
 
 
-KINDS = ("attn", "moe", "xattn")    # decoder layers
+KINDS = ("attn", "moe", "xattn", "rwkv", "mamba")    # decoder layers
 ENCODER_KINDS = ("enc_attn",)
 
 
@@ -73,6 +83,14 @@ def _check_kinds(cfg: ModelConfig) -> None:
 
 def _init_block(gen: torch.Generator, cfg: ModelConfig, kind: str, device) -> dict:
     d = cfg.d_model
+    if kind == "mamba":
+        return {"norm1": init_norm(cfg, d, device),
+                "mamba": SSM.init_mamba(gen, cfg, device)}
+    if kind == "rwkv":
+        return {"norm1": init_norm(cfg, d, device),
+                "tmix": R.init_rwkv_tmix(gen, cfg, device),
+                "norm2": init_norm(cfg, d, device),
+                "cmix": R.init_rwkv_cmix(gen, cfg, device)}
     p = {"norm1": init_norm(cfg, d, device),
          "attn": A.init_attention(gen, cfg, device)}
     if kind == "xattn":
@@ -187,7 +205,10 @@ def _block_prefill(cfg, kind, p, x, positions, enc_out, want_cache: bool):
     """One full-sequence block: (x, aux, cache or None). An 'enc_attn'
     block attends without the causal mask and keeps no cache; an 'xattn'
     block adds the cross attention to ``enc_out`` after its self-attention
-    and caches the cross K / V beside its own."""
+    and caches the cross K / V beside its own; a recurrent block's cache
+    is its state after the sequence."""
+    if kind in ("rwkv", "mamba"):
+        return _recurrent_prefill(cfg, kind, p, x, want_cache)
     h = apply_norm(cfg, p["norm1"], x)
     causal = kind != "enc_attn"
     cache = None
@@ -206,6 +227,20 @@ def _block_prefill(cfg, kind, p, x, positions, enc_out, want_cache: bool):
             cache.update(xk=xk, xv=xv)
     y, aux = _ffn(cfg, kind, p, apply_norm(cfg, p["norm2"], x))
     return x + y, aux, cache
+
+
+def _recurrent_prefill(cfg, kind, p, x, want_cache: bool):
+    h = apply_norm(cfg, p["norm1"], x)
+    if kind == "mamba":
+        y, st = SSM.apply_mamba(cfg, p["mamba"], h, return_state=True)
+        cache = st._asdict()
+    else:
+        y, (st, xp_t) = R.apply_rwkv_tmix(cfg, p["tmix"], h, return_state=True)
+        x = x + y
+        y, xp_c = R.apply_rwkv_cmix(cfg, p["cmix"], apply_norm(cfg, p["norm2"], x),
+                                    return_state=True)
+        cache = {"S": st, "xp_t": xp_t, "xp_c": xp_c}
+    return x + y, 0.0, cache if want_cache else None
 
 
 def _run_stack(cfg, kinds, layers, x, positions, enc_out, want_cache: bool):
@@ -310,7 +345,7 @@ def lm_prefill(cfg: ModelConfig, params, batch):
 def pad_kv_caches(cfg: ModelConfig, caches, max_len: int):
     """Grow every layer's self-attention K/V cache along seq to
     ``max_len``; the cross attention's "xk" / "xv" keep the encoder's
-    length."""
+    length, and a recurrent layer's state passes through unchanged."""
     out = []
     for c in caches:
         grown = {}
@@ -330,7 +365,8 @@ def lm_decode_step(cfg: ModelConfig, params, caches, tokens: torch.Tensor,
     """One decode step. tokens: (B, 1) int; cache_pos: () int shared by the
     batch, or (B,) per-slot positions (continuous batching); under M-RoPE
     the three streams all take the position. The caches are updated in
-    place and returned with the logits.
+    place and returned with the logits (a recurrent layer's state too;
+    it reads no position).
 
     An encoder-decoder adds the sinusoidal embedding of position 0 to
     every decoded token, where prefill adds positions 0..S-1: the
@@ -354,6 +390,8 @@ def lm_decode_step(cfg: ModelConfig, params, caches, tokens: torch.Tensor,
 
 
 def _block_decode(cfg, kind, p, x, c, cache_pos, positions):
+    if kind in ("rwkv", "mamba"):
+        return _recurrent_decode(cfg, kind, p, x, c)
     h = apply_norm(cfg, p["norm1"], x)
     y, c["k"], c["v"] = A.decode_attention(cfg, p["attn"], h, c["k"], c["v"],
                                            cache_pos, positions)
@@ -362,3 +400,20 @@ def _block_decode(cfg, kind, p, x, c, cache_pos, positions):
         h = apply_norm(cfg, p["norm_x"], x)
         x = x + A.apply_cross_attention(cfg, p["xattn"], h, (c["xk"], c["xv"]))
     return x + _ffn(cfg, kind, p, apply_norm(cfg, p["norm2"], x))[0]
+
+
+def _recurrent_decode(cfg, kind, p, x, c):
+    """One token through a recurrent block, its state ``c`` updated in
+    place."""
+    h = apply_norm(cfg, p["norm1"], x)
+    if kind == "mamba":
+        y, st = SSM.decode_mamba(cfg, p["mamba"], h, SSM.MambaState(**c))
+        for key, t in st._asdict().items():
+            c[key].copy_(t)
+        return x + y
+    y, (st, xp_t) = R.decode_rwkv_tmix(cfg, p["tmix"], h, (c["S"], c["xp_t"]))
+    x = x + y
+    y, xp_c = R.decode_rwkv_cmix(cfg, p["cmix"], apply_norm(cfg, p["norm2"], x), c["xp_c"])
+    for key, t in (("S", st), ("xp_t", xp_t), ("xp_c", xp_c)):
+        c[key].copy_(t)
+    return x + y

@@ -389,36 +389,51 @@ def test_each_layer_reaches_one_grouped_rotation_and_two_fused_qk_sites(monkeypa
     assert wquant.QUANTIZE_WEIGHT_CALLS == before
 
 
-def test_serve_launcher_runs_on_cpu(capsys):
+def test_serve_launcher_runs_on_cpu(capsys, monkeypatch):
     """``python -m repro_torch.launch.serve --device cpu --arch qwen2-vl-7b``
     at ``--scale 0.005``: ``--prompt-len`` 1040 holds the 1024 patches and
     16 tokens, all of ``make_batch``'s batch goes to the prefill, and decode
-    starts at 1040 + 1024, as the reference's launcher starts it, in a cache
-    that reaches that far; the tokens are the port's own prefill and greedy
-    steps at those positions."""
+    starts at 1040 + 1024 in caches padded to 1040 + 4, past their end, as
+    the reference's launcher runs it (every step writes the last row). The
+    tokens and every step's logits, with the reference's parameters,
+    against the reference's un-meshed jitted ``lm_prefill`` /
+    ``pad_kv_caches`` / ``lm_decode_step`` driven the same way and fed the
+    launcher's tokens, under the margin rule."""
+    from test_torch_rwkv import launcher_against_reference
+
     argv = ["--device", "cpu", "--arch", "qwen2-vl-7b", "--scale", "0.005",
             "--batch", "2", "--prompt-len", "1040", "--gen", "4", "--quant", "fp8_e4m3",
             "--rotate", "hadamard", "--seed", "3"]
-    out = serve.main(argv)
+    out, steps = launcher_against_reference("qwen2-vl-7b", "qwen2_vl_7b", argv, 1040, 2, 4,
+                                            monkeypatch)
     cfg, toks = out["cfg"], out["tokens"]
     assert cfg.mrope and cfg.vlm_patches == 1024 and cfg.quant.mode == "fp8_e4m3"
     assert toks.shape == (2, 4) and ((0 <= toks) & (toks < cfg.vocab_size)).all()
     assert out["decode_steps"] == 2 and out["tokens_per_s"] > 0
     assert "qwen2-vl-7b" in capsys.readouterr().out
-    params = init_lm(cfg, seed=3, device="cpu")
-    batch = shapes.make_batch(cfg, shapes.ShapeSpec("serve", "prefill", 1040, 2), seed=3)
-    batch = {k: torch.from_numpy(v) for k, v in batch.items() if k != "labels"}
-    batch["tokens"] = batch["tokens"].long()
-    with torch.inference_mode():
-        logits, caches = lm_prefill(cfg, params, batch)
-        caches = pad_kv_caches(cfg, caches, 1040 + 1024 + 4)
-        tok = logits[:, -1, :cfg.vocab_size].argmax(-1)[:, None]
-        mine = [tok]
-        for i in range(3):
-            logits, caches = lm_decode_step(cfg, params, caches, tok, torch.tensor(2064 + i))
-            tok = logits[:, -1, :cfg.vocab_size].argmax(-1)[:, None]
-            mine.append(tok)
-    np.testing.assert_array_equal(torch.cat(mine, 1).numpy(), toks)
+    for i, (gap, rel, same) in enumerate(steps):
+        assert gap <= LOGIT_TOL and rel <= REL_TOL and same, (i, gap, rel, same)
+
+
+def test_decode_past_the_cache_writes_its_last_row():
+    """A decode position past the cache writes the cache's last row (the
+    reference's ``dynamic_update_slice`` clamps its start) and attends to
+    every row; positions inside the cache are unaffected -- scalar and
+    per-slot."""
+    _, tcfg, _, params = _model("int8")
+    p = lm._dequant_layer(tcfg, params["layers"][0], torch.bfloat16)["attn"]
+    x = torch.randn(2, 1, tcfg.d_model, generator=torch.Generator().manual_seed(0)).to(
+        torch.bfloat16)
+    T, KH, hd = 6, tcfg.num_kv_heads, tcfg.head_dim
+    for pos in (torch.tensor(9), torch.tensor([2, 9])):
+        ck = torch.zeros((2, T, KH, hd), dtype=torch.bfloat16)
+        cv = torch.zeros_like(ck)
+        positions = (pos if pos.ndim else pos.expand(2))[:, None].to(torch.int32)
+        attention.decode_attention(tcfg, p, x, ck, cv, pos, positions[None].expand(3, 2, 1))
+        rows = pos.clamp(max=T - 1).expand(2)
+        for b in range(2):
+            written = ck[b].float().abs().sum((-1, -2)) > 0
+            assert written.nonzero().flatten().tolist() == [int(rows[b])], (pos, b)
 
 
 def test_engine_rejects_the_vlm():
