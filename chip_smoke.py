@@ -45,7 +45,10 @@ Runs from the repository root and needs the repository's ``src/``. It
      revisit schedule: a (row block, 128-column tile) grid without
      clusters) bitwise to K4 and under K4's rule against its plain version
      at phi4-mini's 4 and 2048 (training) rows and maverick's 4 x 8192 ->
-     5120, int8 and fp8_e4m3, and timed beside K4 (the schedule A/B);
+     5120, int8 and fp8_e4m3, and timed beside K4 (the schedule A/B); K1
+     at the training steps' backward shapes (the transform harness's
+     ``train`` and ``backward`` cases) and K6 fp8_e4m3 at a training step's
+     capacity rows (4, 128, 5, 8192), timed the same way;
   4. entry-point phase: ``hadamard(x, epilogue=QuantEpilogue(mode))`` and
      ``quant_dot`` on CUDA tensors launch K3 and K4 once per call, K1 never;
   5. model phases, each at full width from ``--seed`` with int8 weight
@@ -128,18 +131,30 @@ Runs from the repository root and needs the repository's ``src/``. It
      greedy tokens; qwen2-vl: 1024 patches + 64 tokens, 16 greedy tokens;
      rwkv6 and zamba2: 512 tokens, 32 greedy tokens) with its prefill s,
      steady tok/s, launches and peak;
-     training phase (``train_phase``): phi4-mini-3.8b at full width and
-     depth (int8 + Hadamard, int8 fake-quantized Q/K/V, tied embeddings,
-     per-block recomputation), 4 x 512 tokens per step from the
-     ``SyntheticDataset``: the step-0 loss and every gradient leaf through
-     the kernels against the plain versions on the card, within limits set
-     between two witnesses and two controls printed beside them; 3 AdamW
-     steps with f32 moments (step time, tokens/s, peak memory < 72 GB,
-     launches per step: 128 K1, 128 K2, 64 K4, checked) and a profile of
-     one more; the same 3 steps under the revisit schedule (64 K8 per step)
-     bitwise equal in losses and parameters; 3 steps with int8 moments; a
-     checkpoint at step 2 and a restart that resumes bitwise (at 2 layers,
-     full width);
+     training phases (``train_phase``, one per ``TRAIN_FAMILIES`` entry):
+     phi4-mini-3.8b, qwen1.5-4b and whisper-base at full width and depth;
+     starcoder2-15b, mixtral-8x7b, qwen2-vl-7b, rwkv6-7b and zamba2-7b at
+     full width, cut to whole pattern units under the peak limit; each in
+     its serving mode with per-block recomputation, ``train_traffic``'s
+     batches from the ``SyntheticDataset`` (4 x 512 tokens; whisper: 4 x 64
+     tokens beside 1500 frames; qwen2-vl: 2 x (1024 patches + 64 tokens) in
+     2 microbatches): the weights against ``count_params``, the step-0 loss
+     and every gradient leaf through the kernels against the plain versions
+     on the card beside a witness (K1's rotations under the plain epilogue
+     and GEMM; phi4-mini also 2 microbatches) and a control (no rotation;
+     phi4-mini also no quantization), within ``TRAIN_LIMITS``; 2 AdamW steps
+     with f32 moments (phi4-mini 3), the launches per step checked against
+     ``per_step`` (phi4-mini: 128 K1, 128 K2, 64 K4), step time, tokens/s,
+     peak memory < 72 GB, and a profile of one more step; for phi4-mini the
+     same steps under the revisit schedule (64 K8 per step) bitwise equal
+     and with int8 moments; for phi4-mini, rwkv6-7b and zamba2-7b a
+     checkpoint before the last step and a restart (2 layers / one
+     superblock, full width) that resumes bitwise; then
+     ``train_experts_phase``: ``_QuantDotExpertsW`` at one llama4-maverick
+     expert layer ((4, 128, 5, 8192) -> 5120, fp8_e4m3: a training step's
+     capacity rows), forward (1 K6) and backward (2 K1) against the plain
+     versions (the kernel phase times K1 at every family's backward shapes
+     and K6 at this one);
   8. lint phase (``lint_phase``): the kernel-contract linter
      (``repro_torch.analysis.lint``) in process at full width over
      phi4-mini's int8 8192 -> 3072 and llama4-maverick's fp8_e4m3 8192 ->
@@ -156,9 +171,10 @@ Runs from the repository root and needs the repository's ``src/``. It
      ``--mutation`` must exit
      non-zero with M1 (K4 re-rotating before every tile) flagged by the
      rotate-once rule and M2 (K5 without its ring's final drain) by the DMA
-     rule, their launches counted from 0 just before; M1 bitwise K4 in int8
-     and fp8_e4m3 and M2 bitwise K5 in fp8_e4m3, each timed beside its twin
-     and held against its plain version (its twin's) under the K4 rule;
+     rule, their launches counted from 0 just before (``hold_mutants``,
+     with the kernel timings before the model phases, holds M1 bitwise K4
+     in int8 and fp8_e4m3 and M2 bitwise K5 in fp8_e4m3, each timed beside
+     its twin and held against its plain version under the K4 rule);
   9. rotation phase (``rotation_phase``): llama3-8b at full width, random
      bf16 weights, ``fuse_down_proj_rotations`` through K1 (one grouped
      launch per layer), then the fused model's 64-token prefill with the
@@ -192,7 +208,7 @@ sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "src
 # harness's path and train cases stand for
 from repro_torch.bench.hadamard import (ENCDEC_PROMPT, PREFILL_LEN,  # noqa: E402
                                         RECURRENT_PROMPT, SLOTS, TRAIN_BATCH,
-                                        TRAIN_SEQ, VLM_TEXT)
+                                        TRAIN_SEQ, VLM_TEXT, train_traffic)
 from repro_torch.bench.quant_dot import WHISPER_ENCODER_ROWS  # noqa: E402
 
 MAX_LEN = 256                      # the serving run's engine: SLOTS slots of MAX_LEN
@@ -397,6 +413,22 @@ def kernel_phase(gen: torch.Generator):
             entries[case.kernel] = {k: rec[k] for k in (
                 "mode", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
                 "library_ms")}
+    print("-- kernel phase: K1 at the training steps' backward shapes (one microbatch of "
+          "each family's step, the harness's train and backward cases)")
+    for case in CASES:
+        if case.group not in ("train", "backward"):
+            continue
+        rec = measure(case, gen)
+        print(f"K1 {case.site} ({case.rows} x {case.n}, {case.per_step} a step at the "
+              f"published depth): kernel {rec['ms']:.5f} ms (events) "
+              f"{_dev(rec['device_ms'])} (profile), "
+              + (f"{rec['library']} {_dev(rec['library_device_ms'])}, "
+                 if rec["library"] else "")
+              + f"plain {rec['plain_ms']:.5f} ms, bound {rec['bound_ms']:.6f} ms "
+              f"({rec['bound_by']}), {rec['ulps']:.3f} ulp")
+        if not rec["ulps"] <= 1.0:
+            fail(f"K1 {case.site}: {rec['ulps']} ulps")
+        torch.cuda.empty_cache()
     # device throughput at a size where launch overhead does not dominate
     x = torch.randn(16384, 2048, generator=gen, device="cuda").to(torch.bfloat16)
     plan = plan_for(2048, dtype=torch.bfloat16, backend="cuda", device_type="cuda")
@@ -586,7 +618,8 @@ def _measure(case, gen, qt, cw, x) -> dict:
 
     rec = measure(case, gen, qt, cw, x)
     sched, _, abft = KERNELS[case.kernel]
-    want = _grid_plan(case.rows, case.n, case.d, case.mode, case.experts, sched, abft,
+    want = _grid_plan(case.rows * case.cap, case.n, case.d, case.mode, case.experts, sched,
+                      abft,
                       sms=torch.cuda.get_device_properties(0).multi_processor_count)
     if rec["grid"] != want:
         fail(f"{case}: the launcher's geometry {rec['grid']} is not the size rule's {want}")
@@ -796,9 +829,10 @@ def time_k5_k6(gen) -> dict:
     the whole weight is needed), through the quant_dot timing harness
     (``repro_torch.bench.quant_dot.measure``): CUDA events and a profile per
     kernel, beside the bound, the plain version and one library contraction
-    per weight matrix on the already-quantized operand. The JSON entries
+    per weight matrix on the already-quantized operand; and K6 fp8_e4m3 at
+    a training step's capacity rows (4, 128, 5, 8192). The JSON entries
     take the fp8_e4m3 decode shape, every field of an entry from that run."""
-    from repro_torch.bench.quant_dot import Case, expert_weights
+    from repro_torch.bench.quant_dot import MAVERICK_TRAIN_CAP, Case, expert_weights
     from repro_torch.core.wquant import quantize_weight
 
     n, d = MAVERICK_DOWN
@@ -824,6 +858,13 @@ def time_k5_k6(gen) -> dict:
             print(_record_line(f"{kern:3s} {mode:8s} {tuple(x.shape)} -> {d}", rec))
             if mode == "fp8_e4m3" and m == SLOTS:   # the decode shape, the path's mode
                 entries[kern] = _entry(rec)
+        if mode == "fp8_e4m3":   # a training step's capacity rows (train_experts_phase)
+            x = (torch.randn(TRAIN_BATCH * EXPERTS * MAVERICK_TRAIN_CAP, n, generator=gen,
+                             device="cuda") * 3).to(torch.bfloat16)
+            x = x.view(TRAIN_BATCH, EXPERTS, MAVERICK_TRAIN_CAP, n)
+            rec = _measure(Case("K6", mode, TRAIN_BATCH, n, d, cap=MAVERICK_TRAIN_CAP), gen,
+                           ex, None, x)
+            print(_record_line(f"K6  {mode:8s} {tuple(x.shape)} -> {d} (training rows)", rec))
         del ex, qt
         torch.cuda.empty_cache()
     entries.pop("K4")      # K4's entry is phi4-mini's (time_k3_k4)
@@ -2666,60 +2707,115 @@ def fault_runs(cfg, params, seed: int) -> None:
         fail("the fault runs left the weights corrupted")
 
 
-# The training phase: phi4-mini at full width and depth, W8A8 int8 +
-# Hadamard + int8 fake-quantized Q/K/V, remat per block (the config's
-# default), batch x sequence cut from train_4k's 256 x 4096 to 4 x 512.
-TRAIN_STEPS = 3
-# Launches per step: the forward (64 K2 at the Q/K sites, 32 K4 at the down
-# projections) twice -- the recomputation of each block in the backward
-# pass -- and the backward's K1: 64 at n = 128 (the Q/K sites'
-# straight-through rotation) and 2 x 32 at n = 8192 (the down projection's
-# gx, and the rotated x for gw). Revisit: K8 in K4's place.
-TRAIN_PER_STEP = {"K1": 128, "K2": 128, "K4": 64}
-# Largest per-leaf relative L2 of the step-0 gradients against the plain
-# versions' on the card, per class of leaf, and the loss's difference:
-# limits set between the witnesses (correct paths that differ as the kernels
-# may: the rotation as f32 butterflies rounded once, the ``ref`` backend;
-# the gradient accumulated over 2 microbatches in f32) and the controls (the
-# plain path without its rotations; without quantization), PERF.md section
-# 6, PR 15. The V projections form their own class: the V site
-# fake-quantizes without a straight-through estimator, as the reference
-# does, so their gradient is only the scales' (through each row's absmax)
-# and moves with any change of the forward's values.
-# "global" is the relative L2 over all leaves. Each limit is the geometric
-# mean of the class's largest witness or kernel reading and its smallest
-# control reading in the calibration call (PERF.md).
-TRAIN_GRAD_LIMITS = {"v_proj": 0.57, "other": 0.38, "global": 0.24}
-TRAIN_LOSS_LIMIT = 2e-3
-CKPT_LAYERS = 2     # the checkpoint / restart check's depth (full width)
+# ---------------------------------------------------------------- training
+# Each family trains in its serving mode at full width, remat per block (the
+# configs' default), f32 moments, "steps" AdamW steps (TRAIN_STEPS where not
+# given) on SyntheticDataset batches of ``train_traffic``: TRAIN_BATCH x
+# TRAIN_SEQ tokens (cut from train_4k's 256 x 4096); whisper-base 4 x 64
+# tokens beside 1500 frames each; qwen2-vl-7b 2 x (1024 patches + 64 tokens)
+# in 2 microbatches, the train step's split. "units": the whole pattern units
+# kept (the first layer group's repeats; None: every layer), the most whose
+# init + step peak stays under 70 GB (PEAK_LIMIT less 2 GB for what earlier
+# phases leave allocated) at ~12 bytes a parameter (bf16 weights and
+# gradients, two f32 moments) and ~3 f32 copies of the largest leaf (the
+# update's temporaries), as a calibration call measured them, PERF.md
+# section 4. "per_step": the launches of one step, derived site by site
+# (``site_launches`` in tests/test_torch_train_families.py, which holds the
+# derivation on the CPU): a Q / K site runs K2 forward twice (the block's
+# recomputation) and K1 once backward -- zamba2's head_dim 112 = I_7 (x)
+# H_16 the grouped K1 all three times -- and whisper's cross attention
+# rotates K only; a down projection runs K4 twice (d_ff a power of 2) or a
+# grouped K1 twice (dense or over the experts' dispatched rows), and K1 twice
+# backward (gx, and the rotated x for gw); a mamba layer has none; qwen2-vl's
+# per microbatch (its microbatches keep f32 gradient sums: ~16 bytes a
+# parameter). "hold": the depth of the step-0 gradient hold where it is not
+# the training depth (rwkv6-7b: past a few layers its random state turns a
+# 1-ulp difference into gradients as far from the plain path's as the
+# control's, the kernels' own included, PERF.md). "checks": the step-0
+# hold's witnesses and controls (TRAIN_CHECKS) where not
+# TRAIN_CHECKS_DEFAULT. "revisit": the steps again from the same init under
+# the revisit schedule, bitwise equal, K8 in K4's place. "int8_moments": the
+# steps again with int8 moments. "restart": the depth (units) of a
+# checkpoint after the next-to-last step and a restart that resumes bitwise.
+TRAIN_STEPS = 2
+# The step-0 hold's readings (``_hold_step0``), each a path against the plain
+# versions': its backend, rotation and mode, and its microbatches as a
+# multiple of the step's. The witnesses are correct paths that differ from
+# the plain one as the kernels may (K1's and the FWHT's rotations under the
+# plain epilogue and GEMM, the calibration backend of the prefill holds; the
+# gradient accumulated over twice the microbatches in f32); the controls
+# paths with a known fault.
+TRAIN_CHECKS = {
+    "kernels": dict(backend="cuda"),
+    "witness_k1_rotations": dict(backend="k1_rotations"),
+    "witness_microbatches_2": dict(split=2),
+    "control_no_rotate": dict(rotate="none"),
+    "control_no_quant": dict(mode="none"),
+}
+TRAIN_CHECKS_DEFAULT = ("witness_k1_rotations", "control_no_rotate")
+TRAIN_FAMILIES = {
+    "phi4-mini-3.8b": dict(mode="int8", units=None, steps=3,
+                           per_step={"K1": 128, "K2": 128, "K4": 64},
+                           checks=tuple(TRAIN_CHECKS)[1:], revisit=True,
+                           int8_moments=True, restart=2),
+    "qwen1.5-4b": dict(mode="int8", units=None, per_step={"K1": 240, "K2": 160}),
+    "starcoder2-15b": dict(mode="fp8_e4m3", units=12, per_step={"K1": 72, "K2": 48}),
+    "mixtral-8x7b": dict(mode="fp8_e4m3", units=3, per_step={"K1": 18, "K2": 12}),
+    "whisper-base": dict(mode="int8", units=None, per_step={"K1": 54, "K2": 60, "K4": 24}),
+    "qwen2-vl-7b": dict(mode="fp8_e4m3", units=13, per_step={"K1": 156, "K2": 104}),
+    "rwkv6-7b": dict(mode="int8", units=22, hold=2, per_step={"K1": 88}, restart=2),
+    "zamba2-7b": dict(mode="fp8_e4m3", units=9, per_step={"K1": 90}, restart=1),
+}
+# Step-0 limits per family: the largest per-leaf relative L2 of the
+# gradients against the plain versions' per class of leaf (``_leaf_rel``),
+# over all leaves ("global"), and the loss's difference ("loss"); each the
+# geometric mean of the largest kernels' or witness's reading and the
+# control's (no rotation) in the calibration call, PERF.md section 6, and
+# never above the limit the family held before (phi4-mini's loss).
+TRAIN_LIMITS = {
+    "phi4-mini-3.8b": {"other": 0.33, "v_proj": 0.47, "global": 0.20, "loss": 0.002},
+    "qwen1.5-4b": {"other": 0.38, "v_proj": 0.41, "global": 0.21, "loss": 0.0015},
+    "starcoder2-15b": {"other": 0.43, "v_proj": 0.41, "global": 0.16, "loss": 0.0032},
+    "mixtral-8x7b": {"other": 0.55, "v_proj": 0.50, "global": 0.35, "loss": 0.0013},
+    "whisper-base": {"other": 0.35, "v_proj": 0.36, "global": 0.15, "loss": 0.0031},
+    "qwen2-vl-7b": {"other": 0.48, "v_proj": 0.71, "global": 0.32, "loss": 0.028},
+    "rwkv6-7b": {"other": 0.18, "global": 0.10, "loss": 0.00076},
+    "zamba2-7b": {"other": 0.47, "v_proj": 0.69, "global": 0.30, "loss": 0.0030},
+}
 
 
-def _train_cfg(backend="cuda", schedule=None, rotate="hadamard", mode="int8", layers=None):
+def _family_cfg(arch: str, units, backend="cuda", rotate="hadamard", mode=None,
+                schedule=None):
+    """``arch`` at full width, ``units`` whole pattern units deep (None:
+    every layer), in its TRAIN_FAMILIES mode unless ``mode`` is given (KV
+    fake quantization on unless "none")."""
     import dataclasses
 
     from repro_torch.configs import get_config
     from repro_torch.core.quant import QuantConfig
 
-    cfg = get_config("phi4-mini-3.8b").with_quant(QuantConfig(
+    mode = mode or TRAIN_FAMILIES[arch]["mode"]
+    cfg = get_config(arch).with_quant(QuantConfig(
         mode=mode, rotate=rotate, backend=backend, kv_quant=mode != "none",
         schedule=schedule))
-    if layers is not None:
-        cfg = dataclasses.replace(cfg, groups=((("attn",), layers),))
+    if units is not None:
+        cfg = dataclasses.replace(cfg, groups=((cfg.groups[0][0], units),))
     return cfg
 
 
 def _grads(cfg, params, batch, microbatches: int = 1):
     """(loss, gradients as a list in leaf order): the loss's gradients, over
-    ``microbatches`` slices of the batch accumulated in f32 when > 1."""
+    ``microbatches`` slices of the batch (``split_microbatches``, the train
+    step's split) accumulated in f32 when > 1."""
     from repro_torch import tree as T
+    from repro_torch.launch.steps import split_microbatches
     from repro_torch.models.lm import lm_loss
 
     flat = T.leaves(params)
     for p in flat:
         p.requires_grad_(True)
     acc, total = None, 0.0
-    for i in range(microbatches):
-        part = {k: v.chunk(microbatches)[i] for k, v in batch.items()}
+    for part in split_microbatches(batch, microbatches):
         loss, _ = lm_loss(cfg, params, part)
         g = torch.autograd.grad(loss, flat)
         total += float(loss.detach())
@@ -2739,6 +2835,10 @@ def _grads(cfg, params, batch, microbatches: int = 1):
 
 
 def _leaf_class(path: str) -> str:
+    """The V projections form their own class: the V site fake-quantizes
+    without a straight-through estimator, as the reference does, so their
+    gradient is only the scales' (through each row's absmax) and moves with
+    any change of the forward's values."""
     return "v_proj" if "['attn']['wv']" in path else "other"
 
 
@@ -2759,181 +2859,310 @@ def _leaf_rel(got, want, paths) -> dict:
     return out
 
 
-def train_phase(args) -> dict:
-    """phi4-mini training at full width and depth through the kernels
-    (rotate-once K4, K8 under revisit; K2; K1 in the backward): the step-0
-    loss and gradients held against the plain versions' on the card (a
-    witness and two controls printed beside them), then TRAIN_STEPS AdamW
-    steps with f32 moments (step time, tokens/s, peak memory, launches per
-    step), the same steps under the revisit schedule bitwise equal, the
-    same steps with int8 moments, and a checkpoint / restart at
-    CKPT_LAYERS layers resuming bitwise. Returns the launches."""
-    import shutil
-    import tempfile
-
+def _hold_step0(arch: str, units, params, batch, mb: int) -> None:
+    """The step-0 loss and every gradient leaf of ``arch`` at ``units``
+    through the kernels against the plain versions' on the card, beside the
+    family's witnesses and controls (TRAIN_CHECKS): the kernels and the
+    witnesses within TRAIN_LIMITS, every control outside."""
     from repro_torch import tree as T
-    from repro_torch.data import SyntheticDataset
-    from repro_torch.launch.shapes import SHAPES, ShapeSpec
-    from repro_torch.launch.steps import batch_to, make_train_step
-    from repro_torch.launch.train import restore_state, save_state
-    from repro_torch.models.lm import init_lm
-    from repro_torch.optim import OptConfig, init_opt_state
+    from repro_torch.kernels.registry import BACKEND_ENV_VAR
 
-    cfg = _train_cfg()
-    full = SHAPES["train_4k"]
-    shape = ShapeSpec("train_4k", "train", TRAIN_SEQ, TRAIN_BATCH)
-    tokens = TRAIN_BATCH * TRAIN_SEQ
-    print(f"-- training phase: {cfg.name} at full width and depth ({cfg.num_layers} "
-          f"layers, d_model {cfg.d_model}, d_ff {cfg.d_ff}, vocab {cfg.vocab_size}, tied), "
-          f"int8 + hadamard + int8 KV fake quantization, remat {cfg.remat}; batch x seq "
-          f"{TRAIN_BATCH} x {TRAIN_SEQ} (cut from {full.name}'s {full.batch} x {full.seq})")
-    ds = SyntheticDataset(cfg, shape, seed=args.seed)
-    batches = [batch_to(ds.batch(k), "cuda") for k in range(TRAIN_STEPS)]
-    torch.cuda.reset_peak_memory_stats()
+    _calibration_backends()
     t0 = time.perf_counter()
-    params = init_lm(cfg, seed=args.seed, device="cuda")
-    torch.cuda.synchronize()
-    n_params = sum(p.numel() for p in T.leaves(params))
-    print(f"init: {n_params / 1e9:.3f} B parameters in {time.perf_counter() - t0:.1f} s")
-
-    # ---- step-0 loss and gradients against the plain versions
-    loss_p, plain = _grads(_train_cfg("torch"), params, batches[0])
     paths = [p for p, _ in T.leaves_with_paths(params)]
+    loss_p, plain = _grads(_family_cfg(arch, units, "torch"), params, batch, mb)
     readings = {}
-    for name, c, mb in (("kernels", cfg, 1),
-                        ("witness_ref_rotation", _train_cfg("ref"), 1),
-                        ("witness_microbatches_2", _train_cfg("torch"), 2),
-                        ("control_no_rotate", _train_cfg("torch", rotate="none"), 1),
-                        ("control_no_quant", _train_cfg("torch", mode="none"), 1)):
-        loss, g = _grads(c, params, batches[0], mb)
+    for name in ("kernels",) + TRAIN_FAMILIES[arch].get("checks", TRAIN_CHECKS_DEFAULT):
+        c = TRAIN_CHECKS[name]
+        be = c.get("backend", "torch")   # a calibration backend: through the registry
+        cfg = _family_cfg(arch, units, be if be in ("cuda", "torch") else "auto",
+                          c.get("rotate", "hadamard"), c.get("mode"))
+        os.environ[BACKEND_ENV_VAR] = be
+        try:
+            loss, g = _grads(cfg, params, batch, mb * c.get("split", 1))
+        finally:
+            os.environ.pop(BACKEND_ENV_VAR, None)
         rel = _leaf_rel(g, plain, paths)
         readings[name] = (rel, abs(loss - loss_p))
-        print(f"step-0 gradients, {name}: |loss - plain loss| {abs(loss - loss_p):.3e} "
-              f"(plain loss {loss_p:.6f}); relative L2 against the plain versions, "
+        print(f"step-0 gradients at {cfg.num_layers} layers, {name}: |loss - plain loss| "
+              f"{abs(loss - loss_p):.3e} (plain loss {loss_p:.6f}); relative L2 against "
+              "the plain versions, "
               + "; ".join(f"{k} {v:.6f} ({where})" for k, (v, where) in rel.items()))
         del g
-    torch.cuda.empty_cache()
     del plain
+    torch.cuda.empty_cache()
+    limits = TRAIN_LIMITS[arch]
 
     def passes(name):
         rel, dloss = readings[name]
-        return dloss <= TRAIN_LOSS_LIMIT and all(rel[c][0] <= lim
-                                                 for c, lim in TRAIN_GRAD_LIMITS.items())
+        return dloss <= limits["loss"] and all(rel[c][0] <= limits[c] for c in rel)
 
-    print(f"limits: {TRAIN_GRAD_LIMITS} (a class's largest leaf; global over every "
-          f"leaf), loss {TRAIN_LOSS_LIMIT:g}; within them: "
-          + ", ".join(f"{k} {passes(k)}" for k in readings))
+    print(f"limits: {limits} (a class's largest leaf; global over every leaf); within "
+          "them: " + ", ".join(f"{k} {passes(k)}" for k in readings)
+          + f" ({time.perf_counter() - t0:.1f} s)")
     for name in readings:
         if passes(name) != (not name.startswith("control")):
-            fail(f"training: {name} {'fails' if passes(name) is False else 'passes'} the "
+            fail(f"training {arch}: {name} {'passes' if passes(name) else 'fails'} the "
                  "gradient limits")
 
-    # ---- AdamW steps, f32 moments: rotate-once, then revisit from the same init
-    def steps(c, opt_cfg, params, what, profile=False):
-        """TRAIN_STEPS steps from ``params`` (launches counted): (the
-        parameters after them, on the host; the losses; the launches).
-        ``profile``: then one more step under the profiler."""
-        opt_state = init_opt_state(params, opt_cfg)
-        step = make_train_step(c, opt_cfg)
-        losses, times = [], []
+
+def train_phase(args, arch: str) -> dict:
+    """One family's training at full width and its TRAIN_FAMILIES depth,
+    through the kernels: the weights against ``count_params``; the step-0
+    loss and every gradient leaf against the plain versions' on the card
+    (``_hold_step0``, at the "hold" depth where one is given); then the
+    AdamW steps with f32 moments, the launch counters zeroed just before
+    and read just after (launches per step checked, step time, tokens/s,
+    finite losses, peak memory from init on) and a profile of one more
+    step; where the entry asks, the same steps under the revisit schedule
+    (bitwise equal), with int8 moments, and a checkpoint / restart that
+    resumes bitwise. Returns the counted steps' launches. (The kernel phase
+    times K1 at the step's backward shapes.)"""
+    from repro_torch import tree as T
+    from repro_torch.data import SyntheticDataset
+    from repro_torch.launch.shapes import ShapeSpec
+    from repro_torch.launch.steps import batch_to, make_train_step
+    from repro_torch.models.lm import init_lm
+    from repro_torch.optim import OptConfig, init_opt_state
+
+    spec = TRAIN_FAMILIES[arch]
+    units, steps = spec["units"], spec.get("steps", TRAIN_STEPS)
+    cfg = _family_cfg(arch, units)
+    B, S, mb = train_traffic(cfg)
+    extra = (f", {cfg.encoder_seq} frames an input through {len(cfg.encoder_layer_kinds)} "
+             "encoder layers" if cfg.is_encdec else "")
+    extra += (f", {cfg.vlm_patches} patches + {S - cfg.vlm_patches} tokens an input"
+              if cfg.family == "vlm" else "")
+    print(f"-- training phase: {arch} at full width (d_model {cfg.d_model}, d_ff "
+          f"{cfg.d_ff}), {cfg.num_layers} of {_family_cfg(arch, None).num_layers} layers, "
+          f"{spec['mode']} + hadamard, remat {cfg.remat}, f32 moments; batch x seq {B} x "
+          f"{S}{extra}, {mb} microbatch(es), {steps} steps")
+    ds = SyntheticDataset(cfg, ShapeSpec("train", "train", S, B), seed=args.seed)
+    batches = [batch_to(ds.batch(k), "cuda") for k in range(steps)]
+
+    def init(c):
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
+        return init_lm(c, seed=args.seed, device="cuda")
 
-        def run():
+    t0 = time.perf_counter()
+    params = init(cfg)
+    torch.cuda.synchronize()
+    print(f"init: {time.perf_counter() - t0:.1f} s, peak "
+          f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+    check_param_count(cfg, params)
+    hold = spec.get("hold", units)
+    hold_params = params if hold == units else init_lm(_family_cfg(arch, hold),
+                                                       seed=args.seed, device="cuda")
+    _hold_step0(arch, hold, hold_params, batches[0], mb)
+    del hold_params
+    torch.cuda.empty_cache()
+
+    def run(c, opt_cfg, params, what, per_step):
+        """The steps from ``params``, launches counted and checked: (the
+        parameters and optimizer state after them, the step function, the
+        losses, the launches)."""
+        opt_state = init_opt_state(params, opt_cfg)
+        step = make_train_step(c, opt_cfg, microbatches=mb)
+        losses, times = [], []
+
+        def go():
             nonlocal params, opt_state
             for b in batches:
                 t = time.perf_counter()
                 params, opt_state, m = step(params, opt_state, b)
                 losses.append(float(m["loss"]))
                 times.append(time.perf_counter() - t)
-            return params
 
-        params, launches = _counted(run)
+        _, launches = _counted(go)
         peak = torch.cuda.max_memory_allocated()
-        per = {k: v / TRAIN_STEPS for k, v in launches.items() if v}
-        step_s = sum(times[1:]) / (len(times) - 1)
+        step_s = sum(times[1:]) / (steps - 1)
         print(f"{what}: losses {losses}; step {step_s * 1e3:.1f} ms (mean of steps 1-"
-              f"{TRAIN_STEPS - 1}; step 0 {times[0] * 1e3:.1f} ms), {tokens / step_s:.0f} "
-              f"tokens/s; peak {peak / 1e9:.2f} GB (limit {PEAK_LIMIT / 1e9:g}); launches "
-              f"per step {per}")
+              f"{steps - 1}; step 0 {times[0] * 1e3:.1f} ms), {B * S / step_s:.0f} tokens/s; "
+              f"peak {peak / 1e9:.2f} GB from init through the steps (limit "
+              f"{PEAK_LIMIT / 1e9:g}); launches per step "
+              f"{ {k: v / steps for k, v in launches.items() if v} }, expected {per_step}")
         if not all(math.isfinite(v) for v in losses):
-            fail(f"training {what}: a loss is not finite")
+            fail(f"training {arch} {what}: a loss is not finite")
         if peak > PEAK_LIMIT:
-            fail(f"training {what}: peak memory {peak / 1e9:.2f} GB")
-        host = [p.detach().cpu() for p in T.leaves(params)]
-        if profile:
-            def one():
-                nonlocal params, opt_state
-                params, opt_state, _ = step(params, opt_state, batches[0])
+            fail(f"training {arch} {what}: peak memory {peak / 1e9:.2f} GB")
+        want = {k: steps * per_step.get(k, 0) for k in launches}
+        if launches != want:
+            fail(f"training {arch} {what} launched {launches}, expected {want}")
+        return params, opt_state, step, losses, launches
 
-            _profile_window(one, 1, f"training step ({what})")
-        del opt_state, params
-        torch.cuda.empty_cache()
-        return host, losses, launches
+    opt_cfg = OptConfig(lr=1e-4, warmup_steps=1, total_steps=steps)
+    params, opt_state, step, losses, launches = run(cfg, opt_cfg, params,
+                                                    "rotate-once, f32 moments",
+                                                    spec["per_step"])
+    after = [p.detach().cpu() for p in T.leaves(params)] if spec.get("revisit") else None
+    t0 = time.perf_counter()
 
-    opt_cfg = OptConfig(lr=1e-4, warmup_steps=1, total_steps=TRAIN_STEPS)
-    after, losses, launches = steps(cfg, opt_cfg, params, "rotate-once, f32 moments",
-                                    profile=True)
-    del params
-    want = {k: TRAIN_STEPS * TRAIN_PER_STEP.get(k, 0) for k in launches}
-    if launches != want:
-        fail(f"training launched {launches}, expected {want}")
-    rv_cfg = _train_cfg(schedule="revisit")
-    params = init_lm(rv_cfg, seed=args.seed, device="cuda")
-    rv_after, rv_losses, rv_launches = steps(rv_cfg, opt_cfg, params,
-                                             "revisit, f32 moments")
-    del params
-    same = rv_losses == losses and all(torch.equal(a, b) for a, b in zip(after, rv_after))
-    print(f"revisit against rotate-once: losses and parameters bitwise {same}")
-    want = {k: TRAIN_STEPS * ({**TRAIN_PER_STEP, "K8": TRAIN_PER_STEP["K4"], "K4": 0}
-                              ).get(k, 0) for k in rv_launches}
-    if not same or rv_launches != want:
-        fail(f"training under revisit: bitwise {same}, launched {rv_launches}, "
-             f"expected {want}")
-    launches = {k: launches[k] + rv_launches[k] for k in launches}
-    del after, rv_after
+    def one():
+        nonlocal params, opt_state
+        params, opt_state, _ = step(params, opt_state, batches[0])
 
-    # ---- int8 moments
-    params = init_lm(cfg, seed=args.seed, device="cuda")
-    q8 = OptConfig(lr=1e-4, warmup_steps=1, total_steps=TRAIN_STEPS, state_dtype="int8")
-    steps(cfg, q8, params, "rotate-once, int8 moments")
-    del params
+    _profile_window(one, 1, f"training step ({arch})")
+    print(f"profile: {time.perf_counter() - t0:.1f} s")
+    del opt_state, params, step
     torch.cuda.empty_cache()
 
-    # ---- checkpoint at step 2, restart, step 2 again (CKPT_LAYERS layers)
-    small = _train_cfg(layers=CKPT_LAYERS)
-    step = make_train_step(small, q8)
-    params = init_lm(small, seed=args.seed, device="cuda")
-    opt_state = init_opt_state(params, q8)
-    for b in batches[:2]:
+    if spec.get("revisit"):
+        per = {**spec["per_step"], "K8": spec["per_step"]["K4"], "K4": 0}
+        rv = _family_cfg(arch, units, schedule="revisit")
+        params, _, _, rv_losses, got = run(rv, opt_cfg, init(rv), "revisit, f32 moments", per)
+        same = rv_losses == losses and all(torch.equal(a, b.cpu())
+                                           for a, b in zip(after, T.leaves(params)))
+        print(f"revisit against rotate-once: losses and parameters bitwise {same}")
+        if not same:
+            fail(f"training {arch} under revisit: not bitwise the rotate-once steps")
+        launches = {k: launches[k] + got[k] for k in launches}
+        del params, after
+        torch.cuda.empty_cache()
+    if spec.get("int8_moments"):
+        q8 = OptConfig(lr=1e-4, warmup_steps=1, total_steps=steps, state_dtype="int8")
+        got = run(cfg, q8, init(cfg), "rotate-once, int8 moments", spec["per_step"])[-1]
+        launches = {k: launches[k] + got[k] for k in launches}
+        torch.cuda.empty_cache()
+    if "restart" in spec:
+        _restart_check(arch, spec["restart"], batches, args.seed, mb)
+    return launches
+
+
+def _restart_check(arch: str, units: int, batches, seed: int, mb: int) -> None:
+    """A checkpoint after all but the last of ``batches``' steps at
+    ``units`` pattern units (full width, int8 moments: a quarter of the f32
+    moments' bytes to write and read), the last step run on, then a restart
+    onto a fresh init that runs the last step again: loss and updated
+    parameters bitwise."""
+    import shutil
+    import tempfile
+
+    from repro_torch import tree as T
+    from repro_torch.checkpoint import wait_for_writes
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.launch.train import restore_state, save_state
+    from repro_torch.models.lm import init_lm
+    from repro_torch.optim import OptConfig, init_opt_state
+
+    small = _family_cfg(arch, units)
+    k = len(batches) - 1
+    opt_cfg = OptConfig(lr=1e-4, warmup_steps=1, total_steps=len(batches),
+                        state_dtype="int8")
+    step = make_train_step(small, opt_cfg, microbatches=mb)
+    params = init_lm(small, seed=seed, device="cuda")
+    opt_state = init_opt_state(params, opt_cfg)
+    for b in batches[:k]:
         params, opt_state, _ = step(params, opt_state, b)
     ckpt = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
     try:
         t0 = time.perf_counter()
-        save_state(ckpt, 2, small, params, opt_state)
-        _, opt_state, m = step(params, opt_state, batches[2])
-        from repro_torch.checkpoint import wait_for_writes
-
+        save_state(ckpt, k, small, params, opt_state)
+        _, opt_state, m = step(params, opt_state, batches[k])
         wait_for_writes()
         t_save = time.perf_counter() - t0
-        fresh = init_lm(small, seed=args.seed + 1, device="cuda")
+        fresh = init_lm(small, seed=seed + 1, device="cuda")
         t0 = time.perf_counter()
-        p2, o2 = restore_state(ckpt, 2, small, fresh, init_opt_state(fresh, q8), "cuda")
+        p2, o2 = restore_state(ckpt, k, small, fresh, init_opt_state(fresh, opt_cfg), "cuda")
         t_load = time.perf_counter() - t0
-        _, _, m2 = step(p2, o2, batches[2])
+        _, _, m2 = step(p2, o2, batches[k])
     finally:
         shutil.rmtree(ckpt, ignore_errors=True)
     same = float(m["loss"]) == float(m2["loss"]) and all(
         torch.equal(a, b) for a, b in zip(T.leaves(params), T.leaves(p2)))
-    print(f"checkpoint ({CKPT_LAYERS} layers, full width, int8 moments): saved at step 2 "
-          f"in {t_save:.1f} s with step 2 running, restored in {t_load:.1f} s; step-2 "
-          f"loss {float(m['loss']):.6f} before, {float(m2['loss']):.6f} after the "
+    print(f"checkpoint ({small.num_layers} layers, full width, int8 moments): saved at "
+          f"step {k} in {t_save:.1f} s with step {k} running, restored in {t_load:.1f} s; "
+          f"step-{k} loss {float(m['loss']):.6f} before, {float(m2['loss']):.6f} after the "
           f"restart; loss and updated parameters bitwise {same}")
     if not same:
-        fail("training: the restart did not resume bitwise")
+        fail(f"training {arch}: the restart did not resume bitwise")
     del params, opt_state, p2, o2, fresh
     torch.cuda.empty_cache()
-    return launches
+
+
+def train_experts_phase(args) -> None:
+    """``_QuantDotExpertsW`` -- the MoE kernel's training path -- at one of
+    llama4-maverick's layers: 128 experts of 8192 -> 5120, fp8_e4m3, the
+    capacity rows of a TRAIN_BATCH x TRAIN_SEQ step (top-1: 5 slots an
+    expert, every slot a Gaussian row). Forward (K6) and backward (K1 at n =
+    8192 for gx and for the rotated x of gw, the f32 einsums) through the
+    kernels, launches counted (1 K6 + 2 K1), against the same Function on
+    the plain versions: y by the K4 rule (``_hold_rows``, fp8: within 2^-7
+    of the row max, on the FWHT's rotation and where the rotations agree),
+    gx within K1's 1 ulp at the row max (both rotate the same f32
+    product), gw within 2^-8 relative L2 (x's rotation within 1 bf16 ulp
+    an element). The weight stack is quantized a chunk of experts at a
+    time; the backward holds one f32 copy of the stack at a time. (The
+    kernel phase times K6 at this shape, ``time_k5_k6``.)"""
+    from repro_torch.bench.quant_dot import MAVERICK_TRAIN_CAP
+    from repro_torch.core.api import QuantEpilogue, _QuantDotExpertsW, plan_for
+    from repro_torch.core.wquant import quantize_weight
+    from repro_torch.kernels.hadacore import transform_plain
+    from repro_torch.kernels.quant_dot import experts_epilogue_dot
+
+    n, d = MAVERICK_DOWN
+    E, cap, mode, bf16 = EXPERTS, MAVERICK_TRAIN_CAP, "fp8_e4m3", torch.bfloat16
+    print(f"-- training phase: _QuantDotExpertsW at llama4-maverick's expert layer, "
+          f"({TRAIN_BATCH}, {E}, {cap}, {n}) -> {d}, {mode}, forward and backward against "
+          "the plain versions")
+    gen = torch.Generator(device="cuda").manual_seed(args.seed + 7)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    w = torch.empty((E, n, d), dtype=bf16, device="cuda")
+    for i in range(0, E, 8):
+        w[i:i + 8] = (torch.randn((8, n, d), generator=gen, device="cuda")
+                      / math.sqrt(n)).to(bf16)
+    x = (torch.randn((TRAIN_BATCH, E, cap, n), generator=gen, device="cuda") * 3).to(bf16)
+    g = torch.randn((TRAIN_BATCH, E, cap, d), generator=gen, device="cuda").to(bf16)
+    plans = {be: plan_for(n, dtype=bf16, backend=be, device_type="cuda",
+                          epilogue=QuantEpilogue(mode)) for be in ("cuda", "torch")}
+
+    def run(be):
+        xr, wr = x.detach().requires_grad_(True), w.detach().requires_grad_(True)
+        t = time.perf_counter()
+        y = _QuantDotExpertsW.apply(xr, wr, plans[be], None)
+        gx, gw = torch.autograd.grad(y, (xr, wr), g)
+        torch.cuda.synchronize()
+        return y.detach(), gx, gw, time.perf_counter() - t
+
+    (y, gx, gw, t_k), launches = _counted(lambda: run("cuda"))
+    peak_k = torch.cuda.max_memory_allocated()
+    yp, gxp, gwp, t_p = run("torch")
+    peak = torch.cuda.max_memory_allocated()
+    got = {k: v for k, v in launches.items() if v}
+    print(f"kernels: forward + backward {t_k * 1e3:.1f} ms (wall, one call), launches "
+          f"{got}; plain versions {t_p * 1e3:.1f} ms; peak {peak_k / 1e9:.2f} GB through "
+          f"the kernels' pass, {peak / 1e9:.2f} GB with the plain pass (limit "
+          f"{PEAK_LIMIT / 1e9:g})")
+    if got != {"K6": 1, "K1": 2}:
+        fail(f"_QuantDotExpertsW launched {got}, expected 1 K6 + 2 K1")
+    if peak > PEAK_LIMIT:
+        fail(f"_QuantDotExpertsW: peak memory {peak / 1e9:.2f} GB")
+    gx_ulps = k1_ulps(gx.reshape(-1, n), gxp.reshape(-1, n), bf16)
+    num = den = 0.0
+    for i in range(0, E, 16):
+        a, b = gw[i:i + 16].double(), gwp[i:i + 16].double()
+        num += float((a - b).square().sum())
+        den += float(b.square().sum())
+    gw_rel = math.sqrt(num / den)
+    print(f"backward: gx {gx_ulps:.3f} ulp(row max) from the plain version (tolerance "
+          f"{k1_tolerance(n, bf16):g}); gw relative L2 {gw_rel:.3e} (limit {2.0 ** -8:.3e})")
+    if not (gx_ulps <= k1_tolerance(n, bf16) and gw_rel <= 2.0 ** -8):
+        fail(f"_QuantDotExpertsW backward: gx {gx_ulps} ulp, gw {gw_rel}")
+    del gw, gwp, gx, gxp
+    torch.cuda.empty_cache()
+    x2 = x.reshape(-1, n)
+    y1, (q1, s1) = _fwht_epilogue(x2, plans["cuda"])
+    agree = _same_rows(y1, transform_plain(x2, plans["cuda"]))
+    qt = quantize_weight(w, mode)
+    from_rot = experts_epilogue_dot(q1.view(*x.shape), s1.view(*x.shape[:-1], 1), qt.q,
+                                    qt.scale, mode, bf16)
+    _hold_rows(f"K6 forward {tuple(x.shape)} -> {d} {mode}", y.reshape(-1, d),
+               yp.reshape(-1, d), from_rot.reshape(-1, d), agree, mode, False)
+    del from_rot, y1, q1, s1, w, y, yp
+    torch.cuda.empty_cache()
+    del qt, x, g
+    torch.cuda.empty_cache()
 
 
 def profile_decode(engine, steps: int = 3) -> None:
@@ -2949,11 +3178,14 @@ def profile_decode(engine, steps: int = 3) -> None:
 def _profile_window(fn, steps: int, what: str) -> None:
     """``steps`` calls of ``fn`` under ``torch.profiler``: the wall time per
     call, the device's busy share of the window and the device time by
-    kernel (the 8 largest, and the port's own kernels)."""
+    kernel (the 8 largest, and the port's own kernels). It records the
+    device's activity alone, all it reads: with the host's ops too, a
+    training step of ~20000 small launches took the profiler up to a minute
+    to summarize."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(steps):
             fn()
@@ -3090,29 +3322,20 @@ def tensor_core_check(build) -> None:
                       f"instantiations, mma.sync {sorted(set(found.values()))}")
 
 
-def lint_phase(seed: int, serving_sites) -> dict:
+def lint_phase(serving_sites) -> dict:
     """The kernel-contract linter in process at full width: the clean run
     (phi4-mini's int8 8192 -> 3072 sites: K4, K5, K8 and their ABFT twins;
     llama4-maverick's fp8_e4m3 8192 -> 5120 sites: K4, K5, K8, K6, K6s and
     theirs; the MLP model sites; the serving sites the model phases
     recorded) must exit 0; ``--mutation`` must exit non-zero with both
     mutants among the violations, M1 by the rotate-once rule (its counts
-    strictly above K4's) and M2 by the DMA rule. Then M1 is held bitwise to
-    K4 in int8 and fp8_e4m3 and M2 bitwise to K5 at 64 x 8192 -> 5120
-    fp8_e4m3 (it lacks only the ring's final drain, after which no real
-    copy is left), each timed beside its twin and held against its plain
-    version (its twin's) under the K4 rule (``_hold_rows``). Returns M1's
-    and M2's entries of the JSON line, their launches from the mutation
-    run."""
+    strictly above K4's) and M2 by the DMA rule. Returns M1's and M2's
+    launches from the mutation run, their path. (``hold_mutants`` holds
+    and times them.)"""
     from repro_torch.analysis import lint
     from repro_torch.analysis import mutations as mu
     from repro_torch.analysis.rules import all_rules
-    from repro_torch.bench.quant_dot import (FP8_OPS_PER_S, INT8_OPS_PER_S, bound,
-                                             cuda_time_ms, device_ms, library_dot,
-                                             profile_ms)
     from repro_torch.kernels import build
-    from repro_torch.kernels.hadacore import transform_plain
-    from repro_torch.kernels.quant_dot import epilogue_dot, quant_dot, quant_dot_plain
 
     print("-- lint phase: python -m repro_torch.analysis.lint " + " ".join(LINT_ARGS)
           + f" (+ {len(serving_sites)} serving sites of the model phases)")
@@ -3151,7 +3374,26 @@ def lint_phase(seed: int, serving_sites) -> dict:
     if not int(m1.rotations.min()) > m1.expected_rotations:
         fail(f"M1 rotates {int(m1.rotations.min())} times per row, not above K4's "
              f"{m1.expected_rotations}")
+    return launches
 
+
+def hold_mutants(seed: int) -> dict:
+    """M1 held bitwise to K4 in int8 and fp8_e4m3 and M2 bitwise to K5 at
+    64 x 8192 -> 5120 fp8_e4m3 (it lacks only the ring's final drain, after
+    which no real copy is left), each timed beside its twin and held
+    against its plain version (its twin's) under the K4 rule
+    (``_hold_rows``). It runs with the other kernels' timings, before the
+    model phases: late in the run, after the linter's runs, the profiler
+    often captured no device event of these short windows. Returns M1's and
+    M2's entries of the JSON line but their launches (the lint phase's)."""
+    from repro_torch.analysis import mutations as mu
+    from repro_torch.bench.quant_dot import (FP8_OPS_PER_S, INT8_OPS_PER_S, bound,
+                                             cuda_time_ms, device_ms, library_dot,
+                                             profile_ms)
+    from repro_torch.kernels.hadacore import transform_plain
+    from repro_torch.kernels.quant_dot import epilogue_dot, quant_dot, quant_dot_plain
+
+    print("-- mutants: M1 bitwise K4, M2 bitwise K5, each timed beside its twin")
     entries = {}
     for name, kern, sched in (("unguarded_rotate", "M1", "rotate_once"),
                               ("dangling_dma", "M2", "streamed")):
@@ -3188,7 +3430,7 @@ def lint_phase(seed: int, serving_sites) -> dict:
             if (kern, mode) in (("M1", "int8"), ("M2", "fp8_e4m3")):
                 entries[kern] = {"mode": mode, "max_abs_err": err, "ms": ms,
                                  "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": by,
-                                 "library_ms": lib_ms, "launches": launches[kern]}
+                                 "library_ms": lib_ms}
             if not same:
                 fail(f"{kern} differs from {twin} in {differ} elements ({mode})")
             y1, (q1, s1) = _fwht_epilogue(x, plan)
@@ -3353,6 +3595,7 @@ def main() -> int:
     timed.update(phase("time_revisit", time_revisit, gen))
     phase("hold_abft_kernels", hold_abft_kernels, gen)
     timed.update(phase("time_abft", time_abft, gen))
+    timed.update(phase("hold_mutants", hold_mutants, args.seed))
     entry = phase("entry_point", entry_point_phase, gen)
     launches = {}
     serving_sites = []
@@ -3367,10 +3610,13 @@ def main() -> int:
     for arch in LAUNCHER_MODELS:
         for k, v in phase(f"launcher_model:{arch}", launcher_model_phase, args, arch).items():
             launches[k] += v
-    for k, v in phase("train", train_phase, args).items():
-        launches[k] += v
+    for arch in TRAIN_FAMILIES:
+        for k, v in phase(f"train:{arch}", train_phase, args, arch).items():
+            launches[k] += v
+        torch.cuda.empty_cache()
+    phase("train:experts", train_experts_phase, args)
     launches["K3"] = entry["K3"]    # K3's path is the entry point
-    mutants = phase("lint", lint_phase, args.seed, serving_sites)
+    launches.update(phase("lint", lint_phase, serving_sites))   # M1's and M2's path
     del serving_sites
     phase("rotation", rotation_phase, args)
 
@@ -3413,9 +3659,6 @@ def main() -> int:
                "source": "src/repro_torch/csrc/mutants/dangling_dma.cu",
                "replaces": "src/repro/analysis/mutations.py:46"},
     }
-    for k, e in mutants.items():   # their path is the mutation lint
-        launches[k] = e.pop("launches")
-        timed[k] = e
     kernels = [{"name": meta[k]["name"], "route": "cuda",
                 "source": meta[k]["source"], "replaces": meta[k]["replaces"],
                 "launches": launches[k], **timed[k]} for k in meta]

@@ -18,8 +18,8 @@ fp16 Hadamard matrix, n <= 8192; none for K2), ``plain_ms``, ``bound_ms`` /
 or the transform's log2(n) adds per element over the f32 CUDA-core rate,
 the larger), ``max_abs_err`` and ``ulps`` (K1 and the FWHT against the
 plain version, in compute-dtype ulps at the row max; K2: the largest
-|kernel - plain|) and ``per_step`` (calls per phi4-mini training step for
-the ``train`` cases). ``ms`` is CUDA events over many calls, the host's
+|kernel - plain|) and ``per_step`` (calls per training step for the
+``train`` and ``backward`` cases). ``ms`` is CUDA events over many calls, the host's
 launch path included; ``gbps`` the bytes the bound counts over the device
 time. ``--json`` also writes the records to PATH. Without a CUDA device it
 exits at once (code 2) and prints nothing on stdout.
@@ -48,12 +48,19 @@ below), in three groups:
   * ``train``: the phi4-mini training step's K1 calls (4 x 512 tokens): the
     straight-through backward of the down projection (2 per layer, 8192
     points) and of the Q / K fake-quantized rotations (24 and 8 heads of
-    128), 32 layers.
+    128), 32 layers;
+  * ``backward``: K1 in the training backward of the other families the
+    card trains (qwen1.5-4b, starcoder2-15b, mixtral-8x7b, whisper-base,
+    qwen2-vl-7b, rwkv6-7b, zamba2-7b), one microbatch of ``train_traffic``
+    each: the down projection's (2 per layer that has one; mixtral over the
+    experts' dispatched rows) and the Q site's (1 per attention layer; the
+    grouped I_7 (x) H_16 at zamba2's head_dim 112), whisper-base's encoder
+    rows apart; ``per_step`` at the published depth.
 
 Then, for each K2 case, where its blocks spend their time (``phases``:
 the SM clock at each phase's end, from fused_quant.cu's phase-stamping
 build). ``chip_smoke.py``'s kernel phase calls ``measure`` for the path
-shapes.
+and backward shapes.
 """
 from __future__ import annotations
 
@@ -85,6 +92,22 @@ VLM_TEXT, ENCDEC_PROMPT = 64, 16
 # The recurrent-state cells (rwkv6-7b, zamba2-7b): prompts of RECURRENT_PROMPT
 # tokens, 16 chunks of the RWKV6 time mix and 4 of the Mamba2 SSD.
 RECURRENT_PROMPT = 512
+# A training step of the other families (chip_smoke.py's training phases):
+# TRAIN_BATCH x TRAIN_SEQ tokens; an encoder-decoder's TRAIN_BATCH inputs of
+# ENCDEC_TRAIN_SEQ tokens beside its encoder_seq frames; a vlm's
+# VLM_TRAIN_BATCH inputs of vlm_patches + VLM_TEXT positions in
+# VLM_MICROBATCHES microbatches.
+ENCDEC_TRAIN_SEQ = 64
+VLM_TRAIN_BATCH = VLM_MICROBATCHES = 2
+
+
+def train_traffic(cfg) -> tuple:
+    """(batch, seq, microbatches) of one training step of ``cfg``."""
+    if cfg.family == "vlm":
+        return VLM_TRAIN_BATCH, cfg.vlm_patches + VLM_TEXT, VLM_MICROBATCHES
+    if cfg.is_encdec:
+        return TRAIN_BATCH, ENCDEC_TRAIN_SEQ, 1
+    return TRAIN_BATCH, TRAIN_SEQ, 1
 
 
 @dataclasses.dataclass(frozen=True)
@@ -103,25 +126,63 @@ class Case:
 
     @property
     def group(self) -> str:
-        return self.site.split(" ", 1)[0] if self.site.startswith(("sweep", "train")) \
+        return self.site.split(" ", 1)[0] \
+            if self.site.startswith(("sweep", "train", "backward")) \
             else "path"
+
+
+def _groups(cfg, n=None) -> tuple:
+    """The plan of a rotation of ``n`` points (the down projection's d_ff
+    when not given): (groups per row, p)."""
+    from repro_torch.core.api import plan_for
+
+    n = n or cfg.d_ff
+    plan = plan_for(n, dtype=torch.bfloat16, backend="cuda", device_type="cuda")
+    return n // plan.p, plan.p
+
+
+def _dispatched(cfg, batch: int, seq: int) -> int:
+    """Rows at the expert site: batch x experts x capacity slots."""
+    E, K = cfg.num_experts, cfg.experts_per_token
+    return batch * E * max(1, int(cfg.capacity_factor * seq * K / E))
+
+
+def backward_cases(cfg) -> list:
+    """K1's calls in the backward of one microbatch of a training step of
+    ``cfg`` at ``train_traffic``: the down projection's (gx and the rotated
+    x for gw: 2 per layer that has one, over the experts' dispatched rows
+    for a MoE layer), the Q site's straight-through rotation (1 per
+    attention layer) and an encoder's rows apart; ``per_step`` at the
+    config's depth, every microbatch counted."""
+    batch, seq, mb = train_traffic(cfg)
+    b = batch // mb
+    g, p = _groups(cfg)
+    hg, hp = _groups(cfg, cfg.head_dim)
+    downs = sum(k != "mamba" for k in cfg.layer_kinds)
+    attn = sum(k not in ("rwkv", "mamba") for k in cfg.layer_kinds)
+    rows = _dispatched(cfg, b, seq) if cfg.num_experts else b * seq
+    out = [Case("K1", f"backward {cfg.name} down-proj", rows * g, p, per_step=2 * mb * downs)]
+    if attn:
+        out.append(Case("K1", f"backward {cfg.name} Q", b * seq * cfg.num_heads * hg, hp,
+                        per_step=mb * attn))
+    if cfg.is_encdec:
+        frames, enc = b * cfg.encoder_seq, len(cfg.encoder_layer_kinds)
+        out += [Case("K1", f"backward {cfg.name} encoder down-proj", frames * g, p,
+                     per_step=2 * enc),
+                Case("K1", f"backward {cfg.name} encoder Q", frames * cfg.num_heads * hg, hp,
+                     per_step=enc)]
+    return out
 
 
 def _cases() -> tuple:
     """The cases from the models' configs: llama3-8b's down projection (its
     d_ff in the plan's groups) and Q / K sites (heads x head_dim) served,
     phi4-mini-3.8b's straight-through backward (2 K1 calls per layer at
-    d_ff, one at each of the Q and K sites)."""
+    d_ff, one at each of the Q and K sites) and the other families'."""
     from repro_torch.configs import get_config
     from repro_torch.core.api import plan_for
 
-    def groups(cfg):   # the down projection's plan: (groups per row, p)
-        plan = plan_for(cfg.d_ff, dtype=torch.bfloat16, backend="cuda", device_type="cuda")
-        return cfg.d_ff // plan.p, plan.p
-
-    def dispatched(cfg, batch, seq):   # rows at the expert site: B x E x capacity
-        E, K = cfg.num_experts, cfg.experts_per_token
-        return batch * E * max(1, int(cfg.capacity_factor * seq * K / E))
+    groups, dispatched = _groups, _dispatched
 
     def qk(name, cfg, phase, tokens, mode, sites=("Q", "K")):
         heads = {"Q": cfg.num_heads, "K": cfg.num_kv_heads, "cross K": cfg.num_kv_heads}
@@ -177,7 +238,10 @@ def _cases() -> tuple:
            Case("K1", "train Q backward", train * phi4.num_heads, phi4.head_dim,
                 per_step=phi4.num_layers),
            Case("K1", "train K backward", train * phi4.num_kv_heads, phi4.head_dim,
-                per_step=phi4.num_layers)])
+                per_step=phi4.num_layers)]
+        + [c for name in ("qwen1.5-4b", "starcoder2-15b", "mixtral-8x7b", "whisper-base",
+                          "qwen2-vl-7b", "rwkv6-7b", "zamba2-7b")
+           for c in backward_cases(get_config(name))])
 
 
 CASES = _cases()

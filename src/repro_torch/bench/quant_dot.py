@@ -21,9 +21,10 @@ at once (code 2) and prints nothing.
 The default cases are the shapes of the port's paths: phi4-mini's down
 projection (8192 -> 3072, int8) at decode (4 rows), prefill (64) and the
 training step's rows (2048); llama4-maverick's (8192 -> 5120, fp8_e4m3)
-dense at 4 and 64 rows and over 128 experts at (4, 128, 1, 8192); fp8 at
-the training rows; whisper-base's (2048 -> 512, int8) at decode (4 rows)
-and at its encoder's rows (4 inputs of 1500 frames: 6000, not a multiple of
+dense at 4 and 64 rows and over 128 experts at (4, 128, 1, 8192) and at a
+training step's capacity (4, 128, 5, 8192); fp8 at the training rows;
+whisper-base's (2048 -> 512, int8) at decode (4 rows) and at its encoder's
+rows (4 inputs of 1500 frames: 6000, not a multiple of
 the row block); the ABFT twins at their decode shapes. Two cases at the
 training rows against 64 columns (2 tiles of the 96 at 3072) read the
 rotation's share of K4 there: the rotation of every row is the same work,
@@ -61,13 +62,15 @@ KERNELS = {
 @dataclasses.dataclass(frozen=True)
 class Case:
     """One timing: ``kernel`` (a key of KERNELS) in ``mode`` on ``rows``
-    rows (experts: batch rows per expert, one capacity slot) of n -> d."""
+    rows (experts: batch rows per expert, each of ``cap`` capacity slots)
+    of n -> d."""
 
     kernel: str
     mode: str
     rows: int
     n: int
     d: int
+    cap: int = 1
 
     @property
     def experts(self) -> int:
@@ -76,12 +79,15 @@ class Case:
     @property
     def shape(self) -> str:
         if self.experts:
-            return f"{self.rows}x{self.experts}x1x{self.n}x{self.d}"
+            return f"{self.rows}x{self.experts}x{self.cap}x{self.n}x{self.d}"
         return f"{self.rows}x{self.n}x{self.d}"
 
 
 PHI4, MAVERICK, WHISPER = (8192, 3072), (8192, 5120), (2048, 512)
 WHISPER_ENCODER_ROWS = 4 * 1500    # 4 inputs of whisper's 1500 frames
+# maverick's capacity slots per expert in a training step of 4 x 512 tokens:
+# int(capacity_factor 1.25 x 512 tokens x top-1 / 128 experts)
+MAVERICK_TRAIN_CAP = 5
 CASES = (
     Case("K4", "int8", 4, *PHI4), Case("K5", "int8", 4, *PHI4), Case("K4", "int8", 64, *PHI4),
     Case("K4", "int8", 2048, *PHI4), Case("K8", "int8", 2048, *PHI4),
@@ -92,6 +98,7 @@ CASES = (
     Case("K8", "fp8_e4m3", 4, *MAVERICK),
     Case("K4", "int8", 4, *WHISPER), Case("K4", "int8", WHISPER_ENCODER_ROWS, *WHISPER),
     Case("K6", "fp8_e4m3", 4, *MAVERICK), Case("K6s", "fp8_e4m3", 4, *MAVERICK),
+    Case("K6", "fp8_e4m3", 4, *MAVERICK, cap=MAVERICK_TRAIN_CAP),
     Case("K7a-ro", "int8", 4, *PHI4), Case("K7a-rv", "int8", 4, *PHI4),
     Case("K7a-ro", "fp8_e4m3", 4, *MAVERICK), Case("K7a-s", "fp8_e4m3", 4, *MAVERICK),
     Case("K7b", "fp8_e4m3", 4, *MAVERICK), Case("K7b-s", "fp8_e4m3", 4, *MAVERICK),
@@ -125,13 +132,16 @@ def bound(nbytes: float, low_ops: float, f32_ops: float, low_rate: float):
 def kernel_times(fn, calls: int = 5):
     """(kernel name, device microseconds) of every kernel that ``calls``
     calls of ``fn`` launch, from ``torch.profiler``: empty when the capture
-    holds no device event (seen now and then late in a long run)."""
+    holds no device event. It records the device's activity alone, as
+    ``chip_smoke.py``'s profiles of whole steps do: in a process that has
+    run such a window, a later one that also records the host's ops
+    captured no device event on an H100."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         for _ in range(calls):
             fn()
         torch.cuda.synchronize()
@@ -183,20 +193,28 @@ def library_dot(x, wq, sw, mode: str, experts: bool):
     from repro_torch.kernels.registry import QSPECS, _quantize_rows, cast_to
 
     n = x.shape[-1]
-    m = x.shape[0]
     E = wq.shape[0] if experts else 1
     w = wq if experts else wq[None]
     q, s = _quantize_rows(x.reshape(-1, n).float(), mode)
+
+    def per_expert(t):   # (rows, k) -> (E, rows per expert, k); x (..., E, c, n)
+        k = t.shape[-1]
+        if not experts:
+            return t.view(1, -1, k)
+        return t.view(-1, E, x.shape[-2], k).transpose(0, 1).reshape(E, -1, k)
+
+    q, s = per_expert(q), per_expert(s)
+    m = q.shape[1]
     if mode == "int8":
         per = max(32, m)      # _int_mm wants more than 16 rows
         a = torch.zeros(E, per, n, dtype=torch.int8, device="cuda")
-        a[:, :m] = q.to(torch.int8).view(m, E, n).transpose(0, 1)
+        a[:, :m] = q.to(torch.int8)
         return (lambda: [torch._int_mm(a[e], w[e]) for e in range(E)]), "torch._int_mm"
     per = -(-m // 16) * 16    # _scaled_mm wants rows in multiples of 16
     a = torch.zeros(E, per, n, dtype=QSPECS[mode][1], device="cuda")
-    a[:, :m] = cast_to(q, QSPECS[mode][1]).view(m, E, n).transpose(0, 1)
+    a[:, :m] = cast_to(q, QSPECS[mode][1])
     sa = torch.ones(E, per, 1, device="cuda")
-    sa[:, :m] = s.view(m, E, 1).transpose(0, 1)
+    sa[:, :m] = s
     wt = w.transpose(1, 2).contiguous()     # column-major (n, d) per expert
     sb = sw.reshape(E, 1, -1).contiguous()
     return (lambda: [torch._scaled_mm(a[e], wt[e].t(), scale_a=sa[e], scale_b=sb[e],
@@ -247,13 +265,13 @@ def measure(case: Case, gen, qt=None, cw=None, x=None) -> dict:
     if qt is None:
         qt, cw = weights(gen, case)
     n, d, E = case.n, case.d, case.experts
-    rows = case.rows * max(E, 1)
+    rows = case.rows * max(E, 1) * case.cap
     plan = plan_for(n, dtype=torch.bfloat16, backend="cuda", device_type="cuda",
                     epilogue=QuantEpilogue(case.mode))
     if x is None:
         x = (torch.randn(rows, n, generator=gen, device="cuda") * 3).to(torch.bfloat16)
         if E:
-            x = x.view(case.rows, E, 1, n)
+            x = x.view(case.rows, E, case.cap, n)
     check = cw if abft else None
     if E:
         run = lambda: qd.quant_dot_experts(  # noqa: E731
@@ -286,7 +304,7 @@ def measure(case: Case, gen, qt=None, cw=None, x=None) -> dict:
     low = INT8_OPS_PER_S if case.mode == "int8" else FP8_OPS_PER_S
     bound_ms, by = bound(nbytes, 2 * rows * n * d,
                          rows * n * (math.log2(n) + (8 if abft else 6)), low)
-    g = qd.launch_grid(case.rows, n, d, case.mode, E, sched, abft)
+    g = qd.launch_grid(case.rows * case.cap, n, d, case.mode, E, sched, abft)
     return {"bench": f"quant_dot_{case.mode}", "shape": case.shape, "dtype": "bfloat16",
             "backend": f"cuda_{case.kernel}_{sched}", "ms": ms,
             "gbps": nbytes / ms / 1e6, "kernel": case.kernel, "mode": case.mode,

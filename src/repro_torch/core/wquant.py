@@ -134,11 +134,24 @@ def quantize_weight(w: torch.Tensor, mode: str, *,
     """Offline weight quantization: ``q`` in the mode's storage dtype and
     f32 per-OUT-channel scales (absmax over ``axis=-2``), through the same
     ``_quantize_rows`` math as the activation epilogues. w: (..., n, d).
-    ``with_check`` also stores the ABFT column checksum."""
+    ``with_check`` also stores the ABFT column checksum. A stacked leaf
+    goes a chunk of its leading axis at a time (the scales are per item and
+    out-channel, so the values are the whole tensor's): the f32 temporaries
+    of a whole 128-expert stack at llama4-maverick's width would be ~86 GB."""
     global QUANTIZE_WEIGHT_CALLS
     QUANTIZE_WEIGHT_CALLS += 1
-    q, s = _quantize_rows(w.to(torch.float32), mode, axis=-2)
-    q = cast_to(q, QSPECS[mode][1])
+    if w.ndim < 3:
+        q, s = _quantize_rows(w.to(torch.float32), mode, axis=-2)
+        q = cast_to(q, QSPECS[mode][1])
+    else:
+        q = torch.empty(w.shape, dtype=QSPECS[mode][1], device=w.device)
+        s = torch.empty((*w.shape[:-2], 1, w.shape[-1]), dtype=torch.float32,
+                        device=w.device)
+        step = chunk_len(w[0].numel())
+        for i in range(0, w.shape[0], step):
+            j = i + step
+            qi, s[i:j] = _quantize_rows(w[i:j].to(torch.float32), mode, axis=-2)
+            q[i:j] = cast_to(qi, QSPECS[mode][1])
     return QTensor(q=q, scale=s, mode=mode,
                    check=weight_checksum(q, s) if with_check else None)
 

@@ -5,7 +5,9 @@ from checkpoint step k the batches k, k + 1, ... come back bit for bit with
 no loader state to restore. The draws are numpy's, as the reference's, so
 the two packages give the same batches bitwise.
 
-  * SyntheticDataset -- token streams from ``default_rng((seed, step))``.
+  * SyntheticDataset -- token streams from ``default_rng((seed, step))``
+                        (a vlm's patches and positions, an encoder-
+                        decoder's frames too).
   * MemmapDataset    -- a flat int32 token file read in deterministic
                         strided windows.
 """
@@ -27,11 +29,28 @@ class SyntheticDataset:
 
     def batch(self, step: int) -> Dict[str, Any]:
         """{"tokens", "labels"}: (batch, seq) int32 numpy arrays, labels the
-        tokens shifted by one."""
+        tokens shifted by one. A vlm's sequence of ``seq`` holds
+        ``vlm_patches`` f32 patch embeddings (batch, P, d) and seq - P
+        tokens, with (3, batch, seq) int32 M-RoPE positions, each stream
+        0..seq-1; an encoder-decoder adds f32 frames (batch, encoder_seq,
+        d). Drawn in the reference's order."""
+        cfg = self.cfg
         rng = np.random.default_rng((self.seed, step))
         B, S = self.shape.batch, self.shape.seq
-        toks = rng.integers(0, self.cfg.vocab_size, (B, S + 1), dtype=np.int32)
-        return {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+        out: Dict[str, Any] = {}
+        if cfg.family == "vlm":
+            P = cfg.vlm_patches
+            toks = rng.integers(0, cfg.vocab_size, (B, S - P + 1), dtype=np.int32)
+            out["tokens"], out["labels"] = toks[:, :-1], toks[:, 1:]
+            out["patch_embeds"] = rng.standard_normal((B, P, cfg.d_model)).astype(np.float32)
+            out["positions"] = np.broadcast_to(np.arange(S, dtype=np.int32), (3, B, S)).copy()
+        else:
+            toks = rng.integers(0, cfg.vocab_size, (B, S + 1), dtype=np.int32)
+            out["tokens"], out["labels"] = toks[:, :-1], toks[:, 1:]
+        if cfg.is_encdec:
+            out["frames"] = rng.standard_normal(
+                (B, cfg.encoder_seq, cfg.d_model)).astype(np.float32)
+        return out
 
 
 class MemmapDataset:

@@ -20,7 +20,9 @@ accumulated in f32 and rounded once (the reference's einsum). The
 projections are in the model dtype; the SSD, its state, ``A_log``, ``D``,
 ``dt_bias`` and the gated RMSNorm in f32; the conv states in the model
 dtype. ``jax.nn.softplus`` (``logaddexp(x, 0)``: no threshold, unlike
-torch's) is written out op by op.
+torch's) is written out op by op. The intra-chunk decays are masked in
+log space, so the gradient stays finite where the reference's is NaN
+(ROADMAP.md, "Carried reference faults and known divergences").
 """
 from __future__ import annotations
 
@@ -154,7 +156,10 @@ def apply_mamba(cfg, p, x: torch.Tensor, *, return_state: bool = False):
     cb = torch.einsum("bctn,bcjn->bctj", cv, bv)
     diff = L[:, :, :, None, :] - L[:, :, None, :, :]           # (B, nc, t, j, H)
     mask = torch.tril(torch.ones((Tc, Tc), dtype=torch.bool, device=x.device))
-    M = torch.where(mask[None, None, :, :, None], torch.exp(diff), 0.0)
+    # masked before the exp (exp(-inf) = 0: the reference's values); the
+    # reference's where(mask, exp(diff), 0) overflows above the diagonal
+    # once a chunk's decay passes ~88 and its backward turns 0 * inf to NaN
+    M = torch.exp(torch.where(mask[None, None, :, :, None], diff, float("-inf")))
     W = cb[..., None] * M * dtv[:, :, None, :, :]
     y_intra = torch.einsum("bctjh,bcjhp->bcthp", W, xh)
 
