@@ -181,7 +181,24 @@ Runs from the repository root and needs the repository's ``src/``. It
      online rotations against the unrotated model, without quantization
      and with fp8_e4m3 + Hadamard + fp8 KV, each within a limit set between
      its witness (the plain rotation) and control (no online rotation);
- 10. prints the kernels' JSON line (K1-K8, the ABFT twins, M1 and M2), then
+ 10. multidevice phase (``multidevice_phase``): (a) K4 and K5 as the ranks of
+     the rules' full-width mesh layouts launch them -- phi4-mini's 256 x
+     8192 -> 3072 prefill rows, columns split over D = 2 and 4 ('dff',
+     'fsdp'), and rows and columns split at (2, 2) (None, 'dff') -- one
+     launch per shard with its scale slice, assembled, against the whole
+     launch (int8 bitwise, fp8_e4m3 within K4's rule), the whole launch and
+     a shard of each layout timed through the quant_dot harness; (b) the distributed path at world 1 over
+     NCCL: ``launch.serve --mp 1`` for phi4-mini-3.8b (int8) and llama3-8b
+     (fp8_e4m3) at full width and depth, and a 2-step ``launch.train --mp
+     1`` of phi4-mini at full width and 4 layers, each under torchrun's
+     variables against the same launcher without them (tokens, launches and
+     losses bitwise); (c) two ranks on the one card over gloo (NCCL refuses
+     a second rank on a device), mesh (2, 1): phi4-mini served -- its tokens
+     against (b)'s wherever world 1's top-1 / top-2 margin exceeds
+     ``MD_MARGIN``, each rank's down projections the fused sharded K4, no
+     ``unfused_local`` -- and trained 2 steps at 4 layers, losses within
+     ``MD_LOSS_LIMIT`` of (b)'s;
+ 11. prints the kernels' JSON line (K1-K8, the ABFT twins, M1 and M2), then
      the result line ``{"ok": true, "device": {...}}`` last.
 
 A line ``phase <name> <s> s`` follows the build and each phase (each
@@ -3531,6 +3548,276 @@ def rotation_phase(args) -> dict:
     return {"K1": k1}
 
 
+# ------------------------------------------------------------ multidevice
+# phi4-mini's down projection (8192 -> 3072) on its prefill batch, split as
+# the rules split it: (label, row shards, column shards). ('dff', 'fsdp')
+# puts the columns on 'data' (D = 2, 4) with every row; (None, 'dff') at
+# (2, 2) the rows on 'data' and the columns on 'model'.
+MD_LAYOUTS = (("('dff','fsdp') D=2", 1, 2), ("('dff','fsdp') D=4", 1, 4),
+              ("(None,'dff') (2,2)", 2, 2))
+MD_GEN = 8              # greedy tokens of the launcher runs
+MD_TRAIN_LAYERS = 4     # phi4-mini's training runs: full width, 4 of 32 layers
+MD_TRAIN = ("--seq", "512", "--batch", "4", "--steps", "2")
+# two ranks against one: the losses of a batch split over 'data' (bf16
+# gradients of half the rows each, summed); the margin below which a greedy
+# token may flip (the top-1 / top-2 logit gap of the world-1 run)
+MD_LOSS_LIMIT = 5e-3
+MD_MARGIN = 0.125
+MD_RANK_ARGS = ("--device", "cuda:0", "--dist-backend", "gloo", "--mp", "1")
+
+# one rank of the two-ranks run: a launcher's main, then its results as JSON
+_RANK_CODE = """
+import json, sys
+from repro_torch.core import api
+from repro_torch.kernels import quant_dot as qd, registry
+from repro_torch.launch import serve, train
+kind, path, argv = sys.argv[1], sys.argv[2], sys.argv[3:]
+qd.quant_dot_cuda.launches = 0
+registry.TRACE_COUNTS.clear()
+res = {}
+if kind == "serve":
+    out = serve.main(argv)
+    res = {"tokens": out["tokens"].tolist(), "margins": out["margins"].tolist()}
+else:
+    assert train.main(argv) == 0
+res.update(k4=qd.quant_dot_cuda.launches,
+           counts={"/".join(k): v for k, v in registry.TRACE_COUNTS.items()},
+           dispatch={k: (list(v) if isinstance(v, tuple) else v)
+                     for k, v in api._LAST_SHARDED_DISPATCH.items()})
+json.dump(res, open(path, "w"))
+"""
+
+
+def _md_shards(gen, seed: int) -> None:
+    """(a) K4 and K5 as the ranks of each ``MD_LAYOUTS`` split launch them:
+    one launch per shard on its rows and its columns with their scale
+    slice, the shards assembled, against one launch on the whole -- int8
+    bitwise, fp8_e4m3 within K4's rule (2^-7 of the row's largest |value|).
+    The whole launch and one shard of each layout are timed through the
+    quant_dot harness (events, profile, plain version, library, bound)."""
+    from repro_torch.bench.quant_dot import Case
+    from repro_torch.core.api import QuantEpilogue, plan_for
+    from repro_torch.core.wquant import QTensor, quantize_weight
+    from repro_torch.kernels import quant_dot as qd
+
+    n, d = PHI4_DOWN
+    m = SLOTS * PREFILL_LEN
+    cpu = torch.Generator().manual_seed(seed + 23)
+    w = (torch.randn(n, d, generator=cpu) / math.sqrt(n)).to("cuda", torch.bfloat16)
+    x = _k34_input(gen, m, n, "gaussian")
+    print(f"-- multidevice (a): K4 / K5 shard-local at phi4-mini's {m} x {n} -> {d}")
+    for mode in ("int8", "fp8_e4m3"):
+        qt = quantize_weight(w, mode)
+        plan = plan_for(n, dtype=torch.bfloat16, backend="cuda", device_type="cuda",
+                        epilogue=QuantEpilogue(mode))
+        for kernel, sched in (("K4", "rotate_once"), ("K5", "streamed")):
+            full = qd.quant_dot(x, qt.q, qt.scale, plan, sched)
+            print(_record_line(f"{kernel} {mode:8s} whole {m} x {n} -> {d}",
+                               _measure(Case(kernel, mode, m, n, d), gen, qt, None, x)))
+            for label, R, C in MD_LAYOUTS:
+                rows, cols = m // R, d // C
+                got = torch.empty_like(full)
+                for c in range(C):
+                    shard = QTensor(qt.q[:, c * cols:(c + 1) * cols].contiguous(),
+                                    qt.scale[..., c * cols:(c + 1) * cols].contiguous(), mode)
+                    for r in range(R):
+                        xs = x[r * rows:(r + 1) * rows].contiguous()
+                        got[r * rows:(r + 1) * rows, c * cols:(c + 1) * cols] = \
+                            qd.quant_dot(xs, shard.q, shard.scale, plan, sched)
+                torch.cuda.synchronize()
+                rel = float(((got.float() - full.float()).abs().amax(-1)
+                             / full.float().abs().amax(-1).clamp_min(1e-30)).max())
+                same = torch.equal(got, full)
+                rec = _measure(Case(kernel, mode, rows, n, cols), gen, shard, None, xs)
+                print(f"{kernel} {mode:8s} {label}: {R * C} shards bitwise the whole launch "
+                      f"{same} (max |diff| / row max {rel:g}); "
+                      + _record_line(f"shard {rows} x {n} -> {cols}", rec))
+                if mode == "int8" and not same:
+                    fail(f"multidevice (a): {kernel} {mode} {label} shards differ from the "
+                         "whole launch")
+                if rel > 2.0 ** -7:
+                    fail(f"multidevice (a): {kernel} {mode} {label} shards {rel:g} of the "
+                         "row max from the whole launch (K4's rule: 2^-7)")
+
+
+class _Torchrun:
+    """torchrun's variables for rank ``rank`` of ``world`` while inside."""
+
+    def __init__(self, world: int, rank: int, port: int):
+        self.env = {"WORLD_SIZE": str(world), "RANK": str(rank), "LOCAL_RANK": str(rank),
+                    "MASTER_ADDR": "localhost", "MASTER_PORT": str(port)}
+
+    def __enter__(self):
+        os.environ.update(self.env)
+
+    def __exit__(self, *exc):
+        for k in self.env:
+            os.environ.pop(k, None)
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def _md_argv(arch: str, mode: str, seed: int):
+    return ["--arch", arch, "--scale", "1.0", "--quant", mode, "--rotate", "hadamard",
+            "--kernel", "cuda", "--device", "cuda", "--seed", str(seed)]
+
+
+def _md_serve_argv(arch: str, mode: str, seed: int):
+    return _md_argv(arch, mode, seed) + ["--batch", str(SLOTS), "--prompt-len",
+                                         str(PREFILL_LEN), "--gen", str(MD_GEN)]
+
+
+def _md_train_argv(seed: int):
+    return _md_argv("phi4-mini-3.8b", "int8", seed) + [
+        "--layers", str(MD_TRAIN_LAYERS), "--log-every", "1", *MD_TRAIN]
+
+
+def _md_losses(path: str):
+    with open(path) as f:
+        return [json.loads(line)["loss"] for line in f]
+
+
+def _md_world_one(seed: int, tmp: str):
+    """(b) The distributed path at world 1 over NCCL: each launcher under
+    torchrun's variables (``init_process_group("nccl", world_size=1)``,
+    mesh (1, 1)) against the same launcher without them -- phi4-mini (int8)
+    and llama3-8b (fp8_e4m3) served at full width and depth, tokens and
+    launches equal; phi4-mini trained 2 steps at full width and
+    ``MD_TRAIN_LAYERS`` layers, losses bitwise. Returns (the world-1 runs'
+    launches, phi4-mini's world-1 serving and training results)."""
+    from repro_torch.launch import serve, train
+
+    launches, kept = {}, {}
+    print("-- multidevice (b): the launchers at world 1 over NCCL")
+    for arch, mode in (("phi4-mini-3.8b", "int8"), ("llama3-8b", "fp8_e4m3")):
+        argv = _md_serve_argv(arch, mode, seed)
+        alone, l_alone = _counted(lambda: serve.main(argv))
+        torch.cuda.empty_cache()
+        with _Torchrun(1, 0, _free_port()):
+            one, l_one = _counted(lambda: serve.main(argv + ["--mp", "1"]))
+        torch.cuda.empty_cache()
+        same = np.array_equal(one["tokens"], alone["tokens"])
+        print(f"{arch} serve --mp 1 at world 1: tokens equal to the non-distributed "
+              f"launcher's {same}; launches {l_one} (non-distributed {l_alone}); "
+              f"{one['tokens_per_s']:.1f} tok/s ({alone['tokens_per_s']:.1f})")
+        if not same or l_one != l_alone:
+            fail(f"multidevice (b): {arch} at world 1 differs from the non-distributed run")
+        for k, v in l_one.items():
+            launches[k] = launches.get(k, 0) + v
+        if arch == "phi4-mini-3.8b":
+            kept["serve"] = one
+    paths = [os.path.join(tmp, f"train_{k}.jsonl") for k in ("alone", "one")]
+    train.main(_md_train_argv(seed) + ["--metrics-out", paths[0]])
+    torch.cuda.empty_cache()
+    with _Torchrun(1, 0, _free_port()):
+        _, l_train = _counted(lambda: train.main(_md_train_argv(seed) + [
+            "--mp", "1", "--metrics-out", paths[1]]))
+    torch.cuda.empty_cache()
+    alone, one = _md_losses(paths[0]), _md_losses(paths[1])
+    print(f"phi4-mini train --mp 1 at world 1 ({MD_TRAIN_LAYERS} layers): losses {one}, "
+          f"non-distributed {alone}; launches {l_train}")
+    if one != alone:
+        fail("multidevice (b): phi4-mini's world-1 losses are not the non-distributed ones")
+    for k, v in l_train.items():
+        launches[k] = launches.get(k, 0) + v
+    kept["train"] = one
+    return launches, kept
+
+
+def _md_ranks(kind: str, argv, tmp: str, world: int = 2):
+    """``world`` ranks of a launcher on the one card (gloo), each its own
+    process: their JSON results, rank by rank."""
+    port = _free_port()
+    env = dict(os.environ, PYTHONPATH=os.path.join(os.path.dirname(os.path.abspath(
+        __file__)), "src"))
+    procs, paths = [], []
+    for r in range(world):
+        paths.append(os.path.join(tmp, f"{kind}_rank{r}.json"))
+        renv = dict(env, WORLD_SIZE=str(world), RANK=str(r), LOCAL_RANK=str(r),
+                    MASTER_ADDR="localhost", MASTER_PORT=str(port))
+        procs.append(subprocess.Popen([sys.executable, "-c", _RANK_CODE, kind, paths[-1],
+                                       *argv], env=renv, stdout=subprocess.PIPE,
+                                      stderr=subprocess.STDOUT, text=True))
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=240)[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for r, (p, o) in enumerate(zip(procs, outs)):
+        if p.returncode != 0:
+            print(o[-4000:])
+            fail(f"multidevice (c): {kind} rank {r} exited {p.returncode}")
+    return [json.load(open(path)) for path in paths], outs[0]
+
+
+def _md_two_ranks(seed: int, tmp: str, kept: dict) -> None:
+    """(c) Two ranks on the one card over gloo (NCCL refuses a second rank
+    on a device: PERF.md section 7): ``--mp 1`` at world 2, mesh (2, 1) --
+    phi4-mini served (each rank 2 of the 4 prompts; the down projection's
+    sharded quant_dot gathers the rows and runs K4 shard-locally on its
+    1536 columns: fused, no ``unfused_local``), its tokens against (b)'s
+    world-1 run wherever world 1's top-1 / top-2 margin exceeds
+    MD_MARGIN, and trained 2 steps at ``MD_TRAIN_LAYERS`` layers, losses
+    within MD_LOSS_LIMIT of (b)'s."""
+    print("-- multidevice (c): two ranks on the one card over gloo, mesh (2, 1)")
+    base = list(MD_RANK_ARGS)
+    ranks, log = _md_ranks("serve", _md_serve_argv("phi4-mini-3.8b", "int8", seed) + base,
+                           tmp)
+    from repro_torch.configs import get_config
+
+    want, margins = np.array(kept["serve"]["tokens"]), np.array(kept["serve"]["margins"])
+    layers, passes = get_config("phi4-mini-3.8b").num_layers, MD_GEN
+    for r, res in enumerate(ranks):
+        got = np.array(res["tokens"])
+        differ = got != want
+        # a row may part from world 1 at a near tie; after that its context differs
+        first = [int(np.argmax(row)) if row.any() else None for row in differ]
+        close = [f is not None and margins[i, f] <= MD_MARGIN for i, f in enumerate(first)]
+        unfused = res["counts"].get("sharded_quant_dot/unfused_local", 0)
+        print(f"rank {r}: tokens equal to world 1's {not differ.any()} (rows parting at "
+              f"{first}, world-1 margins there "
+              f"{[round(float(margins[i, f]), 4) if f is not None else None for i, f in enumerate(first)]}); "
+              f"K4 launches {res['k4']} ({layers * passes} expected: {layers} layers x "
+              f"{passes} passes), sharded dispatch {res['dispatch']}, unfused_local {unfused}")
+        if any(f is not None and not c for f, c in zip(first, close)):
+            fail(f"multidevice (c): rank {r}'s tokens part from world 1's above the margin")
+        if res["k4"] != layers * passes or unfused or not res["dispatch"].get("fused") \
+                or res["dispatch"].get("mesh_axes") != ["data"]:
+            fail(f"multidevice (c): rank {r} did not run the fused sharded quant_dot")
+    path = os.path.join(tmp, "train_two.jsonl")
+    _md_ranks("train", _md_train_argv(seed) + base + ["--metrics-out", path], tmp)
+    two = _md_losses(path)
+    gap = max(abs(a - b) for a, b in zip(two, kept["train"]))
+    print(f"phi4-mini train at world 2 ({MD_TRAIN_LAYERS} layers): losses {two}, world 1 "
+          f"{kept['train']}, max |diff| {gap:g} (limit {MD_LOSS_LIMIT})")
+    if len(two) != 2 or gap > MD_LOSS_LIMIT:
+        fail("multidevice (c): the two-rank losses are not world 1's")
+
+
+def multidevice_phase(args, gen) -> dict:
+    """The multi-device layer on the one card: (a) the sharded quant_dot's
+    shard-local kernels at the full-width mesh layouts' shard shapes, (b)
+    the distributed path at world 1 over NCCL, (c) two ranks on the card
+    over gloo. Returns the launches of (b)'s distributed runs."""
+    import tempfile
+
+    _md_shards(gen, args.seed)
+    with tempfile.TemporaryDirectory() as tmp:
+        launches, kept = _md_world_one(args.seed, tmp)
+        _md_two_ranks(args.seed, tmp, kept)
+    return launches
+
+
 def _leaves(tree):
     from repro_torch.core.wquant import QTensor
 
@@ -3619,6 +3906,8 @@ def main() -> int:
     launches.update(phase("lint", lint_phase, serving_sites))   # M1's and M2's path
     del serving_sites
     phase("rotation", rotation_phase, args)
+    for k, v in phase("multidevice", multidevice_phase, args, gen).items():
+        launches[k] += v
 
     quant_dot_cu = "src/repro_torch/csrc/quant_dot.cu"
     experts_cu = "src/repro_torch/csrc/quant_dot_experts.cu"

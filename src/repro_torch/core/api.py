@@ -1,8 +1,9 @@
 """Plan-based Hadamard API: one entry point for every transform (twin of
-``repro.core.api``, without the mesh parts).
+``repro.core.api``).
 
 ``plan_for`` builds (and caches) a :class:`HadamardPlan` per
-``(n, dtype, compute_dtype, backend, epilogue, scale, device type)``: the
+``(n, dtype, compute_dtype, backend, epilogue, scale, device type, mesh
+axes)``: the
 128-factorization, the stacked base matrices with the scale folded into
 pass 0, and the backend resolved from the registry. ``hadamard(x, plan)``
 dispatches:
@@ -29,7 +30,21 @@ K6 (or K6s) launch over every expert when the plan fuses
 Declarative sites: :class:`RotationSpec` (attention Q/K/V) and
 :class:`QuantDotSpec` (the down-projection consumer, bound to a weight
 with ``bind``, or to a stacked expert weight with ``bind_experts``).
-Mesh axes come with the multi-device slice.
+
+Meshes (``distributed.sharding``): a consumer site's ``weight_axes`` (e.g.
+``("dff", "fsdp")``) resolve, under an active mesh, to the mesh axes its
+weight's out-channels split over (``_resolve_mesh_axes``); they key the
+plan (``HadamardPlan.mesh_axes``), and such a plan dispatches through
+``_sharded_quant_dot``: this rank's rows (the batch axes the weight does
+not use), its columns of the weight and their scales, the contraction
+whole; the fused kernel (K4, or K5 streamed) runs shard-locally when the
+mesh-stripped plan fuses, else the unfused path, counted and warned
+(``unfused_local``); the result is assembled with all_gathers over the
+column and row groups, bitwise the single-device int8 output. The fallbacks
+``mesh_mismatch`` and ``unshardable_site`` are counted and warned the same
+way (``registry.TRACE_COUNTS[("sharded_quant_dot", reason)]``). The expert
+form takes no mesh axes: under the port's mesh each rank computes its own
+rows, so K6 / K6s run there as they run off a mesh.
 
 Gradients: the reference's nine ``custom_vjp``s are ``torch.autograd.
 Function``s around the same forwards. The transform is self-adjoint (its
@@ -53,7 +68,7 @@ from __future__ import annotations
 
 import dataclasses
 import functools
-from typing import Any, Optional, Union
+from typing import Any, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -117,6 +132,11 @@ class HadamardPlan:
     k: int                           # number of 128-factors of p
     r: int                           # residual pow2 factor (1 <= r < 128)
     device_type: str                 # 'cuda' or 'cpu': part of the key
+    mesh_axes: Optional[Tuple[str, ...]] = None
+                                     # mesh axes a quant_dot weight's out-
+                                     # channels split over: part of the key,
+                                     # so plans built under a mesh never
+                                     # alias single-device plans
     mats: np.ndarray = dataclasses.field(repr=False, compare=False, default=None)
 
     @property
@@ -130,7 +150,7 @@ class HadamardPlan:
 
 @functools.lru_cache(maxsize=None)
 def _build_plan(n, p, dtype_name_, compute_dtype, scale_val, backend, epilogue,
-                device_type):
+                device_type, mesh_axes=None):
     if p == 1:
         k, r, mats = 0, 1, np.ones((1, 1, 1), np.float32)
     else:
@@ -139,7 +159,7 @@ def _build_plan(n, p, dtype_name_, compute_dtype, scale_val, backend, epilogue,
     return HadamardPlan(
         n=n, p=p, dtype=dtype_name_, compute_dtype=compute_dtype,
         backend=backend, scale=scale_val, epilogue=epilogue, k=k, r=r,
-        device_type=device_type, mats=mats)
+        device_type=device_type, mesh_axes=mesh_axes, mats=mats)
 
 
 def plan_for(
@@ -151,12 +171,14 @@ def plan_for(
     epilogue: Optional[QuantEpilogue] = None,
     compute_dtype: Any = None,
     device_type: str = "cuda",
+    mesh_axes: Optional[Tuple[str, ...]] = None,
 ) -> HadamardPlan:
     """Build (or fetch from the cache) the plan for an n-point transform
     of tensors on ``device_type``. ``backend=None`` resolves through the
     registry (``REPRO_HADAMARD_BACKEND``, then auto: the kernels on
-    'cuda', the plain versions on 'cpu'). Repeated calls with the same key
-    return the same plan object."""
+    'cuda', the plain versions on 'cpu'). ``mesh_axes`` marks a quant_dot
+    plan as sharded over those mesh axes (its weight's out-channels).
+    Repeated calls with the same key return the same plan object."""
     if n < 1:
         raise ValueError(f"Hadamard size must be >= 1, got {n}")
     p = n if is_pow2(n) else largest_pow2_divisor(n)
@@ -164,7 +186,7 @@ def plan_for(
     resolved = select_backend(p, backend, device_type)
     return _build_plan(n, p, dtype_name(dtype),
                        resolve_compute_dtype(dtype, compute_dtype), scale_val,
-                       resolved, epilogue, device_type)
+                       resolved, epilogue, device_type, mesh_axes)
 
 
 def plan_cache_info():
@@ -173,8 +195,9 @@ def plan_cache_info():
 
 
 def _strip(plan: HadamardPlan) -> HadamardPlan:
-    """The epilogue-free twin of a plan."""
-    if plan.epilogue is None:
+    """The epilogue-free twin of a plan; mesh axes are dropped too (the
+    plain transform never shards)."""
+    if plan.epilogue is None and plan.mesh_axes is None:
         return plan
     return _build_plan(plan.n, plan.p, plan.dtype, plan.compute_dtype,
                        plan.scale, plan.backend, None, plan.device_type)
@@ -302,19 +325,24 @@ def _ste_gx(g, W, plan, spec: str):
 
 class _QuantDotQW(torch.autograd.Function):
     """The serving form (``_quant_dot_qw``): pre-quantized weight,
-    differentiable in x only; the weight and its scales are statistics."""
+    differentiable in x only; the weight and its scales are statistics.
+    ``cols_local``: the weight is this rank's column shard (serving under
+    a mesh; no backward)."""
 
     @staticmethod
-    def forward(ctx, x, wq, sw, plan, schedule):
-        ctx.plan = plan
+    def forward(ctx, x, wq, sw, plan, schedule, cols_local=False):
+        ctx.plan, ctx.cols_local = plan, cols_local
         ctx.save_for_backward(wq, sw)
-        return _dispatch_quant_dot(x, wq, sw, plan, schedule)
+        return _dispatch_quant_dot(x, wq, sw, plan, schedule, cols_local)
 
     @staticmethod
     def backward(ctx, g):
+        if ctx.cols_local:
+            raise NotImplementedError("x's gradient through a column shard of a "
+                                      "pre-quantized weight")
         wq, sw = ctx.saved_tensors
         W = wq.to(torch.float32) * sw
-        return _ste_gx(g, W, ctx.plan, ""), None, None, None, None
+        return _ste_gx(g, W, ctx.plan, ""), None, None, None, None, None
 
 
 class _QuantDotQWAbft(torch.autograd.Function):
@@ -484,18 +512,179 @@ def _qd_fusable(plan: HadamardPlan, schedule: str = "rotate_once") -> bool:
             and kernel_fits(plan.p, plan.epilogue.mode, schedule))
 
 
-def _dispatch_quant_dot(x, wq, sw, plan: HadamardPlan, schedule=None):
+def _dispatch_quant_dot(x, wq, sw, plan: HadamardPlan, schedule=None,
+                        cols_local: bool = False):
     """rotate(x) -> per-token quantize -> contract against the offline-
     quantized weight with ``scale_x * scale_w`` in the epilogue: the
     backend's single kernel (K4, or K5 streamed, on the card) when the plan
     fuses, else the unfused path (grouped transforms, per-tensor scales).
     Decided from the plan, as the reference decides it; the two agree
-    bitwise for int8."""
+    bitwise for int8. A mesh plan goes through ``_sharded_quant_dot``
+    (``cols_local``: ``wq`` / ``sw`` are already this rank's columns);
+    when it cannot, the replicated path runs, counted and warned."""
     from repro_torch.kernels.quant_dot import _resolve_schedule
 
+    if plan.mesh_axes and wq.ndim == 2 and plan.epilogue.per_token:
+        out = _sharded_quant_dot(x, wq, sw, plan, schedule, cols_local)
+        if out is not None:
+            return out
+        _sharded_fallback(
+            "mesh_mismatch",
+            f"plan was built for mesh axes {plan.mesh_axes} but the current "
+            "mesh does not provide them; quant_dot runs the replicated "
+            "single-device path")
+    elif plan.mesh_axes:
+        _sharded_fallback(
+            "unshardable_site",
+            f"plan carries mesh axes {plan.mesh_axes} but the site cannot "
+            "shard (needs a 2-D weight and per-token scales; got "
+            f"wq.ndim={wq.ndim}, per_token={plan.epilogue.per_token}); "
+            "quant_dot runs the replicated single-device path")
+    if cols_local:
+        raise ValueError("a column shard of a weight runs only through the "
+                         "sharded quant_dot of its own mesh")
     if _qd_fusable(plan, _resolve_schedule(schedule)):
         return get_backend(plan.backend).quant_dot(x, wq, sw, plan, schedule)
     return _unfused_quant_dot(x, wq, sw, plan)
+
+
+# ------------------------------------------------------------ on a mesh
+def _resolve_mesh_axes(weight_axes, d: Optional[int]) -> Optional[Tuple[str, ...]]:
+    """A weight's logical out-channel axis -> the mesh axes the sharded
+    quant_dot splits its columns over. None (a single-device plan) when no
+    mesh is active, the axis maps to nothing, the mapped axes' total size
+    is 1, or it does not divide ``d`` (``distributed.sharding``'s guard)."""
+    if not weight_axes or d is None:
+        return None
+    from repro_torch.distributed.sharding import _resolve_axis, _sizes, current_mesh
+
+    mesh = current_mesh()
+    if mesh is None:
+        return None
+    ax = _resolve_axis(mesh, weight_axes[-1])
+    if ax is None:
+        return None
+    axes = (ax,) if isinstance(ax, str) else tuple(ax)
+    sizes = _sizes(mesh)
+    total = 1
+    for a in axes:
+        total *= sizes[a]
+    if total <= 1 or d % total:
+        return None
+    return axes
+
+
+# The last sharded dispatch's decision (whether the shard-local compute was
+# the fused kernel, the row and column axes, the backend): an observation
+# hook for tests, not an API.
+_LAST_SHARDED_DISPATCH: dict = {}
+
+
+def _sharded_fallback(reason: str, msg: str) -> None:
+    """Count ``TRACE_COUNTS[("sharded_quant_dot", reason)]`` and warn once
+    per process per reason (``registry.warn_once``): a mesh plan that
+    leaves the sharded or fused path stays observable."""
+    registry.warn_once(
+        ("sharded_quant_dot", reason),
+        f"sharded quant_dot fallback [{reason}]: {msg} (warned once per "
+        "process; TRACE_COUNTS[('sharded_quant_dot', "
+        f"{reason!r})] keeps counting)")
+
+
+def _strip_mesh(plan: HadamardPlan) -> HadamardPlan:
+    """The single-device twin of a mesh plan: the plan the shard-local
+    compute runs."""
+    if plan.mesh_axes is None:
+        return plan
+    return _build_plan(plan.n, plan.p, plan.dtype, plan.compute_dtype, plan.scale,
+                       plan.backend, plan.epilogue, plan.device_type)
+
+
+def _row_shard_axes(mesh, plan: HadamardPlan, m: int) -> Tuple[str, ...]:
+    """The mesh axes the sharded quant_dot splits the activation's ``m``
+    rows over: the rules' 'batch' axes, minus those the weight's columns
+    use, minus any whose running size does not divide ``m``. Size-1 axes
+    are kept."""
+    from repro_torch.distributed.sharding import _resolve_axis, _sizes
+
+    ax = _resolve_axis(mesh, "batch")
+    if ax is None:
+        return ()
+    axes = (ax,) if isinstance(ax, str) else tuple(ax)
+    sizes = _sizes(mesh)
+    keep, total = [], 1
+    for a in axes:
+        if a in plan.mesh_axes:
+            continue
+        if m % (total * sizes[a]) == 0:
+            keep.append(a)
+            total *= sizes[a]
+    return tuple(keep)
+
+
+def _sharded_quant_dot(x, wq, sw, plan: HadamardPlan, schedule=None,
+                       cols_local: bool = False):
+    """quant_dot over the current mesh, each rank one block of the output:
+
+      * rows: the activation's rows split over ``_row_shard_axes`` (the
+        batch axes the weight does not use), so each rank rotates and
+        quantizes only its rows. ``x`` holds the rows
+        ``distributed.sharding.row_axes()`` gives this rank (all of them
+        off a step's row split); rows it lacks are gathered first, and
+        its own are cut from the result last;
+      * columns: this rank's slice of the weight's out-channels over
+        ``plan.mesh_axes`` and the same slice of the per-channel scales
+        (``cols_local``: ``wq`` / ``sw`` are that slice already), so
+        per-shard scales are used end to end; the contraction is never
+        split (the Hadamard spans it);
+      * compute: the backend's fused kernel when the mesh-stripped plan
+        fuses (K4, or K5 under 'streamed', on the card), else the
+        unfused path (grouped sizes, the torch backend), counted and
+        warned as ``unfused_local``;
+      * assembly: all_gather over the column group, then over the row
+        group. Every output element is computed as the single-device
+        call computes it, so the result is bitwise its int8 output.
+
+    Returns None when the current mesh lacks the plan's axes (the caller
+    records ``mesh_mismatch``)."""
+    from repro_torch.distributed.sharding import current_mesh, row_axes
+    from repro_torch.kernels.quant_dot import _resolve_schedule
+
+    mesh = current_mesh()
+    if mesh is None or any(a not in mesh.axis_names for a in plan.mesh_axes):
+        return None
+    local_plan = _strip_mesh(plan)
+    lead, n = x.shape[:-1], plan.n
+    x2 = x.reshape(-1, n)
+    have = row_axes()
+    rows = _row_shard_axes(mesh, plan, x2.shape[0] * mesh.group_size(have))
+    be = get_backend(local_plan.backend)
+    fused = (_qd_fusable(local_plan, _resolve_schedule(schedule))
+             and be.quant_dot_fused)
+    _LAST_SHARDED_DISPATCH.update(fused=fused, row_axes=rows,
+                                  mesh_axes=plan.mesh_axes,
+                                  backend=local_plan.backend)
+    if have != rows:
+        x2 = mesh.chunk(mesh.gather(x2, have, 0), rows, 0)
+    if cols_local:
+        wl, sl = wq, sw.reshape(1, -1)
+    else:
+        wl = mesh.chunk(wq, plan.mesh_axes, 1)
+        sl = mesh.chunk(sw.reshape(1, -1), plan.mesh_axes, 1)
+    if fused:
+        out = be.quant_dot(x2.contiguous(), wl, sl, local_plan, schedule)
+    else:
+        _sharded_fallback(
+            "unfused_local",
+            f"shard-local compute for the n={plan.n} {plan.epilogue.mode} plan "
+            f"runs the unfused path (backend {local_plan.backend!r}, "
+            f"grouped={plan.grouped}); the fused kernel needs a backend that "
+            "hosts it, a power-of-2 size it takes, and per-token scales")
+        out = _unfused_quant_dot(x2, wl, sl, local_plan)
+    out = mesh.gather(out, plan.mesh_axes, 1)
+    if have != rows:
+        out = mesh.chunk(mesh.gather(out, rows, 0), have, 0)
+    return out.reshape(*lead, out.shape[-1])
 
 
 def _unfused_quant_dot(x, wq, sw, plan: HadamardPlan):
@@ -513,6 +702,21 @@ def _poison(y: torch.Tensor, ok: torch.Tensor) -> torch.Tensor:
     """y where ok, NaN elsewhere: an exact select."""
     return torch.where(ok, y, torch.full((), float("nan"), dtype=y.dtype,
                                          device=y.device))
+
+
+def _shard_operands(w, plan: HadamardPlan):
+    """(wq, sw, cols_local) of a QTensor for ``plan``: a column shard
+    (``w.shard``) whose mesh axes are the plan's stays one; any other is
+    gathered whole first."""
+    if w.shard is None:
+        return w.q, w.scale, False
+    axes, _ = w.shard
+    if plan.mesh_axes == axes:
+        return w.q, w.scale, True
+    from repro_torch.distributed.sharding import current_mesh
+
+    mesh = current_mesh()
+    return mesh.gather(w.q, axes, -1), mesh.gather(w.scale, axes, -1), False
 
 
 def _abft_quant_dot_impl(x, wq, sw, cw, plan: HadamardPlan, schedule=None):
@@ -557,6 +761,7 @@ def quant_dot(
     scale: Union[str, float, None] = _UNSET,
     backend: Optional[str] = _UNSET,
     compute_dtype: Any = _UNSET,
+    weight_axes: Optional[Tuple] = _UNSET,
     schedule: Optional[str] = None,
 ) -> torch.Tensor:
     """``quantize(hadamard(x)) @ quantize(w)`` as one consumer path: the row
@@ -572,22 +777,32 @@ def quant_dot(
     non-dequant :class:`QuantEpilogue`, and configuration keywords beside it
     raise. ``schedule`` picks the kernel's grid schedule: None (then
     ``REPRO_QUANT_DOT_SCHEDULE``), 'rotate_once' (K4), 'streamed' (K5) or
-    'revisit' (K8)."""
+    'revisit' (K8).
+
+    ``weight_axes`` (the weight's logical axes, e.g. ``("dff", "fsdp")``)
+    makes the call mesh-aware: under an active mesh the out-channel axis
+    resolves to mesh axes, which key the plan, and the call runs the
+    sharded quant_dot on the whole ``x`` and ``w`` given on every rank.
+    Without a mesh it changes nothing."""
     from repro_torch.core.wquant import QTensor
 
     n = x.shape[-1]
     if plan is None:
+        d_out = w.q.shape[-1] if isinstance(w, QTensor) else w.shape[-1]
         plan = plan_for(
             n, dtype=x.dtype,
             scale="ortho" if scale is _UNSET else scale,
             backend=None if backend is _UNSET else backend,
             epilogue=QuantEpilogue("int8" if mode is _UNSET else mode),
             compute_dtype=None if compute_dtype is _UNSET else compute_dtype,
-            device_type=x.device.type)
+            device_type=x.device.type,
+            mesh_axes=_resolve_mesh_axes(
+                None if weight_axes is _UNSET else weight_axes, d_out))
     else:
         passed = [name for name, v in (("mode", mode), ("scale", scale),
                                        ("backend", backend),
-                                       ("compute_dtype", compute_dtype))
+                                       ("compute_dtype", compute_dtype),
+                                       ("weight_axes", weight_axes))
                   if v is not _UNSET]
         if passed:
             raise ValueError(
@@ -613,7 +828,8 @@ def quant_dot(
             raise ValueError(
                 f"pre-quantized weight is stored as {w.mode!r}, not the plan's "
                 f"{epi_mode!r}; quantize with wquant.quantize_weight(w, mode)")
-        return _QuantDotQW.apply(x, w.q, w.scale, plan, schedule)
+        wq, sw, cols_local = _shard_operands(w, plan)
+        return _QuantDotQW.apply(x, wq, sw, plan, schedule, cols_local)
     if w.shape[0] != n:
         raise ValueError(f"weight has contraction dim {w.shape[0]}, expected {n}")
     return _QuantDotW.apply(x, w, plan, schedule)
@@ -623,8 +839,9 @@ def quant_dot(
 def _qd_experts_fusable(plan: HadamardPlan, schedule: str = "rotate_once") -> bool:
     """Can the expert site run as the backend's single kernel over every
     expert (K6 / K6s on the card)? ``_qd_fusable`` plus a backend hosting
-    ``quant_dot_experts``. (The reference also sends meshes to the einsum
-    form; the port has no mesh yet.)"""
+    ``quant_dot_experts``. The reference sends an active mesh to the einsum
+    form, which GSPMD partitions; under the port's mesh each rank computes
+    its own rows, so the kernel form stays (module docstring)."""
     return (_qd_fusable(plan, schedule)
             and get_backend(plan.backend).quant_dot_experts is not None)
 
@@ -774,7 +991,10 @@ class QuantDotSpec:
     contracted directly, with zero per-forward weight quantization.
     ``schedule`` pins the fused kernels' schedule (None: the env, then
     rotate-once); ``abft`` verifies the site when its weight carries a
-    checksum (as does ``REPRO_ABFT``)."""
+    checksum (as does ``REPRO_ABFT``). ``weight_axes``, the weight's
+    logical axes, make the bound call mesh-aware: under an active mesh the
+    out-channel axis resolves to mesh axes, which key the plan, and the
+    call runs the sharded quant_dot (module docstring)."""
 
     n: int
     mode: str = "int8"
@@ -783,6 +1003,7 @@ class QuantDotSpec:
     scale: Union[str, float, None] = "ortho"
     backend: Optional[str] = None
     compute_dtype: Optional[str] = None
+    weight_axes: Optional[Tuple[Optional[str], ...]] = None
     schedule: Optional[str] = None
     abft: bool = False
 
@@ -799,12 +1020,14 @@ class QuantDotSpec:
                                  f"expected one of {SCHEDULES}")
 
     @classmethod
-    def for_config(cls, n: int, cfg) -> "QuantDotSpec":
+    def for_config(cls, n: int, cfg, *,
+                   weight_axes: Optional[Tuple] = None) -> "QuantDotSpec":
         """The spec a QuantConfig implies; ``cfg.schedule`` pins the kernels'
         schedule (the serving ladder's rungs rely on it)."""
         return cls(n=n, mode=cfg.mode, rotate=cfg.rotating,
                    per_token=cfg.per_token,
                    backend=_cfg_backend_name(cfg.backend),
+                   weight_axes=weight_axes,
                    schedule=getattr(cfg, "schedule", None),
                    abft=bool(getattr(cfg, "abft", False)))
 
@@ -819,13 +1042,17 @@ class QuantDotSpec:
     def quantizing(self) -> bool:
         return self.mode != "none"
 
-    def plan(self, dtype, device_type: str = "cuda") -> HadamardPlan:
+    def plan(self, dtype, device_type: str = "cuda",
+             d: Optional[int] = None) -> HadamardPlan:
+        """The quant_dot plan for io ``dtype`` and a weight of ``d`` out-
+        channels, its mesh axes resolved against the current mesh."""
         return plan_for(self.n, dtype=dtype, scale=self.scale,
                         backend=self.backend,
                         epilogue=QuantEpilogue(self.mode,
                                                per_token=self.per_token),
                         compute_dtype=self.compute_dtype,
-                        device_type=device_type)
+                        device_type=device_type,
+                        mesh_axes=_resolve_mesh_axes(self.weight_axes, d))
 
     def _transform_plan(self, dtype, device_type: str) -> HadamardPlan:
         return plan_for(self.n, dtype=dtype, scale=self.scale,
@@ -853,11 +1080,18 @@ class QuantDotSpec:
             # natively: dequantize (NOT re-quantize) and run raw
             return self._apply_raw(w.dequant(x.dtype), x)
         if self.rotate:
-            plan = self.plan(x.dtype, x.device.type)
+            plan = self.plan(x.dtype, x.device.type, d=w.cols)
             if self._abft_verifying(w):
-                return _QuantDotQWAbft.apply(x, w.q, w.scale, w.check, plan,
-                                             self.schedule)
-            return _QuantDotQW.apply(x, w.q, w.scale, plan, self.schedule)
+                if plan.mesh_axes is None:
+                    return _QuantDotQWAbft.apply(x, w.q, w.scale, w.check, plan,
+                                                 self.schedule)
+                registry.warn_once(
+                    ("abft", "sharded_fallback"),
+                    "ABFT checksums are present but the plan shards over mesh "
+                    f"axes {plan.mesh_axes}; the sharded quant_dot has no "
+                    "checksum output, so this site runs UNVERIFIED")
+            wq, sw, cols_local = _shard_operands(w, plan)
+            return _QuantDotQW.apply(x, wq, sw, plan, self.schedule, cols_local)
         q, s = registry._quantize_rows(
             x.to(torch.float32), self.mode,
             axis=-1 if self.per_token else None)
@@ -923,4 +1157,5 @@ class QuantDotSpec:
 
             return _fake_quant_dot(
                 x, w, QuantConfig(mode=self.mode, per_token=self.per_token))
-        return _QuantDotW.apply(x, w, self.plan(x.dtype, x.device.type), self.schedule)
+        return _QuantDotW.apply(x, w, self.plan(x.dtype, x.device.type, d=w.shape[-1]),
+                                self.schedule)

@@ -1,5 +1,5 @@
-"""Quantized weight storage: ``QTensor`` (twin of ``repro.core.wquant``,
-without the sharding axes).
+"""Quantized weight storage: ``QTensor`` (twin of ``repro.core.wquant``)
+and the logical sharding of its parts (``qweight_specs``).
 
 Matmul weights are stored quantized (int8 / fp8) with f32 per-output-
 channel scales and dequantized per layer in the forward. The rotation-
@@ -39,6 +39,7 @@ import torch
 from repro_torch.kernels.registry import QSPECS, _quantize_rows, cast_to
 
 __all__ = ["QTensor", "quantize_weight", "quantize_lm_weights", "dequant_tree",
+           "qweight_specs",
            "is_qleaf", "leaf_mode", "chunk_len", "weight_checksum",
            "QUANTIZE_WEIGHT_CALLS"]
 
@@ -62,17 +63,26 @@ class QTensor:
     stored in that mode's dtype. ``check`` is None or the (..., 1, n) f32
     ABFT column checksum ``weight_checksum(q, scale)``: row k holds
     sum_d q[k, d] * scale[d], so ``sum_d (a @ W)[d] == a . check`` in real
-    arithmetic for any activation row a."""
+    arithmetic for any activation row a. ``shard`` is None, or ``(axes,
+    d)`` when ``q`` and ``scale`` hold only this rank's out-channels of a
+    (n, d) weight split over the mesh axes ``axes`` (the sharded
+    quant_dot's operand under a mesh)."""
 
-    __slots__ = ("q", "scale", "mode", "check")
+    __slots__ = ("q", "scale", "mode", "check", "shard")
 
     def __init__(self, q: torch.Tensor, scale: torch.Tensor, mode: str = "int8",
-                 check=None):
+                 check=None, shard=None):
         if q.dtype != QSPECS[mode][1]:
             raise ValueError(
                 f"QTensor values are {q.dtype}, not the {mode!r} storage "
                 f"dtype {QSPECS[mode][1]}")
         self.q, self.scale, self.mode, self.check = q, scale, mode, check
+        self.shard = shard
+
+    @property
+    def cols(self) -> int:
+        """The whole weight's out-channels."""
+        return self.shard[1] if self.shard is not None else self.q.shape[-1]
 
     def dequant(self, dtype=torch.float32) -> torch.Tensor:
         """``(q.float() * scale).to(dtype)``, computed in f32 and rounded
@@ -233,3 +243,24 @@ def dequant_tree(tree, dtype):
         return tree.dequant(dtype)
     return _map_with_keys(
         lambda _k, x: x.dequant(dtype) if is_qleaf(x) else x, tree)
+
+
+def qweight_specs(spec_tree, params):
+    """Mirror a parameter spec tree (``models.lm.lm_param_specs``) onto the
+    QTensor leaves of ``params`` (real or meta tensors): each becomes
+    ``{"q": spec, "scale": spec}`` -- ``q`` keeps the leaf's logical axes,
+    the (..., 1, d) scales the same with the contraction dim whole -- plus
+    ``"check"`` ((..., 1, n): the contraction axis last) when the leaf
+    carries its ABFT checksum. The reference's ``qweight_specs``, with
+    dicts where it builds QTensor nodes."""
+    if is_qleaf(params):
+        axes = tuple(spec_tree)
+        out = {"q": axes, "scale": axes[:-2] + (None, axes[-1])}
+        if params.check is not None:
+            out["check"] = axes[:-2] + (None, axes[-2])
+        return out
+    if isinstance(params, dict):
+        return {k: qweight_specs(spec_tree[k], v) for k, v in params.items()}
+    if isinstance(params, (list, tuple)):
+        return [qweight_specs(sp, v) for sp, v in zip(spec_tree, params)]
+    return spec_tree

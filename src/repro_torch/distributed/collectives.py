@@ -1,0 +1,167 @@
+"""Collectives of the port's multi-device layer (``repro.distributed.
+collectives``'s twin, and the ZeRO-3 layout's moves).
+
+``int8_ring_all_reduce``: a store-and-forward ring over one mesh axis whose
+every hop moves an int8 payload and one f32 scale and accumulates in f32
+(each hop's add a fused multiply-add, as the compiled reference's), a
+quarter of an f32 all-reduce's bytes per hop. Standalone, as in the
+reference: the training step does not call it.
+
+The ZeRO-3 layout: parameters (and the optimizer state beside them) live at
+rest as each rank's shard (``shard_tree``); a parts tree (per tensor dim,
+the mesh axes it is split over: ``launch.steps.param_parts``) says how.
+``gather_param`` rebuilds a whole parameter just before use; its gradient
+is reduce-scattered back to the shard with the mean over the ranks the
+batch rows are split over (``distributed.sharding.row_axes``): a dim split
+over those axes reduce-scatters, a dim split over other axes (whose ranks
+computed the same gradient) is sliced, and the row axes no dim uses are
+all-reduced. ``gather_tree`` gathers a whole tree (checkpoints).
+"""
+from __future__ import annotations
+
+from typing import Any, Tuple
+
+import torch
+import torch.distributed as dist
+
+from repro_torch.distributed.sharding import axes_of, row_axes
+from repro_torch.kernels.registry import f32_reciprocal
+
+__all__ = ["int8_ring_all_reduce", "shard_tree", "gather_tree", "gather_param",
+           "gather_leaf", "leaf_axes"]
+
+
+def _quant(v: torch.Tensor):
+    """One hop's payload: int8 values and their f32 absmax scale, as the
+    compiled reference quantizes (``max(absmax, 1e-12) * f32(1 / 127)``,
+    then a true division)."""
+    s = torch.clamp_min(v.abs().amax(), 1e-12) * f32_reciprocal(127.0)
+    q = torch.clamp(torch.round(v / s), -127, 127).to(torch.int8)
+    return q, s.reshape(1)
+
+
+def int8_ring_all_reduce(x: torch.Tensor, mesh, axis: str) -> torch.Tensor:
+    """This rank's summand ``x`` ring-reduced over the mesh axis ``axis``:
+    ``n - 1`` hops, each sending the last received contribution (at first
+    ``x``) to the next rank along the axis as int8 + one f32 scale and
+    adding what arrives from the previous one, in f32. Returns the sum as
+    accumulated at this rank (f32)."""
+    n = mesh.group_size((axis,))
+    idx = mesh.index((axis,))
+    _, members = mesh._groups[mesh._key((axis,))]
+    by_index = {mesh.index((axis,), r): r for r in members}
+    nxt, prv = by_index[(idx + 1) % n], by_index[(idx - 1) % n]
+    group = mesh.group((axis,))
+    send = x.to(torch.float32)
+    acc = send.clone()
+    for _ in range(n - 1):
+        q, s = _quant(send)
+        q_in, s_in = torch.empty_like(q), torch.empty_like(s)
+        ops = [dist.P2POp(dist.isend, q, nxt, group), dist.P2POp(dist.isend, s, nxt, group),
+               dist.P2POp(dist.irecv, q_in, prv, group),
+               dist.P2POp(dist.irecv, s_in, prv, group)]
+        for req in dist.batch_isend_irecv(ops):
+            req.wait()
+        recv = q_in.to(torch.float32) * s_in
+        # the compiled reference contracts acc + q * s into one fused
+        # multiply-add: the exact sum rounded once (q * s is exact in f64)
+        acc = (acc.to(torch.float64) + q_in.to(torch.float64) * s_in.to(torch.float64)
+               ).to(torch.float32)
+        send = recv
+    return acc
+
+
+# ------------------------------------------------------------------ ZeRO-3
+def leaf_axes(parts) -> Tuple[str, ...]:
+    """Every mesh axis a tensor of these parts is split over."""
+    return tuple(a for p in parts for a in axes_of(p))
+
+
+def _shard(t: torch.Tensor, parts, mesh) -> torch.Tensor:
+    out = t
+    for dim, p in enumerate(parts):
+        out = mesh.chunk(out, axes_of(p), dim)
+    return t if out.shape == t.shape else out.clone()
+
+
+def gather_leaf(t: torch.Tensor, parts, mesh, skip=()) -> torch.Tensor:
+    """The whole tensor from this rank's shard (``skip``: dims left split)."""
+    for dim, p in enumerate(parts):
+        if dim not in skip:
+            t = mesh.gather(t, axes_of(p), dim)
+    return t
+
+
+def _map(fn, tree, parts):
+    from repro_torch.core.wquant import QTensor
+
+    if isinstance(tree, QTensor):
+        return QTensor(fn(tree.q, parts["q"]), fn(tree.scale, parts["scale"]), tree.mode,
+                       None if tree.check is None else fn(tree.check, parts["check"]))
+    if isinstance(tree, dict):
+        if set(tree) == {"q", "s"} and set(parts) == {"q", "s"}:
+            return {k: fn(tree[k], parts[k]) for k in tree}
+        return {k: _map(fn, v, parts[k]) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [_map(fn, v, pp) for v, pp in zip(tree, parts)]
+    if isinstance(tree, torch.Tensor) and tree.ndim:
+        return fn(tree, parts)
+    return tree
+
+
+def shard_tree(tree: Any, parts: Any, mesh) -> Any:
+    """This rank's shards of a whole tree (tensors, QTensors, nested dicts
+    and lists): each a copy of its slice, or the tensor itself when it is
+    not split."""
+    return _map(lambda t, pp: _shard(t, pp, mesh), tree, parts)
+
+
+@torch.no_grad()
+def gather_tree(tree: Any, parts: Any, mesh) -> Any:
+    """The whole tree from every rank's shards (a collective: every rank
+    calls it)."""
+    return _map(lambda t, pp: gather_leaf(t, pp, mesh), tree, parts)
+
+
+class _GatherParam(torch.autograd.Function):
+    """Gather a parameter whole; the backward returns its shard's gradient,
+    the mean over the batch-row ranks (module docstring), in the
+    parameter's dtype."""
+
+    @staticmethod
+    def forward(ctx, local, parts, mesh, rows):
+        ctx.parts, ctx.mesh, ctx.rows, ctx.dtype = parts, mesh, rows, local.dtype
+        return gather_leaf(local, parts, mesh)
+
+    @staticmethod
+    def backward(ctx, g):
+        mesh, rows = ctx.mesh, ctx.rows
+        g = g.to(torch.float32)
+        scatter = []
+        for dim, p in enumerate(ctx.parts):
+            axes = axes_of(p)
+            inside = [a in rows for a in axes]
+            if axes and all(inside):
+                scatter.append((dim, axes))
+            elif any(inside):
+                raise NotImplementedError(f"a dim split over {axes}, partly the "
+                                          f"batch-row axes {rows}")
+            else:
+                g = mesh.chunk(g, axes, dim)
+        for dim, axes in scatter:
+            g = mesh.reduce_scatter(g.contiguous(), axes, dim)
+        done = {a for _, axes in scatter for a in axes}
+        g = g.contiguous()
+        mesh.all_reduce(g, tuple(a for a in rows if a not in done))
+        n = mesh.group_size(rows)
+        if n > 1:
+            g = g / n
+        return g.to(ctx.dtype), None, None, None
+
+
+def gather_param(t: torch.Tensor, parts, mesh) -> torch.Tensor:
+    """A parameter whole for use in this step; differentiable when ``t``
+    takes gradients (``_GatherParam``)."""
+    if t.requires_grad and torch.is_grad_enabled():
+        return _GatherParam.apply(t, parts, mesh, row_axes())
+    return gather_leaf(t, parts, mesh)

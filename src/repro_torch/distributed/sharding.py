@@ -1,0 +1,198 @@
+"""Logical-axis sharding (twin of ``repro.distributed.sharding``): one
+rules table maps model-level axis names to mesh axes; the models name
+their parameters' and activations' axes logically only.
+
+Mesh layout: (pod, data, model) = (2, 16, 16) multi-pod, (data, model)
+otherwise (``launch.mesh``). Default rules:
+
+  batch   -> (pod, data)        data-parallel axes
+  fsdp    -> (pod, data)        parameter and optimizer-state shards (ZeRO-3)
+  heads/kv/dff/vocab/experts -> model
+  embed/seq -> replicated
+
+A mesh is anything with ``axis_names`` and ``shape`` (sizes in the same
+order): a ``launch.mesh.Mesh``, which also holds the process groups, or a
+bare description of one. Resolution returns, per tensor dim, None, one
+mesh-axis name, or a tuple of them -- the entries of the reference's
+``PartitionSpec``.
+
+Activations under a mesh: the batch rows of a step are split over the data
+axes (``local_rows`` names them); every other dim is whole on every rank,
+so compute over 'model' is replicated. ``constrain`` therefore checks the
+logical axes' count and returns its input: the identity, on and off a mesh.
+"""
+from __future__ import annotations
+
+import contextlib
+import threading
+from typing import Dict, Optional, Sequence, Tuple, Union
+
+Axis = Union[None, str, Tuple[str, ...]]
+
+__all__ = ["DEFAULT_RULES", "sharding_rules", "resolve_spec", "constrain",
+           "make_resolver", "current_mesh", "local_rows", "row_axes", "axes_of",
+           "snapshot", "restored"]
+
+_state = threading.local()
+
+DEFAULT_RULES: Dict[str, Axis] = {
+    "batch": ("pod", "data"),
+    "moebatch": ("pod", "data"),  # batch dim of MoE dispatch tensors
+    "fsdp": ("pod", "data"),
+    "heads": "model",
+    "kv": "model",
+    "dff": "model",
+    "vocab": "model",
+    "experts": "model",
+    "embed": None,
+    "seq": None,
+    "seqpar": None,   # residual-stream sequence parallelism (opt-in)
+    "kvseq": None,
+    "state": None,
+    "layers": None,
+}
+
+
+def _ctx():
+    if not hasattr(_state, "mesh"):
+        _state.mesh = None
+        _state.rules = dict(DEFAULT_RULES)
+        _state.rows = ()
+    return _state
+
+
+@contextlib.contextmanager
+def sharding_rules(mesh, overrides: Optional[Dict[str, Axis]] = None):
+    """Run the block under ``mesh`` with the default rules updated by
+    ``overrides``; restores the previous mesh and rules after."""
+    st = _ctx()
+    prev = (st.mesh, st.rules)
+    st.mesh = mesh
+    st.rules = dict(DEFAULT_RULES)
+    if overrides:
+        st.rules.update(overrides)
+    try:
+        yield
+    finally:
+        st.mesh, st.rules = prev
+
+
+@contextlib.contextmanager
+def local_rows(axes: Tuple[str, ...]):
+    """Within the block, activations hold this rank's share of the batch
+    rows: the rows split, in order, over the mesh axes ``axes`` (``()``:
+    every rank holds every row)."""
+    st = _ctx()
+    prev = st.rows
+    st.rows = tuple(axes)
+    try:
+        yield
+    finally:
+        st.rows = prev
+
+
+def snapshot():
+    """The calling thread's mesh, rules and row split, for ``restored``: the
+    autograd engine runs a CUDA backward (and the recomputation of a
+    checkpointed block) on a thread of its own."""
+    st = _ctx()
+    return st.mesh, st.rules, st.rows
+
+
+@contextlib.contextmanager
+def restored(snap):
+    """Run the block under a ``snapshot`` taken on another thread."""
+    st = _ctx()
+    prev = snapshot()
+    st.mesh, st.rules, st.rows = snap
+    try:
+        yield
+    finally:
+        st.mesh, st.rules, st.rows = prev
+
+
+def row_axes() -> Tuple[str, ...]:
+    """The mesh axes the running step's batch rows are split over."""
+    return _ctx().rows
+
+
+def _sizes(mesh) -> Dict[str, int]:
+    return dict(zip(mesh.axis_names, mesh.shape))
+
+
+def _resolve_axis(mesh, logical: Optional[str]) -> Axis:
+    if logical is None:
+        return None
+    st = _ctx()
+    ax = st.rules.get(logical, None)
+    if ax is None:
+        return None
+    axes = (ax,) if isinstance(ax, str) else tuple(ax)
+    present = tuple(a for a in axes if a in mesh.axis_names)
+    if not present:
+        return None
+    return present if len(present) > 1 else present[0]
+
+
+def resolve_spec(logical_axes: Sequence[Optional[str]], mesh=None) -> Tuple[Axis, ...]:
+    """The mesh axes of each logical axis, without the divisibility guard;
+    ``()`` without a mesh."""
+    mesh = mesh if mesh is not None else _ctx().mesh
+    if mesh is None:
+        return ()
+    return tuple(_resolve_axis(mesh, a) for a in logical_axes)
+
+
+def constrain(x, *logical_axes: Optional[str]):
+    """Name ``x``'s axes logically. Off a mesh, and on one in this slice
+    (module docstring), the layout is fixed, so this is the identity; on
+    a mesh the axes' count must match ``x.ndim``."""
+    if _ctx().mesh is not None and len(logical_axes) != x.ndim:
+        raise ValueError(f"constrain: {len(logical_axes)} logical axes for a "
+                         f"{x.ndim}-d tensor {tuple(x.shape)}")
+    return x
+
+
+def _build_parts(mesh, logical_axes, shape):
+    """Resolve logical axes to mesh axes with (a) the divisibility guard
+    (a mesh axis whose running size does not divide the dim is dropped)
+    and (b) first-occurrence-wins de-duplication (a mesh axis shards at
+    most one dim; MoE maps both 'experts' and 'dff' to 'model', and the
+    earlier dim takes it)."""
+    sizes = _sizes(mesh)
+    used = set()
+    parts = []
+    for dim, a in zip(shape, logical_axes):
+        r = _resolve_axis(mesh, a)
+        if r is None:
+            parts.append(None)
+            continue
+        axes = (r,) if isinstance(r, str) else r
+        keep = []
+        total = 1
+        for ax in axes:
+            if ax not in used and dim % (total * sizes[ax]) == 0:
+                keep.append(ax)
+                used.add(ax)
+                total *= sizes[ax]
+        parts.append(tuple(keep) if len(keep) > 1 else (keep[0] if keep else None))
+    return parts
+
+
+def make_resolver(mesh):
+    """``one(spec, shape) -> parts``: the rules table, the divisibility
+    guard and mesh-axis de-duplication applied to one tensor."""
+    def one(spec, shape):
+        return tuple(_build_parts(mesh, spec, shape))
+    return one
+
+
+def axes_of(part: Axis) -> Tuple[str, ...]:
+    """One dim's entry as a tuple of mesh axes (``()`` when whole)."""
+    if part is None:
+        return ()
+    return (part,) if isinstance(part, str) else tuple(part)
+
+
+def current_mesh():
+    return _ctx().mesh

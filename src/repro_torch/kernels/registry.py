@@ -205,10 +205,12 @@ class Backend:
     ``quant_dot`` (rotate + quantize + GEMM) and ``quant_dot_experts``
     (the same over stacked expert weights); the two quant_dot forms take
     ``check=`` (the weight's ABFT column checksum) and then return ``(y,
-    resid)``."""
+    resid)``. ``quant_dot_fused``: is ``quant_dot`` the single kernel (the
+    sharded quant_dot counts the other kind as ``unfused_local``)?"""
 
     name: str = "?"
     priority: int = 0
+    quant_dot_fused: bool = False
 
     def auto_on(self, device_type: str) -> bool:
         return True
@@ -229,6 +231,7 @@ class Backend:
 class CudaBackend(Backend):
     name = "cuda"
     priority = 20
+    quant_dot_fused = True
 
     def auto_on(self, device_type: str) -> bool:
         return device_type == "cuda"

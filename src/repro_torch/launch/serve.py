@@ -41,8 +41,19 @@ rows of the padding included (ROADMAP.md, "Reference health"). A
 recurrent model (rwkv, mamba) carries its state instead; a mamba prompt
 of 128 tokens or more must be a multiple of 128 (the SSD's chunk). The
 first decode step is timed apart (it pays the first-use costs), so the
-reported tok/s is the steady state. ``--mp`` > 1 (model parallelism) is
-not ported yet.
+reported tok/s is the steady state.
+
+Several ranks (torchrun, or ``--mp`` > 1; ``launch.train``'s docstring):
+the weights are this rank's shards at rest, each layer's gathered just
+before it runs (int8 storage as int8; the down projections' consumer
+weights stay split by their out-channels into the sharded quant_dot); the
+prompt batch's rows split over 'data'; the tokens are gathered whole on
+every rank. The mesh serves phi4-mini-3.8b and llama3-8b
+(``launch.steps.MESH_ARCHS``):
+
+    torchrun --nproc-per-node 2 -m repro_torch.launch.serve --device cpu \
+        --mp 1 --arch phi4-mini-3.8b --scale 0.005 --batch 4 \
+        --prompt-len 16 --gen 6 --quant int8 --rotate hadamard --kernel cuda
 """
 from __future__ import annotations
 
@@ -51,14 +62,20 @@ import dataclasses
 import time
 
 import torch
+import torch.distributed as dist
 
 from repro_torch.configs import get_config
 from repro_torch.core.quant import QuantConfig
 from repro_torch.device import resolve_device
+from repro_torch.distributed.collectives import shard_tree
+from repro_torch.distributed.sharding import local_rows, sharding_rules
 from repro_torch.launch import shapes as shp
 from repro_torch.launch.env import harden_host_env
+from repro_torch.launch.mesh import distributed_requested, init_distributed, make_local_mesh
 from repro_torch.launch.serve_loop import scaled_config
-from repro_torch.models.lm import init_lm, lm_decode_step, lm_prefill, pad_kv_caches
+from repro_torch.launch.steps import batch_row_axes, check_mesh_run, local_batch
+from repro_torch.models.lm import (init_lm, lm_decode_step, lm_prefill, pad_kv_caches,
+                                   param_parts)
 
 
 def parse_args(argv=None):
@@ -78,7 +95,9 @@ def parse_args(argv=None):
                          "the rotation-consumer weights in the serving quant "
                          "mode). Default: on whenever --quant is not 'none'.")
     ap.add_argument("--no-prequant", dest="prequant", action="store_false")
-    ap.add_argument("--mp", type=int, default=1)
+    ap.add_argument("--mp", type=int, default=1, help="model-parallel size")
+    ap.add_argument("--dist-backend", default=None, choices=["nccl", "gloo"],
+                    help="process-group backend (default: nccl on cuda, gloo on cpu)")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda")
     return ap.parse_args(argv)
@@ -91,12 +110,10 @@ def _sync(device: torch.device) -> None:
 
 def main(argv=None) -> dict:
     """Serve one batch; returns {"cfg", "tokens" ((batch, gen) int64 numpy),
-    "prefill_s", "decode_steps", "decode_s", "tokens_per_s"}."""
+    "margins" ((batch, gen) f32 numpy: each greedy token's top-1 / top-2
+    logit gap), "prefill_s", "decode_steps", "decode_s", "tokens_per_s"}."""
     harden_host_env()                 # variables only; re-exec is __main__'s
     args = parse_args(argv)
-    if args.mp > 1:
-        raise NotImplementedError("--mp > 1: multi-device serving is not ported yet "
-                                  "(ROADMAP section 1, item 9)")
     device = resolve_device(args.device)
     quant = QuantConfig(mode=args.quant, rotate=args.rotate, backend=args.kernel,
                         kv_quant=args.quant != "none")
@@ -104,36 +121,83 @@ def main(argv=None) -> dict:
     prequant = args.quant != "none" if args.prequant is None else args.prequant
     if prequant:
         cfg = dataclasses.replace(cfg, weight_quant="int8")
-    print(f"{cfg.name}: d_model={cfg.d_model} layers={cfg.num_layers} d_ff={cfg.d_ff} "
-          f"vocab={cfg.vocab_size} quant={cfg.quant.mode} rotate={cfg.quant.rotate} "
-          f"kernel={cfg.quant.backend} weights={cfg.weight_quant} device={device}")
+    mesh, started, on_mesh = None, False, distributed_requested(args.mp)
+    if on_mesh:
+        check_mesh_run(cfg, args.mp)
+        started = not dist.is_initialized()
+        init_distributed(device, args.dist_backend)
+    try:
+        if on_mesh:
+            mesh = make_local_mesh(args.mp)
+        return _serve(args, device, mesh, cfg, prequant)
+    finally:
+        if started:
+            dist.destroy_process_group()
+
+
+def _serve(args, device, mesh, cfg, prequant: bool) -> dict:
+    say = print if mesh is None or mesh.rank == 0 else (lambda *a, **k: None)
+    if mesh is not None:
+        say(f"mesh {mesh.sizes()}")
+    say(f"{cfg.name}: d_model={cfg.d_model} layers={cfg.num_layers} d_ff={cfg.d_ff} "
+        f"vocab={cfg.vocab_size} quant={cfg.quant.mode} rotate={cfg.quant.rotate} "
+        f"kernel={cfg.quant.backend} weights={cfg.weight_quant} device={device}")
     params = init_lm(cfg, seed=args.seed, device=device)
     if prequant:
-        print("weights pre-quantized once at load (QTensor leaves; "
-              f"consumer mode={args.quant})")
+        say("weights pre-quantized once at load (QTensor leaves; "
+            f"consumer mode={args.quant})")
     pos = args.prompt_len + (cfg.vlm_patches if cfg.family == "vlm" else 0)
     max_len = args.prompt_len + args.gen
     batch = shp.make_batch(cfg, shp.ShapeSpec("serve", "prefill", args.prompt_len,
                                               args.batch), seed=args.seed)
     batch = {k: torch.from_numpy(v).to(device) for k, v in batch.items() if k != "labels"}
     batch["tokens"] = batch["tokens"].long()
+    rows = ()
+    if mesh is not None:
+        # every rank draws the whole model, then keeps its shards
+        with sharding_rules(mesh):
+            params = shard_tree(params, param_parts(cfg, mesh), mesh)
+        rows = batch_row_axes(mesh, args.batch)
+        batch = local_batch(batch, mesh, rows)
+    with sharding_rules(mesh), local_rows(rows):
+        out = _generate(args, device, cfg, params, batch, pos, max_len, say)
+    for key in ("tokens", "margins"):
+        if mesh is not None:
+            out[key] = mesh.gather(out[key], rows, 0)
+        out[key] = out[key].cpu().numpy()
+    say("sample token ids:", out["tokens"][0, :16].tolist())
+    return dict(out, cfg=cfg)
 
+
+def _greedy(cfg, logits):
+    """The greedy token of the last position, (B, 1), and its top-1 /
+    top-2 logit gap, (B, 1) f32."""
+    last = logits[:, -1, :cfg.vocab_size]
+    top = last.float().topk(2, dim=-1).values
+    return last.argmax(-1)[:, None], top[:, :1] - top[:, 1:]
+
+
+def _generate(args, device, cfg, params, batch, pos: int, max_len: int, say) -> dict:
+    """Prefill ``batch``, then ``--gen - 1`` greedy decode steps: the
+    tokens (a tensor on the device) and the timings."""
     with torch.inference_mode():
         _sync(device)
         t0 = time.perf_counter()
         logits, caches = lm_prefill(cfg, params, batch)
         caches = pad_kv_caches(cfg, caches, max_len)
-        tok = logits[:, -1, :cfg.vocab_size].argmax(-1)[:, None]
+        tok, gap = _greedy(cfg, logits)
         _sync(device)
         t_prefill = time.perf_counter() - t0
-        print(f"prefill: B={args.batch} S={args.prompt_len} in {t_prefill:.2f}s")
+        say(f"prefill: B={args.batch} S={args.prompt_len} in {t_prefill:.2f}s")
 
-        out = [tok]
+        out, gaps = [tok], [gap]
 
         def step(i):
             logits, _ = lm_decode_step(cfg, params, caches, out[-1],
                                        torch.tensor(pos + i, device=device))
-            out.append(logits[:, -1, :cfg.vocab_size].argmax(-1)[:, None])
+            tok, gap = _greedy(cfg, logits)
+            out.append(tok)
+            gaps.append(gap)
 
         # the first decode step pays the first-use costs: timed apart, so
         # the reported tok/s is the steady state
@@ -149,16 +213,15 @@ def main(argv=None) -> dict:
             _sync(device)
             dt = time.perf_counter() - t0
             steps = args.gen - 2
-    toks = torch.cat(out, dim=1).cpu().numpy()
     rate = steps * args.batch / max(dt, 1e-9)
     if steps > 0:
-        print(f"decode: first step {t_warm:.2f}s; {steps} steady-state steps in "
-              f"{dt:.2f}s ({rate:.1f} tok/s)")
+        say(f"decode: first step {t_warm:.2f}s; {steps} steady-state steps in "
+            f"{dt:.2f}s ({rate:.1f} tok/s)")
     else:
-        print(f"decode: {args.gen - 1} steps in {t_warm:.2f}s (0.0 tok/s "
-              "steady-state; too few steps to separate the first)")
-    print("sample token ids:", toks[0, :16].tolist())
-    return {"cfg": cfg, "tokens": toks, "prefill_s": t_prefill,
+        say(f"decode: {args.gen - 1} steps in {t_warm:.2f}s (0.0 tok/s "
+            "steady-state; too few steps to separate the first)")
+    return {"tokens": torch.cat(out, dim=1), "margins": torch.cat(gaps, dim=1),
+            "prefill_s": t_prefill,
             "decode_steps": steps, "decode_s": dt,
             "tokens_per_s": rate if steps > 0 else 0.0}
 

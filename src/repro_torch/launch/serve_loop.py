@@ -60,6 +60,16 @@ def scaled_config(cfg, scale: float):
         head_dim=None)
 
 
+def cut_depth(cfg, layers: int):
+    """``cfg`` with only its first ``layers`` layers: whole units of its
+    one group's pattern (a config of several groups raises)."""
+    (pattern, repeats), = cfg.groups
+    if layers % len(pattern) or not 0 < layers // len(pattern) <= repeats:
+        raise ValueError(f"{cfg.name}: {layers} layers are not whole units of its "
+                         f"{len(pattern)}-layer pattern x {repeats}")
+    return dataclasses.replace(cfg, groups=((pattern, layers // len(pattern)),))
+
+
 def build_engine(args):
     """Arguments -> (engine, cfg): config, seeded weights pre-quantized
     layer by layer on the device, engine."""

@@ -1,5 +1,6 @@
-"""The assigned input shapes and a host batch builder (twin of
-``repro.launch.shapes``, without the jax shape builders).
+"""The assigned input shapes, a host batch builder and the batch's and
+caches' logical axes (twin of ``repro.launch.shapes``, without the jax
+shape builders).
 
     train_4k     seq 4,096   global_batch 256   (train_step)
     prefill_32k  seq 32,768  global_batch 32    (prefill_step)
@@ -10,11 +11,12 @@
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Optional
+from typing import Any, Dict, List, Optional
 
 import numpy as np
 
-__all__ = ["ShapeSpec", "SHAPES", "shape_applicable", "make_batch"]
+__all__ = ["ShapeSpec", "SHAPES", "shape_applicable", "make_batch",
+           "batch_logical_specs", "cache_logical_specs"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -69,3 +71,47 @@ def make_batch(cfg, shape: ShapeSpec, seed: int = 0) -> Dict[str, np.ndarray]:
         out["frames"] = rng.standard_normal(
             (B, cfg.encoder_seq, cfg.d_model)).astype(np.float32)
     return out
+
+
+def batch_logical_specs(cfg) -> Dict[str, Any]:
+    """Logical axes of ``make_batch``'s entries."""
+    specs: Dict[str, Any] = {"tokens": ("batch", "seq"), "labels": ("batch", "seq")}
+    if cfg.family == "vlm":
+        specs["patch_embeds"] = ("batch", "seq", None)
+        specs["positions"] = (None, "batch", "seq")
+    if cfg.is_encdec:
+        specs["frames"] = ("batch", None, None)
+    return specs
+
+
+def _cache_specs(kind: str) -> Dict[str, tuple]:
+    """One layer's cache entries' logical axes, behind the reference's
+    leading 'layers' axis."""
+    if kind in ("attn", "moe"):
+        return {"k": ("layers", "batch", "kvseq", "kv", None),
+                "v": ("layers", "batch", "kvseq", "kv", None)}
+    if kind == "xattn":
+        return {"k": ("layers", "batch", "kvseq", "kv", None),
+                "v": ("layers", "batch", "kvseq", "kv", None),
+                "xk": ("layers", "batch", None, "kv", None),
+                "xv": ("layers", "batch", None, "kv", None)}
+    if kind == "mamba":
+        return {"ssm": ("layers", "batch", "heads", None, None),
+                "conv_x": ("layers", "batch", None, "dff"),
+                "conv_bc": ("layers", "batch", None, None)}
+    if kind == "rwkv":
+        return {"S": ("layers", "batch", "heads", None, None),
+                "xp_t": ("layers", "batch", None),
+                "xp_c": ("layers", "batch", None)}
+    raise ValueError(kind)
+
+
+def cache_logical_specs(cfg, stacked: bool = False) -> List[Any]:
+    """Logical axes of the decode caches: one dict per decoder layer, the
+    port's layout, or, with ``stacked``, the reference's (one dict of
+    ``p<j>`` per group, each entry behind a 'layers' axis)."""
+    if stacked:
+        return [{f"p{j}": _cache_specs(kind) for j, kind in enumerate(pattern)}
+                for pattern, _ in cfg.groups]
+    return [{k: v[1:] for k, v in _cache_specs(kind).items()}
+            for kind in cfg.layer_kinds]

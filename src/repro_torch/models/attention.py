@@ -20,6 +20,7 @@ import math
 import torch
 
 from repro_torch.core.api import RotationSpec
+from repro_torch.distributed.sharding import constrain
 from repro_torch.kernels.registry import cast_to, f32_reciprocal
 from repro_torch.models.common import (apply_rope_angles, dense_init, dtype_of,
                                       mrope_angles, rope_freqs)
@@ -59,7 +60,9 @@ def _project_qkv(cfg, p, x):
     q, k, v = x @ p["wq"], x @ p["wk"], x @ p["wv"]
     if cfg.qkv_bias:   # added to the 16-bit products, as the reference does
         q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
-    return q.reshape(B, S, H, hd), k.reshape(B, S, KH, hd), v.reshape(B, S, KH, hd)
+    return (constrain(q.reshape(B, S, H, hd), "batch", "seq", "heads", None),
+            constrain(k.reshape(B, S, KH, hd), "batch", "seq", "kv", None),
+            constrain(v.reshape(B, S, KH, hd), "batch", "seq", "kv", None))
 
 
 def _qk_spec(cfg, hd: int) -> RotationSpec:
@@ -147,6 +150,16 @@ def _full_mask(device) -> torch.Tensor:
     return torch.ones((1, 1, 1, 1), dtype=torch.bool, device=device)
 
 
+def attention_specs(cfg, cross: bool = False) -> dict:
+    """Logical sharding axes of the attention's parameters (``cross``: the
+    cross attention's, the same leaves)."""
+    p = {"wq": ("fsdp", "heads"), "wk": ("fsdp", "kv"), "wv": ("fsdp", "kv"),
+         "wo": ("heads", "fsdp")}
+    if cfg.qkv_bias:
+        p.update({"bq": ("heads",), "bk": ("kv",), "bv": ("kv",)})
+    return p
+
+
 def apply_attention(cfg, p, x: torch.Tensor, positions: torch.Tensor, *,
                     causal: bool = True, return_kv: bool = False):
     """Full-sequence attention (prefill; ``causal=False``: an encoder's,
@@ -161,7 +174,7 @@ def apply_attention(cfg, p, x: torch.Tensor, positions: torch.Tensor, *,
     v = _v_spec(cfg, v.shape[-1])(v)
     mask = _causal_mask(cfg, S, S, x.device) if causal else _full_mask(x.device)
     ctx = _sdpa(cfg, q, k, v, mask)
-    y = ctx @ p["wo"]
+    y = constrain(ctx @ p["wo"], "batch", "seq", None)
     if return_kv:
         kvdt = cfg.quant.kv_cache_dtype(x.dtype)
         return y, (cast_to(k, kvdt), cast_to(v, kvdt))
@@ -184,7 +197,8 @@ def apply_cross_attention(cfg, p, x: torch.Tensor, kv) -> torch.Tensor:
         q = q + p["bq"]
     q = q.reshape(B, S, cfg.num_heads, cfg.head_dim)
     k, v = kv
-    return _sdpa(cfg, q, k, v, _full_mask(x.device)) @ p["wo"]
+    return constrain(_sdpa(cfg, q, k, v, _full_mask(x.device)) @ p["wo"],
+                     "batch", "seq", None)
 
 
 def cross_kv(cfg, p, enc_out: torch.Tensor):
@@ -233,4 +247,4 @@ def decode_attention(cfg, p, x: torch.Tensor, cache_k: torch.Tensor,
         cache_v[:, row] = cast_to(v[:, 0], cache_v.dtype)
     mask = _decode_mask(cfg, cache_pos, cache_k.shape[1], x.device)
     ctx = _sdpa(cfg, q, cache_k.to(q.dtype), cache_v.to(q.dtype), mask)
-    return ctx @ p["wo"], cache_k, cache_v
+    return constrain(ctx @ p["wo"], "batch", "seq", None), cache_k, cache_v

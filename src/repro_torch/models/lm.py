@@ -48,6 +48,18 @@ gradients), ``lm_prefill``, ``pad_kv_caches``, ``lm_decode_step``.
 Training recomputes each block in the backward pass when ``cfg.remat`` is
 not "none" (``torch.utils.checkpoint``; the reference's jax.checkpoint of
 its scan body): the same values, one block's activations held at a time.
+
+Sharding: ``lm_param_specs`` gives every parameter's logical axes (the
+reference's tree with ``stacked=True``; the port's per-layer layout by
+default) and ``param_parts`` their mesh axes under a mesh. Under an active
+mesh (``distributed.sharding``) the parameters are this rank's shards (the
+ZeRO-3 layout, ``distributed.collectives.shard_tree``): each layer's are
+gathered just before the layer runs (int8 storage gathered as int8 and
+dequantized after) and dropped after it, their gradients reduce-scattered
+back to the shards; the rotation-consumer QTensors stay split by their
+out-channels and go so into the sharded quant_dot. The batch rows are
+this rank's share; compute over 'model' is replicated (tensor-parallel
+attention and MLP compute is not ported).
 """
 from __future__ import annotations
 
@@ -56,9 +68,12 @@ from typing import Any, Dict, List, Optional, Tuple
 import torch
 import torch.utils.checkpoint
 
-from repro_torch.core.wquant import (_is_consumer, dequant_tree, is_qleaf,
-                                     quantize_leaf)
+from repro_torch.core.wquant import (QTensor, _is_consumer, dequant_tree, is_qleaf,
+                                     qweight_specs, quantize_leaf)
 from repro_torch.device import resolve_device
+from repro_torch.distributed import collectives as C
+from repro_torch.distributed.sharding import (_ctx, axes_of, constrain, current_mesh,
+                                              make_resolver, restored, snapshot)
 from repro_torch.models import attention as A
 from repro_torch.models import mlp as M
 from repro_torch.models import rwkv as R
@@ -104,6 +119,146 @@ def _init_block(gen: torch.Generator, cfg: ModelConfig, kind: str, device) -> di
     return p
 
 
+# ---------------------------------------------------------------- sharding
+def _norm_specs(cfg: ModelConfig) -> dict:
+    if cfg.norm == "rmsnorm":
+        return {"scale": (None,)}
+    return {"scale": (None,), "bias": (None,)}
+
+
+def _block_specs(cfg: ModelConfig, kind: str) -> dict:
+    """Logical axes of one layer's parameters."""
+    n1 = _norm_specs(cfg)
+    if kind == "mamba":
+        return {"norm1": dict(n1), "mamba": SSM.mamba_specs(cfg)}
+    if kind == "rwkv":
+        return {"norm1": dict(n1), "tmix": R.rwkv_tmix_specs(cfg),
+                "norm2": dict(n1), "cmix": R.rwkv_cmix_specs(cfg)}
+    if kind == "xattn":
+        return {"norm1": dict(n1), "attn": A.attention_specs(cfg),
+                "norm_x": dict(n1), "xattn": A.attention_specs(cfg, cross=True),
+                "norm2": dict(n1), "mlp": M.mlp_specs(cfg)}
+    if kind not in ("attn", "moe", "enc_attn"):
+        raise ValueError(kind)
+    p = {"norm1": dict(n1), "attn": A.attention_specs(cfg), "norm2": dict(n1)}
+    p["moe" if kind == "moe" else "mlp"] = (
+        M.moe_specs(cfg) if kind == "moe" else M.mlp_specs(cfg))
+    return p
+
+
+def _stack_specs(tree):
+    if isinstance(tree, dict):
+        return {k: _stack_specs(v) for k, v in tree.items()}
+    return ("layers",) + tuple(tree)
+
+
+def _group_specs(cfg: ModelConfig, pattern) -> dict:
+    """The reference's stacked group: ``p<j>`` -> pattern position j's
+    axes behind a leading 'layers' axis."""
+    return {f"p{j}": _stack_specs(_block_specs(cfg, kind))
+            for j, kind in enumerate(pattern)}
+
+
+def lm_param_specs(cfg: ModelConfig, stacked: bool = False) -> Dict[str, Any]:
+    """Every parameter's logical axes: in the port's layout (a list of
+    per-layer trees), or, with ``stacked``, in the reference's (stacked
+    ``groups``), equal to its ``lm_param_specs``."""
+    n1 = _norm_specs(cfg)
+    specs: Dict[str, Any] = {"emb": ("vocab", "embed"), "final_norm": dict(n1)}
+    if not cfg.tie_embeddings:
+        specs["unemb"] = ("embed", "vocab")
+    if stacked:
+        specs["groups"] = [_group_specs(cfg, pat) for pat, _ in cfg.groups]
+    else:
+        specs["layers"] = [_block_specs(cfg, k) for k in cfg.layer_kinds]
+    if cfg.is_encdec:
+        if stacked:
+            specs["enc_groups"] = [_group_specs(cfg, pat) for pat, _ in cfg.encoder_groups]
+        else:
+            specs["enc_layers"] = [_block_specs(cfg, k) for k in cfg.encoder_layer_kinds]
+        specs["enc_norm"] = dict(n1)
+    return specs
+
+
+_PARTS: Dict[tuple, Any] = {}
+
+
+def param_parts(cfg: ModelConfig, mesh) -> Dict[str, Any]:
+    """The mesh axes of every parameter's dims on ``mesh`` under the active
+    rules: ``lm_param_specs`` (and, for int8 weight storage,
+    ``qweight_specs``: a QTensor's parts are ``{"q", "scale"[, "check"]}``)
+    resolved on the parameters' shapes with the divisibility guard. Cached
+    per config, mesh and rules."""
+    from repro_torch.core.wquant import wants_checks
+
+    key = (cfg, mesh.shape, mesh.axis_names, tuple(sorted(_ctx().rules.items())),
+           wants_checks(cfg))
+    if key not in _PARTS:
+        shapes = init_lm(cfg, device="meta")
+        specs = qweight_specs(lm_param_specs(cfg), shapes)
+        _PARTS[key] = _resolve(specs, shapes, make_resolver(mesh))
+    return _PARTS[key]
+
+
+def _resolve(specs, shapes, one):
+    if is_qleaf(shapes):
+        out = {"q": one(specs["q"], shapes.q.shape),
+               "scale": one(specs["scale"], shapes.scale.shape)}
+        if shapes.check is not None:
+            out["check"] = one(specs["check"], shapes.check.shape)
+        return out
+    if isinstance(shapes, dict):
+        return {k: _resolve(specs[k], v, one) for k, v in shapes.items()}
+    if isinstance(shapes, list):
+        return [_resolve(sp, v, one) for sp, v in zip(specs, shapes)]
+    return one(specs, shapes.shape)
+
+
+def _mesh_parts(cfg: ModelConfig, key: str):
+    """``param_parts`` of one top-level entry under the active mesh; None
+    off a mesh."""
+    mesh = current_mesh()
+    return None if mesh is None else param_parts(cfg, mesh)[key]
+
+
+def _gather(cfg: ModelConfig, tree, parts, keys=()):
+    """A layer's (or a top-level entry's) parameters whole, from this
+    rank's shards: tensors through ``gather_param`` (their gradients go
+    back to the shards), QTensors gathered in their storage dtype, a kept
+    rotation consumer only along its rows (``_consumer_shard``)."""
+    mesh = current_mesh()
+    if is_qleaf(tree):
+        if _keeps(cfg, tree, keys) and tree.q.ndim == 2:
+            return _consumer_shard(tree, parts, mesh)
+        return C.gather_tree(tree, parts, mesh)
+    if isinstance(tree, dict):
+        return {k: _gather(cfg, v, parts[k], keys + (k,)) for k, v in tree.items()}
+    return C.gather_param(tree, parts, mesh)
+
+
+def _consumer_shard(p: QTensor, parts, mesh) -> QTensor:
+    """A rotation-consumer QTensor for the sharded quant_dot: when its
+    out-channels are split over the mesh axes the site's plan shards over,
+    gathered along its rows only (``QTensor.shard``); otherwise whole."""
+    from repro_torch.core.api import _resolve_mesh_axes
+
+    cols = axes_of(parts["q"][-1])
+    d = p.q.shape[-1] * mesh.group_size(cols)
+    want = _resolve_mesh_axes(M._DOWN_AXES, d)
+    if want is None or cols != want or axes_of(parts["scale"][-1]) != want:
+        return C.gather_tree(p, parts, mesh)
+    check = None if p.check is None else C.gather_leaf(p.check, parts["check"], mesh)
+    return QTensor(C.gather_leaf(p.q, parts["q"], mesh, skip=(1,)),
+                   C.gather_leaf(p.scale, parts["scale"], mesh, skip=(1,)),
+                   p.mode, check, shard=(want, d))
+
+
+def _top(cfg: ModelConfig, params, key: str):
+    """A top-level entry of ``params``, whole under a mesh."""
+    parts = _mesh_parts(cfg, key)
+    return params[key] if parts is None else _gather(cfg, params[key], parts, (key,))
+
+
 def _quantized(cfg: ModelConfig, tree, keys=()):
     """Pre-quantize one freshly initialized subtree (``weight_quant ==
     'int8'``: the serving storage of ``wquant.quantize_lm_weights``)."""
@@ -144,6 +299,13 @@ def init_lm(cfg: ModelConfig, *, seed: int = 0, device="cuda") -> Dict[str, Any]
     return params
 
 
+def _keeps(cfg: ModelConfig, p: QTensor, keys) -> bool:
+    """Is this QTensor a quant_dot consumer the site contracts directly (a
+    down projection stored in the config's rotation-quant mode)?"""
+    qc = cfg.quant
+    return qc.rotating and qc.enabled and p.mode == qc.mode and _is_consumer(keys)
+
+
 def _dequant_layer(cfg: ModelConfig, lp: dict, dtype) -> dict:
     """Dequantize a layer's QTensor leaves, keeping the quant_dot CONSUMER
     leaves (down projections, dense or per expert, stored in the config's
@@ -151,12 +313,9 @@ def _dequant_layer(cfg: ModelConfig, lp: dict, dtype) -> dict:
     directly. Expert stacks dequantize a chunk of experts at a time
     (``QTensor.dequant``): one MoE layer's gate and up in f32 at maverick's
     width would be 43 GB."""
-    qc = cfg.quant
-
     def one(p, keys):
         if is_qleaf(p):
-            if (qc.rotating and qc.enabled and p.mode == qc.mode
-                    and _is_consumer(keys)):
+            if _keeps(cfg, p, keys):
                 return p
             return p.dequant(dtype)
         if isinstance(p, dict):
@@ -166,7 +325,11 @@ def _dequant_layer(cfg: ModelConfig, lp: dict, dtype) -> dict:
     return {k: one(v, (k,)) for k, v in lp.items()}
 
 
-def _layer_params(cfg: ModelConfig, lp: dict, dtype) -> dict:
+def _layer_params(cfg: ModelConfig, lp: dict, dtype, parts=None) -> dict:
+    """One layer's parameters for use: gathered whole from this rank's
+    shards under a mesh (``parts``), then dequantized."""
+    if parts is not None:
+        lp = _gather(cfg, lp, parts, ("layers",))
     if cfg.weight_quant == "int8":
         return _dequant_layer(cfg, lp, dtype)
     return dequant_tree(lp, dtype)
@@ -176,21 +339,21 @@ def _embed(cfg: ModelConfig, params, tokens: torch.Tensor) -> torch.Tensor:
     """Embedding rows for ``tokens``; a quantized table is dequantized
     after the gather (elementwise, so the same values as dequantizing the
     whole table first)."""
-    emb = params["emb"]
+    emb = _top(cfg, params, "emb")
     if is_qleaf(emb):
         return (emb.q[tokens].to(torch.float32) * emb.scale[0]).to(dtype_of(cfg))
     return emb[tokens]
 
 
 def _logits(cfg: ModelConfig, params, x: torch.Tensor) -> torch.Tensor:
-    x = apply_norm(cfg, params["final_norm"], x)
+    x = apply_norm(cfg, _top(cfg, params, "final_norm"), x)
     if cfg.tie_embeddings:
-        logits = x @ dequant_tree(params["emb"], x.dtype).T
+        logits = x @ dequant_tree(_top(cfg, params, "emb"), x.dtype).T
     else:
-        logits = x @ dequant_tree(params["unemb"], x.dtype)
+        logits = x @ dequant_tree(_top(cfg, params, "unemb"), x.dtype)
     if cfg.padded_vocab != cfg.vocab_size:
         logits[..., cfg.vocab_size:] = float("-inf")
-    return logits
+    return constrain(logits, "batch", "seq", "vocab")
 
 
 def _ffn(cfg, kind: str, p, h: torch.Tensor):
@@ -243,31 +406,40 @@ def _recurrent_prefill(cfg, kind, p, x, want_cache: bool):
     return x + y, 0.0, cache if want_cache else None
 
 
-def _run_stack(cfg, kinds, layers, x, positions, enc_out, want_cache: bool):
+def _run_stack(cfg, kinds, layers, x, positions, enc_out, want_cache: bool,
+               parts=None):
     """Every layer of one stack in order: (x, aux summed, caches or None).
-    Each layer's dequantized parameters live only while the layer runs;
-    in a pass that records gradients each block is recomputed in the
-    backward pass unless ``cfg.remat`` is "none"."""
+    Each layer's gathered and dequantized parameters live only while the
+    layer runs (``parts``: the stack's ``param_parts`` under a mesh); in a
+    pass that records gradients each block is recomputed in the backward
+    pass unless ``cfg.remat`` is "none"."""
     caches: Optional[List[dict]] = [] if want_cache else None
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     remat = cfg.remat != "none" and not want_cache and torch.is_grad_enabled()
-    for kind, lp in zip(kinds, layers):
+    for i, (kind, lp) in enumerate(zip(kinds, layers)):
+        lparts = None if parts is None else parts[i]
         if remat:
             x, a = torch.utils.checkpoint.checkpoint(
-                _block_train, cfg, kind, lp, x, positions, enc_out,
+                _block_train, cfg, kind, lp, x, positions, enc_out, lparts, snapshot(),
                 use_reentrant=False)
         else:
-            x, a, cache = _block_prefill(cfg, kind, _layer_params(cfg, lp, x.dtype),
+            x, a, cache = _block_prefill(cfg, kind,
+                                         _layer_params(cfg, lp, x.dtype, lparts),
                                          x, positions, enc_out, want_cache)
             if want_cache:
                 caches.append(cache)
         aux = aux + a
+        x = constrain(x, "batch", "seqpar", None)
     return x, aux, caches
 
 
-def _block_train(cfg, kind, lp, x, positions, enc_out):
-    x, aux, _ = _block_prefill(cfg, kind, _layer_params(cfg, lp, x.dtype), x,
-                               positions, enc_out, False)
+def _block_train(cfg, kind, lp, x, positions, enc_out, lparts, snap):
+    """One block for ``torch.utils.checkpoint``, under the sharding context
+    ``snap`` it was first run in: its recomputation runs on the autograd
+    engine's thread."""
+    with restored(snap):
+        x, aux, _ = _block_prefill(cfg, kind, _layer_params(cfg, lp, x.dtype, lparts), x,
+                                   positions, enc_out, False)
     return x, torch.as_tensor(aux, dtype=torch.float32, device=x.device)
 
 
@@ -297,8 +469,9 @@ def _run_encoder(cfg: ModelConfig, params, frames: torch.Tensor) -> torch.Tensor
     B, T, _ = frames.shape
     x = frames + sinusoidal_positions(T, cfg.d_model, frames.device).to(frames.dtype)[None]
     x, _, _ = _run_stack(cfg, cfg.encoder_layer_kinds, params["enc_layers"], x,
-                         _positions(B, T, x.device), None, False)
-    return apply_norm(cfg, params["enc_norm"], x)
+                         _positions(B, T, x.device), None, False,
+                         _mesh_parts(cfg, "enc_layers"))
+    return apply_norm(cfg, _top(cfg, params, "enc_norm"), x)
 
 
 def lm_forward(cfg: ModelConfig, params, batch, want_cache: bool = False):
@@ -311,8 +484,10 @@ def lm_forward(cfg: ModelConfig, params, batch, want_cache: bool = False):
     if cfg.is_encdec:
         enc_out = _run_encoder(cfg, params, batch["frames"].to(dtype_of(cfg)))
     x, positions = _embed_inputs(cfg, params, batch)
+    x = constrain(x, "batch", "seq", None)
     x, aux, caches = _run_stack(cfg, cfg.layer_kinds, params["layers"], x,
-                                positions, enc_out, want_cache)
+                                positions, enc_out, want_cache,
+                                _mesh_parts(cfg, "layers"))
     return _logits(cfg, params, x), aux, caches
 
 
@@ -383,8 +558,10 @@ def lm_decode_step(cfg: ModelConfig, params, caches, tokens: torch.Tensor,
         positions = cache_pos.reshape(1, 1).expand(B, 1).to(torch.int32)
     if cfg.mrope:
         positions = positions[None].expand(3, B, 1)
-    for kind, lp, c in zip(cfg.layer_kinds, params["layers"], caches):
-        x = _block_decode(cfg, kind, _layer_params(cfg, lp, x.dtype), x, c,
+    parts = _mesh_parts(cfg, "layers")
+    for i, (kind, lp, c) in enumerate(zip(cfg.layer_kinds, params["layers"], caches)):
+        lparts = None if parts is None else parts[i]
+        x = _block_decode(cfg, kind, _layer_params(cfg, lp, x.dtype, lparts), x, c,
                           cache_pos, positions)
     return _logits(cfg, params, x), caches
 

@@ -22,6 +22,7 @@ import torch.nn.functional as F
 
 from repro_torch.core import wquant
 from repro_torch.core.api import QuantDotSpec
+from repro_torch.distributed.sharding import constrain
 from repro_torch.kernels.registry import QSPECS
 from repro_torch.models.common import dense_init, dtype_of
 
@@ -48,6 +49,12 @@ def _act(cfg, g: torch.Tensor) -> torch.Tensor:
     return _silu(g) if cfg.act == "swiglu" else _gelu(g)
 
 
+# logical axes of the down projections' weights: the sharded quant_dot's
+# column split under a mesh
+_DOWN_AXES = ("dff", "fsdp")
+_EXPERT_DOWN_AXES = ("experts", "dff", "fsdp")
+
+
 # -------------------------------------------------------------------- dense
 def init_mlp(gen: torch.Generator, cfg, device) -> dict:
     """{w_gate (SwiGLU only), w_up, w_down}."""
@@ -61,11 +68,22 @@ def init_mlp(gen: torch.Generator, cfg, device) -> dict:
     return p
 
 
+def mlp_specs(cfg) -> dict:
+    """Logical sharding axes of the MLP's parameters."""
+    p = {"w_up": ("fsdp", "dff"), "w_down": ("dff", "fsdp")}
+    if cfg.act == "swiglu":
+        p["w_gate"] = ("fsdp", "dff")
+    return p
+
+
 def apply_mlp(cfg, p, x: torch.Tensor) -> torch.Tensor:
     h = (_act(cfg, x @ p["w_gate"]) * (x @ p["w_up"]) if cfg.act == "swiglu"
          else _act(cfg, x @ p["w_up"]))
-    spec = QuantDotSpec.for_config(h.shape[-1], cfg.quant)
-    return spec.bind(p["w_down"])(h)
+    h = constrain(h, "batch", "seq", "dff")
+    # under a mesh the site shards: the weight's columns over 'fsdp' (the
+    # data axes), the fused kernel shard-local (core.api)
+    spec = QuantDotSpec.for_config(h.shape[-1], cfg.quant, weight_axes=_DOWN_AXES)
+    return constrain(spec.bind(p["w_down"])(h), "batch", "seq", None)
 
 
 # ---------------------------------------------------------------------- MoE
@@ -119,6 +137,17 @@ def init_moe(gen: torch.Generator, cfg, device) -> dict:
     return p
 
 
+def moe_specs(cfg) -> dict:
+    """Logical sharding axes of the MoE block's parameters."""
+    p = {"router": ("fsdp", None),
+         "experts": {"w_gate": ("experts", "fsdp", "dff"),
+                     "w_up": ("experts", "fsdp", "dff"),
+                     "w_down": ("experts", "dff", "fsdp")}}
+    if cfg.moe_shared_expert:
+        p["shared"] = mlp_specs(cfg)
+    return p
+
+
 def apply_moe(cfg, p, x: torch.Tensor):
     """x: (B, S, d). Top-k routing with capacity-factor dense dispatch, as
     the reference writes it: f32 router logits, softmax, top-k gates
@@ -144,12 +173,17 @@ def apply_moe(cfg, p, x: torch.Tensor):
     combine = ((keep * topw[..., None])[..., None] * cap1h).sum(2)
 
     xin = torch.einsum("bsec,bsd->becd", dispatch.to(x.dtype), x)
+    xin = constrain(xin, "moebatch", "experts", None, None)
     we = p["experts"]
     h = (_act(cfg, torch.einsum("becd,edf->becf", xin, we["w_gate"]))
          * torch.einsum("becd,edf->becf", xin, we["w_up"]))
-    spec = QuantDotSpec.for_config(h.shape[-1], cfg.quant)
+    h = constrain(h, "moebatch", "experts", None, "dff")
+    # weight_axes is declarative at the expert site, as in the reference
+    spec = QuantDotSpec.for_config(h.shape[-1], cfg.quant,
+                                   weight_axes=_EXPERT_DOWN_AXES)
     yout = spec.bind_experts(we["w_down"])(h)                      # (B,E,cap,d)
-    y = torch.einsum("bsec,becd->bsd", combine.to(x.dtype), yout)
+    y = constrain(torch.einsum("bsec,becd->bsd", combine.to(x.dtype), yout),
+                  "batch", "seq", None)
     if cfg.moe_shared_expert:
         y = y + apply_mlp(cfg, p["shared"], x)
     density = sel.sum(2).mean(dim=(0, 1))                          # (E,)

@@ -32,6 +32,7 @@ import math
 import torch
 
 from repro_torch.core.api import QuantDotSpec
+from repro_torch.distributed.sharding import constrain
 from repro_torch.models.common import dense_init, dtype_of
 from repro_torch.models.mlp import _silu
 
@@ -85,6 +86,18 @@ def init_rwkv_tmix(gen: torch.Generator, cfg, device) -> dict:
         "wo": dense_init(gen, d, d, dt, scale=1.0 / math.sqrt(d), device=device),
         "ln_scale": _full((d,), 1.0, device),
         "ln_bias": _full((d,), 0.0, device),
+    }
+
+
+def rwkv_tmix_specs(cfg) -> dict:
+    """Logical sharding axes of the time mix's parameters."""
+    return {
+        "mu_base": (None,), "mix_w1": ("fsdp", None), "mix_w2": (None, None, None),
+        "mu": (None, None), "w0": (None,), "w_lora_a": ("fsdp", None),
+        "w_lora_b": (None, None), "u": ("heads", None),
+        "wr": ("fsdp", "heads"), "wk": ("fsdp", "heads"), "wv": ("fsdp", "heads"),
+        "wg": ("fsdp", "heads"), "wo": ("heads", "fsdp"),
+        "ln_scale": (None,), "ln_bias": (None,),
     }
 
 
@@ -189,7 +202,7 @@ def apply_rwkv_tmix(cfg, p, x: torch.Tensor, x_prev=None, *, return_state: bool 
     else:
         out, state = _tmix_scan(B, S, H, K, r, k, v, w, p["u"])
     out = _groupnorm_heads(p, out, B, S, d)
-    y = (out.to(x.dtype) * g) @ p["wo"]
+    y = constrain((out.to(x.dtype) * g) @ p["wo"], "batch", "seq", None)
     if return_state:    # the last input copied: the cache holds no view of x
         return y, (state, x[:, -1, :].clone())
     return y
@@ -223,6 +236,12 @@ def init_rwkv_cmix(gen: torch.Generator, cfg, device) -> dict:
     }
 
 
+def rwkv_cmix_specs(cfg) -> dict:
+    """Logical sharding axes of the channel mix's parameters."""
+    return {"mu_r": (None,), "mu_k": (None,),
+            "wr": ("fsdp", None), "wk": ("fsdp", "dff"), "wv": ("dff", "fsdp")}
+
+
 def apply_rwkv_cmix(cfg, p, x: torch.Tensor, x_prev=None, *, return_state: bool = False):
     """sigmoid(receptance) * (relu(k)^2 through the down-projection site):
     the site rotates, quantizes and contracts (``QuantDotSpec``); with
@@ -233,8 +252,9 @@ def apply_rwkv_cmix(cfg, p, x: torch.Tensor, x_prev=None, *, return_state: bool 
     xr = (x + dx * p["mu_r"]).to(x.dtype)
     xk = (x + dx * p["mu_k"]).to(x.dtype)
     r = _sigmoid(xr @ p["wr"])
-    k = torch.relu(xk @ p["wk"]).square()
-    y = r * QuantDotSpec.for_config(k.shape[-1], cfg.quant).bind(p["wv"])(k)
+    k = constrain(torch.relu(xk @ p["wk"]).square(), "batch", "seq", "dff")
+    spec = QuantDotSpec.for_config(k.shape[-1], cfg.quant, weight_axes=("dff", "fsdp"))
+    y = constrain(r * spec.bind(p["wv"])(k), "batch", "seq", None)
     if return_state:
         return y, x[:, -1, :].clone()
     return y

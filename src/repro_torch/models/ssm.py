@@ -31,6 +31,7 @@ from typing import NamedTuple, Tuple
 
 import torch
 
+from repro_torch.distributed.sharding import constrain
 from repro_torch.models.common import dense_init, dtype_of
 from repro_torch.models.mlp import _silu
 
@@ -112,6 +113,14 @@ class MambaState(NamedTuple):
     conv_bc: torch.Tensor   # (B, W-1, 2N)
 
 
+def mamba_specs(cfg) -> dict:
+    """Logical sharding axes of the Mamba2 block's parameters."""
+    return {"w_zx": ("fsdp", "dff"), "w_bcdt": ("fsdp", None),
+            "conv_x": (None, "dff"), "conv_bc": (None, None), "A_log": (None,),
+            "D": (None,), "dt_bias": (None,), "norm": ("dff",),
+            "w_out": ("dff", "fsdp")}
+
+
 def init_mamba_state(cfg, batch: int, dtype=torch.float32, device=None) -> MambaState:
     d_inner, H, P, N = _dims(cfg)
     return MambaState(
@@ -125,7 +134,7 @@ def _gated_norm(p, y: torch.Tensor, z: torch.Tensor, dtype) -> torch.Tensor:
     f32 ``norm`` scale, rounded to the io dtype, then the out projection."""
     y = y * _silu(z.to(torch.float32))
     y = y * torch.rsqrt(y.square().mean(-1, keepdim=True) + 1e-6) * p["norm"]
-    return y.to(dtype) @ p["w_out"]
+    return constrain(y.to(dtype) @ p["w_out"], "batch", "seq", None)
 
 
 def apply_mamba(cfg, p, x: torch.Tensor, *, return_state: bool = False):
@@ -145,7 +154,8 @@ def apply_mamba(cfg, p, x: torch.Tensor, *, return_state: bool = False):
         raise ValueError(f"seq {S} not divisible by chunk {_CHUNK}")
     nc = S // Tc
     f32 = torch.float32
-    xh = xs.reshape(B, nc, Tc, H, P).to(f32)
+    xh = constrain(xs.reshape(B, nc, Tc, H, P), "batch", None, None, "heads",
+                   None).to(f32)
     bv = b.reshape(B, nc, Tc, N).to(f32)
     cv = c.reshape(B, nc, Tc, N).to(f32)
     dtv = _softplus(dt_raw.reshape(B, nc, Tc, H).to(f32) + p["dt_bias"])

@@ -7,6 +7,13 @@ nested dicts and lists, leaves in jax's order); the update runs in f32 per
 parameter and casts back to the parameter's dtype. Divisions by constants
 are written as products with the f32 reciprocal, as XLA compiles the
 reference's.
+
+Under a mesh the parameters, gradients and state are this rank's shards;
+``shards`` (per leaf, in order: the mesh axes the leaf is split over) makes
+the two whole-tensor reductions whole again: each leaf's squared norm is
+summed over its shards before the global norm adds it in (leaf order kept,
+so a mesh of one rank gives the unsharded value bitwise), and int8_ef's
+per-tensor absmax is the maximum over them.
 """
 from __future__ import annotations
 
@@ -15,6 +22,7 @@ import math
 from typing import Any, Dict, Tuple
 
 import torch
+import torch.distributed as dist
 
 from repro_torch import tree as T
 from repro_torch.kernels.registry import f32_reciprocal
@@ -67,43 +75,61 @@ def init_opt_state(params, cfg: OptConfig) -> Dict[str, Any]:
     return state
 
 
-def _global_norm(grads) -> torch.Tensor:
+def _mesh_of(shards):
+    from repro_torch.distributed.sharding import current_mesh
+
+    return current_mesh() if shards is not None else None
+
+
+def _global_norm(grads, shards=None) -> torch.Tensor:
+    mesh = _mesh_of(shards)
     total = 0
-    for g in T.leaves(grads):
-        total = total + g.to(torch.float32).square().sum()
+    for i, g in enumerate(T.leaves(grads)):
+        sq = g.to(torch.float32).square().sum()
+        if mesh is not None:
+            mesh.all_reduce(sq, shards[i])
+        total = total + sq
     return torch.sqrt(total)
 
 
-def compress_grads(grads, ef):
+def compress_grads(grads, ef, shards=None):
     """Error-feedback int8 compression: g_q = Q(g + e), e' = (g + e) - g_q,
-    one absmax scale per tensor."""
-    def one(g, e):
+    one absmax scale per tensor (over every shard of it, under a mesh)."""
+    mesh = _mesh_of(shards)
+
+    def one(g, e, axes):
         x = g.to(torch.float32) + e
-        s = torch.clamp_min(x.abs().amax(), 1e-12) * f32_reciprocal(127.0)
+        a = x.abs().amax()
+        if mesh is not None:
+            mesh.all_reduce(a, axes, dist.ReduceOp.MAX)
+        s = torch.clamp_min(a, 1e-12) * f32_reciprocal(127.0)
         q = torch.clamp(torch.round(x / s), -127, 127)
         gq = q * s
         return gq, x - gq
 
-    out = [one(g, e) for g, e in zip(T.leaves(grads), T.leaves(ef))]
+    flat = T.leaves(grads)
+    axes = shards if shards is not None else [()] * len(flat)
+    out = [one(g, e, a) for g, e, a in zip(flat, T.leaves(ef), axes)]
     return (T.unflatten(grads, [o[0] for o in out]),
             T.unflatten(grads, [o[1] for o in out]))
 
 
 @torch.no_grad()
-def apply_updates(params, grads, state, cfg: OptConfig) -> Tuple[Any, Any, Dict]:
+def apply_updates(params, grads, state, cfg: OptConfig, shards=None) -> Tuple[Any, Any, Dict]:
     """One AdamW step: (params, state, {"gnorm", "lr"}). The parameters and
     the f32 moments are updated IN PLACE, one parameter at a time (the
     reference's jitted step donates them), so the step needs one f32 copy of
     the largest parameter beside the model and its state; the same values
-    as the reference's out-of-place update, op for op."""
+    as the reference's out-of-place update, op for op. ``shards``: under a
+    mesh, each leaf's split axes (module docstring)."""
     step = state["step"] + 1
     lr = schedule(cfg, step)
 
     new_state: Dict[str, Any] = {"step": step}
     if cfg.grad_compression == "int8_ef":
-        grads, new_state["ef"] = compress_grads(grads, state["ef"])
+        grads, new_state["ef"] = compress_grads(grads, state["ef"], shards)
 
-    gnorm = _global_norm(grads)
+    gnorm = _global_norm(grads, shards)
     scale = torch.clamp_max(cfg.clip_norm / torch.clamp_min(gnorm, 1e-12), 1.0)
 
     sf = step.to(torch.float32)

@@ -6,13 +6,14 @@ group row-wise gives the reference's state of the stacked parameter.
 """
 from __future__ import annotations
 
-from typing import Dict
+from typing import Any, Dict
 
 import torch
 
 from repro_torch.kernels.registry import f32_reciprocal
 
-__all__ = ["quantize_state", "dequantize_state", "zeros_like_qstate", "is_qstate"]
+__all__ = ["quantize_state", "dequantize_state", "zeros_like_qstate", "is_qstate",
+           "qstate_specs"]
 
 _BLOCK = 256
 
@@ -46,3 +47,17 @@ def dequantize_state(t: Dict[str, torch.Tensor], shape) -> torch.Tensor:
 
 def zeros_like_qstate(x: torch.Tensor) -> Dict[str, torch.Tensor]:
     return quantize_state(torch.zeros(x.shape, dtype=torch.float32, device=x.device))
+
+
+def qstate_specs(param_spec: tuple) -> Dict[str, Any]:
+    """Logical sharding of a blockwise-int8 moment of a parameter with
+    logical axes ``param_spec``: the (rows, cols) storage takes rows on the
+    first named leading axis and cols on the parameter's last axis (a 1-D
+    parameter's one axis goes to the rows), for both "q" and "s" -- the
+    reference's rule, name for name."""
+    lead = next((a for a in param_spec[:-1] if a is not None), None)
+    last = param_spec[-1] if len(param_spec) > 1 else None
+    if lead is None and param_spec and len(param_spec) == 1:
+        lead = param_spec[-1]
+        last = None
+    return {"q": (lead, last), "s": (lead, last)}
