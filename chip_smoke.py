@@ -6,7 +6,11 @@ Runs from the repository root and needs the repository's ``src/``. It
 
   1. prints the card's name and power limit (nvidia-smi);
   2. builds the port's CUDA kernels from ``src/repro_torch/csrc`` (one nvcc
-     per source, in parallel) and prints the build seconds;
+     per source, all in parallel, the mutants with them) and prints the
+     build seconds; the linter's counting and PTX builds run beside the
+     phases from the entry point to the lint phase (after the kernels'
+     timings), four nvcc at a time, and each phase line taken beside them
+     ends ``(beside nvcc)``;
   3. kernel phase: holds every kernel against its plain PyTorch version on
      the card -- K1 ``hadacore`` on the tensor cores at n in {8, 16, 64, 128,
      256, 512, 1024, 2048, 4096, 32768} x {bf16, fp16} x {1, 5, 28, 64}
@@ -197,7 +201,23 @@ Runs from the repository root and needs the repository's ``src/``. It
      against (b)'s wherever world 1's top-1 / top-2 margin exceeds
      ``MD_MARGIN``, each rank's down projections the fused sharded K4, no
      ``unfused_local`` -- and trained 2 steps at 4 layers, losses within
-     ``MD_LOSS_LIMIT`` of (b)'s;
+     ``MD_LOSS_LIMIT`` of (b)'s; (d) ``serve_loop --mp 1`` at world 1 over
+     NCCL for phi4-mini-3.8b (int8) and mixtral-8x7b (fp8_e4m3) at full
+     width and depth on its seeded stream of 8 requests, against the
+     engine without a process group (completions, statuses, ``health()``
+     and launches equal); (e) phi4-mini's engine at two ranks on the card
+     over gloo, mesh (2, 1), 2 of the 4 slots a rank, ``MD_ENGINE_LAYERS``
+     layers: its completions against a world-1 engine at the same cut
+     (tokens may part only at a near tie, world 1's margin there at most
+     ``MD_MARGIN``), then a FaultPlan raise at step 3 on both ranks (both
+     degrade one rung, with world 1's completions and health), the ranks
+     started beside (d); (f) the
+     nine other families' ``launch.serve --mp 1`` at world 1 over NCCL at
+     the model and launcher phases' depths (tokens and launches equal),
+     then mixtral-8x7b at two ranks over gloo, ``MD_MIXTRAL_LAYERS``
+     layers at full width (each rank's launches as derived from its rows,
+     tokens under the margin rule); a ``phase multidevice:<x>`` line
+     follows each of (d)-(f);
  11. prints the kernels' JSON line (K1-K8, the ABFT twins, M1 and M2), then
      the result line ``{"ok": true, "device": {...}}`` last.
 
@@ -215,6 +235,7 @@ import math
 import os
 import subprocess
 import sys
+import threading
 import time
 
 import numpy as np
@@ -3570,9 +3591,12 @@ _RANK_CODE = """
 import json, sys
 from repro_torch.core import api
 from repro_torch.kernels import quant_dot as qd, registry
+from repro_torch.kernels.fused_quant import fused_dequant_cuda
+from repro_torch.kernels.hadacore import hadacore_cuda
 from repro_torch.launch import serve, train
 kind, path, argv = sys.argv[1], sys.argv[2], sys.argv[3:]
-qd.quant_dot_cuda.launches = 0
+qd.quant_dot_cuda.launches = qd.quant_dot_experts_cuda.launches = 0
+hadacore_cuda.launches = fused_dequant_cuda.launches = 0
 registry.TRACE_COUNTS.clear()
 res = {}
 if kind == "serve":
@@ -3580,7 +3604,8 @@ if kind == "serve":
     res = {"tokens": out["tokens"].tolist(), "margins": out["margins"].tolist()}
 else:
     assert train.main(argv) == 0
-res.update(k4=qd.quant_dot_cuda.launches,
+res.update(k4=qd.quant_dot_cuda.launches, k1=hadacore_cuda.launches,
+           k2=fused_dequant_cuda.launches, k6=qd.quant_dot_experts_cuda.launches,
            counts={"/".join(k): v for k, v in registry.TRACE_COUNTS.items()},
            dispatch={k: (list(v) if isinstance(v, tuple) else v)
                      for k, v in api._LAST_SHARDED_DISPATCH.items()})
@@ -3733,31 +3758,8 @@ def _md_world_one(seed: int, tmp: str):
 def _md_ranks(kind: str, argv, tmp: str, world: int = 2):
     """``world`` ranks of a launcher on the one card (gloo), each its own
     process: their JSON results, rank by rank."""
-    port = _free_port()
-    env = dict(os.environ, PYTHONPATH=os.path.join(os.path.dirname(os.path.abspath(
-        __file__)), "src"))
-    procs, paths = [], []
-    for r in range(world):
-        paths.append(os.path.join(tmp, f"{kind}_rank{r}.json"))
-        renv = dict(env, WORLD_SIZE=str(world), RANK=str(r), LOCAL_RANK=str(r),
-                    MASTER_ADDR="localhost", MASTER_PORT=str(port))
-        procs.append(subprocess.Popen([sys.executable, "-c", _RANK_CODE, kind, paths[-1],
-                                       *argv], env=renv, stdout=subprocess.PIPE,
-                                      stderr=subprocess.STDOUT, text=True))
-    outs = []
-    try:
-        for p in procs:
-            outs.append(p.communicate(timeout=240)[0])
-    finally:
-        for p in procs:
-            if p.poll() is None:
-                p.kill()
-                p.wait()
-    for r, (p, o) in enumerate(zip(procs, outs)):
-        if p.returncode != 0:
-            print(o[-4000:])
-            fail(f"multidevice (c): {kind} rank {r} exited {p.returncode}")
-    return [json.load(open(path)) for path in paths], outs[0]
+    procs, paths = _spawn_ranks(_RANK_CODE, argv, tmp, kind, world, lead=(kind,))
+    return _join_ranks(procs, paths, f"multidevice (c): {kind}")
 
 
 def _md_two_ranks(seed: int, tmp: str, kept: dict) -> None:
@@ -3771,11 +3773,10 @@ def _md_two_ranks(seed: int, tmp: str, kept: dict) -> None:
     within MD_LOSS_LIMIT of (b)'s."""
     print("-- multidevice (c): two ranks on the one card over gloo, mesh (2, 1)")
     base = list(MD_RANK_ARGS)
-    ranks, log = _md_ranks("serve", _md_serve_argv("phi4-mini-3.8b", "int8", seed) + base,
-                           tmp)
+    ranks = _md_ranks("serve", _md_serve_argv("phi4-mini-3.8b", "int8", seed) + base, tmp)
+    want, margins = np.array(kept["serve"]["tokens"]), np.array(kept["serve"]["margins"])
     from repro_torch.configs import get_config
 
-    want, margins = np.array(kept["serve"]["tokens"]), np.array(kept["serve"]["margins"])
     layers, passes = get_config("phi4-mini-3.8b").num_layers, MD_GEN
     for r, res in enumerate(ranks):
         got = np.array(res["tokens"])
@@ -3804,6 +3805,339 @@ def _md_two_ranks(seed: int, tmp: str, kept: dict) -> None:
         fail("multidevice (c): the two-rank losses are not world 1's")
 
 
+# (d)-(f): the engine and every family on the mesh. (d) serve_loop at world 1
+# over NCCL against the engine without a process group, both at
+# model_phase's depth, on serve_loop's seeded stream of MD_LOOP_REQUESTS
+# requests; (e) phi4-mini's engine at two ranks on the card, depth cut to
+# MD_ENGINE_LAYERS layers; (f) the nine other families through launch.serve
+# at world 1 over NCCL (arch -> (mode, layers or None: the depth
+# launcher_model_phase / model_phase use)), MD_FAMILY_GEN greedy tokens
+# after a prompt of MD_FAMILY_PROMPT tokens (a vlm's after its patches),
+# then mixtral-8x7b at two ranks, MD_MIXTRAL_LAYERS layers.
+MD_LOOP_MODELS = (("phi4-mini-3.8b", "int8"), ("mixtral-8x7b", "fp8_e4m3"))
+MD_LOOP_REQUESTS = 8
+MD_ENGINE_LAYERS = 4
+MD_FAMILIES = {
+    "llama4-maverick-400b-a17b": ("fp8_e4m3", 4),
+    "llama3-405b": ("fp8_e4m3", LLAMA3_405B_LAYERS),
+    "qwen1.5-4b": ("int8", None), "starcoder2-15b": ("fp8_e4m3", None),
+    "mixtral-8x7b": ("fp8_e4m3", None), "whisper-base": ("int8", None),
+    "qwen2-vl-7b": ("fp8_e4m3", None), "rwkv6-7b": ("int8", None),
+    "zamba2-7b": ("fp8_e4m3", None)}
+MD_FAMILY_PROMPT = 16
+MD_FAMILY_GEN = 4
+MD_MIXTRAL_LAYERS = 2   # its two ranks: a 64-token prompt, MD_FAMILY_GEN greedy tokens
+# the families whose world-1 runs fit on the card beside mixtral's two ranks;
+# the others (maverick's 35 GB, llama3-405b's 52 GB, mixtral's 47 GB) run
+# after the ranks end: beside them a rank's init ran the card out of memory
+MD_BESIDE_RANKS = ("qwen1.5-4b", "starcoder2-15b", "whisper-base", "qwen2-vl-7b",
+                   "rwkv6-7b", "zamba2-7b")
+
+# one rank of the two-ranks engine run: the process group first, then
+# serve_loop on it, then the engine under a FaultPlan raise, results as JSON
+_LOOP_RANK_CODE = """
+import json, sys, torch
+from repro_torch.kernels import quant_dot as qd
+from repro_torch.kernels.fused_quant import fused_dequant_cuda
+from repro_torch.launch import serve_loop
+from repro_torch.launch.mesh import init_distributed, make_local_mesh, COLLECTIVE_TIMEOUT_S
+from repro_torch.testing import faults
+path, argv = sys.argv[1], sys.argv[2:]
+args = serve_loop.parse_args(argv)
+init_distributed(torch.device(args.device), args.dist_backend, COLLECTIVE_TIMEOUT_S)
+def record(engine):
+    return {"completions": sorted([c.rid, c.status, c.finish_reason, list(c.tokens)]
+                                  for c in engine.completions),
+            "health": engine.health(), "slots": engine._slots.tolist()}
+qd.quant_dot_cuda.launches = fused_dequant_cuda.launches = 0
+res = {"serve": record(serve_loop.main(argv))}
+res["k4"], res["k2"] = qd.quant_dot_cuda.launches, fused_dequant_cuda.launches
+engine, cfg = serve_loop.build_engine(args, make_local_mesh(args.mp))
+reqs = faults.arrival_flood(SLOTS_, prompt_len=16, max_new_tokens=8, vocab=cfg.vocab_size,
+                            seed=1)
+with faults.inject(faults.FaultPlan(kernel_raise_at_step=3, kernel_raise_count=2)):
+    engine.run(reqs)
+res["fault"] = record(engine)
+json.dump(res, open(path, "w"))
+torch.distributed.destroy_process_group()
+"""
+
+
+def _loop_argv(arch: str, mode: str, seed: int, requests: int):
+    return ["--arch", arch, "--scale", "1.0", "--quant", mode, "--rotate", "hadamard",
+            "--kernel", "cuda", "--device", "cuda", "--seed", str(seed), "--requests",
+            str(requests), "--slots", str(SLOTS), "--max-len", str(MAX_LEN),
+            "--prefill-len", str(PREFILL_LEN)]
+
+
+def _engine_record(engine) -> dict:
+    return {"completions": sorted([c.rid, c.status, c.finish_reason, list(c.tokens)]
+                                  for c in engine.completions),
+            "health": engine.health(), "slots": engine._slots.tolist()}
+
+
+def _md_loop_world_one(seed: int) -> dict:
+    """(d) ``serve_loop --mp 1`` under torchrun's variables at world 1
+    (NCCL, mesh (1, 1)) against ``serve_loop`` without a process group:
+    phi4-mini (int8) and mixtral-8x7b (fp8_e4m3) at full width and depth on
+    serve_loop's seeded stream -- completions, statuses, ``health()`` and
+    launches equal. Returns the world-1 runs' launches."""
+    import contextlib
+    import gc
+    import io
+
+    from repro_torch.launch import serve_loop
+
+    print("-- multidevice (d): serve_loop --mp 1 at world 1 over NCCL")
+    launches = {}
+    for arch, mode in MD_LOOP_MODELS:
+        argv = _loop_argv(arch, mode, seed, MD_LOOP_REQUESTS)
+        got = []
+        for extra, env in (([], None), (["--mp", "1"], _Torchrun(1, 0, _free_port()))):
+            t0 = time.perf_counter()
+            with env or contextlib.nullcontext(), contextlib.redirect_stdout(io.StringIO()):
+                engine, counts = _counted(lambda: serve_loop.main(argv + extra))
+            got.append((_engine_record(engine), counts, engine.summary(),
+                        time.perf_counter() - t0))
+            del engine
+            gc.collect()
+            torch.cuda.empty_cache()
+        (alone, l_alone, s_alone, t_alone), (one, l_one, s_one, t_one) = got
+        oks = sum(c[1] == "ok" for c in one["completions"])
+        print(f"{arch}: serve_loop --mp 1 at world 1: completions equal {one == alone} "
+              f"({len(one['completions'])} requests, {oks} ok, {s_one['generated_tokens']} "
+              f"tokens in {s_one['decode_steps']} decode steps); health {one['health']}; "
+              f"launches {l_one} (no process group {l_alone}); {s_one['tokens_per_s']:.1f} "
+              f"tok/s ({s_alone['tokens_per_s']:.1f}); {t_one:.1f} s ({t_alone:.1f} s)")
+        if one != alone or l_one != l_alone:
+            fail(f"multidevice (d): {arch}'s serve_loop at world 1 differs from the engine "
+                 "without a process group")
+        if oks != MD_LOOP_REQUESTS or any(one["health"][k] for k in HEALTH_ZERO):
+            fail(f"multidevice (d): {arch} did not serve every request cleanly")
+        for k, v in l_one.items():
+            launches[k] = launches.get(k, 0) + v
+    return launches
+
+
+def _spawn_ranks(code: str, argv, tmp: str, tag: str, world: int = 2, lead=()):
+    """Start ``world`` ranks of ``code`` on the one card (each its own
+    process, torchrun's variables set; its arguments ``lead``, its result
+    path, ``argv``): (processes, result paths)."""
+    port = _free_port()
+    env = dict(os.environ, PYTHONPATH=os.path.join(os.path.dirname(os.path.abspath(
+        __file__)), "src"))
+    procs, paths = [], []
+    for r in range(world):
+        paths.append(os.path.join(tmp, f"{tag}_rank{r}.json"))
+        renv = dict(env, WORLD_SIZE=str(world), RANK=str(r), LOCAL_RANK=str(r),
+                    MASTER_ADDR="localhost", MASTER_PORT=str(port))
+        procs.append(subprocess.Popen([sys.executable, "-c", code, *lead, paths[-1], *argv],
+                                      env=renv, stdout=subprocess.PIPE,
+                                      stderr=subprocess.STDOUT, text=True))
+    return procs, paths
+
+
+def _join_ranks(procs, paths, what: str, timeout: float = 240):
+    """Wait for the ranks (killing any left at the timeout): their JSON
+    results; a rank that failed fails the phase."""
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=timeout)[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for r, (p, o) in enumerate(zip(procs, outs)):
+        if p.returncode != 0:
+            print(o[-4000:])
+            fail(f"{what}: rank {r} exited {p.returncode}")
+    return [json.load(open(path)) for path in paths]
+
+
+def _teacher_margin(cfg, params, prompt, tokens) -> float:
+    """World 1's top-1 / top-2 logit gap at the token after ``prompt`` +
+    ``tokens`` (one prefill of them)."""
+    from repro_torch.models.lm import lm_forward
+
+    seq = torch.tensor([list(prompt) + list(tokens)], dtype=torch.long, device="cuda")
+    with torch.inference_mode():
+        last = lm_forward(cfg, params, {"tokens": seq})[0][0, -1, :cfg.vocab_size]
+    top = last.float().topk(2).values
+    return float(top[0] - top[1])
+
+
+MD_ENGINE_REQUESTS = 6
+
+
+def _md_engine_argv(seed: int):
+    return _loop_argv("phi4-mini-3.8b", "int8", seed, MD_ENGINE_REQUESTS) + [
+        "--layers", str(MD_ENGINE_LAYERS)]
+
+
+def _md_engine_spawn(seed: int, tmp: str):
+    """Start (e)'s two ranks, to run beside (d): (processes, result paths,
+    start time)."""
+    return _spawn_ranks(_LOOP_RANK_CODE.replace("SLOTS_", str(SLOTS)),
+                        _md_engine_argv(seed) + list(MD_RANK_ARGS), tmp,
+                        "loop") + (time.perf_counter(),)
+
+
+def _md_engine_two_ranks(seed: int, started) -> None:
+    """(e) phi4-mini's engine at two ranks on the card over gloo, mesh (2,
+    1), started by ``_md_engine_spawn``: 2 of the SLOTS slots a rank, full
+    width, MD_ENGINE_LAYERS layers, ``serve_loop --mp 1`` on its seeded
+    stream, its completions against a world-1 engine at the same cut (a
+    request whose tokens part must part at a near tie: world 1's margin
+    there at most MD_MARGIN); then a FaultPlan raise at step 3 on both
+    ranks, twice: both degrade one rung, with world 1's completions and
+    health under the same plan."""
+    import contextlib
+    import io
+
+    from repro_torch.launch import serve_loop
+    from repro_torch.serving import synthetic_stream
+    from repro_torch.testing import faults
+
+    print(f"-- multidevice (e): phi4-mini's engine at two ranks on the card over gloo, "
+          f"mesh (2, 1), {MD_ENGINE_LAYERS} layers (the ranks started beside (d))")
+    procs, paths, t0 = started
+    requests, argv = MD_ENGINE_REQUESTS, _md_engine_argv(seed)
+    with contextlib.redirect_stdout(io.StringIO()):
+        engine = serve_loop.main(argv)
+    want = _engine_record(engine)
+    args = serve_loop.parse_args(argv)
+    fault_engine, cfg = serve_loop.build_engine(args)
+    reqs = faults.arrival_flood(SLOTS, prompt_len=16, max_new_tokens=8,
+                                vocab=cfg.vocab_size, seed=1)
+    with faults.inject(faults.FaultPlan(kernel_raise_at_step=3, kernel_raise_count=2)):
+        fault_engine.run(reqs)
+    want_fault = _engine_record(fault_engine)
+    del fault_engine
+    ranks = _join_ranks(procs, paths, "multidevice (e)")
+    stream = {r.rid: r.tokens for r in synthetic_stream(
+        requests, vocab_size=cfg.vocab_size, prompt_len=(min(8, PREFILL_LEN), PREFILL_LEN),
+        max_new_tokens=(8, 32), rate=0.5, seed=seed)}
+    wanted = {c[0]: c for c in want["completions"]}
+    for r, res in enumerate(ranks):
+        parted = []
+        for rid, status, reason, toks in res["serve"]["completions"]:
+            ref = wanted[rid][3]
+            if toks == ref:
+                continue
+            j = next(i for i in range(min(len(toks), len(ref)) + 1)
+                     if i >= min(len(toks), len(ref)) or toks[i] != ref[i])
+            parted.append((rid, j, _teacher_margin(cfg, engine.params, stream[rid], ref[:j])))
+        statuses = [c[1:3] for c in res["serve"]["completions"]]
+        print(f"rank {r}: slots {res['serve']['slots']}; {len(statuses)} requests, "
+              f"statuses equal to world 1's "
+              f"{statuses == [c[1:3] for c in want['completions']]}; tokens parting at "
+              f"(rid, index, world-1 margin) {parted}; health equal "
+              f"{res['serve']['health'] == want['health']}; K4 {res['k4']}, K2 {res['k2']}")
+        same = all(res["fault"][k] == want_fault[k] for k in ("completions", "health"))
+        print(f"rank {r} fault plan (raise at step 3, twice): health {res['fault']['health']}; "
+              f"completions and health equal to world 1's {same}")
+        if any(m > MD_MARGIN for _, _, m in parted) or res["serve"]["health"] != want["health"]:
+            fail(f"multidevice (e): rank {r}'s engine parts from world 1's")
+        if not same or res["fault"]["health"]["degrades"] != 1 or \
+                res["fault"]["health"]["rung"] != 1:
+            fail(f"multidevice (e): rank {r} did not degrade with world 1")
+        if not res["k4"] or not res["k2"]:
+            fail(f"multidevice (e): rank {r} launched no K4 / K2")
+    print(f"(e) took {time.perf_counter() - t0:.1f} s from the ranks' start")
+    del engine
+    torch.cuda.empty_cache()
+
+
+def _family_argv(arch: str, seed: int, gen: int = MD_FAMILY_GEN):
+    from repro_torch.configs import get_config
+
+    mode, layers = MD_FAMILIES[arch]
+    cfg = get_config(arch)
+    prompt = MD_FAMILY_PROMPT + (cfg.vlm_patches if cfg.family == "vlm" else 0)
+    return _md_argv(arch, mode, seed) + ["--batch", str(SLOTS), "--prompt-len",
+                                         str(prompt), "--gen", str(gen)] + (
+        [] if layers is None else ["--layers", str(layers)])
+
+
+def _md_families(seed: int, tmp: str) -> dict:
+    """(f) ``launch.serve --mp 1`` of the nine other families at world 1
+    over NCCL against the launcher without a process group: tokens and
+    launches equal; then mixtral-8x7b at two ranks over gloo, mesh (2, 1),
+    MD_MIXTRAL_LAYERS layers at full width: each rank's launches per pass as
+    derived from its rows (its expert site, d_ff 14336 = 7 x 2048, one
+    grouped K1 a layer over the rank's dispatched rows; K2 twice a layer),
+    its tokens world 1's under the margin rule. The two ranks run beside
+    the ``MD_BESIDE_RANKS`` families and mixtral's world-1 run at their
+    depth; the other three families after the ranks end. Returns the
+    world-1 runs' launches."""
+    import contextlib
+    import gc
+    import io
+
+    from repro_torch.launch import serve
+
+    print("-- multidevice (f): launch.serve --mp 1 at world 1 over NCCL, nine families; "
+          f"mixtral-8x7b at two ranks over gloo, {MD_MIXTRAL_LAYERS} layers, beside six of them")
+    t0 = time.perf_counter()
+    mixtral = _family_argv("mixtral-8x7b", seed)
+    mixtral[mixtral.index("--prompt-len") + 1] = str(PREFILL_LEN)
+    mixtral += ["--layers", str(MD_MIXTRAL_LAYERS)]
+    launches = {}
+
+    def world_one(arch):
+        argv = _family_argv(arch, seed)
+        got = []
+        t1 = time.perf_counter()
+        for extra, env in (([], None), (["--mp", "1"], _Torchrun(1, 0, _free_port()))):
+            with env or contextlib.nullcontext(), contextlib.redirect_stdout(io.StringIO()):
+                out, counts = _counted(lambda: serve.main(argv + extra))
+            got.append((out["tokens"], counts))
+            del out
+            gc.collect()
+            torch.cuda.empty_cache()
+        (alone, l_alone), (one, l_one) = got
+        same = np.array_equal(one, alone)
+        mode, layers = MD_FAMILIES[arch]
+        print(f"{arch} ({mode}, {layers or 'all'} layers): tokens equal {same}; launches "
+              f"{l_one} (no process group {l_alone}); {time.perf_counter() - t1:.1f} s")
+        if not same or l_one != l_alone:
+            fail(f"multidevice (f): {arch} at world 1 differs from the non-distributed run")
+        for k, v in l_one.items():
+            launches[k] = launches.get(k, 0) + v
+
+    procs, paths = _spawn_ranks(_RANK_CODE, mixtral + list(MD_RANK_ARGS), tmp, "mixtral",
+                                lead=("serve",))
+    for arch in MD_BESIDE_RANKS:
+        world_one(arch)
+    with contextlib.redirect_stdout(io.StringIO()):
+        want, _ = _counted(lambda: serve.main(mixtral))
+    ranks = _join_ranks(procs, paths, "multidevice (f)")
+    for arch in MD_FAMILIES:
+        if arch not in MD_BESIDE_RANKS:
+            world_one(arch)
+    toks, margins = np.array(want["tokens"]), np.array(want["margins"])
+    per_rank = {"K1": MD_MIXTRAL_LAYERS * MD_FAMILY_GEN,
+                "K2": 2 * MD_MIXTRAL_LAYERS * MD_FAMILY_GEN}
+    for r, res in enumerate(ranks):
+        got = np.array(res["tokens"])
+        first = [int(np.argmax(row)) if row.any() else None for row in got != toks]
+        parted = [(i, f, round(float(margins[i, f]), 4)) for i, f in enumerate(first)
+                  if f is not None]
+        far = [p for p in parted if p[2] > MD_MARGIN]
+        print(f"mixtral rank {r}: tokens equal to world 1's {not parted} (rows parting at "
+              f"(row, index, world-1 margin) {parted}); launches K1 {res['k1']}, K2 "
+              f"{res['k2']}, K6 {res['k6']} (derived: {per_rank})")
+        if far:
+            fail(f"multidevice (f): mixtral rank {r}'s tokens part from world 1's")
+        if (res["k1"], res["k2"], res["k6"]) != (per_rank["K1"], per_rank["K2"], 0):
+            fail(f"multidevice (f): mixtral rank {r}'s launches are not as derived")
+    print(f"(f) took {time.perf_counter() - t0:.1f} s")
+    torch.cuda.empty_cache()
+    return launches
+
+
 def multidevice_phase(args, gen) -> dict:
     """The multi-device layer on the one card: (a) the sharded quant_dot's
     shard-local kernels at the full-width mesh layouts' shard shapes, (b)
@@ -3811,10 +4145,14 @@ def multidevice_phase(args, gen) -> dict:
     over gloo. Returns the launches of (b)'s distributed runs."""
     import tempfile
 
+    t0 = time.perf_counter()
     _md_shards(gen, args.seed)
     with tempfile.TemporaryDirectory() as tmp:
+        t1 = time.perf_counter()
         launches, kept = _md_world_one(args.seed, tmp)
+        t2 = time.perf_counter()
         _md_two_ranks(args.seed, tmp, kept)
+    print(f"(a) took {t1 - t0:.1f} s, (b) {t2 - t1:.1f} s, (c) {time.perf_counter() - t2:.1f} s")
     return launches
 
 
@@ -3834,13 +4172,46 @@ def _leaves(tree):
         yield tree
 
 
+class _BuildBeside(threading.Thread):
+    """``kernels.build.build`` of ``targets`` on a thread, ``width`` nvcc
+    at a time, once started, while the phases run; ``join()``, then
+    ``error`` (None) and ``spent`` (its wall seconds). ``LIVE``: the
+    builds started, which ``phase`` reads."""
+
+    LIVE = []
+
+    def __init__(self, targets, width: int = 4):
+        super().__init__(daemon=True)
+        self.targets, self.width, self.error, self.spent = list(targets), width, None, 0.0
+
+    def start(self):
+        _BuildBeside.LIVE.append(self)
+        super().start()
+
+    def run(self):
+        from repro_torch.kernels import build
+
+        t0 = time.perf_counter()
+        try:
+            for i in range(0, len(self.targets), self.width):
+                build.build(self.targets[i:i + self.width])
+        except Exception as e:   # noqa: BLE001 -- raised on the main thread at join
+            self.error = e
+        self.spent = time.perf_counter() - t0
+
+
 def phase(name: str, fn, *args):
     """``fn(*args)``, then a line ``phase <name> <s> s``: its wall seconds,
-    the card synchronized."""
+    the card synchronized; ``(beside nvcc)`` after it when the linter's
+    builds ran during the phase, so its host-clock readings (tok/s, step
+    ms) were taken with nvcc on the host's cores."""
+    beside = any(b.is_alive() for b in _BuildBeside.LIVE)
     t0 = time.perf_counter()
     out = fn(*args)
     torch.cuda.synchronize()
-    print(f"phase {name} {time.perf_counter() - t0:.1f} s", flush=True)
+    beside = beside or any(b.is_alive() for b in _BuildBeside.LIVE)
+    print(f"phase {name} {time.perf_counter() - t0:.1f} s"
+          + (" (beside nvcc)" if beside else ""), flush=True)
     return out
 
 
@@ -3866,11 +4237,27 @@ def main() -> int:
           f"{torch.cuda.get_device_name(0)}")
 
     t0 = time.perf_counter()
-    spent = build.build_all(lint=True)   # the linter's builds too, all in parallel
+    # the six sources and the mutants (hold_mutants runs early) all at once;
+    # the linter's counting and PTX builds beside the phases after the
+    # kernels' timings (``_phases``)
+    mutants = [build.mutant(m) for m in build.MUTANTS]
+    spent = build.build([build.Target(f"{stem}.cu") for stem in build.sources()] + mutants)
     print(f"kernel build: {time.perf_counter() - t0:.1f} s "
           + " ".join(f"{k}={v:.1f}s" for k, v in spent.items()))
     print(f"phase build {time.perf_counter() - t0:.1f} s", flush=True)
+    later = _BuildBeside([t for t in build.LINT_TARGETS
+                          if t.name not in {m.name for m in mutants}])
+    try:
+        return _phases(args, start, later)
+    finally:
+        if later.ident is not None:
+            later.join()    # no nvcc outlives the script, whatever failed
 
+
+def _phases(args, start: float, later) -> int:
+    """Every phase after the build, then the kernels' line and the result
+    line. The linter's builds (``later``) start once the kernels are timed:
+    the device ms in the kernels' line are taken with the host idle."""
     gen = torch.Generator(device="cuda").manual_seed(args.seed)
     timed = phase("kernel", kernel_phase, gen)
     phase("hold_k3_k4", hold_k3_k4, gen)
@@ -3883,6 +4270,7 @@ def main() -> int:
     phase("hold_abft_kernels", hold_abft_kernels, gen)
     timed.update(phase("time_abft", time_abft, gen))
     timed.update(phase("hold_mutants", hold_mutants, args.seed))
+    later.start()
     entry = phase("entry_point", entry_point_phase, gen)
     launches = {}
     serving_sites = []
@@ -3903,11 +4291,25 @@ def main() -> int:
         torch.cuda.empty_cache()
     phase("train:experts", train_experts_phase, args)
     launches["K3"] = entry["K3"]    # K3's path is the entry point
+    later.join()
+    if later.error is not None:
+        raise later.error
+    print(f"linter's builds beside the phases: {later.spent:.1f} s", flush=True)
     launches.update(phase("lint", lint_phase, serving_sites))   # M1's and M2's path
     del serving_sites
     phase("rotation", rotation_phase, args)
     for k, v in phase("multidevice", multidevice_phase, args, gen).items():
         launches[k] += v
+    import tempfile
+
+    with tempfile.TemporaryDirectory() as tmp:
+        # (e)'s ranks run beside (d)
+        started = _md_engine_spawn(args.seed, tmp)
+        for k, v in phase("multidevice:d", _md_loop_world_one, args.seed).items():
+            launches[k] += v
+        phase("multidevice:e", _md_engine_two_ranks, args.seed, started)
+        for k, v in phase("multidevice:f", _md_families, args.seed, tmp).items():
+            launches[k] += v
 
     quant_dot_cu = "src/repro_torch/csrc/quant_dot.cu"
     experts_cu = "src/repro_torch/csrc/quant_dot_experts.cu"

@@ -11,11 +11,20 @@ The ZeRO-3 layout: parameters (and the optimizer state beside them) live at
 rest as each rank's shard (``shard_tree``); a parts tree (per tensor dim,
 the mesh axes it is split over: ``launch.steps.param_parts``) says how.
 ``gather_param`` rebuilds a whole parameter just before use; its gradient
-is reduce-scattered back to the shard with the mean over the ranks the
+is reduce-scattered back to the shard with the sum over the ranks the
 batch rows are split over (``distributed.sharding.row_axes``): a dim split
 over those axes reduce-scatters, a dim split over other axes (whose ranks
 computed the same gradient) is sliced, and the row axes no dim uses are
-all-reduced. ``gather_tree`` gathers a whole tree (checkpoints).
+all-reduced. Each rank's loss is its share of the whole batch's
+(``models.lm.lm_loss``), so the sum is the whole batch's gradient.
+``gather_tree`` gathers a whole tree (checkpoints); parts that move their
+own leaves (an object with ``shard`` / ``gather`` methods, as the
+blockwise-int8 moments' ``optim.qstate.QStateParts``) do so.
+
+``row_sum``: a statistic of the whole batch from each rank's rows (the MoE
+load-balancing densities, the count of labels). Its backward is the
+identity: a function of the sum that every rank adds to its loss sends
+each rank the gradient of its own rows' part, and the sum above adds them.
 """
 from __future__ import annotations
 
@@ -24,11 +33,11 @@ from typing import Any, Tuple
 import torch
 import torch.distributed as dist
 
-from repro_torch.distributed.sharding import axes_of, row_axes
+from repro_torch.distributed.sharding import axes_of, current_mesh, row_axes
 from repro_torch.kernels.registry import f32_reciprocal
 
 __all__ = ["int8_ring_all_reduce", "shard_tree", "gather_tree", "gather_param",
-           "gather_leaf", "leaf_axes"]
+           "gather_leaf", "leaf_axes", "row_sum"]
 
 
 def _quant(v: torch.Tensor):
@@ -92,18 +101,18 @@ def gather_leaf(t: torch.Tensor, parts, mesh, skip=()) -> torch.Tensor:
     return t
 
 
-def _map(fn, tree, parts):
+def _map(fn, tree, parts, method: str, mesh):
     from repro_torch.core.wquant import QTensor
 
+    if hasattr(parts, method):       # parts that move their own leaves
+        return getattr(parts, method)(tree, mesh)
     if isinstance(tree, QTensor):
         return QTensor(fn(tree.q, parts["q"]), fn(tree.scale, parts["scale"]), tree.mode,
                        None if tree.check is None else fn(tree.check, parts["check"]))
     if isinstance(tree, dict):
-        if set(tree) == {"q", "s"} and set(parts) == {"q", "s"}:
-            return {k: fn(tree[k], parts[k]) for k in tree}
-        return {k: _map(fn, v, parts[k]) for k, v in tree.items()}
+        return {k: _map(fn, v, parts[k], method, mesh) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
-        return [_map(fn, v, pp) for v, pp in zip(tree, parts)]
+        return [_map(fn, v, pp, method, mesh) for v, pp in zip(tree, parts)]
     if isinstance(tree, torch.Tensor) and tree.ndim:
         return fn(tree, parts)
     return tree
@@ -113,19 +122,19 @@ def shard_tree(tree: Any, parts: Any, mesh) -> Any:
     """This rank's shards of a whole tree (tensors, QTensors, nested dicts
     and lists): each a copy of its slice, or the tensor itself when it is
     not split."""
-    return _map(lambda t, pp: _shard(t, pp, mesh), tree, parts)
+    return _map(lambda t, pp: _shard(t, pp, mesh), tree, parts, "shard", mesh)
 
 
 @torch.no_grad()
 def gather_tree(tree: Any, parts: Any, mesh) -> Any:
     """The whole tree from every rank's shards (a collective: every rank
     calls it)."""
-    return _map(lambda t, pp: gather_leaf(t, pp, mesh), tree, parts)
+    return _map(lambda t, pp: gather_leaf(t, pp, mesh), tree, parts, "gather", mesh)
 
 
 class _GatherParam(torch.autograd.Function):
     """Gather a parameter whole; the backward returns its shard's gradient,
-    the mean over the batch-row ranks (module docstring), in the
+    the sum over the batch-row ranks (module docstring), in the
     parameter's dtype."""
 
     @staticmethod
@@ -153,9 +162,6 @@ class _GatherParam(torch.autograd.Function):
         done = {a for _, axes in scatter for a in axes}
         g = g.contiguous()
         mesh.all_reduce(g, tuple(a for a in rows if a not in done))
-        n = mesh.group_size(rows)
-        if n > 1:
-            g = g / n
         return g.to(ctx.dtype), None, None, None
 
 
@@ -165,3 +171,27 @@ def gather_param(t: torch.Tensor, parts, mesh) -> torch.Tensor:
     if t.requires_grad and torch.is_grad_enabled():
         return _GatherParam.apply(t, parts, mesh, row_axes())
     return gather_leaf(t, parts, mesh)
+
+
+class _RowSum(torch.autograd.Function):
+    """``t`` summed over the ranks ``rows`` on every rank; the backward is
+    the identity (module docstring)."""
+
+    @staticmethod
+    def forward(ctx, t, mesh, rows):
+        return mesh.all_reduce(t.clone(), rows)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None, None
+
+
+def row_sum(t: torch.Tensor) -> Tuple[torch.Tensor, int]:
+    """(``t`` summed over the ranks the running step's batch rows split
+    over, their count): a whole-batch statistic from this rank's rows,
+    differentiable. ``(t, 1)`` off a mesh or without a row split."""
+    mesh, rows = current_mesh(), row_axes()
+    n = 1 if mesh is None else mesh.group_size(rows)
+    if n == 1:
+        return t, 1
+    return _RowSum.apply(t, mesh, rows), n

@@ -19,6 +19,7 @@ all_gather, reduce_scatter and all_reduce, but not in point-to-point sends
 """
 from __future__ import annotations
 
+import datetime
 import itertools
 import os
 import socket
@@ -28,7 +29,7 @@ import torch
 import torch.distributed as dist
 
 __all__ = ["Mesh", "make_local_mesh", "make_production_mesh", "init_distributed",
-           "distributed_requested"]
+           "distributed_requested", "COLLECTIVE_TIMEOUT_S"]
 
 # a gather moves bits: dtypes not every backend takes (bfloat16, float8,
 # int16) cross as a same-width dtype every backend takes
@@ -193,10 +194,17 @@ def distributed_requested(mp: int = 1) -> bool:
     return "WORLD_SIZE" in os.environ or mp > 1
 
 
-def init_distributed(device: torch.device, backend: Optional[str] = None) -> None:
+# how long a collective waits for its peers before it fails (the launchers'
+# process groups): a rank that raised alone never leaves the others hanging
+COLLECTIVE_TIMEOUT_S = 300.0
+
+
+def init_distributed(device: torch.device, backend: Optional[str] = None,
+                     timeout_s: Optional[float] = None) -> None:
     """Start the default process group for this process (module
     docstring); a CUDA launcher's rank takes device ``LOCAL_RANK`` unless
-    ``device`` names one."""
+    ``device`` names one. ``timeout_s``: the collectives' timeout (torch's
+    default when None)."""
     if dist.is_initialized():
         return
     if backend is None:
@@ -210,4 +218,5 @@ def init_distributed(device: torch.device, backend: Optional[str] = None) -> Non
     if device.type == "cuda":
         torch.cuda.set_device(device if device.index is not None
                               else int(os.environ.get("LOCAL_RANK", 0)))
-    dist.init_process_group(backend, init_method=init, world_size=world, rank=rank)
+    kw = {} if timeout_s is None else {"timeout": datetime.timedelta(seconds=timeout_s)}
+    dist.init_process_group(backend, init_method=init, world_size=world, rank=rank, **kw)

@@ -48,8 +48,10 @@ the weights are this rank's shards at rest, each layer's gathered just
 before it runs (int8 storage as int8; the down projections' consumer
 weights stay split by their out-channels into the sharded quant_dot); the
 prompt batch's rows split over 'data'; the tokens are gathered whole on
-every rank. The mesh serves phi4-mini-3.8b and llama3-8b
-(``launch.steps.MESH_ARCHS``):
+every rank. Every architecture serves on the mesh: a vlm's M-RoPE
+positions and patch embeddings, an encoder-decoder's frames and a
+recurrent model's states are split by rows like the tokens. ``--layers N``
+keeps the first N layers:
 
     torchrun --nproc-per-node 2 -m repro_torch.launch.serve --device cpu \
         --mp 1 --arch phi4-mini-3.8b --scale 0.005 --batch 4 \
@@ -71,9 +73,10 @@ from repro_torch.distributed.collectives import shard_tree
 from repro_torch.distributed.sharding import local_rows, sharding_rules
 from repro_torch.launch import shapes as shp
 from repro_torch.launch.env import harden_host_env
-from repro_torch.launch.mesh import distributed_requested, init_distributed, make_local_mesh
-from repro_torch.launch.serve_loop import scaled_config
-from repro_torch.launch.steps import batch_row_axes, check_mesh_run, local_batch
+from repro_torch.launch.mesh import (COLLECTIVE_TIMEOUT_S, distributed_requested,
+                                    init_distributed, make_local_mesh)
+from repro_torch.launch.serve_loop import cut_depth, scaled_config
+from repro_torch.launch.steps import batch_row_axes, local_batch
 from repro_torch.models.lm import (init_lm, lm_decode_step, lm_prefill, pad_kv_caches,
                                    param_parts)
 
@@ -95,6 +98,8 @@ def parse_args(argv=None):
                          "the rotation-consumer weights in the serving quant "
                          "mode). Default: on whenever --quant is not 'none'.")
     ap.add_argument("--no-prequant", dest="prequant", action="store_false")
+    ap.add_argument("--layers", type=int, default=None,
+                    help="keep only the first N layers (whole pattern units)")
     ap.add_argument("--mp", type=int, default=1, help="model-parallel size")
     ap.add_argument("--dist-backend", default=None, choices=["nccl", "gloo"],
                     help="process-group backend (default: nccl on cuda, gloo on cpu)")
@@ -118,14 +123,15 @@ def main(argv=None) -> dict:
     quant = QuantConfig(mode=args.quant, rotate=args.rotate, backend=args.kernel,
                         kv_quant=args.quant != "none")
     cfg = scaled_config(get_config(args.arch), args.scale).with_quant(quant)
+    if args.layers:
+        cfg = cut_depth(cfg, args.layers)
     prequant = args.quant != "none" if args.prequant is None else args.prequant
     if prequant:
         cfg = dataclasses.replace(cfg, weight_quant="int8")
     mesh, started, on_mesh = None, False, distributed_requested(args.mp)
     if on_mesh:
-        check_mesh_run(cfg, args.mp)
         started = not dist.is_initialized()
-        init_distributed(device, args.dist_backend)
+        init_distributed(device, args.dist_backend, COLLECTIVE_TIMEOUT_S)
     try:
         if on_mesh:
             mesh = make_local_mesh(args.mp)

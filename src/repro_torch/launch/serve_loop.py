@@ -28,7 +28,23 @@ rung=0), ``REPRO_NUMERIC_GUARDS=1`` the numerically guarded ones;
 ``--max-queue``, ``--deadline-slack`` and ``--watchdog-ms`` set the
 engine's bounded queue, request deadlines and step watchdog. The command
 exits non-zero when a decode step failed on every rung of the engine's
-degradation ladder.
+degradation ladder. ``--layers N`` keeps the first N layers.
+
+Several ranks: under torchrun, or with ``--mp`` > 1, the launcher starts
+the process group (``launch.train``'s docstring; NCCL on a CUDA device,
+gloo on the CPU, or ``--dist-backend``; the collectives time out after
+``launch.mesh.COLLECTIVE_TIMEOUT_S``) and serves on the (world / mp, mp)
+("data", "model") mesh: the engine's weights are this rank's shards, its
+slots split over 'data', every rank prefills, decodes its slots and keeps
+the same scheduler (``serving.engine``'s docstring). Every rank builds
+the same seeded stream; rank 0 prints. A decode step that raises on one
+rank alone ends every rank non-zero. The engine serves the seven 'attn' /
+'moe' architectures (whisper, qwen2-vl and the recurrent kinds are
+refused, on a mesh or not):
+
+    torchrun --nproc-per-node 2 -m repro_torch.launch.serve_loop --device cpu \
+        --mp 1 --arch phi4-mini-3.8b --scale 0.005 --quant int8 \
+        --rotate hadamard --requests 4 --slots 2 --max-len 96 --prefill-len 32
 """
 from __future__ import annotations
 
@@ -36,8 +52,13 @@ import argparse
 import dataclasses
 import math
 
+import torch.distributed as dist
+
 from repro_torch.configs import get_config
 from repro_torch.core.quant import QuantConfig
+from repro_torch.device import resolve_device
+from repro_torch.launch.mesh import (COLLECTIVE_TIMEOUT_S, distributed_requested,
+                                    init_distributed, make_local_mesh)
 from repro_torch.models.lm import init_lm
 from repro_torch.serving import ServeEngine, synthetic_stream
 
@@ -70,19 +91,22 @@ def cut_depth(cfg, layers: int):
     return dataclasses.replace(cfg, groups=((pattern, layers // len(pattern)),))
 
 
-def build_engine(args):
+def build_engine(args, mesh=None):
     """Arguments -> (engine, cfg): config, seeded weights pre-quantized
-    layer by layer on the device, engine."""
+    layer by layer on the device, engine (on ``mesh``: every rank draws
+    the whole model, the engine keeps its shards)."""
     quant = QuantConfig(mode=args.quant, rotate=args.rotate,
                         backend=args.kernel, kv_quant=args.quant != "none")
     cfg = scaled_config(get_config(args.arch), args.scale).with_quant(quant)
+    if getattr(args, "layers", None):
+        cfg = cut_depth(cfg, args.layers)
     if args.quant != "none":
         cfg = dataclasses.replace(cfg, weight_quant="int8")
     params = init_lm(cfg, seed=args.seed, device=args.device)
     engine = ServeEngine(cfg, params, num_slots=args.slots,
                          max_len=args.max_len, prefill_len=args.prefill_len,
                          device=args.device, max_queue=args.max_queue,
-                         watchdog_ms=args.watchdog_ms)
+                         watchdog_ms=args.watchdog_ms, mesh=mesh)
     return engine, cfg
 
 
@@ -100,6 +124,11 @@ def parse_args(argv=None):
     ap.add_argument("--kernel", default="cuda", choices=["cuda", "torch"])
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--layers", type=int, default=None,
+                    help="keep only the first N layers (whole pattern units)")
+    ap.add_argument("--mp", type=int, default=1, help="model-parallel size")
+    ap.add_argument("--dist-backend", default=None, choices=["nccl", "gloo"],
+                    help="process-group backend (default: nccl on cuda, gloo on cpu)")
     ap.add_argument("--max-queue", type=int, default=None,
                     help="bounded admission queue: submits beyond this depth "
                          "are rejected at once (backpressure)")
@@ -114,13 +143,32 @@ def parse_args(argv=None):
 
 
 def main(argv=None):
+    """Serve the stream; returns the engine (on every rank of a mesh)."""
     args = parse_args(argv)
-    engine, cfg = build_engine(args)
-    print(f"{cfg.name}: d_model={cfg.d_model} layers={cfg.num_layers} "
-          f"d_ff={cfg.d_ff} vocab={cfg.vocab_size} quant={cfg.quant.mode} "
-          f"rotate={cfg.quant.rotate} kernel={cfg.quant.backend} "
-          f"weights={cfg.weight_quant} device={engine.device}")
-    print(f"warmup: {engine.warmup():.2f}s")
+    mesh, started, on_mesh = None, False, distributed_requested(args.mp)
+    if on_mesh:
+        started = not dist.is_initialized()
+        init_distributed(resolve_device(args.device), args.dist_backend,
+                         COLLECTIVE_TIMEOUT_S)
+    try:
+        if on_mesh:
+            mesh = make_local_mesh(args.mp)
+        return _serve_loop(args, mesh)
+    finally:
+        if started:
+            dist.destroy_process_group()
+
+
+def _serve_loop(args, mesh):
+    say = print if mesh is None or mesh.rank == 0 else (lambda *a, **k: None)
+    engine, cfg = build_engine(args, mesh)
+    if mesh is not None:
+        say(f"mesh {mesh.sizes()} | slots of rank 0: {engine._slots.tolist()}")
+    say(f"{cfg.name}: d_model={cfg.d_model} layers={cfg.num_layers} "
+        f"d_ff={cfg.d_ff} vocab={cfg.vocab_size} quant={cfg.quant.mode} "
+        f"rotate={cfg.quant.rotate} kernel={cfg.quant.backend} "
+        f"weights={cfg.weight_quant} device={engine.device}")
+    say(f"warmup: {engine.warmup():.2f}s")
     stream = synthetic_stream(
         args.requests, vocab_size=cfg.vocab_size,
         prompt_len=(min(8, args.prefill_len), args.prefill_len),
@@ -128,24 +176,24 @@ def main(argv=None):
         deadline_slack=args.deadline_slack)
     engine.run(stream)
     s = engine.summary()
-    print(f"served {s['requests']} requests / {s['generated_tokens']} tokens "
-          f"in {s['decode_steps']} decode steps ({s['idle_steps']} idle)")
-    print(f"throughput: {s['tokens_per_s']:.1f} tok/s, occupancy "
-          f"{s['occupancy'] * 100:.0f}%, per-token latency p50 "
-          f"{s['p50_token_ms']:.1f} ms / p99 {s['p99_token_ms']:.1f} ms")
-    print(f"scheduler: admitted={s.get('admitted', 0)} "
-          f"retired={s.get('retired', 0)} "
-          f"prefill_inserts={s.get('prefill_inserts', 0)} "
-          f"queue_full_stalls={s.get('queue_full_stalls', 0)}")
-    print(f"robustness: ok={s.get('status_ok', 0)} "
-          f"timed_out={s.get('status_timed_out', 0)} "
-          f"rejected={s.get('status_rejected', 0)} "
-          f"degraded={s.get('status_degraded', 0)} (shed={s.get('shed', 0)} "
-          f"rung={s['rung']} guards={'on' if s['guards_enabled'] else 'off'} "
-          f"abft={'on' if s['abft_enabled'] else 'off'})")
-    print("health: " + " ".join(f"{k}={v}" for k, v in s["health"].items()))
-    print(f"invariants: quantize_weight_calls={s['quantize_weight_calls']} "
-          "during serve")
+    say(f"served {s['requests']} requests / {s['generated_tokens']} tokens "
+        f"in {s['decode_steps']} decode steps ({s['idle_steps']} idle)")
+    say(f"throughput: {s['tokens_per_s']:.1f} tok/s, occupancy "
+        f"{s['occupancy'] * 100:.0f}%, per-token latency p50 "
+        f"{s['p50_token_ms']:.1f} ms / p99 {s['p99_token_ms']:.1f} ms")
+    say(f"scheduler: admitted={s.get('admitted', 0)} "
+        f"retired={s.get('retired', 0)} "
+        f"prefill_inserts={s.get('prefill_inserts', 0)} "
+        f"queue_full_stalls={s.get('queue_full_stalls', 0)}")
+    say(f"robustness: ok={s.get('status_ok', 0)} "
+        f"timed_out={s.get('status_timed_out', 0)} "
+        f"rejected={s.get('status_rejected', 0)} "
+        f"degraded={s.get('status_degraded', 0)} (shed={s.get('shed', 0)} "
+        f"rung={s['rung']} guards={'on' if s['guards_enabled'] else 'off'} "
+        f"abft={'on' if s['abft_enabled'] else 'off'})")
+    say("health: " + " ".join(f"{k}={v}" for k, v in s["health"].items()))
+    say(f"invariants: quantize_weight_calls={s['quantize_weight_calls']} "
+        "during serve")
     return engine
 
 

@@ -8,10 +8,12 @@ parameter and state shards (the ZeRO-3 layout of ``param_parts`` /
 the whole batch, of which it keeps this rank's rows (``batch_row_axes``:
 the 'batch' rule's axes, divisibility-guarded). Each layer gathers its
 parameters whole just before it runs; the gradients come back reduce-
-scattered to the shards, the mean over the data ranks; then int8_ef (when
-on) and AdamW run on the shards, their whole-tensor reductions (the global
-norm, int8_ef's absmax) taken over every shard. The loss and metrics are
-the means over the data ranks.
+scattered to the shards, the sum over the data ranks of each rank's share
+of the loss; then int8_ef (when on) and AdamW run on the shards, their
+whole-tensor reductions (the global norm, int8_ef's absmax, the int8
+moments' block scales) taken over every shard. The cross-entropy and the
+MoE load-balancing loss are the whole batch's (``lm_loss``), whatever the
+row split.
 """
 from __future__ import annotations
 
@@ -25,32 +27,12 @@ from repro_torch.distributed.sharding import (_build_parts, axes_of, local_rows,
                                               sharding_rules)
 from repro_torch.kernels.registry import f32_reciprocal
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.lm import lm_loss, lm_param_specs, param_parts
+from repro_torch.models.lm import init_lm, lm_loss, lm_param_specs, param_parts
 from repro_torch.optim import OptConfig, apply_updates
-from repro_torch.optim.qstate import qstate_specs
+from repro_torch.optim.qstate import QStateParts, qstate_specs
 
 __all__ = ["make_train_step", "batch_to", "split_microbatches", "opt_state_specs",
-           "opt_state_parts", "param_parts", "batch_row_axes", "local_batch",
-           "MESH_ARCHS", "check_mesh_run"]
-
-# the architectures the launchers run on a mesh; the other families' specs
-# are ported, their mesh runs are not
-MESH_ARCHS = ("phi4-mini-3.8b", "llama3-8b")
-
-
-def check_mesh_run(cfg: ModelConfig, mp: int, opt_cfg: OptConfig = None) -> None:
-    """Raise NotImplementedError for a launcher run the mesh does not take:
-    an architecture outside ``MESH_ARCHS``, or blockwise-int8 moments with
-    ``--mp`` > 1 or a world of more than one rank."""
-    import os
-
-    if cfg.name not in MESH_ARCHS:
-        raise NotImplementedError(f"--mp / torchrun runs of {cfg.name} are not "
-                                  f"ported; the mesh runs {MESH_ARCHS}")
-    world = int(os.environ.get("WORLD_SIZE", "1"))
-    if opt_cfg is not None and opt_cfg.state_dtype == "int8" and (mp > 1 or world > 1):
-        raise NotImplementedError("--opt-state int8 with --mp > 1 or several ranks: "
-                                  "blockwise-int8 moments need a mesh of one rank")
+           "opt_state_parts", "param_parts", "batch_row_axes", "local_batch"]
 
 
 def _is_spec(x) -> bool:
@@ -80,15 +62,15 @@ def opt_state_specs(cfg: ModelConfig, opt_cfg: OptConfig, stacked: bool = False)
 
 def opt_state_parts(cfg: ModelConfig, opt_cfg: OptConfig, mesh):
     """The optimizer state's mesh axes beside ``param_parts``: f32 moments
-    and int8_ef residuals are split as their parameters are. Blockwise-int8
-    moments are blocked along each shard's own last dim, so they are whole
-    only on a mesh of one rank; on a larger mesh they raise."""
+    and int8_ef residuals are split as their parameters are; a blockwise-
+    int8 moment is a ``QStateParts`` of its parameter's parts and shape (its
+    shard holds the whole tensor's blocks: ``optim.qstate``)."""
     pparts = param_parts(cfg, mesh)
     if opt_cfg.state_dtype == "int8":
-        if mesh.size > 1:
-            raise NotImplementedError("blockwise-int8 moments on a mesh of more "
-                                      "than one rank")
-        moments = _map_specs(lambda p: {"q": (None, None), "s": (None, None)}, pparts)
+        shapes = T.leaves(init_lm(cfg, device="meta"))
+        flat = T.leaves(pparts, _is_spec)
+        moments = T.unflatten(pparts, [QStateParts(pp, t.shape) for pp, t in
+                                       zip(flat, shapes)], _is_spec)
     else:
         moments = pparts
     state = {"m": moments, "v": moments, "step": ()}
@@ -168,7 +150,7 @@ def make_train_step(cfg: ModelConfig, opt_cfg: OptConfig, microbatches: int = 1,
         grads = torch.autograd.grad(loss, flat)
         return loss.detach(), {k: v.detach() for k, v in metrics.items()}, grads
 
-    def train_step(params, opt_state, batch, shards=None):
+    def train_step(params, opt_state, batch, shards=None, lasts=None):
         if microbatches == 1:
             loss, metrics, grads = grads_of(params, batch)
         else:
@@ -191,7 +173,7 @@ def make_train_step(cfg: ModelConfig, opt_cfg: OptConfig, microbatches: int = 1,
         grads = T.unflatten(params, list(grads))
         with torch.no_grad():
             params, opt_state, opt_metrics = apply_updates(params, grads, opt_state,
-                                                           opt_cfg, shards)
+                                                           opt_cfg, shards, lasts)
         del grads
         return params, opt_state, dict(metrics, loss=loss, **opt_metrics)
 
@@ -200,14 +182,19 @@ def make_train_step(cfg: ModelConfig, opt_cfg: OptConfig, microbatches: int = 1,
 
     def sharded_step(params, opt_state, batch):
         with sharding_rules(mesh):
-            shards = [leaf_axes(pp) for pp in T.leaves(param_parts(cfg, mesh), _is_spec)]
+            flat = T.leaves(param_parts(cfg, mesh), _is_spec)
+            shards = [leaf_axes(pp) for pp in flat]
+            lasts = [axes_of(pp[-1]) if pp else () for pp in flat]
             rows = batch_row_axes(mesh, batch["tokens"].shape[0])
             with local_rows(rows):
                 params, opt_state, metrics = train_step(
-                    params, opt_state, local_batch(batch, mesh, rows), shards)
-            n = mesh.group_size(rows)
-            for k in ("loss", "ce", "aux"):
-                metrics[k] = mesh.all_reduce(metrics[k].clone(), rows) / n
+                    params, opt_state, local_batch(batch, mesh, rows), shards, lasts)
+            # each rank's ce is its share of the whole batch's (``lm_loss``):
+            # the loss adds the other ranks' shares; aux is already whole
+            if mesh.group_size(rows) > 1:
+                ce = mesh.all_reduce(metrics["ce"].clone(), rows)
+                metrics["loss"] = metrics["loss"] + (ce - metrics["ce"])
+                metrics["ce"] = ce
         return params, opt_state, metrics
 
     return sharded_step

@@ -35,8 +35,9 @@ rows split over 'data', compute over 'model' replicated):
 
 Checkpoints are whole tensors in the same layout whatever the mesh: rank 0
 writes them, gathered, and a restart slices them onto its own mesh, so
-``--mp`` and the world may change between runs. Blockwise-int8 moments
-(``--opt-state int8``) need a mesh of one rank.
+``--mp`` and the world may change between runs; blockwise-int8 moments
+(``--opt-state int8``) too, their blocks the whole tensor's
+(``optim.qstate``). Every architecture runs on the mesh.
 """
 from __future__ import annotations
 
@@ -63,9 +64,10 @@ from repro_torch.distributed.collectives import gather_tree, shard_tree
 from repro_torch.distributed.sharding import sharding_rules
 from repro_torch.kernels.quant_dot import SCHEDULES
 from repro_torch.launch import shapes as shp
-from repro_torch.launch.mesh import distributed_requested, init_distributed, make_local_mesh
+from repro_torch.launch.mesh import (COLLECTIVE_TIMEOUT_S, distributed_requested,
+                                    init_distributed, make_local_mesh)
 from repro_torch.launch.serve_loop import cut_depth, scaled_config
-from repro_torch.launch.steps import (batch_to, check_mesh_run, make_train_step,
+from repro_torch.launch.steps import (batch_to, make_train_step,
                                       opt_state_parts, param_parts)
 from repro_torch.models.lm import init_lm
 from repro_torch.optim import OptConfig, init_opt_state
@@ -144,9 +146,8 @@ def main(argv=None) -> int:
                         grad_compression=args.grad_compression)
     mesh, started, on_mesh = None, False, distributed_requested(args.mp)
     if on_mesh:
-        check_mesh_run(cfg, args.mp, opt_cfg)
         started = not dist.is_initialized()
-        init_distributed(device, args.dist_backend)
+        init_distributed(device, args.dist_backend, COLLECTIVE_TIMEOUT_S)
     try:
         if on_mesh:
             mesh = make_local_mesh(args.mp)

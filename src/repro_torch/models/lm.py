@@ -496,7 +496,14 @@ def lm_loss(cfg: ModelConfig, params, batch) -> Tuple[torch.Tensor, Dict[str, to
     over the padded vocabulary, whose padding columns are -inf), plus 0.01 x
     the MoE load-balancing loss. A vlm's logits at its patch positions are
     dropped first (the labels cover the tokens). Returns (loss, {"ce",
-    "aux"})."""
+    "aux"}).
+
+    Under a mesh whose step splits the batch rows, the cross-entropy is
+    this rank's share of the whole batch's mean: its masked sum over the
+    count of labels >= 0 on every rank, so that the shares (and their
+    gradients, which the step sums over the ranks) add up to the
+    reference's mean however unevenly the labels fall. The aux loss is the
+    whole batch's on every rank (``mlp.apply_moe``)."""
     logits, aux, _ = lm_forward(cfg, params, batch)
     if cfg.family == "vlm" and "patch_embeds" in batch:
         logits = logits[:, batch["patch_embeds"].shape[1]:]
@@ -506,7 +513,8 @@ def lm_loss(cfg: ModelConfig, params, batch) -> Tuple[torch.Tensor, Dict[str, to
     lse = torch.logsumexp(lf, dim=-1)
     ll = torch.gather(lf, -1, labels.clamp_min(0)[..., None])[..., 0]
     mask = (labels >= 0).to(torch.float32)
-    ce = ((lse - ll) * mask).sum() / torch.clamp_min(mask.sum(), 1.0)
+    count, _ = C.row_sum(mask.sum())
+    ce = ((lse - ll) * mask).sum() / torch.clamp_min(count, 1.0)
     loss = ce + 0.01 * aux
     return loss, {"ce": ce, "aux": aux}
 

@@ -22,6 +22,7 @@ import torch.nn.functional as F
 
 from repro_torch.core import wquant
 from repro_torch.core.api import QuantDotSpec
+from repro_torch.distributed.collectives import row_sum
 from repro_torch.distributed.sharding import constrain
 from repro_torch.kernels.registry import QSPECS
 from repro_torch.models.common import dense_init, dtype_of
@@ -153,7 +154,14 @@ def apply_moe(cfg, p, x: torch.Tensor):
     the reference writes it: f32 router logits, softmax, top-k gates
     renormalized, each token's position within its expert from a cumsum
     over the flattened (S * K) axis, tokens past the capacity dropped.
-    Returns (y (B, S, d), the Switch-style load-balancing loss)."""
+    Returns (y (B, S, d), the Switch-style load-balancing loss).
+
+    Under a mesh whose step splits the batch rows, the loss of a pass that
+    records gradients is the whole batch's, as the reference's: the expert
+    densities and the mean router probabilities are summed over the row
+    ranks (``row_sum``) before their product. Inference, which drops the
+    loss, keeps this rank's rows' statistics and moves nothing. Capacity
+    and dispatch stay per row."""
     B, S, _ = x.shape
     E, K = cfg.num_experts, cfg.experts_per_token
     cap = max(1, int(cfg.capacity_factor * S * K / E))
@@ -186,6 +194,18 @@ def apply_moe(cfg, p, x: torch.Tensor):
                   "batch", "seq", None)
     if cfg.moe_shared_expert:
         y = y + apply_mlp(cfg, p["shared"], x)
-    density = sel.sum(2).mean(dim=(0, 1))                          # (E,)
-    aux = E * (density * gates.mean(dim=(0, 1))).sum()
+    density, router = _batch_mean(sel.sum(2)), _batch_mean(gates)  # (E,)
+    aux = E * (density * router).sum()
     return y, aux
+
+
+def _batch_mean(t: torch.Tensor) -> torch.Tensor:
+    """The mean over the (B, S) dims of the whole batch when the pass
+    records gradients (every rank's rows under a row split: ``row_sum``),
+    else of this rank's rows."""
+    if not torch.is_grad_enabled():
+        return t.mean(dim=(0, 1))
+    total, n = row_sum(t.sum(dim=(0, 1)))
+    if n == 1:
+        return t.mean(dim=(0, 1))
+    return total / (t.shape[0] * t.shape[1] * n)

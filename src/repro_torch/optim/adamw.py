@@ -13,7 +13,9 @@ Under a mesh the parameters, gradients and state are this rank's shards;
 the two whole-tensor reductions whole again: each leaf's squared norm is
 summed over its shards before the global norm adds it in (leaf order kept,
 so a mesh of one rank gives the unsharded value bitwise), and int8_ef's
-per-tensor absmax is the maximum over them.
+per-tensor absmax is the maximum over them. ``last_axes`` (per leaf: the
+mesh axes its last dim is split over) places blockwise-int8 moments in the
+whole tensor's blocks (``optim.qstate``).
 """
 from __future__ import annotations
 
@@ -115,13 +117,15 @@ def compress_grads(grads, ef, shards=None):
 
 
 @torch.no_grad()
-def apply_updates(params, grads, state, cfg: OptConfig, shards=None) -> Tuple[Any, Any, Dict]:
+def apply_updates(params, grads, state, cfg: OptConfig, shards=None,
+                  last_axes=None) -> Tuple[Any, Any, Dict]:
     """One AdamW step: (params, state, {"gnorm", "lr"}). The parameters and
     the f32 moments are updated IN PLACE, one parameter at a time (the
     reference's jitted step donates them), so the step needs one f32 copy of
     the largest parameter beside the model and its state; the same values
     as the reference's out-of-place update, op for op. ``shards``: under a
-    mesh, each leaf's split axes (module docstring)."""
+    mesh, each leaf's split axes, and ``last_axes`` those of its last dim
+    (module docstring)."""
     step = state["step"] + 1
     lr = schedule(cfg, step)
 
@@ -140,10 +144,12 @@ def apply_updates(params, grads, state, cfg: OptConfig, shards=None) -> Tuple[An
     flat_m = T.leaves(state["m"], is_qstate)
     flat_v = T.leaves(state["v"], is_qstate)
     new_m, new_v = [], []
-    for p, g, m, v in zip(T.leaves(params), T.leaves(grads), flat_m, flat_v):
+    mesh = _mesh_of(shards)
+    for i, (p, g, m, v) in enumerate(zip(T.leaves(params), T.leaves(grads), flat_m, flat_v)):
+        split = None if mesh is None or last_axes is None else (mesh, last_axes[i])
         gf = g.to(torch.float32) * scale
-        mf = dequantize_state(m, p.shape) if q8 else m
-        vf = dequantize_state(v, p.shape) if q8 else v
+        mf = dequantize_state(m, p.shape, split) if q8 else m
+        vf = dequantize_state(v, p.shape, split) if q8 else v
         mf.mul_(cfg.b1).add_((1 - cfg.b1) * gf)
         vf.mul_(cfg.b2).add_((1 - cfg.b2) * gf.square())
         del gf
@@ -152,8 +158,8 @@ def apply_updates(params, grads, state, cfg: OptConfig, shards=None) -> Tuple[An
         decay = cfg.weight_decay if p.ndim >= 2 else 0.0
         p.copy_(pf.sub_(lr * upd.add_(decay * pf)))
         del upd, pf
-        new_m.append(quantize_state(mf) if q8 else mf)
-        new_v.append(quantize_state(vf) if q8 else vf)
+        new_m.append(quantize_state(mf, split) if q8 else mf)
+        new_v.append(quantize_state(vf, split) if q8 else vf)
     new_state["m"] = T.unflatten(params, new_m)
     new_state["v"] = T.unflatten(params, new_v)
     return params, new_state, {"gnorm": gnorm, "lr": lr}

@@ -61,10 +61,40 @@ Fault injection (``repro_torch.testing.faults``): a context-scoped
 ``FaultPlan`` that the engine polls at each decode step -- kernel raises,
 step latency, NaN pokes, silent weight / KV / tile corruption.
 ``health()`` reports the robustness counters of this engine.
+
+On a mesh (``mesh=``: a ``launch.mesh.Mesh`` over the process group; the
+launchers' layout, ``launch.steps``): each rank holds its shards of the
+weights (``param_parts``), every layer gathered just before it runs, and
+the slots split over ``batch_row_axes(mesh, num_slots)`` in the mesh's
+chunk order; a rank's KV caches (and ABFT sums) hold only its slots.
+Heads stay whole: compute over 'model' is replicated. The host state --
+scheduler, positions, completions, counters -- is the same on every rank:
+
+  * prefill runs on EVERY rank (its layer gathers are collectives); the
+    rank that owns the slot inserts the caches, and its token and guard
+    verdict are taken on every rank;
+  * each rank decodes its slots; the new tokens and the per-slot guard /
+    ABFT verdicts are all-gathered, so every rank retires, degrades and
+    counts the same at the same step;
+  * the watchdog reads the all-reduce MAX of the ranks' step times;
+  * the pre-step fault hooks (a ``FaultPlan`` raise or delay) are agreed
+    before the step: a hook that raises on any rank fails the attempt on
+    every rank, which retry and walk the ladder in lockstep. A step that
+    raises on one rank alone cannot be: its peers wait in a collective. It
+    raises ``RankStepError`` out of ``run`` on that rank, and the peers'
+    collective fails when the connection closes or at the process group's
+    timeout (``launch.mesh.init_distributed``), so every rank ends non-zero;
+  * a silent weight corruption of a ``FaultPlan`` lands in each rank's own
+    shard; the ABFT weight audit (``verify.params_ok``) gathers the
+    weights a layer at a time.
+
+``summary()`` and ``health()`` are then the global counts (a world-1
+engine's); the times are each rank's.
 """
 from __future__ import annotations
 
 import collections
+import contextlib
 import dataclasses
 import time
 from typing import Any, Dict, List, Optional, Sequence
@@ -72,12 +102,16 @@ from typing import Any, Dict, List, Optional, Sequence
 import numpy as np
 import torch
 
+import torch.distributed as dist
+
 from repro_torch import verify
 from repro_torch.core import guards, wquant
 from repro_torch.device import resolve_device
+from repro_torch.distributed.collectives import gather_tree, shard_tree
+from repro_torch.distributed.sharding import local_rows, sharding_rules
 from repro_torch.kernels.registry import TRACE_COUNTS, warn_once
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.lm import lm_decode_step, lm_forward
+from repro_torch.models.lm import lm_decode_step, lm_forward, param_parts
 from repro_torch.serving.cache import alloc_kv_caches, cache_bytes, insert_kv
 from repro_torch.serving.scheduler import Completion, Request, Scheduler
 from repro_torch.testing import faults
@@ -96,6 +130,15 @@ _HEALTH_TRACE_KEYS = (
 
 # Two SDC detections within this many steps move the ladder one rung.
 _SDC_WINDOW_STEPS = 16
+
+
+class RankStepError(RuntimeError):
+    """A decode step raised on this rank of a mesh, past the point where
+    its peers could retry with it: the engine cannot recover in lockstep."""
+
+
+class PeerHookError(RuntimeError):
+    """A pre-step fault hook raised on another rank of the mesh."""
 
 
 _SUPPORTED_KINDS = ("attn", "moe")
@@ -141,12 +184,14 @@ def _rung_name(cfg: ModelConfig) -> str:
 
 class ServeEngine:
     """Drives prefill / insert / decode over a request stream on
-    ``device`` (the params must already live there)."""
+    ``device`` (the params must already live there). ``mesh``: serve on
+    it (module docstring); ``params`` are then the whole model, of which
+    the engine keeps this rank's shards."""
 
     def __init__(self, cfg: ModelConfig, params, *, num_slots: int,
                  max_len: int, prefill_len: int, eos_id: Optional[int] = None,
                  device="cuda", max_queue: Optional[int] = None,
-                 watchdog_ms: Optional[float] = None):
+                 watchdog_ms: Optional[float] = None, mesh=None):
         _validate_config(cfg)
         self.cfg = cfg
         self.device = resolve_device(device)
@@ -157,11 +202,24 @@ class ServeEngine:
         self._guard = guards.guards_enabled()
         self._abft = bool(cfg.quant.abft) or verify.abft_enabled()
         # ABFT: weights quantized without checksums get them here, once
-        self.params = verify.with_checks(params) if self._abft else params
-        # the ONE cache allocation of the engine's lifetime
-        self.caches = alloc_kv_caches(cfg, num_slots, max_len, self.device)
+        params = verify.with_checks(params) if self._abft else params
+        self.mesh = mesh
+        self._rows: tuple = ()                  # the mesh axes the slots split over
+        self._slots = np.arange(num_slots)      # the slots this rank decodes
+        if mesh is not None:
+            from repro_torch.launch.steps import batch_row_axes
+
+            with sharding_rules(mesh):
+                self._parts = param_parts(cfg, mesh)
+                params = shard_tree(params, self._parts, mesh)
+            self._rows = batch_row_axes(mesh, num_slots)
+            self._slots = mesh.chunk(torch.arange(num_slots), self._rows, 0).numpy()
+        self._local = {int(s): i for i, s in enumerate(self._slots)}
+        self.params = params
+        # the ONE cache allocation of the engine's lifetime (this rank's slots)
+        self.caches = alloc_kv_caches(cfg, len(self._slots), max_len, self.device)
         # ABFT KV conservation state: per slot [sum, abs_sum] of its valid rows
-        self.kv_sums = (torch.zeros((num_slots, 2), dtype=torch.float32,
+        self.kv_sums = (torch.zeros((len(self._slots), 2), dtype=torch.float32,
                                     device=self.device) if self._abft else None)
         self.tokens_h = np.zeros((num_slots, 1), np.int64)
         self.positions_h = np.zeros((num_slots,), np.int64)
@@ -193,15 +251,40 @@ class ServeEngine:
         # ABFT surfaces its kernel trips as NaN rows: it needs the guard seam
         return self._guard or self._abft
 
+    # ------------------------------------------------------------- mesh
+    def _on_mesh(self, rows):
+        """The sharding context of a device op whose batch rows split over
+        ``rows`` (``()``: every rank holds every row); none off a mesh."""
+        stack = contextlib.ExitStack()
+        if self.mesh is not None:
+            stack.enter_context(sharding_rules(self.mesh))
+            stack.enter_context(local_rows(rows))
+        return stack
+
+    def _gather(self, t: torch.Tensor) -> torch.Tensor:
+        """Every rank's per-slot values, in slot order."""
+        return t if self.mesh is None else self.mesh.gather(t, self._rows, 0)
+
+    def _max(self, t: torch.Tensor) -> torch.Tensor:
+        """The maximum over every rank of the mesh (``t`` off a mesh)."""
+        if self.mesh is None:
+            return t
+        return self.mesh.all_reduce(t, self.mesh.axis_names, dist.ReduceOp.MAX)
+
+    def _owns(self, slot: int) -> bool:
+        return slot in self._local
+
     # --------------------------------------------------------- device ops
     @torch.inference_mode()
     def _prefill(self, padded: np.ndarray, length: int):
         """(1, P) right-padded prompt -> (first token, per-layer KV), or,
-        guarded, (first token, ok (1,) bool, per-layer KV)."""
+        guarded, (first token, ok (1,) bool, per-layer KV). On a mesh every
+        rank runs it."""
         self.prefill_calls += 1
         tokens = torch.from_numpy(padded).to(self.device)
-        logits, _, kv = lm_forward(self._run_cfg, self.params, {"tokens": tokens},
-                                   want_cache=True)
+        with self._on_mesh(()):
+            logits, _, kv = lm_forward(self._run_cfg, self.params, {"tokens": tokens},
+                                       want_cache=True)
         last = logits[:, length - 1]
         tok = torch.argmax(last[0])
         if self._guarded:
@@ -211,16 +294,19 @@ class ServeEngine:
     @torch.inference_mode()
     def _decode(self):
         """One step over every slot -> (slots,) next tokens, or, guarded,
-        (tokens, ok (slots,) bool)."""
+        (tokens, ok (slots,) bool); on a mesh over this rank's slots, the
+        results gathered from every rank."""
         self.decode_calls += 1
-        tokens = torch.from_numpy(self.tokens_h).to(self.device)
-        pos = torch.from_numpy(self.positions_h).to(self.device)
-        logits, self.caches = lm_decode_step(self._run_cfg, self.params,
-                                             self.caches, tokens, pos)
+        tokens = torch.from_numpy(self.tokens_h[self._slots]).to(self.device)
+        pos = torch.from_numpy(self.positions_h[self._slots]).to(self.device)
+        with self._on_mesh(self._rows):
+            logits, self.caches = lm_decode_step(self._run_cfg, self.params,
+                                                 self.caches, tokens, pos)
         tok = torch.argmax(logits[:, -1], dim=-1)
         if self._guarded:
-            return tok, guards.rows_ok(logits[:, -1, :self.cfg.vocab_size], tok.shape[0])
-        return tok
+            ok = guards.rows_ok(logits[:, -1, :self.cfg.vocab_size], tok.shape[0])
+            return self._gather(tok), self._gather(ok)
+        return self._gather(tok)
 
     # ---------------------------------------------------------- warm-up
     def warmup(self) -> float:
@@ -239,7 +325,7 @@ class ServeEngine:
         out = self._decode()
         int((out[0] if self._guarded else out)[0])
         if self._abft:
-            pos = torch.zeros(self.sched.num_slots, dtype=torch.long, device=self.device)
+            pos = torch.zeros(len(self._slots), dtype=torch.long, device=self.device)
             _, cur = verify.kv_check(self.caches, pos, self.kv_sums)
             verify.kv_roll(self.caches, pos, cur).sum().item()
         self._warmup_s = time.perf_counter() - t0
@@ -300,16 +386,23 @@ class ServeEngine:
         padded[0, :req.prompt_len] = req.tokens
         t0 = time.perf_counter()
         out = self._prefill(padded, req.prompt_len)
-        if self._guarded:
-            tok, ok, kv = out
-            if not bool(ok[0]):
-                # poisoned prefill: never insert, never emit
-                self.completions.append(self.sched.retire(
-                    slot, self._trip_reason(), float(self.step)))
-                return
-        else:
-            tok, kv = out
-        insert_kv(self.caches, kv, slot)
+        tok, kv = out[0], out[-1]
+        ok = out[1][0] if self._guarded else None
+        if self.mesh is not None:
+            # the owner's token and verdict on every rank (the others'
+            # prefill computed the same; the host state must not part)
+            own = torch.full((2,), -1, dtype=torch.long, device=self.device)
+            if self._owns(slot):
+                own = torch.stack([tok, torch.ones_like(tok) if ok is None else ok.long()])
+            tok, flag = self._max(own)
+            ok = None if ok is None else flag.bool()
+        if ok is not None and not bool(ok):
+            # poisoned prefill: never insert, never emit
+            self.completions.append(self.sched.retire(
+                slot, self._trip_reason(), float(self.step)))
+            return
+        if self._owns(slot):
+            insert_kv(self.caches, kv, self._local[slot])
         tok_h = int(tok)                  # waits for the device
         dt_ms = (time.perf_counter() - t0) * 1e3
         TRACE_COUNTS[("serving", "prefill_insert")] += 1
@@ -319,9 +412,9 @@ class ServeEngine:
         st.latencies_ms.append(dt_ms)
         self.tokens_h[slot, 0] = tok_h
         self.positions_h[slot] = st.pos
-        if self._abft:
+        if self._abft and self._owns(slot):
             # insert rewrote the slot's rows: re-anchor its conservation sum
-            verify.kv_slot_reset(self.kv_sums, self.caches, slot, st.pos)
+            verify.kv_slot_reset(self.kv_sums, self.caches, self._local[slot], st.pos)
         self._maybe_retire(slot, tok_h)
 
     def _maybe_retire(self, slot: int, last_tok: int) -> bool:
@@ -385,8 +478,8 @@ class ServeEngine:
             return
         if plan.should_poke(self.step):
             row = int(self.positions_h[plan.nan_poke_slot]) - 1
-            if row >= 0:
-                faults.poke_nan(self.caches, plan.nan_poke_slot, row)
+            if row >= 0 and self._owns(plan.nan_poke_slot):
+                faults.poke_nan(self.caches, self._local[plan.nan_poke_slot], row)
         if plan.should_corrupt(self.step):
             kind = plan.corrupt_kind
             if kind == "weight":
@@ -395,40 +488,67 @@ class ServeEngine:
                 plan.undo.append(faults.clobber_stream_tile(self.params))
             elif kind == "kv":
                 row = int(self.positions_h[plan.kv_corrupt_slot]) - 1
-                if row >= 0:
-                    faults.perturb_kv_row(self.caches, plan.kv_corrupt_slot, row)
+                if row >= 0 and self._owns(plan.kv_corrupt_slot):
+                    faults.perturb_kv_row(self.caches, self._local[plan.kv_corrupt_slot],
+                                          row)
             else:
                 raise ValueError(f"unknown corrupt_kind {kind!r}")
 
     def _dispatch_decode(self):
         """One decode step at the current rung, with the per-attempt fault
-        hooks (delay, raise) before it."""
+        hooks (delay, raise) before it. On a mesh the hooks' outcome is
+        agreed first (a hook that raised anywhere fails the attempt on
+        every rank), and a raise in the step itself is ``RankStepError``."""
         plan = faults.active()
-        if plan is not None:
-            d = plan.delay_s(self.step)
-            if d > 0.0:
-                time.sleep(d)
-            plan.maybe_raise(self.step)
-        return self._decode()
+        err = None
+        try:
+            if plan is not None:
+                d = plan.delay_s(self.step)
+                if d > 0.0:
+                    time.sleep(d)
+                plan.maybe_raise(self.step)
+        except Exception as e:   # noqa: BLE001 -- re-raised below, after agreeing
+            err = e
+        if self.mesh is not None:
+            failed = self._max(torch.tensor(int(err is not None), device=self.device))
+            if err is None and int(failed):
+                err = PeerHookError(f"a pre-step hook raised on another rank at "
+                                    f"step {self.step}")
+        if err is not None:
+            raise err
+        if self.mesh is None:
+            return self._decode()
+        try:
+            return self._decode()
+        except Exception as e:   # noqa: BLE001 -- its peers cannot retry with it
+            raise RankStepError(f"decode step {self.step} raised on rank "
+                                f"{self.mesh.rank}: {e!r}") from e
+
+    def _attempt(self):
+        """(result, None), or (None, the exception) when the attempt failed
+        in a way every rank retries; a ``RankStepError`` propagates."""
+        try:
+            return self._dispatch_decode(), None
+        except RankStepError:
+            raise
+        except Exception as e:   # noqa: BLE001 -- any step failure is recovered
+            return None, e
 
     def _decode_with_recovery(self):
         """Run the step; on failure retry it once on the same rung, then
         walk the ladder. None when every rung failed."""
-        try:
-            return self._dispatch_decode()
-        except Exception as e:   # noqa: BLE001 -- any step failure is recovered
-            first = e
+        out, first = self._attempt()
+        if first is None:
+            return out
         self.sched.counters["step_retries"] += 1
         TRACE_COUNTS[("serving", "step_retry")] += 1
-        try:
-            return self._dispatch_decode()
-        except Exception:        # noqa: BLE001
-            pass
+        out, err = self._attempt()
+        if err is None:
+            return out
         while self._degrade(f"decode failure: {first!r}"):
-            try:
-                return self._dispatch_decode()
-            except Exception:    # noqa: BLE001
-                continue
+            out, err = self._attempt()
+            if err is None:
+                return out
         return None
 
     # -------------------------------------------------------------- abft
@@ -438,8 +558,21 @@ class ServeEngine:
         if self._params_check_step != self.step:
             self._params_check_step = self.step
             TRACE_COUNTS[("abft", "params_check")] += 1
-            self._params_check_ok = verify.params_ok(self.params)
+            self._params_check_ok = self._params_ok()
         return not self._params_check_ok
+
+    def _params_ok(self) -> bool:
+        """``verify.params_ok`` of the whole weights: on a mesh gathered a
+        top-level entry or a layer at a time (a collective)."""
+        if self.mesh is None:
+            return verify.params_ok(self.params)
+        ok = True
+        for key, sub in self.params.items():
+            parts = self._parts[key]
+            pieces = zip(sub, parts) if isinstance(sub, list) else [(sub, parts)]
+            for tree, pp in pieces:
+                ok = verify.params_ok(gather_tree(tree, pp, self.mesh)) and ok
+        return ok
 
     def _trip_reason(self) -> str:
         """The retirement reason of a logits trip, with its counters: with
@@ -466,7 +599,9 @@ class ServeEngine:
     def _abft_rebase_slot(self, slot: int) -> None:
         """Re-anchor a slot retired mid-trip to the cache as it is now: its
         position stops advancing, so it verifies trivially until reuse."""
-        verify.kv_slot_reset(self.kv_sums, self.caches, slot, int(self.positions_h[slot]))
+        if self._owns(slot):
+            verify.kv_slot_reset(self.kv_sums, self.caches, self._local[slot],
+                                 int(self.positions_h[slot]))
 
     def _decode_step(self) -> None:
         t0 = time.perf_counter()
@@ -474,8 +609,9 @@ class ServeEngine:
         pos = kv_ok = cur = None
         if self._abft:
             # the integrity gate on the caches the step is about to read
-            pos = torch.from_numpy(self.positions_h).to(self.device)
+            pos = torch.from_numpy(self.positions_h[self._slots]).to(self.device)
             kv_ok, cur = verify.kv_check(self.caches, pos, self.kv_sums)
+            kv_ok = self._gather(kv_ok)
         out = self._decode_with_recovery()
         if out is None:
             self._fail_inflight("decode failed on every ladder rung")
@@ -488,6 +624,10 @@ class ServeEngine:
         ok_h = ok.cpu().numpy() if ok is not None else None
         kv_ok_h = kv_ok.cpu().numpy() if kv_ok is not None else None
         dt_ms = (time.perf_counter() - t0) * 1e3
+        if self.mesh is not None:
+            # the watchdog reads the slowest rank's step
+            dt_ms = float(self._max(torch.tensor(dt_ms, dtype=torch.float64,
+                                                 device=self.device)))
         self._decode_s += dt_ms * 1e-3
         self._step_latencies_ms.append(dt_ms)
         self._occupancy.append(self.sched.occupancy)

@@ -452,7 +452,8 @@ def test_serve_launcher_runs_on_cpu(capsys):
     scaled qwen1.5-4b (int8 W8A8 + Hadamard): prefill, 5 greedy decode
     steps at a shared scalar position, tokens in the vocabulary, the
     steady-state rate printed; its tokens are the port's own one-shot
-    greedy decode's. ``--mp 2`` raises."""
+    greedy decode's. ``--mp 2`` at a world of
+    one rank raises the mesh's ValueError."""
     argv = ["--device", "cpu", "--arch", "qwen1.5-4b", "--scale", "0.005",
             "--batch", "2", "--prompt-len", "12", "--gen", "6", "--quant", "int8",
             "--rotate", "hadamard", "--seed", "3"]
@@ -477,7 +478,9 @@ def test_serve_launcher_runs_on_cpu(capsys):
             tok = logits[:, -1, :cfg.vocab_size].argmax(-1)[:, None]
             mine.append(tok)
     np.testing.assert_array_equal(torch.cat(mine, 1).numpy(), toks)
-    with pytest.raises(NotImplementedError):
+    # every family runs on the mesh; at a world of one rank --mp 2 is the
+    # mesh's own ValueError
+    with pytest.raises(ValueError, match="does not divide"):
         serve.main(argv + ["--mp", "2"])
 
 

@@ -15,8 +15,8 @@ Limits (readings on this CPU in brackets):
     [at most 7e-4], the printed gradient norms within ``GNORM_TOL`` = 5e-3
     relative [at most 2.3e-3, at (4, 1)]: a batch split over 'data' sums
     bf16 gradients of half (a quarter of) the rows, and the norm adds
-    shard norms in another order (dropping the mean over 'data' doubles
-    the norm);
+    shard norms in another order (a rank's whole-batch mean where its
+    share belongs doubles the norm);
   * every parameter leaf of the final checkpoint (gathered whole) within
     ``PARAM_TOL`` = 2e-3 relative L2 of world 1's [at most 8.4e-4]: one
     bf16 rounding of an update can flip where an ulp of the clip scale
@@ -223,16 +223,35 @@ def test_llama3_records_unfused_local(runs):
     assert counts[("sharded_quant_dot", "unfused_local")] == 2 * 6
 
 
-def test_launchers_refuse_what_the_mesh_does_not_take():
-    """Families outside ``MESH_ARCHS`` and int8 moments on a mesh of more
-    than one rank raise NotImplementedError before any process group
-    starts."""
+def test_launchers_refuse_what_the_mesh_does_not_take(monkeypatch):
+    """What the mesh still refuses, leaving no process group behind: the
+    engine's whisper-base, qwen2-vl-7b and recurrent kinds on a mesh (the
+    ValueError it raises off one; here under torchrun's variables at world
+    1, so ``serve_loop`` builds the (1, 1) mesh), and an ``--mp`` that does
+    not divide the world (``make_local_mesh``'s ValueError) in all three
+    launchers."""
+    import socket
+
     import torch.distributed as dist
 
-    from repro_torch.launch import serve, train
+    from repro_torch.launch import serve, serve_loop, train
 
-    with pytest.raises(NotImplementedError, match="qwen1.5-4b"):
-        serve.main(SERVE + ["--arch", "qwen1.5-4b", "--mp", "2"])
-    with pytest.raises(NotImplementedError, match="int8"):
-        train.main(TRAIN + ["--mp", "2", "--opt-state", "int8"])
-    assert not dist.is_initialized()
+    loop = ["--device", "cpu", "--scale", "0.005", "--quant", "int8", "--rotate",
+            "hadamard", "--requests", "2", "--slots", "2", "--max-len", "32",
+            "--prefill-len", "8"]
+    with socket.socket() as sk:
+        sk.bind(("localhost", 0))
+        port = sk.getsockname()[1]
+    with monkeypatch.context() as m:
+        for k, v in dict(WORLD_SIZE="1", RANK="0", LOCAL_RANK="0", MASTER_ADDR="localhost",
+                         MASTER_PORT=str(port)).items():
+            m.setenv(k, v)
+        for arch in ("whisper-base", "qwen2-vl-7b", "rwkv6-7b", "zamba2-7b"):
+            with pytest.raises(ValueError, match="causal attention stacks only"):
+                serve_loop.main(loop + ["--arch", arch, "--mp", "1"])
+            assert not dist.is_initialized()
+    for main, argv in ((train.main, TRAIN), (serve.main, SERVE + ["--arch", "phi4-mini-3.8b"]),
+                       (serve_loop.main, loop + ["--arch", "phi4-mini-3.8b"])):
+        with pytest.raises(ValueError, match="does not divide"):
+            main(argv + ["--mp", "2"])
+        assert not dist.is_initialized()
