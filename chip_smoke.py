@@ -216,8 +216,16 @@ Runs from the repository root and needs the repository's ``src/``. It
      the model and launcher phases' depths (tokens and launches equal),
      then mixtral-8x7b at two ranks over gloo, ``MD_MIXTRAL_LAYERS``
      layers at full width (each rank's launches as derived from its rows,
-     tokens under the margin rule); a ``phase multidevice:<x>`` line
-     follows each of (d)-(f);
+     tokens under the margin rule); (g) tensor parallelism over 'model':
+     two ranks on the card over gloo at mesh (1, 2), full width,
+     ``TP_LAYERS`` layers -- phi4-mini's engine (``serve_loop --mp 2``; its
+     completions world 1's but at a near tie, each rank's KV cache half
+     world 1's bytes), llama3-8b's one-shot launcher (tokens under the
+     margin rule, the Q / K sites' rows -- K2's -- half world 1's at world
+     1's launches, every layer ticked ``split``) and its control (the
+     heads' all-reduce dropped: must part above the margin), phi4-mini's 2
+     training steps (losses within ``MD_LOSS_LIMIT`` of (b)'s); a ``phase
+     multidevice:<x>`` line follows each of (d)-(g);
  11. prints the kernels' JSON line (K1-K8, the ABFT twins, M1 and M2), then
      the result line ``{"ok": true, "device": {...}}`` last.
 
@@ -4138,11 +4146,189 @@ def _md_families(seed: int, tmp: str) -> dict:
     return launches
 
 
+# (g): tensor parallelism over 'model' on the one card -- two ranks over
+# gloo at mesh (1, 2), each holding H / 2 query heads, KH / 2 KV heads,
+# d_ff / 2 hidden columns and half the vocabulary, full width, TP_LAYERS
+# layers: phi4-mini's engine (serve_loop --mp 2), llama3-8b's one-shot
+# launcher and its control (the heads' all-reduce dropped), phi4-mini's
+# MD_TRAIN steps.
+TP_LAYERS = 4
+TP_RANK_ARGS = ("--device", "cuda:0", "--dist-backend", "gloo", "--mp", "2")
+
+# one rank of (g): the process group, then the three launchers on it, each
+# with its launches, its Q / K sites' rows (K2's) and its tensor_parallel
+# ticks counted, results as JSON
+_TP_RANK_CODE = """
+import json, sys, torch
+from repro_torch.distributed import collectives as C
+from repro_torch.kernels import quant_dot as qd, registry
+from repro_torch.kernels.fused_quant import fused_dequant_cuda
+from repro_torch.kernels.hadacore import hadacore_cuda
+from repro_torch.launch import serve, serve_loop, train
+from repro_torch.launch.mesh import COLLECTIVE_TIMEOUT_S, init_distributed
+from repro_torch.models import attention as A
+path, loop, one, learn = sys.argv[1], *(json.loads(a) for a in sys.argv[2:5])
+init_distributed(torch.device("cuda:0"), "gloo", COLLECTIVE_TIMEOUT_S)
+rows, real = [0], A._rotate_quant_qk
+def spy(cfg, q, k):
+    rows[0] += q.numel() // q.shape[-1] + k.numel() // k.shape[-1]
+    return real(cfg, q, k)
+A._rotate_quant_qk = spy
+def counted(fn):
+    rows[0] = 0
+    qd.quant_dot_cuda.launches = hadacore_cuda.launches = fused_dequant_cuda.launches = 0
+    registry.TRACE_COUNTS.clear()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, {"k1": hadacore_cuda.launches, "k2": fused_dequant_cuda.launches,
+                 "k4": qd.quant_dot_cuda.launches, "rows": rows[0],
+                 "ticks": {"/".join(k[1:]): v for k, v in registry.TRACE_COUNTS.items()
+                           if k[0] == "tensor_parallel"}}
+res = {}
+engine, res["loop"] = counted(lambda: serve_loop.main(loop))
+res["completions"] = sorted([c.rid, c.status, c.finish_reason, list(c.tokens)]
+                            for c in engine.completions)
+res["health"], res["kv_bytes"] = engine.health(), engine.summary()["kv_cache_bytes_rank"]
+del engine
+torch.cuda.empty_cache()
+out, res["serve"] = counted(lambda: serve.main(one))
+res["tokens"] = out["tokens"].tolist()
+reduce, C.reduce_from_model = C.reduce_from_model, lambda t, axes: t
+res["control"] = serve.main(one)["tokens"].tolist()
+C.reduce_from_model = reduce
+torch.cuda.empty_cache()
+assert train.main(learn) == 0
+json.dump(res, open(path, "w"))
+torch.distributed.destroy_process_group()
+"""
+
+
+class _QKRows:
+    """Counts, while inside, the rows the attention's Q / K sites take
+    (each site one K2 launch on its rows)."""
+
+    def __enter__(self):
+        from repro_torch.models import attention as A
+
+        self.rows, self.real = 0, A._rotate_quant_qk
+
+        def spy(cfg, q, k):
+            self.rows += q.numel() // q.shape[-1] + k.numel() // k.shape[-1]
+            return self.real(cfg, q, k)
+
+        A._rotate_quant_qk = spy
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.models import attention as A
+
+        A._rotate_quant_qk = self.real
+
+
+def _tp_argvs(seed: int, tmp: str):
+    """(g)'s three launchers' arguments: phi4-mini's engine, llama3-8b's
+    one-shot launcher, phi4-mini's training (world 1's: no --mp)."""
+    loop = _loop_argv("phi4-mini-3.8b", "int8", seed, MD_ENGINE_REQUESTS) + [
+        "--layers", str(TP_LAYERS)]
+    # 2 x SLOTS prompts: at random weights a greedy token's margin is often
+    # below MD_MARGIN, so the control's rejection rests on the rows above it
+    one = _md_serve_argv("llama3-8b", "fp8_e4m3", seed) + [
+        "--layers", str(TP_LAYERS), "--batch", str(2 * SLOTS)]
+    learn = _md_train_argv(seed) + ["--metrics-out", os.path.join(tmp, "train_tp.jsonl")]
+    return loop, one, learn
+
+
+def _md_tensor_parallel(seed: int, tmp: str, train_want) -> None:
+    """(g) tensor parallelism over 'model' at two ranks on the card over
+    gloo, mesh (1, 2), full width, TP_LAYERS layers: phi4-mini's engine
+    (int8, the fused down site) -- each rank's completions world 1's but
+    where they part at a near tie (world 1's margin at most MD_MARGIN),
+    its KV cache half world 1's bytes; llama3-8b's one-shot launcher
+    (fp8_e4m3, the grouped down site) -- tokens world 1's under the margin
+    rule, the Q / K sites' rows (K2's) half world 1's at world 1's K1 / K2 /
+    K4 launches, one ``("tensor_parallel", "attn", "split")`` tick a layer
+    and pass -- and its control, the heads' all-reduce dropped, which must
+    part above the margin; phi4-mini's MD_TRAIN steps, losses within
+    MD_LOSS_LIMIT of (b)'s world-1 losses (``train_want``). World 1's
+    engine and launcher run beside the ranks."""
+    import contextlib
+    import io
+
+    from repro_torch.launch import serve, serve_loop
+    from repro_torch.serving import synthetic_stream
+
+    print(f"-- multidevice (g): tensor parallelism, two ranks on the card over gloo, "
+          f"mesh (1, 2), full width, {TP_LAYERS} layers")
+    loop, one, learn = _tp_argvs(seed, tmp)
+    procs, paths = _spawn_ranks(_TP_RANK_CODE, [json.dumps(a + list(TP_RANK_ARGS))
+                                                for a in (loop, one, learn)], tmp, "tp")
+    with contextlib.redirect_stdout(io.StringIO()):
+        engine = serve_loop.main(loop)
+        with _QKRows() as qk:
+            want, l_want = _counted(lambda: serve.main(one))
+    record, kv_bytes = _engine_record(engine), engine.summary()["kv_cache_bytes"]
+    ranks = _join_ranks(procs, paths, "multidevice (g)")
+    pcfg = engine.cfg
+    stream = {r.rid: r.tokens for r in synthetic_stream(
+        MD_ENGINE_REQUESTS, vocab_size=pcfg.vocab_size,
+        prompt_len=(min(8, PREFILL_LEN), PREFILL_LEN), max_new_tokens=(8, 32), rate=0.5,
+        seed=seed)}
+    wanted = {c[0]: c for c in record["completions"]}
+    toks, margins = np.array(want["tokens"]), np.array(want["margins"])
+    for r, res in enumerate(ranks):
+        parted = []
+        for rid, status, reason, got in res["completions"]:
+            ref = wanted[rid][3]
+            if got == ref:
+                continue
+            j = next(i for i in range(min(len(got), len(ref)) + 1)
+                     if i >= min(len(got), len(ref)) or got[i] != ref[i])
+            parted.append((rid, j, _teacher_margin(pcfg, engine.params, stream[rid], ref[:j])))
+        print(f"rank {r} engine: {len(res['completions'])} requests, tokens parting at (rid, "
+              f"index, world-1 margin) {parted}; health equal {res['health'] == record['health']}"
+              f"; KV cache {res['kv_bytes']} bytes (world 1 {kv_bytes}); launches "
+              f"{ {k: res['loop'][k] for k in ('k1', 'k2', 'k4')} }; ticks {res['loop']['ticks']}")
+        if any(m > MD_MARGIN for _, _, m in parted) or res["health"] != record["health"]:
+            fail(f"multidevice (g): rank {r}'s engine parts from world 1's")
+        if 2 * res["kv_bytes"] != kv_bytes:
+            fail(f"multidevice (g): rank {r}'s KV cache is not half world 1's")
+        s = res["serve"]
+        layer_passes = s["k2"] // 2
+        for name, got in (("tokens", res["tokens"]), ("control", res["control"])):
+            first = [int(np.argmax(row)) if row.any() else None
+                     for row in np.array(got) != toks]
+            far = [(i, f, round(float(margins[i, f]), 4)) for i, f in enumerate(first)
+                   if f is not None and margins[i, f] > MD_MARGIN]
+            print(f"rank {r} llama3-8b {name}: rows parting at {first}, above the margin "
+                  f"{far}")
+            if (name == "tokens") == bool(far):
+                fail(f"multidevice (g): rank {r}'s llama3-8b {name} "
+                     + ("part from world 1's" if far else "were not rejected"))
+        print(f"rank {r} llama3-8b: Q / K rows {s['rows']} (world 1 {qk.rows}); launches "
+              f"K1 {s['k1']}, K2 {s['k2']}, K4 {s['k4']} (world 1 {l_want['K1']}, "
+              f"{l_want['K2']}, {l_want['K4']}); ticks {s['ticks']}")
+        if 2 * s["rows"] != qk.rows:
+            fail(f"multidevice (g): rank {r}'s Q / K rows are not half world 1's")
+        if (s["k1"], s["k2"], s["k4"]) != (l_want["K1"], l_want["K2"], l_want["K4"]):
+            fail(f"multidevice (g): rank {r}'s launches are not world 1's")
+        if s["ticks"] != {"attn/split": layer_passes} or not layer_passes:
+            fail(f"multidevice (g): rank {r}'s layers did not all run split")
+    got = _md_losses(os.path.join(tmp, "train_tp.jsonl"))
+    gap = max(abs(a - b) for a, b in zip(got, train_want))
+    print(f"phi4-mini train at (1, 2) ({MD_TRAIN_LAYERS} layers): losses {got}, world 1 "
+          f"{train_want}, max |diff| {gap:g} (limit {MD_LOSS_LIMIT})")
+    if len(got) != len(train_want) or gap > MD_LOSS_LIMIT:
+        fail("multidevice (g): the tensor-parallel losses are not world 1's")
+    del engine
+    torch.cuda.empty_cache()
+
+
 def multidevice_phase(args, gen) -> dict:
     """The multi-device layer on the one card: (a) the sharded quant_dot's
     shard-local kernels at the full-width mesh layouts' shard shapes, (b)
     the distributed path at world 1 over NCCL, (c) two ranks on the card
-    over gloo. Returns the launches of (b)'s distributed runs."""
+    over gloo. Returns (the launches of (b)'s distributed runs, (b)'s
+    world-1 training losses)."""
     import tempfile
 
     t0 = time.perf_counter()
@@ -4153,7 +4339,7 @@ def multidevice_phase(args, gen) -> dict:
         t2 = time.perf_counter()
         _md_two_ranks(args.seed, tmp, kept)
     print(f"(a) took {t1 - t0:.1f} s, (b) {t2 - t1:.1f} s, (c) {time.perf_counter() - t2:.1f} s")
-    return launches
+    return launches, kept["train"]
 
 
 def _leaves(tree):
@@ -4298,7 +4484,8 @@ def _phases(args, start: float, later) -> int:
     launches.update(phase("lint", lint_phase, serving_sites))   # M1's and M2's path
     del serving_sites
     phase("rotation", rotation_phase, args)
-    for k, v in phase("multidevice", multidevice_phase, args, gen).items():
+    got, train_want = phase("multidevice", multidevice_phase, args, gen)
+    for k, v in got.items():
         launches[k] += v
     import tempfile
 
@@ -4310,6 +4497,7 @@ def _phases(args, start: float, later) -> int:
         phase("multidevice:e", _md_engine_two_ranks, args.seed, started)
         for k, v in phase("multidevice:f", _md_families, args.seed, tmp).items():
             launches[k] += v
+        phase("multidevice:g", _md_tensor_parallel, args.seed, tmp, train_want)
 
     quant_dot_cu = "src/repro_torch/csrc/quant_dot.cu"
     experts_cu = "src/repro_torch/csrc/quant_dot_experts.cu"

@@ -25,6 +25,27 @@ blockwise-int8 moments' ``optim.qstate.QStateParts``) do so.
 load-balancing densities, the count of labels). Its backward is the
 identity: a function of the sum that every rank adds to its loss sends
 each rank the gradient of its own rows' part, and the sum above adds them.
+
+Tensor parallelism over 'model' (``distributed.sharding.model_split``):
+the activations between the split layers are whole and the same on every
+rank of the split, and so is the loss, so each rank's backward pass must
+give the gradient of its own slice of the weights and the whole gradient
+of what is replicated.
+
+  * ``copy_to_model`` sits at the input of a column-split product (Q / K /
+    V, gate / up, the logits): identity forward; the backward all-reduces
+    the input's gradient, which each rank holds for its own columns only.
+  * ``reduce_from_model`` completes a row-split product (the attention's
+    output projection, the vocabulary-split embedding lookup): all-reduce
+    forward, identity backward.
+  * ``gather_from_model`` all-gathers along a dim (the MLP's hidden
+    columns before the down projection, the logits along the vocabulary);
+    the backward keeps this rank's slice, since what follows is replicated
+    and every rank holds the whole gradient.
+
+The sums run in f32 (a 16-bit tensor is widened, summed and rounded once).
+A parameter a layer keeps split (``gather_param(..., skip=)``) keeps its
+gradient on its rank: nothing sums it over 'model'.
 """
 from __future__ import annotations
 
@@ -37,7 +58,8 @@ from repro_torch.distributed.sharding import axes_of, current_mesh, row_axes
 from repro_torch.kernels.registry import f32_reciprocal
 
 __all__ = ["int8_ring_all_reduce", "shard_tree", "gather_tree", "gather_param",
-           "gather_leaf", "leaf_axes", "row_sum"]
+           "gather_leaf", "leaf_axes", "row_sum", "copy_to_model", "reduce_from_model",
+           "gather_from_model"]
 
 
 def _quant(v: torch.Tensor):
@@ -133,14 +155,15 @@ def gather_tree(tree: Any, parts: Any, mesh) -> Any:
 
 
 class _GatherParam(torch.autograd.Function):
-    """Gather a parameter whole; the backward returns its shard's gradient,
-    the sum over the batch-row ranks (module docstring), in the
-    parameter's dtype."""
+    """Gather a parameter whole (but for the dims ``skip``, left as this
+    rank's slice); the backward returns its shard's gradient, the sum over
+    the batch-row ranks (module docstring), in the parameter's dtype."""
 
     @staticmethod
-    def forward(ctx, local, parts, mesh, rows):
+    def forward(ctx, local, parts, mesh, rows, skip):
         ctx.parts, ctx.mesh, ctx.rows, ctx.dtype = parts, mesh, rows, local.dtype
-        return gather_leaf(local, parts, mesh)
+        ctx.skip = skip
+        return gather_leaf(local, parts, mesh, skip)
 
     @staticmethod
     def backward(ctx, g):
@@ -148,6 +171,8 @@ class _GatherParam(torch.autograd.Function):
         g = g.to(torch.float32)
         scatter = []
         for dim, p in enumerate(ctx.parts):
+            if dim in ctx.skip:          # this rank's slice's own gradient
+                continue
             axes = axes_of(p)
             inside = [a in rows for a in axes]
             if axes and all(inside):
@@ -162,15 +187,16 @@ class _GatherParam(torch.autograd.Function):
         done = {a for _, axes in scatter for a in axes}
         g = g.contiguous()
         mesh.all_reduce(g, tuple(a for a in rows if a not in done))
-        return g.to(ctx.dtype), None, None, None
+        return g.to(ctx.dtype), None, None, None, None
 
 
-def gather_param(t: torch.Tensor, parts, mesh) -> torch.Tensor:
-    """A parameter whole for use in this step; differentiable when ``t``
-    takes gradients (``_GatherParam``)."""
+def gather_param(t: torch.Tensor, parts, mesh, skip=()) -> torch.Tensor:
+    """A parameter whole for use in this step (``skip``: dims left as this
+    rank's slice); differentiable when ``t`` takes gradients
+    (``_GatherParam``)."""
     if t.requires_grad and torch.is_grad_enabled():
-        return _GatherParam.apply(t, parts, mesh, row_axes())
-    return gather_leaf(t, parts, mesh)
+        return _GatherParam.apply(t, parts, mesh, row_axes(), tuple(skip))
+    return gather_leaf(t, parts, mesh, skip)
 
 
 class _RowSum(torch.autograd.Function):
@@ -195,3 +221,71 @@ def row_sum(t: torch.Tensor) -> Tuple[torch.Tensor, int]:
     if n == 1:
         return t, 1
     return _RowSum.apply(t, mesh, rows), n
+
+
+# ------------------------------------------------- tensor parallelism
+def _sum_over(t: torch.Tensor, mesh, axes) -> torch.Tensor:
+    """``t`` summed over the ranks along ``axes``, in f32, in ``t``'s dtype
+    (a new tensor)."""
+    f = t.to(torch.float32).contiguous()
+    f = f.clone() if f.data_ptr() == t.data_ptr() else f
+    return mesh.all_reduce(f, axes).to(t.dtype)
+
+
+class _CopyToModel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, mesh, axes):
+        ctx.mesh, ctx.axes = mesh, axes
+        return t.view_as(t)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _sum_over(g, ctx.mesh, ctx.axes), None, None
+
+
+class _ReduceFromModel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, mesh, axes):
+        return _sum_over(t, mesh, axes)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None, None
+
+
+class _GatherFromModel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, mesh, axes, dim):
+        ctx.mesh, ctx.axes, ctx.dim = mesh, axes, dim
+        return mesh.gather(t, axes, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.mesh.chunk(g, ctx.axes, ctx.dim).contiguous(), None, None, None
+
+
+def copy_to_model(t: torch.Tensor, axes) -> torch.Tensor:
+    """``t`` (whole on every rank along ``axes``) as the input of a product
+    split over them: the identity; its gradient is summed over the ranks
+    (module docstring). ``t`` itself when ``axes`` is empty."""
+    if not axes:
+        return t
+    return _CopyToModel.apply(t, current_mesh(), tuple(axes))
+
+
+def reduce_from_model(t: torch.Tensor, axes) -> torch.Tensor:
+    """The sum over the ranks along ``axes`` of this rank's partial ``t``
+    (in f32, rounded once to ``t``'s dtype); the gradient passes unchanged.
+    ``t`` itself when ``axes`` is empty."""
+    if not axes:
+        return t
+    return _ReduceFromModel.apply(t, current_mesh(), tuple(axes))
+
+
+def gather_from_model(t: torch.Tensor, axes, dim: int) -> torch.Tensor:
+    """The ranks' slices along ``axes`` concatenated along ``dim`` in
+    shard order; the backward keeps this rank's slice of the gradient.
+    ``t`` itself when ``axes`` is empty."""
+    if not axes:
+        return t
+    return _GatherFromModel.apply(t, current_mesh(), tuple(axes), dim % t.ndim)

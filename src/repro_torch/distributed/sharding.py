@@ -17,21 +17,31 @@ mesh-axis name, or a tuple of them -- the entries of the reference's
 ``PartitionSpec``.
 
 Activations under a mesh: the batch rows of a step are split over the data
-axes (``local_rows`` names them); every other dim is whole on every rank,
-so compute over 'model' is replicated. ``constrain`` therefore checks the
-logical axes' count and returns its input: the identity, on and off a mesh.
+axes (``local_rows`` names them). Over 'model' the layers split their own
+compute (tensor parallelism, the reference's GSPMD split of heads, kv, dff
+and vocab): a layer asks ``model_split(logical, n)`` for this rank's part of
+a dim of ``n`` heads, KV heads, hidden columns or vocabulary rows -- the
+rules' axes for that name, divisibility-guarded as the parameters are
+(``_build_parts``) -- and runs on that slice of its weights, moving what it
+must through ``distributed.collectives`` (``copy_to_model``,
+``reduce_from_model``, ``gather_from_model``). Within ``split_compute(False)``
+(the layer kinds whose compute stays replicated: MoE, RWKV6, Mamba2) every
+query answers "whole". The layers place their data themselves, so
+``constrain`` only checks the logical axes' count and returns its input: the
+identity, on and off a mesh.
 """
 from __future__ import annotations
 
 import contextlib
 import threading
-from typing import Dict, Optional, Sequence, Tuple, Union
+from typing import Dict, NamedTuple, Optional, Sequence, Tuple, Union
 
 Axis = Union[None, str, Tuple[str, ...]]
 
 __all__ = ["DEFAULT_RULES", "sharding_rules", "resolve_spec", "constrain",
            "make_resolver", "current_mesh", "local_rows", "row_axes", "axes_of",
-           "snapshot", "restored"]
+           "snapshot", "restored", "Split", "model_split", "split_compute",
+           "model_size"]
 
 _state = threading.local()
 
@@ -58,6 +68,7 @@ def _ctx():
         _state.mesh = None
         _state.rules = dict(DEFAULT_RULES)
         _state.rows = ()
+        _state.split = True
     return _state
 
 
@@ -91,12 +102,26 @@ def local_rows(axes: Tuple[str, ...]):
         st.rows = prev
 
 
-def snapshot():
-    """The calling thread's mesh, rules and row split, for ``restored``: the
-    autograd engine runs a CUDA backward (and the recomputation of a
-    checkpointed block) on a thread of its own."""
+@contextlib.contextmanager
+def split_compute(on: bool):
+    """Within the block, ``model_split`` splits (``on``) or answers that
+    every dim is whole (a layer whose compute stays replicated over
+    'model')."""
     st = _ctx()
-    return st.mesh, st.rules, st.rows
+    prev = st.split
+    st.split = bool(on)
+    try:
+        yield
+    finally:
+        st.split = prev
+
+
+def snapshot():
+    """The calling thread's mesh, rules, row split and compute split, for
+    ``restored``: the autograd engine runs a CUDA backward (and the
+    recomputation of a checkpointed block) on a thread of its own."""
+    st = _ctx()
+    return st.mesh, st.rules, st.rows, st.split
 
 
 @contextlib.contextmanager
@@ -104,11 +129,11 @@ def restored(snap):
     """Run the block under a ``snapshot`` taken on another thread."""
     st = _ctx()
     prev = snapshot()
-    st.mesh, st.rules, st.rows = snap
+    st.mesh, st.rules, st.rows, st.split = snap
     try:
         yield
     finally:
-        st.mesh, st.rules, st.rows = prev
+        st.mesh, st.rules, st.rows, st.split = prev
 
 
 def row_axes() -> Tuple[str, ...]:
@@ -144,9 +169,9 @@ def resolve_spec(logical_axes: Sequence[Optional[str]], mesh=None) -> Tuple[Axis
 
 
 def constrain(x, *logical_axes: Optional[str]):
-    """Name ``x``'s axes logically. Off a mesh, and on one in this slice
-    (module docstring), the layout is fixed, so this is the identity; on
-    a mesh the axes' count must match ``x.ndim``."""
+    """Name ``x``'s axes logically. The layers place their data themselves
+    (``model_split``, module docstring), so this is the identity, on and off
+    a mesh; on a mesh the axes' count must match ``x.ndim``."""
     if _ctx().mesh is not None and len(logical_axes) != x.ndim:
         raise ValueError(f"constrain: {len(logical_axes)} logical axes for a "
                          f"{x.ndim}-d tensor {tuple(x.shape)}")
@@ -196,3 +221,47 @@ def axes_of(part: Axis) -> Tuple[str, ...]:
 
 def current_mesh():
     return _ctx().mesh
+
+
+class Split(NamedTuple):
+    """This rank's part of a dim split over 'model': ``index`` of ``size``
+    equal parts, split over the mesh axes ``axes`` (``()`` and 1 when
+    whole)."""
+    index: int
+    size: int
+    axes: Tuple[str, ...]
+
+
+WHOLE = Split(0, 1, ())
+
+
+def model_split(logical: str, n: int) -> Split:
+    """The part of a dim of ``n`` units (heads, KV heads, hidden columns,
+    vocabulary rows) named ``logical`` that this rank computes: the rules'
+    mesh axes for that name, dropped where their size does not divide ``n``
+    (the parameters' guard, ``_build_parts``; index 0 on a mesh that only
+    describes a layout). ``WHOLE`` off a mesh, within
+    ``split_compute(False)``, and where no axis is left. Raises when the
+    axes are also the batch rows' (ranks that hold other rows cannot share
+    a row's heads)."""
+    st = _ctx()
+    if st.mesh is None or not st.split:
+        return WHOLE
+    axes = axes_of(_build_parts(st.mesh, (logical,), (n,))[0])
+    if not axes or st.mesh.group_size(axes) == 1:
+        return WHOLE
+    if set(axes) & set(st.rows):
+        raise NotImplementedError(f"{logical!r} split over {axes}, which the batch rows "
+                                  f"{st.rows} are split over too")
+    index = 0 if getattr(st.mesh, "rank", None) is None else st.mesh.index(axes)
+    return Split(index, st.mesh.group_size(axes), axes)
+
+
+def model_size() -> int:
+    """The number of ranks the 'heads' rule splits over on the active mesh,
+    whatever a dim's divisibility: above 1 when the mesh runs tensor-
+    parallel layers (1 off a mesh)."""
+    st = _ctx()
+    if st.mesh is None:
+        return 1
+    return st.mesh.group_size(axes_of(_resolve_axis(st.mesh, "heads")))

@@ -35,8 +35,10 @@ the process group (``launch.train``'s docstring; NCCL on a CUDA device,
 gloo on the CPU, or ``--dist-backend``; the collectives time out after
 ``launch.mesh.COLLECTIVE_TIMEOUT_S``) and serves on the (world / mp, mp)
 ("data", "model") mesh: the engine's weights are this rank's shards, its
-slots split over 'data', every rank prefills, decodes its slots and keeps
-the same scheduler (``serving.engine``'s docstring). Every rank builds
+slots split over 'data', its attention and dense-MLP layers tensor-parallel
+over 'model' (``--mp D``: its KV cache holds KH / D heads a layer), every
+rank prefills, decodes its slots and keeps the same scheduler
+(``serving.engine``'s docstring). Every rank builds
 the same seeded stream; rank 0 prints. A decode step that raises on one
 rank alone ends every rank non-zero. The engine serves the seven 'attn' /
 'moe' architectures (whisper, qwen2-vl and the recurrent kinds are

@@ -7,9 +7,11 @@ parameter and state shards (the ZeRO-3 layout of ``param_parts`` /
 ``opt_state_parts``, made by ``distributed.collectives.shard_tree``) and
 the whole batch, of which it keeps this rank's rows (``batch_row_axes``:
 the 'batch' rule's axes, divisibility-guarded). Each layer gathers its
-parameters whole just before it runs; the gradients come back reduce-
-scattered to the shards, the sum over the data ranks of each rank's share
-of the loss; then int8_ef (when on) and AdamW run on the shards, their
+parameters over the data axes just before it runs, keeping what it splits
+over 'model' (tensor parallelism, ``models.lm``) as this rank's slice; the
+gradients come back reduce-scattered to the shards, the sum over the data
+ranks of each rank's share of the loss (a slice split over 'model' keeps
+its own gradient, a replicated parameter is not summed over 'model'); then int8_ef (when on) and AdamW run on the shards, their
 whole-tensor reductions (the global norm, int8_ef's absmax, the int8
 moments' block scales) taken over every shard. The cross-entropy and the
 MoE load-balancing loss are the whole batch's (``lm_loss``), whatever the

@@ -12,6 +12,18 @@ the cross-attention K site (``cross_kv``), once per prefill.
 
 Layouts follow the reference at the public functions: activations
 (B, S, d), heads (B, S, H, hd), KV caches (B, T, KH, hd).
+
+Tensor parallelism over 'model' (``head_splits``; the reference names the
+Q / K / V heads 'heads' / 'kv' and GSPMD splits them): a rank holds the
+columns of ``wq`` / ``wk`` / ``wv`` (and their biases) of its H / D query
+heads and KH / D KV heads, and the rows of ``wo`` of its query heads. The
+heads, RoPE, the Q / K sites (per-head rows: K2 runs on the rank's rows
+alone), the GQA grouping and the masks are local; the output projection is
+this rank's partial sum, taken in f32 and completed by an all-reduce
+(``reduce_from_model``), then rounded once to the model dtype. The KV
+caches hold the rank's KV heads. Where 'kv' does not divide but 'heads'
+does, K / V stay whole on every rank (cache included) and each rank reads
+the KV heads its query heads map to.
 """
 from __future__ import annotations
 
@@ -20,7 +32,8 @@ import math
 import torch
 
 from repro_torch.core.api import RotationSpec
-from repro_torch.distributed.sharding import constrain
+from repro_torch.distributed import collectives as C
+from repro_torch.distributed.sharding import WHOLE, constrain, model_split
 from repro_torch.kernels.registry import cast_to, f32_reciprocal
 from repro_torch.models.common import (apply_rope_angles, dense_init, dtype_of,
                                       mrope_angles, rope_freqs)
@@ -54,15 +67,82 @@ def _positions_angles(cfg, positions: torch.Tensor) -> torch.Tensor:
     return positions[..., None].to(torch.float32) * freqs
 
 
-def _project_qkv(cfg, p, x):
+def head_splits(cfg):
+    """(this rank's split of the query heads, of the KV heads) over
+    'model' (``sharding.model_split``): the KV heads split only where the
+    query heads split over the same axes."""
+    hs = model_split("heads", cfg.num_heads)
+    ks = model_split("kv", cfg.num_kv_heads) if hs.size > 1 else WHOLE
+    return hs, (ks if ks.axes == hs.axes else WHOLE)
+
+
+def local_kv_heads(cfg) -> int:
+    """The KV heads this rank computes and caches."""
+    return cfg.num_kv_heads // head_splits(cfg)[1].size
+
+
+def _kv_for_heads(cfg, k, v):
+    """K / V (B, T, KH_rank, hd) for this rank's query heads: themselves,
+    or, where the KV heads stay whole while the query heads split, the KV
+    head of each of the rank's query heads (one per query head). Whole K /
+    V are computed alike on every rank and read in part by each, so their
+    gradient is summed over the query heads' ranks (``copy_to_model``)."""
+    hs, ks = head_splits(cfg)
+    if hs.size == 1 or ks.size > 1:
+        return k, v
+    h_rank = cfg.num_heads // hs.size
+    group = cfg.num_heads // cfg.num_kv_heads
+    idx = torch.arange(hs.index * h_rank, (hs.index + 1) * h_rank, device=k.device) // group
+    return tuple(C.copy_to_model(t, hs.axes).index_select(2, idx) for t in (k, v))
+
+
+def _f32_product(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a @ b`` with f32 sums and an f32 result: on the card a 16-bit pair
+    goes into one product with an f32 output (as ``_scores``); the CPU and
+    a pass that records gradients widen both sides (exact)."""
+    grad = torch.is_grad_enabled() and (a.requires_grad or b.requires_grad)
+    if a.device.type == "cuda" and a.dtype in (torch.bfloat16, torch.float16) \
+            and b.dtype == a.dtype and not grad:
+        a2 = a.reshape(1, -1, a.shape[-1])
+        out = torch.bmm(a2, b[None], out_dtype=torch.float32)
+        return out.reshape(a.shape[:-1] + (b.shape[-1],))
+    return a.to(torch.float32) @ b.to(torch.float32)
+
+
+def _out_proj(cfg, ctx: torch.Tensor, wo: torch.Tensor) -> torch.Tensor:
+    """ctx (B, S, H_rank * hd) through ``wo``: whole, or this rank's rows'
+    partial sum in f32, summed over the query heads' ranks and rounded once
+    to ctx's dtype."""
+    hs = head_splits(cfg)[0]
+    if hs.size == 1:
+        return ctx @ wo
+    return C.reduce_from_model(_f32_product(ctx, wo), hs.axes).to(ctx.dtype)
+
+
+def _project(cfg, p, x, names, split):
+    """x (B, S, d) through the projections ``names`` (with their biases
+    under ``cfg.qkv_bias``, added to the 16-bit products as the reference
+    does), each as (B, S, heads, hd) over this rank's heads."""
     B, S, _ = x.shape
-    H, KH, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
-    q, k, v = x @ p["wq"], x @ p["wk"], x @ p["wv"]
-    if cfg.qkv_bias:   # added to the 16-bit products, as the reference does
-        q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
-    return (constrain(q.reshape(B, S, H, hd), "batch", "seq", "heads", None),
-            constrain(k.reshape(B, S, KH, hd), "batch", "seq", "kv", None),
-            constrain(v.reshape(B, S, KH, hd), "batch", "seq", "kv", None))
+    x = C.copy_to_model(x, split.axes)
+    out = []
+    for name in names:
+        y = x @ p["w" + name]
+        if cfg.qkv_bias:
+            y = y + p["b" + name]
+        out.append(y.reshape(B, S, -1, cfg.head_dim))
+    return out
+
+
+def _project_qkv(cfg, p, x):
+    hs, ks = head_splits(cfg)
+    if ks.size == hs.size:
+        q, k, v = _project(cfg, p, x, "qkv", hs)
+    else:                       # K / V whole on every rank (``_kv_for_heads``)
+        (q,), (k, v) = _project(cfg, p, x, "q", hs), _project(cfg, p, x, "kv", ks)
+    return (constrain(q, "batch", "seq", "heads", None),
+            constrain(k, "batch", "seq", "kv", None),
+            constrain(v, "batch", "seq", "kv", None))
 
 
 def _qk_spec(cfg, hd: int) -> RotationSpec:
@@ -173,8 +253,8 @@ def apply_attention(cfg, p, x: torch.Tensor, positions: torch.Tensor, *,
     q, k = _rotate_quant_qk(cfg, q, k)
     v = _v_spec(cfg, v.shape[-1])(v)
     mask = _causal_mask(cfg, S, S, x.device) if causal else _full_mask(x.device)
-    ctx = _sdpa(cfg, q, k, v, mask)
-    y = constrain(ctx @ p["wo"], "batch", "seq", None)
+    ctx = _sdpa(cfg, q, *_kv_for_heads(cfg, k, v), mask)
+    y = constrain(_out_proj(cfg, ctx, p["wo"]), "batch", "seq", None)
     if return_kv:
         kvdt = cfg.quant.kv_cache_dtype(x.dtype)
         return y, (cast_to(k, kvdt), cast_to(v, kvdt))
@@ -191,14 +271,9 @@ def apply_cross_attention(cfg, p, x: torch.Tensor, kv) -> torch.Tensor:
     reference's own code (``repro.models.attention.apply_cross_attention``),
     carried as it is because the port is held to it; ROADMAP.md, "Reference
     health", records the fault."""
-    B, S, _ = x.shape
-    q = x @ p["wq"]
-    if cfg.qkv_bias:
-        q = q + p["bq"]
-    q = q.reshape(B, S, cfg.num_heads, cfg.head_dim)
-    k, v = kv
-    return constrain(_sdpa(cfg, q, k, v, _full_mask(x.device)) @ p["wo"],
-                     "batch", "seq", None)
+    q, = _project(cfg, p, x, "q", head_splits(cfg)[0])
+    ctx = _sdpa(cfg, q, *_kv_for_heads(cfg, *kv), _full_mask(x.device))
+    return constrain(_out_proj(cfg, ctx, p["wo"]), "batch", "seq", None)
 
 
 def cross_kv(cfg, p, enc_out: torch.Tensor):
@@ -206,12 +281,8 @@ def cross_kv(cfg, p, enc_out: torch.Tensor):
     once per prefill and kept in the decoder's cache: K through the Q / K
     site (rotated and fake-quantized: one K2 launch on the card), V through
     the V site (quantized only), both in the model dtype."""
-    B, T, _ = enc_out.shape
-    KH, hd = cfg.num_kv_heads, cfg.head_dim
-    k, v = enc_out @ p["wk"], enc_out @ p["wv"]
-    if cfg.qkv_bias:
-        k, v = k + p["bk"], v + p["bv"]
-    k, v = k.reshape(B, T, KH, hd), v.reshape(B, T, KH, hd)
+    hd = cfg.head_dim
+    k, v = _project(cfg, p, enc_out, "kv", head_splits(cfg)[1])
     # K rotates here but Q never does (apply_cross_attention): the
     # reference's fault, carried as it is (ROADMAP.md, "Reference health")
     return _qk_spec(cfg, hd)(k), _v_spec(cfg, hd)(v)
@@ -246,5 +317,7 @@ def decode_attention(cfg, p, x: torch.Tensor, cache_k: torch.Tensor,
         cache_k[:, row] = cast_to(k[:, 0], cache_k.dtype)
         cache_v[:, row] = cast_to(v[:, 0], cache_v.dtype)
     mask = _decode_mask(cfg, cache_pos, cache_k.shape[1], x.device)
-    ctx = _sdpa(cfg, q, cache_k.to(q.dtype), cache_v.to(q.dtype), mask)
-    return constrain(ctx @ p["wo"], "batch", "seq", None), cache_k, cache_v
+    ctx = _sdpa(cfg, q, *_kv_for_heads(cfg, cache_k.to(q.dtype), cache_v.to(q.dtype)),
+                mask)
+    return (constrain(_out_proj(cfg, ctx, p["wo"]), "batch", "seq", None),
+            cache_k, cache_v)

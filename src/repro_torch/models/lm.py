@@ -54,12 +54,25 @@ reference's tree with ``stacked=True``; the port's per-layer layout by
 default) and ``param_parts`` their mesh axes under a mesh. Under an active
 mesh (``distributed.sharding``) the parameters are this rank's shards (the
 ZeRO-3 layout, ``distributed.collectives.shard_tree``): each layer's are
-gathered just before the layer runs (int8 storage gathered as int8 and
-dequantized after) and dropped after it, their gradients reduce-scattered
-back to the shards; the rotation-consumer QTensors stay split by their
-out-channels and go so into the sharded quant_dot. The batch rows are
-this rank's share; compute over 'model' is replicated (tensor-parallel
-attention and MLP compute is not ported).
+gathered over the data axes just before the layer runs (int8 storage
+gathered as int8 and dequantized after) and dropped after it, their
+gradients reduce-scattered back to the shards; the rotation-consumer
+QTensors stay split by their out-channels and go so into the sharded
+quant_dot. The batch rows are this rank's share.
+
+Over 'model' the layers of the kinds ``SPLIT_KINDS`` (attention of every
+form and the dense MLP) are tensor-parallel: their dims named 'heads',
+'kv' and 'dff' stay this rank's slice (``models.attention``,
+``models.mlp``), but for the down projection's rows, which its site
+contracts whole; so a rank holds 1 / D of those weights live, computes 1 /
+D of their heads and hidden columns, and caches its KV heads. The
+vocabulary is split in every model: the embedding looks its rows up where
+they live and sums the ranks' rows; the logits contract with this rank's
+vocabulary rows and are all-gathered whole, so the loss and the greedy
+argmax read whole logits. The other kinds (MoE, RWKV6, Mamba2) keep their
+layers gathered whole and their compute replicated over 'model'. Each layer
+of each pass on a tensor-parallel mesh ticks ``TRACE_COUNTS[("tensor_parallel",
+kind, "split" | "replicated")]``.
 """
 from __future__ import annotations
 
@@ -73,7 +86,9 @@ from repro_torch.core.wquant import (QTensor, _is_consumer, dequant_tree, is_qle
 from repro_torch.device import resolve_device
 from repro_torch.distributed import collectives as C
 from repro_torch.distributed.sharding import (_ctx, axes_of, constrain, current_mesh,
-                                              make_resolver, restored, snapshot)
+                                              make_resolver, model_size, model_split,
+                                              restored, snapshot, split_compute)
+from repro_torch.kernels.registry import TRACE_COUNTS
 from repro_torch.models import attention as A
 from repro_torch.models import mlp as M
 from repro_torch.models import rwkv as R
@@ -85,6 +100,8 @@ from repro_torch.models.config import ModelConfig
 
 KINDS = ("attn", "moe", "xattn", "rwkv", "mamba")    # decoder layers
 ENCODER_KINDS = ("enc_attn",)
+# the layer kinds whose compute splits over 'model' (module docstring)
+SPLIT_KINDS = ("attn", "xattn", "enc_attn")
 
 
 def _check_kinds(cfg: ModelConfig) -> None:
@@ -221,19 +238,42 @@ def _mesh_parts(cfg: ModelConfig, key: str):
     return None if mesh is None else param_parts(cfg, mesh)[key]
 
 
-def _gather(cfg: ModelConfig, tree, parts, keys=()):
-    """A layer's (or a top-level entry's) parameters whole, from this
-    rank's shards: tensors through ``gather_param`` (their gradients go
-    back to the shards), QTensors gathered in their storage dtype, a kept
-    rotation consumer only along its rows (``_consumer_shard``)."""
+def _local_dims(cfg: ModelConfig, spec, parts, keys) -> Tuple[int, ...]:
+    """The dims of a leaf (logical axes ``spec``, mesh axes ``parts``, path
+    ``keys``) that the running layer keeps as this rank's slice of 'model'
+    (module docstring); their split at rest is the compute's."""
+    if keys[-1] == "w_down":            # the down site contracts its rows whole
+        return ()
+    hs, ks = A.head_splits(cfg)
+    split = {"heads": hs, "kv": ks, "dff": M.dff_split(cfg),
+             "vocab": model_split("vocab", cfg.padded_vocab)}
+    dims = tuple(d for d, a in enumerate(spec) if a in split and split[a].size > 1)
+    for d in dims:
+        if axes_of(parts[d]) != split[spec[d]].axes:
+            raise ValueError(f"{'/'.join(keys)} dim {d} rests split over "
+                             f"{axes_of(parts[d])}, its compute over {split[spec[d]].axes}")
+    return dims
+
+
+def _gather(cfg: ModelConfig, tree, parts, specs, keys=()):
+    """A layer's (or a top-level entry's) parameters from this rank's
+    shards, whole but for the dims the layer keeps split over 'model'
+    (``_local_dims``; ``specs``: the logical axes): tensors through
+    ``gather_param`` (their gradients go back to the shards), QTensors
+    gathered in their storage dtype, a kept rotation consumer only along
+    its rows (``_consumer_shard``)."""
     mesh = current_mesh()
     if is_qleaf(tree):
         if _keeps(cfg, tree, keys) and tree.q.ndim == 2:
             return _consumer_shard(tree, parts, mesh)
-        return C.gather_tree(tree, parts, mesh)
+        leaf = {k: C.gather_leaf(getattr(tree, k), parts[k], mesh,
+                                 _local_dims(cfg, specs[k], parts[k], keys))
+                for k in parts}
+        return QTensor(leaf["q"], leaf["scale"], tree.mode, leaf.get("check"))
     if isinstance(tree, dict):
-        return {k: _gather(cfg, v, parts[k], keys + (k,)) for k, v in tree.items()}
-    return C.gather_param(tree, parts, mesh)
+        return {k: _gather(cfg, v, parts[k], specs[k], keys + (k,))
+                for k, v in tree.items()}
+    return C.gather_param(tree, parts, mesh, _local_dims(cfg, specs, parts, keys))
 
 
 def _consumer_shard(p: QTensor, parts, mesh) -> QTensor:
@@ -254,9 +294,13 @@ def _consumer_shard(p: QTensor, parts, mesh) -> QTensor:
 
 
 def _top(cfg: ModelConfig, params, key: str):
-    """A top-level entry of ``params``, whole under a mesh."""
+    """A top-level entry of ``params``, gathered under a mesh (``emb`` /
+    ``unemb`` keep this rank's vocabulary rows when the vocabulary splits)."""
     parts = _mesh_parts(cfg, key)
-    return params[key] if parts is None else _gather(cfg, params[key], parts, (key,))
+    if parts is None:
+        return params[key]
+    specs = qweight_specs(lm_param_specs(cfg)[key], params[key])
+    return _gather(cfg, params[key], parts, specs, (key,))
 
 
 def _quantized(cfg: ModelConfig, tree, keys=()):
@@ -325,11 +369,13 @@ def _dequant_layer(cfg: ModelConfig, lp: dict, dtype) -> dict:
     return {k: one(v, (k,)) for k, v in lp.items()}
 
 
-def _layer_params(cfg: ModelConfig, lp: dict, dtype, parts=None) -> dict:
-    """One layer's parameters for use: gathered whole from this rank's
-    shards under a mesh (``parts``), then dequantized."""
+def _layer_params(cfg: ModelConfig, lp: dict, dtype, parts=None, kind: str = "attn") -> dict:
+    """One layer's parameters for use: gathered from this rank's shards
+    under a mesh (``parts``; the dims a layer of ``kind`` splits over
+    'model' stay split), then dequantized."""
     if parts is not None:
-        lp = _gather(cfg, lp, parts, ("layers",))
+        lp = _gather(cfg, lp, parts, qweight_specs(_block_specs(cfg, kind), lp),
+                     ("layers",))
     if cfg.weight_quant == "int8":
         return _dequant_layer(cfg, lp, dtype)
     return dequant_tree(lp, dtype)
@@ -338,19 +384,37 @@ def _layer_params(cfg: ModelConfig, lp: dict, dtype, parts=None) -> dict:
 def _embed(cfg: ModelConfig, params, tokens: torch.Tensor) -> torch.Tensor:
     """Embedding rows for ``tokens``; a quantized table is dequantized
     after the gather (elementwise, so the same values as dequantizing the
-    whole table first)."""
+    whole table first). With the vocabulary split over 'model' each rank
+    looks up the tokens whose rows it holds, zeros for the others, and the
+    ranks' rows are summed (one rank's row and zeros: exact)."""
     emb = _top(cfg, params, "emb")
+    vs = model_split("vocab", cfg.padded_vocab)
+    if vs.size > 1:
+        rows = cfg.padded_vocab // vs.size
+        tokens = tokens - vs.index * rows
+        inside = (tokens >= 0) & (tokens < rows)
+        tokens = torch.where(inside, tokens, torch.zeros_like(tokens))
     if is_qleaf(emb):
-        return (emb.q[tokens].to(torch.float32) * emb.scale[0]).to(dtype_of(cfg))
-    return emb[tokens]
+        x = (emb.q[tokens].to(torch.float32) * emb.scale[0]).to(dtype_of(cfg))
+    else:
+        x = emb[tokens]
+    if vs.size == 1:
+        return x
+    x = torch.where(inside[..., None], x, torch.zeros((), dtype=x.dtype, device=x.device))
+    return C.reduce_from_model(x, vs.axes)
 
 
 def _logits(cfg: ModelConfig, params, x: torch.Tensor) -> torch.Tensor:
+    """Logits over the padded vocabulary, whole on every rank (with the
+    vocabulary split over 'model', this rank's columns all-gathered)."""
     x = apply_norm(cfg, _top(cfg, params, "final_norm"), x)
+    axes = model_split("vocab", cfg.padded_vocab).axes
+    x = C.copy_to_model(x, axes)
     if cfg.tie_embeddings:
         logits = x @ dequant_tree(_top(cfg, params, "emb"), x.dtype).T
     else:
         logits = x @ dequant_tree(_top(cfg, params, "unemb"), x.dtype)
+    logits = C.gather_from_model(logits, axes, -1)
     if cfg.padded_vocab != cfg.vocab_size:
         logits[..., cfg.vocab_size:] = float("-inf")
     return constrain(logits, "batch", "seq", "vocab")
@@ -418,14 +482,16 @@ def _run_stack(cfg, kinds, layers, x, positions, enc_out, want_cache: bool,
     remat = cfg.remat != "none" and not want_cache and torch.is_grad_enabled()
     for i, (kind, lp) in enumerate(zip(kinds, layers)):
         lparts = None if parts is None else parts[i]
+        _tp_tick(cfg, kind)
         if remat:
             x, a = torch.utils.checkpoint.checkpoint(
                 _block_train, cfg, kind, lp, x, positions, enc_out, lparts, snapshot(),
                 use_reentrant=False)
         else:
-            x, a, cache = _block_prefill(cfg, kind,
-                                         _layer_params(cfg, lp, x.dtype, lparts),
-                                         x, positions, enc_out, want_cache)
+            with split_compute(kind in SPLIT_KINDS):
+                x, a, cache = _block_prefill(cfg, kind,
+                                             _layer_params(cfg, lp, x.dtype, lparts, kind),
+                                             x, positions, enc_out, want_cache)
             if want_cache:
                 caches.append(cache)
         aux = aux + a
@@ -437,10 +503,29 @@ def _block_train(cfg, kind, lp, x, positions, enc_out, lparts, snap):
     """One block for ``torch.utils.checkpoint``, under the sharding context
     ``snap`` it was first run in: its recomputation runs on the autograd
     engine's thread."""
-    with restored(snap):
-        x, aux, _ = _block_prefill(cfg, kind, _layer_params(cfg, lp, x.dtype, lparts), x,
-                                   positions, enc_out, False)
+    with restored(snap), split_compute(kind in SPLIT_KINDS):
+        x, aux, _ = _block_prefill(cfg, kind, _layer_params(cfg, lp, x.dtype, lparts, kind),
+                                   x, positions, enc_out, False)
     return x, torch.as_tensor(aux, dtype=torch.float32, device=x.device)
+
+
+def _tp_tick(cfg: ModelConfig, kind: str) -> None:
+    """On a tensor-parallel mesh, count one layer of ``kind`` run split
+    over 'model' or replicated (module docstring)."""
+    if model_size() == 1:
+        return
+    split = kind in SPLIT_KINDS and (A.head_splits(cfg)[0].size > 1
+                                     or M.dff_split(cfg).size > 1)
+    TRACE_COUNTS[("tensor_parallel", kind, "split" if split else "replicated")] += 1
+
+
+def kv_heads(cfg: ModelConfig) -> List[int]:
+    """Each decoder layer's KV heads on this rank under the active mesh."""
+    out = []
+    for kind in cfg.layer_kinds:
+        with split_compute(kind in SPLIT_KINDS):
+            out.append(A.local_kv_heads(cfg))
+    return out
 
 
 def _positions(B: int, S: int, device) -> torch.Tensor:
@@ -569,8 +654,10 @@ def lm_decode_step(cfg: ModelConfig, params, caches, tokens: torch.Tensor,
     parts = _mesh_parts(cfg, "layers")
     for i, (kind, lp, c) in enumerate(zip(cfg.layer_kinds, params["layers"], caches)):
         lparts = None if parts is None else parts[i]
-        x = _block_decode(cfg, kind, _layer_params(cfg, lp, x.dtype, lparts), x, c,
-                          cache_pos, positions)
+        _tp_tick(cfg, kind)
+        with split_compute(kind in SPLIT_KINDS):
+            x = _block_decode(cfg, kind, _layer_params(cfg, lp, x.dtype, lparts, kind), x,
+                              c, cache_pos, positions)
     return _logits(cfg, params, x), caches
 
 

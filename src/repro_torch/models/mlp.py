@@ -12,6 +12,15 @@ projection is one ``bind_experts`` site over the stacked weights: one K6
 launch for every expert on the card when d_ff is a power of 2, else one
 grouped K1 launch over the dispatched rows and the einsum form (mixtral's
 14336 = 7 * 2048).
+
+Tensor parallelism over 'model' (``dff_split``; the reference names the
+hidden width 'dff'): a rank holds the columns of ``w_gate`` / ``w_up`` of its
+d_ff / D hidden units, so h and the activation are local; h is then
+all-gathered whole (``gather_from_model``) into the down projection, whose
+contraction axis the reference never splits (its Hadamard spans it): that
+one site runs as it does off the split -- its weight's out-channels over
+'fsdp', the fused kernel shard-local -- on every rank of 'model' alike. The
+MoE block stays replicated over 'model' in this port.
 """
 from __future__ import annotations
 
@@ -22,8 +31,9 @@ import torch.nn.functional as F
 
 from repro_torch.core import wquant
 from repro_torch.core.api import QuantDotSpec
+from repro_torch.distributed import collectives as C
 from repro_torch.distributed.collectives import row_sum
-from repro_torch.distributed.sharding import constrain
+from repro_torch.distributed.sharding import constrain, model_split
 from repro_torch.kernels.registry import QSPECS
 from repro_torch.models.common import dense_init, dtype_of
 
@@ -77,10 +87,17 @@ def mlp_specs(cfg) -> dict:
     return p
 
 
+def dff_split(cfg):
+    """This rank's split of the dense MLP's hidden width over 'model'."""
+    return model_split("dff", cfg.d_ff)
+
+
 def apply_mlp(cfg, p, x: torch.Tensor) -> torch.Tensor:
+    axes = dff_split(cfg).axes
+    x = C.copy_to_model(x, axes)
     h = (_act(cfg, x @ p["w_gate"]) * (x @ p["w_up"]) if cfg.act == "swiglu"
          else _act(cfg, x @ p["w_up"]))
-    h = constrain(h, "batch", "seq", "dff")
+    h = constrain(C.gather_from_model(h, axes, -1), "batch", "seq", "dff")
     # under a mesh the site shards: the weight's columns over 'fsdp' (the
     # data axes), the fused kernel shard-local (core.api)
     spec = QuantDotSpec.for_config(h.shape[-1], cfg.quant, weight_axes=_DOWN_AXES)

@@ -10,6 +10,11 @@ prefill-insert writes a newcomer's rows into its slot, the decode step
 writes each slot's token at its own position. Rows past a slot's position
 may hold stale data; the per-slot causal mask never attends them and the
 decode step overwrites row ``pos`` before attending it.
+
+On a mesh (``mesh=``) a rank's cache holds the KV heads its layers compute
+(``models.lm.kv_heads``): KH / D of them in a layer split over 'model', all
+KH in one whose compute stays replicated; the layers of each head count
+share one allocation.
 """
 from __future__ import annotations
 
@@ -17,29 +22,44 @@ from typing import List
 
 import torch
 
+from repro_torch.distributed.sharding import sharding_rules
 from repro_torch.models.common import dtype_of
 from repro_torch.models.config import ModelConfig
 
 
-def _shape(cfg: ModelConfig, slots: int, max_len: int):
-    return (cfg.num_layers, slots, max_len, cfg.num_kv_heads, cfg.head_dim)
+def _heads(cfg: ModelConfig, mesh=None) -> List[int]:
+    """Each layer's cached KV heads on this rank of ``mesh`` (all of them
+    off a mesh)."""
+    if mesh is None:
+        return [cfg.num_kv_heads] * cfg.num_layers
+    from repro_torch.models.lm import kv_heads
+
+    with sharding_rules(mesh):
+        return kv_heads(cfg)
 
 
 def alloc_kv_caches(cfg: ModelConfig, slots: int, max_len: int,
-                    device) -> List[dict]:
-    """Zero-initialized per-layer views into one K and one V allocation."""
+                    device, mesh=None) -> List[dict]:
+    """Zero-initialized per-layer views into one K and one V allocation per
+    head count (one off a mesh)."""
     kvdt = cfg.quant.kv_cache_dtype(dtype_of(cfg))
-    k = torch.zeros(_shape(cfg, slots, max_len), dtype=kvdt, device=device)
-    v = torch.zeros(_shape(cfg, slots, max_len), dtype=kvdt, device=device)
-    return [{"k": k[i], "v": v[i]} for i in range(cfg.num_layers)]
+    heads = _heads(cfg, mesh)
+    caches: List[dict] = [{} for _ in heads]
+    for kh in sorted(set(heads)):
+        layers = [i for i, h in enumerate(heads) if h == kh]
+        shape = (len(layers), slots, max_len, kh, cfg.head_dim)
+        k = torch.zeros(shape, dtype=kvdt, device=device)
+        v = torch.zeros(shape, dtype=kvdt, device=device)
+        for j, i in enumerate(layers):
+            caches[i].update(k=k[j], v=v[j])
+    return caches
 
 
-def cache_bytes(cfg: ModelConfig, slots: int, max_len: int) -> int:
-    """Total cache allocation in bytes."""
+def cache_bytes(cfg: ModelConfig, slots: int, max_len: int, mesh=None) -> int:
+    """Cache allocation in bytes (of one rank of ``mesh`` holding ``slots``
+    slots)."""
     kvdt = cfg.quant.kv_cache_dtype(dtype_of(cfg))
-    n = 1
-    for d in _shape(cfg, slots, max_len):
-        n *= d
+    n = sum(_heads(cfg, mesh)) * slots * max_len * cfg.head_dim
     return 2 * n * torch.empty((), dtype=kvdt).element_size()
 
 

@@ -66,8 +66,12 @@ On a mesh (``mesh=``: a ``launch.mesh.Mesh`` over the process group; the
 launchers' layout, ``launch.steps``): each rank holds its shards of the
 weights (``param_parts``), every layer gathered just before it runs, and
 the slots split over ``batch_row_axes(mesh, num_slots)`` in the mesh's
-chunk order; a rank's KV caches (and ABFT sums) hold only its slots.
-Heads stay whole: compute over 'model' is replicated. The host state --
+chunk order; a rank's KV caches (and ABFT sums) hold only its slots. Over
+'model' the attention and dense-MLP layers are tensor-parallel
+(``models.lm``): a rank's caches hold its KV heads of those layers
+(``serving.cache``), and its ABFT KV check covers them, the verdicts agreed
+over 'model' (a slot is sound when every rank's heads of it are); the
+logits are whole on every rank. The host state --
 scheduler, positions, completions, counters -- is the same on every rank:
 
   * prefill runs on EVERY rank (its layer gathers are collectives); the
@@ -217,7 +221,7 @@ class ServeEngine:
         self._local = {int(s): i for i, s in enumerate(self._slots)}
         self.params = params
         # the ONE cache allocation of the engine's lifetime (this rank's slots)
-        self.caches = alloc_kv_caches(cfg, len(self._slots), max_len, self.device)
+        self.caches = alloc_kv_caches(cfg, len(self._slots), max_len, self.device, mesh)
         # ABFT KV conservation state: per slot [sum, abs_sum] of its valid rows
         self.kv_sums = (torch.zeros((len(self._slots), 2), dtype=torch.float32,
                                     device=self.device) if self._abft else None)
@@ -264,6 +268,18 @@ class ServeEngine:
     def _gather(self, t: torch.Tensor) -> torch.Tensor:
         """Every rank's per-slot values, in slot order."""
         return t if self.mesh is None else self.mesh.gather(t, self._rows, 0)
+
+    def _agree(self, ok: torch.Tensor) -> torch.Tensor:
+        """Per-slot verdicts of this rank's slots, each true only where it
+        is on every rank that holds the slot (their KV heads differ under
+        tensor parallelism); ``ok`` off a mesh."""
+        if self.mesh is None:
+            return ok
+        others = tuple(a for a in self.mesh.axis_names if a not in self._rows)
+        if self.mesh.group_size(others) == 1:
+            return ok
+        t = self.mesh.all_reduce(ok.to(torch.int32), others, dist.ReduceOp.MIN)
+        return t.bool()
 
     def _max(self, t: torch.Tensor) -> torch.Tensor:
         """The maximum over every rank of the mesh (``t`` off a mesh)."""
@@ -611,7 +627,7 @@ class ServeEngine:
             # the integrity gate on the caches the step is about to read
             pos = torch.from_numpy(self.positions_h[self._slots]).to(self.device)
             kv_ok, cur = verify.kv_check(self.caches, pos, self.kv_sums)
-            kv_ok = self._gather(kv_ok)
+            kv_ok = self._gather(self._agree(kv_ok))
         out = self._decode_with_recovery()
         if out is None:
             self._fail_inflight("decode failed on every ladder rung")
@@ -727,6 +743,8 @@ class ServeEngine:
             "quantize_weight_calls": self.quantize_weight_calls_during_serve(),
             "kv_cache_bytes": cache_bytes(self.cfg, self.sched.num_slots,
                                           self.max_len),
+            "kv_cache_bytes_rank": cache_bytes(self.cfg, len(self._slots), self.max_len,
+                                               self.mesh),
             "rung": self._rung,
             "guards_enabled": int(self._guard),
             "abft_enabled": int(self._abft),

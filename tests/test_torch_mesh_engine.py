@@ -29,10 +29,14 @@ thread, as the ranks do.
     1 already waits in that layer's gather): both ranks' ``run`` raise
     ``RankStepError`` (rank 1's when the connection closes), well inside
     ``run_ranks``' timeout.
-  * The model of a decode step on the mesh makes no all-reduce, for either
-    arch at (2, 1) and (2, 2): mixtral's MoE layers keep their own rows'
-    load-balancing statistics, whose loss inference drops, rather than
-    sum them over the ranks (two all-reduces a layer, a training pass's).
+  * The model of a decode step on the mesh makes no all-reduce over the
+    batch-row axis 'data', for either arch at (2, 1) and (2, 2): mixtral's
+    MoE layers keep their own rows' load-balancing statistics, whose loss
+    inference drops, rather than sum them over the ranks (two all-reduces
+    a layer, a training pass's). At (2, 2) the tensor-parallel layers
+    all-reduce over 'model' alone: the embedding's rows in both archs, and
+    each attention's output projection in phi4-mini (mixtral's MoE layers
+    stay replicated over 'model').
 """
 import contextlib
 import os
@@ -80,15 +84,17 @@ def _launcher(arch: str, mp=None):
 @contextlib.contextmanager
 def _reduces_in_decode(box):
     """Counts into ``box`` the engine's decode calls ("decodes") and the
-    mesh's all-reduces made inside them ("reduces")."""
+    mesh's all-reduces made inside them over the batch-row axis 'data'
+    ("reduces") and over 'model' alone ("model_reduces")."""
     from repro_torch.launch.mesh import Mesh
     from repro_torch.serving.engine import ServeEngine
 
     reduce, decode, inside = Mesh.all_reduce, ServeEngine._decode, [False]
 
-    def counted(self, *a, **k):
-        box["reduces"] += inside[0]
-        return reduce(self, *a, **k)
+    def counted(self, t, axes, *a, **k):
+        if inside[0]:
+            box["reduces" if "data" in axes else "model_reduces"] += 1
+        return reduce(self, t, axes, *a, **k)
 
     def decoding(self):
         box["decodes"] += 1
@@ -110,7 +116,8 @@ def _counted_launchers(mp: int):
     decode's all-reduces counted (under "reduces")."""
     out, counts = {}, {}
     for a in ARCHS:
-        with _reduces_in_decode({"decodes": 0, "reduces": 0}) as counts[a]:
+        box = {"decodes": 0, "reduces": 0, "model_reduces": 0}
+        with _reduces_in_decode(box) as counts[a]:
             out[a] = _launcher(a, mp)
     out["reduces"] = counts
     return out
@@ -245,11 +252,20 @@ def test_fault_plans_move_every_rank_together(name, runs):
 @pytest.mark.parametrize("world", [2, 4])
 @pytest.mark.parametrize("arch", ARCHS)
 def test_decode_on_mesh_makes_no_all_reduce(arch, world, runs):
-    """At (2, 1) and (2, 2) no rank's decode step makes an all-reduce
-    (module docstring)."""
+    """At (2, 1) and (2, 2) no rank's decode step makes an all-reduce over
+    'data'; at (2, 2) the tensor-parallel layers' all-reduces over 'model'
+    (module docstring): per decode step the embedding's one, plus one per
+    layer in phi4-mini."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve_loop import scaled_config
+
+    cfg = scaled_config(get_config(arch), 0.005)
+    layers = 1 + (cfg.num_layers if arch == "phi4-mini-3.8b" else 0)
     for got in runs[world]:
         box = got["reduces"][arch]
         assert box["decodes"] > 0 and box["reduces"] == 0, box
+        want = box["decodes"] * layers if world == 4 else 0
+        assert box["model_reduces"] == want, box
 
 
 def test_a_raise_on_one_rank_ends_every_rank(runs):

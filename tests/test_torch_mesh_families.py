@@ -11,11 +11,25 @@ tokens and 4 greedy tokens. World 1 runs in this process on one torch
 thread, as the ranks do (a bf16 GEMM's result depends on the thread
 count at llama3-405b's widths), beside the ranks.
 
-  * Mesh (1, 2) (``--mp 2``: the parameters split over 'model', every
-    rank every row): the gradients of every leaf at step 0 are world 1's
-    bitwise (``lm_loss`` under the mesh, gathered); the launchers print
-    world 1's losses and serve world 1's tokens. The printed gradient
-    norm adds shard norms in another order: within ``GNORM_TOL``.
+  * Mesh (1, 2) (``--mp 2``: tensor-parallel over 'model' -- the
+    attention heads, the dense MLP's hidden width and the vocabulary split,
+    the MoE / RWKV6 / Mamba2 layers replicated -- every rank every row):
+    the gradients of every leaf at step 0 (``lm_loss`` under the mesh,
+    gathered) are world 1's within ``TP_GRAD_TOL`` relative L2, and the
+    cross-entropy and aux loss within ``LOSS_TOL``; the control,
+    ``copy_to_model`` summing nothing in its backward, falls outside on
+    some leaf. Readings on this CPU: at most 0.0162 (phi4-mini's leaves;
+    the others 0.0092-0.0155), controls 0.78-1.35. Two families read
+    more, each with its own limits (``TP_LIMITS``): zamba2-7b 0.0442
+    (layer 0's Mamba2 ``dt_bias``, an f32 leaf whose gradient sums over
+    every position and head), and llama4-maverick, whose MoE layer routes
+    a near-tie token to another expert once layer 0's attention sums its
+    heads in another order: its experts' gradients read 0.267 (control
+    0.948) and its aux loss 0.014 from world 1's. The launchers print
+    world 1's step-0 loss within ``LOSS_TOL`` (maverick: its own limit;
+    reads 1.9e-3) and gradient norm within ``GNORM_TOL`` [at most 1.9e-3
+    relative], and serve world 1's tokens under the margin rule [every
+    token equal].
   * Mesh (2, 1) (``--mp 1``: the batch rows split over 'data') for the
     MoE (mixtral-8x7b, llama4-maverick) and recurrent (rwkv6-7b,
     zamba2-7b) families, within the limits of ``tests/
@@ -57,6 +71,10 @@ from repro_torch.configs import ARCH_IDS, get_config
 from repro_torch.testing.ranks import run_ranks
 
 LOSS_TOL, GNORM_TOL, PARAM_TOL = 2e-3, 5e-3, 2e-3
+TP_GRAD_TOL = 0.03
+# (gradient, loss) limits at (1, 2) where a family reads beyond TP_GRAD_TOL
+# or LOSS_TOL (module docstring)
+TP_LIMITS = {"llama4-maverick-400b-a17b": (0.5, 0.05), "zamba2-7b": (0.1, LOSS_TOL)}
 AUX_TOL = LOSS_TOL
 AUX_GRAD_TOL = 1e-4
 MARGIN = 0.125
@@ -102,11 +120,26 @@ def _cfg(arch: str):
     return cut_depth(cfg, 2) if arch == "llama3-405b" else cfg
 
 
-def _step0(arch: str, mesh=None, per_rank_aux: bool = False):
+class _UnsummedCopy(torch.autograd.Function):
+    """The control's ``copy_to_model``: identity both ways, so each rank
+    keeps the input gradient of its own columns only."""
+
+    @staticmethod
+    def forward(ctx, t, mesh, axes):
+        return t.view_as(t)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None, None
+
+
+def _step0(arch: str, mesh=None, per_rank_aux: bool = False, control: bool = False):
     """lm_loss and its gradients at step 0 of the train launcher's run
     (seed 0, the dataset's batch 0): (grads gathered whole, {ce, aux}).
     ``per_rank_aux``: under a (2, 1) mesh, also each rank's own aux (its
-    rows' statistics alone), the mean over the ranks."""
+    rows' statistics alone), the mean over the ranks. ``control``: under a
+    tensor-parallel mesh, ``copy_to_model``'s backward sums nothing
+    (``_UnsummedCopy``)."""
     from repro_torch import tree as T
     from repro_torch.data import SyntheticDataset
     from repro_torch.distributed.collectives import gather_tree, shard_tree
@@ -130,13 +163,20 @@ def _step0(arch: str, mesh=None, per_rank_aux: bool = False):
 
     if mesh is None:
         return grads(params, batch)
+    from repro_torch.distributed import collectives as C
+
     with sharding_rules(mesh):
         parts = param_parts(cfg, mesh)
         shards = shard_tree(params, parts, mesh)
         rows = batch_row_axes(mesh, BATCH)
         mine = local_batch(batch, mesh, rows)
-        with local_rows(rows):
-            g, m = grads(shards, mine)
+        copy = C._CopyToModel
+        C._CopyToModel = _UnsummedCopy if control else copy
+        try:
+            with local_rows(rows):
+                g, m = grads(shards, mine)
+        finally:
+            C._CopyToModel = copy
         g = gather_tree(g, parts, mesh)
         if per_rank_aux:
             with torch.no_grad(), local_rows(()):
@@ -202,13 +242,6 @@ def _aux_router_grads(mesh=None, control: bool = False):
                 for x, (_, pp) in zip(g, routers(parts, _is_spec))]
 
 
-def _bits(tree):
-    from repro_torch import tree as T
-
-    return [t.detach().contiguous().view(torch.uint8).numpy() if t.dtype.is_floating_point
-            else t.numpy() for t in T.leaves(tree)]
-
-
 def _launch(train_runs, serve_runs):
     """Each train run's printed text (rank 0's) and each serve run's
     tokens and margins."""
@@ -238,7 +271,9 @@ def _world_two(rank, world, root, part):
     out = {}
     if part == "rows":
         wide, rows = make_local_mesh(2), make_local_mesh(1)
-        out["grads"] = {arch: _bits_of(_step0(arch, wide)) for arch in ARCHS}
+        out["grads"] = {arch: _f64_of(_step0(arch, wide)) for arch in ARCHS}
+        out["grads_control"] = {arch: _f64_of(_step0(arch, wide, control=True))
+                                for arch in ARCHS}
         _, out["aux"] = _step0("mixtral-8x7b", rows, per_rank_aux=True)
         out["aux_grad"] = _aux_router_grads(rows)
         out["aux_grad_control"] = _aux_router_grads(rows, control=True)
@@ -255,7 +290,7 @@ def _world_two(rank, world, root, part):
 def _world_one(root):
     """Every world-1 run (no process group), on one torch thread."""
     torch.set_num_threads(1)
-    out = {"grads1": {arch: _bits_of(_step0(arch)) for arch in ARCHS},
+    out = {"grads1": {arch: _f64_of(_step0(arch)) for arch in ARCHS},
            "aux_grad1": _aux_router_grads()}
     texts, served = _launch(
         [_train_argv(a, os.path.join(root, f"{a}-w1") if a in MOE else None)
@@ -264,9 +299,11 @@ def _world_one(root):
     return out
 
 
-def _bits_of(step0):
+def _f64_of(step0):
+    from repro_torch import tree as T
+
     g, m = step0
-    return _bits(g), m
+    return [t.detach().to(torch.float64).numpy() for t in T.leaves(g)], m
 
 
 @pytest.fixture(scope="module")
@@ -321,27 +358,49 @@ def _f64(a):
     return a.astype(np.float64)
 
 
+def _leaf_rel(got, want):
+    """Each leaf's relative L2 distance (0 where both are 0)."""
+    out = []
+    for a, b in zip(got, want):
+        den = float(np.linalg.norm(b))
+        out.append(float(np.linalg.norm(a - b)) / den if den else float(np.abs(a).max()))
+    return out
+
+
 @pytest.mark.parametrize("arch", ARCHS)
 def test_gradients_at_1x2_are_world_one_bitwise(arch, runs):
-    """(1, 2): every leaf's step-0 gradient, gathered whole, is world 1's
-    bit for bit; so are the cross-entropy and the aux loss."""
+    """(1, 2), tensor-parallel: every leaf's step-0 gradient, gathered
+    whole, is world 1's within TP_GRAD_TOL relative L2, and the control's
+    (``copy_to_model`` summing nothing) is outside it on some leaf; the
+    cross-entropy and the aux loss within LOSS_TOL (``TP_LIMITS``' where
+    the family has its own)."""
+    grad_tol, loss_tol = TP_LIMITS.get(arch, (TP_GRAD_TOL, LOSS_TOL))
     (g1, m1), (g2, m2) = runs["grads1"][arch], runs["grads"][arch]
-    assert len(g1) == len(g2)
-    for a, b in zip(g1, g2):
-        np.testing.assert_array_equal(a, b)
-    assert m1 == m2
+    gc = runs["grads_control"][arch][0]
+    assert len(g1) == len(g2) == len(gc)
+    assert max(_leaf_rel(g2, g1)) <= grad_tol
+    assert max(_leaf_rel(gc, g1)) > grad_tol
+    for k in m1:
+        assert abs(m2[k] - m1[k]) <= loss_tol, (k, m1[k], m2[k])
 
 
 @pytest.mark.parametrize("arch", ARCHS)
 def test_launchers_at_1x2_match_world_one(arch, runs):
-    """``launch.train --mp 2`` prints world 1's losses (and its gradient
-    norms within GNORM_TOL); ``launch.serve --mp 2`` serves world 1's
-    greedy tokens."""
+    """``launch.train --mp 2`` (tensor-parallel) prints world 1's step-0
+    loss within LOSS_TOL (``TP_LIMITS``' where the family has its own) and
+    gradient norm within GNORM_TOL (step 1 is not held: module docstring);
+    ``launch.serve --mp 2`` serves world 1's greedy tokens under the margin
+    rule."""
     one, two = runs["train1"][arch], runs["train"][arch, 2]
     assert "mesh {'data': 1, 'model': 2}" in two
-    assert _lines(two, "loss") == _lines(one, "loss") and len(_lines(one, "loss")) == 2
-    np.testing.assert_allclose(_lines(two, "gnorm"), _lines(one, "gnorm"), rtol=GNORM_TOL)
-    np.testing.assert_array_equal(runs["serve"][arch, 2][0], runs["serve1"][arch][0])
+    assert len(_lines(two, "loss")) == len(_lines(one, "loss")) == 2
+    loss_tol = TP_LIMITS.get(arch, (None, LOSS_TOL))[1]
+    assert abs(_lines(two, "loss")[0] - _lines(one, "loss")[0]) <= loss_tol
+    g1, g2 = _lines(one, "gnorm")[0], _lines(two, "gnorm")[0]
+    assert abs(g2 - g1) <= GNORM_TOL * g1
+    toks, _ = runs["serve"][arch, 2]
+    want, margins = runs["serve1"][arch]
+    assert not _parting(toks, want, margins)
 
 
 def _parting(got, want, margins):

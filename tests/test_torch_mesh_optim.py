@@ -19,13 +19,15 @@ tokens; world 1 on one torch thread, as the ranks.
     global last dim (``optim.qstate``; d_model 128 split 2 ways puts one
     block on two ranks). Two steps of ``make_train_step`` with the clip
     off (a clip scale from a norm summed in another order may differ by
-    an ulp) give world 1's codes, scales and parameters bitwise at (1, 2),
-    whose gradients are world 1's. At (2, 2) the gradients are not world
-    1's (bf16 sums of half the rows): after one step even f32 moments
-    read 7.2e-3 from world 1's, int8 ones 1.25e-2, so the int8 moments
-    are held to the f32 moments of the same (2, 2) step instead: gathered,
-    they are ``quantize_state`` of those, bitwise; the two steps' losses
-    and gradient norms are world 1's within ``LOSS_TOL`` / ``GNORM_TOL``.
+    an ulp). Neither at (1, 2) nor at (2, 2) are the gradients world 1's:
+    (1, 2) runs the attention, the MLP and the vocabulary tensor-parallel
+    (f32 sums of the heads' partial products, the input gradients summed
+    over 'model'), (2, 2) also sums bf16 gradients of half the rows each;
+    at (2, 2) after one step even f32 moments read 7.2e-3 from world 1's,
+    int8 ones 1.25e-2. So at both the int8 moments are held to the f32
+    moments of the same step on the same mesh: gathered, they are
+    ``quantize_state`` of those, bitwise; the two steps' losses and
+    gradient norms are world 1's within ``LOSS_TOL`` / ``GNORM_TOL``.
     Every leaf's layout at (1, 2), (2, 1) and (2, 2) quantizes a random
     tensor's shards to the whole tensor's codes and scales, bitwise.
   * ``launch.train --opt-state int8`` at world 2 ((2, 1)) and world 4
@@ -190,8 +192,8 @@ def _train(argv):
 
 
 def _rank(rank, world, root):
-    """World 2: the uneven cross-entropy step at (2, 1), the int8 steps at
-    (1, 2), the launcher at --mp 1 with checkpoints. World 4: the int8
+    """World 2: the uneven cross-entropy step at (2, 1), the int8 steps and
+    one f32 step at (1, 2), the launcher at --mp 1 with checkpoints. World 4: the int8
     steps at (2, 2), the world-2 checkpoint restored onto (2, 2), the
     launcher at --mp 2 and its restart from the world-2 checkpoint."""
     from repro_torch.launch.mesh import make_local_mesh
@@ -202,6 +204,8 @@ def _rank(rank, world, root):
     if world == 2:
         out["ce"] = _steps(OptConfig(), make_local_mesh(1))
         out["q8"] = _steps(q8, make_local_mesh(2), steps=2, uneven=False)
+        out["q8_1"] = _steps(q8, make_local_mesh(2), uneven=False)
+        out["f32_1"] = _steps(OptConfig(clip_norm=1e30), make_local_mesh(2), uneven=False)
         out["layouts"] = [_layout(make_local_mesh(mp)) for mp in (1, 2)]
         out["train"] = _train(TRAIN + ["--mp", "1", "--ckpt-dir", f"{root}/w2",
                                        "--ckpt-every", "1"])
@@ -281,30 +285,16 @@ def test_cross_entropy_is_the_whole_batch_mean(runs):
     assert abs(runs[1]["control"] - m1["ce"]) > LOSS_TOL
 
 
-def test_int8_moments_at_1x2_are_world_one_bitwise(runs):
-    """(1, 2), clip off: the moments' codes and scales after 2 steps, and
-    the parameters, are world 1's bit for bit."""
-    from repro_torch import tree as T
-
-    _, p1, s1 = runs[1]["q8"]
-    _, p2, s2 = runs[2]["q8"]
-    s1, s2 = T.leaves(s1), T.leaves(s2)
-    assert len(s1) == len(s2) and len(p1) == len(p2)
-    for a, b in zip(s1 + p1, s2 + p2):
-        np.testing.assert_array_equal(a, b)
-
-
-def test_int8_moments_at_2x2_are_the_whole_tensors_blocks(runs):
-    """(2, 2), clip off: after one step the int8 moments, gathered, are
-    ``quantize_state`` of the f32 moments of the same step, bitwise; the
-    two steps' losses and gradient norms are world 1's within LOSS_TOL /
-    GNORM_TOL; every leaf's layout at (1, 2), (2, 1) and (2, 2) gives the
-    whole tensor's codes and scales."""
+def _held_to_f32_moments(runs, world):
+    """The world's int8 moments after one step, gathered, are
+    ``quantize_state`` of the f32 moments of the same step, bitwise; its
+    two int8 steps' losses and gradient norms are world 1's within
+    LOSS_TOL / GNORM_TOL."""
     from repro_torch import tree as T
     from repro_torch.optim.qstate import is_qstate, quantize_state
 
-    _, _, q8 = runs[4]["q8_1"]
-    _, _, f32 = runs[4]["f32_1"]
+    _, _, q8 = runs[world]["q8_1"]
+    _, _, f32 = runs[world]["f32_1"]
     for key in ("m", "v"):
         got, want = T.leaves(q8[key], is_qstate), T.leaves(f32[key])
         assert len(got) == len(want)
@@ -312,9 +302,21 @@ def test_int8_moments_at_2x2_are_the_whole_tensors_blocks(runs):
             q = quantize_state(torch.from_numpy(w))
             np.testing.assert_array_equal(g["q"], q["q"].numpy())
             np.testing.assert_array_equal(g["s"], q["s"].numpy())
-    for m1, m4 in zip(runs[1]["q8"][0], runs[4]["q8"][0]):
-        assert abs(m4["loss"] - m1["loss"]) <= LOSS_TOL
-        assert abs(m4["gnorm"] - m1["gnorm"]) <= GNORM_TOL * m1["gnorm"]
+    for m1, m in zip(runs[1]["q8"][0], runs[world]["q8"][0]):
+        assert abs(m["loss"] - m1["loss"]) <= LOSS_TOL
+        assert abs(m["gnorm"] - m1["gnorm"]) <= GNORM_TOL * m1["gnorm"]
+
+
+def test_int8_moments_at_1x2_are_world_one_bitwise(runs):
+    """(1, 2), tensor-parallel, clip off: the int8 moments hold to the f32
+    moments of the same step as at (2, 2) (``_held_to_f32_moments``)."""
+    _held_to_f32_moments(runs, 2)
+
+
+def test_int8_moments_at_2x2_are_the_whole_tensors_blocks(runs):
+    """(2, 2), clip off: ``_held_to_f32_moments``; every leaf's layout at
+    (1, 2), (2, 1) and (2, 2) gives the whole tensor's codes and scales."""
+    _held_to_f32_moments(runs, 4)
     assert runs[2]["layouts"] == [[], []] and runs[4]["layouts"] == [[]]
 
 
