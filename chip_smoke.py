@@ -224,8 +224,19 @@ Runs from the repository root and needs the repository's ``src/``. It
      margin rule, the Q / K sites' rows -- K2's -- half world 1's at world
      1's launches, every layer ticked ``split``) and its control (the
      heads' all-reduce dropped: must part above the margin), phi4-mini's 2
-     training steps (losses within ``MD_LOSS_LIMIT`` of (b)'s); a ``phase
-     multidevice:<x>`` line follows each of (d)-(g);
+     training steps (losses within ``MD_LOSS_LIMIT`` of (b)'s); (h) the
+     experts, RWKV6 and Mamba2 over 'model', its ranks started beside (g)'s:
+     two ranks at (1, 2), full width, ``launch.serve --mp 2`` for
+     llama4-maverick (one (attn, moe) group), mixtral-8x7b (2 layers),
+     rwkv6-7b (2) and zamba2-7b (its first superblock) against world 1 at
+     the same cut -- tokens under the margin rule, launches world 1's (K6
+     over a rank's 64 of maverick's 128 experts), every layer ticked
+     ``split``, each rank's expert weights, MoE KV caches and recurrent
+     states at half world 1's bytes -- mixtral's control (the combine's
+     reduce dropped: must part above the margin) and 2 training steps
+     (losses within ``MD_LOSS_LIMIT`` of world 1's), then the shard-local
+     K6 at a rank's 64 experts bitwise the whole launch's rows, both timed;
+     a ``phase multidevice:<x>`` line follows each of (d)-(h);
  11. prints the kernels' JSON line (K1-K8, the ABFT twins, M1 and M2), then
      the result line ``{"ok": true, "device": {...}}`` last.
 
@@ -4323,6 +4334,287 @@ def _md_tensor_parallel(seed: int, tmp: str, train_want) -> None:
     torch.cuda.empty_cache()
 
 
+# (h): the experts, RWKV6 and Mamba2 over 'model' on the one card -- two
+# ranks over gloo at mesh (1, 2), full width, each family cut as below
+# (mode, layers), in this order: every rank holds its E / 2 experts, H / 2
+# RWKV6 or SSD heads and their states, its MoE layers' KV heads halved; then
+# mixtral's control (the combine's reduce over 'model' dropped) and its
+# MD_TRAIN steps. The ranks start beside (g) and wait for its end before
+# maverick: its whole draw (a rank's 16 GB of experts, before it keeps its
+# half) beside (g)'s runs ran the card out of memory.
+TPH_MODELS = {"mixtral-8x7b": ("fp8_e4m3", 2), "rwkv6-7b": ("int8", 2),
+              "zamba2-7b": ("fp8_e4m3", 6), "llama4-maverick-400b-a17b": ("fp8_e4m3", 2)}
+TPH_WAITS = "llama4-maverick-400b-a17b"   # the run the ranks start after (g) ends
+TPH_TRAIN = ("--opt-state", "int8")   # int8 moments: world 1 and both ranks fit beside (g)
+
+# the probe (h) runs in each rank and in this process: the launch counters,
+# the tensor_parallel ticks, the bytes of the first MoE layer's expert
+# weights a rank holds live (and their count), and the prefill's caches'
+# bytes by kind, around one call
+_TPH_PROBE = """
+import torch
+from repro_torch.kernels import registry
+from repro_torch.launch import serve as _serve
+from repro_torch.models import mlp as _M
+
+
+def _nbytes(tree):
+    if isinstance(tree, dict):
+        return sum(_nbytes(v) for v in tree.values())
+    if hasattr(tree, "q"):
+        return sum(t.numel() * t.element_size() for t in (tree.q, tree.scale, tree.check)
+                   if t is not None)
+    return tree.numel() * tree.element_size()
+
+
+def probe(fn, counters):
+    seen = {}
+    moe, prefill = _M.apply_moe, _serve.lm_prefill
+
+    def spy_moe(cfg, p, x):
+        if "experts" not in seen:
+            w = p["experts"]["w_down"]
+            seen["experts"] = (_nbytes(p["experts"]), (w.q if hasattr(w, "q") else w).shape[0])
+        return moe(cfg, p, x)
+
+    def spy_prefill(cfg, params, batch):
+        logits, caches = prefill(cfg, params, batch)
+        got = {}
+        for c in caches:
+            for k, t in c.items():
+                got[k] = got.get(k, 0) + t.numel() * t.element_size()
+        seen["caches"] = got
+        return logits, caches
+
+    for c in counters.values():
+        c.launches = 0
+    for key in [k for k in registry.TRACE_COUNTS if k[0] == "tensor_parallel"]:
+        del registry.TRACE_COUNTS[key]
+    _M.apply_moe, _serve.lm_prefill = spy_moe, spy_prefill
+    try:
+        out = fn()
+    finally:
+        _M.apply_moe, _serve.lm_prefill = moe, prefill
+    torch.cuda.synchronize()
+    seen["launches"] = {k: c.launches for k, c in counters.items()}
+    seen["ticks"] = {"/".join(k[1:]): v for k, v in registry.TRACE_COUNTS.items()
+                     if k[0] == "tensor_parallel"}
+    return out, seen
+"""
+
+# one rank of (h): the process group, each family's launcher under the probe
+# (TPH_WAITS once the go file exists; the rank exits if its parent ends
+# first), mixtral's control, then mixtral's training, results as JSON
+_TPH_RANK_CODE = """
+import json, os, sys, time, types, torch
+from repro_torch.distributed import collectives as C
+from repro_torch.kernels import quant_dot as qd
+from repro_torch.kernels.fused_quant import fused_dequant_cuda
+from repro_torch.kernels.hadacore import hadacore_cuda
+from repro_torch.launch import serve, train
+from repro_torch.launch.mesh import COLLECTIVE_TIMEOUT_S, init_distributed
+from repro_torch.models import mlp as M
+PROBE_
+path, runs, learn, go = sys.argv[1], json.loads(sys.argv[2]), json.loads(sys.argv[3]), sys.argv[4]
+parent = os.getppid()
+init_distributed(torch.device("cuda:0"), "gloo", COLLECTIVE_TIMEOUT_S)
+counters = {"K1": hadacore_cuda, "K2": fused_dequant_cuda, "K4": qd.quant_dot_cuda,
+            "K6": qd.quant_dot_experts_cuda}
+res = {}
+for name, argv in runs:
+    while name == "WAITS_" and not os.path.exists(go):
+        if os.getppid() != parent:
+            sys.exit(3)
+        time.sleep(0.2)
+    if name == "control":
+        M.C = types.SimpleNamespace(**dict(vars(C), reduce_from_model=lambda t, axes: t))
+    out, res[name] = probe(lambda: serve.main(argv), counters)
+    M.C = C
+    res[name]["tokens"] = out["tokens"].tolist()
+    del out
+    torch.cuda.empty_cache()
+assert train.main(learn) == 0
+json.dump(res, open(path, "w"))
+torch.distributed.destroy_process_group()
+"""
+
+
+def _tph_argvs(seed: int):
+    """(h)'s launcher runs ((name, world-1 arguments), ...) and mixtral's
+    training arguments (world 1's: no --mp)."""
+    runs = []
+    for arch, (mode, layers) in TPH_MODELS.items():
+        runs.append((arch, _md_argv(arch, mode, seed) + [
+            "--batch", str(SLOTS), "--prompt-len", str(PREFILL_LEN), "--gen",
+            str(MD_FAMILY_GEN), "--layers", str(layers)]))
+        if arch == "mixtral-8x7b":
+            runs.append(("control", list(runs[-1][1])))
+    mode, layers = TPH_MODELS["mixtral-8x7b"]
+    learn = _md_argv("mixtral-8x7b", mode, seed) + [
+        "--layers", str(layers), "--log-every", "1", *MD_TRAIN, *TPH_TRAIN]
+    return runs, learn
+
+
+def _tph_spawn(seed: int, tmp: str):
+    """Start (h)'s two ranks (beside (g)'s)."""
+    runs, learn = _tph_argvs(seed)
+    ranked = [(name, argv + list(TP_RANK_ARGS)) for name, argv in runs]
+    learn = learn + list(TP_RANK_ARGS) + ["--metrics-out", os.path.join(tmp, "train_tph.jsonl")]
+    code = _TPH_RANK_CODE.replace("PROBE_", _TPH_PROBE).replace("WAITS_", TPH_WAITS)
+    return _spawn_ranks(code, [json.dumps(ranked), json.dumps(learn), _tph_go(tmp)], tmp,
+                        "tph")
+
+
+def _tph_go(tmp: str) -> str:
+    """The file whose existence lets (h)'s ranks go on past (g)."""
+    return os.path.join(tmp, "tph_go")
+
+
+def _md_moe_recurrent(seed: int, tmp: str, started) -> None:
+    """(h) experts, RWKV6 and Mamba2 over 'model' at two ranks on the card
+    over gloo, mesh (1, 2), full width, ``TPH_MODELS``' depths, against the
+    same launcher at world 1 (no process group; run here after (g), maverick
+    and the training after the ranks end): each
+    rank's tokens world 1's under the margin rule, its launches world 1's
+    (one K6 a MoE layer and pass, over its 64 of maverick's 128 experts; one
+    grouped K1 a layer and pass at mixtral's and rwkv6's down sites), every
+    layer of every pass ticked ``split``, its expert weights (mixtral: 4 of 8
+    experts) and its caches -- the MoE layers' KV, RWKV6's ``S``, Mamba2's
+    ``ssm`` and ``conv_x`` -- at half world 1's bytes; mixtral's control (the
+    combine's reduce dropped) parts above the margin; mixtral's MD_TRAIN
+    steps (int8 moments) within MD_LOSS_LIMIT of world 1's losses. Then the
+    shard-local K6: a rank's 64 of maverick's 128 experts at decode rows,
+    bitwise the whole launch's rows of those experts, both timed through
+    ``bench/quant_dot.py``."""
+    import contextlib
+    import io
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve, train
+    from repro_torch.launch.serve_loop import cut_depth
+
+    print("-- multidevice (h): experts, RWKV6 and Mamba2 over 'model', two ranks on the card "
+          f"over gloo, mesh (1, 2), full width: {TPH_MODELS}")
+    t0 = time.perf_counter()
+    open(_tph_go(tmp), "w").close()
+    runs, learn = _tph_argvs(seed)
+    ns = {}
+    exec(_TPH_PROBE, ns)
+    counters = {k: v for k, v in _counters().items() if k in ("K1", "K2", "K4", "K6")}
+    want = {}
+
+    def world_one(names):
+        with contextlib.redirect_stdout(io.StringIO()):
+            for name, argv in runs:
+                if name in names:
+                    out, want[name] = ns["probe"](lambda: serve.main(argv), counters)
+                    want[name]["tokens"], want[name]["margins"] = out["tokens"], out["margins"]
+                    del out
+                    torch.cuda.empty_cache()
+
+    world_one([a for a in TPH_MODELS if a != TPH_WAITS])
+    t1 = time.perf_counter()
+    procs, paths = started
+    ranks = _join_ranks(procs, paths, "multidevice (h)", timeout=600)
+    t2 = time.perf_counter()
+    # world 1's maverick and training after the ranks end: beside their
+    # maverick draws it ran the card out of memory
+    world_one([TPH_WAITS])
+    path = os.path.join(tmp, "train_tph_w1.jsonl")
+    with contextlib.redirect_stdout(io.StringIO()):
+        assert train.main(learn + ["--metrics-out", path]) == 0
+    w1_losses = _md_losses(path)
+    torch.cuda.empty_cache()
+    halves = {"llama4-maverick-400b-a17b": ("experts", "k", "v"),
+              "mixtral-8x7b": ("experts", "k", "v"), "rwkv6-7b": ("S",),
+              "zamba2-7b": ("ssm", "conv_x")}
+    for r, res in enumerate(ranks):
+        for arch, (mode, layers) in TPH_MODELS.items():
+            got, w1 = res[arch], want[arch]
+            toks, margins = w1["tokens"], w1["margins"]
+            first = [int(np.argmax(row)) if row.any() else None
+                     for row in np.array(got["tokens"]) != toks]
+            parted = [(i, f, round(float(margins[i, f]), 4)) for i, f in enumerate(first)
+                      if f is not None]
+            kinds = cut_depth(get_config(arch), layers).layer_kinds
+            ticks = {}
+            for kind in kinds:
+                ticks[f"{kind}/split"] = ticks.get(f"{kind}/split", 0) + MD_FAMILY_GEN
+            sizes = {k: (got["caches"].get(k), w1["caches"].get(k)) for k in halves[arch]
+                     if k != "experts"}
+            if "experts" in halves[arch]:
+                sizes["experts"] = (got["experts"][0], w1["experts"][0])
+            print(f"rank {r} {arch} ({mode}, {layers} layers): rows parting at (row, index, "
+                  f"world-1 margin) {parted}; launches {got['launches']} (world 1 "
+                  f"{w1['launches']}); ticks {got['ticks']}; bytes (rank, world 1) {sizes}"
+                  + (f"; experts {got['experts'][1]} of {w1['experts'][1]}"
+                     if "experts" in got else ""))
+            if any(m > MD_MARGIN for _, _, m in parted):
+                fail(f"multidevice (h): rank {r}'s {arch} tokens part from world 1's")
+            if got["launches"] != w1["launches"] or not any(got["launches"].values()):
+                fail(f"multidevice (h): rank {r}'s {arch} launches are not world 1's")
+            if got["ticks"] != ticks:
+                fail(f"multidevice (h): rank {r}'s {arch} layers did not all run split")
+            if any(a is None or 2 * a != b for a, b in sizes.values()):
+                fail(f"multidevice (h): rank {r}'s {arch} weights or states are not half "
+                     "world 1's")
+            if "experts" in got and 2 * got["experts"][1] != w1["experts"][1]:
+                fail(f"multidevice (h): rank {r}'s {arch} experts are not half world 1's")
+        mix = want["mixtral-8x7b"]
+        first = [int(np.argmax(row)) if row.any() else None
+                 for row in np.array(res["control"]["tokens"]) != mix["tokens"]]
+        far = [(i, f, round(float(mix["margins"][i, f]), 4)) for i, f in enumerate(first)
+               if f is not None and mix["margins"][i, f] > MD_MARGIN]
+        print(f"rank {r} mixtral control (the combine's reduce dropped): rows parting at "
+              f"{first}, above the margin {far}")
+        if not far:
+            fail(f"multidevice (h): rank {r}'s mixtral control was not rejected")
+    got = _md_losses(os.path.join(tmp, "train_tph.jsonl"))
+    gap = max(abs(a - b) for a, b in zip(got, w1_losses))
+    print(f"mixtral-8x7b train at (1, 2) ({TPH_MODELS['mixtral-8x7b'][1]} layers, int8 "
+          f"moments): losses {got}, world 1 {w1_losses}, max |diff| {gap:g} (limit "
+          f"{MD_LOSS_LIMIT})")
+    if len(got) != len(w1_losses) or gap > MD_LOSS_LIMIT:
+        fail("multidevice (h): mixtral's tensor-parallel losses are not world 1's")
+    t3 = time.perf_counter()
+    _k6_shard_local(seed)
+    print(f"(h) world 1's serving beside the ranks {t1 - t0:.1f} s, ranks' wait "
+          f"{t2 - t1:.1f} s, world 1's maverick, training and the checks {t3 - t2:.1f} s, "
+          f"shard-local K6 {time.perf_counter() - t3:.1f} s")
+
+
+def _k6_shard_local(seed: int) -> None:
+    """K6 over a rank's 64 of maverick's 128 experts (8192 -> 5120 fp8_e4m3,
+    decode rows (SLOTS, 64, 1, 8192)) bitwise the whole launch's rows of
+    those experts, and both timed through ``bench/quant_dot.py``."""
+    from repro_torch.bench.quant_dot import Case, expert_weights
+    from repro_torch.core.api import QuantEpilogue, plan_for
+    from repro_torch.kernels import quant_dot as qd
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    n, d = MAVERICK_DOWN
+    mode, half = "fp8_e4m3", EXPERTS // 2
+    ex = expert_weights(gen, n, d, mode)
+    x = (torch.randn(SLOTS * EXPERTS, n, generator=gen, device="cuda") * 3).to(
+        torch.bfloat16).view(SLOTS, EXPERTS, 1, n)
+    plan = plan_for(n, dtype=torch.bfloat16, backend="cuda", device_type="cuda",
+                    epilogue=QuantEpilogue(mode))
+    whole = qd.quant_dot_experts(x, ex.q, ex.scale, plan, "rotate_once")
+    mine = x[:, :half].contiguous()
+    shard = qd.quant_dot_experts(mine, ex.q[:half], ex.scale[:half], plan, "rotate_once")
+    same = torch.equal(_bits(shard), _bits(whole[:, :half]))
+    print(f"-- multidevice (h): shard-local K6, {half} of {EXPERTS} experts at "
+          f"{tuple(mine.shape)} -> {d} {mode}: bitwise the whole launch's rows {same}")
+    if not same:
+        fail("multidevice (h): the shard-local K6 differs from the whole launch's rows")
+    for e, xs, w in ((EXPERTS, x, ex), (half, mine, type(ex)(ex.q[:half], ex.scale[:half],
+                                                             mode))):
+        rec = _measure(Case("K6", mode, SLOTS, n, d, n_experts=e), gen, w, None, xs)
+        print(_record_line(f"K6  {mode:8s} {tuple(xs.shape)} -> {d} ({e} experts)", rec))
+    del ex, x, whole, shard
+    torch.cuda.empty_cache()
+
+
 def multidevice_phase(args, gen) -> dict:
     """The multi-device layer on the one card: (a) the sharded quant_dot's
     shard-local kernels at the full-width mesh layouts' shard shapes, (b)
@@ -4497,7 +4789,9 @@ def _phases(args, start: float, later) -> int:
         phase("multidevice:e", _md_engine_two_ranks, args.seed, started)
         for k, v in phase("multidevice:f", _md_families, args.seed, tmp).items():
             launches[k] += v
+        started = _tph_spawn(args.seed, tmp)     # (h)'s ranks run beside (g)
         phase("multidevice:g", _md_tensor_parallel, args.seed, tmp, train_want)
+        phase("multidevice:h", _md_moe_recurrent, args.seed, tmp, started)
 
     quant_dot_cu = "src/repro_torch/csrc/quant_dot.cu"
     experts_cu = "src/repro_torch/csrc/quant_dot_experts.cu"

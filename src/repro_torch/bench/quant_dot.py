@@ -22,7 +22,9 @@ The default cases are the shapes of the port's paths: phi4-mini's down
 projection (8192 -> 3072, int8) at decode (4 rows), prefill (64) and the
 training step's rows (2048); llama4-maverick's (8192 -> 5120, fp8_e4m3)
 dense at 4 and 64 rows and over 128 experts at (4, 128, 1, 8192) and at a
-training step's capacity (4, 128, 5, 8192); fp8 at the training rows;
+training step's capacity (4, 128, 5, 8192), and over the 64 experts a rank
+holds when 'model' splits them in two (4, 64, 1, 8192); fp8 at the training
+rows;
 whisper-base's (2048 -> 512, int8) at decode (4 rows) and at its encoder's
 rows (4 inputs of 1500 frames: 6000, not a multiple of
 the row block); the ABFT twins at their decode shapes. Two cases at the
@@ -71,10 +73,11 @@ class Case:
     n: int
     d: int
     cap: int = 1
+    n_experts: int = EXPERTS     # an expert kernel's experts (a rank's share under a split)
 
     @property
     def experts(self) -> int:
-        return EXPERTS if KERNELS[self.kernel][1] else 0
+        return self.n_experts if KERNELS[self.kernel][1] else 0
 
     @property
     def shape(self) -> str:
@@ -99,6 +102,7 @@ CASES = (
     Case("K4", "int8", 4, *WHISPER), Case("K4", "int8", WHISPER_ENCODER_ROWS, *WHISPER),
     Case("K6", "fp8_e4m3", 4, *MAVERICK), Case("K6s", "fp8_e4m3", 4, *MAVERICK),
     Case("K6", "fp8_e4m3", 4, *MAVERICK, cap=MAVERICK_TRAIN_CAP),
+    Case("K6", "fp8_e4m3", 4, *MAVERICK, n_experts=EXPERTS // 2),
     Case("K7a-ro", "int8", 4, *PHI4), Case("K7a-rv", "int8", 4, *PHI4),
     Case("K7a-ro", "fp8_e4m3", 4, *MAVERICK), Case("K7a-s", "fp8_e4m3", 4, *MAVERICK),
     Case("K7b", "fp8_e4m3", 4, *MAVERICK), Case("K7b-s", "fp8_e4m3", 4, *MAVERICK),

@@ -42,6 +42,10 @@ of what is replicated.
     columns before the down projection, the logits along the vocabulary);
     the backward keeps this rank's slice, since what follows is replicated
     and every rank holds the whole gradient.
+  * ``sum_for_split`` sums the ranks' partials of a statistic that split
+    work goes on to use (the Mamba2 gated RMSNorm's sum of squares over
+    d_inner): all-reduce forward and backward, since each rank's gradient
+    of the sum comes from its own columns only.
 
 The sums run in f32 (a 16-bit tensor is widened, summed and rounded once).
 A parameter a layer keeps split (``gather_param(..., skip=)``) keeps its
@@ -59,7 +63,7 @@ from repro_torch.kernels.registry import f32_reciprocal
 
 __all__ = ["int8_ring_all_reduce", "shard_tree", "gather_tree", "gather_param",
            "gather_leaf", "leaf_axes", "row_sum", "copy_to_model", "reduce_from_model",
-           "gather_from_model"]
+           "gather_from_model", "sum_for_split", "model_slice"]
 
 
 def _quant(v: torch.Tensor):
@@ -264,6 +268,17 @@ class _GatherFromModel(torch.autograd.Function):
         return ctx.mesh.chunk(g, ctx.axes, ctx.dim).contiguous(), None, None, None
 
 
+class _SumForSplit(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, mesh, axes):
+        ctx.mesh, ctx.axes = mesh, axes
+        return _sum_over(t, mesh, axes)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _sum_over(g, ctx.mesh, ctx.axes), None, None
+
+
 def copy_to_model(t: torch.Tensor, axes) -> torch.Tensor:
     """``t`` (whole on every rank along ``axes``) as the input of a product
     split over them: the identity; its gradient is summed over the ranks
@@ -289,3 +304,24 @@ def gather_from_model(t: torch.Tensor, axes, dim: int) -> torch.Tensor:
     if not axes:
         return t
     return _GatherFromModel.apply(t, current_mesh(), tuple(axes), dim % t.ndim)
+
+
+def sum_for_split(t: torch.Tensor, axes) -> torch.Tensor:
+    """The sum over the ranks along ``axes`` of this rank's partial ``t``
+    (in f32, rounded once to ``t``'s dtype), for a computation that stays
+    split after it: the gradient is summed over the ranks too. ``t`` itself
+    when ``axes`` is empty."""
+    if not axes:
+        return t
+    return _SumForSplit.apply(t, current_mesh(), tuple(axes))
+
+
+def model_slice(t: torch.Tensor, split, dim: int = -1) -> torch.Tensor:
+    """This rank's part of ``t`` (whole and alike on every rank along
+    ``split.axes``) along ``dim``, for split work: the ``split.index``-th of
+    ``split.size`` equal parts, its gradient summed over the ranks
+    (``copy_to_model``). ``t`` itself off a split."""
+    if split.size == 1:
+        return t
+    n = t.shape[dim] // split.size
+    return copy_to_model(t, split.axes).narrow(dim, split.index * n, n)

@@ -24,11 +24,10 @@ a dim of ``n`` heads, KV heads, hidden columns or vocabulary rows -- the
 rules' axes for that name, divisibility-guarded as the parameters are
 (``_build_parts``) -- and runs on that slice of its weights, moving what it
 must through ``distributed.collectives`` (``copy_to_model``,
-``reduce_from_model``, ``gather_from_model``). Within ``split_compute(False)``
-(the layer kinds whose compute stays replicated: MoE, RWKV6, Mamba2) every
-query answers "whole". The layers place their data themselves, so
-``constrain`` only checks the logical axes' count and returns its input: the
-identity, on and off a mesh.
+``reduce_from_model``, ``gather_from_model``, ``sum_for_split``,
+``model_slice``). The layers place their data themselves, so ``constrain``
+only checks the logical axes' count and returns its input: the identity, on
+and off a mesh.
 """
 from __future__ import annotations
 
@@ -40,8 +39,7 @@ Axis = Union[None, str, Tuple[str, ...]]
 
 __all__ = ["DEFAULT_RULES", "sharding_rules", "resolve_spec", "constrain",
            "make_resolver", "current_mesh", "local_rows", "row_axes", "axes_of",
-           "snapshot", "restored", "Split", "model_split", "split_compute",
-           "model_size"]
+           "snapshot", "restored", "Split", "model_split", "model_size"]
 
 _state = threading.local()
 
@@ -68,7 +66,6 @@ def _ctx():
         _state.mesh = None
         _state.rules = dict(DEFAULT_RULES)
         _state.rows = ()
-        _state.split = True
     return _state
 
 
@@ -102,26 +99,12 @@ def local_rows(axes: Tuple[str, ...]):
         st.rows = prev
 
 
-@contextlib.contextmanager
-def split_compute(on: bool):
-    """Within the block, ``model_split`` splits (``on``) or answers that
-    every dim is whole (a layer whose compute stays replicated over
-    'model')."""
-    st = _ctx()
-    prev = st.split
-    st.split = bool(on)
-    try:
-        yield
-    finally:
-        st.split = prev
-
-
 def snapshot():
-    """The calling thread's mesh, rules, row split and compute split, for
+    """The calling thread's mesh, rules and row split, for
     ``restored``: the autograd engine runs a CUDA backward (and the
     recomputation of a checkpointed block) on a thread of its own."""
     st = _ctx()
-    return st.mesh, st.rules, st.rows, st.split
+    return st.mesh, st.rules, st.rows
 
 
 @contextlib.contextmanager
@@ -129,11 +112,11 @@ def restored(snap):
     """Run the block under a ``snapshot`` taken on another thread."""
     st = _ctx()
     prev = snapshot()
-    st.mesh, st.rules, st.rows, st.split = snap
+    st.mesh, st.rules, st.rows = snap
     try:
         yield
     finally:
-        st.mesh, st.rules, st.rows, st.split = prev
+        st.mesh, st.rules, st.rows = prev
 
 
 def row_axes() -> Tuple[str, ...]:
@@ -240,12 +223,12 @@ def model_split(logical: str, n: int) -> Split:
     vocabulary rows) named ``logical`` that this rank computes: the rules'
     mesh axes for that name, dropped where their size does not divide ``n``
     (the parameters' guard, ``_build_parts``; index 0 on a mesh that only
-    describes a layout). ``WHOLE`` off a mesh, within
-    ``split_compute(False)``, and where no axis is left. Raises when the
+    describes a layout). ``WHOLE`` off a mesh and where no axis is left.
+    Raises when the
     axes are also the batch rows' (ranks that hold other rows cannot share
     a row's heads)."""
     st = _ctx()
-    if st.mesh is None or not st.split:
+    if st.mesh is None:
         return WHOLE
     axes = axes_of(_build_parts(st.mesh, (logical,), (n,))[0])
     if not axes or st.mesh.group_size(axes) == 1:

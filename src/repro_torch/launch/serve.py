@@ -47,9 +47,10 @@ Several ranks (torchrun, or ``--mp`` > 1; ``launch.train``'s docstring):
 the weights are this rank's shards at rest, each layer's gathered just
 before it runs (int8 storage as int8; the down projections' consumer
 weights stay split by their out-channels into the sharded quant_dot); the
-prompt batch's rows split over 'data'; with ``--mp D`` the attention and
-dense-MLP layers and the vocabulary split over 'model' (each rank's KV
-caches hold its KH / D heads); the tokens are gathered whole on every
+prompt batch's rows split over 'data'; with ``--mp D`` every layer and the
+vocabulary split over 'model' -- heads, hidden columns, experts, RWKV6 and
+SSD heads (each rank's KV caches hold its KH / D heads, its recurrent
+states its heads); the tokens are gathered whole on every
 rank. Every architecture serves on the mesh: a vlm's M-RoPE
 positions and patch embeddings, an encoder-decoder's frames and a
 recurrent model's states are split by rows like the tokens. ``--layers N``

@@ -35,8 +35,9 @@ the process group (``launch.train``'s docstring; NCCL on a CUDA device,
 gloo on the CPU, or ``--dist-backend``; the collectives time out after
 ``launch.mesh.COLLECTIVE_TIMEOUT_S``) and serves on the (world / mp, mp)
 ("data", "model") mesh: the engine's weights are this rank's shards, its
-slots split over 'data', its attention and dense-MLP layers tensor-parallel
-over 'model' (``--mp D``: its KV cache holds KH / D heads a layer), every
+slots split over 'data', its layers tensor-parallel over 'model' (``--mp
+D``: heads, hidden columns and experts; its KV cache holds KH / D heads a
+layer), every
 rank prefills, decodes its slots and keeps the same scheduler
 (``serving.engine``'s docstring). Every rank builds
 the same seeded stream; rank 0 prints. A decode step that raises on one
@@ -84,13 +85,21 @@ def scaled_config(cfg, scale: float):
 
 
 def cut_depth(cfg, layers: int):
-    """``cfg`` with only its first ``layers`` layers: whole units of its
-    one group's pattern (a config of several groups raises)."""
-    (pattern, repeats), = cfg.groups
-    if layers % len(pattern) or not 0 < layers // len(pattern) <= repeats:
+    """``cfg`` with only its first ``layers`` layers: its groups in order,
+    the last one kept in whole units of its pattern (zamba2-7b's 6: one
+    superblock); any other count raises."""
+    groups, left = [], layers
+    for pattern, repeats in cfg.groups:
+        units = min(repeats, left // len(pattern))
+        if units:
+            groups.append((pattern, units))
+            left -= units * len(pattern)
+        if units < repeats:
+            break
+    if left or not groups:
         raise ValueError(f"{cfg.name}: {layers} layers are not whole units of its "
-                         f"{len(pattern)}-layer pattern x {repeats}")
-    return dataclasses.replace(cfg, groups=((pattern, layers // len(pattern)),))
+                         f"groups {cfg.groups}")
+    return dataclasses.replace(cfg, groups=tuple(groups))
 
 
 def build_engine(args, mesh=None):

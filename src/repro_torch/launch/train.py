@@ -28,8 +28,9 @@ the process group (NCCL on a CUDA device, gloo on the CPU, or
 ``--dist-backend``), builds the (world / mp, mp) ("data", "model") mesh
 and runs every step under it (``launch.steps``: the ZeRO-3 layout, batch
 rows split over 'data', and ``--mp D`` tensor parallelism over 'model': a
-rank computes H / D query heads, KH / D KV heads, d_ff / D hidden columns
-and 1 / D of the vocabulary; ``models.lm``'s docstring):
+rank computes H / D query heads, KH / D KV heads, d_ff / D hidden columns,
+E / D experts, H / D RWKV6 or SSD heads and 1 / D of the vocabulary;
+``models.lm``'s docstring):
 
     torchrun --nproc-per-node 2 -m repro_torch.launch.train --device cpu \
         --mp 1 --arch phi4-mini-3.8b --scale 0.005 --steps 2 --seq 32 \

@@ -60,19 +60,26 @@ gradients reduce-scattered back to the shards; the rotation-consumer
 QTensors stay split by their out-channels and go so into the sharded
 quant_dot. The batch rows are this rank's share.
 
-Over 'model' the layers of the kinds ``SPLIT_KINDS`` (attention of every
-form and the dense MLP) are tensor-parallel: their dims named 'heads',
-'kv' and 'dff' stay this rank's slice (``models.attention``,
-``models.mlp``), but for the down projection's rows, which its site
-contracts whole; so a rank holds 1 / D of those weights live, computes 1 /
-D of their heads and hidden columns, and caches its KV heads. The
-vocabulary is split in every model: the embedding looks its rows up where
-they live and sums the ranks' rows; the logits contract with this rank's
-vocabulary rows and are all-gathered whole, so the loss and the greedy
-argmax read whole logits. The other kinds (MoE, RWKV6, Mamba2) keep their
-layers gathered whole and their compute replicated over 'model'. Each layer
-of each pass on a tensor-parallel mesh ticks ``TRACE_COUNTS[("tensor_parallel",
-kind, "split" | "replicated")]``.
+Over 'model' every layer kind is tensor-parallel: attention of every form
+and the dense MLP split their dims named 'heads', 'kv' and 'dff'
+(``models.attention``, ``models.mlp``); a MoE layer its
+attention by head and its experts (``mlp.expert_split``, or the experts'
+hidden width where 'experts' does not divide); RWKV6 its time mix by head
+and its channel mix by 'dff' (``models.rwkv``); Mamba2 its SSD heads
+(``models.ssm``). Those dims stay this rank's slice (``_local_dims``), but
+for the rows of the down sites (the MLPs' ``w_down`` over 'dff', the
+channel mix's ``wv``), which the site contracts whole, and Mamba2's
+``w_zx``, gathered whole and cut to the rank's heads in the layer; so a rank
+holds 1 / D of those weights live, computes 1 / D of their heads, experts
+and hidden columns, and caches its KV heads and its heads' recurrent state.
+The vocabulary is split in every model: the embedding looks its rows up
+where they live and sums the ranks' rows; the logits contract with this
+rank's vocabulary rows and are all-gathered whole, so the loss and the
+greedy argmax read whole logits. Each layer of each pass on a
+tensor-parallel mesh ticks ``TRACE_COUNTS[("tensor_parallel", kind, "split"
+| "replicated")]``: an attention layer whose heads and hidden width do not
+divide the axis runs replicated; a MoE, RWKV6 or Mamba2 layer that cannot
+split raises.
 """
 from __future__ import annotations
 
@@ -87,7 +94,7 @@ from repro_torch.device import resolve_device
 from repro_torch.distributed import collectives as C
 from repro_torch.distributed.sharding import (_ctx, axes_of, constrain, current_mesh,
                                               make_resolver, model_size, model_split,
-                                              restored, snapshot, split_compute)
+                                              restored, snapshot)
 from repro_torch.kernels.registry import TRACE_COUNTS
 from repro_torch.models import attention as A
 from repro_torch.models import mlp as M
@@ -100,8 +107,6 @@ from repro_torch.models.config import ModelConfig
 
 KINDS = ("attn", "moe", "xattn", "rwkv", "mamba")    # decoder layers
 ENCODER_KINDS = ("enc_attn",)
-# the layer kinds whose compute splits over 'model' (module docstring)
-SPLIT_KINDS = ("attn", "xattn", "enc_attn")
 
 
 def _check_kinds(cfg: ModelConfig) -> None:
@@ -238,15 +243,29 @@ def _mesh_parts(cfg: ModelConfig, key: str):
     return None if mesh is None else param_parts(cfg, mesh)[key]
 
 
+def _splits(cfg: ModelConfig, keys) -> dict:
+    """The logical axes a leaf at path ``keys`` keeps as this rank's slice
+    of 'model', each with the split its layer computes (module docstring)."""
+    if "experts" in keys:
+        split = {"experts": M.expert_split(cfg), "dff": M.expert_dff_split(cfg)}
+    elif "tmix" in keys:
+        split = {"heads": R.head_split(cfg)}
+    elif "mamba" in keys:
+        split = {} if keys[-1] == "w_zx" else {"dff": SSM.head_split(cfg)}
+    else:
+        hs, ks = A.head_splits(cfg)
+        split = {"heads": hs, "kv": ks, "dff": M.dff_split(cfg)}
+    if keys[-1] == "w_down" or keys[-2:] == ("cmix", "wv"):
+        split.pop("dff")                # a down site contracts its rows whole
+    split["vocab"] = model_split("vocab", cfg.padded_vocab)
+    return split
+
+
 def _local_dims(cfg: ModelConfig, spec, parts, keys) -> Tuple[int, ...]:
     """The dims of a leaf (logical axes ``spec``, mesh axes ``parts``, path
     ``keys``) that the running layer keeps as this rank's slice of 'model'
-    (module docstring); their split at rest is the compute's."""
-    if keys[-1] == "w_down":            # the down site contracts its rows whole
-        return ()
-    hs, ks = A.head_splits(cfg)
-    split = {"heads": hs, "kv": ks, "dff": M.dff_split(cfg),
-             "vocab": model_split("vocab", cfg.padded_vocab)}
+    (``_splits``); their split at rest is the compute's."""
+    split = _splits(cfg, keys)
     dims = tuple(d for d, a in enumerate(spec) if a in split and split[a].size > 1)
     for d in dims:
         if axes_of(parts[d]) != split[spec[d]].axes:
@@ -488,10 +507,9 @@ def _run_stack(cfg, kinds, layers, x, positions, enc_out, want_cache: bool,
                 _block_train, cfg, kind, lp, x, positions, enc_out, lparts, snapshot(),
                 use_reentrant=False)
         else:
-            with split_compute(kind in SPLIT_KINDS):
-                x, a, cache = _block_prefill(cfg, kind,
-                                             _layer_params(cfg, lp, x.dtype, lparts, kind),
-                                             x, positions, enc_out, want_cache)
+            x, a, cache = _block_prefill(cfg, kind,
+                                         _layer_params(cfg, lp, x.dtype, lparts, kind),
+                                         x, positions, enc_out, want_cache)
             if want_cache:
                 caches.append(cache)
         aux = aux + a
@@ -503,7 +521,7 @@ def _block_train(cfg, kind, lp, x, positions, enc_out, lparts, snap):
     """One block for ``torch.utils.checkpoint``, under the sharding context
     ``snap`` it was first run in: its recomputation runs on the autograd
     engine's thread."""
-    with restored(snap), split_compute(kind in SPLIT_KINDS):
+    with restored(snap):
         x, aux, _ = _block_prefill(cfg, kind, _layer_params(cfg, lp, x.dtype, lparts, kind),
                                    x, positions, enc_out, False)
     return x, torch.as_tensor(aux, dtype=torch.float32, device=x.device)
@@ -511,21 +529,28 @@ def _block_train(cfg, kind, lp, x, positions, enc_out, lparts, snap):
 
 def _tp_tick(cfg: ModelConfig, kind: str) -> None:
     """On a tensor-parallel mesh, count one layer of ``kind`` run split
-    over 'model' or replicated (module docstring)."""
+    over 'model' or replicated (module docstring); a MoE, RWKV6 or Mamba2
+    layer that cannot split raises."""
     if model_size() == 1:
         return
-    split = kind in SPLIT_KINDS and (A.head_splits(cfg)[0].size > 1
-                                     or M.dff_split(cfg).size > 1)
+    if kind == "rwkv":
+        split = R.head_split(cfg).size > 1 and M.dff_split(cfg).size > 1
+    elif kind == "mamba":
+        split = SSM.head_split(cfg).size > 1
+    elif kind == "moe":
+        split = M.expert_split(cfg).size > 1 or M.expert_dff_split(cfg).size > 1
+    else:
+        split = A.head_splits(cfg)[0].size > 1 or M.dff_split(cfg).size > 1
+    if not split and kind in ("moe", "rwkv", "mamba"):
+        raise NotImplementedError(
+            f"a {kind!r} layer of {cfg.name!r} cannot split over 'model' of size "
+            f"{model_size()}: its heads, experts or hidden width do not divide it")
     TRACE_COUNTS[("tensor_parallel", kind, "split" if split else "replicated")] += 1
 
 
 def kv_heads(cfg: ModelConfig) -> List[int]:
     """Each decoder layer's KV heads on this rank under the active mesh."""
-    out = []
-    for kind in cfg.layer_kinds:
-        with split_compute(kind in SPLIT_KINDS):
-            out.append(A.local_kv_heads(cfg))
-    return out
+    return [A.local_kv_heads(cfg)] * cfg.num_layers
 
 
 def _positions(B: int, S: int, device) -> torch.Tensor:
@@ -655,9 +680,8 @@ def lm_decode_step(cfg: ModelConfig, params, caches, tokens: torch.Tensor,
     for i, (kind, lp, c) in enumerate(zip(cfg.layer_kinds, params["layers"], caches)):
         lparts = None if parts is None else parts[i]
         _tp_tick(cfg, kind)
-        with split_compute(kind in SPLIT_KINDS):
-            x = _block_decode(cfg, kind, _layer_params(cfg, lp, x.dtype, lparts, kind), x,
-                              c, cache_pos, positions)
+        x = _block_decode(cfg, kind, _layer_params(cfg, lp, x.dtype, lparts, kind), x,
+                          c, cache_pos, positions)
     return _logits(cfg, params, x), caches
 
 

@@ -19,8 +19,21 @@ d_ff / D hidden units, so h and the activation are local; h is then
 all-gathered whole (``gather_from_model``) into the down projection, whose
 contraction axis the reference never splits (its Hadamard spans it): that
 one site runs as it does off the split -- its weight's out-channels over
-'fsdp', the fused kernel shard-local -- on every rank of 'model' alike. The
-MoE block stays replicated over 'model' in this port.
+'fsdp', the fused kernel shard-local -- on every rank of 'model' alike.
+
+The MoE block splits its experts over 'model' (``expert_split``; the
+reference's specs put 'experts' first on 'model'): the router, the softmax,
+top-k, the capacity positions and the aux loss are computed whole and alike
+on every rank; each rank slices the dispatch and combine tensors to its E /
+D experts, runs gate / up and the down site (one K6 launch over its experts
+when d_ff is a power of 2) on its experts' weights, combines its experts'
+outputs in f32, and the ranks' sums are all-reduced (``reduce_from_model``)
+and rounded once to the model dtype. Where 'experts' does not divide the
+axis the parameters give 'model' to the hidden width (``_build_parts``), and
+the experts split as the dense MLP does (``expert_dff_split``). x reaches the
+split products through ``copy_to_model``; the router's gradient through the
+combine weights is summed over 'model' (``copy_to_model`` on ``combine``
+before its slice), through the aux loss counted once (it is replicated).
 """
 from __future__ import annotations
 
@@ -33,7 +46,7 @@ from repro_torch.core import wquant
 from repro_torch.core.api import QuantDotSpec
 from repro_torch.distributed import collectives as C
 from repro_torch.distributed.collectives import row_sum
-from repro_torch.distributed.sharding import constrain, model_split
+from repro_torch.distributed.sharding import WHOLE, constrain, model_split
 from repro_torch.kernels.registry import QSPECS
 from repro_torch.models.common import dense_init, dtype_of
 
@@ -90,6 +103,18 @@ def mlp_specs(cfg) -> dict:
 def dff_split(cfg):
     """This rank's split of the dense MLP's hidden width over 'model'."""
     return model_split("dff", cfg.d_ff)
+
+
+def expert_split(cfg):
+    """This rank's split of the MoE layer's experts over 'model'."""
+    return model_split("experts", cfg.num_experts)
+
+
+def expert_dff_split(cfg):
+    """This rank's split of the experts' hidden width over 'model': the
+    dense MLP's where the experts do not split (``_build_parts`` hands
+    'model' to 'dff' there), else whole."""
+    return WHOLE if expert_split(cfg).size > 1 else dff_split(cfg)
 
 
 def apply_mlp(cfg, p, x: torch.Tensor) -> torch.Tensor:
@@ -166,6 +191,14 @@ def moe_specs(cfg) -> dict:
     return p
 
 
+def _route(p, x: torch.Tensor) -> torch.Tensor:
+    """The router's probabilities (B, S, E) in f32: the softmax of the f32
+    logits."""
+    logits = x.to(torch.float32) @ p["router"].to(torch.float32)
+    ex = torch.exp(logits - logits.amax(-1, keepdim=True))
+    return ex / ex.sum(-1, keepdim=True)
+
+
 def apply_moe(cfg, p, x: torch.Tensor):
     """x: (B, S, d). Top-k routing with capacity-factor dense dispatch, as
     the reference writes it: f32 router logits, softmax, top-k gates
@@ -183,9 +216,7 @@ def apply_moe(cfg, p, x: torch.Tensor):
     E, K = cfg.num_experts, cfg.experts_per_token
     cap = max(1, int(cfg.capacity_factor * S * K / E))
 
-    logits = x.to(torch.float32) @ p["router"].to(torch.float32)   # (B,S,E)
-    ex = torch.exp(logits - logits.amax(-1, keepdim=True))
-    gates = ex / ex.sum(-1, keepdim=True)
+    gates = _route(p, x)                                           # (B,S,E)
     topw, topi = torch.topk(gates, K, dim=-1)                      # (B,S,K)
     topw = topw / torch.clamp_min(topw.sum(-1, keepdim=True), 1e-9)
 
@@ -197,18 +228,31 @@ def apply_moe(cfg, p, x: torch.Tensor):
     dispatch = (keep[..., None] * cap1h).sum(2)                    # (B,S,E,cap)
     combine = ((keep * topw[..., None])[..., None] * cap1h).sum(2)
 
-    xin = torch.einsum("bsec,bsd->becd", dispatch.to(x.dtype), x)
-    xin = constrain(xin, "moebatch", "experts", None, None)
+    es, fs = expert_split(cfg), expert_dff_split(cfg)
     we = p["experts"]
+    if es.size > 1:
+        # this rank's experts: its slice of the dispatch and combine
+        n = E // es.size
+        dispatch = dispatch.narrow(2, es.index * n, n)
+        combine = C.model_slice(combine, es, 2)
+    axes = es.axes or fs.axes
+    xin = torch.einsum("bsec,bsd->becd", dispatch.to(x.dtype), C.copy_to_model(x, axes))
+    xin = constrain(xin, "moebatch", "experts", None, None)
     h = (_act(cfg, torch.einsum("becd,edf->becf", xin, we["w_gate"]))
          * torch.einsum("becd,edf->becf", xin, we["w_up"]))
-    h = constrain(h, "moebatch", "experts", None, "dff")
+    h = constrain(C.gather_from_model(h, fs.axes, -1), "moebatch", "experts", None, "dff")
     # weight_axes is declarative at the expert site, as in the reference
     spec = QuantDotSpec.for_config(h.shape[-1], cfg.quant,
                                    weight_axes=_EXPERT_DOWN_AXES)
     yout = spec.bind_experts(we["w_down"])(h)                      # (B,E,cap,d)
-    y = constrain(torch.einsum("bsec,becd->bsd", combine.to(x.dtype), yout),
-                  "batch", "seq", None)
+    if es.size > 1:
+        # this rank's experts' share in f32, summed over 'model', rounded once
+        y = torch.einsum("bsec,becd->bsd", combine.to(x.dtype).to(torch.float32),
+                         yout.to(torch.float32))
+        y = C.reduce_from_model(y, es.axes).to(x.dtype)
+    else:
+        y = torch.einsum("bsec,becd->bsd", combine.to(x.dtype), yout)
+    y = constrain(y, "batch", "seq", None)
     if cfg.moe_shared_expert:
         y = y + apply_mlp(cfg, p["shared"], x)
     density, router = _batch_mean(sel.sum(2)), _batch_mean(gates)  # (E,)

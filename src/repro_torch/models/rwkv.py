@@ -24,6 +24,18 @@ The ops keep the reference's dtypes: the token-shift interpolation in f32
 decay, the recurrence and its state in f32, ``u`` in f32. The sigmoid and
 SiLU are written out as ``jax.nn``'s lower, every op rounded to the io
 dtype.
+
+Tensor parallelism over 'model' (``head_split``; the reference's specs
+split the time mix by 'heads' and the channel mix's ``wk`` by 'dff'): the
+token-shift interpolation and the decay's LoRA run whole and alike on every
+rank; a rank holds the columns of ``wr`` / ``wk`` / ``wv`` / ``wg`` and the
+rows of ``u`` of its H / D heads, and the rows of ``wo``. Each mixed input
+and the decay pass through ``copy_to_model`` before they are sliced or fed
+to a split product, the recurrence, its state (B, H / D, K, K) and the
+per-head GroupNorm are local, and ``wo``'s partial products are summed in
+f32 over 'model' and rounded once. The channel mix splits ``wk`` by column
+and gathers k whole (``gather_from_model``) into the down site, which runs
+whole on every rank as the dense MLP's does; ``wr`` stays whole.
 """
 from __future__ import annotations
 
@@ -32,9 +44,11 @@ import math
 import torch
 
 from repro_torch.core.api import QuantDotSpec
-from repro_torch.distributed.sharding import constrain
+from repro_torch.distributed import collectives as C
+from repro_torch.distributed.sharding import constrain, model_split
+from repro_torch.models.attention import _f32_product
 from repro_torch.models.common import dense_init, dtype_of
-from repro_torch.models.mlp import _silu
+from repro_torch.models.mlp import _silu, dff_split
 
 _LORA = 32
 _MIXES = 5  # r, k, v, w, g
@@ -44,6 +58,11 @@ _TMIX_CHUNK = 32
 def _dims(cfg):
     K = cfg.rwkv_head_dim
     return cfg.d_model // K, K
+
+
+def head_split(cfg):
+    """This rank's split of the time mix's heads over 'model'."""
+    return model_split("heads", _dims(cfg)[0])
 
 
 def _sigmoid(x: torch.Tensor) -> torch.Tensor:
@@ -116,26 +135,43 @@ def _ddlerp(p, x: torch.Tensor, x_prev: torch.Tensor) -> torch.Tensor:
 
 def _tmix_inputs(cfg, p, x: torch.Tensor, x_prev: torch.Tensor):
     """(r, k, v) (B, S, H, K) in the io dtype, the gate g (B, S, d) and the
-    f32 decay w (B, S, H, K) in (0, 1)."""
-    H, K = _dims(cfg)
+    f32 decay w (B, S, H, K) in (0, 1), over this rank's heads (module
+    docstring)."""
+    K = cfg.rwkv_head_dim
     B, S, _ = x.shape
+    hs = head_split(cfg)
     xr, xk, xv, xw, xg = _ddlerp(p, x, x_prev).unbind(2)
-    r = (xr @ p["wr"]).reshape(B, S, H, K)
-    k = (xk @ p["wk"]).reshape(B, S, H, K)
-    v = (xv @ p["wv"]).reshape(B, S, H, K)
+    xr, xk, xv, xg = (C.copy_to_model(t, hs.axes) for t in (xr, xk, xv, xg))
+    r = (xr @ p["wr"]).reshape(B, S, -1, K)
+    k = (xk @ p["wk"]).reshape(B, S, -1, K)
+    v = (xv @ p["wv"]).reshape(B, S, -1, K)
     g = _silu(xg @ p["wg"])
     lw = p["w0"] + (torch.tanh(xw @ p["w_lora_a"]) @ p["w_lora_b"]).to(torch.float32)
-    w = torch.exp(-torch.exp(lw)).reshape(B, S, H, K)
+    lw = C.model_slice(lw, hs)
+    w = torch.exp(-torch.exp(lw)).reshape(B, S, -1, K)
     return r, k, v, g, w
 
 
-def _groupnorm_heads(p, out: torch.Tensor, B: int, S: int, d: int) -> torch.Tensor:
+def _groupnorm_heads(cfg, p, out: torch.Tensor, B: int, S: int) -> torch.Tensor:
     """Per-head LayerNorm of the f32 wkv output (RWKV's GroupNorm), with
-    ``jnp.var``'s population variance, then the f32 affine."""
+    ``jnp.var``'s population variance, then the f32 affine (this rank's
+    heads' channels of it)."""
     mu = out.mean(-1, keepdim=True)
     var = (out - out.mean(-1, keepdim=True)).square().mean(-1, keepdim=True)
     out = (out - mu) * torch.rsqrt(var + 1e-5)
-    return out.reshape(B, S, d) * p["ln_scale"] + p["ln_bias"]
+    hs = head_split(cfg)
+    return (out.reshape(B, S, -1) * C.model_slice(p["ln_scale"], hs)
+            + C.model_slice(p["ln_bias"], hs))
+
+
+def _tmix_out(cfg, p, out: torch.Tensor, g: torch.Tensor, dtype) -> torch.Tensor:
+    """The gated wkv output through ``wo``: whole, or this rank's rows'
+    partial product in f32, summed over 'model' and rounded once."""
+    y = out.to(dtype) * g
+    hs = head_split(cfg)
+    if hs.size == 1:
+        return y @ p["wo"]
+    return C.reduce_from_model(_f32_product(y, p["wo"]), hs.axes).to(dtype)
 
 
 def _tmix_scan(B, S, H, K, r, k, v, w, u):
@@ -191,18 +227,19 @@ def _tmix_chunked(B, S, H, K, r, k, v, w, u, C: int = _TMIX_CHUNK):
 def apply_rwkv_tmix(cfg, p, x: torch.Tensor, x_prev=None, *, return_state: bool = False):
     """Full-sequence time mix of x (B, S, d); the form by the reference's
     rule (module docstring). With ``return_state`` also returns (the f32
-    state (B, H, K, K), the last input (B, d))."""
+    state (B, H, K, K) of this rank's heads, the last input (B, d))."""
     B, S, d = x.shape
-    H, K = _dims(cfg)
+    K = cfg.rwkv_head_dim
     if x_prev is None:
         x_prev = _shift(x)
     r, k, v, g, w = _tmix_inputs(cfg, p, x, x_prev)
+    H = r.shape[2]
     if cfg.rwkv_impl == "chunked" and S % cfg.rwkv_chunk == 0:
         out, state = _tmix_chunked(B, S, H, K, r, k, v, w, p["u"], C=cfg.rwkv_chunk)
     else:
         out, state = _tmix_scan(B, S, H, K, r, k, v, w, p["u"])
-    out = _groupnorm_heads(p, out, B, S, d)
-    y = constrain((out.to(x.dtype) * g) @ p["wo"], "batch", "seq", None)
+    out = _groupnorm_heads(cfg, p, out, B, S)
+    y = constrain(_tmix_out(cfg, p, out, g, x.dtype), "batch", "seq", None)
     if return_state:    # the last input copied: the cache holds no view of x
         return y, (state, x[:, -1, :].clone())
     return y
@@ -211,16 +248,15 @@ def apply_rwkv_tmix(cfg, p, x: torch.Tensor, x_prev=None, *, return_state: bool 
 def decode_rwkv_tmix(cfg, p, x: torch.Tensor, state):
     """One token. x: (B, 1, d); state = (S (B, H, K, K) f32, x_prev (B, d)).
     Returns (y, (new S, x's last row))."""
-    B, _, d = x.shape
-    H, K = _dims(cfg)
+    B = x.shape[0]
     S0, xp = state
     r, k, v, g, w = _tmix_inputs(cfg, p, x, xp[:, None, :])
     rt, kt, vt, wt = (t[:, 0].to(torch.float32) for t in (r, k, v, w))
     kv = kt[..., :, None] * vt[..., None, :]
     out = torch.einsum("bhk,bhkv->bhv", rt, S0 + p["u"][None, :, :, None] * kv)
     S1 = S0 * wt[..., None] + kv
-    out = _groupnorm_heads(p, out.reshape(B, 1, H, K), B, 1, d)
-    return (out.to(x.dtype) * g) @ p["wo"], (S1, x[:, -1, :])
+    out = _groupnorm_heads(cfg, p, out.reshape(B, 1, *out.shape[1:]), B, 1)
+    return _tmix_out(cfg, p, out, g, x.dtype), (S1, x[:, -1, :])
 
 
 # ------------------------------------------------------------- channel mix
@@ -245,14 +281,18 @@ def rwkv_cmix_specs(cfg) -> dict:
 def apply_rwkv_cmix(cfg, p, x: torch.Tensor, x_prev=None, *, return_state: bool = False):
     """sigmoid(receptance) * (relu(k)^2 through the down-projection site):
     the site rotates, quantizes and contracts (``QuantDotSpec``); with
-    ``return_state`` also returns the last input (B, d)."""
+    ``return_state`` also returns the last input (B, d). Under a split of
+    'dff' over 'model' k is this rank's columns, gathered whole into the
+    site."""
     if x_prev is None:
         x_prev = _shift(x)
     dx = x_prev - x
     xr = (x + dx * p["mu_r"]).to(x.dtype)
     xk = (x + dx * p["mu_k"]).to(x.dtype)
     r = _sigmoid(xr @ p["wr"])
-    k = constrain(torch.relu(xk @ p["wk"]).square(), "batch", "seq", "dff")
+    axes = dff_split(cfg).axes
+    k = torch.relu(C.copy_to_model(xk, axes) @ p["wk"]).square()
+    k = constrain(C.gather_from_model(k, axes, -1), "batch", "seq", "dff")
     spec = QuantDotSpec.for_config(k.shape[-1], cfg.quant, weight_axes=("dff", "fsdp"))
     y = constrain(r * spec.bind(p["wv"])(k), "batch", "seq", None)
     if return_state:

@@ -23,6 +23,26 @@ dtype. ``jax.nn.softplus`` (``logaddexp(x, 0)``: no threshold, unlike
 torch's) is written out op by op. The intra-chunk decays are masked in
 log space, so the gradient stays finite where the reference's is NaN
 (ROADMAP.md, "Carried reference faults and known divergences").
+
+Tensor parallelism over 'model' (``head_split``: the SSD's H = d_inner / P
+heads; the reference's specs split ``w_zx``, ``conv_x``, ``norm`` and
+``w_out`` by 'dff' and the SSD by 'heads'): a rank computes its H / D
+heads, whole heads of d_inner columns. It holds its heads' columns of
+``conv_x`` and ``norm`` and rows of ``w_out``; its state is those heads'
+``ssm`` (B, H / D, P, N) and ``conv_x`` (B, W-1, d_inner / D), while
+``conv_bc`` and ``w_bcdt`` stay whole. ``w_zx`` rests as the reference lays
+it out, its concatenated (z | x) columns split contiguously, which at D = 2
+puts all of z on one rank and all of x on the other: the layer gathers it
+whole and takes this rank's heads' columns of both halves
+(``_zx_columns``), whose gradient ``copy_to_model`` sums over 'model', so
+that each rank's shard gets the whole gradient of its own columns. B, C
+and dt (every head's, computed alike on every rank) pass through
+``copy_to_model`` (B and C after their conv); dt, ``A_log``, ``D`` and
+``dt_bias`` are then cut to this rank's heads. The gated RMSNorm means
+over the whole d_inner: each rank's sum of squares is summed over 'model'
+by ``sum_for_split``, whose backward sums too (what follows is split, not
+replicated). ``w_out``'s partial products are summed in f32 over 'model'
+and rounded once.
 """
 from __future__ import annotations
 
@@ -31,7 +51,9 @@ from typing import NamedTuple, Tuple
 
 import torch
 
-from repro_torch.distributed.sharding import constrain
+from repro_torch.distributed import collectives as C
+from repro_torch.distributed.sharding import constrain, model_split
+from repro_torch.models.attention import _f32_product
 from repro_torch.models.common import dense_init, dtype_of
 from repro_torch.models.mlp import _silu
 
@@ -43,6 +65,30 @@ def _dims(cfg):
     d_inner = cfg.ssm_expand * cfg.d_model
     P = cfg.ssm_head_dim
     return d_inner, d_inner // P, P, cfg.ssm_state
+
+
+def head_split(cfg):
+    """This rank's split of the SSD's heads over 'model'."""
+    return model_split("heads", _dims(cfg)[1])
+
+
+def _head_params(cfg, p):
+    """(A_log, D, dt_bias) of this rank's heads (module docstring)."""
+    hs = head_split(cfg)
+    return tuple(C.model_slice(p[k], hs) for k in ("A_log", "D", "dt_bias"))
+
+
+def _zx_columns(cfg, w: torch.Tensor) -> torch.Tensor:
+    """``w_zx`` (d, 2 d_inner), gathered whole, as this rank's heads'
+    columns of z followed by theirs of x (module docstring)."""
+    hs = head_split(cfg)
+    if hs.size == 1:
+        return w
+    d_inner = _dims(cfg)[0]
+    n = d_inner // hs.size
+    w = C.copy_to_model(w, hs.axes)
+    lo = hs.index * n
+    return torch.cat([w[:, lo:lo + n], w[:, d_inner + lo:d_inner + lo + n]], dim=1)
 
 
 def _softplus(x: torch.Tensor) -> torch.Tensor:
@@ -77,11 +123,15 @@ def init_mamba(gen: torch.Generator, cfg, device) -> dict:
 
 
 def _split_proj(cfg, p, x: torch.Tensor):
-    d_inner, H, P, N = _dims(cfg)
-    zx = x @ p["w_zx"]
+    """(z, x, B, C, dt): z, x and dt of this rank's heads, B and C (before
+    their conv) whole."""
+    N = _dims(cfg)[3]
+    hs = head_split(cfg)
+    zx = C.copy_to_model(x, hs.axes) @ _zx_columns(cfg, p["w_zx"])
     bcdt = x @ p["w_bcdt"]
-    return (zx[..., :d_inner], zx[..., d_inner:], bcdt[..., :N], bcdt[..., N:2 * N],
-            bcdt[..., 2 * N:])
+    di = zx.shape[-1] // 2
+    return (zx[..., :di], zx[..., di:], bcdt[..., :N], bcdt[..., N:2 * N],
+            C.model_slice(bcdt[..., 2 * N:], head_split(cfg)))
 
 
 def _causal_depthwise(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -122,19 +172,30 @@ def mamba_specs(cfg) -> dict:
 
 
 def init_mamba_state(cfg, batch: int, dtype=torch.float32, device=None) -> MambaState:
+    """A zero state of this rank's heads (all of them off a split)."""
     d_inner, H, P, N = _dims(cfg)
+    D = head_split(cfg).size
+    d_inner, H = d_inner // D, H // D
     return MambaState(
         ssm=torch.zeros((batch, H, P, N), dtype=torch.float32, device=device),
         conv_x=torch.zeros((batch, _CONV_W - 1, d_inner), dtype=dtype, device=device),
         conv_bc=torch.zeros((batch, _CONV_W - 1, 2 * N), dtype=dtype, device=device))
 
 
-def _gated_norm(p, y: torch.Tensor, z: torch.Tensor, dtype) -> torch.Tensor:
-    """y (f32) gated by SiLU(z) in f32, RMS-normalized (eps 1e-6) with the
-    f32 ``norm`` scale, rounded to the io dtype, then the out projection."""
+def _gated_norm(cfg, p, y: torch.Tensor, z: torch.Tensor, dtype) -> torch.Tensor:
+    """y (f32) gated by SiLU(z) in f32, RMS-normalized (eps 1e-6) over the
+    whole d_inner with the f32 ``norm`` scale, rounded to the io dtype, then
+    the out projection (under a split of the heads: this rank's columns, the
+    sum of squares and ``w_out``'s partial products summed over 'model')."""
     y = y * _silu(z.to(torch.float32))
-    y = y * torch.rsqrt(y.square().mean(-1, keepdim=True) + 1e-6) * p["norm"]
-    return constrain(y.to(dtype) @ p["w_out"], "batch", "seq", None)
+    hs = head_split(cfg)
+    if hs.size == 1:
+        y = y * torch.rsqrt(y.square().mean(-1, keepdim=True) + 1e-6) * p["norm"]
+        return constrain(y.to(dtype) @ p["w_out"], "batch", "seq", None)
+    ss = C.sum_for_split(y.square().sum(-1, keepdim=True), hs.axes)
+    y = y * torch.rsqrt(ss / _dims(cfg)[0] + 1e-6) * p["norm"]
+    out = C.reduce_from_model(_f32_product(y.to(dtype), p["w_out"]), hs.axes)
+    return constrain(out.to(dtype), "batch", "seq", None)
 
 
 def apply_mamba(cfg, p, x: torch.Tensor, *, return_state: bool = False):
@@ -142,11 +203,13 @@ def apply_mamba(cfg, p, x: torch.Tensor, *, return_state: bool = False):
     or more must be a multiple of the chunk (the reference's ValueError).
     With ``return_state`` also returns the ``MambaState`` after it."""
     B, S, d = x.shape
-    d_inner, H, P, N = _dims(cfg)
+    _, H, P, N = _dims(cfg)
     z, xs_raw, b_raw, c_raw, dt_raw = _split_proj(cfg, p, x)
+    d_inner, H = xs_raw.shape[-1], dt_raw.shape[-1]           # this rank's
+    A_log, Dh, dt_bias = _head_params(cfg, p)
     bc_raw = torch.cat([b_raw, c_raw], dim=-1)
     xs = _causal_depthwise(xs_raw, p["conv_x"])
-    bc = _causal_depthwise(bc_raw, p["conv_bc"])
+    bc = C.copy_to_model(_causal_depthwise(bc_raw, p["conv_bc"]), head_split(cfg).axes)
     b, c = bc[..., :N], bc[..., N:]
 
     Tc = _CHUNK if S % _CHUNK == 0 else (S if S < _CHUNK else None)
@@ -158,8 +221,8 @@ def apply_mamba(cfg, p, x: torch.Tensor, *, return_state: bool = False):
                    None).to(f32)
     bv = b.reshape(B, nc, Tc, N).to(f32)
     cv = c.reshape(B, nc, Tc, N).to(f32)
-    dtv = _softplus(dt_raw.reshape(B, nc, Tc, H).to(f32) + p["dt_bias"])
-    A = -torch.exp(p["A_log"])                                 # (H,) negative
+    dtv = _softplus(dt_raw.reshape(B, nc, Tc, H).to(f32) + dt_bias)
+    A = -torch.exp(A_log)                                      # (H,) negative
     L = torch.cumsum(dtv * A, dim=2)                           # inclusive log-decay
 
     # intra-chunk: W[t, j] = (C_t . B_j) exp(L_t - L_j) dt_j, j <= t
@@ -185,8 +248,8 @@ def apply_mamba(cfg, p, x: torch.Tensor, *, return_state: bool = False):
     y_carry = torch.einsum("bctn,bchpn,bcth->bcthp", cv, torch.stack(starts, dim=1),
                            torch.exp(L))
     y = (y_intra + y_carry).reshape(B, S, H, P)
-    y = y + p["D"][None, None, :, None] * xs.reshape(B, S, H, P).to(f32)
-    out = _gated_norm(p, y.reshape(B, S, d_inner), z, x.dtype)
+    y = y + Dh[None, None, :, None] * xs.reshape(B, S, H, P).to(f32)
+    out = _gated_norm(cfg, p, y.reshape(B, S, d_inner), z, x.dtype)
     if return_state:
         return out, MambaState(ssm=state, conv_x=_tail(xs_raw, x.dtype),
                                conv_bc=_tail(bc_raw, x.dtype))
@@ -203,19 +266,21 @@ def decode_mamba(cfg, p, x: torch.Tensor, state: MambaState) -> Tuple[torch.Tens
     """One token of the recurrence. x: (B, 1, d). Returns (y, the new
     state)."""
     B, _, d = x.shape
-    d_inner, H, P, N = _dims(cfg)
+    _, H, P, N = _dims(cfg)
     z, xs, b, c, dt_raw = _split_proj(cfg, p, x)
+    d_inner, H = xs.shape[-1], dt_raw.shape[-1]               # this rank's
+    A_log, Dh, dt_bias = _head_params(cfg, p)
     cx = torch.cat([state.conv_x, xs], dim=1)                 # (B, W, d_inner)
     cbc = torch.cat([state.conv_bc, torch.cat([b, c], dim=-1)], dim=1)
     xs1 = _conv_step(cx, p["conv_x"])
-    bc1 = _conv_step(cbc, p["conv_bc"])
+    bc1 = C.copy_to_model(_conv_step(cbc, p["conv_bc"]), head_split(cfg).axes)
     b1, c1 = bc1[..., :N].to(torch.float32), bc1[..., N:].to(torch.float32)
 
-    dtv = _softplus(dt_raw[:, 0].to(torch.float32) + p["dt_bias"])   # (B, H)
-    decay = torch.exp(dtv * -torch.exp(p["A_log"]))
+    dtv = _softplus(dt_raw[:, 0].to(torch.float32) + dt_bias)       # (B, H)
+    decay = torch.exp(dtv * -torch.exp(A_log))
     xh = xs1.reshape(B, H, P).to(torch.float32)
     S1 = state.ssm * decay[:, :, None, None] + torch.einsum(
         "bh,bhp,bn->bhpn", dtv, xh, b1)
-    y = torch.einsum("bhpn,bn->bhp", S1, c1) + p["D"][None, :, None] * xh
-    out = _gated_norm(p, y.reshape(B, 1, d_inner), z, x.dtype)
+    y = torch.einsum("bhpn,bn->bhp", S1, c1) + Dh[None, :, None] * xh
+    out = _gated_norm(cfg, p, y.reshape(B, 1, d_inner), z, x.dtype)
     return out, MambaState(ssm=S1, conv_x=cx[:, 1:], conv_bc=cbc[:, 1:])

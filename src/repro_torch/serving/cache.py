@@ -12,9 +12,9 @@ may hold stale data; the per-slot causal mask never attends them and the
 decode step overwrites row ``pos`` before attending it.
 
 On a mesh (``mesh=``) a rank's cache holds the KV heads its layers compute
-(``models.lm.kv_heads``): KH / D of them in a layer split over 'model', all
-KH in one whose compute stays replicated; the layers of each head count
-share one allocation.
+(``models.lm.kv_heads``): KH / D of them where 'model' splits the KV heads,
+all KH where it does not; the layers of each head count share one
+allocation.
 """
 from __future__ import annotations
 

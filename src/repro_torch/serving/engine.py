@@ -67,8 +67,10 @@ launchers' layout, ``launch.steps``): each rank holds its shards of the
 weights (``param_parts``), every layer gathered just before it runs, and
 the slots split over ``batch_row_axes(mesh, num_slots)`` in the mesh's
 chunk order; a rank's KV caches (and ABFT sums) hold only its slots. Over
-'model' the attention and dense-MLP layers are tensor-parallel
-(``models.lm``): a rank's caches hold its KV heads of those layers
+'model' every layer is tensor-parallel (``models.lm``; a MoE layer's
+experts too, whose checksum-verified K7b verdicts reach every rank through
+the combine's sum: a poisoned row is NaN on all of them): a rank's caches
+hold its KV heads
 (``serving.cache``), and its ABFT KV check covers them, the verdicts agreed
 over 'model' (a slot is sound when every rank's heads of it are); the
 logits are whole on every rank. The host state --

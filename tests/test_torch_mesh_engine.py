@@ -14,7 +14,10 @@ thread, as the ranks do.
   * ``serve_loop.main --mp`` at (2, 1) (2 slots a rank) and (2, 2) (the
     weights split over 'model' too): every completion (tokens, status,
     finish reason), the ``summary()`` counts and ``health()`` equal world
-    1's on every rank.
+    1's on every rank; at (2, 2) a completion's tokens may part from world
+    1's where world 1's top-1 / top-2 margin at the first parting token is
+    at most ``MARGIN`` (the split sums the heads' and the experts' shares
+    in another order: mixtral's request 1 parts at its 21st token).
   * Fault plans at (2, 1), each against the same plan at world 1: a kernel
     raise on every rank at step 3 twice (a retry, then one rung down the
     ladder, in lockstep); a NaN poked into slot 1's cache (its owner's)
@@ -34,9 +37,9 @@ thread, as the ranks do.
     MoE layers keep their own rows' load-balancing statistics, whose loss
     inference drops, rather than sum them over the ranks (two all-reduces
     a layer, a training pass's). At (2, 2) the tensor-parallel layers
-    all-reduce over 'model' alone: the embedding's rows in both archs, and
-    each attention's output projection in phi4-mini (mixtral's MoE layers
-    stay replicated over 'model').
+    all-reduce over 'model' alone: the embedding's rows in both archs, each
+    attention's output projection in phi4-mini, and in each of mixtral's
+    MoE layers its attention's output projection and its experts' combine.
 """
 import contextlib
 import os
@@ -55,6 +58,7 @@ BASE = ["--device", "cpu", "--scale", "0.005", "--quant", "int8", "--rotate", "h
 ARCHS = ("phi4-mini-3.8b", "mixtral-8x7b")
 PLANS = ("raise", "nan", "kv", "delay")
 DELAY_S, WATCHDOG_MS = 2.0, 1000.0
+MARGIN = 0.125     # tests/test_torch_mesh_families.py's
 
 
 def _record(engine, err=None):
@@ -69,16 +73,40 @@ def _record(engine, err=None):
             "error": err}
 
 
-def _launcher(arch: str, mp=None):
-    """``serve_loop.main`` on the seeded stream: its record."""
+def _launcher(arch: str, mp=None, teacher=None):
+    """``serve_loop.main`` on the seeded stream: its record. ``teacher``: a
+    dict that takes, under ``arch``, the world-1 margin of a completion's
+    token (``_margin``'s arguments but the request id and the tokens
+    before it)."""
     import contextlib
     import io
 
     from repro_torch.launch import serve_loop
+    from repro_torch.serving import synthetic_stream
 
     argv = BASE + ["--arch", arch] + ([] if mp is None else ["--mp", str(mp)])
     with contextlib.redirect_stdout(io.StringIO()):
-        return _record(serve_loop.main(argv))
+        engine = serve_loop.main(argv)
+    if teacher is not None:
+        args = serve_loop.parse_args(argv)
+        prompts = {r.rid: r.tokens for r in synthetic_stream(
+            args.requests, vocab_size=engine.cfg.vocab_size,
+            prompt_len=(min(8, args.prefill_len), args.prefill_len), max_new_tokens=(8, 32),
+            rate=0.5, seed=args.seed, deadline_slack=args.deadline_slack)}
+        teacher[arch] = lambda rid, toks: _margin(engine.cfg, engine.params, prompts[rid], toks)
+    return _record(engine)
+
+
+def _margin(cfg, params, prompt, tokens) -> float:
+    """The top-1 / top-2 logit gap at the token after ``prompt`` +
+    ``tokens`` (one forward of them)."""
+    from repro_torch.models.lm import lm_forward
+
+    seq = torch.tensor([list(prompt) + list(tokens)], dtype=torch.long)
+    with torch.inference_mode():
+        last = lm_forward(cfg, params, {"tokens": seq})[0][0, -1, :cfg.vocab_size]
+    top = last.float().topk(2).values
+    return float(top[0] - top[1])
 
 
 @contextlib.contextmanager
@@ -210,8 +238,10 @@ def runs():
     try:
         os.environ.update(ENV)
         torch.set_num_threads(1)
-        one = {a: _launcher(a) for a in ARCHS}
+        teacher = {}
+        one = {a: _launcher(a, teacher=teacher) for a in ARCHS}
         one.update({name: _faulted(name) for name in PLANS})
+        one["teacher"] = teacher
     finally:
         for th in started:
             th.join()
@@ -230,11 +260,24 @@ def runs():
 @pytest.mark.parametrize("arch", ARCHS)
 def test_serve_loop_on_mesh_matches_world_one(arch, world, runs):
     """``serve_loop --mp`` at (2, 1) and (2, 2): completions, counts and
-    health on every rank are world 1's."""
+    health on every rank are world 1's; at (2, 2), where 'model' splits
+    the layers' sums, a completion's tokens may part from world 1's only at
+    a token whose world-1 top-1 / top-2 margin is at most MARGIN."""
     want = runs[1][arch]
     assert want["counts"]["status_ok"] == 6 and want["health"]["rung"] == 0
     for got in runs[world]:
-        assert got[arch] == want
+        got = got[arch]
+        if world == 2:
+            assert got == want
+            continue
+        assert {k: v for k, v in got.items() if k != "completions"} == {
+            k: v for k, v in want.items() if k != "completions"}
+        assert len(got["completions"]) == len(want["completions"])
+        for a, b in zip(got["completions"], want["completions"]):
+            assert a[:3] == b[:3] and len(a[3]) == len(b[3])
+            if a[3] != b[3]:
+                j = next(i for i, (x, y) in enumerate(zip(a[3], b[3])) if x != y)
+                assert runs[1]["teacher"][arch](a[0], b[3][:j]) <= MARGIN, (a[0], j)
 
 
 @pytest.mark.parametrize("name", PLANS)
@@ -260,7 +303,9 @@ def test_decode_on_mesh_makes_no_all_reduce(arch, world, runs):
     from repro_torch.launch.serve_loop import scaled_config
 
     cfg = scaled_config(get_config(arch), 0.005)
-    layers = 1 + (cfg.num_layers if arch == "phi4-mini-3.8b" else 0)
+    # phi4-mini: each attention's output projection; mixtral: each MoE
+    # layer's attention output projection and its experts' combine
+    layers = 1 + cfg.num_layers * (1 if arch == "phi4-mini-3.8b" else 2)
     for got in runs[world]:
         box = got["reduces"][arch]
         assert box["decodes"] > 0 and box["reduces"] == 0, box
