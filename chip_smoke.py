@@ -222,8 +222,10 @@ Runs from the repository root and needs the repository's ``src/``. It
      completions world 1's but at a near tie, each rank's KV cache half
      world 1's bytes), llama3-8b's one-shot launcher (tokens under the
      margin rule, the Q / K sites' rows -- K2's -- half world 1's at world
-     1's launches, every layer ticked ``split``) and its control (the
-     heads' all-reduce dropped: must part above the margin), phi4-mini's 2
+     1's launches, every layer ticked ``split``, the prefill logits within
+     ``TP_PREFILL_LIMIT`` of world 1's beside a witness) and its control (the
+     heads' all-reduce dropped: must part above the margin and fall outside
+     the logits' limit), phi4-mini's 2
      training steps (losses within ``MD_LOSS_LIMIT`` of (b)'s); (h) the
      experts, RWKV6 and Mamba2 over 'model', its ranks started beside (g)'s:
      two ranks at (1, 2), full width, ``launch.serve --mp 2`` for
@@ -236,7 +238,22 @@ Runs from the repository root and needs the repository's ``src/``. It
      reduce dropped: must part above the margin) and 2 training steps
      (losses within ``MD_LOSS_LIMIT`` of world 1's), then the shard-local
      K6 at a rank's 64 experts bitwise the whole launch's rows, both timed;
-     a ``phase multidevice:<x>`` line follows each of (d)-(h);
+     (i) per-launch sharding rules when serving, its ranks started beside
+     (g): ``ServeEngine(rules_overrides=launch.dryrun.decode_rules(...))``
+     at two ranks over gloo, full width, teacher-forced, against world 1 --
+     phi4-mini (4 layers) at (1, 2), the KV cache's rows over 'model' (each
+     rank's KV bytes exactly half world 1's; 8 K2 + 4 K4 a pass, world 1's
+     launches; tokens under the margin rule; prefill and decode logits
+     within ``TPI_LIMITS`` beside a witness and a control, the merge without
+     the common row maximum), llama4-maverick (one (attn, moe) group) at
+     (2, 1), its experts over 'data' beside the slots (one K6 a pass over a
+     rank's 64 experts, at decode on the 4 gathered rows; expert bytes
+     exactly half; tokens and logits held the same way, the control the
+     combine's sum dropped); then each serves serve_loop's stream through
+     ``engine.run`` (phi4 with ABFT on, its prompts and decodes crossing row
+     128): every request ok, no ABFT trip, rung 0, completions world 1's
+     under the margin rule; a ``phase multidevice:<x>`` line follows each
+     of (d)-(i);
  11. prints the kernels' JSON line (K1-K8, the ABFT twins, M1 and M2), then
      the result line ``{"ok": true, "device": {...}}`` last.
 
@@ -249,6 +266,7 @@ result line. Without a CUDA device it exits non-zero at once.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import math
 import os
@@ -4038,16 +4056,9 @@ def _md_engine_two_ranks(seed: int, started) -> None:
     stream = {r.rid: r.tokens for r in synthetic_stream(
         requests, vocab_size=cfg.vocab_size, prompt_len=(min(8, PREFILL_LEN), PREFILL_LEN),
         max_new_tokens=(8, 32), rate=0.5, seed=seed)}
-    wanted = {c[0]: c for c in want["completions"]}
     for r, res in enumerate(ranks):
-        parted = []
-        for rid, status, reason, toks in res["serve"]["completions"]:
-            ref = wanted[rid][3]
-            if toks == ref:
-                continue
-            j = next(i for i in range(min(len(toks), len(ref)) + 1)
-                     if i >= min(len(toks), len(ref)) or toks[i] != ref[i])
-            parted.append((rid, j, _teacher_margin(cfg, engine.params, stream[rid], ref[:j])))
+        parted = _stream_parting(cfg, engine.params, stream, res["serve"]["completions"],
+                                 want["completions"])
         statuses = [c[1:3] for c in res["serve"]["completions"]]
         print(f"rank {r}: slots {res['serve']['slots']}; {len(statuses)} requests, "
               f"statuses equal to world 1's "
@@ -4165,6 +4176,9 @@ def _md_families(seed: int, tmp: str) -> dict:
 # MD_TRAIN steps.
 TP_LAYERS = 4
 TP_RANK_ARGS = ("--device", "cuda:0", "--dist-backend", "gloo", "--mp", "2")
+# llama3-8b's prefill logits at (1, 2) against world 1's, relative L2: set
+# between the witness and the control (PERF.md, section 6)
+TP_PREFILL_LIMIT = 0.2
 
 # one rank of (g): the process group, then the three launchers on it, each
 # with its launches, its Q / K sites' rows (K2's) and its tensor_parallel
@@ -4204,9 +4218,13 @@ del engine
 torch.cuda.empty_cache()
 out, res["serve"] = counted(lambda: serve.main(one))
 res["tokens"] = out["tokens"].tolist()
+logits = {"tokens": torch.from_numpy(out["prefill_logits"])}
 reduce, C.reduce_from_model = C.reduce_from_model, lambda t, axes: t
-res["control"] = serve.main(one)["tokens"].tolist()
+out = serve.main(one)
+res["control"], logits["control"] = out["tokens"].tolist(), torch.from_numpy(out["prefill_logits"])
 C.reduce_from_model = reduce
+torch.save(logits, path + ".pt")
+del out
 torch.cuda.empty_cache()
 assert train.main(learn) == 0
 json.dump(res, open(path, "w"))
@@ -4249,6 +4267,31 @@ def _tp_argvs(seed: int, tmp: str):
     return loop, one, learn
 
 
+def _rel_l2(got, want) -> float:
+    """Relative L2 distance of ``got`` from ``want`` (in f64)."""
+    got = torch.as_tensor(got).double()
+    want = torch.as_tensor(want).double()
+    return float((got - want).norm() / want.norm())
+
+
+def hold_logits(what: str, got, want, limit: float, witness=None, control=None) -> dict:
+    """``got`` within ``limit`` (relative L2) of world 1's ``want``; the
+    ``witness`` (a correct path that differs from world 1 only in rounding
+    order) within it too, the ``control`` (a broken path) outside it.
+    Returns the readings."""
+    r = {k: _rel_l2(v, want) for k, v in (("got", got), ("witness", witness),
+                                          ("control", control)) if v is not None}
+    print(f"{what}: relative L2 from world 1 " + ", ".join(f"{k} {v:.6g}" for k, v in r.items())
+          + f" (limit {limit})")
+    if r["got"] > limit:
+        fail(f"{what}: {r['got']:.6g} from world 1's logits, over {limit}")
+    if r.get("witness", 0.0) > limit:
+        fail(f"{what}: the witness reads {r['witness']:.6g}, over {limit}")
+    if "control" in r and r["control"] <= limit:
+        fail(f"{what}: the control was not rejected ({r['control']:.6g} <= {limit})")
+    return r
+
+
 def _md_tensor_parallel(seed: int, tmp: str, train_want) -> None:
     """(g) tensor parallelism over 'model' at two ranks on the card over
     gloo, mesh (1, 2), full width, TP_LAYERS layers: phi4-mini's engine
@@ -4256,17 +4299,21 @@ def _md_tensor_parallel(seed: int, tmp: str, train_want) -> None:
     where they part at a near tie (world 1's margin at most MD_MARGIN),
     its KV cache half world 1's bytes; llama3-8b's one-shot launcher
     (fp8_e4m3, the grouped down site) -- tokens world 1's under the margin
-    rule, the Q / K sites' rows (K2's) half world 1's at world 1's K1 / K2 /
-    K4 launches, one ``("tensor_parallel", "attn", "split")`` tick a layer
-    and pass -- and its control, the heads' all-reduce dropped, which must
-    part above the margin; phi4-mini's MD_TRAIN steps, losses within
-    MD_LOSS_LIMIT of (b)'s world-1 losses (``train_want``). World 1's
-    engine and launcher run beside the ranks."""
+    rule, its prefill logits within TP_PREFILL_LIMIT of world 1's (the
+    witness: world 1 with the output projection summed in the split's two
+    row blocks), the Q / K sites' rows (K2's) half world 1's at world 1's
+    K1 / K2 / K4 launches, one ``("tensor_parallel", "attn", "split")``
+    tick a layer and pass -- and its control, the heads' all-reduce
+    dropped, which must part above the margin and fall outside the logits'
+    limit; phi4-mini's MD_TRAIN steps, losses within MD_LOSS_LIMIT of
+    (b)'s world-1 losses (``train_want``). World 1's engine and launcher
+    run beside the ranks."""
     import contextlib
     import io
 
     from repro_torch.launch import serve, serve_loop
     from repro_torch.serving import synthetic_stream
+    from repro_torch.testing.forcing import split_output_projection
 
     print(f"-- multidevice (g): tensor parallelism, two ranks on the card over gloo, "
           f"mesh (1, 2), full width, {TP_LAYERS} layers")
@@ -4277,6 +4324,8 @@ def _md_tensor_parallel(seed: int, tmp: str, train_want) -> None:
         engine = serve_loop.main(loop)
         with _QKRows() as qk:
             want, l_want = _counted(lambda: serve.main(one))
+        with split_output_projection(2):
+            witness = serve.main(one)["prefill_logits"]
     record, kv_bytes = _engine_record(engine), engine.summary()["kv_cache_bytes"]
     ranks = _join_ranks(procs, paths, "multidevice (g)")
     pcfg = engine.cfg
@@ -4315,6 +4364,9 @@ def _md_tensor_parallel(seed: int, tmp: str, train_want) -> None:
             if (name == "tokens") == bool(far):
                 fail(f"multidevice (g): rank {r}'s llama3-8b {name} "
                      + ("part from world 1's" if far else "were not rejected"))
+        logits = torch.load(paths[r] + ".pt")
+        hold_logits(f"multidevice (g): rank {r} llama3-8b prefill logits", logits["tokens"],
+                    want["prefill_logits"], TP_PREFILL_LIMIT, witness, logits["control"])
         print(f"rank {r} llama3-8b: Q / K rows {s['rows']} (world 1 {qk.rows}); launches "
               f"K1 {s['k1']}, K2 {s['k2']}, K4 {s['k4']} (world 1 {l_want['K1']}, "
               f"{l_want['K2']}, {l_want['K4']}); ticks {s['ticks']}")
@@ -4615,6 +4667,402 @@ def _k6_shard_local(seed: int) -> None:
     torch.cuda.empty_cache()
 
 
+# (i): per-launch sharding rules when serving -- two ranks over gloo on the
+# one card, ``ServeEngine(rules_overrides=decode_rules(cfg, ShapeSpec("engine",
+# "decode", max_len, slots)))``, teacher-forced (``testing.forcing``) and
+# serving a greedy stream through ``engine.run``, full width, each family
+# cut as below (mode, layers, model-parallel size):
+# phi4-mini at (1, 2) -- the KV cache's rows over 'model', the query heads
+# over 'model', the KV heads whole, fsdp None -- and maverick at (2, 1) --
+# its experts over 'data', the slots over 'data' too, so each MoE layer
+# gathers the rows. Each against world 1 at the same cut and rules. The
+# ranks start beside (g) (beside (d) a rank's draw ran the card out of
+# memory: (d)'s world-1 mixtral holds most of it) and have run phi4 before
+# (h)'s maverick draws begin; they wait for (h)'s end before maverick.
+TPI_MODELS = {"phi4-mini-3.8b": ("int8", 4, 2), "llama4-maverick-400b-a17b": ("fp8_e4m3", 2, 1)}
+TPI_WAITS = "llama4-maverick-400b-a17b"   # the run the ranks start after (h) ends
+TPI_PREFILL = {"phi4-mini-3.8b": 192, "llama4-maverick-400b-a17b": PREFILL_LEN}
+TPI_GEN = {"phi4-mini-3.8b": 24, "llama4-maverick-400b-a17b": 8}
+# phi4's teacher-forced prompt lengths, one a slot: decode crosses the
+# ranks' row boundary at 128 (112, 127), an insert splits over both ranks
+# (150), the whole bucket (192)
+TPI_PROMPTS = {"phi4-mini-3.8b": (112, 150, 127, 192)}
+# the served streams (serve_loop's knobs): phi4's prompts and decodes cross
+# row 128, with ABFT on (REPRO_ABFT=1)
+TPI_STREAM = {"phi4-mini-3.8b": ("--requests", "6", "--rate", "2.0", "--prompt-min", "100",
+                                 "--prompt-max", "192", "--gen-min", "16", "--gen-max", "32"),
+              "llama4-maverick-400b-a17b": ("--requests", "4", "--rate", "2.0", "--prompt-min",
+                                            "32", "--gen-min", "4", "--gen-max", "8")}
+TPI_ABFT = ("phi4-mini-3.8b",)
+# relative L2 of the ranks' logits from world 1's, (prefill, decode): above
+# the reading and its witness, below the control (PERF.md, section 6)
+TPI_LIMITS = {"phi4-mini-3.8b": (0.06, 0.08), "llama4-maverick-400b-a17b": (0.01, 0.01)}
+
+# one rank of (i): the process group, then per family its seeded weights
+# drawn once, the engine under decode_rules driven teacher-forced, itself
+# and under its control, with the launch counters zeroed just before and
+# read just after (K6's (rows, experts) per launch recorded); then a fresh
+# engine under the same rules serves serve_loop's stream (ABFT on where
+# asked); logits to a .pt beside the JSON results
+_TPI_RANK_CODE = """
+import json, os, sys, time, types, numpy as np, torch
+from repro_torch.distributed import collectives as C
+from repro_torch.kernels import quant_dot as qd
+from repro_torch.kernels.fused_quant import fused_dequant_cuda
+from repro_torch.kernels.hadacore import hadacore_cuda
+from repro_torch.launch import serve_loop
+from repro_torch.launch.dryrun import decode_rules
+from repro_torch.launch.mesh import COLLECTIVE_TIMEOUT_S, init_distributed, make_local_mesh
+from repro_torch.launch.shapes import ShapeSpec
+from repro_torch.models import mlp as M
+from repro_torch.models.lm import init_lm
+from repro_torch.serving import ServeEngine
+from repro_torch.testing.forcing import forced_logits
+path, runs, go = sys.argv[1], json.loads(sys.argv[2]), sys.argv[3]
+parent = os.getppid()
+init_distributed(torch.device("cuda:0"), "gloo", COLLECTIVE_TIMEOUT_S)
+k6_rows, k6 = [], qd.quant_dot_experts_cuda
+def spy(x4, *a):
+    k6_rows.append(list(x4.shape[:2]))
+    return k6(x4, *a)
+spy.launches = 0              # K6's own count lands here: it counts by its module name
+qd.quant_dot_experts_cuda = spy
+counters = {"K1": hadacore_cuda, "K2": fused_dequant_cuda, "K4": qd.quant_dot_cuda, "K6": spy}
+def no_common_max(t, axes, op="sum"):
+    return t if op == "max" else reduce(t, axes, op)
+def nbytes(tree):
+    if isinstance(tree, dict):
+        return sum(nbytes(v) for v in tree.values())
+    if hasattr(tree, "q"):
+        return sum(t.numel() * t.element_size() for t in (tree.q, tree.scale) if t is not None)
+    return tree.numel() * tree.element_size()
+res, logits, reduce = {}, {}, C.kvseq_all_reduce
+for arch, argv, mp, prompts, forced, control, wait, abft in runs:
+    while wait and not os.path.exists(go):
+        if os.getppid() != parent:
+            sys.exit(3)
+        time.sleep(0.2)
+    args = serve_loop.parse_args(argv)
+    cfg = serve_loop.config_of(args)
+    mesh = make_local_mesh(mp)
+    rules = decode_rules(cfg, ShapeSpec("engine", "decode", args.max_len, args.slots))
+    # the engine keeps its shards: the whole draw goes before the passes, and
+    # the control re-admits its prompts into the same engine
+    engine = ServeEngine(cfg, init_lm(cfg, seed=args.seed, device="cuda"),
+                         num_slots=args.slots, max_len=args.max_len,
+                         prefill_len=args.prefill_len, device="cuda", mesh=mesh,
+                         rules_overrides=rules)
+    torch.cuda.empty_cache()
+    for ctl in (None, control):
+        if ctl == "rescale":
+            C.kvseq_all_reduce = no_common_max
+        if ctl == "experts":
+            M.C = types.SimpleNamespace(**dict(vars(C), reduce_from_model=lambda t, axes: t))
+        for c in counters.values():
+            c.launches = 0
+        k6_rows.clear()
+        out = forced_logits(engine, prompts, np.array(forced))
+        torch.cuda.synchronize()
+        C.kvseq_all_reduce, M.C = reduce, C
+        logits[f"{arch}/{ctl}"] = out
+        if ctl is None:
+            experts = [nbytes(lp["moe"]["experts"]) for lp in engine.params["layers"] if "moe" in lp]
+            res[arch] = {"launches": {k: c.launches for k, c in counters.items()},
+                         "k6_rows": list(k6_rows), "experts": sum(experts),
+                         "kv_bytes": engine.summary()["kv_cache_bytes_rank"],
+                         "seq": [engine._seq.index, engine._seq.size, list(engine._seq.axes)],
+                         "slots": engine._slots.tolist(), "rules": rules}
+        del out
+    del engine
+    torch.cuda.empty_cache()
+    if abft:
+        os.environ["REPRO_ABFT"] = "1"
+    engine = ServeEngine(cfg, init_lm(cfg, seed=args.seed, device="cuda"),
+                         num_slots=args.slots, max_len=args.max_len,
+                         prefill_len=args.prefill_len, device="cuda", mesh=mesh,
+                         rules_overrides=rules)
+    torch.cuda.empty_cache()
+    engine.run(serve_loop.request_stream(args, cfg.vocab_size))
+    os.environ.pop("REPRO_ABFT", None)
+    res[arch]["stream"] = {"completions": sorted([c.rid, c.status, c.finish_reason,
+                                                  list(c.tokens)] for c in engine.completions),
+                           "health": engine.health()}
+    del engine
+    torch.cuda.empty_cache()
+    open(path + "." + arch, "w").close()
+torch.save(logits, path + ".pt")
+json.dump(res, open(path, "w"))
+torch.distributed.destroy_process_group()
+"""
+
+
+def _tpi_argv(arch: str, seed: int):
+    mode, layers, _ = TPI_MODELS[arch]
+    return _md_argv(arch, mode, seed) + ["--slots", str(SLOTS), "--max-len", str(MAX_LEN),
+                                         "--prefill-len", str(TPI_PREFILL[arch]),
+                                         "--layers", str(layers), *TPI_STREAM[arch]]
+
+
+def _tpi_traffic(arch: str, seed: int):
+    """(i)'s prompts, one per slot (TPI_PROMPTS' lengths, else 3/4 of the
+    prefill bucket up to all of it), and its (TPI_GEN, SLOTS) forced
+    tokens, drawn from ``seed``."""
+    from repro_torch.launch import serve_loop
+
+    vocab = serve_loop.config_of(serve_loop.parse_args(_tpi_argv(arch, seed))).vocab_size
+    P = TPI_PREFILL[arch]
+    rng = np.random.default_rng(seed + 27)
+    lengths = rng.integers(3 * P // 4, P + 1, SLOTS)
+    prompts = [rng.integers(0, vocab, int(n)).tolist()
+               for n in TPI_PROMPTS.get(arch, lengths)]
+    return prompts, rng.integers(0, vocab, (TPI_GEN[arch], SLOTS)).tolist()
+
+
+def _tpi_spawn(seed: int, tmp: str):
+    """Start (i)'s two ranks (beside (g)): (processes, result paths)."""
+    runs = []
+    for arch, (_, _, mp) in TPI_MODELS.items():
+        prompts, forced = _tpi_traffic(arch, seed)
+        control = "experts" if _num_experts(arch) else "rescale"
+        runs.append((arch, _tpi_argv(arch, seed), mp, prompts, forced, control,
+                     arch == TPI_WAITS, arch in TPI_ABFT))
+    return _spawn_ranks(_TPI_RANK_CODE, [json.dumps(runs), os.path.join(tmp, "tpi_go")],
+                        tmp, "tpi")
+
+
+def _num_experts(arch: str) -> int:
+    from repro_torch.configs import get_config
+
+    return get_config(arch).num_experts
+
+
+def _tpi_wait(started, arch: str, timeout: float = 600) -> None:
+    """Wait until both of (i)'s ranks have run ``arch`` (a rank that ended
+    fails the phase)."""
+    procs, paths = started
+    deadline = time.monotonic() + timeout
+    while not all(os.path.exists(p + "." + arch) for p in paths):
+        if any(p.poll() is not None for p in procs):
+            _join_ranks(procs, paths, "multidevice (i)")
+        if time.monotonic() > deadline:
+            fail(f"multidevice (i): the ranks did not finish {arch} within {timeout} s")
+        time.sleep(0.5)
+
+
+def _md_rules(seed: int, tmp: str, started) -> None:
+    """(i) per-launch sharding rules when serving at two ranks on the card
+    over gloo, ``decode_rules`` through ``ServeEngine(rules_overrides=)``,
+    full width, against world 1 (the engine without a mesh, the same cut
+    and rules; run here): phi4-mini (int8 + Hadamard, 4 layers) at (1, 2)
+    -- each rank's KV cache exactly half world 1's bytes; teacher-forced,
+    its greedy tokens world 1's under the margin rule, its prefill and
+    decode logits within TPI_LIMITS of world 1's (the witness: world 1
+    with its output projection summed in two row blocks; the control: the
+    merge without the common row maximum, outside), its K2 / K4 launches
+    world 1's, 8 K2 and 4 K4 a pass -- and llama4-maverick (fp8_e4m3, one
+    (attn, moe) group) at (2, 1) -- one K6 launch a pass over its 64 of
+    the 128 experts, on the whole batch's rows at decode (the rows
+    gathered), its expert weights exactly half world 1's bytes, its tokens
+    under the margin rule and its logits within TPI_LIMITS (the control:
+    the combine's sum over the experts' ranks dropped, outside). Each
+    family then serves serve_loop's stream (TPI_STREAM) through
+    ``engine.run`` on the ranks and at world 1, phi4 with ABFT on: every
+    request ok, no ABFT trip and rung 0 on every rank, the completions
+    world 1's under the margin rule (``_stream_parting``)."""
+    import io
+
+    from repro_torch.launch import serve_loop
+    from repro_torch.launch.dryrun import decode_rules
+    from repro_torch.launch.shapes import ShapeSpec
+    from repro_torch.models.lm import init_lm
+    from repro_torch.serving import ServeEngine
+    from repro_torch.testing.forcing import forced_logits, split_output_projection
+
+    print("-- multidevice (i): per-launch sharding rules (decode_rules), two ranks on the "
+          f"card over gloo, full width: {TPI_MODELS}")
+    t0 = time.perf_counter()
+    open(os.path.join(tmp, "tpi_go"), "w").close()
+    counters = {k: v for k, v in _counters().items() if k in ("K1", "K2", "K4", "K6")}
+    want = {}
+
+    def world_one(arch):
+        args = serve_loop.parse_args(_tpi_argv(arch, seed))
+        cfg = serve_loop.config_of(args)
+        rules = decode_rules(cfg, ShapeSpec("engine", "decode", args.max_len, args.slots))
+        params = init_lm(cfg, seed=args.seed, device="cuda")
+        prompts, forced = _tpi_traffic(arch, seed)
+        got = {"rules": rules, "cfg": cfg, "params": params}
+        witnesses = [("world 1", contextlib.nullcontext)]
+        if not cfg.num_experts:
+            witnesses.append(("witness", lambda: split_output_projection(2)))
+        for name, ctx in witnesses:
+            engine = ServeEngine(cfg, params, num_slots=args.slots, max_len=args.max_len,
+                                 prefill_len=args.prefill_len, device="cuda",
+                                 rules_overrides=rules)
+            with ctx(), contextlib.redirect_stdout(io.StringIO()):
+                out, launches = _counted(lambda: forced_logits(engine, prompts,
+                                                               np.array(forced)))
+            got[name] = out
+            if name == "world 1":
+                got["launches"] = {k: launches[k] for k in counters}
+                got["kv_bytes"] = engine.summary()["kv_cache_bytes_rank"]
+                got["experts"] = sum(_nbytes(lp["moe"]["experts"])
+                                     for lp in engine.params["layers"] if "moe" in lp)
+            del engine
+        stream = serve_loop.request_stream(args, cfg.vocab_size)
+        with _abft_env(arch in TPI_ABFT):
+            engine = ServeEngine(cfg, params, num_slots=args.slots, max_len=args.max_len,
+                                 prefill_len=args.prefill_len, device="cuda",
+                                 rules_overrides=rules)
+            engine.run(stream)
+        got["stream"] = _engine_record(engine)
+        got["prompts"] = {r.rid: r.tokens for r in stream}
+        del engine
+        torch.cuda.empty_cache()
+        want[arch] = got
+
+    def hold(arch, ranks, logits):
+        mode, layers, mp = TPI_MODELS[arch]
+        w1 = want.pop(arch)
+        passes = SLOTS + TPI_GEN[arch]
+        ref = torch.cat([w1["world 1"]["prefill"][None], w1["world 1"]["decode"]])
+        for r, res in enumerate(ranks):
+            got, out = res[arch], logits[r][f"{arch}/None"]
+            ctl = logits[r][f"{arch}/{'experts' if _num_experts(arch) else 'rescale'}"]
+            print(f"rank {r} {arch} ({mode}, {layers} layers, mesh ({2 // mp}, {mp})): rules "
+                  f"{got['rules']}; slots {got['slots']}; cache rows {got['seq']}; KV bytes "
+                  f"{got['kv_bytes']} (world 1 {w1['kv_bytes']}); expert bytes {got['experts']} "
+                  f"(world 1 {w1['experts']}); launches {got['launches']} (world 1 "
+                  f"{w1['launches']}, {passes} passes)")
+            if got["rules"] != json.loads(json.dumps(w1["rules"])):
+                fail(f"multidevice (i): rank {r}'s {arch} rules are not world 1's")
+            steps = torch.cat([out["prefill"][None], out["decode"]])
+            bad = _margin_parting(steps, ref)
+            print(f"rank {r} {arch}: tokens parting above the margin rule (step, row) {bad}; "
+                  f"argmax equal {float((steps.argmax(-1) == ref.argmax(-1)).float().mean()):.4f}")
+            if bad:
+                fail(f"multidevice (i): rank {r}'s {arch} tokens part from world 1's")
+            lim_pre, lim_dec = TPI_LIMITS[arch]
+            wit = w1.get("witness")
+            # no prefill control: the merge's takes no part in a prefill, and
+            # the combine's drop moves a prefill's last position only where
+            # its token routes to the other rank's experts
+            hold_logits(f"multidevice (i): rank {r} {arch} prefill logits", out["prefill"],
+                        w1["world 1"]["prefill"], lim_pre,
+                        None if wit is None else wit["prefill"])
+            hold_logits(f"multidevice (i): rank {r} {arch} decode logits", out["decode"],
+                        w1["world 1"]["decode"], lim_dec,
+                        None if wit is None else wit["decode"], ctl["decode"])
+            if got["launches"] != w1["launches"]:
+                fail(f"multidevice (i): rank {r}'s {arch} launches are not world 1's")
+            if _num_experts(arch):
+                e = _num_experts(arch)
+                rows = got["k6_rows"]
+                print(f"rank {r} {arch}: K6 launches (rows, experts) {rows}")
+                if 2 * got["experts"] != w1["experts"]:
+                    fail(f"multidevice (i): rank {r}'s maverick expert bytes are not half")
+                if len(rows) != passes or any(x[1] != e // 2 for x in rows) or \
+                        any(x[0] != SLOTS for x in rows[SLOTS:]):
+                    fail(f"multidevice (i): rank {r}'s maverick did not run one K6 a pass "
+                         "over its experts on the gathered rows")
+            else:
+                if 2 * got["kv_bytes"] != w1["kv_bytes"] or got["seq"][1] != 2:
+                    fail(f"multidevice (i): rank {r}'s phi4 KV cache is not half world 1's")
+                want_l = {"K1": 0, "K2": 2 * layers * passes, "K4": layers * passes, "K6": 0}
+                if got["launches"] != want_l:
+                    fail(f"multidevice (i): rank {r}'s phi4 launches are not {want_l}")
+            stream, ws = got["stream"], w1["stream"]
+            parted = _stream_parting(w1["cfg"], w1["params"], w1["prompts"],
+                                     stream["completions"], ws["completions"])
+            statuses = [c[1:3] for c in stream["completions"]]
+            print(f"rank {r} {arch} stream ({len(statuses)} requests, ABFT "
+                  f"{stream['health']['abft_enabled']}): statuses world 1's "
+                  f"{statuses == [c[1:3] for c in ws['completions']]}; tokens parting at (rid, "
+                  f"index, world-1 margin) {parted}; health {stream['health']} (world 1 "
+                  f"{ws['health']})")
+            for h in (stream["health"], ws["health"]):
+                if any(h[k] for k in HEALTH_ZERO) or h["abft_enabled"] != (arch in TPI_ABFT):
+                    fail(f"multidevice (i): {arch}'s stream did not serve cleanly: {h}")
+            if any(c[1] != "ok" for c in stream["completions"]) or \
+                    statuses != [c[1:3] for c in ws["completions"]]:
+                fail(f"multidevice (i): rank {r}'s {arch} stream statuses are not world 1's")
+            if any(m > MD_MARGIN for _, _, m in parted):
+                fail(f"multidevice (i): rank {r}'s {arch} stream parts from world 1's")
+        del w1
+        torch.cuda.empty_cache()
+
+    world_one("phi4-mini-3.8b")
+    t1 = time.perf_counter()
+    procs, paths = started
+    ranks = _join_ranks(procs, paths, "multidevice (i)", timeout=600)
+    logits = [torch.load(p + ".pt") for p in paths]
+    t2 = time.perf_counter()
+    hold("phi4-mini-3.8b", ranks, logits)
+    world_one(TPI_WAITS)          # after the ranks' maverick draws end
+    hold(TPI_WAITS, ranks, logits)
+    t3 = time.perf_counter()
+    print(f"(i) world 1's phi4 beside the ranks {t1 - t0:.1f} s, the ranks' wait "
+          f"{t2 - t1:.1f} s, world 1's maverick {t3 - t2:.1f} s")
+    torch.cuda.empty_cache()
+
+
+@contextlib.contextmanager
+def _abft_env(on: bool):
+    """``REPRO_ABFT=1`` within the block where ``on``: the engine reads it
+    when it is built, the layers at every pass."""
+    from repro_torch.verify.abft import ABFT_ENV
+
+    prev = os.environ.pop(ABFT_ENV, None)
+    if on:
+        os.environ[ABFT_ENV] = "1"
+    try:
+        yield
+    finally:
+        os.environ.pop(ABFT_ENV, None)
+        if prev is not None:
+            os.environ[ABFT_ENV] = prev
+
+
+def _stream_parting(cfg, params, prompts, got, want):
+    """The requests whose tokens part from world 1's: (rid, first index
+    that differs, world 1's top-1 / top-2 margin there, one prefill of the
+    prompt and world 1's tokens before it). ``got`` / ``want``: sorted
+    [rid, status, reason, tokens] completions; ``prompts``: rid -> prompt
+    tokens. A parting above MD_MARGIN fails the hold that reads it."""
+    wanted = {c[0]: c for c in want}
+    parted = []
+    for rid, _, _, toks in got:
+        ref = wanted[rid][3]
+        if toks == ref:
+            continue
+        j = next(i for i in range(min(len(toks), len(ref)) + 1)
+                 if i >= min(len(toks), len(ref)) or toks[i] != ref[i])
+        parted.append((rid, j, _teacher_margin(cfg, params, prompts[rid], ref[:j])))
+    return parted
+
+
+def _nbytes(tree) -> int:
+    """Bytes of a parameter tree's tensors (a QTensor's values and scales)."""
+    if isinstance(tree, dict):
+        return sum(_nbytes(v) for v in tree.values())
+    if hasattr(tree, "q"):
+        return sum(t.numel() * t.element_size() for t in (tree.q, tree.scale) if t is not None)
+    return tree.numel() * tree.element_size()
+
+
+def _margin_parting(got, want):
+    """(step, row) where the greedy tokens differ although world 1's top-1
+    / top-2 margin exceeds twice the row's largest logit gap."""
+    bad = []
+    for i, (g, w) in enumerate(zip(got, want)):
+        top2 = w.topk(2, dim=-1).values
+        margin = top2[:, 0] - top2[:, 1]
+        gap = (g - w).abs().amax(-1)
+        for r in torch.nonzero((g.argmax(-1) != w.argmax(-1)) & (margin > 2 * gap)):
+            bad.append((i, int(r)))
+    return bad
+
+
 def multidevice_phase(args, gen) -> dict:
     """The multi-device layer on the one card: (a) the sharded quant_dot's
     shard-local kernels at the full-width mesh layouts' shard shapes, (b)
@@ -4789,9 +5237,14 @@ def _phases(args, start: float, later) -> int:
         phase("multidevice:e", _md_engine_two_ranks, args.seed, started)
         for k, v in phase("multidevice:f", _md_families, args.seed, tmp).items():
             launches[k] += v
-        started = _tph_spawn(args.seed, tmp)     # (h)'s ranks run beside (g)
+        # (h)'s ranks and (i)'s run beside (g); (i)'s phi4 ends before (h)'s
+        # maverick draws begin, and (i)'s maverick waits for (h)'s end
+        started = _tph_spawn(args.seed, tmp)
+        rules_started = _tpi_spawn(args.seed, tmp)
         phase("multidevice:g", _md_tensor_parallel, args.seed, tmp, train_want)
+        _tpi_wait(rules_started, "phi4-mini-3.8b")
         phase("multidevice:h", _md_moe_recurrent, args.seed, tmp, started)
+        phase("multidevice:i", _md_rules, args.seed, tmp, rules_started)
 
     quant_dot_cu = "src/repro_torch/csrc/quant_dot.cu"
     experts_cu = "src/repro_torch/csrc/quant_dot_experts.cu"

@@ -50,6 +50,16 @@ of what is replicated.
 The sums run in f32 (a 16-bit tensor is widened, summed and rounded once).
 A parameter a layer keeps split (``gather_param(..., skip=)``) keeps its
 gradient on its rank: nothing sums it over 'model'.
+
+The serving presets' layouts (``launch.dryrun``):
+
+  * ``gather_rows`` all-gathers the batch rows over the axes they are split
+    over (a MoE layer whose experts share those axes routes every row on
+    every rank); its backward reduce-scatters the rows' gradient back.
+  * ``kvseq_all_reduce`` completes an attention split over the KV cache's
+    sequence ('kvseq'): the ranks' row maxima, then exp-sums, then f32
+    weighted V sums, each all-reduced (``models.attention._split_sdpa``).
+    Serving only: it raises under autograd.
 """
 from __future__ import annotations
 
@@ -63,7 +73,8 @@ from repro_torch.kernels.registry import f32_reciprocal
 
 __all__ = ["int8_ring_all_reduce", "shard_tree", "gather_tree", "gather_param",
            "gather_leaf", "leaf_axes", "row_sum", "copy_to_model", "reduce_from_model",
-           "gather_from_model", "sum_for_split", "model_slice"]
+           "gather_from_model", "sum_for_split", "model_slice", "gather_rows",
+           "kvseq_all_reduce"]
 
 
 def _quant(v: torch.Tensor):
@@ -325,3 +336,37 @@ def model_slice(t: torch.Tensor, split, dim: int = -1) -> torch.Tensor:
         return t
     n = t.shape[dim] // split.size
     return copy_to_model(t, split.axes).narrow(dim, split.index * n, n)
+
+
+# ------------------------------------------------- the serving presets
+class _GatherRows(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, mesh, axes):
+        ctx.mesh, ctx.axes = mesh, axes
+        return mesh.gather(t, axes, 0)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.mesh.reduce_scatter(g.contiguous(), ctx.axes, 0), None, None
+
+
+def gather_rows(t: torch.Tensor, axes) -> torch.Tensor:
+    """Every rank's batch rows (dim 0, split over ``axes`` in shard order),
+    concatenated; the backward sums the gradient over the ranks and keeps
+    this rank's rows (a reduce-scatter). ``t`` itself when ``axes`` is
+    empty."""
+    if not axes:
+        return t
+    return _GatherRows.apply(t, current_mesh(), tuple(axes))
+
+
+def kvseq_all_reduce(t: torch.Tensor, axes, op: str = "sum") -> torch.Tensor:
+    """``t`` summed (``op`` "sum") or maximised ("max") over the ranks
+    along ``axes``: the attention over a KV cache split over 'kvseq' merges
+    its ranks' row maxima, exp-sums and f32 weighted V sums with it.
+    Forward only (module docstring)."""
+    if torch.is_grad_enabled() and t.requires_grad:
+        raise NotImplementedError("the attention over a KV cache split over 'kvseq' "
+                                  "serves only: it has no backward")
+    reduce_op = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX}[op]
+    return current_mesh().all_reduce(t.contiguous(), axes, reduce_op)

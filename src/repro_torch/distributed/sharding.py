@@ -28,6 +28,23 @@ must through ``distributed.collectives`` (``copy_to_model``,
 ``model_slice``). The layers place their data themselves, so ``constrain``
 only checks the logical axes' count and returns its input: the identity, on
 and off a mesh.
+
+Two splits over the batch rows' own axes are taken on purpose
+(``model_split(..., rows_ok=True)``): the experts over 'data' of the
+serving preset ``launch.dryrun.decode_rules`` (the MoE layer gathers the
+rows first, ``models.mlp``) and the vocabulary over every axis of
+``FSDP_ONLY_RULES`` (the table is then storage only, ``models.lm``).
+
+The KV cache rows a rank holds: ``local_kvseq(split)`` says, as
+``local_rows`` does for the batch rows, that every cache's sequence dim is
+this rank's contiguous share ``split`` (the 'kvseq' rule's, resolved on the
+whole cache by its owner, ``serving.cache.seq_split``); ``kvseq_split()``
+reads it. The ownership of the rows is decided here and only here:
+``kvseq_start(T)`` is the global row of a share of T rows' first, and
+``kvseq_row(pos, T)`` places a global row (clamped onto the cache's last,
+which the last rank holds) in this rank's share. The attention's decode,
+the cache's insert, the ABFT KV sums and the engine's fault pokes read
+them.
 """
 from __future__ import annotations
 
@@ -39,7 +56,8 @@ Axis = Union[None, str, Tuple[str, ...]]
 
 __all__ = ["DEFAULT_RULES", "sharding_rules", "resolve_spec", "constrain",
            "make_resolver", "current_mesh", "local_rows", "row_axes", "axes_of",
-           "snapshot", "restored", "Split", "model_split", "model_size"]
+           "snapshot", "restored", "Split", "model_split", "model_size", "WHOLE",
+           "local_kvseq", "kvseq_split", "kvseq_start", "kvseq_row"]
 
 _state = threading.local()
 
@@ -66,6 +84,7 @@ def _ctx():
         _state.mesh = None
         _state.rules = dict(DEFAULT_RULES)
         _state.rows = ()
+        _state.kvseq = WHOLE
     return _state
 
 
@@ -99,12 +118,26 @@ def local_rows(axes: Tuple[str, ...]):
         st.rows = prev
 
 
-def snapshot():
-    """The calling thread's mesh, rules and row split, for
-    ``restored``: the autograd engine runs a CUDA backward (and the
-    recomputation of a checkpointed block) on a thread of its own."""
+@contextlib.contextmanager
+def local_kvseq(split: "Split"):
+    """Within the block, every KV cache holds this rank's contiguous share
+    ``split`` of its sequence rows (``WHOLE``: every row)."""
     st = _ctx()
-    return st.mesh, st.rules, st.rows
+    prev = st.kvseq
+    st.kvseq = split
+    try:
+        yield
+    finally:
+        st.kvseq = prev
+
+
+def snapshot():
+    """The calling thread's mesh, rules (the overrides included), row and
+    cache-row splits, for ``restored``: the autograd engine runs a CUDA
+    backward (and the recomputation of a checkpointed block) on a thread of
+    its own."""
+    st = _ctx()
+    return st.mesh, st.rules, st.rows, st.kvseq
 
 
 @contextlib.contextmanager
@@ -112,11 +145,11 @@ def restored(snap):
     """Run the block under a ``snapshot`` taken on another thread."""
     st = _ctx()
     prev = snapshot()
-    st.mesh, st.rules, st.rows = snap
+    st.mesh, st.rules, st.rows, st.kvseq = snap
     try:
         yield
     finally:
-        st.mesh, st.rules, st.rows = prev
+        st.mesh, st.rules, st.rows, st.kvseq = prev
 
 
 def row_axes() -> Tuple[str, ...]:
@@ -218,26 +251,58 @@ class Split(NamedTuple):
 WHOLE = Split(0, 1, ())
 
 
-def model_split(logical: str, n: int) -> Split:
+def _split_of(axes: Tuple[str, ...]) -> Split:
+    """This rank's part of a dim split over ``axes`` of the active mesh
+    (index 0 on a mesh that only describes a layout)."""
+    mesh = _ctx().mesh
+    if mesh is None or not axes or mesh.group_size(axes) == 1:
+        return WHOLE
+    index = 0 if getattr(mesh, "rank", None) is None else mesh.index(axes)
+    return Split(index, mesh.group_size(axes), tuple(axes))
+
+
+def model_split(logical: str, n: int, rows_ok: bool = False) -> Split:
     """The part of a dim of ``n`` units (heads, KV heads, hidden columns,
-    vocabulary rows) named ``logical`` that this rank computes: the rules'
-    mesh axes for that name, dropped where their size does not divide ``n``
-    (the parameters' guard, ``_build_parts``; index 0 on a mesh that only
-    describes a layout). ``WHOLE`` off a mesh and where no axis is left.
-    Raises when the
-    axes are also the batch rows' (ranks that hold other rows cannot share
-    a row's heads)."""
+    vocabulary rows, experts) named ``logical`` that this rank computes: the
+    rules' mesh axes for that name, dropped where their size does not divide
+    ``n`` (the parameters' guard, ``_build_parts``; index 0 on a mesh that
+    only describes a layout). ``WHOLE`` off a mesh and where no axis is
+    left. Raises when the axes are also the batch rows' (ranks that hold
+    other rows cannot share a row's heads), unless ``rows_ok``: the caller
+    handles that layout itself (module docstring)."""
     st = _ctx()
     if st.mesh is None:
         return WHOLE
     axes = axes_of(_build_parts(st.mesh, (logical,), (n,))[0])
-    if not axes or st.mesh.group_size(axes) == 1:
-        return WHOLE
-    if set(axes) & set(st.rows):
+    split = _split_of(axes)
+    if split.size > 1 and set(axes) & set(st.rows) and not rows_ok:
         raise NotImplementedError(f"{logical!r} split over {axes}, which the batch rows "
                                   f"{st.rows} are split over too")
-    index = 0 if getattr(st.mesh, "rank", None) is None else st.mesh.index(axes)
-    return Split(index, st.mesh.group_size(axes), axes)
+    return split
+
+
+def kvseq_split() -> Split:
+    """This rank's share of the KV caches' sequence rows (``local_kvseq``):
+    ``WHOLE`` unless a cache owner split them."""
+    return _ctx().kvseq
+
+
+def kvseq_start(T: int) -> int:
+    """The global row of this rank's first cache row, of a share of T."""
+    return kvseq_split().index * T
+
+
+def kvseq_row(pos, T: int):
+    """Global cache row ``pos`` (an int, or a tensor of them), clamped onto
+    the last of the cache's rows, within this rank's share of T rows: (the
+    local row, clamped into the share, and whether this rank holds it)."""
+    seq = kvseq_split()
+    total = seq.size * T
+    if isinstance(pos, int):
+        row = min(max(pos, 0), total - 1) - seq.index * T
+        return min(max(row, 0), T - 1), 0 <= row < T
+    row = pos.clamp(0, total - 1) - seq.index * T
+    return row.clamp(0, T - 1), (row >= 0) & (row < T)
 
 
 def model_size() -> int:

@@ -119,7 +119,9 @@ def _sync(device: torch.device) -> None:
 def main(argv=None) -> dict:
     """Serve one batch; returns {"cfg", "tokens" ((batch, gen) int64 numpy),
     "margins" ((batch, gen) f32 numpy: each greedy token's top-1 / top-2
-    logit gap), "prefill_s", "decode_steps", "decode_s", "tokens_per_s"}."""
+    logit gap), "prefill_logits" ((batch, vocab) f32 numpy: the prefill's
+    last-position logits), "prefill_s", "decode_steps", "decode_s",
+    "tokens_per_s"}."""
     harden_host_env()                 # variables only; re-exec is __main__'s
     args = parse_args(argv)
     device = resolve_device(args.device)
@@ -170,7 +172,7 @@ def _serve(args, device, mesh, cfg, prequant: bool) -> dict:
         batch = local_batch(batch, mesh, rows)
     with sharding_rules(mesh), local_rows(rows):
         out = _generate(args, device, cfg, params, batch, pos, max_len, say)
-    for key in ("tokens", "margins"):
+    for key in ("tokens", "margins", "prefill_logits"):
         if mesh is not None:
             out[key] = mesh.gather(out[key], rows, 0)
         out[key] = out[key].cpu().numpy()
@@ -195,6 +197,7 @@ def _generate(args, device, cfg, params, batch, pos: int, max_len: int, say) -> 
         logits, caches = lm_prefill(cfg, params, batch)
         caches = pad_kv_caches(cfg, caches, max_len)
         tok, gap = _greedy(cfg, logits)
+        first = logits[:, -1, :cfg.vocab_size].float()
         _sync(device)
         t_prefill = time.perf_counter() - t0
         say(f"prefill: B={args.batch} S={args.prompt_len} in {t_prefill:.2f}s")
@@ -230,7 +233,7 @@ def _generate(args, device, cfg, params, batch, pos: int, max_len: int, say) -> 
         say(f"decode: {args.gen - 1} steps in {t_warm:.2f}s (0.0 tok/s "
             "steady-state; too few steps to separate the first)")
     return {"tokens": torch.cat(out, dim=1), "margins": torch.cat(gaps, dim=1),
-            "prefill_s": t_prefill,
+            "prefill_logits": first, "prefill_s": t_prefill,
             "decode_steps": steps, "decode_s": dt,
             "tokens_per_s": rate if steps > 0 else 0.0}
 

@@ -15,13 +15,18 @@ rotate -> quantize -> GEMM launch, K4, per layer; llama4-maverick's MoE
 layers run their 128 experts' down projections as one K6 launch. At full
 scale maverick's 48 layers do not fit one 80 GB card.
 ``REPRO_QUANT_DOT_SCHEDULE=streamed`` takes the streamed kernels, K5 and
-K6s.) Serves a seeded Poisson arrival stream (0.5 arrivals per decode step,
-prompts of 8 to --prefill-len tokens, 8 to 32 new tokens each) on the CUDA
-device (``--device cpu`` runs the plain versions on the CPU)
+K6s.) Serves a seeded Poisson arrival stream (``--rate`` arrivals per
+decode step, 0.5 by default; prompts of ``--prompt-min`` to ``--prompt-max``
+tokens, 8 to --prefill-len by default; ``--gen-min`` to ``--gen-max`` new
+tokens each, 8 to 32; ``--eos-id`` retires a request at that token) on
+the CUDA device (``--device cpu`` runs the plain versions on the CPU)
 and prints tokens/s, slot occupancy, p50/p99 per-token latency, the
 scheduler counters, the requests by status and the engine's ``health:``
 line (ladder rung, retries, watchdog, guard and ABFT trips). A warm-up
-step runs before the first request. ``REPRO_ABFT=1`` serves checksum-
+step runs before the first request. With ``--quant`` set the weights are
+pre-quantized at load; ``--no-prequant`` keeps them bf16, quantized at
+every consumer site (counted by ``quantize_weight_calls``), as the
+reference serves them. ``REPRO_ABFT=1`` serves checksum-
 verified steps (the ABFT twins K7a / K7b of the quant_dot kernels and the
 KV conservation check; a healthy run shows zero ``abft_*`` trips and
 rung=0), ``REPRO_NUMERIC_GUARDS=1`` the numerically guarded ones;
@@ -102,23 +107,43 @@ def cut_depth(cfg, layers: int):
     return dataclasses.replace(cfg, groups=tuple(groups))
 
 
-def build_engine(args, mesh=None):
-    """Arguments -> (engine, cfg): config, seeded weights pre-quantized
-    layer by layer on the device, engine (on ``mesh``: every rank draws
-    the whole model, the engine keeps its shards)."""
+def config_of(args):
+    """The served config the arguments ask for: scaled, cut in depth, its
+    quantization, its weights pre-quantized unless ``--no-prequant``."""
     quant = QuantConfig(mode=args.quant, rotate=args.rotate,
                         backend=args.kernel, kv_quant=args.quant != "none")
     cfg = scaled_config(get_config(args.arch), args.scale).with_quant(quant)
     if getattr(args, "layers", None):
         cfg = cut_depth(cfg, args.layers)
-    if args.quant != "none":
+    prequant = args.quant != "none" if args.prequant is None else args.prequant
+    if prequant:
         cfg = dataclasses.replace(cfg, weight_quant="int8")
+    return cfg
+
+
+def build_engine(args, mesh=None):
+    """Arguments -> (engine, cfg): config (``config_of``), seeded weights
+    (pre-quantized layer by layer on the device unless ``--no-prequant``),
+    engine (on ``mesh``: every rank draws the whole model, the engine keeps
+    its shards)."""
+    cfg = config_of(args)
     params = init_lm(cfg, seed=args.seed, device=args.device)
     engine = ServeEngine(cfg, params, num_slots=args.slots,
                          max_len=args.max_len, prefill_len=args.prefill_len,
-                         device=args.device, max_queue=args.max_queue,
-                         watchdog_ms=args.watchdog_ms, mesh=mesh)
+                         eos_id=args.eos_id, device=args.device,
+                         max_queue=args.max_queue, watchdog_ms=args.watchdog_ms,
+                         mesh=mesh)
     return engine, cfg
+
+
+def request_stream(args, vocab_size: int):
+    """The seeded Poisson stream the arguments ask for (the reference's
+    ``synthetic_stream`` call)."""
+    return synthetic_stream(
+        args.requests, vocab_size=vocab_size,
+        prompt_len=(args.prompt_min, args.prompt_max or args.prefill_len),
+        max_new_tokens=(args.gen_min, args.gen_max), rate=args.rate, seed=args.seed,
+        deadline_slack=args.deadline_slack)
 
 
 def parse_args(argv=None):
@@ -129,10 +154,23 @@ def parse_args(argv=None):
     ap.add_argument("--max-len", type=int, default=192)
     ap.add_argument("--prefill-len", type=int, default=64)
     ap.add_argument("--requests", type=int, default=32)
+    ap.add_argument("--rate", type=float, default=0.5,
+                    help="mean arrivals per decode step (Poisson)")
+    ap.add_argument("--prompt-min", type=int, default=8)
+    ap.add_argument("--prompt-max", type=int, default=0,
+                    help="0 = prefill-len")
+    ap.add_argument("--gen-min", type=int, default=8)
+    ap.add_argument("--gen-max", type=int, default=32)
     ap.add_argument("--quant", default="none",
                     choices=["none", "int8", "fp8_e4m3", "fp8_e5m2"])
     ap.add_argument("--rotate", default="none", choices=["none", "hadamard"])
     ap.add_argument("--kernel", default="cuda", choices=["cuda", "torch"])
+    ap.add_argument("--prequant", dest="prequant", action="store_true",
+                    default=None,
+                    help="pre-quantize weights ONCE at load into QTensors; "
+                         "default: on whenever --quant is not 'none'")
+    ap.add_argument("--no-prequant", dest="prequant", action="store_false")
+    ap.add_argument("--eos-id", type=int, default=None)
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--layers", type=int, default=None,
@@ -180,12 +218,7 @@ def _serve_loop(args, mesh):
         f"rotate={cfg.quant.rotate} kernel={cfg.quant.backend} "
         f"weights={cfg.weight_quant} device={engine.device}")
     say(f"warmup: {engine.warmup():.2f}s")
-    stream = synthetic_stream(
-        args.requests, vocab_size=cfg.vocab_size,
-        prompt_len=(min(8, args.prefill_len), args.prefill_len),
-        max_new_tokens=(8, 32), rate=0.5, seed=args.seed,
-        deadline_slack=args.deadline_slack)
-    engine.run(stream)
+    engine.run(request_stream(args, cfg.vocab_size))
     s = engine.summary()
     say(f"served {s['requests']} requests / {s['generated_tokens']} tokens "
         f"in {s['decode_steps']} decode steps ({s['idle_steps']} idle)")

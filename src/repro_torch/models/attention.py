@@ -24,6 +24,21 @@ this rank's partial sum, taken in f32 and completed by an all-reduce
 caches hold the rank's KV heads. Where 'kv' does not divide but 'heads'
 does, K / V stay whole on every rank (cache included) and each rank reads
 the KV heads its query heads map to.
+
+The KV cache split over its sequence ('kvseq', the serving preset
+``launch.dryrun.decode_rules``; ``sharding.kvseq_split``): a decode step's
+caches hold this rank's contiguous share of the T rows. The new row goes
+to the rank that owns row ``pos`` (a position past the cache to the last
+row, which the last rank owns). Each rank computes the partial softmax of
+its rows with their global positions in the mask (so a sliding window
+stays right): the scores' row max and exp-sum all-reduced first, then the
+globally normalised weights rounded to the value dtype as ``_sdpa`` rounds
+them, their f32 product with the rank's V rows summed over the ranks and
+rounded once (``_split_sdpa``). Where the query heads split over axes the cache rows
+split over too, a rank lacks the queries of heads it holds rows for: the
+(B, 1, H_rank, hd) queries are all-gathered over the heads' axes first (a
+few KB a step), every head's partials computed and merged, and the rank's
+own heads taken before the output projection. Prefill stays local.
 """
 from __future__ import annotations
 
@@ -33,7 +48,8 @@ import torch
 
 from repro_torch.core.api import RotationSpec
 from repro_torch.distributed import collectives as C
-from repro_torch.distributed.sharding import WHOLE, constrain, model_split
+from repro_torch.distributed.sharding import (WHOLE, constrain, kvseq_row, kvseq_split,
+                                              kvseq_start, model_split)
 from repro_torch.kernels.registry import cast_to, f32_reciprocal
 from repro_torch.models.common import (apply_rope_angles, dense_init, dtype_of,
                                       mrope_angles, rope_freqs)
@@ -212,11 +228,11 @@ def _causal_mask(cfg, S: int, T: int, device) -> torch.Tensor:
     return m[None, None]
 
 
-def _decode_mask(cfg, cache_pos: torch.Tensor, T: int, device) -> torch.Tensor:
-    """The decode step's mask over the T cache rows: (B, 1, 1, T) for
-    per-slot positions (B,), (1, 1, 1, T) for a shared scalar position;
-    the same window rule as ``_causal_mask``."""
-    kpos = torch.arange(T, dtype=torch.int32, device=device)
+def _decode_mask(cfg, cache_pos: torch.Tensor, T: int, device, start: int = 0) -> torch.Tensor:
+    """The decode step's mask over the T cache rows from global row
+    ``start``: (B, 1, 1, T) for per-slot positions (B,), (1, 1, 1, T) for a
+    shared scalar position; the same window rule as ``_causal_mask``."""
+    kpos = torch.arange(start, start + T, dtype=torch.int32, device=device)
     pos = cache_pos[:, None] if cache_pos.ndim == 1 else cache_pos.reshape(1, 1)
     m = kpos[None] <= pos
     if cfg.sliding_window:
@@ -308,6 +324,9 @@ def decode_attention(cfg, p, x: torch.Tensor, cache_k: torch.Tensor,
     k = apply_rope_angles(k, ang)
     q, k = _rotate_quant_qk(cfg, q, k)
     v = _v_spec(cfg, v.shape[-1])(v)
+    seq = kvseq_split()
+    if seq.size > 1:
+        return _decode_attention_kvseq(cfg, p, q, k, v, cache_k, cache_v, cache_pos, seq)
     row = cache_pos.clamp(0, cache_k.shape[1] - 1)
     if cache_pos.ndim == 1:
         slots = torch.arange(B, device=x.device)
@@ -319,5 +338,84 @@ def decode_attention(cfg, p, x: torch.Tensor, cache_k: torch.Tensor,
     mask = _decode_mask(cfg, cache_pos, cache_k.shape[1], x.device)
     ctx = _sdpa(cfg, q, *_kv_for_heads(cfg, cache_k.to(q.dtype), cache_v.to(q.dtype)),
                 mask)
+    return (constrain(_out_proj(cfg, ctx, p["wo"]), "batch", "seq", None),
+            cache_k, cache_v)
+
+
+def _write_owned_row(cache: torch.Tensor, new: torch.Tensor, cache_pos: torch.Tensor) -> None:
+    """Write ``new`` (B, KH, hd) at global row ``cache_pos`` of every slot
+    whose row this rank's share of the rows holds (``sharding.kvseq_row``);
+    the other slots' rows are rewritten with their own values (a select, no
+    host sync)."""
+    B, T = cache.shape[0], cache.shape[1]
+    pos = cache_pos if cache_pos.ndim == 1 else cache_pos.reshape(1).expand(B)
+    row, mine = kvseq_row(pos, T)
+    slots = torch.arange(B, device=cache.device)
+    # selected as bits: not every device has a select over the fp8 dtypes
+    raw = {1: torch.uint8, 2: torch.int16, 4: torch.int32}[cache.element_size()]
+    bits = cache.view(raw)
+    bits[slots, row] = torch.where(mine[:, None, None], cast_to(new, cache.dtype).view(raw),
+                                   bits[slots, row])
+
+
+def _weighted_values(w: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """f32 (B, KH, G, S, hd) of the weights w (B, KH, G, S, T) times v (B,
+    T, KH, hd): exact products, f32 sums. On the card a 16-bit pair goes
+    into one batched product with an f32 result, as in ``_scores`` (no f32
+    copy of the cache); the CPU widens both sides."""
+    B, KH, G, S, T = w.shape
+    hd = v.shape[-1]
+    if w.device.type == "cuda" and w.dtype in (torch.bfloat16, torch.float16) \
+            and v.dtype == w.dtype:
+        a = w.reshape(B * KH, G * S, T)
+        b = v.permute(0, 2, 1, 3).reshape(B * KH, T, hd)
+        return torch.bmm(a, b, out_dtype=torch.float32).reshape(B, KH, G, S, hd)
+    return torch.einsum("bkgst,btkd->bkgsd", w.to(torch.float32), v.to(torch.float32))
+
+
+def _split_sdpa(q, k, v, mask, axes) -> torch.Tensor:
+    """``_sdpa`` of the queries q (B, S, H, hd) over the KV rows k / v (B,
+    T, KH, hd) this rank holds of a cache split over ``axes`` (mask (B or
+    1, 1, 1, T) at their global positions): the f32 scores' row max and
+    then their exp-sum all-reduced (tiny (B, KH, G, S, 1) tensors), the
+    weights divided by the global sum and rounded to the value dtype as
+    ``_sdpa`` rounds them, their product with this rank's V rows in f32,
+    summed over the ranks and rounded once. A rank whose rows are all
+    masked reads the f32 minimum, which the common maximum sends to 0."""
+    B, S, H, hd = q.shape
+    KH = k.shape[2]
+    scores = _scores(q.reshape(B, S, KH, H // KH, hd), k) * f32_reciprocal(math.sqrt(hd))
+    neg = torch.finfo(torch.float32).min
+    scores = torch.where(mask[:, :, None], scores, torch.full_like(scores, neg))
+    mx = C.kvseq_all_reduce(scores.amax(-1, keepdim=True), axes, "max")
+    e = torch.exp(scores - mx)
+    w = e / C.kvseq_all_reduce(e.sum(-1, keepdim=True), axes)
+    ctx = C.kvseq_all_reduce(_weighted_values(w.to(v.dtype), v), axes)
+    return ctx.permute(0, 3, 1, 2, 4).reshape(B, S, H * hd).to(v.dtype)
+
+
+def _decode_attention_kvseq(cfg, p, q, k, v, cache_k, cache_v, cache_pos, seq):
+    """``decode_attention`` with the caches' rows split over ``seq`` (module
+    docstring): the owned write, the attention over this rank's rows
+    merged over the ranks, then the rank's heads through the output
+    projection."""
+    B, S, H_rank, hd = q.shape
+    T = cache_k.shape[1]
+    _write_owned_row(cache_k, k[:, 0], cache_pos)
+    _write_owned_row(cache_v, v[:, 0], cache_pos)
+    hs, ks = head_splits(cfg)
+    gather = bool(set(hs.axes) & set(seq.axes))
+    if gather and ks.size > 1:
+        raise NotImplementedError(f"the KV heads split over {ks.axes} beside cache rows "
+                                  f"split over {seq.axes}")
+    mask = _decode_mask(cfg, cache_pos, T, q.device, kvseq_start(T))
+    ck, cv = cache_k.to(q.dtype), cache_v.to(q.dtype)
+    if gather:
+        q = C.gather_from_model(q, hs.axes, 2)        # every head's queries
+    else:
+        ck, cv = _kv_for_heads(cfg, ck, cv)
+    ctx = _split_sdpa(q, ck, cv, mask, seq.axes)
+    if gather:
+        ctx = ctx.narrow(-1, hs.index * H_rank * hd, H_rank * hd)
     return (constrain(_out_proj(cfg, ctx, p["wo"]), "batch", "seq", None),
             cache_k, cache_v)

@@ -75,11 +75,14 @@ and hidden columns, and caches its KV heads and its heads' recurrent state.
 The vocabulary is split in every model: the embedding looks its rows up
 where they live and sums the ranks' rows; the logits contract with this
 rank's vocabulary rows and are all-gathered whole, so the loss and the
-greedy argmax read whole logits. Each layer of each pass on a
-tensor-parallel mesh ticks ``TRACE_COUNTS[("tensor_parallel", kind, "split"
-| "replicated")]``: an attention layer whose heads and hidden width do not
-divide the axis runs replicated; a MoE, RWKV6 or Mamba2 layer that cannot
-split raises.
+greedy argmax read whole logits. Where the rules put the vocabulary over
+the axes the batch rows split over too (``launch.dryrun.FSDP_ONLY_RULES``
+while decoding), the table is storage only: gathered whole before use, as
+any 'fsdp' leaf, and the whole vocabulary computed (``vocab_split``).
+Each layer of each pass on a tensor-parallel mesh ticks
+``TRACE_COUNTS[("tensor_parallel", kind, "split" | "replicated")]``: an
+attention layer whose heads and hidden width do not divide the axis runs
+replicated; a MoE, RWKV6 or Mamba2 layer that cannot split raises.
 """
 from __future__ import annotations
 
@@ -92,9 +95,9 @@ from repro_torch.core.wquant import (QTensor, _is_consumer, dequant_tree, is_qle
                                      qweight_specs, quantize_leaf)
 from repro_torch.device import resolve_device
 from repro_torch.distributed import collectives as C
-from repro_torch.distributed.sharding import (_ctx, axes_of, constrain, current_mesh,
+from repro_torch.distributed.sharding import (WHOLE, _ctx, axes_of, constrain, current_mesh,
                                               make_resolver, model_size, model_split,
-                                              restored, snapshot)
+                                              restored, row_axes, snapshot)
 from repro_torch.kernels.registry import TRACE_COUNTS
 from repro_torch.models import attention as A
 from repro_torch.models import mlp as M
@@ -257,8 +260,16 @@ def _splits(cfg: ModelConfig, keys) -> dict:
         split = {"heads": hs, "kv": ks, "dff": M.dff_split(cfg)}
     if keys[-1] == "w_down" or keys[-2:] == ("cmix", "wv"):
         split.pop("dff")                # a down site contracts its rows whole
-    split["vocab"] = model_split("vocab", cfg.padded_vocab)
+    split["vocab"] = vocab_split(cfg)
     return split
+
+
+def vocab_split(cfg: ModelConfig):
+    """This rank's split of the vocabulary: ``WHOLE`` where its axes are
+    also the batch rows' (the table is then storage only, module
+    docstring)."""
+    vs = model_split("vocab", cfg.padded_vocab, rows_ok=True)
+    return WHOLE if set(vs.axes) & set(row_axes()) else vs
 
 
 def _local_dims(cfg: ModelConfig, spec, parts, keys) -> Tuple[int, ...]:
@@ -407,7 +418,7 @@ def _embed(cfg: ModelConfig, params, tokens: torch.Tensor) -> torch.Tensor:
     looks up the tokens whose rows it holds, zeros for the others, and the
     ranks' rows are summed (one rank's row and zeros: exact)."""
     emb = _top(cfg, params, "emb")
-    vs = model_split("vocab", cfg.padded_vocab)
+    vs = vocab_split(cfg)
     if vs.size > 1:
         rows = cfg.padded_vocab // vs.size
         tokens = tokens - vs.index * rows
@@ -427,7 +438,7 @@ def _logits(cfg: ModelConfig, params, x: torch.Tensor) -> torch.Tensor:
     """Logits over the padded vocabulary, whole on every rank (with the
     vocabulary split over 'model', this rank's columns all-gathered)."""
     x = apply_norm(cfg, _top(cfg, params, "final_norm"), x)
-    axes = model_split("vocab", cfg.padded_vocab).axes
+    axes = vocab_split(cfg).axes
     x = C.copy_to_model(x, axes)
     if cfg.tie_embeddings:
         logits = x @ dequant_tree(_top(cfg, params, "emb"), x.dtype).T

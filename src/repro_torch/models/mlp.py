@@ -34,6 +34,18 @@ the experts split as the dense MLP does (``expert_dff_split``). x reaches the
 split products through ``copy_to_model``; the router's gradient through the
 combine weights is summed over 'model' (``copy_to_model`` on ``combine``
 before its slice), through the aux loss counted once (it is replicated).
+
+Experts over the batch rows' own axes (the serving preset
+``launch.dryrun.decode_rules``: experts over 'data', their hidden width
+over 'model', the dispatch replicated over the rows, 'moebatch' None): the
+layer all-gathers the rows' tokens over the axes they split over
+(``collectives.gather_rows``), routes every gathered token alike on every
+rank, runs its E / D experts on them (one K6 launch, or mixtral's grouped
+path), sums the experts' f32 share over the experts' axes and keeps its
+own rows, rounded once. The experts' hidden width splits over 'model'
+wherever 'dff' and 'experts' take different axes (``expert_dff_split``);
+the down site contracts the gathered hidden width whole, so nothing is
+summed over 'model'. That layout serves only: it raises under autograd.
 """
 from __future__ import annotations
 
@@ -46,7 +58,8 @@ from repro_torch.core import wquant
 from repro_torch.core.api import QuantDotSpec
 from repro_torch.distributed import collectives as C
 from repro_torch.distributed.collectives import row_sum
-from repro_torch.distributed.sharding import WHOLE, constrain, model_split
+from repro_torch.distributed.sharding import (WHOLE, constrain, current_mesh, model_split,
+                                              row_axes)
 from repro_torch.kernels.registry import QSPECS
 from repro_torch.models.common import dense_init, dtype_of
 
@@ -106,15 +119,19 @@ def dff_split(cfg):
 
 
 def expert_split(cfg):
-    """This rank's split of the MoE layer's experts over 'model'."""
-    return model_split("experts", cfg.num_experts)
+    """This rank's split of the MoE layer's experts (over 'model' by
+    default; over the rows' 'data' under ``decode_rules``, module
+    docstring)."""
+    return model_split("experts", cfg.num_experts, rows_ok=True)
 
 
 def expert_dff_split(cfg):
-    """This rank's split of the experts' hidden width over 'model': the
-    dense MLP's where the experts do not split (``_build_parts`` hands
-    'model' to 'dff' there), else whole."""
-    return WHOLE if expert_split(cfg).size > 1 else dff_split(cfg)
+    """This rank's split of the experts' hidden width: the dense MLP's
+    where it takes other axes than the experts (``_build_parts`` hands
+    'model' to 'dff' where the experts do not divide it, and the serving
+    preset splits the experts over 'data'), else whole."""
+    es, fs = expert_split(cfg), dff_split(cfg)
+    return WHOLE if set(es.axes) & set(fs.axes) else fs
 
 
 def apply_mlp(cfg, p, x: torch.Tensor) -> torch.Tensor:
@@ -212,8 +229,10 @@ def apply_moe(cfg, p, x: torch.Tensor):
     ranks (``row_sum``) before their product. Inference, which drops the
     loss, keeps this rank's rows' statistics and moves nothing. Capacity
     and dispatch stay per row."""
-    B, S, _ = x.shape
     E, K = cfg.num_experts, cfg.experts_per_token
+    x_own, rows = x, _gathered_rows(cfg)
+    x = C.gather_rows(x, rows)
+    B, S, _ = x.shape
     cap = max(1, int(cfg.capacity_factor * S * K / E))
 
     gates = _route(p, x)                                           # (B,S,E)
@@ -231,11 +250,13 @@ def apply_moe(cfg, p, x: torch.Tensor):
     es, fs = expert_split(cfg), expert_dff_split(cfg)
     we = p["experts"]
     if es.size > 1:
-        # this rank's experts: its slice of the dispatch and combine
+        # this rank's experts: its slice of the dispatch and combine (the
+        # gathered rows' combine is this rank's alone: no sum to take)
         n = E // es.size
         dispatch = dispatch.narrow(2, es.index * n, n)
-        combine = C.model_slice(combine, es, 2)
-    axes = es.axes or fs.axes
+        combine = (combine.narrow(2, es.index * n, n) if rows
+                   else C.model_slice(combine, es, 2))
+    axes = fs.axes if rows else (es.axes or fs.axes)
     xin = torch.einsum("bsec,bsd->becd", dispatch.to(x.dtype), C.copy_to_model(x, axes))
     xin = constrain(xin, "moebatch", "experts", None, None)
     h = (_act(cfg, torch.einsum("becd,edf->becf", xin, we["w_gate"]))
@@ -246,18 +267,35 @@ def apply_moe(cfg, p, x: torch.Tensor):
                                    weight_axes=_EXPERT_DOWN_AXES)
     yout = spec.bind_experts(we["w_down"])(h)                      # (B,E,cap,d)
     if es.size > 1:
-        # this rank's experts' share in f32, summed over 'model', rounded once
+        # this rank's experts' share in f32, summed over their axes, rounded once
         y = torch.einsum("bsec,becd->bsd", combine.to(x.dtype).to(torch.float32),
                          yout.to(torch.float32))
-        y = C.reduce_from_model(y, es.axes).to(x.dtype)
+        y = C.reduce_from_model(y, es.axes)
+        if rows:
+            y = current_mesh().chunk(y, rows, 0)          # this rank's rows
+            sel, gates = (current_mesh().chunk(t, rows, 0) for t in (sel, gates))
+        y = y.to(x.dtype)
     else:
         y = torch.einsum("bsec,becd->bsd", combine.to(x.dtype), yout)
     y = constrain(y, "batch", "seq", None)
     if cfg.moe_shared_expert:
-        y = y + apply_mlp(cfg, p["shared"], x)
+        y = y + apply_mlp(cfg, p["shared"], x_own)
     density, router = _batch_mean(sel.sum(2)), _batch_mean(gates)  # (E,)
     aux = E * (density * router).sum()
     return y, aux
+
+
+def _gathered_rows(cfg):
+    """The row axes the MoE layer gathers its tokens over: the batch rows'
+    where the experts split over some of them (module docstring), else
+    ``()``."""
+    rows = row_axes()
+    if not set(expert_split(cfg).axes) & set(rows):
+        return ()
+    if torch.is_grad_enabled():
+        raise NotImplementedError("experts split over the batch rows' axes serve only: "
+                                  "the layer has no training form")
+    return rows
 
 
 def _batch_mean(t: torch.Tensor) -> torch.Tensor:

@@ -96,6 +96,21 @@ scheduler, positions, completions, counters -- is the same on every rank:
 
 ``summary()`` and ``health()`` are then the global counts (a world-1
 engine's); the times are each rank's.
+
+Per-launch sharding rules (``rules_overrides``: the reference's argument;
+the presets ``launch.dryrun.decode_rules`` and ``FSDP_ONLY_RULES``): the
+engine resolves its weight shards, its slot split and its caches, and runs
+every prefill, insert, decode, guard and ABFT step, under the default rules
+updated by them (``distributed.sharding.sharding_rules``); off a mesh they
+change nothing. Where they split the KV cache's sequence ('kvseq',
+``serving.cache.seq_split``) a rank holds ``max_len / D`` rows of each of
+its slots: it inserts the prompt rows it owns, the decode step writes row
+``pos`` on its owner and merges the ranks' partial attention
+(``models.attention``), and the ABFT KV sums are each rank's share, the
+verdicts agreed as the heads' are (a fault in one rank's rows retires the
+slot everywhere). Where they split the experts over the slots' own axes
+(``decode_rules`` for MoE) each MoE layer gathers the rows first
+(``models.mlp``).
 """
 from __future__ import annotations
 
@@ -114,11 +129,12 @@ from repro_torch import verify
 from repro_torch.core import guards, wquant
 from repro_torch.device import resolve_device
 from repro_torch.distributed.collectives import gather_tree, shard_tree
-from repro_torch.distributed.sharding import local_rows, sharding_rules
+from repro_torch.distributed.sharding import (WHOLE, kvseq_row, local_kvseq, local_rows,
+                                              sharding_rules)
 from repro_torch.kernels.registry import TRACE_COUNTS, warn_once
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.lm import lm_decode_step, lm_forward, param_parts
-from repro_torch.serving.cache import alloc_kv_caches, cache_bytes, insert_kv
+from repro_torch.serving.cache import alloc_kv_caches, cache_bytes, insert_kv, seq_split
 from repro_torch.serving.scheduler import Completion, Request, Scheduler
 from repro_torch.testing import faults
 
@@ -192,12 +208,14 @@ class ServeEngine:
     """Drives prefill / insert / decode over a request stream on
     ``device`` (the params must already live there). ``mesh``: serve on
     it (module docstring); ``params`` are then the whole model, of which
-    the engine keeps this rank's shards."""
+    the engine keeps this rank's shards. ``rules_overrides``: the sharding
+    rules' overrides it serves under (module docstring)."""
 
     def __init__(self, cfg: ModelConfig, params, *, num_slots: int,
                  max_len: int, prefill_len: int, eos_id: Optional[int] = None,
                  device="cuda", max_queue: Optional[int] = None,
-                 watchdog_ms: Optional[float] = None, mesh=None):
+                 watchdog_ms: Optional[float] = None, mesh=None,
+                 rules_overrides: Optional[Dict[str, Any]] = None):
         _validate_config(cfg)
         self.cfg = cfg
         self.device = resolve_device(device)
@@ -210,20 +228,25 @@ class ServeEngine:
         # ABFT: weights quantized without checksums get them here, once
         params = verify.with_checks(params) if self._abft else params
         self.mesh = mesh
+        self.rules_overrides = rules_overrides
         self._rows: tuple = ()                  # the mesh axes the slots split over
         self._slots = np.arange(num_slots)      # the slots this rank decodes
+        self._seq = WHOLE                       # this rank's share of the cache rows
         if mesh is not None:
             from repro_torch.launch.steps import batch_row_axes
 
-            with sharding_rules(mesh):
+            with self._rules():
                 self._parts = param_parts(cfg, mesh)
                 params = shard_tree(params, self._parts, mesh)
-            self._rows = batch_row_axes(mesh, num_slots)
+                self._rows = batch_row_axes(mesh, num_slots)
+                self._seq = seq_split(cfg, num_slots, max_len)
             self._slots = mesh.chunk(torch.arange(num_slots), self._rows, 0).numpy()
         self._local = {int(s): i for i, s in enumerate(self._slots)}
         self.params = params
-        # the ONE cache allocation of the engine's lifetime (this rank's slots)
-        self.caches = alloc_kv_caches(cfg, len(self._slots), max_len, self.device, mesh)
+        # the ONE cache allocation of the engine's lifetime (this rank's
+        # slots, its share of their rows)
+        with self._rules(), self._kv_rows():
+            self.caches = alloc_kv_caches(cfg, len(self._slots), max_len, self.device, mesh)
         # ABFT KV conservation state: per slot [sum, abs_sum] of its valid rows
         self.kv_sums = (torch.zeros((len(self._slots), 2), dtype=torch.float32,
                                     device=self.device) if self._abft else None)
@@ -258,12 +281,24 @@ class ServeEngine:
         return self._guard or self._abft
 
     # ------------------------------------------------------------- mesh
+    def _rules(self):
+        """The engine's sharding rules on its mesh; none off a mesh."""
+        if self.mesh is None:
+            return contextlib.nullcontext()
+        return sharding_rules(self.mesh, self.rules_overrides)
+
+    def _kv_rows(self):
+        """The context in which the caches hold this rank's share of their
+        rows (``sharding.local_kvseq``): every op that reads or writes
+        them runs in it."""
+        return local_kvseq(self._seq)
+
     def _on_mesh(self, rows):
         """The sharding context of a device op whose batch rows split over
         ``rows`` (``()``: every rank holds every row); none off a mesh."""
         stack = contextlib.ExitStack()
         if self.mesh is not None:
-            stack.enter_context(sharding_rules(self.mesh))
+            stack.enter_context(self._rules())
             stack.enter_context(local_rows(rows))
         return stack
 
@@ -274,7 +309,8 @@ class ServeEngine:
     def _agree(self, ok: torch.Tensor) -> torch.Tensor:
         """Per-slot verdicts of this rank's slots, each true only where it
         is on every rank that holds the slot (their KV heads differ under
-        tensor parallelism); ``ok`` off a mesh."""
+        tensor parallelism, their cache rows under a 'kvseq' split); ``ok``
+        off a mesh."""
         if self.mesh is None:
             return ok
         others = tuple(a for a in self.mesh.axis_names if a not in self._rows)
@@ -291,6 +327,20 @@ class ServeEngine:
 
     def _owns(self, slot: int) -> bool:
         return slot in self._local
+
+    def _local_row(self, row: int) -> Optional[int]:
+        """Cache row ``row`` within this rank's share of the rows; None
+        where another rank holds it (or ``row`` is negative)."""
+        with self._kv_rows():
+            local, mine = kvseq_row(row, self.caches[0]["k"].shape[1])
+        return local if mine and row >= 0 else None
+
+    def _insert(self, slot: int, kv) -> None:
+        """Write a prefill's KV block into ``slot``'s rows this rank holds
+        (none where another rank holds the slot)."""
+        if self._owns(slot):
+            with self._kv_rows():
+                insert_kv(self.caches, kv, self._local[slot])
 
     # --------------------------------------------------------- device ops
     @torch.inference_mode()
@@ -317,7 +367,7 @@ class ServeEngine:
         self.decode_calls += 1
         tokens = torch.from_numpy(self.tokens_h[self._slots]).to(self.device)
         pos = torch.from_numpy(self.positions_h[self._slots]).to(self.device)
-        with self._on_mesh(self._rows):
+        with self._on_mesh(self._rows), self._kv_rows():
             logits, self.caches = lm_decode_step(self._run_cfg, self.params,
                                                  self.caches, tokens, pos)
         tok = torch.argmax(logits[:, -1], dim=-1)
@@ -339,13 +389,15 @@ class ServeEngine:
             return self._warmup_s
         t0 = time.perf_counter()
         out = self._prefill(np.zeros((1, self.prefill_len), np.int64), 1)
-        insert_kv(self.caches, out[-1], 0)
+        with self._kv_rows():
+            insert_kv(self.caches, out[-1], 0)
         out = self._decode()
         int((out[0] if self._guarded else out)[0])
         if self._abft:
             pos = torch.zeros(len(self._slots), dtype=torch.long, device=self.device)
-            _, cur = verify.kv_check(self.caches, pos, self.kv_sums)
-            verify.kv_roll(self.caches, pos, cur).sum().item()
+            with self._kv_rows():
+                _, cur = verify.kv_check(self.caches, pos, self.kv_sums)
+                verify.kv_roll(self.caches, pos, cur).sum().item()
         self._warmup_s = time.perf_counter() - t0
         self._qw_calls_baseline = wquant.QUANTIZE_WEIGHT_CALLS
         return self._warmup_s
@@ -419,8 +471,7 @@ class ServeEngine:
             self.completions.append(self.sched.retire(
                 slot, self._trip_reason(), float(self.step)))
             return
-        if self._owns(slot):
-            insert_kv(self.caches, kv, self._local[slot])
+        self._insert(slot, kv)
         tok_h = int(tok)                  # waits for the device
         dt_ms = (time.perf_counter() - t0) * 1e3
         TRACE_COUNTS[("serving", "prefill_insert")] += 1
@@ -432,7 +483,8 @@ class ServeEngine:
         self.positions_h[slot] = st.pos
         if self._abft and self._owns(slot):
             # insert rewrote the slot's rows: re-anchor its conservation sum
-            verify.kv_slot_reset(self.kv_sums, self.caches, self._local[slot], st.pos)
+            with self._kv_rows():
+                verify.kv_slot_reset(self.kv_sums, self.caches, self._local[slot], st.pos)
         self._maybe_retire(slot, tok_h)
 
     def _maybe_retire(self, slot: int, last_tok: int) -> bool:
@@ -495,8 +547,8 @@ class ServeEngine:
         if plan is None:
             return
         if plan.should_poke(self.step):
-            row = int(self.positions_h[plan.nan_poke_slot]) - 1
-            if row >= 0 and self._owns(plan.nan_poke_slot):
+            row = self._local_row(int(self.positions_h[plan.nan_poke_slot]) - 1)
+            if row is not None and self._owns(plan.nan_poke_slot):
                 faults.poke_nan(self.caches, self._local[plan.nan_poke_slot], row)
         if plan.should_corrupt(self.step):
             kind = plan.corrupt_kind
@@ -505,8 +557,8 @@ class ServeEngine:
             elif kind == "tile":
                 plan.undo.append(faults.clobber_stream_tile(self.params))
             elif kind == "kv":
-                row = int(self.positions_h[plan.kv_corrupt_slot]) - 1
-                if row >= 0 and self._owns(plan.kv_corrupt_slot):
+                row = self._local_row(int(self.positions_h[plan.kv_corrupt_slot]) - 1)
+                if row is not None and self._owns(plan.kv_corrupt_slot):
                     faults.perturb_kv_row(self.caches, self._local[plan.kv_corrupt_slot],
                                           row)
             else:
@@ -618,8 +670,9 @@ class ServeEngine:
         """Re-anchor a slot retired mid-trip to the cache as it is now: its
         position stops advancing, so it verifies trivially until reuse."""
         if self._owns(slot):
-            verify.kv_slot_reset(self.kv_sums, self.caches, self._local[slot],
-                                 int(self.positions_h[slot]))
+            with self._kv_rows():
+                verify.kv_slot_reset(self.kv_sums, self.caches, self._local[slot],
+                                     int(self.positions_h[slot]))
 
     def _decode_step(self) -> None:
         t0 = time.perf_counter()
@@ -628,7 +681,8 @@ class ServeEngine:
         if self._abft:
             # the integrity gate on the caches the step is about to read
             pos = torch.from_numpy(self.positions_h[self._slots]).to(self.device)
-            kv_ok, cur = verify.kv_check(self.caches, pos, self.kv_sums)
+            with self._kv_rows():
+                kv_ok, cur = verify.kv_check(self.caches, pos, self.kv_sums)
             kv_ok = self._gather(self._agree(kv_ok))
         out = self._decode_with_recovery()
         if out is None:
@@ -637,7 +691,8 @@ class ServeEngine:
         new_tok, ok = out if self._guarded else (out, None)
         if self._abft:
             # roll the state over the row the step wrote per slot
-            self.kv_sums = verify.kv_roll(self.caches, pos, cur)
+            with self._kv_rows():
+                self.kv_sums = verify.kv_roll(self.caches, pos, cur)
         new_tok_h = new_tok.cpu().numpy()       # waits for the device
         ok_h = ok.cpu().numpy() if ok is not None else None
         kv_ok_h = kv_ok.cpu().numpy() if kv_ok is not None else None
@@ -727,6 +782,8 @@ class ServeEngine:
         by_status: Dict[str, int] = {}
         for c in self.completions:
             by_status[c.status] = by_status.get(c.status, 0) + 1
+        with self._rules(), self._kv_rows():
+            rank_bytes = cache_bytes(self.cfg, len(self._slots), self.max_len, self.mesh)
         return {
             "requests": len(self.completions),
             "generated_tokens": gen,
@@ -745,8 +802,7 @@ class ServeEngine:
             "quantize_weight_calls": self.quantize_weight_calls_during_serve(),
             "kv_cache_bytes": cache_bytes(self.cfg, self.sched.num_slots,
                                           self.max_len),
-            "kv_cache_bytes_rank": cache_bytes(self.cfg, len(self._slots), self.max_len,
-                                               self.mesh),
+            "kv_cache_bytes_rank": rank_bytes,
             "rung": self._rung,
             "guards_enabled": int(self._guard),
             "abft_enabled": int(self._abft),

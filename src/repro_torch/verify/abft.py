@@ -28,7 +28,11 @@ the match. Non-finite differences are left to the logits guard
 (``core.guards``), so the engine can tell silent corruption from numeric
 overflow. The port's caches are per-layer (slots, T, KH, hd) views of one
 K and one V allocation (``serving.cache``): the sums reduce over those
-allocations, a few operations per step rather than a few per layer.
+allocations, a few operations per step rather than a few per layer. Of a
+cache split over its rows (this rank's share of a mesh's 'kvseq' split,
+``distributed.sharding.local_kvseq``) the sums are this rank's share: its
+own rows' against its own running sums, the rows' positions global; the
+engine's verdict is the minimum over the ranks that hold the slot.
 """
 from __future__ import annotations
 
@@ -39,6 +43,7 @@ from typing import List, Tuple
 import torch
 
 from repro_torch.core import wquant
+from repro_torch.distributed.sharding import kvseq_row, kvseq_start
 
 __all__ = [
     "ABFT_ENV",
@@ -142,13 +147,16 @@ def _kv_storage(caches) -> List[torch.Tensor]:
 
 def kv_tree_sums(caches, pos: torch.Tensor) -> torch.Tensor:
     """Per-slot [sum, abs_sum] over the valid rows [0, pos[slot]) of every
-    cache leaf -> (slots, 2) f32. Rows at or after pos (prefill padding,
-    a retired slot's leftovers) are masked by a select after the per-row
-    sums, so stale values -- even non-finite ones -- never reach them."""
+    cache leaf (of this rank's share of them) -> (slots, 2) f32.
+    Rows at or after pos (prefill padding, a retired slot's leftovers) are
+    masked by a select after the per-row sums, so stale values -- even
+    non-finite ones -- never reach them."""
     total = None
     for leaf in _kv_storage(caches):
         T = leaf.shape[2]
-        keep = torch.arange(T, device=leaf.device)[None, :] < pos.to(leaf.device)[:, None]
+        start = kvseq_start(T)
+        rows = torch.arange(start, start + T, device=leaf.device)
+        keep = rows[None, :] < pos.to(leaf.device)[:, None]
         f = leaf.to(torch.float32)
         zero = torch.zeros((), dtype=torch.float32, device=leaf.device)
         s = torch.where(keep, f.sum(dim=(-2, -1)), zero).sum(dim=(0, 2))
@@ -160,15 +168,17 @@ def kv_tree_sums(caches, pos: torch.Tensor) -> torch.Tensor:
 
 def kv_row_delta(caches, pos: torch.Tensor) -> torch.Tensor:
     """Per-slot [sum, abs_sum] of the one row at pos[slot] of every cache
-    leaf -> (slots, 2) f32: the row the decode step just wrote."""
+    leaf -> (slots, 2) f32: the row the decode step just wrote (0 where
+    another rank holds that row)."""
     total = None
     for leaf in _kv_storage(caches):
         slots, T = leaf.shape[1], leaf.shape[2]
-        idx = pos.to(leaf.device).clamp(0, T - 1)
+        idx, mine = kvseq_row(pos.to(leaf.device), T)
         raw = leaf.view(torch.uint8) if leaf.element_size() == 1 else leaf
         rows = raw[:, torch.arange(slots, device=leaf.device), idx]
         rows = rows.view(leaf.dtype).to(torch.float32)
         cur = torch.stack([rows.sum(dim=(0, 2, 3)), rows.abs().sum(dim=(0, 2, 3))], -1)
+        cur = torch.where(mine[:, None], cur, torch.zeros((), device=cur.device))
         total = cur if total is None else total + cur
     return total
 
