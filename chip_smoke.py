@@ -202,8 +202,9 @@ Runs from the repository root and needs the repository's ``src/``. It
      ``MD_MARGIN``, each rank's down projections the fused sharded K4, no
      ``unfused_local`` -- and trained 2 steps at 4 layers, losses within
      ``MD_LOSS_LIMIT`` of (b)'s; (d) ``serve_loop --mp 1`` at world 1 over
-     NCCL for phi4-mini-3.8b (int8) and mixtral-8x7b (fp8_e4m3) at full
-     width and depth on its seeded stream of 8 requests, against the
+     NCCL for phi4-mini-3.8b (int8, full depth) and mixtral-8x7b
+     (fp8_e4m3, ``MD_MIXTRAL_LAYERS`` layers) at full width on its seeded
+     stream of 8 requests, against the
      engine without a process group (completions, statuses, ``health()``
      and launches equal); (e) phi4-mini's engine at two ranks on the card
      over gloo, mesh (2, 1), 2 of the 4 slots a rank, ``MD_ENGINE_LAYERS``
@@ -213,10 +214,11 @@ Runs from the repository root and needs the repository's ``src/``. It
      degrade one rung, with world 1's completions and health), the ranks
      started beside (d); (f) the
      nine other families' ``launch.serve --mp 1`` at world 1 over NCCL at
-     the model and launcher phases' depths (tokens and launches equal),
-     then mixtral-8x7b at two ranks over gloo, ``MD_MIXTRAL_LAYERS``
-     layers at full width (each rank's launches as derived from its rows,
-     tokens under the margin rule); (g) tensor parallelism over 'model':
+     the model and launcher phases' depths (maverick, llama3-405b and
+     mixtral cut to 2 layers; tokens and launches equal), beside
+     mixtral-8x7b at two ranks over gloo, ``MD_MIXTRAL_LAYERS`` layers at
+     full width (each rank's launches as derived from its rows, tokens
+     under the margin rule); (g) tensor parallelism over 'model':
      two ranks on the card over gloo at mesh (1, 2), full width,
      ``TP_LAYERS`` layers -- phi4-mini's engine (``serve_loop --mp 2``; its
      completions world 1's but at a near tie, each rank's KV cache half
@@ -252,13 +254,26 @@ Runs from the repository root and needs the repository's ``src/``. It
      combine's sum dropped); then each serves serve_loop's stream through
      ``engine.run`` (phi4 with ABFT on, its prompts and decodes crossing row
      128): every request ok, no ABFT trip, rung 0, completions world 1's
-     under the margin rule; a ``phase multidevice:<x>`` line follows each
-     of (d)-(i);
+     under the margin rule; (j) per-launch sharding rules in training:
+     phi4-mini at full width, ``TPJ_LAYERS``
+     layers, 4 x 512 tokens, f32 moments, two ranks at (1, 2) through
+     ``make_train_step(..., rules_overrides=)`` -- {"seqpar": "model"} over
+     the default rules against the same ranks without it (step-0 loss
+     bitwise, gradients within ``TPJ_SEQPAR_LIMIT`` beside a witness and a
+     control, each rank's bytes saved at the blocks' inputs half) and
+     ``FSDP_ONLY_RULES`` against world 1 (step-0 loss and gradients
+     bitwise, the control -- a backward summing over 'model' -- rejected,
+     parameter and moment bytes world 1's over the ranks), launches world
+     1's, 2 steps each (its ranks run beside the window, launcher and
+     launcher-family phases, and its phase line follows theirs); a ``phase
+     multidevice:<x>`` line follows each of (d)-(j);
  11. prints the kernels' JSON line (K1-K8, the ABFT twins, M1 and M2), then
      the result line ``{"ok": true, "device": {...}}`` last.
 
 A line ``phase <name> <s> s`` follows the build and each phase (each
-model of a model phase apart), and ``phase total <s> s`` the last phase.
+model of a model phase apart), ``phase total <s> s`` the last phase, and
+``phases: <name> <s>, ...`` repeats every one of them on one line just
+before the kernels' line.
 
 Any failed check raises: the script then exits non-zero and prints no
 result line. Without a CUDA device it exits non-zero at once.
@@ -3810,6 +3825,10 @@ def _md_two_ranks(seed: int, tmp: str, kept: dict) -> None:
     within MD_LOSS_LIMIT of (b)'s."""
     print("-- multidevice (c): two ranks on the one card over gloo, mesh (2, 1)")
     base = list(MD_RANK_ARGS)
+    path = os.path.join(tmp, "train_two.jsonl")
+    # the training ranks run beside the serving ones
+    training = _spawn_ranks(_RANK_CODE, _md_train_argv(seed) + base + ["--metrics-out", path],
+                            tmp, "train", lead=("train",))
     ranks = _md_ranks("serve", _md_serve_argv("phi4-mini-3.8b", "int8", seed) + base, tmp)
     want, margins = np.array(kept["serve"]["tokens"]), np.array(kept["serve"]["margins"])
     from repro_torch.configs import get_config
@@ -3832,8 +3851,7 @@ def _md_two_ranks(seed: int, tmp: str, kept: dict) -> None:
         if res["k4"] != layers * passes or unfused or not res["dispatch"].get("fused") \
                 or res["dispatch"].get("mesh_axes") != ["data"]:
             fail(f"multidevice (c): rank {r} did not run the fused sharded quant_dot")
-    path = os.path.join(tmp, "train_two.jsonl")
-    _md_ranks("train", _md_train_argv(seed) + base + ["--metrics-out", path], tmp)
+    _join_ranks(*training, "multidevice (c): train")
     two = _md_losses(path)
     gap = max(abs(a - b) for a, b in zip(two, kept["train"]))
     print(f"phi4-mini train at world 2 ({MD_TRAIN_LAYERS} layers): losses {two}, world 1 "
@@ -3843,33 +3861,30 @@ def _md_two_ranks(seed: int, tmp: str, kept: dict) -> None:
 
 
 # (d)-(f): the engine and every family on the mesh. (d) serve_loop at world 1
-# over NCCL against the engine without a process group, both at
-# model_phase's depth, on serve_loop's seeded stream of MD_LOOP_REQUESTS
-# requests; (e) phi4-mini's engine at two ranks on the card, depth cut to
+# over NCCL against the engine without a process group, on serve_loop's
+# seeded stream of MD_LOOP_REQUESTS requests: phi4-mini at model_phase's
+# depth, mixtral-8x7b at MD_MIXTRAL_LAYERS layers (world 1 bit for bit is a
+# property of the code path, not of depth; model_phase serves mixtral whole);
+# (e) phi4-mini's engine at two ranks on the card, depth cut to
 # MD_ENGINE_LAYERS layers; (f) the nine other families through launch.serve
 # at world 1 over NCCL (arch -> (mode, layers or None: the depth
-# launcher_model_phase / model_phase use)), MD_FAMILY_GEN greedy tokens
-# after a prompt of MD_FAMILY_PROMPT tokens (a vlm's after its patches),
-# then mixtral-8x7b at two ranks, MD_MIXTRAL_LAYERS layers.
-MD_LOOP_MODELS = (("phi4-mini-3.8b", "int8"), ("mixtral-8x7b", "fp8_e4m3"))
+# launcher_model_phase / model_phase use; maverick, llama3-405b and mixtral
+# cut to 2 layers, as (d)'s mixtral), MD_FAMILY_GEN greedy tokens after a
+# prompt of MD_FAMILY_PROMPT tokens (a vlm's after its patches), beside
+# mixtral-8x7b at two ranks, MD_MIXTRAL_LAYERS layers.
+MD_MIXTRAL_LAYERS = 2   # (d)'s mixtral; (f)'s two ranks: a 64-token prompt, MD_FAMILY_GEN greedy
+MD_LOOP_MODELS = (("phi4-mini-3.8b", "int8", None),
+                  ("mixtral-8x7b", "fp8_e4m3", MD_MIXTRAL_LAYERS))
 MD_LOOP_REQUESTS = 8
 MD_ENGINE_LAYERS = 4
 MD_FAMILIES = {
-    "llama4-maverick-400b-a17b": ("fp8_e4m3", 4),
-    "llama3-405b": ("fp8_e4m3", LLAMA3_405B_LAYERS),
+    "llama4-maverick-400b-a17b": ("fp8_e4m3", 2), "llama3-405b": ("fp8_e4m3", 2),
     "qwen1.5-4b": ("int8", None), "starcoder2-15b": ("fp8_e4m3", None),
-    "mixtral-8x7b": ("fp8_e4m3", None), "whisper-base": ("int8", None),
+    "mixtral-8x7b": ("fp8_e4m3", 2), "whisper-base": ("int8", None),
     "qwen2-vl-7b": ("fp8_e4m3", None), "rwkv6-7b": ("int8", None),
     "zamba2-7b": ("fp8_e4m3", None)}
 MD_FAMILY_PROMPT = 16
 MD_FAMILY_GEN = 4
-MD_MIXTRAL_LAYERS = 2   # its two ranks: a 64-token prompt, MD_FAMILY_GEN greedy tokens
-# the families whose world-1 runs fit on the card beside mixtral's two ranks;
-# the others (maverick's 35 GB, llama3-405b's 52 GB, mixtral's 47 GB) run
-# after the ranks end: beside them a rank's init ran the card out of memory
-MD_BESIDE_RANKS = ("qwen1.5-4b", "starcoder2-15b", "whisper-base", "qwen2-vl-7b",
-                   "rwkv6-7b", "zamba2-7b")
-
 # one rank of the two-ranks engine run: the process group first, then
 # serve_loop on it, then the engine under a FaultPlan raise, results as JSON
 _LOOP_RANK_CODE = """
@@ -3916,9 +3931,10 @@ def _engine_record(engine) -> dict:
 def _md_loop_world_one(seed: int) -> dict:
     """(d) ``serve_loop --mp 1`` under torchrun's variables at world 1
     (NCCL, mesh (1, 1)) against ``serve_loop`` without a process group:
-    phi4-mini (int8) and mixtral-8x7b (fp8_e4m3) at full width and depth on
-    serve_loop's seeded stream -- completions, statuses, ``health()`` and
-    launches equal. Returns the world-1 runs' launches."""
+    phi4-mini (int8, full depth) and mixtral-8x7b (fp8_e4m3,
+    MD_MIXTRAL_LAYERS layers) at full width on serve_loop's seeded stream
+    -- completions, statuses, ``health()`` and launches equal. Returns the
+    world-1 runs' launches."""
     import contextlib
     import gc
     import io
@@ -3927,8 +3943,9 @@ def _md_loop_world_one(seed: int) -> dict:
 
     print("-- multidevice (d): serve_loop --mp 1 at world 1 over NCCL")
     launches = {}
-    for arch, mode in MD_LOOP_MODELS:
-        argv = _loop_argv(arch, mode, seed, MD_LOOP_REQUESTS)
+    for arch, mode, layers in MD_LOOP_MODELS:
+        argv = _loop_argv(arch, mode, seed, MD_LOOP_REQUESTS) + (
+            ["--layers", str(layers)] if layers else [])
         got = []
         for extra, env in (([], None), (["--mp", "1"], _Torchrun(1, 0, _free_port()))):
             t0 = time.perf_counter()
@@ -4099,8 +4116,7 @@ def _md_families(seed: int, tmp: str) -> dict:
     derived from its rows (its expert site, d_ff 14336 = 7 x 2048, one
     grouped K1 a layer over the rank's dispatched rows; K2 twice a layer),
     its tokens world 1's under the margin rule. The two ranks run beside
-    the ``MD_BESIDE_RANKS`` families and mixtral's world-1 run at their
-    depth; the other three families after the ranks end. Returns the
+    the families and mixtral's world-1 run at their depth. Returns the
     world-1 runs' launches."""
     import contextlib
     import gc
@@ -4109,7 +4125,7 @@ def _md_families(seed: int, tmp: str) -> dict:
     from repro_torch.launch import serve
 
     print("-- multidevice (f): launch.serve --mp 1 at world 1 over NCCL, nine families; "
-          f"mixtral-8x7b at two ranks over gloo, {MD_MIXTRAL_LAYERS} layers, beside six of them")
+          f"mixtral-8x7b at two ranks over gloo, {MD_MIXTRAL_LAYERS} layers, beside them")
     t0 = time.perf_counter()
     mixtral = _family_argv("mixtral-8x7b", seed)
     mixtral[mixtral.index("--prompt-len") + 1] = str(PREFILL_LEN)
@@ -4139,14 +4155,11 @@ def _md_families(seed: int, tmp: str) -> dict:
 
     procs, paths = _spawn_ranks(_RANK_CODE, mixtral + list(MD_RANK_ARGS), tmp, "mixtral",
                                 lead=("serve",))
-    for arch in MD_BESIDE_RANKS:
+    for arch in MD_FAMILIES:
         world_one(arch)
     with contextlib.redirect_stdout(io.StringIO()):
         want, _ = _counted(lambda: serve.main(mixtral))
     ranks = _join_ranks(procs, paths, "multidevice (f)")
-    for arch in MD_FAMILIES:
-        if arch not in MD_BESIDE_RANKS:
-            world_one(arch)
     toks, margins = np.array(want["tokens"]), np.array(want["margins"])
     per_rank = {"K1": MD_MIXTRAL_LAYERS * MD_FAMILY_GEN,
                 "K2": 2 * MD_MIXTRAL_LAYERS * MD_FAMILY_GEN}
@@ -4292,7 +4305,14 @@ def hold_logits(what: str, got, want, limit: float, witness=None, control=None) 
     return r
 
 
-def _md_tensor_parallel(seed: int, tmp: str, train_want) -> None:
+def _tp_spawn(seed: int, tmp: str):
+    """Start (g)'s two ranks (beside (f)): (processes, result paths)."""
+    loop, one, learn = _tp_argvs(seed, tmp)
+    return _spawn_ranks(_TP_RANK_CODE, [json.dumps(a + list(TP_RANK_ARGS))
+                                        for a in (loop, one, learn)], tmp, "tp")
+
+
+def _md_tensor_parallel(seed: int, tmp: str, train_want, started) -> None:
     """(g) tensor parallelism over 'model' at two ranks on the card over
     gloo, mesh (1, 2), full width, TP_LAYERS layers: phi4-mini's engine
     (int8, the fused down site) -- each rank's completions world 1's but
@@ -4307,7 +4327,7 @@ def _md_tensor_parallel(seed: int, tmp: str, train_want) -> None:
     dropped, which must part above the margin and fall outside the logits'
     limit; phi4-mini's MD_TRAIN steps, losses within MD_LOSS_LIMIT of
     (b)'s world-1 losses (``train_want``). World 1's engine and launcher
-    run beside the ranks."""
+    run beside the ranks (``started``: ``_tp_spawn``'s, beside (f))."""
     import contextlib
     import io
 
@@ -4318,8 +4338,7 @@ def _md_tensor_parallel(seed: int, tmp: str, train_want) -> None:
     print(f"-- multidevice (g): tensor parallelism, two ranks on the card over gloo, "
           f"mesh (1, 2), full width, {TP_LAYERS} layers")
     loop, one, learn = _tp_argvs(seed, tmp)
-    procs, paths = _spawn_ranks(_TP_RANK_CODE, [json.dumps(a + list(TP_RANK_ARGS))
-                                                for a in (loop, one, learn)], tmp, "tp")
+    procs, paths = started
     with contextlib.redirect_stdout(io.StringIO()):
         engine = serve_loop.main(loop)
         with _QKRows() as qk:
@@ -4391,12 +4410,13 @@ def _md_tensor_parallel(seed: int, tmp: str, train_want) -> None:
 # (mode, layers), in this order: every rank holds its E / 2 experts, H / 2
 # RWKV6 or SSD heads and their states, its MoE layers' KV heads halved; then
 # mixtral's control (the combine's reduce over 'model' dropped) and its
-# MD_TRAIN steps. The ranks start beside (g) and wait for its end before
-# maverick: its whole draw (a rank's 16 GB of experts, before it keeps its
-# half) beside (g)'s runs ran the card out of memory.
+# MD_TRAIN steps. The ranks start beside (g) and wait for its end, and for
+# world 1's other (h) runs, before maverick: its whole draw (a rank's 16 GB of
+# experts, before it keeps its half) beside (g)'s runs, and beside those,
+# ran the card out of memory.
 TPH_MODELS = {"mixtral-8x7b": ("fp8_e4m3", 2), "rwkv6-7b": ("int8", 2),
               "zamba2-7b": ("fp8_e4m3", 6), "llama4-maverick-400b-a17b": ("fp8_e4m3", 2)}
-TPH_WAITS = "llama4-maverick-400b-a17b"   # the run the ranks start after (g) ends
+TPH_WAITS = "llama4-maverick-400b-a17b"   # the run the ranks start after the go file
 TPH_TRAIN = ("--opt-state", "int8")   # int8 moments: world 1 and both ranks fit beside (g)
 
 # the probe (h) runs in each rank and in this process: the launch counters,
@@ -4548,7 +4568,6 @@ def _md_moe_recurrent(seed: int, tmp: str, started) -> None:
     print("-- multidevice (h): experts, RWKV6 and Mamba2 over 'model', two ranks on the card "
           f"over gloo, mesh (1, 2), full width: {TPH_MODELS}")
     t0 = time.perf_counter()
-    open(_tph_go(tmp), "w").close()
     runs, learn = _tph_argvs(seed)
     ns = {}
     exec(_TPH_PROBE, ns)
@@ -4564,7 +4583,12 @@ def _md_moe_recurrent(seed: int, tmp: str, started) -> None:
                     del out
                     torch.cuda.empty_cache()
 
+    # the ranks' maverick draws (a rank's whole 16 GB of experts before it
+    # keeps its half) start once world 1's other families have run: beside
+    # both, the card ran out of memory
+    torch.cuda.empty_cache()
     world_one([a for a in TPH_MODELS if a != TPH_WAITS])
+    open(_tph_go(tmp), "w").close()
     t1 = time.perf_counter()
     procs, paths = started
     ranks = _join_ranks(procs, paths, "multidevice (h)", timeout=600)
@@ -5006,6 +5030,298 @@ def _md_rules(seed: int, tmp: str, started) -> None:
     torch.cuda.empty_cache()
 
 
+# (j): per-launch sharding rules in training on the one card -- two ranks over
+# gloo at mesh (1, 2), phi4-mini at full width, TPJ_LAYERS of its 32 layers,
+# int8 + Hadamard, 4 x 512 tokens (MD_TRAIN's), f32 moments: (a) residual
+# sequence parallelism ({"seqpar": "model"}) over the default, tensor-parallel
+# rules, against the same ranks without it; (b) FSDP_ONLY_RULES against world
+# 1, which each rank runs first. The ranks start before the window phase
+# and run beside it, the launcher and the launcher families.
+TPJ_LAYERS = TP_LAYERS
+TPJ_STEPS = 2
+TPJ_SEQ, TPJ_BATCH = 512, 4
+# (a)'s step-0 gradients, relative L2 per leaf from the same ranks' without
+# 'seqpar': set between the witness (world 1 with its block norms summed
+# over the two halves of the positions) and the control (the norms'
+# gradient not summed over 'model'); PERF.md, section 6
+TPJ_SEQPAR_LIMIT = 1e-4
+TPJ_SEQPAR = {"seqpar": "model"}
+
+# one rank of (j): this file's ``_tpj_rank``
+_TPJ_RANK_CODE = """
+import sys
+sys.path.insert(0, sys.argv[2])
+import chip_smoke
+chip_smoke._tpj_rank(sys.argv[1], int(sys.argv[3]))
+"""
+
+
+def _tpj_config():
+    from repro_torch.configs import get_config
+    from repro_torch.core.quant import QuantConfig
+    from repro_torch.launch.serve_loop import cut_depth
+
+    quant = QuantConfig(mode="int8", rotate="hadamard", backend="cuda", kv_quant=True)
+    return cut_depth(get_config("phi4-mini-3.8b").with_quant(quant), TPJ_LAYERS)
+
+
+def _tree_bytes(tree) -> int:
+    from repro_torch import tree as T
+
+    return sum(t.numel() * t.element_size() for t in T.leaves(tree)
+               if isinstance(t, torch.Tensor))
+
+
+def _per_leaf_rel(got, want) -> list:
+    """Each leaf's relative L2 distance of ``got`` from ``want`` (on the
+    card, in f32)."""
+    out = []
+    for a, b in zip(got, want):
+        a, b = a.float(), b.float()
+        den = float(b.norm())
+        out.append(float((a - b).norm()) / den if den else float(a.abs().max()))
+    return out
+
+
+def _shard_rel(mesh, got, want) -> tuple:
+    """(the largest relative L2 distance over the leaves, whether every
+    leaf is bitwise equal) of two sets of shards in one layout, whole: each
+    leaf's squared sums all-reduced (a leaf every rank holds whole counts
+    alike in both)."""
+    worst, same = 0.0, True
+    for a, b in zip(got, want):
+        a, b = a.float(), b.float()
+        sums = torch.stack([(a - b).square().sum(), b.square().sum(),
+                            (a != b).sum().float()]).double()
+        mesh.all_reduce(sums, ("data", "model"))
+        num, den, off = (float(x) for x in sums)
+        worst = max(worst, math.sqrt(num / den) if den else math.sqrt(num))
+        same = same and off == 0
+    return worst, same
+
+
+def _tpj_rank(path: str, seed: int) -> None:
+    """One rank of (j) (the comment above ``TPJ_LAYERS``): every reading as
+    JSON at ``path``. Each rank holds its gradient shards against world 1's
+    (which both ranks compute) or the same ranks' without 'seqpar', the
+    squared sums all-reduced, so no gradient is gathered; rank 0 runs world
+    1's steps while rank 1 reads the witness."""
+    import torch.distributed as dist
+
+    from repro_torch.data import SyntheticDataset
+    from repro_torch.distributed.collectives import shard_tree
+    from repro_torch.kernels import quant_dot as qd
+    from repro_torch.kernels.fused_quant import fused_dequant_cuda
+    from repro_torch.kernels.hadacore import hadacore_cuda
+    from repro_torch.launch.dryrun import FSDP_ONLY_RULES
+    from repro_torch.launch.mesh import (COLLECTIVE_TIMEOUT_S, init_distributed,
+                                         make_local_mesh)
+    from repro_torch.launch.shapes import ShapeSpec
+    from repro_torch.launch.steps import batch_to, make_train_step, state_parts
+    from repro_torch.models.lm import init_lm
+    from repro_torch.optim import OptConfig, init_opt_state
+    from repro_torch.testing.forcing import (norms_unsummed, split_positions, step_zero,
+                                             summed_over_model)
+
+    init_distributed(torch.device("cuda:0"), "gloo", COLLECTIVE_TIMEOUT_S)
+    mesh = make_local_mesh(2)
+    cfg = _tpj_config()
+    opt = OptConfig(lr=3e-4, warmup_steps=1, total_steps=TPJ_STEPS)
+    ds = SyntheticDataset(cfg, ShapeSpec("j", "train", TPJ_SEQ, TPJ_BATCH), seed=seed)
+    batches = [batch_to(ds.batch(i), "cuda") for i in range(TPJ_STEPS)]
+    counters = {"K1": hadacore_cuda, "K2": fused_dequant_cuda, "K4": qd.quant_dot_cuda}
+
+    def fresh():
+        return init_lm(cfg, seed=seed, device="cuda")
+
+    def counted(fn):
+        for c in counters.values():
+            c.launches = 0
+        out = fn()
+        torch.cuda.synchronize()
+        return out, {k: c.launches for k, c in counters.items()}
+
+    def train(rules):
+        """TPJ_STEPS steps: losses, each step's launches and ms, this
+        rank's parameter and moment bytes."""
+        params = fresh()
+        state = init_opt_state(params, opt)
+        if rules != "world 1":
+            pparts, oparts = state_parts(cfg, opt, mesh, rules)
+            params, state = shard_tree(params, pparts, mesh), shard_tree(state, oparts, mesh)
+        step = make_train_step(cfg, opt, **({} if rules == "world 1"
+                                            else {"mesh": mesh, "rules_overrides": rules}))
+        out = {"param_bytes": _tree_bytes(params),
+               "moment_bytes": _tree_bytes(state["m"]) + _tree_bytes(state["v"]),
+               "losses": [], "launches": [], "ms": []}
+        for b in batches:
+            t0 = time.perf_counter()
+            (params, state, m), n = counted(lambda: step(params, state, b))
+            out["ms"].append(1e3 * (time.perf_counter() - t0))
+            out["losses"].append(float(m["loss"]))
+            out["launches"].append(n)
+        del params, state
+        torch.cuda.empty_cache()
+        return out
+
+    res = {"rank": mesh.rank}
+    torch.cuda.reset_peak_memory_stats()
+    # world 1 on both ranks; then rank 0 its steps, rank 1 the witness of (a)
+    want, res["launches_w1"] = counted(lambda: step_zero(cfg, fresh(), batches[0]))
+    res["ce_w1"], res["saved_w1"] = want["ce"], want["saved"]
+    if mesh.rank == 0:
+        res["train_w1"] = train("world 1")
+    else:
+        with split_positions(2):
+            wit = step_zero(cfg, fresh(), batches[0])
+        res["witness"] = max(_per_leaf_rel(wit["grads"], want["grads"]))
+        del wit
+    dist.barrier()
+    # (a) the default rules with and without 'seqpar', then its control
+    base, res["launches_tp"] = counted(
+        lambda: step_zero(cfg, fresh(), batches[0], mesh, gather=False))
+    got, res["launches_seqpar"] = counted(
+        lambda: step_zero(cfg, fresh(), batches[0], mesh, TPJ_SEQPAR, gather=False))
+    with norms_unsummed():
+        ctrl = step_zero(cfg, fresh(), batches[0], mesh, TPJ_SEQPAR, gather=False)
+    for key, run in (("tp", base), ("seqpar", got)):
+        res[f"ce_{key}"], res[f"saved_{key}"], res[f"blocks_{key}"] = (
+            run["ce"], run["saved"], run["blocks"])
+    res["seqpar_grads"] = _shard_rel(mesh, got["grads"], base["grads"])[0]
+    res["seqpar_control"] = _shard_rel(mesh, ctrl["grads"], base["grads"])[0]
+    del base, got, ctrl
+    res["train_tp"], res["train_seqpar"] = train(None), train(TPJ_SEQPAR)
+    # (b) FSDP_ONLY_RULES against world 1's gradients cut to this rank's
+    # shards, then its control
+    fsdp, res["launches_fsdp"] = counted(
+        lambda: step_zero(cfg, fresh(), batches[0], mesh, FSDP_ONLY_RULES, gather=False))
+    mine = [shard_tree(t, pp, mesh) for t, pp in zip(want["grads"], fsdp["parts"])]
+    del want
+    res["ce_fsdp"] = fsdp["ce"]
+    res["fsdp_grads"], res["fsdp_bitwise"] = _shard_rel(mesh, fsdp["grads"], mine)
+    del fsdp
+    with summed_over_model():
+        ctrl = step_zero(cfg, fresh(), batches[0], mesh, FSDP_ONLY_RULES, gather=False)
+    res["fsdp_control"], res["fsdp_control_bitwise"] = _shard_rel(mesh, ctrl["grads"], mine)
+    del ctrl, mine
+    res["train_fsdp"] = train(FSDP_ONLY_RULES)
+    res["peak"] = torch.cuda.max_memory_allocated()
+    json.dump(res, open(path, "w"))
+    dist.destroy_process_group()
+
+
+def _tpj_spawn(seed: int, tmp: str):
+    """Start (j)'s two ranks: (processes, result paths)."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    return _spawn_ranks(_TPJ_RANK_CODE, [here, str(seed)], tmp, "tpj")
+
+
+def _split_bytes(cfg, rules) -> dict:
+    """World 1's parameter and f32-moment bytes, and a rank's under
+    ``rules`` at mesh (1, 2): each leaf's bytes over the ranks it splits
+    over."""
+    from repro_torch import tree as T
+    from repro_torch.distributed.collectives import leaf_axes
+    from repro_torch.distributed.sharding import sharding_rules
+    from repro_torch.launch.mesh import Mesh
+    from repro_torch.launch.steps import _is_spec, param_parts
+    from repro_torch.models.lm import init_lm
+
+    mesh = Mesh((1, 2), ("data", "model"))
+    shapes = T.leaves(init_lm(cfg, device="meta"))
+    with sharding_rules(mesh, rules):
+        parts = T.leaves(param_parts(cfg, mesh), _is_spec)
+    out = {"param": 0, "moment": 0, "param_rank": 0, "moment_rank": 0}
+    for t, pp in zip(shapes, parts):
+        n = mesh.group_size(leaf_axes(pp))
+        for key, size in (("param", t.element_size()), ("moment", 8)):
+            out[key] += t.numel() * size
+            out[key + "_rank"] += t.numel() * size // n
+    return out
+
+
+def _md_train_rules(seed: int, tmp: str, started) -> None:
+    """(j) per-launch sharding rules in training at two ranks on the card
+    over gloo, mesh (1, 2), phi4-mini at full width and TPJ_LAYERS layers,
+    int8 + Hadamard, TPJ_BATCH x TPJ_SEQ tokens, f32 moments, TPJ_STEPS
+    steps under each rule set. (a) {"seqpar": "model"} over the default
+    rules against the same ranks without it: the step-0 loss bitwise; the
+    gathered step-0 gradients within TPJ_SEQPAR_LIMIT (the witness inside,
+    the control outside); each rank's bytes saved at the blocks' inputs
+    half theirs; its K1 / K2 / K4 launches world 1's. (b) FSDP_ONLY_RULES
+    against world 1: the step-0 loss and gathered gradients bitwise (the
+    control, a backward that sums over 'model' too, not); each rank's
+    parameter and moment bytes world 1's over the ranks each leaf splits
+    over (half, but for the replicated norms); its launches world 1's. The
+    steps' losses within MD_LOSS_LIMIT of world 1's (and (a)'s of the
+    ranks' without 'seqpar'). Each rank's peak is printed."""
+    from repro_torch.launch.dryrun import FSDP_ONLY_RULES
+
+    procs, paths = started
+    print(f"-- multidevice (j): training under per-launch rules, two ranks on the card over "
+          f"gloo, mesh (1, 2), phi4-mini at full width, {TPJ_LAYERS} layers")
+    ranks = _join_ranks(procs, paths, "multidevice (j)", timeout=900)
+    lead = dict(ranks[0], witness=ranks[1]["witness"])
+    cfg = _tpj_config()
+    w1 = lead["train_w1"]
+    print(f"world 1 (rank 0): step-0 ce {lead['ce_w1']!r}, saved at the blocks' inputs "
+          f"{lead['saved_w1']} bytes, launches {lead['launches_w1']}; steps: losses "
+          f"{w1['losses']}, ms {[round(x, 1) for x in w1['ms']]}, launches "
+          f"{w1['launches']}, parameter bytes {w1['param_bytes']}, moment bytes "
+          f"{w1['moment_bytes']}")
+    print(f"(a) seqpar: gradients from the ranks' without it {lead['seqpar_grads']:.6g}, the "
+          f"witness {lead['witness']:.6g}, the control {lead['seqpar_control']:.6g} (limit "
+          f"{TPJ_SEQPAR_LIMIT})")
+    if lead["seqpar_grads"] > TPJ_SEQPAR_LIMIT or lead["witness"] > TPJ_SEQPAR_LIMIT:
+        fail("multidevice (j): the seqpar gradients (or the witness) are over the limit")
+    if lead["seqpar_control"] <= TPJ_SEQPAR_LIMIT:
+        fail("multidevice (j): the seqpar control was not rejected")
+    print(f"(b) FSDP_ONLY: gradients bitwise world 1's {lead['fsdp_bitwise']} (relative "
+          f"{lead['fsdp_grads']:.6g}); the control bitwise {lead['fsdp_control_bitwise']} "
+          f"(relative {lead['fsdp_control']:.6g})")
+    if not lead["fsdp_bitwise"] or lead["fsdp_control_bitwise"]:
+        fail("multidevice (j): FSDP_ONLY's gradients are not world 1's, or the control "
+             "was not rejected")
+    want = _split_bytes(cfg, FSDP_ONLY_RULES)
+    if (w1["param_bytes"], w1["moment_bytes"]) != (want["param"], want["moment"]):
+        fail("multidevice (j): world 1's parameter / moment bytes are not the model's")
+    for r, res in enumerate(ranks):
+        tp, sp, fs = res["train_tp"], res["train_seqpar"], res["train_fsdp"]
+        print(f"rank {r}: step-0 ce tp {res['ce_tp']!r} seqpar {res['ce_seqpar']!r} fsdp "
+              f"{res['ce_fsdp']!r}; saved at the blocks' inputs tp {res['saved_tp']} seqpar "
+              f"{res['saved_seqpar']} ({res['blocks_seqpar']} blocks); launches tp "
+              f"{res['launches_tp']} seqpar {res['launches_seqpar']} fsdp "
+              f"{res['launches_fsdp']}; peak {res['peak'] / 1e9:.2f} GB")
+        for name, run in (("tp", tp), ("seqpar", sp), ("fsdp", fs)):
+            print(f"rank {r} {name} steps: losses {run['losses']}, ms "
+                  f"{[round(x, 1) for x in run['ms']]}, launches {run['launches']}, "
+                  f"parameter bytes {run['param_bytes']}, moment bytes {run['moment_bytes']}")
+        if res["ce_seqpar"] != res["ce_tp"]:
+            fail(f"multidevice (j): rank {r}'s seqpar step-0 loss is not the ranks' without it")
+        if 2 * res["saved_seqpar"] != res["saved_tp"] or res["blocks_seqpar"] != TPJ_LAYERS:
+            fail(f"multidevice (j): rank {r}'s seqpar block inputs are not half")
+        if res["ce_fsdp"] != lead["ce_w1"]:
+            fail(f"multidevice (j): rank {r}'s FSDP_ONLY step-0 loss is not world 1's")
+        if (fs["param_bytes"], fs["moment_bytes"]) != (want["param_rank"],
+                                                        want["moment_rank"]):
+            fail(f"multidevice (j): rank {r}'s FSDP_ONLY parameter / moment bytes are not "
+                 f"world 1's over the ranks ({want['param_rank']} / {want['moment_rank']})")
+        for name in ("seqpar", "fsdp"):
+            if res[f"launches_{name}"] != lead["launches_w1"] or any(
+                    n != w1["launches"][0] for n in res[f"train_{name}"]["launches"]):
+                fail(f"multidevice (j): rank {r}'s {name} launches are not world 1's")
+        gaps = {"seqpar": max(abs(a - b) for a, b in zip(sp["losses"], tp["losses"])),
+                "fsdp": max(abs(a - b) for a, b in zip(fs["losses"], w1["losses"]))}
+        print(f"rank {r}: losses' largest gap, seqpar from tp {gaps['seqpar']:g}, FSDP_ONLY "
+              f"from world 1 {gaps['fsdp']:g} (limit {MD_LOSS_LIMIT})")
+        if max(gaps.values()) > MD_LOSS_LIMIT:
+            fail(f"multidevice (j): rank {r}'s losses part from world 1's")
+    print(f"(j) FSDP_ONLY bytes a rank: parameters {want['param_rank']} of world 1's "
+          f"{want['param']} ({want['param_rank'] / want['param']:.6f}), moments "
+          f"{want['moment_rank']} of {want['moment']} "
+          f"({want['moment_rank'] / want['moment']:.6f})")
+
+
 @contextlib.contextmanager
 def _abft_env(on: bool):
     """``REPRO_ABFT=1`` within the block where ``on``: the engine reads it
@@ -5136,9 +5452,13 @@ def phase(name: str, fn, *args):
     out = fn(*args)
     torch.cuda.synchronize()
     beside = beside or any(b.is_alive() for b in _BuildBeside.LIVE)
-    print(f"phase {name} {time.perf_counter() - t0:.1f} s"
-          + (" (beside nvcc)" if beside else ""), flush=True)
+    spent = time.perf_counter() - t0
+    PHASES.append((name, spent))
+    print(f"phase {name} {spent:.1f} s" + (" (beside nvcc)" if beside else ""), flush=True)
     return out
+
+
+PHASES = []   # (name, wall s) of every phase line, in order
 
 
 def main() -> int:
@@ -5170,7 +5490,8 @@ def main() -> int:
     spent = build.build([build.Target(f"{stem}.cu") for stem in build.sources()] + mutants)
     print(f"kernel build: {time.perf_counter() - t0:.1f} s "
           + " ".join(f"{k}={v:.1f}s" for k, v in spent.items()))
-    print(f"phase build {time.perf_counter() - t0:.1f} s", flush=True)
+    PHASES.append(("build", time.perf_counter() - t0))
+    print(f"phase build {PHASES[-1][1]:.1f} s", flush=True)
     later = _BuildBeside([t for t in build.LINT_TARGETS
                           if t.name not in {m.name for m in mutants}])
     try:
@@ -5205,12 +5526,20 @@ def _phases(args, start: float, later) -> int:
         for k, v in got.items():
             launches[k] = launches.get(k, 0) + v
         torch.cuda.empty_cache()
-    for name, fn in (("window", window_phase), ("launcher", launcher_phase)):
-        for k, v in phase(name, fn, args).items():
-            launches[k] += v
-    for arch in LAUNCHER_MODELS:
-        for k, v in phase(f"launcher_model:{arch}", launcher_model_phase, args, arch).items():
-            launches[k] += v
+    import tempfile
+
+    with tempfile.TemporaryDirectory() as tmp:
+        # (j)'s ranks run beside the window, the launcher and the launcher
+        # families (at most ~20 GB of the card's 80 beside the ranks' ~40)
+        rules_trained = _tpj_spawn(args.seed, tmp)
+        for name, fn in (("window", window_phase), ("launcher", launcher_phase)):
+            for k, v in phase(name, fn, args).items():
+                launches[k] += v
+        for arch in LAUNCHER_MODELS:
+            for k, v in phase(f"launcher_model:{arch}", launcher_model_phase, args,
+                              arch).items():
+                launches[k] += v
+        phase("multidevice:j", _md_train_rules, args.seed, tmp, rules_trained)
     for arch in TRAIN_FAMILIES:
         for k, v in phase(f"train:{arch}", train_phase, args, arch).items():
             launches[k] += v
@@ -5227,21 +5556,21 @@ def _phases(args, start: float, later) -> int:
     got, train_want = phase("multidevice", multidevice_phase, args, gen)
     for k, v in got.items():
         launches[k] += v
-    import tempfile
-
     with tempfile.TemporaryDirectory() as tmp:
         # (e)'s ranks run beside (d)
         started = _md_engine_spawn(args.seed, tmp)
         for k, v in phase("multidevice:d", _md_loop_world_one, args.seed).items():
             launches[k] += v
         phase("multidevice:e", _md_engine_two_ranks, args.seed, started)
+        # (g)'s ranks run beside (f); (h)'s and (i)'s beside (g); (i)'s phi4
+        # ends before (h)'s maverick draws begin, and (i)'s maverick waits
+        # for (h)'s end
+        tp_started = _tp_spawn(args.seed, tmp)
         for k, v in phase("multidevice:f", _md_families, args.seed, tmp).items():
             launches[k] += v
-        # (h)'s ranks and (i)'s run beside (g); (i)'s phi4 ends before (h)'s
-        # maverick draws begin, and (i)'s maverick waits for (h)'s end
         started = _tph_spawn(args.seed, tmp)
         rules_started = _tpi_spawn(args.seed, tmp)
-        phase("multidevice:g", _md_tensor_parallel, args.seed, tmp, train_want)
+        phase("multidevice:g", _md_tensor_parallel, args.seed, tmp, train_want, tp_started)
         _tpi_wait(rules_started, "phi4-mini-3.8b")
         phase("multidevice:h", _md_moe_recurrent, args.seed, tmp, started)
         phase("multidevice:i", _md_rules, args.seed, tmp, rules_started)
@@ -5289,6 +5618,7 @@ def _phases(args, start: float, later) -> int:
                 "source": meta[k]["source"], "replaces": meta[k]["replaces"],
                 "launches": launches[k], **timed[k]} for k in meta]
     print(f"phase total {time.perf_counter() - start:.1f} s")
+    print("phases: " + ", ".join(f"{name} {s:.1f}" for name, s in PHASES))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

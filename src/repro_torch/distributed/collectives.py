@@ -14,9 +14,12 @@ the mesh axes it is split over: ``launch.steps.param_parts``) says how.
 is reduce-scattered back to the shard with the sum over the ranks the
 batch rows are split over (``distributed.sharding.row_axes``): a dim split
 over those axes reduce-scatters, a dim split over other axes (whose ranks
-computed the same gradient) is sliced, and the row axes no dim uses are
-all-reduced. Each rank's loss is its share of the whole batch's
-(``models.lm.lm_loss``), so the sum is the whole batch's gradient.
+computed the same gradient) is sliced, a dim split over both (the
+``FSDP_ONLY_RULES`` layout: ('data', 'model') beside rows over 'data') is
+sliced along the others and reduce-scattered along the row axes, in the
+shard order, and the row axes no dim uses are all-reduced. Each rank's
+loss is its share of the whole batch's (``models.lm.lm_loss``), so the sum
+is the whole batch's gradient.
 ``gather_tree`` gathers a whole tree (checkpoints); parts that move their
 own leaves (an object with ``shard`` / ``gather`` methods, as the
 blockwise-int8 moments' ``optim.qstate.QStateParts``) do so.
@@ -56,10 +59,22 @@ The serving presets' layouts (``launch.dryrun``):
   * ``gather_rows`` all-gathers the batch rows over the axes they are split
     over (a MoE layer whose experts share those axes routes every row on
     every rank); its backward reduce-scatters the rows' gradient back.
+    ``keep_slice`` is its mirror: this rank's rows of a sum that is whole
+    and alike on every rank, its backward all-gathering the rows'
+    gradients (the layer's output, in training).
   * ``kvseq_all_reduce`` completes an attention split over the KV cache's
     sequence ('kvseq'): the ranks' row maxima, then exp-sums, then f32
     weighted V sums, each all-reduced (``models.attention._split_sdpa``).
-    Serving only: it raises under autograd.
+    Serving only: it raises under autograd. Only the decode attention over
+    a cache reads 'kvseq', and a training pass builds no cache.
+
+Residual sequence parallelism (the 'seqpar' rule, ``models.lm``): between
+a stack's blocks each rank holds S / D of the positions. ``local_positions``
+keeps this rank's positions of a tensor whole and alike (backward: the
+positions' gradients all-gathered), ``gather_from_model`` along the
+positions gathers them where a block needs the whole sequence, and
+``reduce_from_model`` over the positions' axes reduce-scatters them inside
+a block (``sharding.seq_split``).
 """
 from __future__ import annotations
 
@@ -68,13 +83,13 @@ from typing import Any, Tuple
 import torch
 import torch.distributed as dist
 
-from repro_torch.distributed.sharding import axes_of, current_mesh, row_axes
+from repro_torch.distributed.sharding import axes_of, current_mesh, row_axes, seq_split
 from repro_torch.kernels.registry import f32_reciprocal
 
 __all__ = ["int8_ring_all_reduce", "shard_tree", "gather_tree", "gather_param",
            "gather_leaf", "leaf_axes", "row_sum", "copy_to_model", "reduce_from_model",
            "gather_from_model", "sum_for_split", "model_slice", "gather_rows",
-           "kvseq_all_reduce"]
+           "kvseq_all_reduce", "keep_slice", "local_positions"]
 
 
 def _quant(v: torch.Tensor):
@@ -172,7 +187,10 @@ def gather_tree(tree: Any, parts: Any, mesh) -> Any:
 class _GatherParam(torch.autograd.Function):
     """Gather a parameter whole (but for the dims ``skip``, left as this
     rank's slice); the backward returns its shard's gradient, the sum over
-    the batch-row ranks (module docstring), in the parameter's dtype."""
+    the batch-row ranks (module docstring), in the parameter's dtype. A
+    slice kept along the row axes (the MoE experts over 'data', whose layer
+    gathers every rank's rows) already holds the whole batch's gradient:
+    nothing sums it over those axes."""
 
     @staticmethod
     def forward(ctx, local, parts, mesh, rows, skip):
@@ -184,25 +202,50 @@ class _GatherParam(torch.autograd.Function):
     def backward(ctx, g):
         mesh, rows = ctx.mesh, ctx.rows
         g = g.to(torch.float32)
-        scatter = []
+        scatter, kept = [], set()
         for dim, p in enumerate(ctx.parts):
             if dim in ctx.skip:          # this rank's slice's own gradient
+                # (over the row axes too: its layer ran on every rank's rows)
+                kept.update(axes_of(p))
                 continue
             axes = axes_of(p)
             inside = [a in rows for a in axes]
             if axes and all(inside):
                 scatter.append((dim, axes))
             elif any(inside):
-                raise NotImplementedError(f"a dim split over {axes}, partly the "
-                                          f"batch-row axes {rows}")
+                g = _cut_outside_rows(g, mesh, axes, rows, dim)
+                scatter.append((dim, tuple(a for a in axes if a in rows)))
             else:
                 g = mesh.chunk(g, axes, dim)
         for dim, axes in scatter:
             g = mesh.reduce_scatter(g.contiguous(), axes, dim)
-        done = {a for _, axes in scatter for a in axes}
+        done = {a for _, axes in scatter for a in axes} | kept
         g = g.contiguous()
         mesh.all_reduce(g, tuple(a for a in rows if a not in done))
         return g.to(ctx.dtype), None, None, None, None
+
+
+def _cut_outside_rows(g: torch.Tensor, mesh, axes, rows, dim: int) -> torch.Tensor:
+    """The gradient ``g`` of a dim split over ``axes``, some of them the
+    batch rows' (``FSDP_ONLY_RULES``: ('data', 'model') beside rows over
+    'data'), cut to this rank's index along the other axes: the dim's
+    shards, laid out row-major over ``axes`` (``_build_parts``' order), keep
+    every row axis' shards in order, ready for a reduce-scatter over those.
+    The ranks along the other axes computed the same rows, so their
+    gradient is cut, never summed."""
+    sizes = [mesh.sizes()[a] for a in axes]
+    n = 1
+    for s in sizes:
+        n *= s
+    shape = g.shape
+    g = g.reshape(shape[:dim] + tuple(sizes) + (shape[dim] // n,) + shape[dim + 1:])
+    for i, a in enumerate(axes):
+        if a not in rows:
+            g = g.narrow(dim + i, mesh.coords()[a], 1)
+    kept = 1
+    for s, a in zip(sizes, axes):
+        kept *= s if a in rows else 1
+    return g.reshape(shape[:dim] + (kept * (shape[dim] // n),) + shape[dim + 1:])
 
 
 def gather_param(t: torch.Tensor, parts, mesh, skip=()) -> torch.Tensor:
@@ -268,6 +311,28 @@ class _ReduceFromModel(torch.autograd.Function):
         return g, None, None
 
 
+class _ReduceScatterFromModel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, mesh, axes, dim):
+        ctx.mesh, ctx.axes, ctx.dim = mesh, axes, dim
+        return mesh.reduce_scatter(t.to(torch.float32).contiguous(), axes, dim).to(t.dtype)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.mesh.gather(g.contiguous(), ctx.axes, ctx.dim), None, None, None
+
+
+class _KeepSlice(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, mesh, axes, dim):
+        ctx.mesh, ctx.axes, ctx.dim = mesh, axes, dim
+        return mesh.chunk(t, axes, dim).contiguous()
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.mesh.gather(g.contiguous(), ctx.axes, ctx.dim), None, None, None
+
+
 class _GatherFromModel(torch.autograd.Function):
     @staticmethod
     def forward(ctx, t, mesh, axes, dim):
@@ -302,9 +367,16 @@ def copy_to_model(t: torch.Tensor, axes) -> torch.Tensor:
 def reduce_from_model(t: torch.Tensor, axes) -> torch.Tensor:
     """The sum over the ranks along ``axes`` of this rank's partial ``t``
     (in f32, rounded once to ``t``'s dtype); the gradient passes unchanged.
-    ``t`` itself when ``axes`` is empty."""
+    Inside a block of a stack whose positions split over the same axes
+    (``sharding.seq_split``, the 'seqpar' rule), ``t`` (B, S, ...) is
+    reduce-scattered over its positions instead: this rank's S / D of the
+    sum, whose backward all-gathers the positions' gradients. ``t`` itself
+    when ``axes`` is empty."""
     if not axes:
         return t
+    sp = seq_split()
+    if sp.size > 1 and sp.axes == tuple(axes):
+        return _ReduceScatterFromModel.apply(t, current_mesh(), tuple(axes), 1)
     return _ReduceFromModel.apply(t, current_mesh(), tuple(axes))
 
 
@@ -315,6 +387,27 @@ def gather_from_model(t: torch.Tensor, axes, dim: int) -> torch.Tensor:
     if not axes:
         return t
     return _GatherFromModel.apply(t, current_mesh(), tuple(axes), dim % t.ndim)
+
+
+def keep_slice(t: torch.Tensor, axes, dim: int) -> torch.Tensor:
+    """This rank's slice along ``dim`` of ``t``, whole and alike on every
+    rank along ``axes`` (shard order); each rank's loss then reads its own
+    slice, so the backward all-gathers the slices' gradients whole. ``t``
+    itself when ``axes`` is empty; a view of it in a pass that records no
+    gradient."""
+    if not axes:
+        return t
+    mesh = current_mesh()
+    if not (torch.is_grad_enabled() and t.requires_grad):
+        return mesh.chunk(t, axes, dim)
+    return _KeepSlice.apply(t, mesh, tuple(axes), dim % t.ndim)
+
+
+def local_positions(t: torch.Tensor) -> torch.Tensor:
+    """This rank's positions (dim 1) of ``t`` (B, S, ...), whole and alike
+    over the residual stream's position split (``sharding.seq_split``):
+    ``keep_slice`` over its axes; ``t`` itself off a split."""
+    return keep_slice(t, seq_split().axes, 1)
 
 
 def sum_for_split(t: torch.Tensor, axes) -> torch.Tensor:
@@ -364,7 +457,8 @@ def kvseq_all_reduce(t: torch.Tensor, axes, op: str = "sum") -> torch.Tensor:
     """``t`` summed (``op`` "sum") or maximised ("max") over the ranks
     along ``axes``: the attention over a KV cache split over 'kvseq' merges
     its ranks' row maxima, exp-sums and f32 weighted V sums with it.
-    Forward only (module docstring)."""
+    Forward only: the decode attention over a cache is its one caller, and
+    a training pass builds no cache (module docstring)."""
     if torch.is_grad_enabled() and t.requires_grad:
         raise NotImplementedError("the attention over a KV cache split over 'kvseq' "
                                   "serves only: it has no backward")

@@ -29,11 +29,21 @@ must through ``distributed.collectives`` (``copy_to_model``,
 only checks the logical axes' count and returns its input: the identity, on
 and off a mesh.
 
+Residual sequence parallelism (the 'seqpar' rule, off by default): a
+stack's residual stream between its blocks holds this rank's contiguous
+share of the positions; ``local_seq(split)`` says so, as ``local_rows``
+does for the rows, and ``seq_split()`` reads it (``models.lm``, which
+gathers the positions inside each block, and
+``collectives.reduce_from_model``, which reduce-scatters them there). A
+training pass reads no 'kvseq' (it builds no cache), so that rule changes
+nothing in it.
+
 Two splits over the batch rows' own axes are taken on purpose
 (``model_split(..., rows_ok=True)``): the experts over 'data' of the
 serving preset ``launch.dryrun.decode_rules`` (the MoE layer gathers the
-rows first, ``models.mlp``) and the vocabulary over every axis of
-``FSDP_ONLY_RULES`` (the table is then storage only, ``models.lm``).
+rows first, ``models.mlp``; it trains too) and the vocabulary over every
+axis of ``FSDP_ONLY_RULES`` (the table is then storage only,
+``models.lm``).
 
 The KV cache rows a rank holds: ``local_kvseq(split)`` says, as
 ``local_rows`` does for the batch rows, that every cache's sequence dim is
@@ -57,7 +67,8 @@ Axis = Union[None, str, Tuple[str, ...]]
 __all__ = ["DEFAULT_RULES", "sharding_rules", "resolve_spec", "constrain",
            "make_resolver", "current_mesh", "local_rows", "row_axes", "axes_of",
            "snapshot", "restored", "Split", "model_split", "model_size", "WHOLE",
-           "local_kvseq", "kvseq_split", "kvseq_start", "kvseq_row"]
+           "local_kvseq", "kvseq_split", "kvseq_start", "kvseq_row", "local_seq",
+           "seq_split"]
 
 _state = threading.local()
 
@@ -85,6 +96,7 @@ def _ctx():
         _state.rules = dict(DEFAULT_RULES)
         _state.rows = ()
         _state.kvseq = WHOLE
+        _state.seq = WHOLE
     return _state
 
 
@@ -131,13 +143,27 @@ def local_kvseq(split: "Split"):
         st.kvseq = prev
 
 
-def snapshot():
-    """The calling thread's mesh, rules (the overrides included), row and
-    cache-row splits, for ``restored``: the autograd engine runs a CUDA
-    backward (and the recomputation of a checkpointed block) on a thread of
-    its own."""
+@contextlib.contextmanager
+def local_seq(split: "Split"):
+    """Within the block, the residual stream between a stack's blocks holds
+    this rank's contiguous share ``split`` of the positions (the 'seqpar'
+    rule's, ``models.lm``; ``WHOLE``: every position)."""
     st = _ctx()
-    return st.mesh, st.rules, st.rows, st.kvseq
+    prev = st.seq
+    st.seq = split
+    try:
+        yield
+    finally:
+        st.seq = prev
+
+
+def snapshot():
+    """The calling thread's mesh, rules (the overrides included), row,
+    cache-row and position splits, for ``restored``: the autograd engine
+    runs a CUDA backward (and the recomputation of a checkpointed block) on
+    a thread of its own."""
+    st = _ctx()
+    return st.mesh, st.rules, st.rows, st.kvseq, st.seq
 
 
 @contextlib.contextmanager
@@ -145,11 +171,11 @@ def restored(snap):
     """Run the block under a ``snapshot`` taken on another thread."""
     st = _ctx()
     prev = snapshot()
-    st.mesh, st.rules, st.rows, st.kvseq = snap
+    st.mesh, st.rules, st.rows, st.kvseq, st.seq = snap
     try:
         yield
     finally:
-        st.mesh, st.rules, st.rows, st.kvseq = prev
+        st.mesh, st.rules, st.rows, st.kvseq, st.seq = prev
 
 
 def row_axes() -> Tuple[str, ...]:
@@ -279,6 +305,12 @@ def model_split(logical: str, n: int, rows_ok: bool = False) -> Split:
         raise NotImplementedError(f"{logical!r} split over {axes}, which the batch rows "
                                   f"{st.rows} are split over too")
     return split
+
+
+def seq_split() -> Split:
+    """This rank's share of the residual stream's positions (``local_seq``):
+    ``WHOLE`` unless a stack runs under the 'seqpar' rule."""
+    return _ctx().seq
 
 
 def kvseq_split() -> Split:

@@ -3,7 +3,10 @@
 
 ``decode_rules(cfg, shape)`` and ``FSDP_ONLY_RULES`` are the reference's
 overrides of ``distributed.sharding.DEFAULT_RULES``, with its names and
-logic; ``serving.ServeEngine(..., rules_overrides=)`` takes either. The
+logic; ``serving.ServeEngine(..., rules_overrides=)`` takes either, and
+``launch.steps.make_train_step(..., rules_overrides=)`` any of them.
+``cell_rules(cfg, shape, seqpar, rules_preset)`` composes a cell's
+overrides as the reference's ``run_cell`` does. The
 reference's dry run itself -- lowering each cell to XLA, reading the
 compiled program's cost and memory analysis and its roofline -- is left out
 on purpose: the port compiles no XLA program, and ``chip_smoke.py``'s
@@ -14,7 +17,7 @@ from __future__ import annotations
 from repro_torch.launch.flops import count_params
 from repro_torch.launch.shapes import ShapeSpec
 
-__all__ = ["decode_rules", "FSDP_ONLY_RULES"]
+__all__ = ["decode_rules", "FSDP_ONLY_RULES", "cell_rules"]
 
 
 def decode_rules(cfg, shape: ShapeSpec):
@@ -56,3 +59,17 @@ FSDP_ONLY_RULES = {
     "vocab": ("pod", "data", "model"),
     "fsdp": ("pod", "data", "model"),
 }
+
+
+def cell_rules(cfg, shape: ShapeSpec, seqpar: bool = False, rules_preset=None):
+    """A cell's sharding-rule overrides, composed as the reference's
+    ``run_cell`` composes them: ``decode_rules``, then residual sequence
+    parallelism over 'model' with ``seqpar``, then ``FSDP_ONLY_RULES``
+    with ``rules_preset == "fsdp_only"`` (any other preset adds nothing,
+    as there). None when nothing overrides the defaults."""
+    rules = decode_rules(cfg, shape)
+    if seqpar:
+        rules = dict(rules or {}, seqpar="model")
+    if rules_preset == "fsdp_only":
+        rules = dict(rules or {}, **FSDP_ONLY_RULES)
+    return rules

@@ -15,7 +15,10 @@ its own gradient, a replicated parameter is not summed over 'model'); then int8_
 whole-tensor reductions (the global norm, int8_ef's absmax, the int8
 moments' block scales) taken over every shard. The cross-entropy and the
 MoE load-balancing loss are the whole batch's (``lm_loss``), whatever the
-row split.
+row split. ``make_train_step(..., rules_overrides=)`` runs the sharded
+step under the default rules updated by the overrides (``FSDP_ONLY_RULES``,
+``{"seqpar": "model"}``, experts over 'data': ``launch.dryrun``), its
+layouts resolved under them too (``state_parts``).
 """
 from __future__ import annotations
 
@@ -34,11 +37,15 @@ from repro_torch.optim import OptConfig, apply_updates
 from repro_torch.optim.qstate import QStateParts, qstate_specs
 
 __all__ = ["make_train_step", "batch_to", "split_microbatches", "opt_state_specs",
-           "opt_state_parts", "param_parts", "batch_row_axes", "local_batch"]
+           "opt_state_parts", "param_parts", "batch_row_axes", "local_batch", "state_parts"]
 
 
 def _is_spec(x) -> bool:
-    return isinstance(x, tuple) and all(isinstance(e, (str, type(None))) for e in x)
+    """A leaf of a specs or parts tree: a tuple of per-dim entries, each
+    None, an axis name or a tuple of axis names."""
+    return isinstance(x, tuple) and all(
+        e is None or isinstance(e, str)
+        or (isinstance(e, tuple) and all(isinstance(a, str) for a in e)) for e in x)
 
 
 def _map_specs(fn, tree):
@@ -131,8 +138,18 @@ def split_microbatches(batch: Dict[str, torch.Tensor],
     return parts
 
 
+def state_parts(cfg: ModelConfig, opt_cfg: OptConfig, mesh, rules_overrides=None):
+    """(``param_parts``, ``opt_state_parts``) on ``mesh`` under the default
+    rules updated by ``rules_overrides``: the layouts the initial parameters
+    and optimizer state are sharded with (``collectives.shard_tree``) for
+    ``make_train_step(..., mesh=mesh, rules_overrides=rules_overrides)``,
+    and gathered with for a checkpoint."""
+    with sharding_rules(mesh, rules_overrides):
+        return param_parts(cfg, mesh), opt_state_parts(cfg, opt_cfg, mesh)
+
+
 def make_train_step(cfg: ModelConfig, opt_cfg: OptConfig, microbatches: int = 1,
-                    mesh=None):
+                    mesh=None, rules_overrides=None):
     """``train_step(params, opt_state, batch) -> (params, opt_state,
     metrics)``: the loss and its gradients (``lm_loss``, straight-through
     through the quantized sites), then ``apply_updates``, which updates the
@@ -142,7 +159,11 @@ def make_train_step(cfg: ModelConfig, opt_cfg: OptConfig, microbatches: int = 1,
     the count at the end (``split_microbatches`` cuts the batch); the loss
     and metrics are the microbatches' means. ``params`` are leaf tensors;
     the step sets ``requires_grad`` on them. ``mesh``: the sharded step of
-    the module docstring."""
+    the module docstring, run, with its parts, shards and rows resolved,
+    under the default rules updated by ``rules_overrides`` (the reference's
+    ``jit_train_step(..., rules_overrides=)``; ``launch.dryrun.cell_rules``
+    composes them; ``state_parts`` gives the layouts to shard the initial
+    state with). Off a mesh the overrides change nothing."""
 
     def grads_of(params, batch):
         flat = T.leaves(params)
@@ -183,7 +204,7 @@ def make_train_step(cfg: ModelConfig, opt_cfg: OptConfig, microbatches: int = 1,
         return train_step
 
     def sharded_step(params, opt_state, batch):
-        with sharding_rules(mesh):
+        with sharding_rules(mesh, rules_overrides):
             flat = T.leaves(param_parts(cfg, mesh), _is_spec)
             shards = [leaf_axes(pp) for pp in flat]
             lasts = [axes_of(pp[-1]) if pp else () for pp in flat]

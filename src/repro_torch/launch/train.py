@@ -64,14 +64,12 @@ from repro_torch.core.quant import QuantConfig
 from repro_torch.data import SyntheticDataset
 from repro_torch.device import resolve_device
 from repro_torch.distributed.collectives import gather_tree, shard_tree
-from repro_torch.distributed.sharding import sharding_rules
 from repro_torch.kernels.quant_dot import SCHEDULES
 from repro_torch.launch import shapes as shp
 from repro_torch.launch.mesh import (COLLECTIVE_TIMEOUT_S, distributed_requested,
                                     init_distributed, make_local_mesh)
 from repro_torch.launch.serve_loop import cut_depth, scaled_config
-from repro_torch.launch.steps import (batch_to, make_train_step,
-                                      opt_state_parts, param_parts)
+from repro_torch.launch.steps import batch_to, make_train_step, state_parts
 from repro_torch.models.lm import init_lm
 from repro_torch.optim import OptConfig, init_opt_state
 
@@ -183,8 +181,7 @@ def _train(args, device, mesh, cfg, opt_cfg) -> int:
     say(f"params: {n_params / 1e6:.1f}M")
     layout = None
     if mesh is not None:
-        with sharding_rules(mesh):
-            layout = (mesh, param_parts(cfg, mesh), opt_state_parts(cfg, opt_cfg, mesh))
+        layout = (mesh, *state_parts(cfg, opt_cfg, mesh))
         params = shard_tree(params, layout[1], mesh)
         opt_state = shard_tree(opt_state, layout[2], mesh)
 

@@ -79,6 +79,14 @@ greedy argmax read whole logits. Where the rules put the vocabulary over
 the axes the batch rows split over too (``launch.dryrun.FSDP_ONLY_RULES``
 while decoding), the table is storage only: gathered whole before use, as
 any 'fsdp' leaf, and the whole vocabulary computed (``vocab_split``).
+Under the 'seqpar' rule (``{"seqpar": "model"}``, the reference's
+Megatron-style sequence parallelism) the residual stream between a stack's
+blocks is this rank's S / D of the positions (``_run_stack``): each block
+norms its positions, its norms' gradient summed over the split's ranks,
+gathers them whole for the branch (``_block_norm``), and keeps its
+positions of the branch's output -- reduce-scattered where the branch sums
+over 'model', cut where it is replicated (``_local``); the final norm and
+the logits run on the gathered stream.
 Each layer of each pass on a tensor-parallel mesh ticks
 ``TRACE_COUNTS[("tensor_parallel", kind, "split" | "replicated")]``: an
 attention layer whose heads and hidden width do not divide the axis runs
@@ -96,8 +104,9 @@ from repro_torch.core.wquant import (QTensor, _is_consumer, dequant_tree, is_qle
 from repro_torch.device import resolve_device
 from repro_torch.distributed import collectives as C
 from repro_torch.distributed.sharding import (WHOLE, _ctx, axes_of, constrain, current_mesh,
-                                              make_resolver, model_size, model_split,
-                                              restored, row_axes, snapshot)
+                                              local_seq, make_resolver, model_size,
+                                              model_split, restored, row_axes, seq_split,
+                                              snapshot)
 from repro_torch.kernels.registry import TRACE_COUNTS
 from repro_torch.models import attention as A
 from repro_torch.models import mlp as M
@@ -458,15 +467,38 @@ def _ffn(cfg, kind: str, p, h: torch.Tensor):
     return M.apply_mlp(cfg, p["mlp"], h), 0.0
 
 
+def _block_norm(cfg, p, x: torch.Tensor) -> torch.Tensor:
+    """A block's norm of its input ``x``, whole over the positions. Under
+    the 'seqpar' rule (``seq_split``) ``x`` is this rank's positions: the
+    norm runs on them, its leaves' gradient (that of a rank's positions)
+    summed over the split's ranks (``copy_to_model``), and the normed
+    positions are gathered whole for the block."""
+    sp = seq_split()
+    if sp.size == 1:
+        return apply_norm(cfg, p, x)
+    p = {k: C.copy_to_model(v, sp.axes) for k, v in p.items()}
+    return C.gather_from_model(apply_norm(cfg, p, x), sp.axes, 1)
+
+
+def _local(y: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """A block's branch output ``y`` on the positions of the residual
+    stream ``x``: itself, or, under the 'seqpar' rule, this rank's positions
+    of a ``y`` whole and alike on every rank (a summed branch is already
+    reduce-scattered to them, ``collectives.reduce_from_model``)."""
+    return y if y.shape[1] == x.shape[1] else C.local_positions(y)
+
+
 def _block_prefill(cfg, kind, p, x, positions, enc_out, want_cache: bool):
     """One full-sequence block: (x, aux, cache or None). An 'enc_attn'
     block attends without the causal mask and keeps no cache; an 'xattn'
     block adds the cross attention to ``enc_out`` after its self-attention
     and caches the cross K / V beside its own; a recurrent block's cache
-    is its state after the sequence."""
+    is its state after the sequence. Under the 'seqpar' rule ``x`` is this
+    rank's positions, and each branch runs on the whole sequence
+    (``_block_norm``, ``_local``)."""
     if kind in ("rwkv", "mamba"):
         return _recurrent_prefill(cfg, kind, p, x, want_cache)
-    h = apply_norm(cfg, p["norm1"], x)
+    h = _block_norm(cfg, p["norm1"], x)
     causal = kind != "enc_attn"
     cache = None
     if want_cache and causal:
@@ -475,29 +507,29 @@ def _block_prefill(cfg, kind, p, x, positions, enc_out, want_cache: bool):
         cache = {"k": ck, "v": cv}
     else:
         y = A.apply_attention(cfg, p["attn"], h, positions, causal=causal)
-    x = x + y
+    x = x + _local(y, x)
     if kind == "xattn":
-        h = apply_norm(cfg, p["norm_x"], x)
+        h = _block_norm(cfg, p["norm_x"], x)
         xk, xv = A.cross_kv(cfg, p["xattn"], enc_out)
-        x = x + A.apply_cross_attention(cfg, p["xattn"], h, (xk, xv))
+        x = x + _local(A.apply_cross_attention(cfg, p["xattn"], h, (xk, xv)), x)
         if cache is not None:
             cache.update(xk=xk, xv=xv)
-    y, aux = _ffn(cfg, kind, p, apply_norm(cfg, p["norm2"], x))
-    return x + y, aux, cache
+    y, aux = _ffn(cfg, kind, p, _block_norm(cfg, p["norm2"], x))
+    return x + _local(y, x), aux, cache
 
 
 def _recurrent_prefill(cfg, kind, p, x, want_cache: bool):
-    h = apply_norm(cfg, p["norm1"], x)
+    h = _block_norm(cfg, p["norm1"], x)
     if kind == "mamba":
         y, st = SSM.apply_mamba(cfg, p["mamba"], h, return_state=True)
         cache = st._asdict()
     else:
         y, (st, xp_t) = R.apply_rwkv_tmix(cfg, p["tmix"], h, return_state=True)
-        x = x + y
-        y, xp_c = R.apply_rwkv_cmix(cfg, p["cmix"], apply_norm(cfg, p["norm2"], x),
+        x = x + _local(y, x)
+        y, xp_c = R.apply_rwkv_cmix(cfg, p["cmix"], _block_norm(cfg, p["norm2"], x),
                                     return_state=True)
         cache = {"S": st, "xp_t": xp_t, "xp_c": xp_c}
-    return x + y, 0.0, cache if want_cache else None
+    return x + _local(y, x), 0.0, cache if want_cache else None
 
 
 def _run_stack(cfg, kinds, layers, x, positions, enc_out, want_cache: bool,
@@ -506,26 +538,36 @@ def _run_stack(cfg, kinds, layers, x, positions, enc_out, want_cache: bool,
     Each layer's gathered and dequantized parameters live only while the
     layer runs (``parts``: the stack's ``param_parts`` under a mesh); in a
     pass that records gradients each block is recomputed in the backward
-    pass unless ``cfg.remat`` is "none"."""
+    pass unless ``cfg.remat`` is "none".
+
+    Under the 'seqpar' rule (Megatron-style sequence parallelism, the
+    reference's ``constrain(x, "batch", "seqpar", None)``) the residual
+    stream between the blocks -- and so each block's input that the
+    backward keeps -- is this rank's contiguous S / D of the positions
+    (``model_split("seqpar", S)``, ``local_seq``); the stack returns it
+    gathered whole."""
     caches: Optional[List[dict]] = [] if want_cache else None
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     remat = cfg.remat != "none" and not want_cache and torch.is_grad_enabled()
-    for i, (kind, lp) in enumerate(zip(kinds, layers)):
-        lparts = None if parts is None else parts[i]
-        _tp_tick(cfg, kind)
-        if remat:
-            x, a = torch.utils.checkpoint.checkpoint(
-                _block_train, cfg, kind, lp, x, positions, enc_out, lparts, snapshot(),
-                use_reentrant=False)
-        else:
-            x, a, cache = _block_prefill(cfg, kind,
-                                         _layer_params(cfg, lp, x.dtype, lparts, kind),
-                                         x, positions, enc_out, want_cache)
-            if want_cache:
-                caches.append(cache)
-        aux = aux + a
-        x = constrain(x, "batch", "seqpar", None)
-    return x, aux, caches
+    sp = model_split("seqpar", x.shape[1])
+    with local_seq(sp):
+        x = C.local_positions(x)
+        for i, (kind, lp) in enumerate(zip(kinds, layers)):
+            lparts = None if parts is None else parts[i]
+            _tp_tick(cfg, kind)
+            if remat:
+                x, a = torch.utils.checkpoint.checkpoint(
+                    _block_train, cfg, kind, lp, x, positions, enc_out, lparts, snapshot(),
+                    use_reentrant=False)
+            else:
+                x, a, cache = _block_prefill(cfg, kind,
+                                             _layer_params(cfg, lp, x.dtype, lparts, kind),
+                                             x, positions, enc_out, want_cache)
+                if want_cache:
+                    caches.append(cache)
+            aux = aux + a
+            x = constrain(x, "batch", "seqpar", None)
+    return C.gather_from_model(x, sp.axes, 1), aux, caches
 
 
 def _block_train(cfg, kind, lp, x, positions, enc_out, lparts, snap):

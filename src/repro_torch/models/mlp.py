@@ -45,7 +45,10 @@ path), sums the experts' f32 share over the experts' axes and keeps its
 own rows, rounded once. The experts' hidden width splits over 'model'
 wherever 'dff' and 'experts' take different axes (``expert_dff_split``);
 the down site contracts the gathered hidden width whole, so nothing is
-summed over 'model'. That layout serves only: it raises under autograd.
+summed over 'model'. That layout trains too: the gathered tokens' gradient
+is reduce-scattered back to each rank's rows (``gather_rows``), and the
+kept rows' gradient all-gathered before the experts' sum (``keep_slice``);
+the router's statistics stay the rank's rows' (``_batch_mean``).
 """
 from __future__ import annotations
 
@@ -272,14 +275,16 @@ def apply_moe(cfg, p, x: torch.Tensor):
                          yout.to(torch.float32))
         y = C.reduce_from_model(y, es.axes)
         if rows:
-            y = current_mesh().chunk(y, rows, 0)          # this rank's rows
+            y = C.keep_slice(y, rows, 0)                  # this rank's rows
             sel, gates = (current_mesh().chunk(t, rows, 0) for t in (sel, gates))
         y = y.to(x.dtype)
     else:
         y = torch.einsum("bsec,becd->bsd", combine.to(x.dtype), yout)
     y = constrain(y, "batch", "seq", None)
     if cfg.moe_shared_expert:
-        y = y + apply_mlp(cfg, p["shared"], x_own)
+        shared = apply_mlp(cfg, p["shared"], x_own)
+        # under 'seqpar' the experts' sum is this rank's positions already
+        y = y + (shared if shared.shape[1] == y.shape[1] else C.local_positions(shared))
     density, router = _batch_mean(sel.sum(2)), _batch_mean(gates)  # (E,)
     aux = E * (density * router).sum()
     return y, aux
@@ -290,12 +295,7 @@ def _gathered_rows(cfg):
     where the experts split over some of them (module docstring), else
     ``()``."""
     rows = row_axes()
-    if not set(expert_split(cfg).axes) & set(rows):
-        return ()
-    if torch.is_grad_enabled():
-        raise NotImplementedError("experts split over the batch rows' axes serve only: "
-                                  "the layer has no training form")
-    return rows
+    return rows if set(expert_split(cfg).axes) & set(rows) else ()
 
 
 def _batch_mean(t: torch.Tensor) -> torch.Tensor:
