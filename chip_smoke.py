@@ -1,11 +1,17 @@
 """Smoke test of the PyTorch/CUDA port on one NVIDIA GPU (an H100).
 
     python3 chip_smoke.py [--seed 0]
+    python3 chip_smoke.py --build-ab   # the build timed alone and beside the dry run
 
 Runs from the repository root and needs the repository's ``src/``. It
 
   1. prints the card's name and power limit (nvidia-smi);
-  2. builds the port's CUDA kernels from ``src/repro_torch/csrc`` (one nvcc
+  2. starts the dry run on the host's CPU (``python -m
+     repro_torch.launch.dryrun --all --mesh both``, DRYRUN_JOBS cells at
+     once, and the world-1 plan of WORLD_ONE_ARCH's training cell), stopped
+     while the kernels are timed and joined before the phases' line: it
+     must report no error; builds the port's CUDA kernels from
+     ``src/repro_torch/csrc`` (one nvcc
      per source, all in parallel, the mutants with them) and prints the
      build seconds; the linter's counting and PTX builds run beside the
      phases from the entry point to the lint phase (after the kernels'
@@ -153,7 +159,12 @@ Runs from the repository root and needs the repository's ``src/``. It
      same steps under the revisit schedule (64 K8 per step) bitwise equal
      and with int8 moments; for phi4-mini, rwkv6-7b and zamba2-7b a
      checkpoint before the last step and a restart (2 layers / one
-     superblock, full width) that resumes bitwise; then
+     superblock, full width) that resumes bitwise; after phi4-mini,
+     ``dryrun:world1``: the dry run's world-1 plan of the same cell against
+     the phase's readings -- its ``argument_bytes`` equal to the bytes the
+     parameters, f32 moments and one batch asked the allocator for, its
+     peak and ``roofline.bound_s`` printed beside the measured peak and
+     step time; then
      ``train_experts_phase``: ``_QuantDotExpertsW`` at one llama4-maverick
      expert layer ((4, 128, 5, 8192) -> 5120, fp8_e4m3: a training step's
      capacity rows), forward (1 K6) and backward (2 K1) against the plain
@@ -3028,7 +3039,10 @@ def train_phase(args, arch: str) -> dict:
           f"{spec['mode']} + hadamard, remat {cfg.remat}, f32 moments; batch x seq {B} x "
           f"{S}{extra}, {mb} microbatch(es), {steps} steps")
     ds = SyntheticDataset(cfg, ShapeSpec("train", "train", S, B), seed=args.seed)
+    seen = WORLD_ONE.setdefault(arch, {}) if arch == WORLD_ONE_ARCH else {}
+    b0 = _held()
     batches = [batch_to(ds.batch(k), "cuda") for k in range(steps)]
+    seen["batch"] = tuple((b - a) / steps for a, b in zip(b0, _held()))
 
     def init(c):
         torch.cuda.synchronize()
@@ -3036,8 +3050,10 @@ def train_phase(args, arch: str) -> dict:
         return init_lm(c, seed=args.seed, device="cuda")
 
     t0 = time.perf_counter()
+    m0 = _held()
     params = init(cfg)
     torch.cuda.synchronize()
+    seen["params"] = tuple(b - a for a, b in zip(m0, _held()))
     print(f"init: {time.perf_counter() - t0:.1f} s, peak "
           f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
     check_param_count(cfg, params)
@@ -3052,7 +3068,9 @@ def train_phase(args, arch: str) -> dict:
         """The steps from ``params``, launches counted and checked: (the
         parameters and optimizer state after them, the step function, the
         losses, the launches)."""
+        a0 = _held()
         opt_state = init_opt_state(params, opt_cfg)
+        seen.setdefault("moments", tuple(b - a for a, b in zip(a0, _held())))
         step = make_train_step(c, opt_cfg, microbatches=mb)
         losses, times = [], []
 
@@ -3067,6 +3085,8 @@ def train_phase(args, arch: str) -> dict:
         _, launches = _counted(go)
         peak = torch.cuda.max_memory_allocated()
         step_s = sum(times[1:]) / (steps - 1)
+        seen.setdefault("peak", peak)
+        seen.setdefault("step_s", step_s)
         print(f"{what}: losses {losses}; step {step_s * 1e3:.1f} ms (mean of steps 1-"
               f"{steps - 1}; step 0 {times[0] * 1e3:.1f} ms), {B * S / step_s:.0f} tokens/s; "
               f"peak {peak / 1e9:.2f} GB from init through the steps (limit "
@@ -4905,6 +4925,11 @@ def _md_rules(seed: int, tmp: str, started) -> None:
     print("-- multidevice (i): per-launch sharding rules (decode_rules), two ranks on the "
           f"card over gloo, full width: {TPI_MODELS}")
     t0 = time.perf_counter()
+    # the ranks' maverick draws start now: nothing of this process's cache
+    # may stand in their way
+    torch.cuda.empty_cache()
+    print(f"this process before the ranks' draws: {torch.cuda.memory_allocated() / 1e9:.2f} GB "
+          f"allocated, {torch.cuda.memory_reserved() / 1e9:.2f} GB reserved", flush=True)
     open(os.path.join(tmp, "tpi_go"), "w").close()
     counters = {k: v for k, v in _counters().items() if k in ("K1", "K2", "K4", "K6")}
     want = {}
@@ -5442,6 +5467,202 @@ class _BuildBeside(threading.Thread):
         self.spent = time.perf_counter() - t0
 
 
+# ------------------------------------------------------------- the dry run
+DRYRUN_JOBS = 2            # cells planned at once, beside nvcc and the phases
+DRYRUN_NICE = 19           # nvcc and the phases take the host's cores first
+WORLD_ONE_ARCH = "phi4-mini-3.8b"
+WORLD_ONE = {}             # the training phase's readings of WORLD_ONE_ARCH
+
+
+def _held():
+    """(bytes the live tensors asked for, bytes their blocks hold) on the
+    card: the allocator's ``requested_bytes`` and ``memory_allocated``."""
+    return (torch.cuda.memory_stats().get("requested_bytes.all.current", 0),
+            torch.cuda.memory_allocated())
+
+
+def _dryrun_env() -> dict:
+    root = os.path.dirname(os.path.abspath(__file__))
+    # the planning runs on the meta device: no CUDA context on the card
+    return dict(os.environ, PYTHONPATH=os.path.join(root, "src"), CUDA_VISIBLE_DEVICES="")
+
+
+def dryrun_start(tmp: str, nice: int = DRYRUN_NICE) -> dict:
+    """Start, beside the build and the phases, the whole dry run
+    (``python -m repro_torch.launch.dryrun --all --mesh both``: every cell
+    of the reference's ten architectures on both production meshes, planned
+    on the host's CPU) and the world-1 plan of the training phase's
+    WORLD_ONE_ARCH cell (``world_one_plan``), each a process group of its
+    own at niceness ``nice`` (its workers inherit it), their output in
+    ``tmp``. The groups stay in this session: a session of their own would
+    be a scheduler autogroup of its own, where a niceness weighs only
+    against the group's own processes."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    runs = {}
+    for name, argv in (
+            ("cells", ["-m", "repro_torch.launch.dryrun", "--all", "--mesh", "both",
+                       "--jobs", str(DRYRUN_JOBS), "--out", os.path.join(tmp, "cells")]),
+            ("world_one", ["-c", "import chip_smoke, sys; "
+                                 "chip_smoke.world_one_plan(sys.argv[1])",
+                           os.path.join(tmp, "world_one.json")])):
+        log = open(os.path.join(tmp, f"{name}.log"), "w")
+        runs[name] = (subprocess.Popen([sys.executable] + argv, cwd=root, env=_dryrun_env(),
+                                       stdout=log, stderr=subprocess.STDOUT,
+                                       process_group=0), log)
+        os.setpriority(os.PRIO_PROCESS, runs[name][0].pid, nice)
+    runs["t0"], runs["tmp"] = time.perf_counter(), tmp
+    return runs
+
+
+def dryrun_pause(runs: dict, stop: bool) -> None:
+    """Stop (SIGSTOP) or continue (SIGCONT) the dry run's process groups,
+    so the kernels are timed with the host's cores idle; the seconds it was
+    stopped are kept in ``runs["paused"]``."""
+    import signal
+
+    for name in ("cells", "world_one"):
+        proc, _ = runs[name]
+        if proc.poll() is None:
+            os.killpg(proc.pid, signal.SIGSTOP if stop else signal.SIGCONT)
+    if stop:
+        runs["stopped_at"] = time.perf_counter()
+    else:
+        runs["paused"] = time.perf_counter() - runs.pop("stopped_at")
+
+
+def dryrun_stop(runs: dict) -> None:
+    """End the dry run's process groups (a failed script leaves none)."""
+    import signal
+
+    for name in ("cells", "world_one"):
+        proc, log = runs[name]
+        if proc.poll() is None:
+            os.killpg(proc.pid, signal.SIGKILL)   # a stopped group dies too
+            proc.wait()
+        log.close()
+
+
+def dryrun_join(runs: dict) -> None:
+    """Wait for the whole dry run, print its cells line and its seconds;
+    fail when it exits non-zero (an error in any cell)."""
+    proc, log = runs["cells"]
+    rc = proc.wait()
+    spent = time.perf_counter() - runs["t0"]
+    log.close()
+    with open(os.path.join(runs["tmp"], "cells.log")) as f:
+        lines = f.read().splitlines()
+    cells = [ln for ln in lines if ln.startswith(("dry-run cells:", "dry-run seconds:"))]
+    print(f"dryrun: {'; '.join(cells) or 'no cells line'}; joined {spent:.1f} s after its "
+          f"start, beside the build and the phases ({DRYRUN_JOBS} cells at once), stopped "
+          f"{runs.get('paused', 0.0):.1f} s of it while the kernels were timed", flush=True)
+    PHASES.append(("dryrun (beside)", spent))
+    if rc != 0:
+        print("\n".join(ln for ln in lines if "ERROR" in ln or "Error" in ln)[-4000:])
+        fail(f"the dry run exited {rc}")
+
+
+def world_one_plan(path: str) -> None:
+    """The dry run's plan (``launch.dryrun.plan``, no mesh) of the training
+    phase's WORLD_ONE_ARCH cell -- its config with the plain versions
+    (``backend="torch"``: the meta device runs no kernel), its batch x seq,
+    microbatches and f32 moments -- written to ``path`` as JSON."""
+    import dataclasses
+
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.shapes import ShapeSpec
+    from repro_torch.optim import OptConfig
+
+    spec = TRAIN_FAMILIES[WORLD_ONE_ARCH]
+    cfg = _family_cfg(WORLD_ONE_ARCH, spec["units"], backend="torch")
+    B, S, mb = train_traffic(cfg)
+    shape = ShapeSpec("train", "train", S, B)
+    steps = spec.get("steps", TRAIN_STEPS)
+    opt_cfg = OptConfig(lr=1e-4, warmup_steps=1, total_steps=steps)
+    got = dryrun.plan(cfg, shape, opt_cfg, microbatches=mb)
+    got["roofline"] = dryrun.roofline_terms(got["cost_analysis"], 1)
+    got["cfg"] = {"layers": cfg.num_layers, "batch": B, "seq": S, "microbatches": mb,
+                  "quant": dataclasses.asdict(cfg.quant)}
+    with open(path, "w") as f:
+        json.dump(got, f)
+
+
+def dryrun_world_one(runs: dict, smi: str) -> None:
+    """The dry run against the card at world 1 (the training phase's
+    readings of WORLD_ONE_ARCH, no extra draws): its argument bytes must
+    equal the bytes the parameters, the f32 moments and one batch asked the
+    allocator for (``requested_bytes`` deltas) exactly. Their blocks
+    (``memory_allocated`` deltas) are printed beside them, with no limit:
+    what the caching allocator adds (512-byte rounding, a segment's tail
+    under 1 MiB left in a block) is its own, not the plan's. Its peak and
+    ``roofline.bound_s`` are printed beside the measured peak and step
+    time, with their ratios (no limit)."""
+    proc, log = runs["world_one"]
+    rc = proc.wait()
+    log.close()
+    if rc != 0:
+        with open(os.path.join(runs["tmp"], "world_one.log")) as f:
+            print(f.read()[-4000:])
+        fail(f"the world-1 plan exited {rc}")
+    with open(os.path.join(runs["tmp"], "world_one.json")) as f:
+        plan = json.load(f)
+    got = WORLD_ONE[WORLD_ONE_ARCH]
+    mem, rt = plan["memory"], plan["roofline"]
+    asked, held = (got["params"][i] + got["moments"][i] + got["batch"][i] for i in (0, 1))
+    want, n = mem["argument_bytes"], plan["argument_tensors"]
+    peak = mem["argument_bytes"] + mem["temp_bytes"]
+    print(f"dryrun world 1 ({WORLD_ONE_ARCH}, {plan['cfg']}; {smi}): argument bytes "
+          f"{want} planned; asked on the card {asked:.0f} (parameters {got['params'][0]}, "
+          f"moments {got['moments'][0]}, one batch {got['batch'][0]:.0f}), difference "
+          f"{asked - want:.0f} (limit 0); held in blocks {held:.0f}, {held - want:.0f} over "
+          f"on {n} tensors (no limit); peak planned "
+          f"{peak / 1e9:.3f} GB, measured {got['peak'] / 1e9:.3f} GB (ratio "
+          f"{got['peak'] / peak:.3f}); step bound {rt['bound_s'] * 1e3:.2f} ms "
+          f"({rt['dominant']}: compute {rt['compute_s'] * 1e3:.2f}, memory "
+          f"{rt['memory_s'] * 1e3:.2f} ms), measured {got['step_s'] * 1e3:.1f} ms (ratio "
+          f"{got['step_s'] / rt['bound_s']:.2f})", flush=True)
+    if asked != want:
+        fail(f"world-1 argument bytes: {asked} asked on the card, {want} planned")
+
+
+def build_ab(smi: str) -> int:
+    """``--build-ab``: the script's build (every source and the mutants, as
+    ``main`` starts it) timed from nothing five times on one host: alone,
+    beside the whole dry run as ``main`` starts it (at DRYRUN_NICE), beside
+    it at niceness 0, beside it at DRYRUN_NICE again, alone again. One line
+    a build; runs no kernel."""
+    import tempfile
+
+    from repro_torch.kernels import build
+
+    targets = ([build.Target(f"{stem}.cu") for stem in build.sources()]
+               + [build.mutant(m) for m in build.MUTANTS])
+    try:
+        with open("/proc/sys/kernel/sched_autogroup_enabled") as f:
+            autogroup = f.read().strip()
+    except OSError:
+        autogroup = "unreadable"
+    print(f"build-ab: {len(targets)} nvcc at once, {len(os.sched_getaffinity(0))} cores, "
+          f"sched_autogroup_enabled {autogroup}")
+    for label, nice in (("alone", None), ("beside", DRYRUN_NICE), ("beside", 0),
+                        ("beside", DRYRUN_NICE), ("alone", None)):
+        for t in targets:
+            if t.path().exists():
+                t.path().unlink()
+        with tempfile.TemporaryDirectory() as tmp:
+            runs = None if nice is None else dryrun_start(tmp, nice)
+            try:
+                t0 = time.perf_counter()
+                spent = build.build(targets)
+                wall = time.perf_counter() - t0
+            finally:
+                if runs is not None:
+                    dryrun_stop(runs)
+        label += "" if nice is None else f" (nice {nice})"
+        print(f"build-ab {label} ({smi}): {wall:.1f} s "
+              + " ".join(f"{k}={v:.1f}s" for k, v in spent.items()), flush=True)
+    return 0
+
+
 def phase(name: str, fn, *args):
     """``fn(*args)``, then a line ``phase <name> <s> s``: its wall seconds,
     the card synchronized; ``(beside nvcc)`` after it when the linter's
@@ -5465,6 +5686,8 @@ def main() -> int:
     start = time.perf_counter()
     ap = argparse.ArgumentParser()
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--build-ab", action="store_true",
+                    help="time the build alone and beside the dry run (build_ab), then exit")
     args = ap.parse_args()
 
     if not torch.cuda.is_available():
@@ -5481,31 +5704,45 @@ def main() -> int:
     print(smi)
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"{torch.cuda.get_device_name(0)}")
+    if args.build_ab:
+        return build_ab(smi)
 
-    t0 = time.perf_counter()
-    # the six sources and the mutants (hold_mutants runs early) all at once;
-    # the linter's counting and PTX builds beside the phases after the
-    # kernels' timings (``_phases``)
-    mutants = [build.mutant(m) for m in build.MUTANTS]
-    spent = build.build([build.Target(f"{stem}.cu") for stem in build.sources()] + mutants)
-    print(f"kernel build: {time.perf_counter() - t0:.1f} s "
-          + " ".join(f"{k}={v:.1f}s" for k, v in spent.items()))
-    PHASES.append(("build", time.perf_counter() - t0))
-    print(f"phase build {PHASES[-1][1]:.1f} s", flush=True)
-    later = _BuildBeside([t for t in build.LINT_TARGETS
-                          if t.name not in {m.name for m in mutants}])
-    try:
-        return _phases(args, start, later)
-    finally:
-        if later.ident is not None:
-            later.join()    # no nvcc outlives the script, whatever failed
+    import tempfile
+
+    with tempfile.TemporaryDirectory() as tmp:
+        # the dry run plans on the host's CPU beside everything that follows
+        runs = dryrun_start(tmp)
+        try:
+            t0 = time.perf_counter()
+            # the six sources and the mutants (hold_mutants runs early) all at
+            # once; the linter's counting and PTX builds beside the phases after
+            # the kernels' timings (``_phases``)
+            mutants = [build.mutant(m) for m in build.MUTANTS]
+            spent = build.build([build.Target(f"{stem}.cu") for stem in build.sources()]
+                                + mutants)
+            print(f"kernel build: {time.perf_counter() - t0:.1f} s "
+                  + " ".join(f"{k}={v:.1f}s" for k, v in spent.items()))
+            PHASES.append(("build", time.perf_counter() - t0))
+            print(f"phase build {PHASES[-1][1]:.1f} s", flush=True)
+            later = _BuildBeside([t for t in build.LINT_TARGETS
+                                  if t.name not in {m.name for m in mutants}])
+            try:
+                return _phases(args, start, later, runs, smi)
+            finally:
+                if later.ident is not None:
+                    later.join()    # no nvcc outlives the script, whatever failed
+        finally:
+            dryrun_stop(runs)
 
 
-def _phases(args, start: float, later) -> int:
+def _phases(args, start: float, later, runs: dict, smi: str) -> int:
     """Every phase after the build, then the kernels' line and the result
-    line. The linter's builds (``later``) start once the kernels are timed:
-    the device ms in the kernels' line are taken with the host idle."""
+    line. The dry run (``runs``) is stopped while the kernels are timed and
+    the linter's builds (``later``) start once they are: the device ms in
+    the kernels' line are taken with the host idle. The dry run is joined
+    before the phases' line."""
     gen = torch.Generator(device="cuda").manual_seed(args.seed)
+    dryrun_pause(runs, stop=True)
     timed = phase("kernel", kernel_phase, gen)
     phase("hold_k3_k4", hold_k3_k4, gen)
     phase("hold_mixed_rounds", hold_mixed_rounds, args.seed)
@@ -5517,6 +5754,7 @@ def _phases(args, start: float, later) -> int:
     phase("hold_abft_kernels", hold_abft_kernels, gen)
     timed.update(phase("time_abft", time_abft, gen))
     timed.update(phase("hold_mutants", hold_mutants, args.seed))
+    dryrun_pause(runs, stop=False)
     later.start()
     entry = phase("entry_point", entry_point_phase, gen)
     launches = {}
@@ -5544,6 +5782,8 @@ def _phases(args, start: float, later) -> int:
         for k, v in phase(f"train:{arch}", train_phase, args, arch).items():
             launches[k] += v
         torch.cuda.empty_cache()
+        if arch == WORLD_ONE_ARCH:
+            phase("dryrun:world1", dryrun_world_one, runs, smi)
     phase("train:experts", train_experts_phase, args)
     launches["K3"] = entry["K3"]    # K3's path is the entry point
     later.join()
@@ -5617,6 +5857,7 @@ def _phases(args, start: float, later) -> int:
     kernels = [{"name": meta[k]["name"], "route": "cuda",
                 "source": meta[k]["source"], "replaces": meta[k]["replaces"],
                 "launches": launches[k], **timed[k]} for k in meta]
+    dryrun_join(runs)
     print(f"phase total {time.perf_counter() - start:.1f} s")
     print("phases: " + ", ".join(f"{name} {s:.1f}" for name, s in PHASES))
     print(json.dumps({"kernels": kernels}))

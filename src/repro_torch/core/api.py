@@ -1060,11 +1060,38 @@ class QuantDotSpec:
                         compute_dtype=self.compute_dtype,
                         device_type=device_type)
 
-    def bind(self, w):
-        """Bind the site to a weight (a QTensor or a raw tensor); returns
-        ``fn(x) -> (..., d)``."""
+    def _coerce_weight(self, w):
+        """The bound weight as the sites take it: a QTensor or a raw tensor
+        passes through; a legacy ``(wq, sw)`` pre-quantized tuple is wrapped
+        into a QTensor in the spec's mode, its storage dtype checked (the
+        reference's ``_coerce_weight``). At a spec that does not quantize
+        the tuple's mode is its storage dtype's, and the site dequantizes."""
         from repro_torch.core.wquant import QTensor
 
+        if isinstance(w, QTensor) or not isinstance(w, tuple):
+            return w
+        wq, sw = w
+        if self.quantizing:
+            want_dt = QSPECS[self.mode][1]
+            if wq.dtype != want_dt:
+                raise ValueError(
+                    f"pre-quantized weight dtype {wq.dtype} does not match the "
+                    f"spec's {self.mode!r} storage dtype {want_dt}; quantize with "
+                    "wquant.quantize_weight(w, mode)")
+            return QTensor(wq, sw, self.mode)
+        modes = [m for m, spec in QSPECS.items() if spec[1] == wq.dtype]
+        if not modes:
+            raise ValueError(f"pre-quantized weight dtype {wq.dtype} is no quantized "
+                             f"storage dtype ({sorted(QSPECS)})")
+        return QTensor(wq, sw, modes[0])
+
+    def bind(self, w):
+        """Bind the site to a weight (a QTensor, a raw tensor, or a legacy
+        ``(wq, sw)`` tuple: ``_coerce_weight``); returns ``fn(x) -> (...,
+        d)``."""
+        from repro_torch.core.wquant import QTensor
+
+        w = self._coerce_weight(w)
         if isinstance(w, QTensor):
             return functools.partial(self._apply_qtensor, w)
         return functools.partial(self._apply_raw, w)
@@ -1100,10 +1127,12 @@ class QuantDotSpec:
     def bind_experts(self, w):
         """Bind the MoE expert form (``'becf,efd->becd'`` semantics, stacked
         expert weights sharing one d_ff Hadamard) to a stacked QTensor or a
-        raw (E, f, d) weight; returns ``fn(x) -> (..., E, c, d)``. Fusable
+        raw (E, f, d) weight (or a legacy ``(wq, sw)`` tuple:
+        ``_coerce_weight``); returns ``fn(x) -> (..., E, c, d)``. Fusable
         plans run one K6 launch over every expert on the card."""
         from repro_torch.core.wquant import QTensor
 
+        w = self._coerce_weight(w)
         if isinstance(w, QTensor):
             return functools.partial(self._apply_experts_qtensor, w)
         return functools.partial(self._apply_experts_raw, w)

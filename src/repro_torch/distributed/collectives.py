@@ -85,6 +85,7 @@ import torch.distributed as dist
 
 from repro_torch.distributed.sharding import axes_of, current_mesh, row_axes, seq_split
 from repro_torch.kernels.registry import f32_reciprocal
+from repro_torch.launch.mesh import note_collective
 
 __all__ = ["int8_ring_all_reduce", "shard_tree", "gather_tree", "gather_param",
            "gather_leaf", "leaf_axes", "row_sum", "copy_to_model", "reduce_from_model",
@@ -118,6 +119,7 @@ def int8_ring_all_reduce(x: torch.Tensor, mesh, axis: str) -> torch.Tensor:
     for _ in range(n - 1):
         q, s = _quant(send)
         q_in, s_in = torch.empty_like(q), torch.empty_like(s)
+        note_collective("collective-permute", q.numel() + 4 * s.numel(), n, (axis,))
         ops = [dist.P2POp(dist.isend, q, nxt, group), dist.P2POp(dist.isend, s, nxt, group),
                dist.P2POp(dist.irecv, q_in, prv, group),
                dist.P2POp(dist.irecv, s_in, prv, group)]

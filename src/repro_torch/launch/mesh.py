@@ -1,7 +1,8 @@
 """Device meshes (twin of ``repro.launch.mesh``).
 
 ``make_production_mesh`` describes the reference's production layouts
-(shapes and names only; it initialises nothing). ``make_local_mesh``
+(shapes and names only; it initialises nothing), or, given a rank, builds
+their groups on the default process group. ``make_local_mesh``
 builds the (data, model) mesh over the ranks of the initialised default
 process group, with one process group per set of mesh axes, which the
 collectives run on (``Mesh.gather``, ``Mesh.reduce_scatter``,
@@ -16,26 +17,76 @@ the CPU, unless a backend is named. NCCL refuses two ranks on one device
 ("Duplicate GPU detected"); gloo takes them, and moves CUDA tensors in
 all_gather, reduce_scatter and all_reduce, but not in point-to-point sends
 (PERF.md, section 7).
+
+``fake_world(world)`` starts a default group of ``world`` ranks on
+torch's ``"fake"`` backend, on which this process is rank 0 and every
+collective returns at once, moving nothing: the dry run
+(``launch.dryrun``) plans a production mesh on it, its tensors on the meta
+device. ``record_collectives()`` lists every collective this process runs
+while it is entered (``Collective``: its kind, the bytes of the
+reference's ring models, the group's size and mesh axes): each of
+``Mesh.gather`` / ``reduce_scatter`` / ``all_reduce`` and each hop of
+``distributed.collectives.int8_ring_all_reduce``, whose
+``kvseq_all_reduce`` is a ``Mesh.all_reduce``. Off, it changes nothing.
 """
 from __future__ import annotations
 
+import contextlib
 import datetime
 import itertools
 import os
 import socket
-from typing import Dict, List, Optional, Sequence, Tuple
+from typing import Dict, List, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 import torch.distributed as dist
 
 __all__ = ["Mesh", "make_local_mesh", "make_production_mesh", "init_distributed",
-           "distributed_requested", "COLLECTIVE_TIMEOUT_S"]
+           "distributed_requested", "COLLECTIVE_TIMEOUT_S", "fake_world",
+           "Collective", "record_collectives", "note_collective"]
 
 # a gather moves bits: dtypes not every backend takes (bfloat16, float8,
 # int16) cross as a same-width dtype every backend takes
 _TAKEN = (torch.float32, torch.float64, torch.float16, torch.int32, torch.int64,
           torch.uint8, torch.int8)
 _RAW = {1: torch.uint8, 2: torch.float16, 4: torch.int32, 8: torch.int64}
+
+
+class Collective(NamedTuple):
+    """One collective as this rank runs it: ``kind`` (the HLO opcode's
+    name), ``nbytes`` (the size the reference's ring models take: an
+    all-gather's output, a reduce-scatter's input, an all-reduce's tensor,
+    the bytes a collective-permute sends), ``group`` (the ranks in it) and
+    ``axes`` (the mesh axes it runs over)."""
+    kind: str
+    nbytes: int
+    group: int
+    axes: Tuple[str, ...]
+
+
+_RECORDS: List[List[Collective]] = []
+
+
+@contextlib.contextmanager
+def record_collectives():
+    """Within the block, every collective this process runs is appended to
+    the yielded list (module docstring)."""
+    seen: List[Collective] = []
+    _RECORDS.append(seen)
+    try:
+        yield seen
+    finally:
+        _RECORDS.remove(seen)
+
+
+def note_collective(kind: str, nbytes: int, group: int, axes) -> None:
+    """Add one collective to every open record; nothing when none is."""
+    for seen in _RECORDS:
+        seen.append(Collective(kind, int(nbytes), int(group), tuple(axes)))
+
+
+def _nbytes(t: torch.Tensor) -> int:
+    return t.numel() * t.element_size()
 
 
 class Mesh:
@@ -134,6 +185,7 @@ class Mesh:
         t = t.contiguous()
         raw = t if t.dtype in _TAKEN else t.view(_RAW[t.element_size()])
         pieces = [torch.empty_like(raw) for _ in members]
+        note_collective("all-gather", _nbytes(raw) * len(members), len(members), self._key(axes))
         dist.all_gather(pieces, raw, group=g)
         order = sorted(range(len(members)), key=lambda i: self.index(axes, members[i]))
         out = torch.cat([pieces[i] for i in order], dim=dim)
@@ -150,6 +202,7 @@ class Mesh:
         # the list is read in group-rank order, which need not be shard order
         by_rank = [chunks[self.index(axes, r)].contiguous() for r in members]
         out = torch.empty_like(by_rank[0])
+        note_collective("reduce-scatter", _nbytes(out) * n, n, self._key(axes))
         dist.reduce_scatter(out, by_rank, group=g)
         return out
 
@@ -157,17 +210,41 @@ class Mesh:
                    op=dist.ReduceOp.SUM) -> torch.Tensor:
         """``t`` reduced in place over the ranks along ``axes``."""
         if axes:
+            n = self.group_size(axes)
+            if n > 1:
+                note_collective("all-reduce", _nbytes(t), n, self._key(axes))
             dist.all_reduce(t, op=op, group=self.group(axes))
         return t
 
 
-def make_production_mesh(*, multi_pod: bool = False) -> Mesh:
-    """The reference's production layouts, described: 16 x 16 (data,
-    model), or 2 pods of those with a leading 'pod' axis. Initialises
-    nothing."""
-    if multi_pod:
-        return Mesh((2, 16, 16), ("pod", "data", "model"))
-    return Mesh((16, 16), ("data", "model"))
+def make_production_mesh(*, multi_pod: bool = False, rank: Optional[int] = None) -> Mesh:
+    """The reference's production layouts: 16 x 16 (data, model), or 2
+    pods of those with a leading 'pod' axis. Described only (initialising
+    nothing) without ``rank``; with it, that rank of the mesh, its groups
+    built on the default process group (of the mesh's size: a
+    ``fake_world`` for the dry run), as ``make_local_mesh`` builds them."""
+    shape, axes = ((2, 16, 16), ("pod", "data", "model")) if multi_pod else (
+        (16, 16), ("data", "model"))
+    if rank is not None and dist.get_world_size() != Mesh(shape, axes).size:
+        raise ValueError(f"a {shape} mesh needs a world of its size, not "
+                         f"{dist.get_world_size()} ranks")
+    return Mesh(shape, axes, rank=rank)
+
+
+@contextlib.contextmanager
+def fake_world(world: int):
+    """The default process group as rank 0 of ``world`` ranks on the
+    ``"fake"`` backend (module docstring), destroyed on exit. Refuses when
+    a default group already exists."""
+    if dist.is_initialized():
+        raise RuntimeError("fake_world: a default process group already exists")
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+
+    dist.init_process_group("fake", store=FakeStore(), rank=0, world_size=world)
+    try:
+        yield
+    finally:
+        dist.destroy_process_group()
 
 
 def make_local_mesh(model_parallel: int = 1) -> Mesh:

@@ -1,6 +1,9 @@
-"""The training step as a plain function, and the sharding trees of the
-parameters, the optimizer state and the batch (twin of
-``repro.launch.steps``).
+"""The training, prefill and serving steps as plain functions, the shapes
+of their arguments on the meta device, and the sharding trees of the
+parameters, the optimizer state, the batch and the caches (twin of
+``repro.launch.steps``). The launchers, the serving engine (whose decode
+is ``decode_tokens``) and the dry run (``launch.dryrun``) run these same
+functions.
 
 Under a mesh (``make_train_step(..., mesh=)``) the step takes this rank's
 parameter and state shards (the ZeRO-3 layout of ``param_parts`` /
@@ -19,25 +22,38 @@ row split. ``make_train_step(..., rules_overrides=)`` runs the sharded
 step under the default rules updated by the overrides (``FSDP_ONLY_RULES``,
 ``{"seqpar": "model"}``, experts over 'data': ``launch.dryrun``), its
 layouts resolved under them too (``state_parts``).
+
+``make_prefill_step`` and ``make_serve_step`` take a mesh the same way:
+the parameters are this rank's shards, the batch (the tokens, the per-slot
+positions) whole, of which the step keeps this rank's rows, and the caches
+this rank's: its rows, its KV heads or recurrent heads, and, where the
+rules split them over 'kvseq' (``launch.dryrun.decode_rules``), its share
+of their sequence (``cache_parts``; the engine allocates the same).
 """
 from __future__ import annotations
 
-from typing import Any, Dict, List, Tuple
+from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 
 from repro_torch import tree as T
+from repro_torch.core import guards
 from repro_torch.distributed.collectives import leaf_axes
-from repro_torch.distributed.sharding import (_build_parts, axes_of, local_rows,
-                                              sharding_rules)
+from repro_torch.distributed.sharding import (WHOLE, _build_parts, axes_of, local_kvseq,
+                                              local_rows, make_resolver, sharding_rules)
 from repro_torch.kernels.registry import f32_reciprocal
+from repro_torch.launch import shapes as shp
+from repro_torch.models.common import dtype_of
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.lm import init_lm, lm_loss, lm_param_specs, param_parts
-from repro_torch.optim import OptConfig, apply_updates
+from repro_torch.models.lm import (_resolve, init_lm, lm_decode_step, lm_forward, lm_loss,
+                                   lm_param_specs, param_parts)
+from repro_torch.optim import OptConfig, apply_updates, init_opt_state
 from repro_torch.optim.qstate import QStateParts, qstate_specs
 
-__all__ = ["make_train_step", "batch_to", "split_microbatches", "opt_state_specs",
-           "opt_state_parts", "param_parts", "batch_row_axes", "local_batch", "state_parts"]
+__all__ = ["make_train_step", "make_prefill_step", "make_serve_step", "decode_tokens",
+           "batch_to", "split_microbatches", "opt_state_specs", "opt_state_parts",
+           "param_parts", "batch_row_axes", "local_batch", "state_parts", "param_shapes",
+           "opt_state_shapes", "batch_shapes", "cache_shapes", "batch_parts", "cache_parts"]
 
 
 def _is_spec(x) -> bool:
@@ -86,6 +102,93 @@ def opt_state_parts(cfg: ModelConfig, opt_cfg: OptConfig, mesh):
     if opt_cfg.grad_compression == "int8_ef":
         state["ef"] = pparts
     return state
+
+
+# ------------------------------------------------- shapes on the meta device
+def param_shapes(cfg: ModelConfig):
+    """The parameters on the meta device, as ``init_lm`` builds them (with
+    ``cfg.weight_quant == 'int8'``, the QTensors the launchers serve)."""
+    return init_lm(cfg, device="meta")
+
+
+def opt_state_shapes(cfg: ModelConfig, opt_cfg: OptConfig):
+    """The optimizer state of ``param_shapes`` on the meta device."""
+    return init_opt_state(param_shapes(cfg), opt_cfg)
+
+
+def batch_shapes(cfg: ModelConfig, shape: shp.ShapeSpec):
+    """A whole batch of ``shape`` on the meta device: the
+    entries of ``shapes.make_batch``, the embeddings in the model dtype, as
+    the reference's ``batch_specs``."""
+    B, S = shape.batch, shape.seq
+    dt = dtype_of(cfg)
+    i32 = dict(dtype=torch.int32, device="meta")
+    out = {}
+    if cfg.family == "vlm":
+        P = cfg.vlm_patches
+        out["tokens"] = torch.empty((B, S - P), **i32)
+        out["labels"] = torch.empty((B, S - P), **i32)
+        out["patch_embeds"] = torch.empty((B, P, cfg.d_model), dtype=dt, device="meta")
+        out["positions"] = torch.empty((3, B, S), **i32)
+    else:
+        out["tokens"] = torch.empty((B, S), **i32)
+        out["labels"] = torch.empty((B, S), **i32)
+    if cfg.is_encdec:
+        out["frames"] = torch.empty((B, cfg.encoder_seq, cfg.d_model), dtype=dt,
+                                    device="meta")
+    return out
+
+
+def cache_shapes(cfg: ModelConfig, batch: int, seq: int) -> List[dict]:
+    """The whole decode caches of ``batch`` rows of ``seq`` positions on
+    the meta device, in the layout ``lm_prefill`` returns and
+    ``lm_decode_step`` takes (``models.lm``): K / V in the KV dtype, an
+    'xattn' layer's cross K / V in the model dtype, the recurrent states."""
+    dt = dtype_of(cfg)
+    kvdt = cfg.quant.kv_cache_dtype(dt)
+    KH, hd = cfg.num_kv_heads, cfg.head_dim
+
+    def new(shape, dtype):
+        return torch.empty(shape, dtype=dtype, device="meta")
+
+    caches = []
+    for kind in cfg.layer_kinds:
+        if kind in ("attn", "moe", "xattn"):
+            c = {"k": new((batch, seq, KH, hd), kvdt), "v": new((batch, seq, KH, hd), kvdt)}
+            if kind == "xattn":
+                c["xk"] = new((batch, cfg.encoder_seq, KH, hd), dt)
+                c["xv"] = new((batch, cfg.encoder_seq, KH, hd), dt)
+        elif kind == "mamba":
+            d_inner = cfg.ssm_expand * cfg.d_model
+            H = d_inner // cfg.ssm_head_dim
+            c = {"ssm": new((batch, H, cfg.ssm_head_dim, cfg.ssm_state), torch.float32),
+                 "conv_x": new((batch, 3, d_inner), dt),
+                 "conv_bc": new((batch, 3, 2 * cfg.ssm_state), dt)}
+        elif kind == "rwkv":
+            K = cfg.rwkv_head_dim
+            H = cfg.d_model // K
+            c = {"S": new((batch, H, K, K), torch.float32),
+                 "xp_t": new((batch, cfg.d_model), dt), "xp_c": new((batch, cfg.d_model), dt)}
+        else:
+            raise ValueError(kind)
+        caches.append(c)
+    return caches
+
+
+def batch_parts(cfg: ModelConfig, shape: shp.ShapeSpec, mesh):
+    """The batch's mesh axes under the active rules (the reference's
+    ``batch_shardings``)."""
+    return _resolve(shp.batch_logical_specs(cfg), batch_shapes(cfg, shape),
+                    make_resolver(mesh))
+
+
+def cache_parts(cfg: ModelConfig, batch: int, seq: int, mesh):
+    """The caches' mesh axes under the active rules (the reference's
+    ``cache_shardings``): ``shapes.cache_logical_specs`` resolved on the
+    whole caches, with the divisibility guard. ``collectives.shard_tree``
+    of ``cache_shapes`` with them is what one rank holds."""
+    return _resolve(shp.cache_logical_specs(cfg), cache_shapes(cfg, batch, seq),
+                    make_resolver(mesh))
 
 
 def batch_row_axes(mesh, batch: int) -> Tuple[str, ...]:
@@ -219,5 +322,78 @@ def make_train_step(cfg: ModelConfig, opt_cfg: OptConfig, microbatches: int = 1,
                 metrics["loss"] = metrics["loss"] + (ce - metrics["ce"])
                 metrics["ce"] = ce
         return params, opt_state, metrics
+
+    return sharded_step
+
+
+def make_prefill_step(cfg: ModelConfig, mesh=None, rules_overrides=None):
+    """``prefill_step(params, batch) -> (last-position logits (B, 1, V),
+    caches)``: ``lm_forward(..., want_cache=True)`` with no gradients.
+    ``mesh``: the sharded step of the module docstring, under the default
+    rules updated by ``rules_overrides``; the logits and caches are this
+    rank's rows'."""
+
+    @torch.no_grad()
+    def prefill_step(params, batch):
+        logits, _, caches = lm_forward(cfg, params, batch, want_cache=True)
+        return logits[:, -1:], caches
+
+    if mesh is None:
+        return prefill_step
+
+    def sharded_step(params, batch):
+        with sharding_rules(mesh, rules_overrides):
+            rows = batch_row_axes(mesh, batch["tokens"].shape[0])
+            with local_rows(rows):
+                return prefill_step(params, local_batch(batch, mesh, rows))
+
+    return sharded_step
+
+
+def decode_tokens(cfg: ModelConfig, params, caches, tokens: torch.Tensor,
+                  cache_pos: torch.Tensor, guard: bool = False):
+    """One greedy decode step: (argmax tokens (B,), the logits (B, 1, V) or,
+    with ``guard``, the (B,) ok-vector of ``core.guards.rows_ok`` over the
+    last position's real-vocabulary logits, the caches updated in place).
+    The serving engine's decode and ``make_serve_step`` both run it."""
+    logits, caches = lm_decode_step(cfg, params, caches, tokens, cache_pos)
+    last = logits[:, -1]
+    tok = torch.argmax(last, dim=-1)
+    if guard:
+        return tok, guards.rows_ok(last[:, :cfg.vocab_size], tok.shape[0]), caches
+    return tok, logits, caches
+
+
+def make_serve_step(cfg: ModelConfig, guard: bool = False, mesh=None, rules_overrides=None,
+                    max_len: Optional[int] = None):
+    """``serve_step(params, caches, tokens, cache_pos) -> (tokens (B, 1)
+    int32, logits or, with ``guard``, the (B,) ok-vector, caches)``: one
+    ``decode_tokens`` step with no gradients, the caches updated in place.
+    ``cache_pos`` is a scalar shared by the batch, or (B,) per-slot
+    positions (continuous batching; the reference's ``per_slot``, read off
+    the shape). ``mesh``: the sharded step of the module docstring under the
+    default rules updated by ``rules_overrides``; ``max_len``, the whole
+    caches' rows, on which their 'kvseq' split is resolved (as the engine
+    resolves it: None, no split)."""
+
+    @torch.inference_mode()
+    def serve_step(params, caches, tokens, cache_pos):
+        tok, second, caches = decode_tokens(cfg, params, caches, tokens, cache_pos, guard)
+        return tok[:, None].to(torch.int32), second, caches
+
+    if mesh is None:
+        return serve_step
+
+    def sharded_step(params, caches, tokens, cache_pos):
+        from repro_torch.serving.cache import seq_split
+
+        B = tokens.shape[0]
+        with sharding_rules(mesh, rules_overrides):
+            rows = batch_row_axes(mesh, B)
+            seq = WHOLE if max_len is None else seq_split(cfg, B, max_len)
+            if cache_pos.ndim == 1:
+                cache_pos = mesh.chunk(cache_pos, rows, 0)
+            with local_rows(rows), local_kvseq(seq):
+                return serve_step(params, caches, mesh.chunk(tokens, rows, 0), cache_pos)
 
     return sharded_step

@@ -333,13 +333,27 @@ def decode_attention(cfg, p, x: torch.Tensor, cache_k: torch.Tensor,
         cache_k[slots, row] = cast_to(k[:, 0], cache_k.dtype)
         cache_v[slots, row] = cast_to(v[:, 0], cache_v.dtype)
     else:
-        cache_k[:, row] = cast_to(k[:, 0], cache_k.dtype)
-        cache_v[:, row] = cast_to(v[:, 0], cache_v.dtype)
+        _write_row(cache_k, k, row)
+        _write_row(cache_v, v, row)
     mask = _decode_mask(cfg, cache_pos, cache_k.shape[1], x.device)
     ctx = _sdpa(cfg, q, *_kv_for_heads(cfg, cache_k.to(q.dtype), cache_v.to(q.dtype)),
                 mask)
     return (constrain(_out_proj(cfg, ctx, p["wo"]), "batch", "seq", None),
             cache_k, cache_v)
+
+
+def _bits(cache: torch.Tensor) -> torch.dtype:
+    """An integer dtype of the cache's element width: rows are written as
+    bits, since not every device copies or selects the fp8 dtypes."""
+    return {1: torch.uint8, 2: torch.int16, 4: torch.int32}[cache.element_size()]
+
+
+def _write_row(cache: torch.Tensor, new: torch.Tensor, row: torch.Tensor) -> None:
+    """Write ``new`` (B, 1, KH, hd) at row ``row`` (a 0-d tensor) of every
+    slot: an indexed copy, which reads the row on the device (indexing with
+    the 0-d tensor itself would read it on the host, a sync a step)."""
+    cache.view(_bits(cache)).index_copy_(1, row.reshape(1).to(torch.int64),
+                                         cast_to(new, cache.dtype).view(_bits(cache)))
 
 
 def _write_owned_row(cache: torch.Tensor, new: torch.Tensor, cache_pos: torch.Tensor) -> None:
@@ -351,11 +365,9 @@ def _write_owned_row(cache: torch.Tensor, new: torch.Tensor, cache_pos: torch.Te
     pos = cache_pos if cache_pos.ndim == 1 else cache_pos.reshape(1).expand(B)
     row, mine = kvseq_row(pos, T)
     slots = torch.arange(B, device=cache.device)
-    # selected as bits: not every device has a select over the fp8 dtypes
-    raw = {1: torch.uint8, 2: torch.int16, 4: torch.int32}[cache.element_size()]
-    bits = cache.view(raw)
-    bits[slots, row] = torch.where(mine[:, None, None], cast_to(new, cache.dtype).view(raw),
-                                   bits[slots, row])
+    bits = cache.view(_bits(cache))
+    bits[slots, row] = torch.where(mine[:, None, None],
+                                   cast_to(new, cache.dtype).view(bits.dtype), bits[slots, row])
 
 
 def _weighted_values(w: torch.Tensor, v: torch.Tensor) -> torch.Tensor:

@@ -132,8 +132,9 @@ from repro_torch.distributed.collectives import gather_tree, shard_tree
 from repro_torch.distributed.sharding import (WHOLE, kvseq_row, local_kvseq, local_rows,
                                               sharding_rules)
 from repro_torch.kernels.registry import TRACE_COUNTS, warn_once
+from repro_torch.launch.steps import batch_row_axes, decode_tokens
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.lm import lm_decode_step, lm_forward, param_parts
+from repro_torch.models.lm import lm_forward, param_parts
 from repro_torch.serving.cache import alloc_kv_caches, cache_bytes, insert_kv, seq_split
 from repro_torch.serving.scheduler import Completion, Request, Scheduler
 from repro_torch.testing import faults
@@ -233,8 +234,6 @@ class ServeEngine:
         self._slots = np.arange(num_slots)      # the slots this rank decodes
         self._seq = WHOLE                       # this rank's share of the cache rows
         if mesh is not None:
-            from repro_torch.launch.steps import batch_row_axes
-
             with self._rules():
                 self._parts = param_parts(cfg, mesh)
                 params = shard_tree(params, self._parts, mesh)
@@ -368,11 +367,9 @@ class ServeEngine:
         tokens = torch.from_numpy(self.tokens_h[self._slots]).to(self.device)
         pos = torch.from_numpy(self.positions_h[self._slots]).to(self.device)
         with self._on_mesh(self._rows), self._kv_rows():
-            logits, self.caches = lm_decode_step(self._run_cfg, self.params,
-                                                 self.caches, tokens, pos)
-        tok = torch.argmax(logits[:, -1], dim=-1)
+            tok, ok, self.caches = decode_tokens(self._run_cfg, self.params, self.caches,
+                                                 tokens, pos, self._guarded)
         if self._guarded:
-            ok = guards.rows_ok(logits[:, -1, :self.cfg.vocab_size], tok.shape[0])
             return self._gather(tok), self._gather(ok)
         return self._gather(tok)
 

@@ -53,11 +53,12 @@ def forced_logits(engine, prompts: Sequence[Sequence[int]],
     bucket); ``forced``: (steps, slots) tokens. Returns {"prefill": (slots,
     vocab) f32 logits at each prompt's last position, "decode": (steps,
     slots, vocab) f32 logits of each decode step}, on the CPU."""
+    from repro_torch.launch import steps as S
     from repro_torch.serving import engine as E
 
     V = engine.cfg.vocab_size
     seen = []
-    real_forward, real_decode = E.lm_forward, E.lm_decode_step
+    real_forward, real_decode = E.lm_forward, S.lm_decode_step
 
     def forward(*a, **k):
         out = real_forward(*a, **k)
@@ -69,7 +70,7 @@ def forced_logits(engine, prompts: Sequence[Sequence[int]],
         seen.append(out[0])
         return out
 
-    E.lm_forward, E.lm_decode_step = forward, decode
+    E.lm_forward, S.lm_decode_step = forward, decode
     try:
         first = []
         for slot, toks in enumerate(prompts):
@@ -85,7 +86,7 @@ def forced_logits(engine, prompts: Sequence[Sequence[int]],
             steps.append(engine._gather(seen[-1][:, -1, :V].float().contiguous()))
             engine.positions_h += 1
     finally:
-        E.lm_forward, E.lm_decode_step = real_forward, real_decode
+        E.lm_forward, S.lm_decode_step = real_forward, real_decode
     return {"prefill": torch.stack(first).cpu(),
             "decode": torch.stack(steps).cpu() if steps else torch.zeros((0, len(prompts), V))}
 
